@@ -11,5 +11,7 @@ Every TPU kernel on a ported path is a hand-written Hopper kernel
 `device=None`, meaning CUDA; without a CUDA device they raise unless the
 caller passes `device="cpu"`.
 
-Ported so far: dense-Llama paged-KV serving (`serving.ServingEngine`).
+Ported so far: dense-Llama paged-KV serving (`serving.ServingEngine`) and
+single-device dense-Llama training (`recipes.llm.train_ft`, also as
+`python -m automodel_tpu_torch <cfg.yaml> [--key.path=value ...]`).
 """

@@ -1,0 +1,4 @@
+from automodel_tpu_torch.cli.app import main
+
+if __name__ == "__main__":
+    main()

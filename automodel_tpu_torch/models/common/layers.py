@@ -1,11 +1,77 @@
-"""Initializers and the compute-dtype cast (port of the helpers in
-`automodel_tpu/models/common/layers.py`). Random draws come from an explicit
-`torch.Generator`; they do not reproduce `jax.random`'s numbers, so parity
-tests hand both packages the same numpy weights instead."""
+"""Initializers, the compute-dtype cast, remat and the layer loop (port of
+`automodel_tpu/models/common/layers.py`).
+
+Random draws come from an explicit `torch.Generator`; they do not reproduce
+`jax.random`'s numbers, so parity tests hand both packages the same numpy
+weights instead.
+
+The JAX package scans one compiled layer body over weights stacked on a
+leading `(L, ...)` dim, under `jax.checkpoint`. Here the same stacked
+weights are split into per-layer views once (`unstack_layers`: one
+`unbind`, whose backward stacks the L layer gradients in one pass) and a
+Python loop runs the layers, each under `torch.utils.checkpoint` when the
+remat policy is "full".
+"""
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from automodel_tpu_torch.utils.tree import tree_leaves, tree_map
+
+# "none" saves every activation; "full" recomputes each layer in backward
+# (jax.checkpoint_policies.nothing_saveable). The JAX package's selective
+# policies ("dots", "dots_with_no_batch_dims", "checkpoint_dots") are not
+# ported.
+REMAT_POLICIES = ("none", "full")
+
+
+def maybe_remat(fn: Callable, policy_name: str | None) -> Callable:
+    if policy_name is None or policy_name == "none":
+        return fn
+    if policy_name != "full":
+        raise NotImplementedError(
+            f"remat policy {policy_name!r} is not ported (ported: {REMAT_POLICIES})"
+        )
+
+    def remat(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return remat
+
+
+def unstack_layers(stacked) -> list:
+    """A nested dict of (L, ...) tensors -> L dicts of per-layer views."""
+    if isinstance(stacked, dict):
+        per_key = {k: unstack_layers(v) for k, v in stacked.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(stacked, 0))
+
+
+def scan_layers(layer_fn: Callable, carry, stacked_params, *,
+                remat_policy: str | None = "full"):
+    """Run `layer_fn(carry, layer_params) -> carry` over stacked weights."""
+    fn = maybe_remat(layer_fn, remat_policy)
+    for lp in unstack_layers(stacked_params):
+        carry = fn(carry, lp)
+    return carry
+
+
+def scan_layers_windowed(layer_fn: Callable, carry, stacked_params,
+                         windows: tuple, *, remat_policy: str | None = "full"):
+    """`layer_fn(carry, layer_params, window) -> carry` over stacked weights
+    whose static sliding windows differ per layer."""
+    fn = maybe_remat(layer_fn, remat_policy)
+    layers = unstack_layers(stacked_params)
+    if len(layers) != len(windows):
+        raise ValueError(f"{len(windows)} windows for {len(layers)} layers")
+    for lp, w in zip(layers, windows):
+        carry = fn(carry, lp, w)
+    return carry
 
 
 def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
@@ -30,9 +96,12 @@ def _trunc_normal(gen, shape, std, dtype):
 def cast_params(params, dtype: torch.dtype, device=None):
     """Compute-dtype cast of a nested dict of tensors (floating leaves only),
     optionally moving every leaf to `device`. A leaf already in place is
-    returned as is, not copied."""
-    if isinstance(params, dict):
-        return {k: cast_params(v, dtype, device) for k, v in params.items()}
-    if params.is_floating_point():
-        return params.to(device=device, dtype=dtype)
-    return params.to(device)
+    returned as is, not copied. Differentiable: the fp32 masters of a
+    training forward get their gradients through it."""
+    return tree_map(
+        lambda p: p.to(device=device, dtype=dtype) if p.is_floating_point()
+        else p.to(device), params)
+
+
+def count_params(params) -> int:
+    return sum(p.numel() for p in tree_leaves(params))

@@ -4,9 +4,11 @@ The parameter layout is the JAX package's, key for key: per-layer weights
 stacked on dim 0 under `params["layers"]`, linear kernels stored `(in, out)`
 and applied as `x @ W`. So weights convert by copying (`convert.py`).
 
-Ported here: the config, `layer_windows`, `init`, and the layer pieces the
+Ported here: the config, `layer_windows`, `init`, the layer pieces the
 serving engine runs (`_dense`, `head_kernel`/`unembed`, `project_qkv`,
-`mlp_inner`). The full-sequence `forward` belongs to the training slice.
+`mlp_inner`) and the full-sequence training `forward` (`attention_block`,
+`mlp_block`, `_decoder_layer`). Meshes, pipeline and context parallelism,
+MLA and the EAGLE-3 aux-hidden capture raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,9 +19,20 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from automodel_tpu_torch.models.common.layers import dense_init, embed_init
+from automodel_tpu_torch.models.common.layers import (
+    cast_params,
+    dense_init,
+    embed_init,
+    scan_layers_windowed,
+)
+from automodel_tpu_torch.ops.attention import dot_product_attention
+from automodel_tpu_torch.ops.matmul import matmul_fp32
 from automodel_tpu_torch.ops.norms import rms_norm
-from automodel_tpu_torch.ops.rope import RopeScalingConfig, apply_rope
+from automodel_tpu_torch.ops.rope import (
+    RopeScalingConfig,
+    apply_rope,
+    rope_frequencies,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,12 +70,17 @@ class TransformerConfig:
     tie_word_embeddings: bool = False
     activation: str = "silu"
     zero_centered_norm: bool = False  # gemma stores scale-1
+    causal: bool = True  # False: bidirectional attention (encoders)
     normalized_lm_head: bool = False  # baichuan NormHead
     attention_sinks: bool = False  # gpt-oss per-head sink logits
     o_proj_bias: bool = False
     # "gqa" only: MLA ("mla") models are not ported yet
     attention_type: str = "gqa"
     dtype: torch.dtype = torch.bfloat16
+    # execution knobs: "full" recomputes each layer in backward, "none"
+    # saves every activation; attention backend as in ops/attention.py
+    remat_policy: str = "full"
+    attn_impl: str = "auto"
 
     @property
     def resolved_head_dim(self) -> int:
@@ -72,6 +90,22 @@ class TransformerConfig:
     def rope_dim(self) -> int:
         d = round(self.resolved_head_dim * self.partial_rotary_factor)
         return d - (d % 2)
+
+    def attn_params_per_layer(self) -> int:
+        """Projection parameter count of one attention block."""
+        H, D = self.hidden_size, self.resolved_head_dim
+        return H * (self.num_heads + 2 * self.num_kv_heads) * D + self.num_heads * D * H
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Training FLOPs/token (fwd+bwd ~ 6*N + attention term) for MFU."""
+        D = self.resolved_head_dim
+        n_params = (
+            self.vocab_size * self.hidden_size * (1 if self.tie_word_embeddings else 2)
+            + self.num_layers
+            * (self.attn_params_per_layer() + 3 * self.hidden_size * self.intermediate_size)
+        )
+        attn_flops = 6 * self.num_layers * self.num_heads * D * seq_len  # 2*2*1.5 causal
+        return 6.0 * n_params + attn_flops
 
 
 def layer_windows(cfg: TransformerConfig, num_layers: int | None = None) -> tuple:
@@ -179,9 +213,9 @@ def head_kernel(params: dict, cfg: TransformerConfig) -> torch.Tensor:
 
 def unembed(params: dict, cfg: TransformerConfig, h: torch.Tensor) -> torch.Tensor:
     """hidden → fp32 logits (with optional tied embeddings / soft cap). The
-    product runs in h's dtype and is widened after (JAX asks XLA for an fp32
-    result directly; the two agree exactly in fp32)."""
-    logits = (h @ head_kernel(params, cfg).to(h.dtype)).float()
+    product has an fp32 result from operands in h's dtype, as JAX's
+    `preferred_element_type=jnp.float32`: bf16 logits are never rounded."""
+    logits = matmul_fp32(h, head_kernel(params, cfg).to(h.dtype))
     if cfg.logits_soft_cap is not None:
         logits = cfg.logits_soft_cap * torch.tanh(logits / cfg.logits_soft_cap)
     return logits
@@ -217,3 +251,99 @@ def mlp_inner(x, lp, cfg: TransformerConfig):
     """Gated MLP core (no norm/residual)."""
     act = ACTIVATIONS[cfg.activation]
     return act(x @ lp["gate_proj"]["kernel"]) * (x @ lp["up_proj"]["kernel"])
+
+
+def forward(
+    params: dict,
+    cfg: TransformerConfig,
+    input_ids: torch.Tensor,  # (B, S) integer
+    *,
+    positions: torch.Tensor | None = None,
+    segment_ids: torch.Tensor | None = None,
+    mesh_ctx=None,
+    return_hidden: bool = False,
+    inputs_embeds: torch.Tensor | None = None,  # (B, S, H)
+    return_aux_hidden: tuple | None = None,
+) -> torch.Tensor:
+    """Run the decoder. Returns logits (B, S, V) fp32, or hidden (B, S, H)
+    when `return_hidden` (pair with loss/linear_ce.py, which never builds the
+    full logits). The fp32 masters are cast to `cfg.dtype` here, so autograd
+    carries fp32 gradients back to them."""
+    if mesh_ctx is not None:
+        raise NotImplementedError(
+            "mesh_ctx: meshes, pipeline and context parallelism are not ported")
+    if return_aux_hidden is not None:
+        raise NotImplementedError("return_aux_hidden (EAGLE-3 capture) is not ported")
+    if cfg.attention_type != "gqa":
+        raise NotImplementedError(f"attention_type {cfg.attention_type!r}")
+    dtype = cfg.dtype
+    B, S = input_ids.shape
+    dev = input_ids.device
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+
+    if inputs_embeds is not None:
+        h = inputs_embeds.to(dtype)
+    else:
+        # gather, then cast: the same values as casting the table first
+        h = params["embed"]["embedding"][input_ids].to(dtype)
+    if cfg.embed_scale != 1.0:
+        h = h * torch.tensor(cfg.embed_scale, dtype=dtype)
+
+    inv_freq = rope_frequencies(cfg.rope_dim, cfg.rope_theta, cfg.rope_scaling).to(dev)
+    local_freq = None
+    if cfg.rope_local_theta is not None:
+        local_freq = rope_frequencies(cfg.rope_dim, cfg.rope_local_theta, None).to(dev)
+
+    def layer(h, lp, window):
+        freq = local_freq if (window is not None and local_freq is not None) else inv_freq
+        return _decoder_layer(h, cast_params(lp, dtype), cfg, positions,
+                              segment_ids, freq, window)
+
+    h = scan_layers_windowed(layer, h, params["layers"], layer_windows(cfg),
+                             remat_policy=cfg.remat_policy)
+    h = rms_norm(h, params["final_norm"]["scale"].to(dtype), cfg.rms_norm_eps,
+                 cfg.zero_centered_norm)
+    return h if return_hidden else unembed(params, cfg, h)
+
+
+def attention_block(h, lp, cfg: TransformerConfig, positions, segment_ids,
+                    inv_freq, sliding_window):
+    """Pre-norm attention with residual (lp in the compute dtype)."""
+    B, S, _ = h.shape
+    x = rms_norm(h, lp["input_norm"]["scale"], cfg.rms_norm_eps, cfg.zero_centered_norm)
+    q, k, v = project_qkv(x, lp, cfg, positions, inv_freq)
+    sinks = lp.get("sinks") if cfg.attention_sinks else None
+    attn = dot_product_attention(
+        q, k, v,
+        causal=cfg.causal,
+        segment_ids=segment_ids,
+        positions=positions,
+        sliding_window=sliding_window,
+        logits_soft_cap=cfg.attn_soft_cap,
+        scale=cfg.attn_scale,
+        sinks=sinks,
+        impl=cfg.attn_impl,
+    )
+    attn_out = _dense(attn.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim),
+                      lp["o_proj"])
+    if cfg.use_post_norms:
+        attn_out = rms_norm(attn_out, lp["post_attn_out_norm"]["scale"],
+                            cfg.rms_norm_eps, cfg.zero_centered_norm)
+    return h + attn_out
+
+
+def mlp_block(h, lp, cfg: TransformerConfig):
+    """Pre-norm gated MLP with residual."""
+    x = rms_norm(h, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps, cfg.zero_centered_norm)
+    mlp_out = mlp_inner(x, lp, cfg) @ lp["down_proj"]["kernel"]
+    if cfg.use_post_norms:
+        mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"]["scale"],
+                           cfg.rms_norm_eps, cfg.zero_centered_norm)
+    return h + mlp_out
+
+
+def _decoder_layer(h, lp, cfg: TransformerConfig, positions, segment_ids,
+                   inv_freq, sliding_window):
+    h = attention_block(h, lp, cfg, positions, segment_ids, inv_freq, sliding_window)
+    return mlp_block(h, lp, cfg)

@@ -1,0 +1,39 @@
+"""Architecture registry: HF `architectures[0]` -> the port's implementation
+(port of the dense entries of `automodel_tpu/models/registry.py` whose
+family configs the port has)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping
+
+from automodel_tpu_torch.models.llm import decoder, families
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """Everything the framework needs to drive one architecture."""
+
+    name: str
+    config_from_hf: Callable[..., Any]
+    module: Any  # provides init / forward / head_kernel / unembed
+
+
+MODEL_ARCH_MAPPING: dict[str, ModelSpec] = {
+    "LlamaForCausalLM": ModelSpec("llama", families.llama_config, decoder),
+}
+
+
+def get_model_spec(arch_or_hf_config: "str | Mapping") -> ModelSpec:
+    if isinstance(arch_or_hf_config, str):
+        arch = arch_or_hf_config
+    else:
+        archs = arch_or_hf_config.get("architectures") or []
+        arch = archs[0] if archs else ""
+    if arch not in MODEL_ARCH_MAPPING:
+        # MoE, MLA, hybrid and multimodal families are not ported yet
+        raise NotImplementedError(
+            f"Architecture '{arch}' is not ported to automodel_tpu_torch; "
+            f"ported: {sorted(MODEL_ARCH_MAPPING)}"
+        )
+    return MODEL_ARCH_MAPPING[arch]

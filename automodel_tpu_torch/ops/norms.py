@@ -1,4 +1,5 @@
-"""Normalization ops (port of `automodel_tpu/ops/norms.py`)."""
+"""Normalization ops (port of `automodel_tpu/ops/norms.py`): RMSNorm and
+LayerNorm, both in fp32 with the output in the input's dtype."""
 
 from __future__ import annotations
 
@@ -20,3 +21,14 @@ def rms_norm(
     if zero_centered:
         w = w + 1.0
     return (y * w).to(x.dtype)
+
+
+def layer_norm(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6,
+) -> torch.Tensor:
+    """Mean-centered LayerNorm in fp32, output in x.dtype."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)

@@ -1,0 +1,177 @@
+"""Optimizer and learning-rate schedule configs (port of
+`automodel_tpu/optim/optimizer.py`).
+
+The JAX package builds optax transforms; here the same update rules run on a
+nested dict of fp32 master tensors, in place, one leaf at a time (so the
+temporaries stay the size of one leaf):
+
+- adamw: p <- p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p), with
+  m_hat, v_hat bias-corrected at the incremented count (optax.adamw);
+- adam: the same without weight decay (optax.adam);
+- sgd: t <- g + momentum * t, p <- p - lr * t (optax.sgd with momentum).
+
+The learning rate is the schedule at the count before the increment, as
+optax's `scale_by_learning_rate` reads it. Weight decay applies where the
+mask is true; the default mask is `ndim >= 2` on the stacked-layer layout,
+so per-layer norm scales, stacked as (L, H), are decayed, as in the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
+
+import torch
+
+from automodel_tpu_torch.utils.tree import tree_leaves, tree_map
+
+
+def default_weight_decay_mask(params) -> dict:
+    """Decay leaves with ndim >= 2 (matrices, and stacked (L, H) scales)."""
+    return tree_map(lambda p: p.dim() >= 2, params)
+
+
+class Optimizer:
+    """An optax-equivalent update rule: `init(params) -> state`, then
+    `update(grads, state, params)` updates params and state in place."""
+
+    def __init__(self, name: str, lr, *, betas=(0.9, 0.95), eps=1e-8,
+                 weight_decay=0.0, momentum=0.9, mask_fn=None):
+        self.name = name
+        self.lr = lr if callable(lr) else (lambda count, v=float(lr): v)
+        self.b1, self.b2 = float(betas[0]), float(betas[1])
+        self.eps = float(eps)
+        self.weight_decay = float(weight_decay)
+        self.momentum = float(momentum)
+        self.mask_fn = mask_fn or default_weight_decay_mask
+
+    def init(self, params) -> dict:
+        if self.name == "sgd":
+            return {"count": 0, "trace": tree_map(torch.zeros_like, params)}
+        return {"count": 0, "mu": tree_map(torch.zeros_like, params),
+                "nu": tree_map(torch.zeros_like, params)}
+
+    @torch.no_grad()
+    def update(self, grads, state: dict, params) -> None:
+        count = state["count"]
+        lr = float(self.lr(count))
+        ps, gs = tree_leaves(params), tree_leaves(grads)
+        if self.name == "sgd":
+            for p, g, t in zip(ps, gs, tree_leaves(state["trace"])):
+                t.mul_(self.momentum).add_(g)
+                p.add_(t, alpha=-lr)
+            state["count"] = count + 1
+            return
+        n = count + 1
+        bc1, bc2 = 1.0 - self.b1 ** n, 1.0 - self.b2 ** n
+        decay = tree_leaves(self.mask_fn(params)) if self.weight_decay else [False] * len(ps)
+        for p, g, m, v, d in zip(ps, gs, tree_leaves(state["mu"]), tree_leaves(state["nu"]), decay):
+            m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+            u = (m / bc1).div_((v / bc2).sqrt_().add_(self.eps))
+            if d:
+                u.add_(p, alpha=self.weight_decay)
+            p.add_(u, alpha=-lr)
+        state["count"] = n
+
+
+_ADAMW = ("adamw", "fused_adamw", "flash_adamw")
+_ADAM = ("adam", "fused_adam")
+
+
+@dataclasses.dataclass
+class OptimizerConfig:
+    """The JAX config's fields, so the same YAML sections load; `adamw`,
+    `adam` and `sgd` are ported, other names and `param_groups` raise."""
+
+    name: str = "adamw"
+    lr: float = 3e-4
+    betas: tuple = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    momentum: float = 0.9  # sgd only
+    adamw_lr: float = 3e-4  # muon/dion only
+    dion_rank: int = 16     # dion only
+    decay_mask: Optional[Callable] = dataclasses.field(default=None, repr=False)
+    param_groups: tuple = ()
+
+    def build(self, lr_schedule: "float | Callable" = None) -> Optimizer:
+        if self.param_groups:
+            raise NotImplementedError("optimizer.param_groups is not ported")
+        lr = lr_schedule if lr_schedule is not None else self.lr
+        if self.name in _ADAMW or self.name in _ADAM:
+            wd = self.weight_decay if self.name in _ADAMW else 0.0
+            return Optimizer("adamw", lr, betas=self.betas, eps=self.eps,
+                             weight_decay=wd, mask_fn=self.decay_mask)
+        if self.name == "sgd":
+            return Optimizer("sgd", lr, momentum=self.momentum)
+        raise NotImplementedError(
+            f"optimizer '{self.name}' is not ported (ported: adamw, adam, sgd)")
+
+
+def constant_schedule(value: float) -> Callable:
+    return lambda count: value
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Callable:
+    def schedule(count):
+        c = min(count, decay_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * c / decay_steps))
+        return init_value * ((1.0 - alpha) * cosine + alpha)
+    return schedule
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Callable:
+    def schedule(count):
+        c = min(max(count, 0), transition_steps)
+        return (init_value - end_value) * (1.0 - c / transition_steps) + end_value
+    return schedule
+
+
+def join_schedules(schedules: list, boundaries: list) -> Callable:
+    """optax.join_schedules: past each boundary, the next schedule runs on
+    the count minus that boundary."""
+    def schedule(count):
+        out = schedules[0](count)
+        for boundary, sched in zip(boundaries, schedules[1:]):
+            if count >= boundary:
+                out = sched(count - boundary)
+        return out
+    return schedule
+
+
+@dataclasses.dataclass
+class LRSchedulerConfig:
+    """Warmup + decay schedule: cosine | linear | constant | wsd."""
+
+    warmup_steps: int = 0
+    decay_steps: int = 1000
+    style: str = "cosine"
+    min_lr_ratio: float = 0.0
+    stable_steps: int = 0  # wsd only
+
+    def build(self, peak_lr: float) -> Callable:
+        floor = peak_lr * self.min_lr_ratio
+        steps = max(self.decay_steps, 1)
+        if self.style == "constant":
+            sched = constant_schedule(peak_lr)
+        elif self.style == "cosine":
+            sched = cosine_decay_schedule(peak_lr, steps, alpha=self.min_lr_ratio)
+        elif self.style == "linear":
+            sched = linear_schedule(peak_lr, floor, steps)
+        elif self.style == "wsd":
+            # warmup handled below; stable then linear decay to floor
+            sched = join_schedules(
+                [constant_schedule(peak_lr), linear_schedule(peak_lr, floor, steps)],
+                [self.stable_steps],
+            )
+        else:
+            raise ValueError(f"Unknown LR style '{self.style}'")
+        if self.warmup_steps > 0:
+            warmup = linear_schedule(0.0, peak_lr, self.warmup_steps)
+            return join_schedules([warmup, sched], [self.warmup_steps])
+        return sched

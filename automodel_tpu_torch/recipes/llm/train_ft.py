@@ -1,0 +1,203 @@
+"""The flagship recipe: next-token-prediction finetune / pretrain on one
+device (port of `automodel_tpu/recipes/llm/train_ft.py`).
+
+YAML-driven setup of model -> optimizer -> data -> logging, then the train
+loop: per step the microbatches of `grad_acc_steps` run the port's decoder
+forward (K1 for every attention call on the card, twice under full remat),
+the chunked linear cross-entropy, the backward (K2, K3), global-norm
+clipping and the optimizer update (`training/train_step.py`). Each step
+appends a `training.jsonl` record with the JAX recipe's keys.
+
+The same YAML files drive both packages. What the port does not have yet
+raises NotImplementedError instead of being skipped: distributed sizes
+other than 1 (`dp_shard: -1` resolves to 1 on one device), PEFT, MoE and
+other unported architectures (`models/registry.py`), validation, trackers,
+resilience, QAT, pretrained weights, and checkpointing, which is on unless
+`checkpoint.enabled: false`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+
+import numpy as np
+
+from automodel_tpu_torch.config import ConfigNode, parse_args_and_load_config
+from automodel_tpu_torch.datasets.loader import make_global_batch, stack_microbatches
+from automodel_tpu_torch.loggers.metric_logger import MetricLogger, setup_logging
+from automodel_tpu_torch.loss import fused_linear_cross_entropy
+from automodel_tpu_torch.loss.utils import combine_losses
+from automodel_tpu_torch.models.common.layers import count_params
+from automodel_tpu_torch.models.registry import get_model_spec
+from automodel_tpu_torch.recipes.base_recipe import BaseRecipe
+from automodel_tpu_torch.training import (
+    TrainStepConfig,
+    init_train_state,
+    make_train_step,
+)
+from automodel_tpu_torch.training.rng import StatefulRNG
+from automodel_tpu_torch.training.step_scheduler import StepScheduler
+from automodel_tpu_torch.utils.device import resolve_device, torch_dtype
+from automodel_tpu_torch.utils.flops import MFUCalculator, device_peak_tflops
+
+logger = logging.getLogger(__name__)
+
+_MESH_AXES = ("pp", "dp_replicate", "dp_shard", "ep", "cp", "tp")
+# sections of the JAX recipe this port does not run yet
+_UNPORTED_SECTIONS = (
+    "peft", "validation_dataset", "validation_generation", "wandb", "mlflow",
+    "comet", "resilience", "packing", "tokenizer",
+)
+
+
+class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
+    def __init__(self, cfg: ConfigNode, device=None):
+        super().__init__(cfg)
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------------
+    def setup(self) -> None:
+        cfg = self.cfg
+        setup_logging()
+        self._refuse_unported()
+        self.rng = StatefulRNG(seed=int(cfg.get("seed", 42)), device=self.device)
+        self._build_model()
+        self._build_optimizer()
+        self._build_data()
+        run_dir = cfg.get("run_dir", ".")
+        self.metric_logger = MetricLogger(os.path.join(run_dir, "training.jsonl"))
+        seq_len = int(cfg.get("dataset.seq_len", 512))
+        self.mfu = MFUCalculator(
+            flops_per_token=self.model_cfg.flops_per_token(seq_len),
+            peak_tflops_per_device=(
+                device_peak_tflops(self.device) if self.device.type == "cuda" else None
+            ),
+        )
+
+    def _refuse_unported(self) -> None:
+        cfg = self.cfg
+        dist = cfg.get("distributed")
+        for axis in _MESH_AXES:
+            size = int(dist.get(axis, 1)) if dist is not None else 1
+            if size != 1 and not (axis == "dp_shard" and size == -1):
+                raise NotImplementedError(
+                    f"distributed.{axis}={size}: the port trains on one device")
+        for key in _UNPORTED_SECTIONS:
+            if cfg.get(key) is not None:
+                raise NotImplementedError(f"config section '{key}' is not ported")
+        if cfg.get("qat.enabled", False):
+            raise NotImplementedError("qat is not ported")
+        if cfg.get("model.pretrained_path") or cfg.get("model.linear_precision"):
+            raise NotImplementedError(
+                "model.pretrained_path / linear_precision are not ported")
+        if cfg.get("checkpoint.enabled", True):
+            raise NotImplementedError(
+                "checkpointing is not ported (ROADMAP.md queue 1: the "
+                "checkpointer and hf_adapter); run with --checkpoint.enabled=false")
+
+    # ------------------------------------------------------------------
+    def _build_model(self) -> None:
+        mcfg = self.cfg.get("model")
+        overrides = dict(
+            dtype=torch_dtype(mcfg.get("dtype", "bfloat16")),
+            remat_policy=mcfg.get("remat_policy", "full"),
+            attn_impl=mcfg.get("attn_impl", "auto"),
+        )
+        hf_config = mcfg.get("hf_config")
+        hf_config = hf_config.to_dict() if isinstance(hf_config, ConfigNode) else dict(hf_config)
+        self.model_spec = get_model_spec(hf_config)
+        self.model_cfg = self.model_spec.config_from_hf(hf_config, **overrides)
+        # fp32 masters, made on the device from the recipe's generator
+        self._init_params = self.model_spec.module.init(
+            self.model_cfg, self.rng.next_key())
+        logger.info("model %s: %d parameters", self.model_spec.name,
+                    count_params(self._init_params))
+
+    def _build_optimizer(self) -> None:
+        opt_cfg = self.typed.optimizer
+        self.lr_schedule = self.typed.lr_scheduler.build(opt_cfg.lr)
+        self.tx = opt_cfg.build(self.lr_schedule)
+        self.train_state = init_train_state(self._init_params, self.tx)
+        del self._init_params
+        step_cfg = TrainStepConfig(
+            max_grad_norm=self.cfg.get("max_grad_norm", 1.0),
+            skip_nonfinite_updates=bool(self.cfg.get("skip_nonfinite_updates", False)),
+        )
+        self._train_step = make_train_step(
+            self._make_loss_fn(), self.tx, self.lr_schedule, step_cfg)
+
+    def _make_loss_fn(self):
+        module = self.model_spec.module
+        model_cfg = self.model_cfg
+        chunk = int(self.cfg.get("loss.chunk_size", 1024))
+
+        def loss_fn(params, batch, rng):
+            kw = {k: batch[k] for k in ("positions", "segment_ids") if k in batch}
+            hidden = module.forward(params, model_cfg, batch["input_ids"],
+                                    return_hidden=True, **kw)
+            kernel = module.head_kernel(params, model_cfg)
+            ce_sum, n = fused_linear_cross_entropy(
+                hidden, kernel, batch["labels"], chunk_size=chunk,
+                logits_soft_cap=model_cfg.logits_soft_cap,
+            )
+            total, n = combine_losses(ce_sum, n)
+            return total, {"num_label_tokens": n}
+
+        return loss_fn
+
+    def _build_data(self) -> None:
+        ds_cfg = self.cfg.get("dataset").instantiate()
+        dataset = ds_cfg.build()
+        dl_cfg = self.typed.dataloader
+        self.dataloader = dl_cfg.build(dataset)
+        ss_cfg = dataclasses.replace(
+            self.typed.step_scheduler, grad_acc_steps=dl_cfg.grad_acc_steps)
+        self.step_scheduler = StepScheduler(ss_cfg, self.dataloader)
+
+    # ------------------------------------------------------------------
+    def run_step(self, microbatches: list) -> dict:
+        """One optimizer step over a list of grad-accum microbatches (numpy
+        dicts, as the dataloader yields them); returns the step's metrics."""
+        batch = make_global_batch(stack_microbatches(microbatches), self.device)
+        self.train_state, metrics = self._train_step(
+            self.train_state, batch, self.rng.next_key())
+        return metrics
+
+    def run_train_validation_loop(self) -> None:
+        t_last = time.perf_counter()
+        try:
+            for microbatches in self.step_scheduler:
+                step = self.step_scheduler.step
+                metrics = self.run_step(microbatches)
+                loss = float(metrics["loss"])  # waits for the step
+                now = time.perf_counter()
+                tokens = int(sum(mb["input_ids"].size for mb in microbatches))
+                perf = self.mfu.metrics(tokens, now - t_last)
+                t_last = now
+                record = {
+                    "step": step,
+                    "epoch": self.step_scheduler.epoch,
+                    "loss": loss,
+                    "grad_norm": float(metrics["grad_norm"]),
+                    "lr": metrics.get("lr", 0.0),
+                    "num_label_tokens": float(metrics["num_label_tokens"]),
+                    **{k: (None if v is None else round(v, 4)) for k, v in perf.items()},
+                }
+                if "skipped_nonfinite" in metrics:
+                    record["skipped_nonfinite"] = metrics["skipped_nonfinite"]
+                if not np.isfinite(loss):
+                    logger.warning("step %d: non-finite loss %s", step, loss)
+                self.metric_logger.log(record)
+        finally:
+            self.metric_logger.close()
+
+
+def main(argv=None) -> TrainFinetuneRecipeForNextTokenPrediction:
+    cfg = parse_args_and_load_config(argv)
+    recipe = TrainFinetuneRecipeForNextTokenPrediction(cfg)
+    recipe.setup()
+    recipe.run_train_validation_loop()
+    return recipe

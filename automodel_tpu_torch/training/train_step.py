@@ -1,0 +1,111 @@
+"""The optimizer step: grad accumulation, global-token normalization, grad
+clipping, parameter update (port of `automodel_tpu/training/train_step.py`).
+
+The JAX step is one jitted pure function with the microbatches in a
+`lax.scan`. Here the microbatches run in a Python loop, each with its own
+backward, and autograd sums their gradients into the fp32 masters' `.grad`;
+then, once, the sum is divided by the global number of label tokens, clipped
+by the global norm and handed to the optimizer, which updates the masters in
+place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from automodel_tpu_torch.optim.optimizer import Optimizer
+from automodel_tpu_torch.utils.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int   # optimizer steps taken
+    params: Any  # nested dict of fp32 master tensors (requires_grad)
+    opt_state: Any
+
+
+def init_train_state(params, tx: Optimizer) -> TrainState:
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    return TrainState(step=0, params=params, opt_state=tx.init(params))
+
+
+@dataclasses.dataclass
+class TrainStepConfig:
+    max_grad_norm: Optional[float] = 1.0
+    # skip the optimizer update when gradients are non-finite
+    skip_nonfinite_updates: bool = False
+
+
+def accumulate_grads(loss_fn: Callable, params, batch: dict, rng=None):
+    """Forward and backward over the microbatches of `batch` (leaves
+    (accum, microbatch, ...)); gradients of the SUM losses add up in the
+    params' `.grad`. Returns (summed loss, summed aux dict)."""
+    accum = next(iter(batch.values())).shape[0]
+    ce_sum, aux_sum = None, {}
+    for i in range(accum):
+        mb = {k: v[i] for k, v in batch.items()}
+        ce, aux = loss_fn(params, mb, rng)
+        if not isinstance(aux, dict):
+            aux = {"num_label_tokens": aux}
+        ce.backward()
+        ce = ce.detach()
+        ce_sum = ce if ce_sum is None else ce_sum + ce
+        for k, v in aux.items():
+            v = v.detach() if torch.is_tensor(v) else v
+            aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
+    return ce_sum, aux_sum
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    norms = torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors])
+    return torch.linalg.vector_norm(norms)
+
+
+def make_train_step(
+    loss_fn: Callable,  # (params, microbatch, rng) -> (loss_sum, aux)
+    tx: Optimizer,
+    lr_schedule: Callable | None = None,
+    config: TrainStepConfig | None = None,
+) -> Callable:
+    """Build `train_step(state, batch, rng) -> (state, metrics)`. Loss
+    functions return a SUM loss plus `aux`: the valid-token count, or a dict
+    holding "num_label_tokens" and other per-step sums."""
+    config = config or TrainStepConfig()
+
+    def train_step(state: TrainState, batch: dict, rng=None):
+        params = tree_leaves(state.params)
+        for p in params:
+            p.grad = None
+        ce_sum, aux_sum = accumulate_grads(loss_fn, state.params, batch, rng)
+        # normalize by the global number of label tokens, in place in .grad
+        denom = torch.clamp(aux_sum["num_label_tokens"].float(), min=1.0)
+        with torch.no_grad():
+            grads = tree_map(
+                lambda p: (p.grad if p.grad is not None else torch.zeros_like(p))
+                .div_(denom), state.params)
+            grad_norm = global_norm(tree_leaves(grads))
+            if config.max_grad_norm is not None:
+                scale = torch.clamp(config.max_grad_norm / (grad_norm + 1e-6), max=1.0)
+                for g in tree_leaves(grads):
+                    g.mul_(scale)
+        ok = True
+        if config.skip_nonfinite_updates:
+            ok = bool(torch.isfinite(grad_norm) & torch.isfinite(ce_sum))
+        if ok:
+            tx.update(grads, state.opt_state, state.params)
+        del grads
+        for p in params:
+            p.grad = None
+        metrics = {"loss": ce_sum / denom, "grad_norm": grad_norm, **aux_sum}
+        if config.skip_nonfinite_updates:
+            metrics["skipped_nonfinite"] = 0.0 if ok else 1.0
+        if lr_schedule is not None:
+            metrics["lr"] = lr_schedule(state.step)
+        return dataclasses.replace(state, step=state.step + 1), metrics
+
+    return train_step

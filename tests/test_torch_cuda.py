@@ -100,3 +100,129 @@ def test_engine_kernel_matches_plain_version(card):
                         arrival=i) for i in range(4)]
         outs.append(engine.serve_batch(reqs)["outputs"])
     assert outs[0] == outs[1]
+
+
+# K1-K3. fp32: summation order only (the kernels sum tiles online, the plain
+# version in one pass). bf16: the plain version rounds probabilities and ds
+# to bf16 before their products, the kernels keep them fp32, and outputs and
+# gradients round once to bf16; 2e-2 of the largest magnitude is about two
+# bf16 ulps there.
+FA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+FA_CASES = {
+    # B, S, T, Hq, Hkv, D, causal, packed segments, soft cap
+    "causal_gqa_ragged": (2, 200, 200, 4, 2, 64, True, False, None),
+    "causal_d128_segments": (1, 192, 192, 8, 2, 128, True, True, None),
+    "bidirectional_softcap": (1, 96, 96, 2, 1, 64, False, False, 20.0),
+    "causal_s_gt_t": (1, 130, 70, 4, 4, 128, True, False, None),
+    "causal_d16_batch8": (8, 128, 128, 4, 2, 16, True, False, None),
+}
+
+
+def _fa_inputs(card, dtype, B, S, T, Hq, Hkv, D, packed, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=card).to(dtype)
+
+    q, k, v = randn(B, S, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
+    dout = randn(B, S, Hq, D)
+    seg = None
+    if packed:
+        cuts = torch.tensor([0, S // 3, S // 3 + 1, S - 5], device=card)
+        seg = (torch.arange(S, device=card)[:, None] >= cuts).sum(-1) - 1
+        seg = seg.to(torch.int32)[None].expand(B, S).contiguous()
+    return q, k, v, dout, seg
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1.0)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FA_CASES))
+def test_flash_kernels_match_plain_versions(card, dtype, case):
+    from automodel_tpu_torch.ops import flash_attention as fa
+    from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
+
+    B, S, T, Hq, Hkv, D, causal, packed, cap = FA_CASES[case]
+    q, k, v, dout, seg = _fa_inputs(card, dtype, B, S, T, Hq, Hkv, D, packed)
+    scale = D ** -0.5
+    zeros = torch.zeros((B, S), dtype=torch.int32, device=card)
+    qs = seg if seg is not None else zeros
+    mask = fa.flash_mask(
+        B, S, T, causal_mode="index" if causal else None, qpos=None,
+        qwin=None, qseg=qs, kpos=None,
+        kseg=qs if seg is not None else torch.zeros((B, T), dtype=torch.int32, device=card),
+        has_window=False)
+    n = (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv)
+    kw = dict(scale=scale, soft_cap=cap, causal=causal)
+    out, lse = fa_cuda.flash_fwd_cuda(q, k, v, seg, **kw)
+    torch.cuda.synchronize()
+    out_ref, lse_ref = fa.flash_attention_ref(q, k, v, mask, scale=scale, soft_cap=cap)
+    assert _rel_err(out, out_ref) <= FA_TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() <= FA_TOL[dtype]
+
+    delta = (dout.float() * out_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa_cuda.flash_dq_cuda(q, k, v, dout, lse_ref, delta, seg, **kw)
+    dk, dv = fa_cuda.flash_dkv_cuda(q, k, v, dout, lse_ref, delta, seg, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_ref(q, k, v, dout, lse_ref, delta, mask,
+                                      scale=scale, soft_cap=cap)
+    for got, ref in zip((dq, dk, dv), want):
+        assert _rel_err(got, ref) <= FA_TOL[dtype]
+    assert (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv) == (
+        n[0] + 1, n[1] + 1, n[2] + 1)
+
+
+def test_flash_attention_on_card_matches_plain_attention(card):
+    """The autograd path on the card (K1-K3, sinks and the lse cotangent in
+    torch) against autograd through the plain einsum attention."""
+    from automodel_tpu_torch.ops.attention import dot_product_attention
+    from automodel_tpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v, dout, seg = _fa_inputs(card, torch.float32, 2, 160, 160, 8, 2, 64, True)
+    sinks = torch.linspace(-1.0, 1.0, 8, device=card)
+    grads = []
+    for impl in ("flash", "xla"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, sinks)]
+        out = dot_product_attention(*leaves[:3], segment_ids=seg, sinks=leaves[3],
+                                    impl=impl)
+        grads.append((out, torch.autograd.grad(out, leaves, dout)))
+    (out_f, g_f), (out_x, g_x) = grads
+    assert _rel_err(out_f, out_x) <= 1e-4
+    for a, b in zip(g_f, g_x):
+        assert _rel_err(a, b) <= 1e-4
+    # the lse output is differentiable too
+    qq = q.clone().requires_grad_()
+    _, lse = flash_attention(qq, k, v, return_lse=True)
+    (g,) = torch.autograd.grad(lse.sum(), qq)
+    assert torch.isfinite(g).all()
+
+
+def test_flash_kernels_refuse_what_they_do_not_cover(card):
+    from automodel_tpu_torch.ops.attention import dot_product_attention
+    from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
+
+    q, k, v, _, _ = _fa_inputs(card, torch.bfloat16, 1, 64, 64, 4, 2, 64, False)
+    with pytest.raises(NotImplementedError, match="window"):
+        dot_product_attention(q, k, v, sliding_window=16)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        dot_product_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                              v[..., :48].contiguous())
+    with pytest.raises(TypeError):
+        fa_cuda.flash_fwd_cuda(q.half(), k.half(), v.half(), scale=0.1)
+    with pytest.raises(ValueError):
+        fa_cuda.flash_fwd_cuda(q.cpu(), k, v, scale=0.1)
+
+
+def test_flash_launch_error_raises(card):
+    """A launch the card refuses (grid.y > 65535 query heads) raises instead
+    of returning garbage."""
+    from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
+
+    q = torch.zeros(1, 1, 65536, 64, device=card)
+    k = torch.zeros(1, 1, 1, 64, device=card)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa_cuda.flash_fwd_cuda(q, k, k, scale=0.125)

@@ -38,8 +38,11 @@ def test_port_imports_no_jax():
     out = _run(["-c", _PROBE])
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "automodel_tpu_torch.serving.engine" in res["modules"]
-    assert "automodel_tpu_torch.ops.cuda.ragged_paged_attention" in res["modules"]
+    for mod in ("serving.engine", "ops.cuda.ragged_paged_attention",
+                "ops.cuda.flash_attention", "ops.flash_attention", "cli.app",
+                "recipes.llm.train_ft", "config.loader", "training.train_step",
+                "loss.linear_ce", "optim.optimizer", "datasets.loader"):
+        assert f"automodel_tpu_torch.{mod}" in res["modules"]
     assert res["leaked"] == []
 
 
@@ -59,6 +62,18 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax({"w": params["final_norm"]["scale"].numpy()})
     ServingEngine(params, cfg, ServingConfig(), device="cpu")  # asked for
+    from automodel_tpu_torch.config import load_yaml
+    from automodel_tpu_torch.recipes.llm.train_ft import (
+        TrainFinetuneRecipeForNextTokenPrediction,
+    )
+
+    node = load_yaml(str(ROOT / "examples/llm_finetune/tiny_llama_mock_smoke.yaml"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainFinetuneRecipeForNextTokenPrediction(node)
+    out = _run(["-m", "automodel_tpu_torch",
+                "examples/llm_finetune/tiny_llama_mock_smoke.yaml",
+                "--checkpoint.enabled=false"])
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
 
 
 def test_unported_options_raise():
