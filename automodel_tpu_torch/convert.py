@@ -2,7 +2,10 @@
 
 Both packages keep the same parameter layout (stacked `(L, ...)` layer
 weights, `(in, out)` kernels, the same dict keys), so conversion is a
-key-for-key copy. The JAX side hands its tree over as numpy arrays
+key-for-key copy, of any depth: dense `layers`, the MoE decoder's
+`dense_layers` and `moe_layers` (`moe.gate` with its correction bias,
+`(L, E, H, I)` expert kernels, `moe.shared`) and the MLA `kv_*`/`q_*`
+projections alike. The JAX side hands its tree over as numpy arrays
 (`jax.tree.map(np.asarray, params)`), so this module never imports JAX.
 """
 

@@ -1,0 +1,327 @@
+// K6 and K7: ragged paged absorbed-MLA attention for Hopper (sm_90a), over
+// fp latent pages (K6) and over int8 latent pages with per-row scales (K7).
+//
+// K6 replaces automodel_tpu/ops/pallas/ragged_paged_attention.py:_mla_kernel
+// (launched by paged_mla_attention_kernel); K7 replaces _mla_quant_kernel in
+// the same file (launched by paged_mla_attention_quant_kernel). The function
+// is the Pallas kernels' own: token row t with absorbed queries q_abs (n, r)
+// and q_rope (n, dr) attends over the pages of its page-table row up to
+// global kv index positions[t], with scores
+//   K6: s = scale * (q_abs . c + q_rope . kr)
+//   K7: s = scale * ((q_abs . c_int8) * cs + (q_rope . kr_int8) * krs)
+// an fp32 online softmax, and the output in latent space,
+//   K6: out = sum_r p[r] * c[r], with p rounded to c's dtype first (bf16
+//       pages round p to bf16, as the Pallas kernel casts p to c.dtype),
+//   K7: out = sum_r (p[r] * cs[r]) * c_int8[r], all in fp32,
+// divided by the softmax sum; pad rows (positions[t] < 0) output 0.
+//
+// Design. MLA is multi-query attention: all n heads of a row share one
+// latent row c (r wide) and one rope row kr (dr wide) per kv position. So one
+// thread block owns one token row and ALL its heads, and each live page's
+// (ps, r) latent slice and (ps, dr) rope slice are read from device memory
+// once per row and staged in shared memory as fp32 (for Moonlight's n 16,
+// r 512, dr 64 and 16-token pages: 36 KB). A grid of one block per (row,
+// head) would read every latent page n times. The block's queries (n, r + dr)
+// sit in shared memory too; scores are one warp per (head, page row) dot
+// product; the (n, r) fp32 accumulator is spread over the block's threads in
+// registers (element i = tid + k * 256, kAcc of them per thread: 32 for
+// Moonlight), and only the output row is written back.
+//
+// Bound. Bytes: each live page's latent and rope rows are read once per row
+// that attends to them, and the arithmetic is 4 * n * r operations per kv
+// position, below the card's operations-per-byte line at n = 16. Like K4,
+// rows of one prefill chunk each re-read their request's pages (L2 absorbs
+// part of it). Split-KV, TMA page loads and wgmma for the (n, ps) x (ps, r)
+// products are left for later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+size_t smem_bytes(int n, int r, int dr, int ps) {
+  // q_abs (n, r) | q_rope (n, dr) | c (ps, r) | kr (ps, dr) | p (n, ps)
+  // | running max, sum, rescale (n each) | c and kr scales (ps each)
+  return sizeof(float) *
+         ((size_t)n * r + (size_t)n * dr + (size_t)ps * r + (size_t)ps * dr +
+          (size_t)n * ps + 3 * (size_t)n + 2 * (size_t)ps);
+}
+
+// T: q and output dtype; TKV: page dtype (T for K6, int8_t for K7, which
+// also takes c_scales / kr_scales, (N+1, ps) fp32; K6 passes nullptr).
+// kAcc accumulators per thread cover n * r <= kThreads * kAcc.
+template <typename T, typename TKV, int kAcc>
+__global__ void __launch_bounds__(kThreads)
+mla_kernel(const T* __restrict__ q_abs,         // (T, n, r)
+           const T* __restrict__ q_rope,        // (T, n, dr)
+           const TKV* __restrict__ c_pages,     // (N+1, ps, r)
+           const TKV* __restrict__ kr_pages,    // (N+1, ps, dr)
+           const float* __restrict__ c_scales,  // (N+1, ps) or nullptr
+           const float* __restrict__ kr_scales, // (N+1, ps) or nullptr
+           const int* __restrict__ page_tables, // (T, P)
+           const int* __restrict__ positions,   // (T,)
+           T* __restrict__ out,                 // (T, n, r)
+           int n, int r, int dr, int ps, int P, float scale) {
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+  extern __shared__ float smem[];
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nr = n * r;
+
+  float* qa_s = smem;           // (n, r)
+  float* qr_s = qa_s + nr;      // (n, dr)
+  float* c_s = qr_s + n * dr;   // (ps, r)
+  float* kr_s = c_s + ps * r;   // (ps, dr)
+  float* p_s = kr_s + ps * dr;  // (n, ps) scores, then value weights
+  float* m_s = p_s + n * ps;    // (n,) running max
+  float* l_s = m_s + n;         // (n,) running sum
+  float* a_s = l_s + n;         // (n,) this page's rescale factor
+  float* cs_s = a_s + n;        // (ps,) latent scales of this page (K7)
+  float* krs_s = cs_s + ps;     // (ps,) rope scales of this page (K7)
+
+  const int pos = positions[t];
+  const int n_pages = pos < 0 ? 0 : min(pos / ps + 1, P);
+
+  const T* qa_row = q_abs + (size_t)t * nr;
+  const T* qr_row = q_rope + (size_t)t * n * dr;
+  for (int i = tid; i < nr; i += kThreads) qa_s[i] = to_float(qa_row[i]);
+  for (int i = tid; i < n * dr; i += kThreads) qr_s[i] = to_float(qr_row[i]);
+  if (tid < n) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  float acc[kAcc];
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) acc[k] = 0.f;
+  __syncthreads();
+
+  const int* pt_row = page_tables + (size_t)t * P;
+  for (int j = 0; j < n_pages; ++j) {
+    const size_t page = (size_t)pt_row[j];
+    const TKV* c_src = c_pages + page * ps * r;
+    const TKV* kr_src = kr_pages + page * ps * dr;
+    for (int i = tid; i < ps * r; i += kThreads) c_s[i] = to_float(c_src[i]);
+    for (int i = tid; i < ps * dr; i += kThreads)
+      kr_s[i] = to_float(kr_src[i]);
+    if constexpr (kQuant) {
+      for (int i = tid; i < ps; i += kThreads) {
+        cs_s[i] = c_scales[page * ps + i];
+        krs_s[i] = kr_scales[page * ps + i];
+      }
+    }
+    __syncthreads();
+
+    // scores: one warp per (head, page row); lanes split r and dr
+    const int base = j * ps;
+    for (int pr = warp; pr < n * ps; pr += kWarps) {
+      const int h = pr / ps;
+      const int row = pr - h * ps;
+      float sc = 0.f, sr = 0.f;
+      for (int c = lane; c < r; c += 32) sc += qa_s[h * r + c] * c_s[row * r + c];
+      for (int d = lane; d < dr; d += 32)
+        sr += qr_s[h * dr + d] * kr_s[row * dr + d];
+      sc = warp_sum(sc);
+      sr = warp_sum(sr);
+      if (lane == 0) {
+        float s;
+        if constexpr (kQuant)
+          s = sc * cs_s[row] + sr * krs_s[row];
+        else
+          s = sc + sr;
+        s *= scale;
+        p_s[pr] = (base + row <= pos) ? s : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // online softmax: one warp per head. Row j*ps <= pos always holds for a
+    // live page, so the new max is finite.
+    for (int h = warp; h < n; h += kWarps) {
+      float mx = -INFINITY;
+      for (int row = lane; row < ps; row += 32)
+        mx = fmaxf(mx, p_s[h * ps + row]);
+      mx = warp_max(mx);
+      const float m_old = m_s[h];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int row = lane; row < ps; row += 32) {
+        const float e =
+            (base + row <= pos) ? expf(p_s[h * ps + row] - m_new) : 0.f;
+        sum += e;
+        if constexpr (kQuant)
+          p_s[h * ps + row] = e * cs_s[row];  // K7: fp32 p * cs
+        else
+          p_s[h * ps + row] = to_float(from_float<T>(e));  // K6: p in c's dtype
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);  // 0 on the first page
+        a_s[h] = alpha;
+        l_s[h] = l_s[h] * alpha + sum;
+        m_s[h] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + p @ c over this thread's (head, column) elements
+#pragma unroll
+    for (int k = 0; k < kAcc; ++k) {
+      const int i = tid + k * kThreads;
+      if (i < nr) {
+        const int h = i / r;
+        const int col = i - h * r;
+        const float* ph = p_s + h * ps;
+        float a = acc[k] * a_s[h];
+        for (int row = 0; row < ps; ++row) a += ph[row] * c_s[row * r + col];
+        acc[k] = a;
+      }
+    }
+    __syncthreads();
+  }
+
+  T* o_row = out + (size_t)t * nr;
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < nr) {
+      const float l = l_s[i / r];
+      o_row[i] = from_float<T>(l > 0.f ? acc[k] / l : 0.f);
+    }
+  }
+}
+
+template <typename T, typename TKV, int kAcc>
+int launch_acc(const void* q_abs, const void* q_rope, const void* c_pages,
+               const void* kr_pages, const float* c_scales,
+               const float* kr_scales, const int* page_tables,
+               const int* positions, void* out, int T_, int n, int r, int dr,
+               int ps, int P, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(n, r, dr, ps);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mla_kernel<T, TKV, kAcc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  mla_kernel<T, TKV, kAcc><<<T_, kThreads, smem, stream>>>(
+      static_cast<const T*>(q_abs), static_cast<const T*>(q_rope),
+      static_cast<const TKV*>(c_pages), static_cast<const TKV*>(kr_pages),
+      c_scales, kr_scales, page_tables, positions, static_cast<T*>(out), n, r,
+      dr, ps, P, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename TKV>
+int launch(const void* q_abs, const void* q_rope, const void* c_pages,
+           const void* kr_pages, const float* c_scales,
+           const float* kr_scales, const int* page_tables,
+           const int* positions, void* out, int T_, int n, int r, int dr,
+           int ps, int P, float scale, cudaStream_t stream) {
+  const int need = (n * r + kThreads - 1) / kThreads;
+#define MLA_LAUNCH(K)                                                       \
+  return launch_acc<T, TKV, K>(q_abs, q_rope, c_pages, kr_pages, c_scales,  \
+                               kr_scales, page_tables, positions, out, T_, n, \
+                               r, dr, ps, P, scale, stream)
+  if (need <= 4) MLA_LAUNCH(4);
+  if (need <= 8) MLA_LAUNCH(8);
+  if (need <= 16) MLA_LAUNCH(16);
+  if (need <= 32) MLA_LAUNCH(32);
+  if (need <= 64) MLA_LAUNCH(64);
+#undef MLA_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Largest n * r one block's accumulators cover (kThreads * 64).
+int mla_max_heads_x_rank() { return kThreads * 64; }
+
+// K6. dtype (queries, pages and out): 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError() after the launch (0 = success).
+int mla_forward(const void* q_abs, const void* q_rope, const void* c_pages,
+                const void* kr_pages, const void* page_tables,
+                const void* positions, void* out, int T, int n, int r, int dr,
+                int ps, int P, float scale, int dtype, void* stream) {
+  if (T == 0) return 0;
+  const int* pt = static_cast<const int*>(page_tables);
+  const int* pos = static_cast<const int*>(positions);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, float>(q_abs, q_rope, c_pages, kr_pages, nullptr,
+                                nullptr, pt, pos, out, T, n, r, dr, ps, P,
+                                scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q_abs, q_rope, c_pages, kr_pages, nullptr, nullptr, pt, pos, out, T,
+        n, r, dr, ps, P, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7: int8 latent and rope pages with (N+1, ps) fp32 per-row scales. dtype
+// (queries and out): 0 = float32, 1 = bfloat16.
+int mla_quant_forward(const void* q_abs, const void* q_rope,
+                      const void* c_pages, const void* kr_pages,
+                      const void* c_scales, const void* kr_scales,
+                      const void* page_tables, const void* positions,
+                      void* out, int T, int n, int r, int dr, int ps, int P,
+                      float scale, int dtype, void* stream) {
+  if (T == 0) return 0;
+  const int* pt = static_cast<const int*>(page_tables);
+  const int* pos = static_cast<const int*>(positions);
+  const float* cs = static_cast<const float*>(c_scales);
+  const float* krs = static_cast<const float*>(kr_scales);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, int8_t>(q_abs, q_rope, c_pages, kr_pages, cs, krs,
+                                 pt, pos, out, T, n, r, dr, ps, P, scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, int8_t>(q_abs, q_rope, c_pages, kr_pages, cs,
+                                         krs, pt, pos, out, T, n, r, dr, ps,
+                                         P, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* mla_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

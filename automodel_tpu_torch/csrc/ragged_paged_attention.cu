@@ -1,10 +1,13 @@
-// K4: ragged paged GQA attention for Hopper (sm_90a).
+// K4 and K5: ragged paged GQA attention for Hopper (sm_90a), over fp pages
+// (K4) and over int8 pages with per-row scales (K5).
 //
-// Replaces automodel_tpu/ops/pallas/ragged_paged_attention.py:_gqa_kernel
-// (launched by paged_attention_kernel). It computes the same function: each
-// token row t attends over the pages of its page-table row up to global kv
-// index positions[t], with an fp32 online softmax, an optional logit soft
-// cap, and a zero output for pad rows (positions[t] < 0).
+// K4 replaces automodel_tpu/ops/pallas/ragged_paged_attention.py:_gqa_kernel
+// (launched by paged_attention_kernel); K5 replaces _gqa_quant_kernel in the
+// same file (launched by paged_attention_quant_kernel). Both compute the same
+// function as their Pallas kernel: each token row t attends over the pages
+// of its page-table row up to global kv index positions[t], with an fp32
+// online softmax, an optional logit soft cap, and a zero output for pad rows
+// (positions[t] < 0).
 //
 // Design. The TPU grid (T, P) walks every page slot of every row in order
 // and predicates the dead ones off, with the page table in scalar prefetch.
@@ -16,6 +19,15 @@
 // max, sum and (G, Dv) accumulator in fp32 shared memory. Rows past pos in
 // the last page are masked; the output is acc / sum, or 0 when the row had
 // no page (pad rows).
+//
+// K5 is the same block over int8 K/V: the page's int8 values are staged as
+// fp32 (exact) beside the page's two (ps,) scale rows, and dequantization is
+// algebraic, as in the Pallas kernel: the score of kv row r is
+// (q . k_int8[r]) * ks[r] * scale, before the soft cap and the mask; the V
+// scale folds into the probabilities, so the value product is
+// sum_r (p[r] * vs[r]) * v_int8[r]. The sum l takes the unscaled p. No
+// dequantized copy of a page is ever written to device memory, and the
+// output has q's dtype (bf16 or fp32).
 //
 // Bound. The work is bound by bytes from device memory: each needed page's
 // K/V slice is read once per block, and the arithmetic is 4 * G * Dv
@@ -29,6 +41,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -37,6 +51,9 @@ constexpr int kWarps = kThreads / 32;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -61,22 +78,27 @@ __device__ __forceinline__ float warp_max(float v) {
 
 size_t smem_bytes(int G, int D, int Dv, int ps) {
   // q (G, D) | K (ps, D) | V (ps, Dv) | scores (G, ps) | acc (G, Dv)
-  // | running max, sum, rescale (G each)
+  // | running max, sum, rescale (G each) | K and V scales (ps each)
   return sizeof(float) *
          ((size_t)G * D + (size_t)ps * D + (size_t)ps * Dv + (size_t)G * ps +
-          (size_t)G * Dv + 3 * (size_t)G);
+          (size_t)G * Dv + 3 * (size_t)G + 2 * (size_t)ps);
 }
 
-template <typename T>
+// T: q and output dtype; TKV: page dtype (T for K4, int8_t for K5, which
+// also takes k_scales / v_scales, (N+1, ps) fp32; K4 passes nullptr).
+template <typename T, typename TKV>
 __global__ void __launch_bounds__(kThreads)
 gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
-           const T* __restrict__ k_pages,       // (N+1, ps, Hkv, D)
-           const T* __restrict__ v_pages,       // (N+1, ps, Hkv, Dv)
+           const TKV* __restrict__ k_pages,     // (N+1, ps, Hkv, D)
+           const TKV* __restrict__ v_pages,     // (N+1, ps, Hkv, Dv)
+           const float* __restrict__ k_scales,  // (N+1, ps) or nullptr
+           const float* __restrict__ v_scales,  // (N+1, ps) or nullptr
            const int* __restrict__ page_tables, // (T, P)
            const int* __restrict__ positions,   // (T,)
            T* __restrict__ out,                 // (T, Hq, Dv)
            int Hq, int Hkv, int D, int Dv, int ps, int P, float scale,
            float soft_cap) {
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   extern __shared__ float smem[];
   const int G = Hq / Hkv;
   const int t = blockIdx.x / Hkv;
@@ -93,6 +115,8 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
   float* m_s = acc + G * Dv;    // (G,) running max
   float* l_s = m_s + G;         // (G,) running sum
   float* a_s = l_s + G;         // (G,) this page's rescale factor
+  float* ks_s = a_s + G;        // (ps,) K scales of this page (K5)
+  float* vs_s = ks_s + ps;      // (ps,) V scales of this page (K5)
 
   const int pos = positions[t];
   const int n_pages = pos < 0 ? 0 : min(pos / ps + 1, P);
@@ -113,8 +137,8 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
 
   for (int j = 0; j < n_pages; ++j) {
     const size_t page = (size_t)pt_row[j];
-    const T* k_src = k_pages + page * k_page_stride + (size_t)h * D;
-    const T* v_src = v_pages + page * v_page_stride + (size_t)h * Dv;
+    const TKV* k_src = k_pages + page * k_page_stride + (size_t)h * D;
+    const TKV* v_src = v_pages + page * v_page_stride + (size_t)h * Dv;
     for (int i = tid; i < ps * D; i += kThreads) {
       const int r = i / D;
       k_s[i] = to_float(k_src[(size_t)r * Hkv * D + (i - r * D)]);
@@ -122,6 +146,12 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
     for (int i = tid; i < ps * Dv; i += kThreads) {
       const int r = i / Dv;
       v_s[i] = to_float(v_src[(size_t)r * Hkv * Dv + (i - r * Dv)]);
+    }
+    if constexpr (kQuant) {
+      for (int i = tid; i < ps; i += kThreads) {
+        ks_s[i] = k_scales[page * ps + i];
+        vs_s[i] = v_scales[page * ps + i];
+      }
     }
     __syncthreads();
 
@@ -134,6 +164,7 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
       for (int c = lane; c < D; c += 32) s += q_s[g * D + c] * k_s[r * D + c];
       s = warp_sum(s);
       if (lane == 0) {
+        if constexpr (kQuant) s *= ks_s[r];
         s *= scale;
         if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
         p_s[pr] = (base + r <= pos) ? s : -INFINITY;
@@ -153,8 +184,12 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
       for (int r = lane; r < ps; r += 32) {
         const float e =
             (base + r <= pos) ? expf(p_s[g * ps + r] - m_new) : 0.f;
-        p_s[g * ps + r] = e;
         sum += e;
+        // K5: the V scale folds into the weight of its kv row
+        if constexpr (kQuant)
+          p_s[g * ps + r] = e * vs_s[r];
+        else
+          p_s[g * ps + r] = e;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -185,22 +220,24 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
   }
 }
 
-template <typename T>
+template <typename T, typename TKV>
 int launch(const void* q, const void* k_pages, const void* v_pages,
+           const float* k_scales, const float* v_scales,
            const int* page_tables, const int* positions, void* out, int T_,
            int Hq, int Hkv, int D, int Dv, int ps, int P, float scale,
            float soft_cap, cudaStream_t stream) {
   const size_t smem = smem_bytes(Hq / Hkv, D, Dv, ps);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gqa_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gqa_kernel<T, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  gqa_kernel<T><<<T_ * Hkv, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), page_tables, positions,
-      static_cast<T*>(out), Hq, Hkv, D, Dv, ps, P, scale, soft_cap);
+  gqa_kernel<T, TKV><<<T_ * Hkv, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const TKV*>(k_pages),
+      static_cast<const TKV*>(v_pages), k_scales, v_scales, page_tables,
+      positions, static_cast<T*>(out), Hq, Hkv, D, Dv, ps, P, scale,
+      soft_cap);
   return (int)cudaGetLastError();
 }
 
@@ -208,8 +245,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. soft_cap <= 0 means none. Returns
-// cudaGetLastError() after the launch (0 = success).
+// K4. dtype (q, pages and out): 0 = float32, 1 = bfloat16. soft_cap <= 0
+// means none. Returns cudaGetLastError() after the launch (0 = success).
 int rpa_gqa_forward(const void* q, const void* k_pages, const void* v_pages,
                     const void* page_tables, const void* positions, void* out,
                     int T, int Hq, int Hkv, int D, int Dv, int ps, int P,
@@ -219,11 +256,37 @@ int rpa_gqa_forward(const void* q, const void* k_pages, const void* v_pages,
   const int* pos = static_cast<const int*>(positions);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, pt, pos, out, T, Hq, Hkv, D,
-                         Dv, ps, P, scale, soft_cap, s);
+    return launch<float, float>(q, k_pages, v_pages, nullptr, nullptr, pt,
+                                pos, out, T, Hq, Hkv, D, Dv, ps, P, scale,
+                                soft_cap, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, pt, pos, out, T, Hq,
-                                 Hkv, D, Dv, ps, P, scale, soft_cap, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, pt, pos, out, T, Hq, Hkv, D,
+        Dv, ps, P, scale, soft_cap, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5: int8 pages with (N+1, ps) fp32 per-row scales. dtype (q and out):
+// 0 = float32, 1 = bfloat16.
+int rpa_gqa_quant_forward(const void* q, const void* k_pages,
+                          const void* v_pages, const void* k_scales,
+                          const void* v_scales, const void* page_tables,
+                          const void* positions, void* out, int T, int Hq,
+                          int Hkv, int D, int Dv, int ps, int P, float scale,
+                          float soft_cap, int dtype, void* stream) {
+  if (T == 0) return 0;
+  const int* pt = static_cast<const int*>(page_tables);
+  const int* pos = static_cast<const int*>(positions);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, int8_t>(q, k_pages, v_pages, ks, vs, pt, pos, out,
+                                 T, Hq, Hkv, D, Dv, ps, P, scale, soft_cap, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, int8_t>(q, k_pages, v_pages, ks, vs, pt, pos,
+                                         out, T, Hq, Hkv, D, Dv, ps, P, scale,
+                                         soft_cap, s);
   return (int)cudaErrorInvalidValue;
 }
 

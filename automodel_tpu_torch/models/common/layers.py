@@ -15,6 +15,7 @@ remat policy is "full".
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -87,10 +88,39 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32,
     return _trunc_normal(gen, shape, std, dtype)
 
 
+#: a leaf of more elements than this in a narrower dtype than fp32 is drawn
+#: slice by slice along dim 0, so its fp32 draw never exists whole (a
+#: Moonlight expert stack is 4.8 G elements: 19 GB in fp32)
+_CHUNKED_DRAW = 1 << 27
+
+
 def _trunc_normal(gen, shape, std, dtype):
+    shape = tuple(shape)
+    if dtype != torch.float32 and math.prod(shape) > _CHUNKED_DRAW and len(shape) > 1:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        for i in range(shape[0]):
+            out[i] = _trunc_normal(gen, shape[1:], std, dtype)
+        return out
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, std, -3.0 * std, 3.0 * std, generator=gen)
     return x.to(dtype)
+
+
+def init_fns(gen: torch.Generator, dtype: torch.dtype = torch.float32):
+    """(ones, zeros, dense) leaf makers on the generator's device in `dtype`:
+    `dense(*shape)` is `dense_init` (fan-in std from shape[-2])."""
+    dev = gen.device
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def dense(*shape):
+        return dense_init(gen, shape, dtype)
+
+    return ones, zeros, dense
 
 
 def cast_params(params, dtype: torch.dtype, device=None):

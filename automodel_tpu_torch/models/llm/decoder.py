@@ -4,11 +4,12 @@ The parameter layout is the JAX package's, key for key: per-layer weights
 stacked on dim 0 under `params["layers"]`, linear kernels stored `(in, out)`
 and applied as `x @ W`. So weights convert by copying (`convert.py`).
 
-Ported here: the config, `layer_windows`, `init`, the layer pieces the
-serving engine runs (`_dense`, `head_kernel`/`unembed`, `project_qkv`,
-`mlp_inner`) and the full-sequence training `forward` (`attention_block`,
-`mlp_block`, `_decoder_layer`). Meshes, pipeline and context parallelism,
-MLA and the EAGLE-3 aux-hidden capture raise NotImplementedError.
+Ported here: the config (with the MLA fields), `layer_windows`, `init`
+(GQA or MLA attention), the layer pieces the serving engine runs (`_dense`,
+`head_kernel`/`unembed`, `project_qkv`, `mlp_inner`) and the full-sequence
+training `forward` (`attention_block`, `mlp_block`, `_decoder_layer`).
+Meshes, pipeline and context parallelism, the MLA training forward and the
+EAGLE-3 aux-hidden capture raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ import torch.nn.functional as F
 
 from automodel_tpu_torch.models.common.layers import (
     cast_params,
-    dense_init,
     embed_init,
+    init_fns,
     scan_layers_windowed,
 )
 from automodel_tpu_torch.ops.attention import dot_product_attention
@@ -74,8 +75,20 @@ class TransformerConfig:
     normalized_lm_head: bool = False  # baichuan NormHead
     attention_sinks: bool = False  # gpt-oss per-head sink logits
     o_proj_bias: bool = False
-    # "gqa" only: MLA ("mla") models are not ported yet
+    # attention flavor: "gqa" (default) or "mla" (DeepSeek latent attention)
     attention_type: str = "gqa"
+    mla_q_lora_rank: Optional[int] = None
+    mla_kv_lora_rank: int = 512
+    mla_qk_nope_head_dim: int = 128
+    mla_qk_rope_head_dim: int = 64
+    mla_v_head_dim: int = 128
+    # Mistral-4 llama4-style position-dependent q-rope scaling:
+    # q_pe *= 1 + beta * log(1 + floor(pos / orig_max)); None = off
+    mla_qpe_scaling_beta: Optional[float] = None
+    mla_qpe_scaling_orig_max: int = 8192
+    # DSA (the lightning-indexer top-k sparse MLA) is not ported: a value
+    # other than None raises in `init`
+    dsa_index_topk: Optional[int] = None
     dtype: torch.dtype = torch.bfloat16
     # execution knobs: "full" recomputes each layer in backward, "none"
     # saves every activation; attention backend as in ops/attention.py
@@ -84,16 +97,35 @@ class TransformerConfig:
 
     @property
     def resolved_head_dim(self) -> int:
+        if self.attention_type == "mla":
+            return self.mla_qk_nope_head_dim + self.mla_qk_rope_head_dim
         return self.head_dim or self.hidden_size // self.num_heads
 
     @property
     def rope_dim(self) -> int:
+        if self.attention_type == "mla":
+            return self.mla_qk_rope_head_dim
         d = round(self.resolved_head_dim * self.partial_rotary_factor)
         return d - (d % 2)
 
     def attn_params_per_layer(self) -> int:
         """Projection parameter count of one attention block."""
-        H, D = self.hidden_size, self.resolved_head_dim
+        H = self.hidden_size
+        if self.attention_type == "mla":
+            dn, dr, dv = (
+                self.mla_qk_nope_head_dim,
+                self.mla_qk_rope_head_dim,
+                self.mla_v_head_dim,
+            )
+            n = self.num_heads
+            q = (
+                H * self.mla_q_lora_rank + self.mla_q_lora_rank * n * (dn + dr)
+                if self.mla_q_lora_rank
+                else H * n * (dn + dr)
+            )
+            kv = H * (self.mla_kv_lora_rank + dr) + self.mla_kv_lora_rank * n * (dn + dv)
+            return q + kv + n * dv * H
+        D = self.resolved_head_dim
         return H * (self.num_heads + 2 * self.num_kv_heads) * D + self.num_heads * D * H
 
     def flops_per_token(self, seq_len: int) -> float:
@@ -131,27 +163,18 @@ ACTIVATIONS = {
 }
 
 
-def init(cfg: TransformerConfig, gen: torch.Generator,
-         dtype: torch.dtype = torch.float32) -> dict:
-    """Random params with per-layer weights stacked on dim 0, on the
-    generator's device (so a large model initialises on the card with no
-    host copy). `dtype` defaults to fp32 masters; pass the compute dtype to
-    skip the fp32 copy of a large model."""
+def init_attention_layers(cfg: TransformerConfig, gen: torch.Generator, L: int,
+                          dtype: torch.dtype = torch.float32) -> dict:
+    """Attention + norms portion of an L-layer stack (shared with the MoE
+    decoder), on the generator's device."""
+    if cfg.attention_type == "mla":
+        from automodel_tpu_torch.models.llm.mla import init_mla_layers
+
+        return init_mla_layers(cfg, gen, L, dtype)
     if cfg.attention_type != "gqa":
         raise NotImplementedError(f"attention_type {cfg.attention_type!r}")
-    H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
-    D = cfg.resolved_head_dim
-    dev = gen.device
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=dev)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    def dense(*shape):
-        return dense_init(gen, shape, dtype)
-
+    H, D = cfg.hidden_size, cfg.resolved_head_dim
+    ones, zeros, dense = init_fns(gen, dtype)
     layers = {
         "input_norm": {"scale": ones(L, H)},
         "q_proj": {"kernel": dense(L, H, cfg.num_heads * D)},
@@ -177,13 +200,25 @@ def init(cfg: TransformerConfig, gen: torch.Generator,
         layers["post_mlp_norm"] = {"scale": ones(L, H)}
     if cfg.attention_sinks:
         layers["sinks"] = zeros(L, cfg.num_heads)
+    return layers
+
+
+def init(cfg: TransformerConfig, gen: torch.Generator,
+         dtype: torch.dtype = torch.float32) -> dict:
+    """Random params with per-layer weights stacked on dim 0, on the
+    generator's device (so a large model initialises on the card with no
+    host copy). `dtype` defaults to fp32 masters; pass the compute dtype to
+    skip the fp32 copy of a large model."""
+    H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    _, _, dense = init_fns(gen, dtype)
+    layers = init_attention_layers(cfg, gen, L, dtype)
     layers["gate_proj"] = {"kernel": dense(L, H, I)}
     layers["up_proj"] = {"kernel": dense(L, H, I)}
     layers["down_proj"] = {"kernel": dense(L, I, H)}
     params = {
         "embed": {"embedding": embed_init(gen, (cfg.vocab_size, H), dtype)},
         "layers": layers,
-        "final_norm": {"scale": ones(H)},
+        "final_norm": {"scale": torch.ones(H, dtype=dtype, device=gen.device)},
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = {"kernel": dense(H, cfg.vocab_size)}

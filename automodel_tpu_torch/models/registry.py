@@ -1,6 +1,6 @@
 """Architecture registry: HF `architectures[0]` -> the port's implementation
-(port of the dense entries of `automodel_tpu/models/registry.py` whose
-family configs the port has)."""
+(port of the entries of `automodel_tpu/models/registry.py` whose family
+configs the port has: Llama, and DeepSeek-V3 for serving)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,8 @@ import dataclasses
 from typing import Any, Callable, Mapping
 
 from automodel_tpu_torch.models.llm import decoder, families
+from automodel_tpu_torch.models.moe_lm import decoder as moe_decoder
+from automodel_tpu_torch.models.moe_lm import families as moe_families
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,6 +23,11 @@ class ModelSpec:
 
 MODEL_ARCH_MAPPING: dict[str, ModelSpec] = {
     "LlamaForCausalLM": ModelSpec("llama", families.llama_config, decoder),
+    # MLA + MoE (Moonlight-16B-A3B runs as this); its module serves through
+    # the engine, its training forward raises
+    "DeepseekV3ForCausalLM": ModelSpec(
+        "deepseek_v3", moe_families.deepseek_v3_moe_config, moe_decoder
+    ),
 }
 
 
@@ -31,7 +38,7 @@ def get_model_spec(arch_or_hf_config: "str | Mapping") -> ModelSpec:
         archs = arch_or_hf_config.get("architectures") or []
         arch = archs[0] if archs else ""
     if arch not in MODEL_ARCH_MAPPING:
-        # MoE, MLA, hybrid and multimodal families are not ported yet
+        # the other families are not ported yet
         raise NotImplementedError(
             f"Architecture '{arch}' is not ported to automodel_tpu_torch; "
             f"ported: {sorted(MODEL_ARCH_MAPPING)}"

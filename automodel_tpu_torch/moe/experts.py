@@ -1,0 +1,126 @@
+"""Expert compute, dropless (port of `gated_combine`, `init_experts`,
+`experts_forward_dropless` and `shared_expert_forward` from
+`automodel_tpu/moe/experts.py`).
+
+The JAX dropless path sorts the (token, slot) pairs by expert and runs the
+three expert products as `lax.ragged_dot` (an XLA op, not a Pallas kernel).
+Here the same sort feeds a per-expert loop of plain products over each
+expert's contiguous rows, and `index_add_` scatters the weighted rows back
+into token order. The loop reads the group sizes on the host (one sync per
+MoE layer); a grouped GEMM is later work. The capacity (einsum) dispatch and
+the expert-parallel all-to-all are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from automodel_tpu_torch.models.common.layers import init_fns
+from automodel_tpu_torch.moe.config import MoEConfig
+
+_EXPERT_ACT = {
+    "silu": F.silu,
+    # jax.nn.gelu defaults to the tanh approximation
+    "geglu": lambda x: F.gelu(x, approximate="tanh"),
+    "quick_geglu": lambda x: x * torch.sigmoid(1.702 * x),
+    "relu2": lambda x: torch.square(F.relu(x)),
+}
+
+
+def gated_combine(g, u, kind: str, limit: float = 7.0):
+    """gate/up → MLP inner. "swigluoai" is gpt-oss's clamped variant:
+    min(g,limit)·sigmoid(1.702·g)·(clip(u,±limit)+1); others are act(g)·u."""
+    if kind == "swigluoai":
+        g = torch.clamp(g, max=limit)
+        u = torch.clamp(u, -limit, limit)
+        return g * torch.sigmoid(1.702 * g) * (u + 1.0)
+    return _EXPERT_ACT[kind](g) * u
+
+
+def init_experts(cfg: MoEConfig, hidden_size: int, gen: torch.Generator,
+                 dtype: torch.dtype = torch.float32,
+                 num_layers: int | None = None) -> dict:
+    """(E, H, I) / (E, I, H) expert kernels (stacked on dim 0 with
+    `num_layers`), fan-in std as the JAX init."""
+    _, zeros, dense = init_fns(gen, dtype)
+    lead = () if num_layers is None else (num_layers,)
+    E, H, I = cfg.n_routed_experts, hidden_size, cfg.moe_intermediate_size
+    params = {
+        "up_proj": {"kernel": dense(*lead, E, H, I)},
+        "down_proj": {"kernel": dense(*lead, E, I, H)},
+    }
+    if cfg.gated_experts:
+        params["gate_proj"] = {"kernel": dense(*lead, E, H, I)}
+    if cfg.expert_bias:
+        params["up_proj"]["bias"] = zeros(*lead, E, I)
+        params["down_proj"]["bias"] = zeros(*lead, E, H)
+        if cfg.gated_experts:
+            params["gate_proj"]["bias"] = zeros(*lead, E, I)
+    return params
+
+
+def _linear(rows, p, e):
+    y = rows @ p["kernel"][e]
+    if "bias" in p:
+        y = y + p["bias"][e]
+    return y
+
+
+def experts_forward_dropless(
+    params: dict,
+    cfg: MoEConfig,
+    x: torch.Tensor,        # (T, H)
+    weights: torch.Tensor,  # (T, K)
+    indices: torch.Tensor,  # (T, K); E marks a masked token
+) -> torch.Tensor:
+    """Dropless sort-based dispatch: (token, slot) pairs sorted stably by
+    expert, each expert's rows through its gated MLP, rows weighted and
+    added back into token order. Masked pairs (index E) sort last and
+    contribute nothing."""
+    T, H = x.shape
+    K, E = cfg.experts_per_token, cfg.n_routed_experts
+    dtype = x.dtype
+
+    flat_expert = indices.reshape(T * K).long()
+    # stable sort groups rows by expert while keeping token order within
+    sort_idx = torch.argsort(flat_expert, stable=True)
+    token_of = sort_idx // K
+    xs = x[token_of]  # (TK, H)
+    sizes = torch.bincount(flat_expert, minlength=E + 1)[:E].tolist()
+
+    y = torch.zeros((T * K, H), dtype=dtype, device=x.device)
+    start = 0
+    for e, n in enumerate(sizes):
+        if n == 0:
+            continue
+        rows = xs[start:start + n]
+        u = _linear(rows, params["up_proj"], e)
+        if cfg.gated_experts:
+            g = _linear(rows, params["gate_proj"], e)
+            h_in = gated_combine(g, u, cfg.expert_activation, cfg.swiglu_limit)
+        else:
+            h_in = _EXPERT_ACT[cfg.expert_activation](u)
+        y[start:start + n] = _linear(h_in, params["down_proj"], e)
+        start += n
+
+    w_sorted = weights.reshape(T * K)[sort_idx].to(dtype)
+    contrib = y * w_sorted[:, None]
+    return torch.zeros((T, H), dtype=dtype, device=x.device).index_add_(
+        0, token_of, contrib)
+
+
+def shared_expert_forward(params: dict, cfg: MoEConfig,
+                          flat: torch.Tensor) -> torch.Tensor:
+    """Dense shared-expert branch added to the routed output (DeepSeek /
+    Qwen-MoE style)."""
+    u = flat @ params["up_proj"]["kernel"]
+    if cfg.shared_expert_is_gated:
+        g = flat @ params["gate_proj"]["kernel"]
+        inner = gated_combine(g, u, cfg.shared_expert_activation, cfg.swiglu_limit)
+    else:
+        inner = _EXPERT_ACT[cfg.shared_expert_activation](u)
+    out = inner @ params["down_proj"]["kernel"]
+    if cfg.shared_expert_gated:
+        out = out * torch.sigmoid(flat @ params["gate"]["kernel"])
+    return out

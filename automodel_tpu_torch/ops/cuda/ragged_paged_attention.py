@@ -1,8 +1,10 @@
-"""Wrapper of K4, the ragged paged GQA attention kernel
-(`csrc/ragged_paged_attention.cu`; replaces
-`automodel_tpu/ops/pallas/ragged_paged_attention.py:_gqa_kernel`).
+"""Wrappers of K4 and K5, the ragged paged GQA attention kernels over fp
+pages (K4) and over int8 pages with per-row scales (K5)
+(`csrc/ragged_paged_attention.cu`; they replace
+`automodel_tpu/ops/pallas/ragged_paged_attention.py:_gqa_kernel` and
+`:_gqa_quant_kernel`).
 
-The plain version of the same function is
+The plain version of both is
 `automodel_tpu_torch.ops.paged_attention.ragged_paged_attention_ref`.
 """
 
@@ -16,7 +18,8 @@ from automodel_tpu_torch.ops.cuda._build import load_library
 
 SOURCE = "ragged_paged_attention.cu"
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the C interface's dtype argument for q (and, for K4, the pages)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _lib() -> ctypes.CDLL:
@@ -27,25 +30,34 @@ def _lib() -> ctypes.CDLL:
             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         lib.rpa_gqa_forward.restype = ctypes.c_int
+        lib.rpa_gqa_quant_forward.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.rpa_gqa_quant_forward.restype = ctypes.c_int
         lib.rpa_error_string.argtypes = [ctypes.c_int]
         lib.rpa_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q, k_pages, v_pages, page_tables, positions):
-    tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages,
-                   page_tables=page_tables, positions=positions)
-    for name, x in tensors.items():
+def check_on_card(q, **tensors) -> None:
+    """Every tensor is a contiguous CUDA tensor on q's device."""
+    for name, x in dict(q=q, **tensors).items():
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor (got {x.device})")
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPE_CODES:
+
+
+def _check(q, k_pages, v_pages, page_tables, positions, page_dtype):
+    check_on_card(q, k_pages=k_pages, v_pages=v_pages,
+                  page_tables=page_tables, positions=positions)
+    if q.dtype not in DTYPE_CODES:
         raise TypeError(f"q dtype {q.dtype} is not float32 or bfloat16")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError("q, k_pages and v_pages must share one dtype")
+    if k_pages.dtype != page_dtype or v_pages.dtype != page_dtype:
+        raise TypeError(f"k_pages and v_pages must be {page_dtype}")
     if page_tables.dtype != torch.int32 or positions.dtype != torch.int32:
         raise TypeError("page_tables and positions must be int32")
     if q.dim() != 3 or k_pages.dim() != 4 or v_pages.dim() != 4:
@@ -65,6 +77,23 @@ def _check(q, k_pages, v_pages, page_tables, positions):
         raise ValueError("positions must be (T,)")
 
 
+def check_scales(pages, scales, name: str) -> None:
+    """(N, ps) fp32 per-row scales beside (N, ps, ...) int8 pages."""
+    if scales.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32")
+    if tuple(scales.shape) != tuple(pages.shape[:2]):
+        raise ValueError(
+            f"{name} {tuple(scales.shape)} does not match pages "
+            f"{tuple(pages.shape[:2])}"
+        )
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.rpa_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg}")
+
+
 def ragged_paged_attention_cuda(
     q, k_pages, v_pages, page_tables, positions,
     *,
@@ -75,7 +104,7 @@ def ragged_paged_attention_cuda(
     float32 or bfloat16, page_tables (T, P) and positions (T,) int32.
     Returns (T, Hq, Dv) in q's dtype. Page-table entries must index the
     pool (the kernel does not bound-check them)."""
-    _check(q, k_pages, v_pages, page_tables, positions)
+    _check(q, k_pages, v_pages, page_tables, positions, q.dtype)
     if soft_cap is not None and soft_cap <= 0:
         raise ValueError(f"soft_cap must be positive (got {soft_cap})")
     T, Hq, D = q.shape
@@ -88,14 +117,49 @@ def ragged_paged_attention_cuda(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
             T, Hq, Hkv, D, Dv, ps, page_tables.shape[1],
-            float(scale), float(soft_cap or 0.0), _DTYPE_CODES[q.dtype],
+            float(scale), float(soft_cap or 0.0), DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    if err != 0:
-        msg = lib.rpa_error_string(err).decode()
-        raise RuntimeError(f"ragged paged attention launch failed: {msg}")
+    _raise_on(lib, err, "ragged paged attention")
     ragged_paged_attention_cuda.launches += 1
     return out
 
 
 ragged_paged_attention_cuda.launches = 0
+
+
+def ragged_paged_attention_quant_cuda(
+    q, k_pages, v_pages, k_scales, v_scales, page_tables, positions,
+    *,
+    scale: float,
+    soft_cap: float | None = None,
+) -> torch.Tensor:
+    """K5 on CUDA tensors: q (T, Hq, D) float32 or bfloat16, int8 pages
+    (N+1, ps, Hkv, D[v]) with (N+1, ps) float32 per-row scales, page_tables
+    (T, P) and positions (T,) int32. Returns (T, Hq, Dv) in q's dtype."""
+    _check(q, k_pages, v_pages, page_tables, positions, torch.int8)
+    check_on_card(q, k_scales=k_scales, v_scales=v_scales)
+    check_scales(k_pages, k_scales, "k_scales")
+    check_scales(v_pages, v_scales, "v_scales")
+    if soft_cap is not None and soft_cap <= 0:
+        raise ValueError(f"soft_cap must be positive (got {soft_cap})")
+    T, Hq, D = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    Dv = v_pages.shape[-1]
+    out = torch.empty((T, Hq, Dv), dtype=q.dtype, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        err = lib.rpa_gqa_quant_forward(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(),
+            page_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            T, Hq, Hkv, D, Dv, ps, page_tables.shape[1],
+            float(scale), float(soft_cap or 0.0), DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on(lib, err, "quantized ragged paged attention")
+    ragged_paged_attention_quant_cuda.launches += 1
+    return out
+
+
+ragged_paged_attention_quant_cuda.launches = 0

@@ -1,15 +1,27 @@
-"""Continuous-batching serving engine (port of `automodel_tpu/serving/engine.py`,
-the plain GQA path).
+"""Continuous-batching serving engine (port of `automodel_tpu/serving/engine.py`:
+dense and MoE decoders, GQA or MLA attention, fp or int8 KV pages).
 
 Requests of any length join and leave a running batch freely. Every engine
 step runs one fixed-shape `StepPlan` the scheduler packs — a flat
 `token_budget`-row ragged batch of decode rows interleaved with chunked-
 prefill rows — through the decoder over the paged KV pool
-(`kv_pages.py`): copy-on-write page splits, embed, per layer the q/k/v
-projections, the K/V scatter into the pool and ragged paged attention
-(`ops/paged_attention.py`: the hand-written CUDA kernel on the card, the
-plain version on the CPU), then the MLP; final norm, unembed and the
-greedy/sampled tail.
+(`kv_pages.py`): copy-on-write page splits, embed, per layer the attention
+projections, the scatter of the new rows into the pool and ragged paged
+attention (`ops/paged_attention.py`: the hand-written CUDA kernels on the
+card, the plain versions on the CPU), then the MLP; final norm, unembed and
+the greedy/sampled tail.
+
+- GQA: q/k/v projections, K/V rows into the pool, K4 (fp pages) or K5.
+- MLA (DeepSeek latent attention): the absorbed projections
+  (`inference/generate.mla_absorbed_inputs`), the kv latent and the shared
+  rope row into the latent pool, K6 (fp pages) or K7 over the latent pages,
+  then the value half of the kv up-projection and o_proj.
+- MoE decoders run the dense prefix stack (`dense_layers`, gated MLP) and
+  then the MoE stack (`moe_layers`, dropless routed + shared experts); each
+  stack has its own pool tuple.
+- kv_cache_dtype="int8": the new rows quantize at scatter time
+  (`ops/quant.quantize_kv_rows`, one fp32 scale per row into the pool's
+  scale planes) and attention dequantizes inside the kernel.
 
 What differs from the JAX engine:
 
@@ -24,9 +36,9 @@ What differs from the JAX engine:
   tokens match JAX in distribution, not bit for bit. Greedy decoding
   matches token for token.
 - Not ported yet (they raise NotImplementedError): speculative decoding,
-  int8 KV pages, low-precision serve linears, a serving mesh, MLA and MoE
-  decoders, and sliding windows or sinks through the CUDA kernel (pass
-  `attn_impl="torch"` to serve them with the plain version).
+  low-precision serve linears, a serving mesh (tp, ep), and sliding windows
+  or sinks through the CUDA kernels (pass `attn_impl="torch"` to serve them
+  with the plain version).
 """
 
 from __future__ import annotations
@@ -37,7 +49,12 @@ import time
 import numpy as np
 import torch
 
-from automodel_tpu_torch.inference.generate import _dense_mlp, _embed
+from automodel_tpu_torch.inference.generate import (
+    _dense_mlp,
+    _embed,
+    _moe_mlp,
+    mla_absorbed_inputs,
+)
 from automodel_tpu_torch.inference.sampling import filter_logits
 from automodel_tpu_torch.models.common.layers import cast_params
 from automodel_tpu_torch.models.llm.decoder import (
@@ -47,7 +64,11 @@ from automodel_tpu_torch.models.llm.decoder import (
     unembed,
 )
 from automodel_tpu_torch.ops.norms import rms_norm
-from automodel_tpu_torch.ops.paged_attention import ragged_paged_attention
+from automodel_tpu_torch.ops.paged_attention import (
+    ragged_paged_attention,
+    ragged_paged_mla_attention,
+)
+from automodel_tpu_torch.ops.quant import quantize_kv_rows
 from automodel_tpu_torch.ops.rope import rope_frequencies
 from automodel_tpu_torch.serving.kv_pages import (
     PageAllocator,
@@ -76,9 +97,10 @@ class ServingConfig:
     # radix tree over known tokens
     prefix_cache: PrefixCacheConfig | None = None
     admission_policy: str = "fifo"  # "fifo" | "prefix-hit"
+    # int8 KV pages + per-row fp32 scales: None (model dtype) | "int8"
+    kv_cache_dtype: str | None = None
     # JAX-engine options this port does not cover yet: setting one raises
     speculative: object | None = None
-    kv_cache_dtype: str | None = None
     serve_precision: str | None = None
 
     def __post_init__(self):
@@ -98,7 +120,10 @@ class ServingConfig:
             self.prefix_cache is not None and self.prefix_cache.enabled
         ):
             raise ValueError("admission_policy='prefix-hit' needs the prefix cache")
-        for name in ("speculative", "kv_cache_dtype", "serve_precision"):
+        if self.kv_cache_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be None or 'int8' (got {self.kv_cache_dtype!r})")
+        for name in ("speculative", "serve_precision"):
             if getattr(self, name) is not None:
                 raise NotImplementedError(f"serving.{name} is not ported yet")
 
@@ -150,13 +175,14 @@ def _layer_slice(stacked, i: int):
 
 
 class ServingEngine:
-    """Paged-cache continuous-batching engine for the dense GQA decoder
-    (`models/llm/decoder.TransformerConfig`).
+    """Paged-cache continuous-batching engine for the dense decoder
+    (`models/llm/decoder.TransformerConfig`) and the MoE decoder
+    (`models/moe_lm/decoder.MoETransformerConfig`), GQA or MLA.
 
     `device=None` means CUDA and raises without a CUDA device; tests pass
-    `device="cpu"`. `attn_impl` is handed to `ragged_paged_attention`:
-    "auto" runs the CUDA kernel on the card and the plain version on the
-    CPU; "torch" asks for the plain version on any device."""
+    `device="cpu"`. `attn_impl` is handed to the paged attention ops:
+    "auto" runs the CUDA kernels on the card and the plain versions on the
+    CPU; "torch" asks for the plain versions on any device."""
 
     def __init__(
         self,
@@ -168,9 +194,7 @@ class ServingEngine:
         device=None,
         attn_impl: str = "auto",
     ):
-        if getattr(cfg, "moe", None) is not None:
-            raise NotImplementedError("MoE decoders are not ported yet")
-        if cfg.attention_type != "gqa":
+        if cfg.attention_type not in ("gqa", "mla"):
             raise NotImplementedError(
                 f"attention_type {cfg.attention_type!r} is not ported yet"
             )
@@ -181,19 +205,38 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.serve_cfg = serve_cfg
+        self.is_mla = cfg.attention_type == "mla"
+        self._kv_quant = serve_cfg.kv_cache_dtype is not None
         self.params = cast_params(params, cfg.dtype, self.device)
-        L = self.params["layers"]["input_norm"]["scale"].shape[0]
-        self._layers = [_layer_slice(self.params["layers"], i) for i in range(L)]
 
-        self._windows = [w or 0 for w in layer_windows(cfg, L)]
+        # stacks mirror the JAX engine: a dense decoder has one; an MoE
+        # decoder a dense prefix stack, then the MoE stack
+        if getattr(cfg, "moe", None) is not None:
+            stacks = []
+            if cfg.first_k_dense > 0:
+                stacks.append(("dense_layers", _dense_mlp, cfg.first_k_dense))
+            stacks.append(("moe_layers", _moe_mlp, cfg.num_moe_layers))
+        else:
+            L = self.params["layers"]["input_norm"]["scale"].shape[0]
+            stacks = [("layers", _dense_mlp, L)]
+        # one entry per layer, in order: (stack index, index in the stack,
+        # the layer's weights, its MLP)
+        self._layers = [
+            (si, li, _layer_slice(self.params[key], li), mlp_fn)
+            for si, (key, mlp_fn, L) in enumerate(stacks)
+            for li in range(L)
+        ]
+        n_layers = len(self._layers)
+
+        self._windows = [w or 0 for w in layer_windows(cfg, n_layers)]
         self._any_window = any(self._windows)
-        has_sinks = "sinks" in self.params["layers"]
+        has_sinks = any("sinks" in self.params[key] for key, _, _ in stacks)
         uses_kernel = attn_impl == "cuda" or (
             attn_impl == "auto" and self.device.type == "cuda"
         )
         if uses_kernel and (self._any_window or has_sinks):
             raise NotImplementedError(
-                "the CUDA paged attention kernel covers neither sliding "
+                "the CUDA paged attention kernels cover neither sliding "
                 "windows nor sinks; pass attn_impl='torch' for the plain version"
             )
         self._attn_impl = attn_impl
@@ -206,10 +249,11 @@ class ServingEngine:
             ).to(self.device)
             self._freqs = [inv_local if w > 0 else inv_freq for w in self._windows]
         else:
-            self._freqs = [inv_freq] * L
+            self._freqs = [inv_freq] * n_layers
 
         self.pool = init_pool(
-            cfg, [L], serve_cfg.num_pages, serve_cfg.page_size, self.device
+            cfg, [L for _, _, L in stacks], serve_cfg.num_pages,
+            serve_cfg.page_size, self.device, serve_cfg.kv_cache_dtype,
         )
         # engine-lifetime prefix cache: with the cache enabled, one
         # allocator + radix tree serve every scheduler this engine makes, so
@@ -224,26 +268,61 @@ class ServingEngine:
         self.steps_run = 0
 
     # -- device step --------------------------------------------------------
-    def _attn(self, h, i, lp, b, pt_tok, rope_pos):
-        """Layer i's attention sub-block: write the new rows' K/V into the
-        pool in place, attend over the pages. h is (1, T, H)."""
+    def _write_rows(self, cache, li, b, rows) -> tuple:
+        """Scatter the step's new cache rows (one tensor per pool payload:
+        K and V, or the latent and rope rows) into layer li of a stack's
+        pool tuple, in place. fp pools take the rows in the pool dtype; int8
+        pools quantize each row (`quantize_kv_rows`) and write its scale
+        into the payload's scale plane. Returns layer li's two scale planes
+        for the attention op, (None, None) for fp pools."""
+        page, off = b["page"], b["off"]
+        if not self._kv_quant:
+            for pool_x, x in zip(cache, rows):
+                pool_x[li][page, off] = x.to(pool_x.dtype)
+            return None, None
+        planes = cache[len(rows):]
+        for pool_x, plane, x in zip(cache, planes, rows):
+            qx, row_scales = quantize_kv_rows(x)
+            pool_x[li][page, off] = qx
+            plane[li][page, off] = row_scales
+        return tuple(plane[li] for plane in planes)
+
+    def _attn(self, h, i, li, lp, cache, b, pt_tok, rope_pos):
+        """Layer i's attention sub-block (layer li of its stack, whose pool
+        tuple is `cache`): write the new rows into the pool in place, attend
+        over the pages. h is (1, T, H)."""
         cfg = self.cfg
         x = rms_norm(h, lp["input_norm"]["scale"], cfg.rms_norm_eps,
                      cfg.zero_centered_norm)
+        window = self._windows[i] if self._any_window else None
+        if self.is_mla:
+            n, dv = cfg.num_heads, cfg.mla_v_head_dim
+            q_abs, q_rope, c_kv, k_rope, w_uv = mla_absorbed_inputs(
+                x, lp, cfg, rope_pos, self._freqs[i]
+            )
+            c_scales, kr_scales = self._write_rows(cache, li, b, (c_kv[0], k_rope[0]))
+            scale = (
+                cfg.attn_scale if cfg.attn_scale is not None
+                else (cfg.mla_qk_nope_head_dim + cfg.mla_qk_rope_head_dim) ** -0.5
+            )
+            out_lat = ragged_paged_mla_attention(
+                q_abs[0].contiguous(), q_rope[0].contiguous(), cache[0][li],
+                cache[1][li], pt_tok, b["pos"], scale=scale, window=window,
+                impl=self._attn_impl, c_scales=c_scales, kr_scales=kr_scales,
+            )
+            attn = torch.einsum("tnr,rnd->tnd", out_lat, w_uv)
+            return h + attn.reshape(1, -1, n * dv) @ lp["o_proj"]["kernel"]
         q, k, v = project_qkv(x, lp, cfg, rope_pos, self._freqs[i])
-        pool_k, pool_v = self.pool[0]
-        pool_k[i][b["page"], b["off"]] = k[0].to(pool_k.dtype)
-        pool_v[i][b["page"], b["off"]] = v[0].to(pool_v.dtype)
+        k_scales, v_scales = self._write_rows(cache, li, b, (k[0], v[0]))
         scale = (
             cfg.attn_scale if cfg.attn_scale is not None
             else cfg.resolved_head_dim ** -0.5
         )
         attn = ragged_paged_attention(
-            q[0].contiguous(), pool_k[i], pool_v[i], pt_tok, b["pos"],
-            scale=scale,
-            window=self._windows[i] if self._any_window else None,
+            q[0].contiguous(), cache[0][li], cache[1][li], pt_tok, b["pos"],
+            scale=scale, window=window,
             soft_cap=cfg.attn_soft_cap, sinks=lp.get("sinks"),
-            impl=self._attn_impl,
+            impl=self._attn_impl, k_scales=k_scales, v_scales=v_scales,
         )
         T = attn.shape[0]
         attn_out = _dense(attn.reshape(1, T, -1), lp["o_proj"])
@@ -264,9 +343,9 @@ class ServingEngine:
         pt_tok = b["page_tables"][b["slot"].clamp(min=0).long()]
         rope_pos = b["pos"].clamp(min=0)[None]  # (1, T); pads clamped
         h = _embed(self.params, cfg, b["tok"][None].long())  # (1, T, H)
-        for i, lp in enumerate(self._layers):
-            h = self._attn(h, i, lp, b, pt_tok, rope_pos)
-            h = _dense_mlp(h, lp, cfg)
+        for i, (si, li, lp, mlp_fn) in enumerate(self._layers):
+            h = self._attn(h, i, li, lp, self.pool[si], b, pt_tok, rope_pos)
+            h = mlp_fn(h, lp, cfg)
         h = rms_norm(h, self.params["final_norm"]["scale"], cfg.rms_norm_eps,
                      cfg.zero_centered_norm)
         idx = b["sample_tok"].clamp(0, h.shape[1] - 1).long()

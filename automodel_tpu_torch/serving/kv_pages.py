@@ -1,5 +1,5 @@
 """Paged KV cache: a global page pool + per-request page tables (port of
-`automodel_tpu/serving/kv_pages.py`, fp GQA pools).
+`automodel_tpu/serving/kv_pages.py`: GQA and MLA pools, fp or int8).
 
 The sequence dimension is cut into fixed-size pages living in one global
 pool shared by every request, and each request holds a PAGE TABLE — the
@@ -9,9 +9,11 @@ growth and preemption are integer page accounting on the host
 (`PageAllocator`), while the device tensors keep one fixed shape.
 
 Device layout (L = layers of a stack, N = `num_pages`, ps = `page_size`):
-k/v (L, N+1, ps, Hkv, D). Page index N is the TRASH page that pad token rows
-write into and padded page-table entries point at, keeping every gather and
-scatter in bounds without branching.
+GQA k/v (L, N+1, ps, Hkv, D); MLA latent c (L, N+1, ps, r) and rope kr
+(L, N+1, ps, dr). With kv_cache_dtype="int8" the payloads are int8 and two
+(L, N+1, ps) fp32 scale planes ride beside them. Page index N is the TRASH
+page that pad token rows write into and padded page-table entries point at,
+keeping every gather and scatter in bounds without branching.
 
 Pages are REFCOUNTED (prefix sharing, serving/prefix_cache.py): a page may
 appear in many slots' tables and be pinned by the radix tree. `cow` gives a
@@ -153,28 +155,62 @@ class PageAllocator:
 
 def apply_defrag(pool, src: torch.Tensor):
     """Apply a defrag plan to a pool (list of per-stack tensor tuples): one
-    gather along the page axis (axis 1, after the layer axis) per tensor;
-    the trash page stays put. Returns the new pool."""
+    gather along the page axis (axis 1, after the layer axis) per tensor,
+    scale planes included; the trash page stays put. Returns the new pool."""
     trash = pool[0][0].shape[1] - 1
     full = torch.cat([src, torch.tensor([trash])])
     return [tuple(a[:, full.to(a.device)] for a in stack) for stack in pool]
 
 
-def init_gqa_pool(cfg, num_layers: int, num_pages: int, page_size: int,
-                  device) -> tuple:
-    """(k, v) pool tensors (L, N+1, ps, Hkv, D) in cfg.dtype for one stack."""
-    shape = (num_layers, num_pages + 1, page_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+def _stack(shapes, cfg, num_layers, num_pages, page_size, device,
+           kv_cache_dtype) -> tuple:
+    """Zeroed payloads of `shapes` in cfg.dtype; with kv_cache_dtype="int8"
+    int8 payloads plus two (L, N+1, ps) fp32 scale planes, one scalar per
+    cache row with a page's rows contiguous, so every page-axis operation
+    on the pool (COW copy, defrag gather) moves a page's scales with its
+    payload. The planes start at 1.0 (identity dequant for rows never
+    written)."""
+    if kv_cache_dtype is None:
+        return tuple(torch.zeros(sh, dtype=cfg.dtype, device=device)
+                     for sh in shapes)
+    if kv_cache_dtype != "int8":
+        raise ValueError(f"kv_cache_dtype must be None or 'int8' (got {kv_cache_dtype!r})")
+    planes = (num_layers, num_pages + 1, page_size)
     return (
-        torch.zeros(shape, dtype=cfg.dtype, device=device),
-        torch.zeros(shape, dtype=cfg.dtype, device=device),
+        *(torch.zeros(sh, dtype=torch.int8, device=device) for sh in shapes),
+        *(torch.ones(planes, dtype=torch.float32, device=device) for _ in shapes),
     )
 
 
+def init_gqa_pool(cfg, num_layers: int, num_pages: int, page_size: int,
+                  device, kv_cache_dtype: str | None = None) -> tuple:
+    """(k, v) pool tensors (L, N+1, ps, Hkv, D) in cfg.dtype for one stack;
+    kv_cache_dtype="int8" → (k, v, k_scale, v_scale): int8 payloads at the
+    same shapes plus the (L, N+1, ps) scale planes."""
+    shape = (num_layers, num_pages + 1, page_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return _stack((shape, shape), cfg, num_layers, num_pages, page_size,
+                  device, kv_cache_dtype)
+
+
+def init_mla_pool(cfg, num_layers: int, num_pages: int, page_size: int,
+                  device, kv_cache_dtype: str | None = None) -> tuple:
+    """(c, kr) pool tensors for one MLA stack (the absorbed latent cache):
+    c (L, N+1, ps, r) and kr (L, N+1, ps, dr); kv_cache_dtype="int8" →
+    (c, kr, c_scale, kr_scale)."""
+    c_shape = (num_layers, num_pages + 1, page_size, cfg.mla_kv_lora_rank)
+    kr_shape = (num_layers, num_pages + 1, page_size, cfg.mla_qk_rope_head_dim)
+    return _stack((c_shape, kr_shape), cfg, num_layers, num_pages, page_size,
+                  device, kv_cache_dtype)
+
+
 def init_pool(cfg, stack_layers: list[int], num_pages: int, page_size: int,
-              device) -> list:
-    """Per-stack (k, v) pool tuples (a dense decoder has one stack)."""
+              device, kv_cache_dtype: str | None = None) -> list:
+    """Per-stack pool tuples: a dense decoder has one stack, an MoE decoder
+    a dense prefix stack and the MoE stack. GQA or MLA by
+    cfg.attention_type; 2 leaves (fp) or 4 (int8 payloads + scale planes)."""
+    init = init_mla_pool if cfg.attention_type == "mla" else init_gqa_pool
     return [
-        init_gqa_pool(cfg, L, num_pages, page_size, device)
+        init(cfg, L, num_pages, page_size, device, kv_cache_dtype)
         for L in stack_layers
     ]

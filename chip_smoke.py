@@ -8,33 +8,44 @@ Builds every hand-written kernel of the port from `automodel_tpu_torch/csrc/`
 one JSON line each:
 
 1. device: the card as `nvidia-smi` names it, with its power limit;
-2. kernel: K4 (ragged paged attention) against its plain PyTorch version on
-   the card, in bf16 and fp32, at Llama-3-8B's attention shapes, timed
-   beside its memory bound;
+2. kernel: the paged-attention kernels against their plain PyTorch versions
+   on the card, in bf16 and fp32, at one full serve step's rows (64 rows,
+   contexts up to 999 tokens, pad rows), each timed beside its bound: K4
+   (fp pages) and K5 (int8 pages) at Llama-3-8B's heads (32/8, D 128), K6
+   (fp latent pages) and K7 (int8) at Moonlight's MLA widths (16 heads,
+   r 512, dr 64);
 3. flash: K1-K3 (flash attention forward, dq, dk/dv) against their plain
    versions at the training shapes (B 1, S 4096, Hq 32, Hkv 8, D 128,
    causal) in bf16 and fp32, plus a packed-segment case and an S that is
    not a multiple of the tile; timed beside their operations bound, the
    plain versions and `scaled_dot_product_attention` as a yardstick;
-4. serve: the serving engine's main path (`ServingEngine.serve_batch`) at
+4. serve / serve_int8: the dense main path (`ServingEngine.serve_batch`) at
    the full width and depth of Llama-3-8B with random weights: 16 requests
-   of 64-900 prompt tokens, 32 greedy tokens each; every layer of every
-   step must have launched K4. A profile of 10 more steps of the same
-   traffic follows (device time by kernel, idle share);
-5. engine: at the same width but 2 layers in fp32, the same step plans run
-   through the engine with the kernel and with the plain version, whose
-   logits and greedy tokens must agree;
-6. train: the training CLI (`python -m automodel_tpu_torch`, run in this
+   of 64-900 prompt tokens arriving every 2 steps, 32 greedy tokens each,
+   on the fp pool (every layer of every step launches K4) and on the int8
+   pool with the same weights (K5), with the greedy agreement between the
+   two; a profile of 10 more steps of the same traffic follows each
+   (device time by kernel, idle share);
+5. serve_mla / serve_mla_int8: the MLA + MoE main path, Moonlight-16B-A3B
+   at full width and all 27 layers, bf16, random weights from seed 0, on
+   the same traffic, on the fp pool (K6) and on the int8 pool (K7), each
+   with its profile;
+6. engine / engine_mla: 2-layer fp32 engines at Llama-3-8B width (K4) and
+   at Moonlight width (one dense, one MoE layer; K6 on the fp pool, K7 on
+   the int8 pool): the same step plans run through the engine with the
+   kernels and with the plain versions, whose logits and greedy tokens
+   must agree;
+7. train: the training CLI (`python -m automodel_tpu_torch`, run in this
    process) on `examples/llm_pretrain/llama3_8b_mock_bf16.yaml` at its
    published width, bf16 and full remat, cut to 8 layers, 2 microbatches
    of 4096 tokens per step, 5 steps: every loss and grad norm finite, the
    first loss near ln(vocab), K1 launched 2 x layers x microbatches x steps
    times (forward and remat recompute), K2 and K3 half that; then one more
    step under torch.profiler;
-7. train check: the same width, 2 layers, fp32, one accumulated step from
+8. train check: the same width, 2 layers, fp32, one accumulated step from
    the same weights and batch with the kernels and with the plain
    attention: losses and gradients must agree;
-8. train paths: `examples/llm_finetune/tiny_llama_mock_smoke.yaml` (fp32,
+9. train paths: `examples/llm_finetune/tiny_llama_mock_smoke.yaml` (fp32,
    head dim 16) for its 10 steps through the CLI with the kernels and
    through the recipe class called directly with the plain attention:
    the loss curves must agree.
@@ -68,14 +79,25 @@ from automodel_tpu_torch.loss import fused_linear_cross_entropy
 from automodel_tpu_torch.models.common.layers import count_params
 from automodel_tpu_torch.models.llm import decoder
 from automodel_tpu_torch.models.llm.families import llama_config
+from automodel_tpu_torch.models.moe_lm import decoder as moe_decoder
+from automodel_tpu_torch.models.moe_lm.families import deepseek_v3_moe_config
 from automodel_tpu_torch.ops import flash_attention as fa
 from automodel_tpu_torch.ops.cuda import _build
 from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
+from automodel_tpu_torch.ops.cuda.paged_mla_attention import (
+    SOURCE as MLA_SOURCE,
+    paged_mla_attention_cuda,
+    paged_mla_attention_quant_cuda,
+)
 from automodel_tpu_torch.ops.cuda.ragged_paged_attention import (
     SOURCE as K4_SOURCE,
     ragged_paged_attention_cuda,
+    ragged_paged_attention_quant_cuda,
 )
-from automodel_tpu_torch.ops.paged_attention import ragged_paged_attention_ref
+from automodel_tpu_torch.ops.paged_attention import (
+    ragged_paged_attention_ref,
+    ragged_paged_mla_attention_ref,
+)
 from automodel_tpu_torch.recipes.llm.train_ft import (
     TrainFinetuneRecipeForNextTokenPrediction,
 )
@@ -95,6 +117,23 @@ LLAMA3_8B = {
     "num_key_value_heads": 8, "rope_theta": 500000.0,
     "max_position_embeddings": 8192,
 }
+# Moonlight-16B-A3B (moonshotai/Moonlight-16B-A3B, config.json, as the
+# model-configs catalog gives it): DeepseekV3ForCausalLM, MLA + MoE, no yarn
+MOONLIGHT = {
+    "architectures": ["DeepseekV3ForCausalLM"], "vocab_size": 163840,
+    "hidden_size": 2048, "intermediate_size": 11264,
+    "moe_intermediate_size": 1408, "num_hidden_layers": 27,
+    "num_attention_heads": 16, "num_key_value_heads": 16,
+    "n_shared_experts": 2, "n_routed_experts": 64,
+    "routed_scaling_factor": 2.446, "kv_lora_rank": 512, "q_lora_rank": None,
+    "qk_rope_head_dim": 64, "qk_nope_head_dim": 128, "v_head_dim": 128,
+    "n_group": 1, "topk_group": 1, "num_experts_per_tok": 6,
+    "first_k_dense_replace": 1, "norm_topk_prob": True,
+    "scoring_func": "sigmoid", "topk_method": "noaux_tc",
+    "rope_theta": 50000.0, "rms_norm_eps": 1e-5,
+    "max_position_embeddings": 8192, "num_nextn_predict_layers": 0,
+    "tie_word_embeddings": False,
+}
 # the llm_serve recipe's default ServingConfig (recipes/llm/serve.py)
 SERVE = ServingConfig(
     page_size=16, num_pages=2048, max_slots=16, pages_per_slot=64,
@@ -108,9 +147,27 @@ SERVE = ServingConfig(
 # bf16, the kernel accumulates in fp32 and rounds once; 2e-2 is about two
 # bf16 ulps at |out| ~ 1.
 K4_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# fp32 logits of the 2-layer engine, kernel vs plain version: attention
-# differences of ~1e-6 pass through 2 layers and a 4096-wide unembed
+# fp32 logits of the 2-layer engines, kernel vs plain version: attention
+# differences of ~1e-6 pass through 2 layers and the unembed
 ENGINE_LOGITS_TOL = 1e-3
+# the same on the int8 pool: the second layer's new rows are quantized from
+# hidden states that differ by ~1e-6, so now and then a value sits on a
+# rounding half-step and lands one int8 step (~1% of its row's largest
+# value) apart in the two engines
+ENGINE_INT8_LOGITS_TOL = 2e-2
+# K5-K7 against their plain versions, as a share of the plain result's
+# largest magnitude. fp32: only the order of sums differs. bf16: the plain
+# versions round dequantized pages, probabilities and the value product to
+# bf16, K5 and K7 stay fp32 and round once (K6 rounds p to bf16 as its
+# plain version does); 2e-2 is about two bf16 ulps at the largest value.
+PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# every paged-attention kernel's wrapper, whose `launches` the serve runs read
+PAGED_KERNELS = {
+    "K4": ragged_paged_attention_cuda,
+    "K5": ragged_paged_attention_quant_cuda,
+    "K6": paged_mla_attention_cuda,
+    "K7": paged_mla_attention_quant_cuda,
+}
 
 # K1-K3 against their plain versions, as a share of the largest magnitude of
 # the plain result. fp32: only the summation order differs (online tiles vs
@@ -165,12 +222,13 @@ def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
-def k4_inputs(dtype, seed: int = 0):
-    """A serve step's K4 call at Llama-3-8B's attention shapes: T=64 rows
-    (12 decode rows of 12 requests, one request's 48-row prefill chunk,
-    4 pad rows), Hq 32 / Hkv 8 / D 128, 16-token pages, N+1 = 2049 pages in
-    permuted order, 64-page tables padded with the trash page."""
-    ps, N, P, Hq, Hkv, D = 16, 2048, 64, 32, 8, 128
+def step_rows(seed: int = 0):
+    """The rows of one full serve step: T=64 (12 decode rows of 12 requests
+    with contexts of 64-999 tokens, one request's 48-row prefill chunk at
+    positions 400-447, 4 pad rows), 16-token pages of a 2048-page pool in
+    permuted order, 64-page tables padded with the trash page. Returns
+    (page_tables, positions) on the card, (N, ps)."""
+    ps, N, P = 16, 2048, 64
     rng = np.random.default_rng(seed)
     perm = iter(rng.permutation(N))
     ctx = [int(c) for c in rng.integers(64, 1000, 12)] + [448]
@@ -180,43 +238,56 @@ def k4_inputs(dtype, seed: int = 0):
         tables.append(pages + [N] * (P - len(pages)))
     rows_pt = [tables[r] for r in range(12)] + [tables[12]] * 48 + [tables[0]] * 4
     rows_pos = [c - 1 for c in ctx[:12]] + list(range(400, 448)) + [-1] * 4
-    dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(64, Hq, D, generator=gen, device=dev).to(dtype)
-    kp = torch.randn(N + 1, ps, Hkv, D, generator=gen, device=dev).to(dtype)
-    vp = torch.randn(N + 1, ps, Hkv, D, generator=gen, device=dev).to(dtype)
-    pt = torch.tensor(rows_pt, dtype=torch.int32, device=dev)
-    pos = torch.tensor(rows_pos, dtype=torch.int32, device=dev)
+    pt = torch.tensor(rows_pt, dtype=torch.int32, device="cuda")
+    pos = torch.tensor(rows_pos, dtype=torch.int32, device="cuda")
+    return pt, pos, N, ps
+
+
+def k4_inputs(dtype, seed: int = 0):
+    """A serve step's K4 call at Llama-3-8B's attention shapes (`step_rows`;
+    Hq 32 / Hkv 8 / D 128)."""
+    pt, pos, N, ps = step_rows(seed)
+    Hq, Hkv, D = 32, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(64, Hq, D, generator=gen, device="cuda").to(dtype)
+    kp = torch.randn(N + 1, ps, Hkv, D, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(N + 1, ps, Hkv, D, generator=gen, device="cuda").to(dtype)
     return q, kp, vp, pt, pos
 
 
-def k4_bound(q, kp, vp, pt, pos):
-    """Least time for this call's work: the larger of (bytes it must move
-    over HBM bandwidth) and (operations over the peak rate of the dtype).
-    Bytes: every distinct page any row needs (K and V of all kv heads),
-    q, out, page tables and positions, each once. Operations: for each live
-    row, each attended kv index and each query head, 2*D for the score and
-    2*Dv for the value product."""
-    ps, Hkv, D = kp.shape[1], kp.shape[2], kp.shape[3]
-    Dv = vp.shape[-1]
-    elt = kp.element_size()
+def paged_bound(pt, pos, ps: int, page_bytes: int, io_bytes: int,
+                ops_per_kv: int, dtype):
+    """Least time of one paged-attention call: the larger of (bytes it must
+    move over HBM bandwidth) and (operations over the peak rate of the
+    query dtype). Bytes: every distinct page any live row needs, once
+    (`page_bytes` each, scales included), plus `io_bytes` (queries, output)
+    and the page tables and positions. Operations: `ops_per_kv` for each
+    kv index each live row attends to."""
     pos_h = pos.cpu().numpy()
     pt_h = pt.cpu().numpy()
     pages = set()
     for p, row in zip(pos_h, pt_h):
         if p >= 0:
             pages.update(int(x) for x in row[: p // ps + 1])
-    nbytes = (
-        len(pages) * ps * Hkv * (D + Dv) * elt
-        + q.numel() * elt + q.shape[0] * q.shape[1] * Dv * elt
-        + pt.numel() * 4 + pos.numel() * 4
-    )
-    ops = sum(int(p) + 1 for p in pos_h if p >= 0) * q.shape[1] * 2 * (D + Dv)
+    nbytes = len(pages) * page_bytes + io_bytes + pt.numel() * 4 + pos.numel() * 4
+    ops = sum(int(p) + 1 for p in pos_h if p >= 0) * ops_per_kv
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[q.dtype] * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes", nbytes, ops
     return t_ops, "operations", nbytes, ops
+
+
+def k4_bound(q, kp, vp, pt, pos):
+    """K4's bound: K and V of all kv heads of each needed page; q and out;
+    per attended kv index and query head, 2*D for the score and 2*Dv for
+    the value product."""
+    ps, Hkv, D = kp.shape[1], kp.shape[2], kp.shape[3]
+    Dv = vp.shape[-1]
+    elt = kp.element_size()
+    io = q.numel() * elt + q.shape[0] * q.shape[1] * Dv * elt
+    return paged_bound(pt, pos, ps, ps * Hkv * (D + Dv) * elt, io,
+                       q.shape[1] * 2 * (D + Dv), q.dtype)
 
 
 def kernel_phase(flush) -> dict:
@@ -254,6 +325,109 @@ def kernel_phase(flush) -> dict:
             raise AssertionError(f"K4 disagrees with its plain version: {entry}")
         checks[dtype] = entry
     return checks[torch.bfloat16]
+
+
+def int8_pages(gen, *shape):
+    """Random int8 pages and (N+1, ps) fp32 per-row scales on the card."""
+    pages = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+    scales = 0.002 + 0.03 * torch.rand(shape[:2], generator=gen, device="cuda")
+    return pages, scales
+
+
+def k5_case(dtype, seed: int = 0):
+    """K5 at Llama-3-8B's attention shapes over int8 pages."""
+    pt, pos, N, ps = step_rows(seed)
+    Hq, Hkv, D = 32, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(64, Hq, D, generator=gen, device="cuda").to(dtype)
+    kp, ks = int8_pages(gen, N + 1, ps, Hkv, D)
+    vp, vs = int8_pages(gen, N + 1, ps, Hkv, D)
+    kw = dict(scale=D ** -0.5)
+    elt = q.element_size()
+    bound = paged_bound(pt, pos, ps, ps * Hkv * 2 * D + 2 * ps * 4,
+                        2 * q.numel() * elt, Hq * 4 * D, dtype)
+    return (
+        lambda: ragged_paged_attention_quant_cuda(q, kp, vp, ks, vs, pt, pos, **kw),
+        lambda: ragged_paged_attention_ref(q, kp, vp, pt, pos, k_scales=ks,
+                                           v_scales=vs, **kw),
+        pos, bound,
+    )
+
+
+def k67_case(dtype, quant: bool, seed: int = 0):
+    """K6 (fp pages) or K7 (int8 pages) at Moonlight's latent widths: n 16
+    heads, r 512, dr 64, scale (128 + 64)^-0.5."""
+    pt, pos, N, ps = step_rows(seed)
+    n, r, dr = 16, 512, 64
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q_abs = torch.randn(64, n, r, generator=gen, device="cuda").to(dtype)
+    q_rope = torch.randn(64, n, dr, generator=gen, device="cuda").to(dtype)
+    scale = (128 + 64) ** -0.5
+    elt = q_abs.element_size()
+    io = (q_abs.numel() * 2 + q_rope.numel()) * elt
+    ops = n * (4 * r + 2 * dr)
+    if quant:
+        c, cs = int8_pages(gen, N + 1, ps, r)
+        kr, krs = int8_pages(gen, N + 1, ps, dr)
+        bound = paged_bound(pt, pos, ps, ps * (r + dr) + 2 * ps * 4, io, ops, dtype)
+        return (
+            lambda: paged_mla_attention_quant_cuda(q_abs, q_rope, c, kr, cs, krs,
+                                                   pt, pos, scale=scale),
+            lambda: ragged_paged_mla_attention_ref(q_abs, q_rope, c, kr, pt, pos,
+                                                   scale=scale, c_scales=cs,
+                                                   kr_scales=krs),
+            pos, bound,
+        )
+    c = torch.randn(N + 1, ps, r, generator=gen, device="cuda").to(dtype)
+    kr = torch.randn(N + 1, ps, dr, generator=gen, device="cuda").to(dtype)
+    bound = paged_bound(pt, pos, ps, ps * (r + dr) * elt, io, ops, dtype)
+    return (
+        lambda: paged_mla_attention_cuda(q_abs, q_rope, c, kr, pt, pos, scale=scale),
+        lambda: ragged_paged_mla_attention_ref(q_abs, q_rope, c, kr, pt, pos,
+                                               scale=scale),
+        pos, bound,
+    )
+
+
+def paged_kernels_phase(flush) -> dict:
+    """K5, K6 and K7 against their plain versions in bf16 and fp32 at the
+    serve step's shapes, timed (median of 10 launches, each after an L2
+    flush) beside their bound; returns the bf16 entries for the kernels
+    line."""
+    cases = {
+        "K5": lambda dtype: k5_case(dtype),
+        "K6": lambda dtype: k67_case(dtype, quant=False),
+        "K7": lambda dtype: k67_case(dtype, quant=True),
+    }
+    out = {}
+    for name, make in cases.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            kernel, plain, pos, bound = make(dtype)
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            err = (got.float() - want.float()).abs().max().item()
+            ref_max = want.float().abs().max().item()
+            pad_zero = bool((got[pos < 0] == 0).all().item())
+            tol = PAGED_TOL[dtype]
+            bound_ms, bound_by, nbytes, ops = bound
+            entry = {
+                "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+                "ref_max": ref_max, "tol": tol, "pad_rows_zero": pad_zero,
+                "ms": time_ms(kernel, 10, flush),
+                "plain_ms": time_ms(plain, 5, flush),
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                "operations": ops,
+            }
+            emit({"phase": "kernel", "kernel": name, **entry})
+            if not (err <= tol * max(1.0, ref_max) and pad_zero):
+                raise AssertionError(f"{name} disagrees with its plain version: {entry}")
+            if dtype == torch.bfloat16:
+                out[name] = entry
+            del got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 def fa_inputs(dtype, B, S, Hq, Hkv, D, packed: bool, seed: int = 0):
@@ -404,65 +578,124 @@ def flash_phase(flush) -> dict:
     }
 
 
-def serve_phase(card: str) -> tuple[int, dict]:
-    """The main path at Llama-3-8B width and depth; returns (K4 launches
-    during serve_batch, stats)."""
+def serve_traffic(vocab_size: int, seed: int = 0) -> list:
+    """16 requests of 64-900 prompt tokens arriving every 2 steps, 32 greedy
+    tokens each."""
+    rng = np.random.default_rng(seed)
+    return [
+        Request(
+            prompt=[int(t) for t in rng.integers(1, vocab_size, (int(n),))],
+            max_new_tokens=32, arrival=2 * i,
+        )
+        for i, n in enumerate(rng.integers(64, 901, 16))
+    ]
+
+
+def serve_run(engine, cfg, card: str, phase: str, model: str, kernel: str,
+              setup_s: float) -> tuple[int, dict]:
+    """One main-path run: `serve_batch` on `serve_traffic`, with every
+    kernel's launch count set to 0 just before and read just after. Every
+    layer of every step must have launched `kernel` and no other paged
+    kernel. Returns (launches of `kernel`, the serve result)."""
+    reqs = serve_traffic(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in PAGED_KERNELS.values():
+        fn.launches = 0
+    res = engine.serve_batch(reqs)
+    launches = {name: fn.launches for name, fn in PAGED_KERNELS.items()}
+    stats = res["stats"]
+    emit({
+        "phase": phase, "card": card, "model": model, "setup_s": setup_s,
+        "kv_cache_dtype": engine.serve_cfg.kv_cache_dtype, "stats": stats,
+        "launches": launches,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    })
+    if len(res["outputs"]) != 16 or any(len(o) != 32 for o in res["outputs"]):
+        raise AssertionError(f"{phase}: not every request finished with 32 tokens")
+    if any(not 0 <= t < cfg.vocab_size for o in res["outputs"] for t in o):
+        raise AssertionError(f"{phase}: a generated token is outside the vocabulary")
+    want = {name: 0 for name in PAGED_KERNELS}
+    want[kernel] = cfg.num_layers * stats["steps"]
+    if launches != want:
+        raise AssertionError(
+            f"{phase}: paged kernels launched {launches} in {stats['steps']} "
+            f"steps of {cfg.num_layers} layers; expected {want}")
+    return launches[kernel], res
+
+
+def serve_phase(card: str) -> dict:
+    """The dense main path at Llama-3-8B width and depth, on the fp pool
+    (K4) and then on the int8 pool (K5) with the same weights; returns the
+    launches of K4 and K5."""
     cfg = llama_config(LLAMA3_8B, dtype=torch.bfloat16)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = decoder.init(cfg, gen, dtype=torch.bfloat16)
     engine = ServingEngine(params, cfg, SERVE)
-    del params
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    reqs = [
-        Request(
-            prompt=[int(t) for t in rng.integers(1, cfg.vocab_size, (int(n),))],
-            max_new_tokens=32, arrival=2 * i,
-        )
-        for i, n in enumerate(rng.integers(64, 901, 16))
-    ]
-    torch.cuda.reset_peak_memory_stats()
-    ragged_paged_attention_cuda.launches = 0
-    res = engine.serve_batch(reqs)
-    launches = ragged_paged_attention_cuda.launches
-    stats = res["stats"]
-    emit({
-        "phase": "serve", "card": card, "model": "Llama-3-8B widths, 32 layers, bf16",
-        "setup_s": setup_s, "stats": stats, "k4_launches": launches,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-    })
-    if len(res["outputs"]) != 16 or any(len(o) != 32 for o in res["outputs"]):
-        raise AssertionError("not every request finished with 32 tokens")
-    if any(not 0 <= t < cfg.vocab_size for o in res["outputs"] for t in o):
-        raise AssertionError("a generated token is outside the vocabulary")
-    if launches != cfg.num_layers * stats["steps"]:
-        raise AssertionError(
-            f"K4 launched {launches} times in {stats['steps']} steps of "
-            f"{cfg.num_layers} layers"
-        )
-    profile_steps(engine, cfg, card)
+    model = "Llama-3-8B widths, 32 layers, bf16"
+    k4, fp = serve_run(engine, cfg, card, "serve", model, "K4", setup_s)
+    profile_steps(engine, cfg, card, "serve", "gqa_kernel")
     del engine
     torch.cuda.empty_cache()
-    return launches, stats
+
+    engine = ServingEngine(params, cfg, dataclasses.replace(SERVE, kv_cache_dtype="int8"))
+    k5, q8 = serve_run(engine, cfg, card, "serve_int8", model, "K5", 0.0)
+    # greedy agreement with the fp pool, position by position (as the JAX
+    # package's test_quant_vs_fp_greedy_agreement_confident_model counts
+    # it); reported, not asserted: random weights have small top-1 margins
+    pairs = [(a, b) for o1, o2 in zip(fp["outputs"], q8["outputs"])
+             for a, b in zip(o1, o2)]
+    first = [next((i for i, (a, b) in enumerate(zip(o1, o2)) if a != b), len(o1))
+             for o1, o2 in zip(fp["outputs"], q8["outputs"])]
+    emit({"phase": "serve_int8_agreement", "card": card,
+          "greedy_agreement": sum(a == b for a, b in pairs) / len(pairs),
+          "tokens": len(pairs), "first_divergence_per_request": first})
+    profile_steps(engine, cfg, card, "serve_int8", "gqa_kernel")
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"K4": k4, "K5": k5}
 
 
-def profile_steps(engine, cfg, card: str) -> None:
+def serve_mla_phase(card: str) -> dict:
+    """The MLA + MoE main path: Moonlight-16B-A3B at full width and all 27
+    layers, bf16, random weights from seed 0, on the fp pool (K6) and then
+    on the int8 pool (K7); returns the launches of K6 and K7."""
+    cfg = deepseek_v3_moe_config(MOONLIGHT, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = moe_decoder.init(cfg, gen, dtype=torch.bfloat16)
+    n_params = count_params(params)
+    engine = ServingEngine(params, cfg, SERVE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model = (f"Moonlight-16B-A3B, {cfg.num_layers} layers ({cfg.first_k_dense} "
+             f"dense + {cfg.num_moe_layers} MoE), bf16, {n_params} params")
+    launches = {}
+    launches["K6"], _ = serve_run(engine, cfg, card, "serve_mla", model, "K6", setup_s)
+    profile_steps(engine, cfg, card, "serve_mla", "mla_kernel")
+    del engine
+    torch.cuda.empty_cache()
+    engine = ServingEngine(params, cfg, dataclasses.replace(SERVE, kv_cache_dtype="int8"))
+    launches["K7"], _ = serve_run(engine, cfg, card, "serve_mla_int8", model, "K7", 0.0)
+    profile_steps(engine, cfg, card, "serve_mla_int8", "mla_kernel")
+    del engine, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_steps(engine, cfg, card: str, phase: str, kernel_key: str) -> None:
     """Where a serve step's time goes: the same traffic again, 40 steps to
     reach a mix of prefill and decode, then 10 steps under torch.profiler.
     Prints device busy time per step by kernel and the device's idle share
-    of the window's wall time."""
+    of the window's wall time. `kernel_key` names the attention kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.default_rng(1)
     sched = engine.make_scheduler()
-    for i, n in enumerate(rng.integers(64, 901, 16)):
-        sched.submit(Request(
-            prompt=[int(t) for t in rng.integers(1, cfg.vocab_size, (int(n),))],
-            max_new_tokens=32, arrival=2 * i,
-        ))
+    for r in serve_traffic(cfg.vocab_size, seed=1):
+        sched.submit(r)
     for step in range(30):
         engine.run_one_step(sched, step)
     # steps 30-39 unprofiled: the profiler's own host cost inflates the
@@ -487,30 +720,27 @@ def profile_steps(engine, cfg, card: str) -> None:
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
-    k4_ms = sum(v for k, v in by_name.items() if "gqa_kernel" in k)
+    attn_ms = sum(v for k, v in by_name.items() if kernel_key in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     emit({
-        "phase": "profile", "card": card, "steps": n_steps,
+        "phase": "profile", "of": phase, "card": card, "steps": n_steps,
         "rows_per_step": rows / n_steps,
         "wall_ms_per_step": wall_ms / n_steps,
         "unprofiled_wall_ms_per_step": plain_wall_ms / n_steps,
         "device_busy_ms_per_step": busy_ms / n_steps,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_idle_share_vs_unprofiled": 1.0 - busy_ms / plain_wall_ms,
-        "k4_ms_per_step": k4_ms / n_steps,
-        "k4_share_of_busy": k4_ms / busy_ms if busy_ms else None,
+        "attn_kernel": kernel_key,
+        "attn_kernel_ms_per_step": attn_ms / n_steps,
+        "attn_kernel_share_of_busy": attn_ms / busy_ms if busy_ms else None,
         "top_kernels_ms_per_step": [[k[:80], v / n_steps] for k, v in top],
     })
 
 
-def engine_phase() -> None:
-    """2-layer fp32 engine: identical step plans through the kernel and the
-    plain version; logits within ENGINE_LOGITS_TOL, greedy tokens equal."""
-    cfg = dataclasses.replace(
-        llama_config(LLAMA3_8B), num_layers=2, dtype=torch.float32)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    params = decoder.init(cfg, gen)
-    sc = dataclasses.replace(SERVE, num_pages=256)
+def engine_check(phase: str, cfg, params, sc, tol: float) -> None:
+    """Identical step plans through an engine on the kernels and one on the
+    plain versions (same weights, fp32): every step's logits within `tol`,
+    greedy tokens equal."""
     e_cuda = ServingEngine(params, cfg, sc, attn_impl="cuda")
     e_torch = ServingEngine(params, cfg, sc, attn_impl="torch")
     sched = e_cuda.make_scheduler()
@@ -530,13 +760,39 @@ def engine_phase() -> None:
         worst = max(worst, (got - want).abs().max().item())
         tokens = got.argmax(-1)
         if not torch.equal(tokens, want.argmax(-1)):
-            raise AssertionError(f"greedy tokens differ at step {steps}")
+            raise AssertionError(f"{phase}: greedy tokens differ at step {steps}")
         sched.update(plan, tokens.to(torch.int32).cpu().numpy(), steps)
         steps += 1
-    emit({"phase": "engine", "layers": 2, "dtype": "float32", "steps": steps,
-          "max_abs_logit_err": worst, "tol": ENGINE_LOGITS_TOL})
-    if worst > ENGINE_LOGITS_TOL:
-        raise AssertionError("engine logits differ between kernel and plain")
+    emit({"phase": phase, "layers": cfg.num_layers, "dtype": "float32",
+          "kv_cache_dtype": sc.kv_cache_dtype, "steps": steps,
+          "max_abs_logit_err": worst, "tol": tol})
+    if worst > tol:
+        raise AssertionError(f"{phase}: engine logits differ between kernels and plain")
+
+
+def engine_phase() -> None:
+    """2-layer fp32 engine at Llama-3-8B width: K4 against the plain
+    version through the engine."""
+    cfg = dataclasses.replace(
+        llama_config(LLAMA3_8B), num_layers=2, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = decoder.init(cfg, gen)
+    engine_check("engine", cfg, params, dataclasses.replace(SERVE, num_pages=256),
+                 ENGINE_LOGITS_TOL)
+
+
+def engine_mla_phase() -> None:
+    """A 2-layer Moonlight-width engine (one dense, one MoE layer) in fp32:
+    K6 on the fp pool and K7 on the int8 pool against the plain versions."""
+    cfg = dataclasses.replace(deepseek_v3_moe_config(MOONLIGHT), num_layers=2,
+                              dtype=torch.float32)
+    params = moe_decoder.init(cfg, torch.Generator(device="cuda").manual_seed(1))
+    sc = dataclasses.replace(SERVE, num_pages=256)
+    engine_check("engine_mla", cfg, params, sc, ENGINE_LOGITS_TOL)
+    engine_check("engine_mla_int8", cfg, params,
+                 dataclasses.replace(sc, kv_cache_dtype="int8"), ENGINE_INT8_LOGITS_TOL)
+    del params
+    torch.cuda.empty_cache()
 
 
 def device_ms_by_kernel(prof) -> dict:
@@ -717,7 +973,7 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    libs = _build.build(K4_SOURCE, fa_cuda.SOURCE)
+    libs = _build.build(K4_SOURCE, fa_cuda.SOURCE, MLA_SOURCE)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {lib.stem: [l.strip() for l in lib.with_suffix(".log").read_text()
                                .splitlines() if "registers" in l or "spill" in l]
@@ -725,32 +981,46 @@ def main() -> int:
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     k4 = kernel_phase(flush)
+    paged = paged_kernels_phase(flush)
     flash = flash_phase(flush)
     del flush
-    launches, _stats = serve_phase(card)
+    launches = serve_phase(card)
+    launches.update(serve_mla_phase(card))
     engine_phase()
+    engine_mla_phase()
     torch.cuda.empty_cache()
     train_launches = train_phase(card)
     train_check_phase()
     train_paths_phase()
 
-    kernels = [{
-        "name": "ragged_paged_attention_gqa",
-        "route": "cuda",
-        "source": "automodel_tpu_torch/csrc/ragged_paged_attention.cu",
-        "replaces": "automodel_tpu/ops/pallas/ragged_paged_attention.py:42",
-        "launches": launches,
-        "max_abs_err": k4["max_abs_err"],
-        "ms": k4["ms"],
-        "plain_ms": k4["plain_ms"],
-        "bound_ms": k4["bound_ms"],
-        "bound_by": k4["bound_by"],
-        "library_ms": None,
-        "library_why": "no single PyTorch call attends over per-row page "
-                       "tables; scaled_dot_product_attention needs each "
-                       "row's KV gathered dense first",
-        "card": card,
-    }]
+    no_library = ("no single PyTorch call attends over per-row page tables; "
+                  "scaled_dot_product_attention needs each row's KV gathered "
+                  "dense (and dequantized) first")
+    paged_rows = (
+        ("K4", "ragged_paged_attention_gqa", "ragged_paged_attention.cu", ":42", k4),
+        ("K5", "ragged_paged_attention_gqa_int8", "ragged_paged_attention.cu",
+         ":170", paged["K5"]),
+        ("K6", "paged_mla_attention", "paged_mla_attention.cu", ":315", paged["K6"]),
+        ("K7", "paged_mla_attention_int8", "paged_mla_attention.cu", ":428",
+         paged["K7"]),
+    )
+    kernels = []
+    for name, kname, src, line, e in paged_rows:
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "automodel_tpu_torch/csrc/" + src,
+            "replaces": "automodel_tpu/ops/pallas/ragged_paged_attention.py" + line,
+            "launches": launches[name],
+            "max_abs_err": e["max_abs_err"],
+            "ms": e["ms"],
+            "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"],
+            "bound_by": e["bound_by"],
+            "library_ms": None,
+            "library_why": no_library,
+            "card": card,
+        })
     for name, replaces in (("K1", ":140"), ("K2", ":238"), ("K3", ":283")):
         e = flash[name]
         kernels.append({

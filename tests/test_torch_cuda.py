@@ -16,7 +16,10 @@ from automodel_tpu_torch.ops.cuda import _build
 from automodel_tpu_torch.ops.cuda.ragged_paged_attention import (
     ragged_paged_attention_cuda,
 )
-from automodel_tpu_torch.ops.paged_attention import ragged_paged_attention_ref
+from automodel_tpu_torch.ops.paged_attention import (
+    ragged_paged_attention_ref,
+    ragged_paged_mla_attention_ref,
+)
 from automodel_tpu_torch.serving import Request, ServingConfig, ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -99,6 +102,185 @@ def test_engine_kernel_matches_plain_version(card):
         reqs = [Request(prompt=list(range(1 + i, 9 + 3 * i)), max_new_tokens=5,
                         arrival=i) for i in range(4)]
         outs.append(engine.serve_batch(reqs)["outputs"])
+    assert outs[0] == outs[1]
+
+
+# K5-K7 against their plain versions, as a share of the largest magnitude of
+# the plain result. fp32: summation order only. bf16: the plain versions
+# round dequantized pages, probabilities and the value product to bf16; K5
+# and K7 keep fp32 and round once (K6 rounds p to bf16 as its plain
+# version does); 2e-2 is about two bf16 ulps at the largest value.
+PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _paged_rows(card, ps, N=40, P=6, seed=0):
+    """Page tables and positions of a ragged batch: three requests (a full
+    table, a page and a bit, one token), decode rows, page-boundary rows
+    and two pad rows."""
+    rng = np.random.default_rng(seed)
+    perm = iter(rng.permutation(N))
+    tables, pos = [], []
+    for n in (P * ps, ps + 3, 1):
+        pages = [int(next(perm)) for _ in range(-(-n // ps))]
+        tables.append(pages + [N] * (P - len(pages)))
+        pos.append(n - 1)
+    tables += [tables[0]] * 4 + [tables[1]] * 2
+    pos += [0, ps - 1, ps, 2 * ps + 1, -1, -1]
+    return (torch.tensor(tables, dtype=torch.int32, device=card),
+            torch.tensor(pos, dtype=torch.int32, device=card))
+
+
+def _int8_pages(gen, card, *shape):
+    pages = torch.randint(-127, 128, shape, generator=gen, device=card,
+                          dtype=torch.int32).to(torch.int8)
+    scales = 0.002 + 0.03 * torch.rand(shape[:2], generator=gen, device=card)
+    return pages, scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D,ps,soft_cap", [
+    (1, 64, 16, None), (4, 128, 16, 30.0), (8, 128, 32, None),
+])
+def test_k5_matches_plain_version(card, dtype, G, D, ps, soft_cap):
+    from automodel_tpu_torch.ops.cuda.ragged_paged_attention import (
+        ragged_paged_attention_quant_cuda,
+    )
+
+    pt, pos = _paged_rows(card, ps)
+    gen = torch.Generator(device=card).manual_seed(1)
+    Hkv, N = 2, 40
+    q = torch.randn(len(pos), Hkv * G, D, generator=gen, device=card).to(dtype)
+    kp, ks = _int8_pages(gen, card, N + 1, ps, Hkv, D)
+    vp, vs = _int8_pages(gen, card, N + 1, ps, Hkv, D)
+    kw = dict(scale=D ** -0.5, soft_cap=soft_cap)
+    n0 = ragged_paged_attention_quant_cuda.launches
+    got = ragged_paged_attention_quant_cuda(q, kp, vp, ks, vs, pt, pos, **kw)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention_quant_cuda.launches == n0 + 1
+    assert got.dtype == dtype
+    want = ragged_paged_attention_ref(q, kp, vp, pt, pos, k_scales=ks,
+                                      v_scales=vs, **kw)
+    assert _rel_err(got, want) <= PAGED_TOL[dtype]
+    assert not got[pos < 0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["k6", "k7"])
+@pytest.mark.parametrize("n,r,dr,ps", [
+    (16, 512, 64, 16),   # Moonlight / DeepSeek-V3 latent widths
+    (4, 32, 16, 8), (8, 128, 32, 4), (2, 16, 8, 16),
+])
+def test_k6_k7_match_plain_version(card, dtype, quant, n, r, dr, ps):
+    from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
+
+    pt, pos = _paged_rows(card, ps, seed=2)
+    gen = torch.Generator(device=card).manual_seed(3)
+    N, T = 40, len(pos)
+    q_abs = torch.randn(T, n, r, generator=gen, device=card).to(dtype)
+    q_rope = torch.randn(T, n, dr, generator=gen, device=card).to(dtype)
+    scale = (r // 4 + dr) ** -0.5
+    if quant:
+        c, cs = _int8_pages(gen, card, N + 1, ps, r)
+        kr, krs = _int8_pages(gen, card, N + 1, ps, dr)
+        fn, extra = mla.paged_mla_attention_quant_cuda, (cs, krs)
+        want = ragged_paged_mla_attention_ref(q_abs, q_rope, c, kr, pt, pos,
+                                              scale=scale, c_scales=cs,
+                                              kr_scales=krs)
+    else:
+        c = torch.randn(N + 1, ps, r, generator=gen, device=card).to(dtype)
+        kr = torch.randn(N + 1, ps, dr, generator=gen, device=card).to(dtype)
+        fn, extra = mla.paged_mla_attention_cuda, ()
+        want = ragged_paged_mla_attention_ref(q_abs, q_rope, c, kr, pt, pos,
+                                              scale=scale)
+    n0 = fn.launches
+    got = fn(q_abs, q_rope, c, kr, *extra, pt, pos, scale=scale)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1 and got.dtype == dtype
+    assert _rel_err(got, want) <= PAGED_TOL[dtype]
+    assert not got[pos < 0].any()
+
+
+def test_k5_k6_k7_reject_what_they_do_not_take(card):
+    from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
+    from automodel_tpu_torch.ops.cuda.ragged_paged_attention import (
+        ragged_paged_attention_quant_cuda,
+    )
+
+    pt, pos = _paged_rows(card, 16)
+    gen = torch.Generator(device=card).manual_seed(4)
+    q = torch.randn(len(pos), 4, 64, device=card)
+    kp, ks = _int8_pages(gen, card, 41, 16, 2, 64)
+    with pytest.raises(TypeError):  # fp pages on the int8 kernel
+        ragged_paged_attention_quant_cuda(q, kp.float(), kp.float(), ks, ks,
+                                          pt, pos, scale=0.1)
+    with pytest.raises(ValueError):  # scales of the wrong shape
+        ragged_paged_attention_quant_cuda(q, kp, kp, ks[:, :8].contiguous(), ks,
+                                          pt, pos, scale=0.1)
+    with pytest.raises(TypeError):
+        ragged_paged_attention_quant_cuda(q, kp, kp, ks.double(), ks, pt, pos,
+                                          scale=0.1)
+    qa = torch.randn(len(pos), 4, 32, device=card)
+    qr = torch.randn(len(pos), 4, 16, device=card)
+    c = torch.randn(41, 16, 32, device=card)
+    kr = torch.randn(41, 16, 16, device=card)
+    with pytest.raises(TypeError):
+        mla.paged_mla_attention_cuda(qa, qr.bfloat16(), c, kr, pt, pos, scale=0.1)
+    with pytest.raises(ValueError):
+        mla.paged_mla_attention_cuda(qa, qr, c, kr[..., :8].contiguous(), pt,
+                                     pos, scale=0.1)
+    with pytest.raises(NotImplementedError):  # n * r past the accumulators
+        big = torch.zeros(len(pos), 128, 512, device=card)
+        mla.paged_mla_attention_cuda(big, torch.zeros(len(pos), 128, 16, device=card),
+                                     torch.zeros(41, 16, 512, device=card), kr,
+                                     pt, pos, scale=0.1)
+
+
+def _tiny_deepseek(card):
+    from automodel_tpu_torch.models.moe_lm import decoder as moe_decoder
+    from automodel_tpu_torch.moe.config import MoEConfig
+
+    cfg = moe_decoder.MoETransformerConfig(
+        vocab_size=256, hidden_size=128, intermediate_size=192, num_layers=2,
+        num_heads=4, num_kv_heads=4, attention_type="mla", mla_q_lora_rank=48,
+        mla_kv_lora_rank=64, mla_qk_nope_head_dim=32, mla_qk_rope_head_dim=16,
+        mla_v_head_dim=32, first_k_dense=1, dtype=torch.float32,
+        moe=MoEConfig(n_routed_experts=8, n_shared_experts=2,
+                      experts_per_token=2, score_func="sigmoid",
+                      route_scale=2.446, moe_intermediate_size=32,
+                      gate_bias_update_speed=0.001))
+    return cfg, moe_decoder.init(cfg, torch.Generator(device=card).manual_seed(0))
+
+
+@pytest.mark.parametrize("model", ["deepseek", "llama"])
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_engines_kernels_match_plain_versions(card, model, kv):
+    """The MLA + MoE engine (K6 / K7) and the dense engine (K4 / K5) on the
+    card: greedy outputs with the kernels equal those with the plain
+    versions, and the right kernel launched."""
+    from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
+    from automodel_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+
+    if model == "deepseek":
+        cfg, params = _tiny_deepseek(card)
+        counter = mla.paged_mla_attention_quant_cuda if kv else mla.paged_mla_attention_cuda
+    else:
+        cfg = decoder.TransformerConfig(
+            vocab_size=256, hidden_size=128, intermediate_size=192, num_layers=2,
+            num_heads=4, num_kv_heads=2, dtype=torch.float32)
+        params = decoder.init(cfg, torch.Generator(device=card).manual_seed(0))
+        counter = rpa.ragged_paged_attention_quant_cuda if kv else rpa.ragged_paged_attention_cuda
+    sc = ServingConfig(page_size=4, num_pages=32, max_slots=3, pages_per_slot=8,
+                       token_budget=8, prefill_chunk=4, kv_cache_dtype=kv)
+    outs = []
+    for impl in ("cuda", "torch"):
+        engine = ServingEngine(params, cfg, sc, attn_impl=impl)
+        reqs = [Request(prompt=list(range(1 + i, 9 + 3 * i)), max_new_tokens=5,
+                        arrival=i) for i in range(4)]
+        n0 = counter.launches
+        res = engine.serve_batch(reqs)
+        outs.append(res["outputs"])
+        launched = counter.launches - n0
+        assert launched == (cfg.num_layers * res["stats"]["steps"] if impl == "cuda" else 0)
     assert outs[0] == outs[1]
 
 

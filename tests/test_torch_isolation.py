@@ -41,7 +41,11 @@ def test_port_imports_no_jax():
     for mod in ("serving.engine", "ops.cuda.ragged_paged_attention",
                 "ops.cuda.flash_attention", "ops.flash_attention", "cli.app",
                 "recipes.llm.train_ft", "config.loader", "training.train_step",
-                "loss.linear_ce", "optim.optimizer", "datasets.loader"):
+                "loss.linear_ce", "optim.optimizer", "datasets.loader",
+                "ops.quant", "ops.cuda.paged_mla_attention", "models.llm.mla",
+                "moe.config", "moe.gate", "moe.experts", "moe.layer",
+                "models.moe_lm.decoder", "models.moe_lm.families",
+                "inference.generate"):
         assert f"automodel_tpu_torch.{mod}" in res["modules"]
     assert res["leaked"] == []
 
@@ -77,11 +81,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 def test_unported_options_raise():
+    """What is still unported raises: speculative decoding, low-precision
+    serve linears, a serving mesh, yarn rope and the DSA indexer; windows
+    reach the kernels only if asked for. int8 KV pages serve."""
     from automodel_tpu_torch.models.llm import decoder
-    from automodel_tpu_torch.serving import ServingConfig, ServingEngine
+    from automodel_tpu_torch.models.moe_lm.families import deepseek_v3_moe_config
+    from automodel_tpu_torch.serving import Request, ServingConfig, ServingEngine
 
-    for field, value in (("speculative", object()), ("kv_cache_dtype", "int8"),
-                         ("serve_precision", "fp8")):
+    for field, value in (("speculative", object()), ("serve_precision", "fp8")):
         with pytest.raises(NotImplementedError, match=field):
             ServingConfig(**{field: value})
     cfg = decoder.TransformerConfig(
@@ -94,6 +101,25 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="windows"):
         ServingEngine(params, cfg, device="cpu", attn_impl="cuda")
     ServingEngine(params, cfg, device="cpu")
+    # int8 KV pages serve
+    sc = ServingConfig(page_size=4, num_pages=8, max_slots=1, pages_per_slot=2,
+                       token_budget=4, kv_cache_dtype="int8")
+    out = ServingEngine(params, cfg, sc, device="cpu").serve_batch(
+        [Request(prompt=[1, 2, 3], max_new_tokens=2)])
+    assert len(out["outputs"][0]) == 2
+    # yarn rope (DeepSeek-V3's long-context scaling) and the DSA indexer
+    hf = dict(vocab_size=32, hidden_size=16, intermediate_size=24,
+              moe_intermediate_size=8, num_hidden_layers=2,
+              num_attention_heads=2, n_routed_experts=4,
+              num_experts_per_tok=2, kv_lora_rank=8, qk_nope_head_dim=4,
+              qk_rope_head_dim=4, v_head_dim=4, first_k_dense_replace=1)
+    with pytest.raises(NotImplementedError, match="yarn"):
+        deepseek_v3_moe_config(dict(hf, rope_scaling={"type": "yarn", "factor": 4.0}))
+    mla = deepseek_v3_moe_config(hf, dsa_index_topk=4, dtype=torch.float32)
+    from automodel_tpu_torch.models.moe_lm import decoder as moe_decoder
+
+    with pytest.raises(NotImplementedError, match="DSA"):
+        moe_decoder.init(mla, torch.Generator().manual_seed(0))
 
 
 def test_chip_smoke_refuses_without_cuda():
