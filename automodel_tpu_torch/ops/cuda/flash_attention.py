@@ -2,6 +2,12 @@
 replace `automodel_tpu/ops/pallas/flash_attention.py:_fwd_kernel`,
 `_dq_kernel` and `_dkv_kernel`).
 
+The input dtype picks the route, `route(dtype)`: bfloat16 runs K1 and K3 on
+the tensor cores (`mma.sync`), float32 on the CUDA cores, whose fp32
+products keep the fp32 results within ~1e-6 of the plain versions (an fp32
+`mma` would be TF32). K2 is the CUDA-core kernel for both. `KERNELS` names
+each route's device kernels, as a profiler shows them.
+
 The plain versions of the same functions are
 `automodel_tpu_torch.ops.flash_attention.flash_attention_ref` (forward) and
 `flash_attention_bwd_ref` (backward). Each wrapper counts its launches in a
@@ -20,6 +26,12 @@ SOURCE = "flash_attention.cu"
 HEAD_DIMS = (16, 64, 128)  # the tiny recipe's, TinyLlama's, Llama-3's
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
+# the device kernels of K1, K2 and K3 on each route
+KERNELS = {
+    "mma": ("fwd_mma_kernel", "dq_kernel", "dkv_mma_kernel"),
+    "fma": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
+}
 
 launches_fwd = 0
 launches_dq = 0
@@ -36,9 +48,23 @@ def _lib() -> ctypes.CDLL:
         lib.fa_backward_dkv.argtypes = [ctypes.c_void_p] * 10 + tail
         for fn in (lib.fa_forward, lib.fa_backward_dq, lib.fa_backward_dkv):
             fn.restype = ctypes.c_int
+        lib.fa_mma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.fa_mma_smem_bytes.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [ctypes.c_int]
         lib.fa_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def route(dtype: torch.dtype) -> str:
+    """K1's and K3's route for inputs of `dtype`: "mma" (tensor cores,
+    bfloat16) or "fma" (CUDA cores, float32)."""
+    return _ROUTES[dtype]
+
+
+def mma_smem_bytes(which: int, D: int) -> int:
+    """Dynamic shared memory (bytes) of the tensor-core K1 (`which` 0) or K3
+    (`which` 1) at head dim D."""
+    return _lib().fa_mma_smem_bytes(which, D)
 
 
 def check_supported(q, k, v, *, sliding_window=None, position_causal=False):
@@ -96,6 +122,13 @@ def _check(tensors: dict, q, segment_ids):
             raise ValueError(f"{name} must be (B, Hq, S)")
 
 
+def _aligned(*tensors):
+    """The tensors, each copied if it does not start on a 16-byte boundary
+    (a view at an offset): the tensor-core route copies rows in 16-byte
+    chunks."""
+    return [x if x.data_ptr() % 16 == 0 else x.clone() for x in tensors]
+
+
 def _common(q, k, segment_ids, scale, soft_cap, causal):
     if soft_cap is not None and soft_cap <= 0:
         raise ValueError(f"soft_cap must be positive (got {soft_cap})")
@@ -115,13 +148,16 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 def flash_fwd_cuda(q, k, v, segment_ids=None, *, scale: float,
                    soft_cap: float | None = None, causal: bool = True):
-    """K1. q (B, S, Hq, D), k/v (B, T, Hkv, D), float32 or bfloat16;
-    segment_ids (B, S) int32 or None (then S == T). Returns out (B, S, Hq, D)
-    in q's dtype and lse (B, Hq, S) fp32, EMPTY_LSE on fully masked rows."""
+    """K1 on `route(q.dtype)`. q (B, S, Hq, D), k/v (B, T, Hkv, D), float32
+    or bfloat16; segment_ids (B, S) int32 or None (then S == T). Returns out
+    (B, S, Hq, D) in q's dtype and lse (B, Hq, S) fp32, EMPTY_LSE on fully
+    masked rows."""
     global launches_fwd
     check_supported(q, k, v)
     _check(dict(q=q, k=k, v=v), q, segment_ids)
     seg, dims = _common(q, k, segment_ids, scale, soft_cap, causal)
+    if route(q.dtype) == "mma":
+        q, k, v = _aligned(q, k, v)
     B, S, Hq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
@@ -157,11 +193,14 @@ def flash_dq_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
 def flash_dkv_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
                    scale: float, soft_cap: float | None = None,
                    causal: bool = True):
-    """K3: (dk, dv), each (B, T, Hkv, D) in k's dtype; inputs as K2's."""
+    """K3 on `route(q.dtype)`: (dk, dv), each (B, T, Hkv, D) in k's dtype;
+    inputs as K2's."""
     global launches_dkv
     check_supported(q, k, v)
     _check(dict(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta), q, segment_ids)
     seg, dims = _common(q, k, segment_ids, scale, soft_cap, causal)
+    if route(q.dtype) == "mma":
+        q, k, v, dout = _aligned(q, k, v, dout)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _lib()

@@ -16,9 +16,10 @@ one JSON line each:
    r 512, dr 64);
 3. flash: K1-K3 (flash attention forward, dq, dk/dv) against their plain
    versions at the training shapes (B 1, S 4096, Hq 32, Hkv 8, D 128,
-   causal) in bf16 and fp32, plus a packed-segment case and an S that is
-   not a multiple of the tile; timed beside their operations bound, the
-   plain versions and `scaled_dot_product_attention` as a yardstick;
+   causal) in bf16 (K1 and K3 on the tensor cores) and fp32 (CUDA cores),
+   plus a packed-segment case, an S that is not a multiple of the tile and
+   head dim 64 in bf16; timed beside their operations bound, the plain
+   versions and `scaled_dot_product_attention` as a yardstick;
 4. serve / serve_int8: the dense main path (`ServingEngine.serve_batch`) at
    the full width and depth of Llama-3-8B with random weights: 16 requests
    of 64-900 prompt tokens arriving every 2 steps, 32 greedy tokens each,
@@ -50,7 +51,9 @@ one JSON line each:
    through the recipe class called directly with the plain attention:
    the loss curves must agree.
 
-Then it prints the `{"kernels": [...]}` line and, last, the
+The build line carries ptxas's registers and spills of every kernel, and of
+the tensor-core K1/K3 by name with their dynamic shared memory. Then it
+prints the `{"kernels": [...]}` line and, last, the
 `{"ok": true, "device": {...}}` line. Any failed check raises and the exit
 code is not 0. Without CUDA it exits 2 and prints no result.
 """
@@ -60,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -171,9 +175,11 @@ PAGED_KERNELS = {
 
 # K1-K3 against their plain versions, as a share of the largest magnitude of
 # the plain result. fp32: only the summation order differs (online tiles vs
-# one pass over 4096 keys). bf16: the plain versions round probabilities and
-# ds to bf16 before their products, the kernels keep fp32, and both round
-# their outputs once; 2e-2 is about two bf16 ulps at the largest value.
+# one pass over 4096 keys). bf16: the plain versions round probabilities
+# (K1) and ds to bf16 before their products, as the kernels do, but keep p
+# in fp32 for dv, which K3 rounds to bf16; the orders of the sums differ,
+# and both round their outputs once; 2e-2 is about two bf16 ulps at the
+# largest value.
 FA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the training shapes: one 4096-token microbatch of Llama-3-8B attention
 FA_SHAPE = dict(B=1, S=4096, Hq=32, Hkv=8, D=128)
@@ -479,10 +485,10 @@ def fa_bound(kernel: str, q, k, pairs: int):
     return t_ops, "operations", nbytes, ops
 
 
-def fa_check_case(dtype, S, packed, flush, timed: bool) -> dict:
+def fa_check_case(dtype, S, packed, flush, timed: bool, D=FA_SHAPE["D"]) -> dict:
     """K1-K3 against their plain versions on one input; with `timed`, also
     their times, the plain versions' and scaled_dot_product_attention's."""
-    sh = dict(FA_SHAPE, S=S)
+    sh = dict(FA_SHAPE, S=S, D=D)
     B, Hq, D = sh["B"], sh["Hq"], sh["D"]
     q, k, v, dout, seg = fa_inputs(dtype, B, S, Hq, sh["Hkv"], D, packed)
     scale = D ** -0.5
@@ -508,9 +514,10 @@ def fa_check_case(dtype, S, packed, flush, timed: bool) -> dict:
         if not err <= tol * max(1.0, ref_max):
             raise AssertionError(
                 f"K1-K3 {name} disagrees with its plain version ({dtype}, "
-                f"S={S}, packed={packed}): {err} > {tol} x {max(1.0, ref_max)}")
+                f"S={S}, D={D}, packed={packed}): {err} > {tol} x {max(1.0, ref_max)}")
     entry = {"phase": "flash", "dtype": str(dtype).removeprefix("torch."),
-             "shape": sh, "packed_segments": packed, "tol": tol, "errors": errs}
+             "route": fa_cuda.route(dtype), "shape": sh, "packed_segments": packed,
+             "tol": tol, "errors": errs}
     if timed:
         pairs = int(mask.sum().item())  # unmasked (q, k) pairs per head
         del grads_ref, out_ref
@@ -548,6 +555,7 @@ def fa_times(q, k, v, dout, lse, delta, seg, mask, scale, pairs, flush) -> dict:
             "ms": times[name], "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": nbytes, "operations": ops,
             "tflops": ops / times[name] / 1e9,
+            "bound_share": bound_ms / times[name],
             # the plain backward computes dq, dk and dv in one call
             "plain_ms": plain_fwd if name == "K1" else plain_bwd,
             "library_ms": sdpa_fwd if name == "K1" else sdpa_bwd,
@@ -567,6 +575,7 @@ def flash_phase(flush) -> dict:
     fa_check_case(torch.float32, FA_SHAPE["S"], False, flush, timed=False)
     fa_check_case(torch.bfloat16, FA_SHAPE["S"], True, flush, timed=False)
     fa_check_case(torch.bfloat16, FA_SHAPE["S"] - 96 - 5, False, flush, timed=False)
+    fa_check_case(torch.bfloat16, FA_SHAPE["S"], False, flush, timed=False, D=64)
     torch.cuda.empty_cache()
     errs = main["errors"]
     return {
@@ -848,8 +857,8 @@ def train_phase(card: str) -> dict:
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
     by_name = device_ms_by_kernel(prof)
     busy_ms = sum(by_name.values())
-    fa_ms = sum(v for k, v in by_name.items()
-                if any(f in k for f in ("fwd_kernel<", "dq_kernel<", "dkv_kernel<")))
+    fa_names = {n + "<" for names in fa_cuda.KERNELS.values() for n in names}
+    fa_ms = sum(v for k, v in by_name.items() if any(f in k for f in fa_names))
     top = [[k[:80], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]
     emit({
         "phase": "train", "card": card,
@@ -959,6 +968,32 @@ def train_paths_phase() -> None:
         raise AssertionError("tiny recipe: kernel and plain loss curves differ")
 
 
+def mma_ptxas(log: str) -> dict:
+    """ptxas's report on the bf16 tensor-core K1/K3 instantiations: registers,
+    spill bytes and dynamic shared memory (the kernel's launch size) for
+    each head dim."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?"
+                      r"\S*?((?:fwd|dkv)_mma_kernel)ILi(\d+)E", line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+            continue
+        if name is None:
+            continue
+        entry = out.setdefault(name, {})
+        if "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            entry["spill_store_bytes"], entry["spill_load_bytes"] = int(st), int(ld)
+        elif "Used" in line and "registers" in line:
+            entry["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            name = None
+    for key, entry in out.items():
+        which = 0 if key.startswith("fwd") else 1
+        entry["dynamic_smem_bytes"] = fa_cuda.mma_smem_bytes(which, int(key[:-1].split("<")[1]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -974,10 +1009,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = _build.build(K4_SOURCE, fa_cuda.SOURCE, MLA_SOURCE)
+    logs = {lib.stem: lib.with_suffix(".log").read_text() for lib in libs}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": {lib.stem: [l.strip() for l in lib.with_suffix(".log").read_text()
-                               .splitlines() if "registers" in l or "spill" in l]
-                    for lib in libs}})
+          "ptxas": {stem: [l.strip() for l in log.splitlines()
+                           if "registers" in l or "spill" in l]
+                    for stem, log in logs.items()},
+          "tensor_core_kernels": mma_ptxas(logs[_build.library_path(fa_cuda.SOURCE).stem])})
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     k4 = kernel_phase(flush)
@@ -1037,6 +1074,10 @@ def main() -> int:
             "bound_by": e["bound_by"],
             "library_ms": e["library_ms"],
             "library_call": e["library_call"],
+            # K2 runs on the CUDA cores for both dtypes
+            "kernel_route": "fma" if name == "K2" else fa_cuda.route(torch.bfloat16),
+            "tflops": e["tflops"],
+            "bound_share": e["bound_share"],
             "card": card,
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

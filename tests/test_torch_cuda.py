@@ -285,10 +285,10 @@ def test_engines_kernels_match_plain_versions(card, model, kv):
 
 
 # K1-K3. fp32: summation order only (the kernels sum tiles online, the plain
-# version in one pass). bf16: the plain version rounds probabilities and ds
-# to bf16 before their products, the kernels keep them fp32, and outputs and
-# gradients round once to bf16; 2e-2 of the largest magnitude is about two
-# bf16 ulps there.
+# version in one pass). bf16: both round probabilities (K1) and ds to bf16
+# before their products; K3 also rounds p for dv, which the plain version
+# keeps in fp32; outputs and gradients round once to bf16; 2e-2 of the
+# largest magnitude is about two bf16 ulps there.
 FA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 FA_CASES = {
@@ -298,6 +298,10 @@ FA_CASES = {
     "bidirectional_softcap": (1, 96, 96, 2, 1, 64, False, False, 20.0),
     "causal_s_gt_t": (1, 130, 70, 4, 4, 128, True, False, None),
     "causal_d16_batch8": (8, 128, 128, 4, 2, 16, True, False, None),
+    # many 64-row tiles with a ragged tail, GQA 4
+    "causal_d128_s1000_gqa4": (1, 1000, 1000, 8, 2, 128, True, False, None),
+    "causal_softcap": (1, 300, 300, 4, 2, 64, True, False, 30.0),
+    "causal_s_lt_t_d64": (1, 200, 330, 4, 2, 64, True, False, None),
 }
 
 
@@ -354,6 +358,37 @@ def test_flash_kernels_match_plain_versions(card, dtype, case):
                                       scale=scale, soft_cap=cap)
     for got, ref in zip((dq, dk, dv), want):
         assert _rel_err(got, ref) <= FA_TOL[dtype]
+    assert (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv) == (
+        n[0] + 1, n[1] + 1, n[2] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_route_follows_dtype(card, dtype):
+    """K1-K3 launch the device kernels that `route(dtype)` names, none of
+    the other route's, and each wrapper counts its launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
+
+    q, k, v, dout, _ = _fa_inputs(card, dtype, 1, 128, 128, 4, 2, 64, False)
+    lse = torch.zeros((1, 4, 128), device=card)
+    delta = torch.zeros_like(lse)
+    kw = dict(scale=0.125)
+    fa_cuda.flash_fwd_cuda(q, k, v, **kw)  # the build, outside the window
+    n = (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa_cuda.flash_fwd_cuda(q, k, v, **kw)
+        fa_cuda.flash_dq_cuda(q, k, v, dout, lse, delta, **kw)
+        fa_cuda.flash_dkv_cuda(q, k, v, dout, lse, delta, **kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    want = fa_cuda.KERNELS[fa_cuda.route(dtype)]
+    other = {n for r in fa_cuda.KERNELS.values() for n in r} - set(want)
+    for kernel in want:
+        assert sum(kernel + "<" in name for name in names) == 1, (kernel, names)
+    for kernel in other:
+        assert not any(kernel + "<" in name for name in names), (kernel, names)
     assert (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv) == (
         n[0] + 1, n[1] + 1, n[2] + 1)
 
