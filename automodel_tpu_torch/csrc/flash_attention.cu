@@ -7,8 +7,8 @@
 //      cores); fp32: fwd_kernel<float> (CUDA cores).
 //   K2 <- _dq_kernel (:238, launched by _flash_bwd :469): recomputes
 //      p = exp(s - lse), ds = p * (dO.V^T - delta) (the math of
-//      _recompute_p_ds :216) and accumulates dq = scale * ds.K.
-//      dq_kernel<T> (CUDA cores) for both dtypes.
+//      _recompute_p_ds :216) and accumulates dq = scale * ds.K. bf16:
+//      dq_mma_kernel (tensor cores); fp32: dq_kernel<float> (CUDA cores).
 //   K3 <- _dkv_kernel (:283, launched by _flash_bwd :486): per kv tile, over
 //      the G query heads of its group and the q tiles at or below the
 //      diagonal: dv = p^T.dO and dk = scale * ds^T.Q. bf16: dkv_mma_kernel
@@ -65,7 +65,18 @@
 // but keeps p in fp32 for dv (do widened at :308, p.astype(do.dtype) at
 // :322), so dv differs from it by that rounding (about 2^-9 of each term;
 // the plain version keeps p in fp32 too).
-// Both: bf16 operands in shared memory, in rows of 16-byte chunks XOR-
+// bf16 K2 (dq_mma_kernel): K1's skeleton. 4 warps own a 64-row q tile of
+// one (b, h), 16 rows each, heaviest tiles first (2048 blocks at the
+// training shape); Q fragments stay in registers, each lane keeps lse and
+// delta of its two rows in registers, and 64-row K/V tiles stream in as in
+// K1. S = Q.K^T and dP = dO.V^T run on mma.sync; dS = scale P (dP - delta)
+// [(1 - t^2)] is computed on the accumulator fragments, rounded to bf16 in
+// registers (the Pallas kernel's ds.astype(k.dtype)) and fed back as the A
+// operand of dQ += dS.K, with K through ldmatrix.trans. The dO fragments
+// are re-read from the shared dO tile on every kv tile: Q (32 registers at
+// D = 128), dQ (64), S (32) and dP (32) already fill the budget, and dO
+// beside them (32 more) would spill. dq is written once, no atomics.
+// All three: bf16 operands in shared memory, in rows of 16-byte chunks XOR-
 // swizzled by row so that ldmatrix reads and cp.async writes are free of
 // bank conflicts; tiles stream in by 16-byte cp.async into two stages, the
 // next tile's copy issued right after the one barrier of each step, so that
@@ -74,13 +85,14 @@
 // vary within the tile); a masked score is -inf, so its probability is
 // exactly 0, while K1's running max starts at (and a fully masked row keeps)
 // the Pallas NEG_INF. Shared memory at D = 128: K1 82,688 bytes (Q tile 16
-// KB, K and V 2 stages x 2 x 16 KB, segment ids), K3 66,560 bytes (K and V
-// 2 x 16 KB, Q and dO 2 stages x 2 x 8 KB, lse, delta and segment ids); both
-// above 48 KB, so prepare() raises the dynamic limit. Registers (ptxas, D =
-// 128): K1 206, K3 244, no spills. Softmax state, scores and accumulators
+// KB, K and V 2 stages x 2 x 16 KB, segment ids), K2 99,072 bytes (K1's
+// plus the dO tile), K3 66,560 bytes (K and V 2 x 16 KB, Q and dO 2 stages
+// x 2 x 8 KB, lse, delta and segment ids); all above 48 KB, so prepare()
+// raises the dynamic limit. Registers (ptxas, D =
+// 128): K1 206, K2 243, K3 244, no spills. Softmax state, scores and accumulators
 // are fp32.
 //
-// fp32 (fwd_kernel, dq_kernel, dkv_kernel; K2 for both dtypes): 64 x 64
+// fp32 (fwd_kernel, dq_kernel, dkv_kernel): 64 x 64
 // tiles staged in shared memory as fp32 (rows padded to D + 1 floats), 256
 // threads in a 16 x 16 grid that each own a 4 x 4 block of the score tile
 // and multiply on the CUDA cores; loads are synchronous.
@@ -91,6 +103,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mma_helpers.cuh"
 
 namespace {
 
@@ -609,9 +623,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 K1 and K3 on the tensor cores
+// bf16 K1-K3 on the tensor cores
 // ---------------------------------------------------------------------------
-typedef __nv_bfloat16 bf16;
 
 constexpr int kWarpRows = 16;                  // rows of one warp's mma tiles
 constexpr int kMmaWarps = 4;
@@ -621,76 +634,6 @@ constexpr int kFwdN = 64;                      // K1: kv rows per stage
 constexpr int kDkvN = kWarpRows * kMmaWarps;   // K3: kv rows per block
 constexpr int kDkvM = 32;                      // K3: q rows per stage
 constexpr int kRing = 3;  // K1's operand fragments in flight per warp
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled when !full
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 16 : 0));
-}
-// 4 bytes global -> shared; zero-filled when !full
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of
-// matrix i, and each lane receives its (row lane / 4, columns 2 (lane % 4),
-// +1) pair of every matrix (of the transposed matrix with .trans)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c (16 x 8 fp32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the special-function unit (inputs here are <= 0; a result below
-// 2^-126 flushes to 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // The A operand of an m16n8k16 product from two m16n8 accumulators that hold
 // its columns 0-7 (c0) and 8-15 (c1): the C and A fragments share a layout,
@@ -763,15 +706,6 @@ __device__ __forceinline__ void load_vec_async(V* dst,
     const bool in = n0 + i < N;
     cp_async4(smem_addr(dst + i), in ? src + base + n0 + i : src, in);
   }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // ---------------------------------------------------------------------------
@@ -1224,6 +1158,217 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// K2 (bf16): dq on the tensor cores
+// ---------------------------------------------------------------------------
+template <int D>
+constexpr size_t dq_mma_smem() {
+  // q, dO tiles | k, v tiles x 2 stages (bf16) | q segment ids | kv ids x 2
+  return sizeof(bf16) * (2 * kFwdM * D + 4 * kFwdN * D) +
+         sizeof(int) * (kFwdM + 2 * kFwdN);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, Problem p) {
+  using Tile = SwzTile<D>;
+  constexpr int KD = D / 16;  // k-steps of Q.K^T and dO.V^T over the head dim
+  constexpr int ND = D / 8;   // n-tiles of dS.K over the head dim
+  constexpr int NS = kFwdN / 8;
+  constexpr int NK = KD * (NS / 2);        // steps of the two score products
+  constexpr int NQ = (NS / 2) * (ND / 2);  // steps of dS.K
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* do_s = q_s + kFwdM * D;
+  bf16* k_s = do_s + kFwdM * D;
+  bf16* v_s = k_s + 2 * kFwdN * D;
+  int* qseg_s = reinterpret_cast<int*>(v_s + 2 * kFwdN * D);
+  int* kseg_s = qseg_s + kFwdM;
+
+  // block -> (q tile, head, batch), the heaviest q tiles first, as in K1
+  const int nq = (p.S + kFwdM - 1) / kFwdM;
+  const int heads = p.Hq * p.B;
+  const int q0 = (nq - 1 - (int)(blockIdx.x / heads)) * kFwdM;
+  const int h = (int)(blockIdx.x % heads) % p.Hq;
+  const int b = (int)(blockIdx.x % heads) / p.Hq;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * kWarpRows;  // the warp's first q row
+  const int g = lane >> 2, t = lane & 3;
+  const bool segs = p.q_seg != nullptr;
+
+  int n_kv = (p.T + kFwdN - 1) / kFwdN;
+  if (p.causal) n_kv = min(n_kv, (min(q0 + kFwdM, p.S) - 1) / kFwdN + 1);
+
+  auto load_kv = [&](int it) {
+    const int st = it & 1;
+    load_tile_async<D, kFwdN>(k_s + st * kFwdN * D, k, b, it * kFwdN, p.T,
+                              p.Hkv, hk);
+    load_tile_async<D, kFwdN>(v_s + st * kFwdN * D, v, b, it * kFwdN, p.T,
+                              p.Hkv, hk);
+    if (segs)
+      load_vec_async<kFwdN>(kseg_s + st * kFwdN, p.kv_seg, (size_t)b * p.T,
+                            it * kFwdN, p.T, 0);
+  };
+  load_tile_async<D, kFwdM>(q_s, q, b, q0, p.S, p.Hq, h);
+  load_tile_async<D, kFwdM>(do_s, dout, b, q0, p.S, p.Hq, h);
+  if (segs) load_vec_async<kFwdM>(qseg_s, p.q_seg, (size_t)b * p.S, q0, p.S, 0);
+  load_kv(0);
+  cp_async_commit();
+
+  // lse (in log2 units) and delta of the lane's rows g and g + 8
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + r0 + g + 8 * i;
+    const size_t at = ((size_t)b * p.Hq + h) * p.S + qi;
+    lse2[i] = qi < p.S ? lse[at] * kLog2e : 0.f;
+    dlt[i] = qi < p.S ? delta[at] : 0.f;
+  }
+  uint32_t qf[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  int q_val = 0;
+  bool q_uniform = true;
+  const float scale_log2e = p.scale * kLog2e;
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int st = it & 1;
+    const int k0 = it * kFwdN;
+    cp_async_wait<0>();
+    // tile it has landed for every thread, and every warp is done with tile
+    // it - 1, whose stage the next copy refills
+    __syncthreads();
+    if (it + 1 < n_kv) {
+      load_kv(it + 1);  // overlaps this tile's products
+      cp_async_commit();
+    }
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldsm_x4(qf[kk], Tile::a_addr(q_s, r0, kk * 16, lane));
+      if (segs) {
+        const int s = qseg_s[r0 + (lane & 15)];
+        q_val = __shfl_sync(0xffffffffu, s, 0);
+        q_uniform = __all_sync(0xffffffffu, s == q_val);
+      }
+    }
+    const bf16* ks = k_s + st * kFwdN * D;
+    const bf16* vs = v_s + st * kFwdN * D;
+    const int* kseg = kseg_s + st * kFwdN;
+
+    // S = Q K^T and dP = dO V^T, 16 rows x 64 keys per warp; operands one
+    // step ahead of their products (dO fragments re-read from shared
+    // memory: kept in registers beside Q, dQ, S and dP they would spill)
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    auto kv_frags = [&](int i, uint32_t (&kb)[4], uint32_t (&vb)[4]) {
+      const int kk = i / (NS / 2), np = i % (NS / 2);
+      ldsm_x4(kb, Tile::b_addr(ks, np * 16, kk * 16, lane));
+      ldsm_x4(vb, Tile::b_addr(vs, np * 16, kk * 16, lane));
+    };
+    uint32_t kb[2][4], vb[2][4], of[2][4];
+    ldsm_x4(of[0], Tile::a_addr(do_s, r0, 0, lane));
+    kv_frags(0, kb[0], vb[0]);
+#pragma unroll
+    for (int i = 0; i < NK; ++i) {
+      if (i + 1 < NK) {
+        const int kk1 = (i + 1) / (NS / 2);
+        if ((i + 1) % (NS / 2) == 0)
+          ldsm_x4(of[kk1 & 1], Tile::a_addr(do_s, r0, kk1 * 16, lane));
+        kv_frags(i + 1, kb[(i + 1) & 1], vb[(i + 1) & 1]);
+      }
+      const int kk = i / (NS / 2), np = i % (NS / 2);
+      mma_bf16(s[2 * np], qf[kk], kb[i & 1][0], kb[i & 1][1]);
+      mma_bf16(s[2 * np + 1], qf[kk], kb[i & 1][2], kb[i & 1][3]);
+      mma_bf16(dp[2 * np], of[kk & 1], vb[i & 1][0], vb[i & 1][1]);
+      mma_bf16(dp[2 * np + 1], of[kk & 1], vb[i & 1][2], vb[i & 1][3]);
+    }
+    // the first K fragment of dS.K loads meanwhile (slot 0 is free: the
+    // loop above ended on slot 1)
+    static_assert(NK % 2 == 0, "slot 0 is free here");
+    auto kt_frag = [&](int i, uint32_t (&r)[4]) {
+      ldsm_x4_trans(r, Tile::a_addr(ks, (i / (ND / 2)) * 16,
+                                     (i % (ND / 2)) * 16, lane));
+    };
+    kt_frag(0, kb[0]);
+
+    // P = exp(S - lse) and dS = scale P (dP - delta) [(1 - t^2)] (the math
+    // of _recompute_p_ds), on the accumulator fragments
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float pr;
+        float cap_grad = 1.f;
+        if (p.soft_cap > 0.f) {
+          const float th = tanhf(s[j][e] * p.scale / p.soft_cap);
+          cap_grad = 1.f - th * th;
+          pr = fast_exp2(p.soft_cap * th * kLog2e - lse2[i]);
+        } else {
+          pr = fast_exp2(s[j][e] * scale_log2e - lse2[i]);
+        }
+        dp[j][e] = pr * (dp[j][e] - dlt[i]) * cap_grad * p.scale;
+      }
+    // per-element masks only where the tile needs them, as in K1
+    bool need_mask = k0 + kFwdN > p.T ||
+                     (p.causal && k0 + kFwdN - 1 > q0 + r0);
+    if (segs && !need_mask) {
+      bool same = q_uniform;
+      for (int c = lane; c < kFwdN; c += 32) same = same && kseg[c] == q_val;
+      need_mask = !__all_sync(0xffffffffu, same);
+    }
+    if (need_mask) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qr = r0 + g + (e >> 1) * 8;
+          const int kc = j * 8 + 2 * t + (e & 1);
+          const int qi = q0 + qr;
+          const int ki = k0 + kc;
+          bool ok = qi < p.S && ki < p.T && (!p.causal || ki <= qi);
+          if (segs) ok = ok && qseg_s[qr] == kseg[kc];
+          if (!ok) dp[j][e] = 0.f;
+        }
+    }
+
+    // dQ += dS K: dS rounded to bf16 in registers (the Pallas kernel's
+    // ds.astype(k.dtype)) as the A operand, K through ldmatrix.trans
+    uint32_t da[NS / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) acc_to_a(da[kk], dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      if (i + 1 < NQ) kt_frag(i + 1, kb[(i + 1) & 1]);
+      const int kk = i / (ND / 2), dd = i % (ND / 2);
+      mma_bf16(acc[2 * dd], da[kk], kb[i & 1][0], kb[i & 1][1]);
+      mma_bf16(acc[2 * dd + 1], da[kk], kb[i & 1][2], kb[i & 1][3]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + r0 + g + 8 * i;
+    if (qi >= p.S) continue;
+    bf16* row = dq + (((size_t)b * p.S + qi) * p.Hq + h) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 template <typename Kernel>
@@ -1282,6 +1427,24 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dq), p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_mma(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, const Problem& p, cudaStream_t stream) {
+  const size_t smem = dq_mma_smem<D>();
+  int e = prepare(dq_mma_kernel<D>, smem);
+  dim3 grid;
+  if (e == 0)
+    e = grid_1d((long long)((p.S + kFwdM - 1) / kFwdM) * p.Hq * p.B, grid);
+  if (e != 0) return e;
+  dq_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), p);
   return (int)cudaGetLastError();
 }
 
@@ -1356,8 +1519,8 @@ extern "C" {
 // D). q_seg / kv_seg: (B, S) / (B, T) int32, both null without
 // segment ids. soft_cap <= 0 means none. Each returns cudaGetLastError()
 // after its launch (0 = success), or cudaErrorInvalidValue for a dtype or D
-// it does not take. bfloat16 runs K1 and K3 on the tensor cores, float32 on
-// the CUDA cores; K2 is the CUDA-core kernel for both.
+// it does not take. bfloat16 runs K1-K3 on the tensor cores, float32 on the
+// CUDA cores.
 
 int fa_forward(const void* q, const void* k, const void* v, const void* q_seg,
                const void* kv_seg, void* out, void* lse, int B, int S, int T,
@@ -1387,7 +1550,7 @@ int fa_backward_dq(const void* q, const void* k, const void* v,
     if (dtype == 0)
       return launch_dq<float, kD>(q, k, v, dout, lse, delta, dq, p, s);
     if (dtype == 1)
-      return launch_dq<__nv_bfloat16, kD>(q, k, v, dout, lse, delta, dq, p, s);
+      return launch_dq_mma<kD>(q, k, v, dout, lse, delta, dq, p, s);
     return (int)cudaErrorInvalidValue;
   });
 }
@@ -1410,12 +1573,14 @@ int fa_backward_dkv(const void* q, const void* k, const void* v,
   });
 }
 
-// dynamic shared memory (bytes) of the bf16 tensor-core K1 (which = 0) or
-// K3 (which = 1) at head dim D
+// dynamic shared memory (bytes) of the bf16 tensor-core K1 (which = 0), K3
+// (which = 1) or K2 (which = 2) at head dim D
 int fa_mma_smem_bytes(int which, int D) {
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    return (int)(which == 0 ? fwd_mma_smem<kD>() : dkv_mma_smem<kD>());
+    if (which == 0) return (int)fwd_mma_smem<kD>();
+    if (which == 1) return (int)dkv_mma_smem<kD>();
+    return (int)dq_mma_smem<kD>();
   });
 }
 

@@ -1,8 +1,9 @@
 """Build `csrc/*.cu` into shared libraries with nvcc and load them with ctypes.
 
 Each source compiles on its own into `csrc/build/<stem>-<hash>.so` (a
-directory git ignores), keyed by a hash of the source text and the flags, so
-an edited source rebuilds and an unchanged one is reused. The libraries have
+directory git ignores), keyed by a hash of the source text, the local
+headers it includes and the flags, so an edited source or header rebuilds
+and an unchanged one is reused. The libraries have
 a plain C interface: no PyTorch headers, so a build takes seconds. ptxas's
 resource report (registers, shared memory, spills) is kept beside each
 library as `<stem>-<hash>.log`.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -40,12 +42,15 @@ def nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where `source` (a file name under csrc/) builds to."""
-    src = CSRC / source
+    """Where `source` (a file name under csrc/) builds to: keyed by its
+    text, the local headers it includes and the flags."""
+    text = (CSRC / source).read_bytes()
+    headers = re.findall(rb'#include "([\w.]+)"', text)
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        text + b"".join((CSRC / h.decode()).read_bytes() for h in headers)
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
 def build(*sources: str) -> list[Path]:

@@ -2,11 +2,11 @@
 replace `automodel_tpu/ops/pallas/flash_attention.py:_fwd_kernel`,
 `_dq_kernel` and `_dkv_kernel`).
 
-The input dtype picks the route, `route(dtype)`: bfloat16 runs K1 and K3 on
-the tensor cores (`mma.sync`), float32 on the CUDA cores, whose fp32
-products keep the fp32 results within ~1e-6 of the plain versions (an fp32
-`mma` would be TF32). K2 is the CUDA-core kernel for both. `KERNELS` names
-each route's device kernels, as a profiler shows them.
+The input dtype picks the route, `route(dtype)`: bfloat16 runs K1-K3 on the
+tensor cores (`mma.sync`), float32 on the CUDA cores, whose fp32 products
+keep the fp32 results within ~1e-6 of the plain versions (an fp32 `mma`
+would be TF32). `KERNELS` names each route's device kernels, as a profiler
+shows them.
 
 The plain versions of the same functions are
 `automodel_tpu_torch.ops.flash_attention.flash_attention_ref` (forward) and
@@ -29,7 +29,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
 # the device kernels of K1, K2 and K3 on each route
 KERNELS = {
-    "mma": ("fwd_mma_kernel", "dq_kernel", "dkv_mma_kernel"),
+    "mma": ("fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel"),
     "fma": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
 }
 
@@ -56,14 +56,14 @@ def _lib() -> ctypes.CDLL:
 
 
 def route(dtype: torch.dtype) -> str:
-    """K1's and K3's route for inputs of `dtype`: "mma" (tensor cores,
-    bfloat16) or "fma" (CUDA cores, float32)."""
+    """K1-K3's route for inputs of `dtype`: "mma" (tensor cores, bfloat16)
+    or "fma" (CUDA cores, float32)."""
     return _ROUTES[dtype]
 
 
 def mma_smem_bytes(which: int, D: int) -> int:
-    """Dynamic shared memory (bytes) of the tensor-core K1 (`which` 0) or K3
-    (`which` 1) at head dim D."""
+    """Dynamic shared memory (bytes) of the tensor-core K1 (`which` 0), K3
+    (`which` 1) or K2 (`which` 2) at head dim D."""
     return _lib().fa_mma_smem_bytes(which, D)
 
 
@@ -173,12 +173,14 @@ def flash_fwd_cuda(q, k, v, segment_ids=None, *, scale: float,
 def flash_dq_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
                   scale: float, soft_cap: float | None = None,
                   causal: bool = True):
-    """K2: dq (B, S, Hq, D) in q's dtype from dout (q's dtype and shape) and
-    the fp32 (B, Hq, S) lse and delta."""
+    """K2 on `route(q.dtype)`: dq (B, S, Hq, D) in q's dtype from dout (q's
+    dtype and shape) and the fp32 (B, Hq, S) lse and delta."""
     global launches_dq
     check_supported(q, k, v)
     _check(dict(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta), q, segment_ids)
     seg, dims = _common(q, k, segment_ids, scale, soft_cap, causal)
+    if route(q.dtype) == "mma":
+        q, k, v, dout = _aligned(q, k, v, dout)
     dq = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(q.device):

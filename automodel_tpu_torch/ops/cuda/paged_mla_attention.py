@@ -4,6 +4,12 @@ over fp latent pages (K6) and over int8 latent pages with per-row scales
 `automodel_tpu/ops/pallas/ragged_paged_attention.py:_mla_kernel` and
 `:_mla_quant_kernel`).
 
+K7 takes one of two routes by the query dtype, `route(dtype)`: bfloat16
+queries run the split-KV kernel on the tensor cores and its combine
+(`mla_split_kernel`, `mla_combine_kernel`), float32 queries the CUDA-core
+`mla_kernel`. `KERNELS` names each route's device kernels, as a profiler
+shows them.
+
 The plain version of both is
 `automodel_tpu_torch.ops.paged_attention.ragged_paged_mla_attention_ref`.
 """
@@ -26,6 +32,19 @@ SOURCE = "paged_mla_attention.cu"
 #: the largest heads x latent rank one block's accumulators cover
 MAX_HEADS_X_RANK = 256 * 64
 
+_ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
+#: K7's device kernels on each route
+KERNELS = {
+    "mma": ("mla_split_kernel", "mla_combine_kernel"),
+    "fma": ("mla_kernel",),
+}
+
+
+def route(dtype: torch.dtype) -> str:
+    """K7's route for queries of `dtype`: "mma" (tensor cores, bfloat16) or
+    "fma" (CUDA cores, float32)."""
+    return _ROUTES[dtype]
+
 
 def _lib() -> ctypes.CDLL:
     lib = load_library(SOURCE)
@@ -40,6 +59,15 @@ def _lib() -> ctypes.CDLL:
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         lib.mla_quant_forward.restype = ctypes.c_int
+        lib.mla_quant_split_forward.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.mla_quant_split_forward.restype = ctypes.c_int
+        lib.mla_split_workspace_floats.argtypes = [ctypes.c_int] * 6
+        lib.mla_split_workspace_floats.restype = ctypes.c_longlong
+        lib.mla_split_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.mla_split_smem_bytes.restype = ctypes.c_int
         lib.mla_max_heads_x_rank.argtypes = []
         lib.mla_max_heads_x_rank.restype = ctypes.c_int
         lib.mla_error_string.argtypes = [ctypes.c_int]
@@ -47,6 +75,12 @@ def _lib() -> ctypes.CDLL:
         if lib.mla_max_heads_x_rank() != MAX_HEADS_X_RANK:
             raise RuntimeError("paged_mla_attention.cu and its wrapper disagree")
     return lib
+
+
+def split_smem_bytes(n: int, r: int, dr: int, ps: int, P: int) -> int:
+    """Dynamic shared memory (bytes) of the bf16 route's split kernel for
+    int8 pages of this shape."""
+    return _lib().mla_split_smem_bytes(n, r, dr, ps, P)
 
 
 def _check(q_abs, q_rope, c_pages, kr_pages, page_tables, positions,
@@ -124,10 +158,12 @@ def paged_mla_attention_quant_cuda(
     q_abs, q_rope, c_pages, kr_pages, c_scales, kr_scales, page_tables,
     positions, *, scale: float,
 ) -> torch.Tensor:
-    """K7 on CUDA tensors: q_abs (T, n, r) and q_rope (T, n, dr) float32 or
-    bfloat16; int8 c_pages (N+1, ps, r) and kr_pages (N+1, ps, dr) with
-    (N+1, ps) float32 per-row scales; page_tables (T, P) and positions (T,)
-    int32. Returns (T, n, r) in q's dtype."""
+    """K7 on CUDA tensors, on `route(q_abs.dtype)`: q_abs (T, n, r) and
+    q_rope (T, n, dr) float32 or bfloat16; int8 c_pages (N+1, ps, r) and
+    kr_pages (N+1, ps, dr) with (N+1, ps) float32 per-row scales;
+    page_tables (T, P) and positions (T,) int32. Returns (T, n, r) in q's
+    dtype. The bfloat16 route takes an fp32 workspace for its split
+    partials from the caching allocator."""
     _check(q_abs, q_rope, c_pages, kr_pages, page_tables, positions,
            torch.int8)
     check_on_card(q_abs, c_scales=c_scales, kr_scales=kr_scales)
@@ -136,16 +172,22 @@ def paged_mla_attention_quant_cuda(
     T, n, r = q_abs.shape
     ps, dr = c_pages.shape[1], q_rope.shape[-1]
     out = torch.empty((T, n, r), dtype=q_abs.dtype, device=q_abs.device)
+    P = page_tables.shape[1]
     lib = _lib()
-    with torch.cuda.device(q_abs.device):
-        err = lib.mla_quant_forward(
-            q_abs.data_ptr(), q_rope.data_ptr(), c_pages.data_ptr(),
+    ptrs = (q_abs.data_ptr(), q_rope.data_ptr(), c_pages.data_ptr(),
             kr_pages.data_ptr(), c_scales.data_ptr(), kr_scales.data_ptr(),
-            page_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            T, n, r, dr, ps, page_tables.shape[1], float(scale),
-            DTYPE_CODES[q_abs.dtype],
-            torch.cuda.current_stream(q_abs.device).cuda_stream,
-        )
+            page_tables.data_ptr(), positions.data_ptr(), out.data_ptr())
+    with torch.cuda.device(q_abs.device):
+        stream = torch.cuda.current_stream(q_abs.device).cuda_stream
+        if route(q_abs.dtype) == "mma":
+            ws = torch.empty(lib.mla_split_workspace_floats(T, n, r, dr, ps, P),
+                             dtype=torch.float32, device=q_abs.device)
+            err = lib.mla_quant_split_forward(
+                *ptrs, ws.data_ptr(), T, n, r, dr, ps, P, float(scale), stream)
+        else:
+            err = lib.mla_quant_forward(
+                *ptrs, T, n, r, dr, ps, P, float(scale),
+                DTYPE_CODES[q_abs.dtype], stream)
     _raise_on(lib, err, "quantized paged MLA attention")
     paged_mla_attention_quant_cuda.launches += 1
     return out

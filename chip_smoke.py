@@ -13,10 +13,11 @@ one JSON line each:
    contexts up to 999 tokens, pad rows), each timed beside its bound: K4
    (fp pages) and K5 (int8 pages) at Llama-3-8B's heads (32/8, D 128), K6
    (fp latent pages) and K7 (int8) at Moonlight's MLA widths (16 heads,
-   r 512, dr 64);
+   r 512, dr 64); bf16 K7 is the split-KV kernel on the tensor cores and
+   its combine, fp32 K7 the CUDA-core kernel;
 3. flash: K1-K3 (flash attention forward, dq, dk/dv) against their plain
    versions at the training shapes (B 1, S 4096, Hq 32, Hkv 8, D 128,
-   causal) in bf16 (K1 and K3 on the tensor cores) and fp32 (CUDA cores),
+   causal) in bf16 (K1-K3 on the tensor cores) and fp32 (CUDA cores),
    plus a packed-segment case, an S that is not a multiple of the tile and
    head dim 64 in bf16; timed beside their operations bound, the plain
    versions and `scaled_dot_product_attention` as a yardstick;
@@ -35,7 +36,11 @@ one JSON line each:
    at Moonlight width (one dense, one MoE layer; K6 on the fp pool, K7 on
    the int8 pool): the same step plans run through the engine with the
    kernels and with the plain versions, whose logits and greedy tokens
-   must agree;
+   must agree; then the Moonlight engine in bf16 on the int8 pool (K7's
+   tensor-core route), on the kernels and on the plain versions, each held
+   to the same model in fp32: the kernels' logits no farther from it than
+   the plain version's plus the bf16 tolerance, greedy agreements
+   reported;
 7. train: the training CLI (`python -m automodel_tpu_torch`, run in this
    process) on `examples/llm_pretrain/llama3_8b_mock_bf16.yaml` at its
    published width, bf16 and full remat, cut to 8 layers, 2 microbatches
@@ -52,7 +57,8 @@ one JSON line each:
    the loss curves must agree.
 
 The build line carries ptxas's registers and spills of every kernel, and of
-the tensor-core K1/K3 by name with their dynamic shared memory. Then it
+the tensor-core K1-K3 and K7 kernels by name with their dynamic shared
+memory. Then it
 prints the `{"kernels": [...]}` line and, last, the
 `{"ok": true, "device": {...}}` line. Any failed check raises and the exit
 code is not 0. Without CUDA it exits 2 and prints no result.
@@ -60,6 +66,7 @@ code is not 0. Without CUDA it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -88,6 +95,7 @@ from automodel_tpu_torch.models.moe_lm.families import deepseek_v3_moe_config
 from automodel_tpu_torch.ops import flash_attention as fa
 from automodel_tpu_torch.ops.cuda import _build
 from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
+from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla_cuda
 from automodel_tpu_torch.ops.cuda.paged_mla_attention import (
     SOURCE as MLA_SOURCE,
     paged_mla_attention_cuda,
@@ -106,6 +114,7 @@ from automodel_tpu_torch.recipes.llm.train_ft import (
     TrainFinetuneRecipeForNextTokenPrediction,
 )
 from automodel_tpu_torch.serving import Request, ServingConfig, ServingEngine
+from automodel_tpu_torch.serving import engine as serving_engine
 from automodel_tpu_torch.serving.kv_pages import pages_for
 from automodel_tpu_torch.training import accumulate_grads
 from automodel_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -138,6 +147,8 @@ MOONLIGHT = {
     "max_position_embeddings": 8192, "num_nextn_predict_layers": 0,
     "tie_word_embeddings": False,
 }
+# Moonlight's absorbed-MLA widths: heads, latent rank, rope dim
+MOONLIGHT_MLA = (16, 512, 64)
 # the llm_serve recipe's default ServingConfig (recipes/llm/serve.py)
 SERVE = ServingConfig(
     page_size=16, num_pages=2048, max_slots=16, pages_per_slot=64,
@@ -159,6 +170,10 @@ ENGINE_LOGITS_TOL = 1e-3
 # rounding half-step and lands one int8 step (~1% of its row's largest
 # value) apart in the two engines
 ENGINE_INT8_LOGITS_TOL = 2e-2
+# the bf16 2-layer engine on the kernels may stray from the same model in
+# fp32 by the plain version's own bf16 error plus this share of the largest
+# fp32 logit (at least 1): the kernels' own bf16 tolerance
+ENGINE_BF16_LOGITS_TOL = 2e-2
 # K5-K7 against their plain versions, as a share of the plain result's
 # largest magnitude. fp32: only the order of sums differs. bf16: the plain
 # versions round dequantized pages, probabilities and the value product to
@@ -365,7 +380,7 @@ def k67_case(dtype, quant: bool, seed: int = 0):
     """K6 (fp pages) or K7 (int8 pages) at Moonlight's latent widths: n 16
     heads, r 512, dr 64, scale (128 + 64)^-0.5."""
     pt, pos, N, ps = step_rows(seed)
-    n, r, dr = 16, 512, 64
+    n, r, dr = MOONLIGHT_MLA
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q_abs = torch.randn(64, n, r, generator=gen, device="cuda").to(dtype)
     q_rope = torch.randn(64, n, dr, generator=gen, device="cuda").to(dtype)
@@ -645,7 +660,7 @@ def serve_phase(card: str) -> dict:
     setup_s = time.perf_counter() - t0
     model = "Llama-3-8B widths, 32 layers, bf16"
     k4, fp = serve_run(engine, cfg, card, "serve", model, "K4", setup_s)
-    profile_steps(engine, cfg, card, "serve", "gqa_kernel")
+    profile_steps(engine, cfg, card, "serve", ("gqa_kernel",))
     del engine
     torch.cuda.empty_cache()
 
@@ -661,7 +676,7 @@ def serve_phase(card: str) -> dict:
     emit({"phase": "serve_int8_agreement", "card": card,
           "greedy_agreement": sum(a == b for a, b in pairs) / len(pairs),
           "tokens": len(pairs), "first_divergence_per_request": first})
-    profile_steps(engine, cfg, card, "serve_int8", "gqa_kernel")
+    profile_steps(engine, cfg, card, "serve_int8", ("gqa_kernel",))
     del engine, params
     torch.cuda.empty_cache()
     return {"K4": k4, "K5": k5}
@@ -683,22 +698,26 @@ def serve_mla_phase(card: str) -> dict:
              f"dense + {cfg.num_moe_layers} MoE), bf16, {n_params} params")
     launches = {}
     launches["K6"], _ = serve_run(engine, cfg, card, "serve_mla", model, "K6", setup_s)
-    profile_steps(engine, cfg, card, "serve_mla", "mla_kernel")
+    profile_steps(engine, cfg, card, "serve_mla", ("mla_kernel",))
     del engine
     torch.cuda.empty_cache()
     engine = ServingEngine(params, cfg, dataclasses.replace(SERVE, kv_cache_dtype="int8"))
     launches["K7"], _ = serve_run(engine, cfg, card, "serve_mla_int8", model, "K7", 0.0)
-    profile_steps(engine, cfg, card, "serve_mla_int8", "mla_kernel")
+    # bf16 queries: K7 is the split kernel and its combine
+    profile_steps(engine, cfg, card, "serve_mla_int8",
+                  mla_cuda.KERNELS[mla_cuda.route(torch.bfloat16)])
     del engine, params
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_steps(engine, cfg, card: str, phase: str, kernel_key: str) -> None:
+def profile_steps(engine, cfg, card: str, phase: str,
+                  kernel_keys: tuple[str, ...]) -> None:
     """Where a serve step's time goes: the same traffic again, 40 steps to
     reach a mix of prefill and decode, then 10 steps under torch.profiler.
     Prints device busy time per step by kernel and the device's idle share
-    of the window's wall time. `kernel_key` names the attention kernel."""
+    of the window's wall time. `kernel_keys` name the attention kernel's
+    device kernels (one template each: `name<`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -725,11 +744,15 @@ def profile_steps(engine, cfg, card: str, phase: str, kernel_key: str) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = {}
+    attn_launches = {k: 0 for k in kernel_keys}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            for k in kernel_keys:
+                attn_launches[k] += (k + "<") in e.name
     busy_ms = sum(by_name.values())
-    attn_ms = sum(v for k, v in by_name.items() if kernel_key in k)
+    attn_ms = sum(v for k, v in by_name.items()
+                  if any(key + "<" in k for key in kernel_keys))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     emit({
         "phase": "profile", "of": phase, "card": card, "steps": n_steps,
@@ -739,11 +762,21 @@ def profile_steps(engine, cfg, card: str, phase: str, kernel_key: str) -> None:
         "device_busy_ms_per_step": busy_ms / n_steps,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_idle_share_vs_unprofiled": 1.0 - busy_ms / plain_wall_ms,
-        "attn_kernel": kernel_key,
+        "attn_kernels": list(kernel_keys),
+        "attn_kernel_launches_per_step": {k: v / n_steps for k, v in attn_launches.items()},
         "attn_kernel_ms_per_step": attn_ms / n_steps,
         "attn_kernel_share_of_busy": attn_ms / busy_ms if busy_ms else None,
         "top_kernels_ms_per_step": [[k[:80], v / n_steps] for k, v in top],
     })
+
+
+def submit_engine_requests(sched, cfg) -> None:
+    rng = np.random.default_rng(1)
+    for n in (100, 60, 30):
+        sched.submit(Request(
+            prompt=[int(t) for t in rng.integers(1, cfg.vocab_size, (n,))],
+            max_new_tokens=4,
+        ))
 
 
 def engine_check(phase: str, cfg, params, sc, tol: float) -> None:
@@ -753,12 +786,7 @@ def engine_check(phase: str, cfg, params, sc, tol: float) -> None:
     e_cuda = ServingEngine(params, cfg, sc, attn_impl="cuda")
     e_torch = ServingEngine(params, cfg, sc, attn_impl="torch")
     sched = e_cuda.make_scheduler()
-    rng = np.random.default_rng(1)
-    for n in (100, 60, 30):
-        sched.submit(Request(
-            prompt=[int(t) for t in rng.integers(1, cfg.vocab_size, (n,))],
-            max_new_tokens=4,
-        ))
+    submit_engine_requests(sched, cfg)
     worst, steps = 0.0, 0
     while sched.has_work:
         plan = sched.schedule(steps)
@@ -779,6 +807,90 @@ def engine_check(phase: str, cfg, params, sc, tol: float) -> None:
         raise AssertionError(f"{phase}: engine logits differ between kernels and plain")
 
 
+@contextlib.contextmanager
+def k7_held_to_plain(errors: list):
+    """Within the block, every paged MLA attention call an engine makes also
+    runs the plain version on the same inputs, and the kernel's error (a
+    share of the plain result's largest magnitude, at least 1) is appended
+    to `errors`. The engine module's reference to the dispatcher is
+    wrapped; the kernel's wrapper, and its launch count, stay as they are."""
+    dispatch = serving_engine.ragged_paged_mla_attention
+
+    def checked(*args, **kw):
+        got = dispatch(*args, **kw)
+        want = dispatch(*args, **dict(kw, impl="torch")).float()
+        errors.append(((got.float() - want).abs().max()
+                       / want.abs().max().clamp(min=1.0)).item())
+        return got
+
+    serving_engine.ragged_paged_mla_attention = checked
+    try:
+        yield
+    finally:
+        serving_engine.ragged_paged_mla_attention = dispatch
+
+
+def engine_bf16_check(phase: str, cfg, params, sc, tol: float) -> None:
+    """A bf16 engine on the kernels and one on the plain versions, on
+    identical step plans, each held to the same model in fp32 (the bf16
+    weights upcast exactly, plain attention): the kernels' logits may stray
+    from the fp32 logits by at most the plain version's own bf16 error plus
+    `tol`, both as shares of the step's largest fp32 logit magnitude (at
+    least 1). The two bf16 engines round attention at other places and bf16
+    carries the difference through the layers, the MoE routing and the
+    int8 quantization of new rows, so they are compared through the fp32
+    model, not with each other; their difference and the greedy agreements
+    are reported. Every K7 call of the kernels' engine is also held to its
+    plain version on the same inputs, within `PAGED_TOL`."""
+    engines = {
+        "cuda": ServingEngine(params, cfg, sc, attn_impl="cuda"),
+        "torch": ServingEngine(params, cfg, sc, attn_impl="torch"),
+        "fp32": ServingEngine(tree_map(lambda t: t.float(), params),
+                              dataclasses.replace(cfg, dtype=torch.float32), sc,
+                              attn_impl="torch"),
+    }
+    sched = engines["cuda"].make_scheduler()
+    submit_engine_requests(sched, cfg)
+    err = {"cuda_vs_fp32": 0.0, "plain_vs_fp32": 0.0, "cuda_vs_plain": 0.0}
+    agree = {"cuda_vs_fp32": 0, "plain_vs_fp32": 0, "cuda_vs_plain": 0}
+    steps, rows, k7_errors = 0, 0, []
+    n0 = paged_mla_attention_quant_cuda.launches
+    while sched.has_work:
+        plan = sched.schedule(steps)
+        with k7_held_to_plain(k7_errors):
+            lg = {"cuda": engines["cuda"].step_logits(plan).float()}
+        lg.update({k: engines[k].step_logits(plan).float() for k in ("torch", "fp32")})
+        den = max(1.0, lg["fp32"].abs().max().item())
+        top = {k: v.argmax(-1) for k, v in lg.items()}
+        # greedy agreement over the slots that sample this step (an idle
+        # slot's row is a copy of row 0)
+        live = torch.as_tensor(plan.sample_tok >= 0, device=top["cuda"].device)
+        for key, a, b in (("cuda_vs_fp32", "cuda", "fp32"),
+                          ("plain_vs_fp32", "torch", "fp32"),
+                          ("cuda_vs_plain", "cuda", "torch")):
+            err[key] = max(err[key], (lg[a] - lg[b]).abs().max().item() / den)
+            agree[key] += int(((top[a] == top[b]) & live).sum().item())
+        rows += int(live.sum().item())
+        sched.update(plan, top["cuda"].to(torch.int32).cpu().numpy(), steps)
+        steps += 1
+    emit({"phase": phase, "layers": cfg.num_layers, "dtype": "bfloat16",
+          "kv_cache_dtype": sc.kv_cache_dtype, "steps": steps,
+          "max_rel_logit_err": err, "tol": tol,
+          "greedy_agreement": {k: v / rows for k, v in agree.items()},
+          "k7_calls": len(k7_errors),
+          "k7_launches": paged_mla_attention_quant_cuda.launches - n0,
+          "k7_max_rel_err": max(k7_errors), "k7_tol": PAGED_TOL[torch.bfloat16]})
+    if paged_mla_attention_quant_cuda.launches - n0 != len(k7_errors) \
+            or not k7_errors:
+        raise AssertionError(f"{phase}: the engine's K7 calls did not all launch K7")
+    if max(k7_errors) > PAGED_TOL[torch.bfloat16]:
+        raise AssertionError(f"{phase}: K7 calls disagree with the plain version")
+    if err["cuda_vs_fp32"] > err["plain_vs_fp32"] + tol:
+        raise AssertionError(
+            f"{phase}: the kernels stray from the fp32 model more than the "
+            f"plain version does: {err}")
+
+
 def engine_phase() -> None:
     """2-layer fp32 engine at Llama-3-8B width: K4 against the plain
     version through the engine."""
@@ -792,15 +904,22 @@ def engine_phase() -> None:
 
 def engine_mla_phase() -> None:
     """A 2-layer Moonlight-width engine (one dense, one MoE layer) in fp32:
-    K6 on the fp pool and K7 on the int8 pool against the plain versions."""
+    K6 on the fp pool and K7 (CUDA-core route) on the int8 pool against the
+    plain versions; then the same engine in bf16 on the int8 pool, which
+    takes K7's tensor-core route."""
     cfg = dataclasses.replace(deepseek_v3_moe_config(MOONLIGHT), num_layers=2,
                               dtype=torch.float32)
     params = moe_decoder.init(cfg, torch.Generator(device="cuda").manual_seed(1))
     sc = dataclasses.replace(SERVE, num_pages=256)
+    int8 = dataclasses.replace(sc, kv_cache_dtype="int8")
     engine_check("engine_mla", cfg, params, sc, ENGINE_LOGITS_TOL)
-    engine_check("engine_mla_int8", cfg, params,
-                 dataclasses.replace(sc, kv_cache_dtype="int8"), ENGINE_INT8_LOGITS_TOL)
+    engine_check("engine_mla_int8", cfg, params, int8, ENGINE_INT8_LOGITS_TOL)
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    params16 = tree_map(lambda t: t.to(torch.bfloat16), params)
     del params
+    engine_bf16_check("engine_mla_int8_bf16", cfg16, params16, int8,
+                      ENGINE_BF16_LOGITS_TOL)
+    del params16
     torch.cuda.empty_cache()
 
 
@@ -968,16 +1087,28 @@ def train_paths_phase() -> None:
         raise AssertionError("tiny recipe: kernel and plain loss curves differ")
 
 
+# the tensor-core kernels in ptxas's mangled names: (pattern, readable name)
+MMA_KERNELS = (
+    (r"((?:fwd|dkv|dq)_mma_kernel)ILi(\d+)E", lambda m: f"{m[1]}<{m[2]}>"),
+    (r"(mla_split_kernel)IaLi(\d+)ELi(\d+)E",
+     lambda m: f"{m[1]}<int8, {m[2]}, {m[3]}>"),
+    (r"(mla_combine_kernel)I13__nv_bfloat16E", lambda m: f"{m[1]}<bf16>"),
+)
+
+
 def mma_ptxas(log: str) -> dict:
-    """ptxas's report on the bf16 tensor-core K1/K3 instantiations: registers,
-    spill bytes and dynamic shared memory (the kernel's launch size) for
-    each head dim."""
+    """ptxas's report on the bf16 tensor-core instantiations (K1-K3 at each
+    head dim, K7's split kernel at each step and column count, its
+    combine): registers, spill bytes and, for K1-K3 and the split kernel
+    at Moonlight's widths, dynamic shared memory (the launch size)."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?"
-                      r"\S*?((?:fwd|dkv)_mma_kernel)ILi(\d+)E", line)
-        if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+        if "Compiling entry function" in line or "Function properties for" in line:
+            name = None
+            for pattern, readable in MMA_KERNELS:
+                m = re.search(pattern, line)
+                if m:
+                    name = readable(m)
             continue
         if name is None:
             continue
@@ -988,9 +1119,15 @@ def mma_ptxas(log: str) -> dict:
         elif "Used" in line and "registers" in line:
             entry["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
             name = None
+    which = {"fwd": 0, "dkv": 1, "dq": 2}
     for key, entry in out.items():
-        which = 0 if key.startswith("fwd") else 1
-        entry["dynamic_smem_bytes"] = fa_cuda.mma_smem_bytes(which, int(key[:-1].split("<")[1]))
+        if key.startswith("mla_split"):
+            n, r, dr = MOONLIGHT_MLA
+            entry["dynamic_smem_bytes_moonlight"] = mla_cuda.split_smem_bytes(
+                n, r, dr, SERVE.page_size, SERVE.pages_per_slot)
+        elif not key.startswith("mla_"):
+            entry["dynamic_smem_bytes"] = fa_cuda.mma_smem_bytes(
+                which[key.split("_")[0]], int(key[:-1].split("<")[1]))
     return out
 
 
@@ -1014,7 +1151,9 @@ def main() -> int:
           "ptxas": {stem: [l.strip() for l in log.splitlines()
                            if "registers" in l or "spill" in l]
                     for stem, log in logs.items()},
-          "tensor_core_kernels": mma_ptxas(logs[_build.library_path(fa_cuda.SOURCE).stem])})
+          "tensor_core_kernels": mma_ptxas(
+              logs[_build.library_path(fa_cuda.SOURCE).stem]
+              + logs[_build.library_path(MLA_SOURCE).stem])})
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     k4 = kernel_phase(flush)
@@ -1058,6 +1197,8 @@ def main() -> int:
             "library_why": no_library,
             "card": card,
         })
+        if name == "K7":  # K4-K6 have one route; K7's follows the query dtype
+            kernels[-1]["kernel_route"] = mla_cuda.route(torch.bfloat16)
     for name, replaces in (("K1", ":140"), ("K2", ":238"), ("K3", ":283")):
         e = flash[name]
         kernels.append({
@@ -1074,8 +1215,7 @@ def main() -> int:
             "bound_by": e["bound_by"],
             "library_ms": e["library_ms"],
             "library_call": e["library_call"],
-            # K2 runs on the CUDA cores for both dtypes
-            "kernel_route": "fma" if name == "K2" else fa_cuda.route(torch.bfloat16),
+            "kernel_route": fa_cuda.route(torch.bfloat16),
             "tflops": e["tflops"],
             "bound_share": e["bound_share"],
             "card": card,

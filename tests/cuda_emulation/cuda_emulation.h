@@ -1,6 +1,7 @@
-// CPU emulation of the CUDA features that csrc/flash_attention.cu uses, so
-// that its kernels run on a machine without a GPU (tests/
-// test_torch_flash_emulated.py). One std::thread per CUDA thread; blocks run
+// CPU emulation of the CUDA features that csrc/flash_attention.cu and
+// csrc/paged_mla_attention.cu use, so that their kernels run on a machine
+// without a GPU (tests/test_torch_flash_emulated.py,
+// tests/test_torch_mla_emulated.py). One std::thread per CUDA thread; blocks run
 // one after another; __syncthreads is a block barrier; warp collectives
 // (shuffles, votes, ldmatrix, mma.sync m16n8k16 bf16) exchange operands
 // through a per-warp buffer between two warp barriers. cp.async copies at
@@ -31,6 +32,8 @@
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
 inline thread_local uint3_ threadIdx, blockIdx;
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+struct uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 struct __nv_bfloat16 { uint16_t v; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 inline float __bfloat162float(__nv_bfloat16 b) { uint32_t u = (uint32_t)b.v << 16; float f; memcpy(&f, &u, 4); return f; }
@@ -43,7 +46,7 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2bfloat16(a), __float2bfloat16(b)}; }
 using std::min; using std::max;
 typedef int cudaError_t;
-enum { cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 typedef void* cudaStream_t;
 template <typename K> int cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }

@@ -200,6 +200,69 @@ def test_k6_k7_match_plain_version(card, dtype, quant, n, r, dr, ps):
     assert not got[pos < 0].any()
 
 
+@pytest.mark.parametrize("context", [16, 128, 63 * 16],
+                         ids=["one_page", "one_split", "63_pages"])
+def test_k7_split_kernel_at_moonlight_widths(card, context):
+    """bf16 K7 (split-KV on the tensor cores) at Moonlight's widths (n 16,
+    r 512, dr 64, 16-token pages, 64-page tables): a context of one page,
+    of exactly one split (128 kv) and of 63 pages, each as a decode row,
+    a prefill row halfway and a row on the last page's first kv, beside a
+    pad row."""
+    from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
+
+    n, r, dr, ps, P, N = 16, 512, 64, 16, 64, 200
+    rng = np.random.default_rng(context)
+    pages = [int(x) for x in rng.permutation(N)[: -(-context // ps)]]
+    pt = torch.tensor([pages + [N] * (P - len(pages))] * 4, dtype=torch.int32,
+                      device=card)
+    pos = torch.tensor([context - 1, (context - 1) // 2,
+                        (context - 1) // ps * ps, -1], dtype=torch.int32,
+                       device=card)
+    gen = torch.Generator(device=card).manual_seed(5)
+    q_abs = torch.randn(4, n, r, generator=gen, device=card).bfloat16()
+    q_rope = torch.randn(4, n, dr, generator=gen, device=card).bfloat16()
+    c, cs = _int8_pages(gen, card, N + 1, ps, r)
+    kr, krs = _int8_pages(gen, card, N + 1, ps, dr)
+    scale = (128 + 64) ** -0.5
+    got = mla.paged_mla_attention_quant_cuda(q_abs, q_rope, c, kr, cs, krs,
+                                             pt, pos, scale=scale)
+    torch.cuda.synchronize()
+    want = ragged_paged_mla_attention_ref(q_abs, q_rope, c, kr, pt, pos,
+                                          scale=scale, c_scales=cs,
+                                          kr_scales=krs)
+    assert _rel_err(got, want) <= PAGED_TOL[torch.bfloat16]
+    assert not got[pos < 0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k7_route_follows_dtype(card, dtype):
+    """K7 launches the device kernels that `route(dtype)` names and none of
+    the other route's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
+
+    pt, pos = _paged_rows(card, 16, seed=2)
+    gen = torch.Generator(device=card).manual_seed(6)
+    q_abs = torch.randn(len(pos), 16, 512, generator=gen, device=card).to(dtype)
+    q_rope = torch.randn(len(pos), 16, 64, generator=gen, device=card).to(dtype)
+    c, cs = _int8_pages(gen, card, 41, 16, 512)
+    kr, krs = _int8_pages(gen, card, 41, 16, 64)
+    args = (q_abs, q_rope, c, kr, cs, krs, pt, pos)
+    mla.paged_mla_attention_quant_cuda(*args, scale=0.07)  # the build
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mla.paged_mla_attention_quant_cuda(*args, scale=0.07)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    want = mla.KERNELS[mla.route(dtype)]
+    other = {k for r in mla.KERNELS.values() for k in r} - set(want)
+    for kernel in want:
+        assert sum(kernel + "<" in name for name in names) == 1, (kernel, names)
+    for kernel in other:
+        assert not any(kernel + "<" in name for name in names), (kernel, names)
+
+
 def test_k5_k6_k7_reject_what_they_do_not_take(card):
     from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
     from automodel_tpu_torch.ops.cuda.ragged_paged_attention import (

@@ -2,28 +2,22 @@
 compiled for the CPU with g++ against `tests/cuda_emulation/
 cuda_emulation.h`, which emulates threads, barriers, warp shuffles and
 votes, `ldmatrix`, `mma.sync` and `cp.async`, and held to the plain
-versions on the same inputs: the tensor-core bf16 K1/K3, the CUDA-core fp32
-K1/K3 and K2. This checks the kernels' indexing, fragment layouts, masks
+versions on the same inputs: the tensor-core bf16 K1-K3 and the CUDA-core
+fp32 K1-K3. This checks the kernels' indexing, fragment layouts, masks
 and edges where no card is present; their speed, and the hardware's own
 reading of the PTX, are checked on the card (tests/test_torch_cuda.py,
 chip_smoke.py). Skips without g++."""
 
 import ctypes
-import re
 import shutil
-import subprocess
-from pathlib import Path
 
 import pytest
 import torch
+from cuda_emulation import rewrite
 
 from automodel_tpu_torch.ops import flash_attention as fa
 from automodel_tpu_torch.ops.cuda import _build
 
-ROOT = Path(__file__).resolve().parent
-# the source's inline-asm helpers, replaced by the emulation header's
-ASM_HELPERS = ("cp_async16", "cp_async4", "cp_async_commit", "cp_async_wait",
-               "ldsm_x4", "ldsm_x4_trans", "mma_bf16", "fast_exp2")
 # as on the card (tests/test_torch_cuda.py): fp32 differs by summation order,
 # bf16 by where probabilities round; a share of the largest magnitude
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -34,40 +28,8 @@ CASES = {
     "bidirectional_softcap": (1, 96, 96, 2, 1, 64, False, False, 20.0),
     "causal_s_gt_t_d128": (1, 130, 70, 4, 4, 128, True, False, None),
     "causal_s_lt_t_d16": (2, 70, 150, 4, 2, 16, True, False, None),
+    "causal_softcap_d128": (1, 150, 150, 4, 2, 128, True, False, 30.0),
 }
-
-
-def emulated_source(text: str) -> str:
-    """The kernel source with CUDA-only syntax rewritten for g++."""
-    for name in ASM_HELPERS:
-        m = re.search(r"(template <int N>\n)?__device__ __forceinline__ "
-                      rf"(?:void|float) {name}\(", text)
-        assert m, name
-        depth, j = 0, text.index("{", m.end())
-        while True:
-            depth += {"{": 1, "}": -1}.get(text[j], 0)
-            if depth == 0:
-                break
-            j += 1
-        text = text[:m.start()] + text[j + 1:]
-    text = text.replace("#include <cuda_bf16.h>", '#include "cuda_emulation.h"')
-    text = text.replace("#include <cuda_runtime.h>", "")
-    text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) (\w+)\[\];",
-                  r"\1* \2 = reinterpret_cast<\1*>(g_smem);", text)
-    # kernel<<<grid, threads, smem, stream>>>(args) ->
-    # emu_launch(grid, threads, smem, [=] { kernel(args); })
-    out, pos = [], 0
-    launch = re.compile(r"([\w:]+<[^<>;]*>)<<<([^>]*)>>>\(")
-    while (m := launch.search(text, pos)) is not None:
-        grid, threads, smem, _ = (x.strip() for x in m.group(2).split(","))
-        depth, j = 1, m.end()
-        while depth:
-            depth += {"(": 1, ")": -1}.get(text[j], 0)
-            j += 1
-        out += [text[pos:m.start()], f"emu_launch({grid}, {threads}, {smem}, "
-                f"[=] {{ {m.group(1)}({text[m.end():j - 1]}); }})"]
-        pos = j
-    return "".join(out) + text[pos:]
 
 
 @pytest.fixture(scope="module")
@@ -75,13 +37,8 @@ def lib(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
-    tmp = tmp_path_factory.mktemp("fa_emulated")
-    src = tmp / "flash_attention_emulated.cpp"
-    src.write_text(emulated_source((_build.CSRC / "flash_attention.cu").read_text()))
-    so = tmp / "flash_attention_emulated.so"
-    subprocess.run([gxx, "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread",
-                    f"-I{ROOT / 'cuda_emulation'}", "-o", str(so), str(src)],
-                   check=True, capture_output=True, text=True)
+    so = rewrite.build(gxx, _build.CSRC / "flash_attention.cu",
+                       tmp_path_factory.mktemp("fa_emulated"))
     lib = ctypes.CDLL(str(so))
     tail = [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]

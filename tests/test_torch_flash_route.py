@@ -13,9 +13,9 @@ def test_route_follows_dtype():
     assert fa_cuda.route(torch.float32) == "fma"
     with pytest.raises(KeyError):
         fa_cuda.route(torch.float16)
-    # K1 and K3 differ by route; K2 is the same kernel on both
+    # each of K1, K2 and K3 is a different kernel on each route
     mma, fma = fa_cuda.KERNELS["mma"], fa_cuda.KERNELS["fma"]
-    assert mma[0] != fma[0] and mma[2] != fma[2] and mma[1] == fma[1]
+    assert mma[0] != fma[0] and mma[1] != fma[1] and mma[2] != fma[2]
 
 
 def _qkv(dtype, D=64, Dv=None):
@@ -51,3 +51,11 @@ def test_cpu_tensors_are_refused_not_computed(dtype):
     lse = torch.zeros((1, 4, 8))
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa_cuda.flash_dkv_cuda(q, k, v, q, lse, lse, scale=0.125)
+
+
+def test_k7_route_follows_dtype():
+    from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
+
+    assert mla.route(torch.bfloat16) == "mma"
+    assert mla.route(torch.float32) == "fma"
+    assert not set(mla.KERNELS["mma"]) & set(mla.KERNELS["fma"])
