@@ -7,34 +7,52 @@
 // function as their Pallas kernel: each token row t attends over the pages
 // of its page-table row up to global kv index positions[t], with an fp32
 // online softmax, an optional logit soft cap, and a zero output for pad rows
-// (positions[t] < 0).
+// (positions[t] < 0). K5 dequantizes algebraically, as the Pallas kernel
+// does: the score of kv row r is (q . k_int8[r]) * ks[r] * scale, before the
+// soft cap and the mask; the V scale folds into the probabilities, so the
+// value product is sum_r (p[r] * vs[r]) * v_int8[r]; the sum l takes the
+// unscaled p. No dequantized copy of a page is ever written to device
+// memory, and the output has q's dtype.
 //
-// Design. The TPU grid (T, P) walks every page slot of every row in order
-// and predicates the dead ones off, with the page table in scalar prefetch.
-// Here one thread block owns one (token row, kv head) pair: it reads its own
-// page_tables[t] and positions[t], loops only over pages 0 .. pos / ps,
+// Two designs:
+//
+// gqa_split_kernel + gqa_combine_kernel (K5 for bfloat16 queries; tensor
+// cores; route() in ops/cuda/ragged_paged_attention.py). The split-KV
+// design of paged_split.cuh: the grid is (row x split, kv head x head
+// tile); a split is a run of whole pages of ~128 kv positions (8 pages of
+// 16), so the longest decode row spreads over several blocks and a split
+// past its row's last live kv exits at once. The G = Hq / Hkv query heads
+// of kv head h are the M of mma.sync m16n8k16 (zero rows pad the rest: the
+// kernel is bound by bytes, so the unused rows cost nothing that matters).
+// Each kv row's (D,) K and (Dv,) V slice of head h (strided by Hkv * D in
+// the page) is gathered by 16-byte cp.async into a two-stage int8 ring,
+// with the (ps,) scale rows beside it, and converted to a padded bf16 tile
+// (exact). Scores Q . K^T take K through ldmatrix, values V through
+// ldmatrix.trans; fp32 partials (m, l, the (G, Dv) accumulator) go to a
+// workspace the combine merges per (row, head).
+// - Deviation from the Pallas kernel: it keeps p * vs in fp32 for the value
+//   product; the A operand of a bf16 mma rounds it to bf16, about 2^-9 of
+//   each term (K7's deviation, too).
+//
+// gqa_kernel (K4 for both dtypes, K5 for float32 queries, CUDA cores). The
+// TPU grid (T, P) walks every page slot of every row in order and
+// predicates the dead ones off, with the page table in scalar prefetch.
+// Here one thread block owns one (token row, kv head) pair: it reads its
+// own page_tables[t] and positions[t], loops only over pages 0 .. pos / ps,
 // stages each page's (ps, D) K and (ps, Dv) V slice of its head in shared
-// memory as fp32, scores the G = Hq / Hkv query heads of its group against
-// them (one warp per (head, page row) dot product), and keeps the running
-// max, sum and (G, Dv) accumulator in fp32 shared memory. Rows past pos in
-// the last page are masked; the output is acc / sum, or 0 when the row had
-// no page (pad rows).
-//
-// K5 is the same block over int8 K/V: the page's int8 values are staged as
-// fp32 (exact) beside the page's two (ps,) scale rows, and dequantization is
-// algebraic, as in the Pallas kernel: the score of kv row r is
-// (q . k_int8[r]) * ks[r] * scale, before the soft cap and the mask; the V
-// scale folds into the probabilities, so the value product is
-// sum_r (p[r] * vs[r]) * v_int8[r]. The sum l takes the unscaled p. No
-// dequantized copy of a page is ever written to device memory, and the
-// output has q's dtype (bf16 or fp32).
+// memory as fp32 (int8 values are exact in fp32), scores the G query heads
+// of its group against them (one warp per (head, page row) dot product),
+// and keeps the running max, sum and (G, Dv) accumulator in fp32 shared
+// memory. Rows past pos in the last page are masked; the output is
+// acc / sum, or 0 when the row had no page (pad rows).
 //
 // Bound. The work is bound by bytes from device memory: each needed page's
 // K/V slice is read once per block, and the arithmetic is 4 * G * Dv
 // operations per K/V row, far below the card's operations-per-byte line.
-// This simple design re-reads a request's pages once per prefill row of the
-// same request (a 48-row chunk reads its pages 48 times); L2 (50 MB) may
-// absorb much of that. wgmma, TMA and split-KV are left for later work.
+// Both designs re-read a request's pages once per prefill row of the same
+// request (a 48-row chunk reads its pages 48 times); L2 (50 MB) absorbs
+// much of that. gqa_kernel walks a row's pages one after another in one
+// block (a 999-token row is 63 pages): latency-bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,6 +60,9 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mma_helpers.cuh"
+#include "paged_split.cuh"
 
 namespace {
 
@@ -241,6 +262,47 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K5 for bfloat16 queries: split-KV on the tensor cores (paged_split.cuh);
+// GQA scores K (part a) and takes values from V (part b)
+// ---------------------------------------------------------------------------
+
+template <typename TKV, int KS, int NCH>
+__global__ void __launch_bounds__(kSplitThreads)
+gqa_split_kernel(const SplitArgs<TKV> a, const SplitShape sh) {
+  split_attention<TKV, true, KS, NCH>(a, sh);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCombineThreads)
+gqa_combine_kernel(const float* __restrict__ ws_acc,
+                   const float* __restrict__ ws_ml,
+                   const int* __restrict__ positions, T* __restrict__ out,
+                   const SplitShape sh) {
+  combine_splits(ws_acc, ws_ml, positions, out, sh);
+}
+
+SplitShape gqa_shape(int Hq, int Hkv, int D, int Dv, int ps, int P,
+                     float scale, float soft_cap, const void* k,
+                     const void* v, const void* q) {
+  return split_shape(Hq / Hkv, Hkv, D, Dv, true, ps, P, scale, soft_cap, 1, k,
+                     v, q, nullptr);
+}
+
+template <int KS, int NCH>
+int launch_gqa_split_kernel(const SplitArgs<int8_t>& a, const SplitShape& sh,
+                            int T, cudaStream_t stream) {
+  const size_t smem = split_smem(sh);
+  const cudaError_t e = cudaFuncSetAttribute(
+      gqa_split_kernel<int8_t, KS, NCH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid = split_grid(sh, T);
+  gqa_split_kernel<int8_t, KS, NCH><<<grid, kSplitThreads, smem, stream>>>(
+      a, sh);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -266,8 +328,8 @@ int rpa_gqa_forward(const void* q, const void* k_pages, const void* v_pages,
   return (int)cudaErrorInvalidValue;
 }
 
-// K5: int8 pages with (N+1, ps) fp32 per-row scales. dtype (q and out):
-// 0 = float32, 1 = bfloat16.
+// K5 for float32 queries (the CUDA-core gqa_kernel): int8 pages with
+// (N+1, ps) fp32 per-row scales; dtype (q and out) must be 0 (float32).
 int rpa_gqa_quant_forward(const void* q, const void* k_pages,
                           const void* v_pages, const void* k_scales,
                           const void* v_scales, const void* page_tables,
@@ -275,19 +337,64 @@ int rpa_gqa_quant_forward(const void* q, const void* k_pages,
                           int Hkv, int D, int Dv, int ps, int P, float scale,
                           float soft_cap, int dtype, void* stream) {
   if (T == 0) return 0;
-  const int* pt = static_cast<const int*>(page_tables);
-  const int* pos = static_cast<const int*>(positions);
-  const float* ks = static_cast<const float*>(k_scales);
-  const float* vs = static_cast<const float*>(v_scales);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return launch<float, int8_t>(
+      q, k_pages, v_pages, static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales), static_cast<const int*>(page_tables),
+      static_cast<const int*>(positions), out, T, Hq, Hkv, D, Dv, ps, P, scale,
+      soft_cap, static_cast<cudaStream_t>(stream));
+}
+
+// floats of the workspace rpa_gqa_quant_split_forward needs for this shape
+long long rpa_split_workspace_floats(int T, int Hq, int Hkv, int D, int Dv,
+                                     int ps, int P) {
+  return split_workspace(
+      gqa_shape(Hq, Hkv, D, Dv, ps, P, 1.f, 0.f, nullptr, nullptr, nullptr), T);
+}
+
+// dynamic shared memory (bytes) of the split kernel at this shape
+int rpa_split_smem_bytes(int Hq, int Hkv, int D, int Dv, int ps, int P) {
+  return (int)split_smem(
+      gqa_shape(Hq, Hkv, D, Dv, ps, P, 1.f, 0.f, nullptr, nullptr, nullptr));
+}
+
+// K5 for bfloat16 queries: the split-KV kernel on the tensor cores and the
+// combine; out (T, Hq, Dv) bfloat16. soft_cap <= 0 means none. workspace:
+// rpa_split_workspace_floats() fp32 values.
+int rpa_gqa_quant_split_forward(const void* q, const void* k_pages,
+                                const void* v_pages, const void* k_scales,
+                                const void* v_scales, const void* page_tables,
+                                const void* positions, void* out,
+                                void* workspace, int T, int Hq, int Hkv, int D,
+                                int Dv, int ps, int P, float scale,
+                                float soft_cap, void* stream) {
+  if (T == 0) return 0;
+  const SplitShape sh = gqa_shape(Hq, Hkv, D, Dv, ps, P, scale, soft_cap,
+                                  k_pages, v_pages, q);
+  int e = split_launchable(sh, T);
+  if (e != 0) return e;
+  float* ws = static_cast<float*>(workspace);
+  const SplitArgs<int8_t> a = {
+      static_cast<const bf16*>(q), nullptr,
+      static_cast<const int8_t*>(k_pages), static_cast<const int8_t*>(v_pages),
+      static_cast<const float*>(k_scales), static_cast<const float*>(v_scales),
+      static_cast<const int*>(page_tables), static_cast<const int*>(positions),
+      ws, ws + (size_t)T * sh.n_splits * Hq * Dv};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float, int8_t>(q, k_pages, v_pages, ks, vs, pt, pos, out,
-                                 T, Hq, Hkv, D, Dv, ps, P, scale, soft_cap, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, int8_t>(q, k_pages, v_pages, ks, vs, pt, pos,
-                                         out, T, Hq, Hkv, D, Dv, ps, P, scale,
-                                         soft_cap, s);
-  return (int)cudaErrorInvalidValue;
+  typedef int (*Launch)(const SplitArgs<int8_t>&, const SplitShape&, int,
+                        cudaStream_t);
+  const Launch variants[2][4] = {
+      {launch_gqa_split_kernel<1, 1>, launch_gqa_split_kernel<1, 2>,
+       launch_gqa_split_kernel<1, 4>, launch_gqa_split_kernel<1, 8>},
+      {launch_gqa_split_kernel<2, 1>, launch_gqa_split_kernel<2, 2>,
+       launch_gqa_split_kernel<2, 4>, launch_gqa_split_kernel<2, 8>}};
+  e = variants[split_ks(sh) - 1][split_nch_index(sh)](a, sh, T, s);
+  if (e != 0) return e;
+  const unsigned blocks = (unsigned)((long long)T * Hq);
+  gqa_combine_kernel<bf16><<<blocks, kCombineThreads,
+                              sizeof(float) * kCombineThreads, s>>>(
+      a.ws_acc, a.ws_ml, a.positions, static_cast<bf16*>(out), sh);
+  return (int)cudaGetLastError();
 }
 
 const char* rpa_error_string(int code) {

@@ -4,11 +4,11 @@ over fp latent pages (K6) and over int8 latent pages with per-row scales
 `automodel_tpu/ops/pallas/ragged_paged_attention.py:_mla_kernel` and
 `:_mla_quant_kernel`).
 
-K7 takes one of two routes by the query dtype, `route(dtype)`: bfloat16
-queries run the split-KV kernel on the tensor cores and its combine
-(`mla_split_kernel`, `mla_combine_kernel`), float32 queries the CUDA-core
-`mla_kernel`. `KERNELS` names each route's device kernels, as a profiler
-shows them.
+K6 and K7 each take one of two routes by the query dtype, `route(dtype)`:
+bfloat16 queries run the split-KV kernel on the tensor cores and its
+combine (`mla_split_kernel`, `mla_combine_kernel`; instantiated for bf16
+pages in K6, int8 pages in K7), float32 queries the CUDA-core `mla_kernel`.
+`KERNELS` names each route's device kernels, as a profiler shows them.
 
 The plain version of both is
 `automodel_tpu_torch.ops.paged_attention.ragged_paged_mla_attention_ref`.
@@ -29,11 +29,11 @@ from automodel_tpu_torch.ops.cuda.ragged_paged_attention import (
 
 SOURCE = "paged_mla_attention.cu"
 
-#: the largest heads x latent rank one block's accumulators cover
+#: the largest heads x latent rank the fp32 route's accumulators cover
 MAX_HEADS_X_RANK = 256 * 64
 
 _ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
-#: K7's device kernels on each route
+#: K6's and K7's device kernels on each route
 KERNELS = {
     "mma": ("mla_split_kernel", "mla_combine_kernel"),
     "fma": ("mla_kernel",),
@@ -41,8 +41,8 @@ KERNELS = {
 
 
 def route(dtype: torch.dtype) -> str:
-    """K7's route for queries of `dtype`: "mma" (tensor cores, bfloat16) or
-    "fma" (CUDA cores, float32)."""
+    """K6's and K7's route for queries of `dtype`: "mma" (tensor cores,
+    bfloat16) or "fma" (CUDA cores, float32)."""
     return _ROUTES[dtype]
 
 
@@ -64,9 +64,14 @@ def _lib() -> ctypes.CDLL:
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.mla_quant_split_forward.restype = ctypes.c_int
+        lib.mla_split_forward.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.mla_split_forward.restype = ctypes.c_int
         lib.mla_split_workspace_floats.argtypes = [ctypes.c_int] * 6
         lib.mla_split_workspace_floats.restype = ctypes.c_longlong
-        lib.mla_split_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.mla_split_smem_bytes.argtypes = [ctypes.c_int] * 6
         lib.mla_split_smem_bytes.restype = ctypes.c_int
         lib.mla_max_heads_x_rank.argtypes = []
         lib.mla_max_heads_x_rank.restype = ctypes.c_int
@@ -77,10 +82,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def split_smem_bytes(n: int, r: int, dr: int, ps: int, P: int) -> int:
-    """Dynamic shared memory (bytes) of the bf16 route's split kernel for
-    int8 pages of this shape."""
-    return _lib().mla_split_smem_bytes(n, r, dr, ps, P)
+def split_smem_bytes(n: int, r: int, dr: int, ps: int, P: int,
+                     page_dtype: torch.dtype) -> int:
+    """Dynamic shared memory (bytes) of the bfloat16 route's split kernel at
+    this shape, over int8 (K7) or bfloat16 (K6) pages."""
+    return _lib().mla_split_smem_bytes(n, r, dr, ps, P, page_dtype.itemsize)
 
 
 def _check(q_abs, q_rope, c_pages, kr_pages, page_tables, positions,
@@ -109,10 +115,10 @@ def _check(q_abs, q_rope, c_pages, kr_pages, page_tables, positions,
             f"shapes q_abs {tuple(q_abs.shape)}, q_rope {tuple(q_rope.shape)}, "
             f"c_pages {tuple(c_pages.shape)}, kr_pages {tuple(kr_pages.shape)} "
             "do not match")
-    if n * r > MAX_HEADS_X_RANK:
+    if route(q_abs.dtype) == "fma" and n * r > MAX_HEADS_X_RANK:
         raise NotImplementedError(
-            f"the MLA kernel holds n * r <= {MAX_HEADS_X_RANK} accumulators "
-            f"per row (got {n} heads x rank {r})")
+            f"the fp32 MLA kernel holds n * r <= {MAX_HEADS_X_RANK} "
+            f"accumulators per row (got {n} heads x rank {r})")
     if page_tables.dim() != 2 or page_tables.shape[0] != T:
         raise ValueError("page_tables must be (T, P)")
     if positions.shape != (T,):
@@ -128,24 +134,33 @@ def _raise_on(lib, err: int, what: str) -> None:
 def paged_mla_attention_cuda(
     q_abs, q_rope, c_pages, kr_pages, page_tables, positions, *, scale: float,
 ) -> torch.Tensor:
-    """K6 on CUDA tensors: q_abs (T, n, r), q_rope (T, n, dr), c_pages
-    (N+1, ps, r) and kr_pages (N+1, ps, dr), all float32 or all bfloat16;
-    page_tables (T, P) and positions (T,) int32. Returns the latent-space
-    output (T, n, r) in q's dtype."""
+    """K6 on CUDA tensors, on `route(q_abs.dtype)`: q_abs (T, n, r), q_rope
+    (T, n, dr), c_pages (N+1, ps, r) and kr_pages (N+1, ps, dr), all float32
+    or all bfloat16; page_tables (T, P) and positions (T,) int32. Returns
+    the latent-space output (T, n, r) in q's dtype. The bfloat16 route
+    takes an fp32 workspace for its split partials from the caching
+    allocator."""
     _check(q_abs, q_rope, c_pages, kr_pages, page_tables, positions,
            q_abs.dtype)
     T, n, r = q_abs.shape
     ps, dr = c_pages.shape[1], q_rope.shape[-1]
+    P = page_tables.shape[1]
     out = torch.empty((T, n, r), dtype=q_abs.dtype, device=q_abs.device)
     lib = _lib()
-    with torch.cuda.device(q_abs.device):
-        err = lib.mla_forward(
-            q_abs.data_ptr(), q_rope.data_ptr(), c_pages.data_ptr(),
+    ptrs = (q_abs.data_ptr(), q_rope.data_ptr(), c_pages.data_ptr(),
             kr_pages.data_ptr(), page_tables.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), T, n, r, dr, ps, page_tables.shape[1],
-            float(scale), DTYPE_CODES[q_abs.dtype],
-            torch.cuda.current_stream(q_abs.device).cuda_stream,
-        )
+            out.data_ptr())
+    with torch.cuda.device(q_abs.device):
+        stream = torch.cuda.current_stream(q_abs.device).cuda_stream
+        if route(q_abs.dtype) == "mma":
+            ws = torch.empty(lib.mla_split_workspace_floats(T, n, r, dr, ps, P),
+                             dtype=torch.float32, device=q_abs.device)
+            err = lib.mla_split_forward(
+                *ptrs, ws.data_ptr(), T, n, r, dr, ps, P, float(scale), stream)
+        else:
+            err = lib.mla_forward(
+                *ptrs, T, n, r, dr, ps, P, float(scale),
+                DTYPE_CODES[q_abs.dtype], stream)
     _raise_on(lib, err, "paged MLA attention")
     paged_mla_attention_cuda.launches += 1
     return out

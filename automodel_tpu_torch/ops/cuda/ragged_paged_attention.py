@@ -4,6 +4,13 @@ pages (K4) and over int8 pages with per-row scales (K5)
 `automodel_tpu/ops/pallas/ragged_paged_attention.py:_gqa_kernel` and
 `:_gqa_quant_kernel`).
 
+K4 runs the CUDA-core `gqa_kernel` for both dtypes. K5 takes one of two
+routes by the query dtype, `route(dtype)`: bfloat16 queries run the
+split-KV kernel on the tensor cores and its combine (`gqa_split_kernel`,
+`gqa_combine_kernel`), float32 queries the CUDA-core `gqa_kernel`.
+`KERNELS` names each of K5's routes' device kernels, as a profiler shows
+them.
+
 The plain version of both is
 `automodel_tpu_torch.ops.paged_attention.ragged_paged_attention_ref`.
 """
@@ -21,6 +28,19 @@ SOURCE = "ragged_paged_attention.cu"
 #: the C interface's dtype argument for q (and, for K4, the pages)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+_ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
+#: K5's device kernels on each route
+KERNELS = {
+    "mma": ("gqa_split_kernel", "gqa_combine_kernel"),
+    "fma": ("gqa_kernel",),
+}
+
+
+def route(dtype: torch.dtype) -> str:
+    """K5's route for queries of `dtype`: "mma" (tensor cores, bfloat16) or
+    "fma" (CUDA cores, float32)."""
+    return _ROUTES[dtype]
+
 
 def _lib() -> ctypes.CDLL:
     lib = load_library(SOURCE)
@@ -35,9 +55,25 @@ def _lib() -> ctypes.CDLL:
             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         lib.rpa_gqa_quant_forward.restype = ctypes.c_int
+        lib.rpa_gqa_quant_split_forward.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.rpa_gqa_quant_split_forward.restype = ctypes.c_int
+        lib.rpa_split_workspace_floats.argtypes = [ctypes.c_int] * 7
+        lib.rpa_split_workspace_floats.restype = ctypes.c_longlong
+        lib.rpa_split_smem_bytes.argtypes = [ctypes.c_int] * 6
+        lib.rpa_split_smem_bytes.restype = ctypes.c_int
         lib.rpa_error_string.argtypes = [ctypes.c_int]
         lib.rpa_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def split_smem_bytes(Hq: int, Hkv: int, D: int, Dv: int, ps: int,
+                     P: int) -> int:
+    """Dynamic shared memory (bytes) of K5's bfloat16 route's split kernel
+    at this shape."""
+    return _lib().rpa_split_smem_bytes(Hq, Hkv, D, Dv, ps, P)
 
 
 def check_on_card(q, **tensors) -> None:
@@ -134,9 +170,11 @@ def ragged_paged_attention_quant_cuda(
     scale: float,
     soft_cap: float | None = None,
 ) -> torch.Tensor:
-    """K5 on CUDA tensors: q (T, Hq, D) float32 or bfloat16, int8 pages
-    (N+1, ps, Hkv, D[v]) with (N+1, ps) float32 per-row scales, page_tables
-    (T, P) and positions (T,) int32. Returns (T, Hq, Dv) in q's dtype."""
+    """K5 on CUDA tensors, on `route(q.dtype)`: q (T, Hq, D) float32 or
+    bfloat16, int8 pages (N+1, ps, Hkv, D[v]) with (N+1, ps) float32 per-row
+    scales, page_tables (T, P) and positions (T,) int32. Returns (T, Hq, Dv)
+    in q's dtype. The bfloat16 route takes an fp32 workspace for its split
+    partials from the caching allocator."""
     _check(q, k_pages, v_pages, page_tables, positions, torch.int8)
     check_on_card(q, k_scales=k_scales, v_scales=v_scales)
     check_scales(k_pages, k_scales, "k_scales")
@@ -146,17 +184,25 @@ def ragged_paged_attention_quant_cuda(
     T, Hq, D = q.shape
     _, ps, Hkv, _ = k_pages.shape
     Dv = v_pages.shape[-1]
+    P = page_tables.shape[1]
     out = torch.empty((T, Hq, Dv), dtype=q.dtype, device=q.device)
     lib = _lib()
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(), page_tables.data_ptr(),
+            positions.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
-        err = lib.rpa_gqa_quant_forward(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_scales.data_ptr(), v_scales.data_ptr(),
-            page_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            T, Hq, Hkv, D, Dv, ps, page_tables.shape[1],
-            float(scale), float(soft_cap or 0.0), DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if route(q.dtype) == "mma":
+            ws = torch.empty(
+                lib.rpa_split_workspace_floats(T, Hq, Hkv, D, Dv, ps, P),
+                dtype=torch.float32, device=q.device)
+            err = lib.rpa_gqa_quant_split_forward(
+                *ptrs, ws.data_ptr(), T, Hq, Hkv, D, Dv, ps, P, float(scale),
+                float(soft_cap or 0.0), stream)
+        else:
+            err = lib.rpa_gqa_quant_forward(
+                *ptrs, T, Hq, Hkv, D, Dv, ps, P, float(scale),
+                float(soft_cap or 0.0), DTYPE_CODES[q.dtype], stream)
     _raise_on(lib, err, "quantized ragged paged attention")
     ragged_paged_attention_quant_cuda.launches += 1
     return out

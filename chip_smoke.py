@@ -13,8 +13,8 @@ one JSON line each:
    contexts up to 999 tokens, pad rows), each timed beside its bound: K4
    (fp pages) and K5 (int8 pages) at Llama-3-8B's heads (32/8, D 128), K6
    (fp latent pages) and K7 (int8) at Moonlight's MLA widths (16 heads,
-   r 512, dr 64); bf16 K7 is the split-KV kernel on the tensor cores and
-   its combine, fp32 K7 the CUDA-core kernel;
+   r 512, dr 64); bf16 K5, K6 and K7 are split-KV kernels on the tensor
+   cores and their combines, K4 and fp32 K5-K7 the CUDA-core kernels;
 3. flash: K1-K3 (flash attention forward, dq, dk/dv) against their plain
    versions at the training shapes (B 1, S 4096, Hq 32, Hkv 8, D 128,
    causal) in bf16 (K1-K3 on the tensor cores) and fp32 (CUDA cores),
@@ -36,10 +36,12 @@ one JSON line each:
    at Moonlight width (one dense, one MoE layer; K6 on the fp pool, K7 on
    the int8 pool): the same step plans run through the engine with the
    kernels and with the plain versions, whose logits and greedy tokens
-   must agree; then the Moonlight engine in bf16 on the int8 pool (K7's
-   tensor-core route), on the kernels and on the plain versions, each held
-   to the same model in fp32: the kernels' logits no farther from it than
-   the plain version's plus the bf16 tolerance, greedy agreements
+   must agree; then the same engines in bf16 on the tensor-core routes
+   (Llama on the int8 pool, K5; Moonlight on the fp pool, K6, and on the
+   int8 pool, K7), on the kernels and on the plain versions, each held to
+   the same model in fp32: the kernels' logits no farther from it than
+   the plain version's plus the bf16 tolerance, every kernel call within
+   `PAGED_TOL` of its plain version on the same inputs, greedy agreements
    reported;
 7. train: the training CLI (`python -m automodel_tpu_torch`, run in this
    process) on `examples/llm_pretrain/llama3_8b_mock_bf16.yaml` at its
@@ -57,7 +59,7 @@ one JSON line each:
    the loss curves must agree.
 
 The build line carries ptxas's registers and spills of every kernel, and of
-the tensor-core K1-K3 and K7 kernels by name with their dynamic shared
+the tensor-core K1-K3 and K5-K7 kernels by name with their dynamic shared
 memory. Then it
 prints the `{"kernels": [...]}` line and, last, the
 `{"ok": true, "device": {...}}` line. Any failed check raises and the exit
@@ -96,6 +98,7 @@ from automodel_tpu_torch.ops import flash_attention as fa
 from automodel_tpu_torch.ops.cuda import _build
 from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
 from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla_cuda
+from automodel_tpu_torch.ops.cuda import ragged_paged_attention as rpa_cuda
 from automodel_tpu_torch.ops.cuda.paged_mla_attention import (
     SOURCE as MLA_SOURCE,
     paged_mla_attention_cuda,
@@ -177,8 +180,9 @@ ENGINE_BF16_LOGITS_TOL = 2e-2
 # K5-K7 against their plain versions, as a share of the plain result's
 # largest magnitude. fp32: only the order of sums differs. bf16: the plain
 # versions round dequantized pages, probabilities and the value product to
-# bf16, K5 and K7 stay fp32 and round once (K6 rounds p to bf16 as its
-# plain version does); 2e-2 is about two bf16 ulps at the largest value.
+# bf16; K5 and K7 round p times the value scale to bf16 for the value
+# product and their output once (K6 rounds p to bf16 as its plain version
+# does); 2e-2 is about two bf16 ulps at the largest value.
 PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # every paged-attention kernel's wrapper, whose `launches` the serve runs read
 PAGED_KERNELS = {
@@ -676,7 +680,9 @@ def serve_phase(card: str) -> dict:
     emit({"phase": "serve_int8_agreement", "card": card,
           "greedy_agreement": sum(a == b for a, b in pairs) / len(pairs),
           "tokens": len(pairs), "first_divergence_per_request": first})
-    profile_steps(engine, cfg, card, "serve_int8", ("gqa_kernel",))
+    # bf16 queries: K5 is the split kernel and its combine
+    profile_steps(engine, cfg, card, "serve_int8",
+                  rpa_cuda.KERNELS[rpa_cuda.route(torch.bfloat16)])
     del engine, params
     torch.cuda.empty_cache()
     return {"K4": k4, "K5": k5}
@@ -698,7 +704,9 @@ def serve_mla_phase(card: str) -> dict:
              f"dense + {cfg.num_moe_layers} MoE), bf16, {n_params} params")
     launches = {}
     launches["K6"], _ = serve_run(engine, cfg, card, "serve_mla", model, "K6", setup_s)
-    profile_steps(engine, cfg, card, "serve_mla", ("mla_kernel",))
+    # bf16 queries: K6 is the split kernel and its combine over bf16 pages
+    profile_steps(engine, cfg, card, "serve_mla",
+                  mla_cuda.KERNELS[mla_cuda.route(torch.bfloat16)])
     del engine
     torch.cuda.empty_cache()
     engine = ServingEngine(params, cfg, dataclasses.replace(SERVE, kv_cache_dtype="int8"))
@@ -807,14 +815,22 @@ def engine_check(phase: str, cfg, params, sc, tol: float) -> None:
         raise AssertionError(f"{phase}: engine logits differ between kernels and plain")
 
 
+# the engine's dispatcher of each kernel that engine_bf16_check holds
+PAGED_DISPATCH = {"K5": "ragged_paged_attention",
+                  "K6": "ragged_paged_mla_attention",
+                  "K7": "ragged_paged_mla_attention"}
+
+
 @contextlib.contextmanager
-def k7_held_to_plain(errors: list):
-    """Within the block, every paged MLA attention call an engine makes also
-    runs the plain version on the same inputs, and the kernel's error (a
-    share of the plain result's largest magnitude, at least 1) is appended
-    to `errors`. The engine module's reference to the dispatcher is
-    wrapped; the kernel's wrapper, and its launch count, stay as they are."""
-    dispatch = serving_engine.ragged_paged_mla_attention
+def held_to_plain(kernel: str, errors: list):
+    """Within the block, every call an engine makes to `kernel`'s dispatcher
+    also runs the plain version on the same inputs, and the kernel's error
+    (a share of the plain result's largest magnitude, at least 1) is
+    appended to `errors`. The engine module's reference to the dispatcher
+    is wrapped; the kernel's wrapper, and its launch count, stay as they
+    are."""
+    name = PAGED_DISPATCH[kernel]
+    dispatch = getattr(serving_engine, name)
 
     def checked(*args, **kw):
         got = dispatch(*args, **kw)
@@ -823,14 +839,15 @@ def k7_held_to_plain(errors: list):
                        / want.abs().max().clamp(min=1.0)).item())
         return got
 
-    serving_engine.ragged_paged_mla_attention = checked
+    setattr(serving_engine, name, checked)
     try:
         yield
     finally:
-        serving_engine.ragged_paged_mla_attention = dispatch
+        setattr(serving_engine, name, dispatch)
 
 
-def engine_bf16_check(phase: str, cfg, params, sc, tol: float) -> None:
+def engine_bf16_check(phase: str, cfg, params, sc, tol: float,
+                      kernel: str) -> None:
     """A bf16 engine on the kernels and one on the plain versions, on
     identical step plans, each held to the same model in fp32 (the bf16
     weights upcast exactly, plain attention): the kernels' logits may stray
@@ -840,8 +857,8 @@ def engine_bf16_check(phase: str, cfg, params, sc, tol: float) -> None:
     carries the difference through the layers, the MoE routing and the
     int8 quantization of new rows, so they are compared through the fp32
     model, not with each other; their difference and the greedy agreements
-    are reported. Every K7 call of the kernels' engine is also held to its
-    plain version on the same inputs, within `PAGED_TOL`."""
+    are reported. Every call of the kernels' engine to `kernel` is also held
+    to its plain version on the same inputs, within `PAGED_TOL`."""
     engines = {
         "cuda": ServingEngine(params, cfg, sc, attn_impl="cuda"),
         "torch": ServingEngine(params, cfg, sc, attn_impl="torch"),
@@ -853,11 +870,12 @@ def engine_bf16_check(phase: str, cfg, params, sc, tol: float) -> None:
     submit_engine_requests(sched, cfg)
     err = {"cuda_vs_fp32": 0.0, "plain_vs_fp32": 0.0, "cuda_vs_plain": 0.0}
     agree = {"cuda_vs_fp32": 0, "plain_vs_fp32": 0, "cuda_vs_plain": 0}
-    steps, rows, k7_errors = 0, 0, []
-    n0 = paged_mla_attention_quant_cuda.launches
+    steps, rows, errors = 0, 0, []
+    wrapper = PAGED_KERNELS[kernel]
+    n0 = wrapper.launches
     while sched.has_work:
         plan = sched.schedule(steps)
-        with k7_held_to_plain(k7_errors):
+        with held_to_plain(kernel, errors):
             lg = {"cuda": engines["cuda"].step_logits(plan).float()}
         lg.update({k: engines[k].step_logits(plan).float() for k in ("torch", "fp32")})
         den = max(1.0, lg["fp32"].abs().max().item())
@@ -877,14 +895,15 @@ def engine_bf16_check(phase: str, cfg, params, sc, tol: float) -> None:
           "kv_cache_dtype": sc.kv_cache_dtype, "steps": steps,
           "max_rel_logit_err": err, "tol": tol,
           "greedy_agreement": {k: v / rows for k, v in agree.items()},
-          "k7_calls": len(k7_errors),
-          "k7_launches": paged_mla_attention_quant_cuda.launches - n0,
-          "k7_max_rel_err": max(k7_errors), "k7_tol": PAGED_TOL[torch.bfloat16]})
-    if paged_mla_attention_quant_cuda.launches - n0 != len(k7_errors) \
-            or not k7_errors:
-        raise AssertionError(f"{phase}: the engine's K7 calls did not all launch K7")
-    if max(k7_errors) > PAGED_TOL[torch.bfloat16]:
-        raise AssertionError(f"{phase}: K7 calls disagree with the plain version")
+          "kernel": kernel, "kernel_calls": len(errors),
+          "kernel_launches": wrapper.launches - n0,
+          "kernel_max_rel_err": max(errors),
+          "kernel_tol": PAGED_TOL[torch.bfloat16]})
+    if wrapper.launches - n0 != len(errors) or not errors:
+        raise AssertionError(
+            f"{phase}: the engine's {kernel} calls did not all launch {kernel}")
+    if max(errors) > PAGED_TOL[torch.bfloat16]:
+        raise AssertionError(f"{phase}: {kernel} calls disagree with the plain version")
     if err["cuda_vs_fp32"] > err["plain_vs_fp32"] + tol:
         raise AssertionError(
             f"{phase}: the kernels stray from the fp32 model more than the "
@@ -893,20 +912,28 @@ def engine_bf16_check(phase: str, cfg, params, sc, tol: float) -> None:
 
 def engine_phase() -> None:
     """2-layer fp32 engine at Llama-3-8B width: K4 against the plain
-    version through the engine."""
+    version through the engine; then the same engine in bf16 on the int8
+    pool, which takes K5's tensor-core route."""
     cfg = dataclasses.replace(
         llama_config(LLAMA3_8B), num_layers=2, dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = decoder.init(cfg, gen)
-    engine_check("engine", cfg, params, dataclasses.replace(SERVE, num_pages=256),
-                 ENGINE_LOGITS_TOL)
+    sc = dataclasses.replace(SERVE, num_pages=256)
+    engine_check("engine", cfg, params, sc, ENGINE_LOGITS_TOL)
+    params16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    engine_bf16_check("engine_int8_bf16", dataclasses.replace(cfg, dtype=torch.bfloat16),
+                      params16, dataclasses.replace(sc, kv_cache_dtype="int8"),
+                      ENGINE_BF16_LOGITS_TOL, "K5")
+    del params16
+    torch.cuda.empty_cache()
 
 
 def engine_mla_phase() -> None:
     """A 2-layer Moonlight-width engine (one dense, one MoE layer) in fp32:
-    K6 on the fp pool and K7 (CUDA-core route) on the int8 pool against the
-    plain versions; then the same engine in bf16 on the int8 pool, which
-    takes K7's tensor-core route."""
+    K6 on the fp pool and K7 (CUDA-core routes) on the int8 pool against the
+    plain versions; then the same engine in bf16 on the fp pool and on the
+    int8 pool, which take K6's and K7's tensor-core routes."""
     cfg = dataclasses.replace(deepseek_v3_moe_config(MOONLIGHT), num_layers=2,
                               dtype=torch.float32)
     params = moe_decoder.init(cfg, torch.Generator(device="cuda").manual_seed(1))
@@ -917,8 +944,10 @@ def engine_mla_phase() -> None:
     cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
     params16 = tree_map(lambda t: t.to(torch.bfloat16), params)
     del params
+    engine_bf16_check("engine_mla_bf16", cfg16, params16, sc,
+                      ENGINE_BF16_LOGITS_TOL, "K6")
     engine_bf16_check("engine_mla_int8_bf16", cfg16, params16, int8,
-                      ENGINE_BF16_LOGITS_TOL)
+                      ENGINE_BF16_LOGITS_TOL, "K7")
     del params16
     torch.cuda.empty_cache()
 
@@ -1090,17 +1119,18 @@ def train_paths_phase() -> None:
 # the tensor-core kernels in ptxas's mangled names: (pattern, readable name)
 MMA_KERNELS = (
     (r"((?:fwd|dkv|dq)_mma_kernel)ILi(\d+)E", lambda m: f"{m[1]}<{m[2]}>"),
-    (r"(mla_split_kernel)IaLi(\d+)ELi(\d+)E",
-     lambda m: f"{m[1]}<int8, {m[2]}, {m[3]}>"),
-    (r"(mla_combine_kernel)I13__nv_bfloat16E", lambda m: f"{m[1]}<bf16>"),
+    (r"((?:mla|gqa)_split_kernel)I(a|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+     lambda m: f"{m[1]}<{'int8' if m[2] == 'a' else 'bf16'}, {m[3]}, {m[4]}>"),
+    (r"((?:mla|gqa)_combine_kernel)I13__nv_bfloat16E", lambda m: f"{m[1]}<bf16>"),
 )
 
 
 def mma_ptxas(log: str) -> dict:
     """ptxas's report on the bf16 tensor-core instantiations (K1-K3 at each
-    head dim, K7's split kernel at each step and column count, its
-    combine): registers, spill bytes and, for K1-K3 and the split kernel
-    at Moonlight's widths, dynamic shared memory (the launch size)."""
+    head dim; the split kernels of K5, K6 and K7 at each step and column
+    count, their combines): registers, spill bytes and, for K1-K3 and the
+    split kernels at Llama-3-8B's (K5) and Moonlight's (K6, K7) widths,
+    dynamic shared memory (the launch size)."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
@@ -1123,9 +1153,13 @@ def mma_ptxas(log: str) -> dict:
     for key, entry in out.items():
         if key.startswith("mla_split"):
             n, r, dr = MOONLIGHT_MLA
+            page = torch.int8 if "int8" in key else torch.bfloat16
             entry["dynamic_smem_bytes_moonlight"] = mla_cuda.split_smem_bytes(
-                n, r, dr, SERVE.page_size, SERVE.pages_per_slot)
-        elif not key.startswith("mla_"):
+                n, r, dr, SERVE.page_size, SERVE.pages_per_slot, page)
+        elif key.startswith("gqa_split"):
+            entry["dynamic_smem_bytes_llama3_8b"] = rpa_cuda.split_smem_bytes(
+                32, 8, 128, 128, SERVE.page_size, SERVE.pages_per_slot)
+        elif "_mma_" in key:
             entry["dynamic_smem_bytes"] = fa_cuda.mma_smem_bytes(
                 which[key.split("_")[0]], int(key[:-1].split("<")[1]))
     return out
@@ -1153,7 +1187,8 @@ def main() -> int:
                     for stem, log in logs.items()},
           "tensor_core_kernels": mma_ptxas(
               logs[_build.library_path(fa_cuda.SOURCE).stem]
-              + logs[_build.library_path(MLA_SOURCE).stem])})
+              + logs[_build.library_path(MLA_SOURCE).stem]
+              + logs[_build.library_path(K4_SOURCE).stem])})
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     k4 = kernel_phase(flush)
@@ -1197,7 +1232,10 @@ def main() -> int:
             "library_why": no_library,
             "card": card,
         })
-        if name == "K7":  # K4-K6 have one route; K7's follows the query dtype
+        # K4 has one route; K5's, K6's and K7's follow the query dtype
+        if name == "K5":
+            kernels[-1]["kernel_route"] = rpa_cuda.route(torch.bfloat16)
+        elif name in ("K6", "K7"):
             kernels[-1]["kernel_route"] = mla_cuda.route(torch.bfloat16)
     for name, replaces in (("K1", ":140"), ("K2", ":238"), ("K3", ":283")):
         e = flash[name]

@@ -74,7 +74,7 @@ void emu_launch(dim3 grid, unsigned threads, size_t smem, F f) {
   for (unsigned w = 0; w < threads / 32; ++w) g_warp_bar.emplace_back(new std::barrier<>(32));
   std::vector<WarpBuf> wbuf(threads / 32);
   g_wbuf = wbuf.data();
-  memset(g_smem, 0xAB, smem + 1024);  // garbage, like uninitialised shared memory
+  memset(g_smem, 0xFF, smem + 1024);  // garbage (NaN as bf16 and fp32), like uninitialised shared memory
   std::vector<std::thread> ts;
   for (unsigned t = 0; t < threads; ++t)
     ts.emplace_back([&, t] {

@@ -140,6 +140,7 @@ def _int8_pages(gen, card, *shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,D,ps,soft_cap", [
     (1, 64, 16, None), (4, 128, 16, 30.0), (8, 128, 32, None),
+    (20, 64, 8, 30.0),
 ])
 def test_k5_matches_plain_version(card, dtype, G, D, ps, soft_cap):
     from automodel_tpu_torch.ops.cuda.ragged_paged_attention import (
@@ -200,14 +201,11 @@ def test_k6_k7_match_plain_version(card, dtype, quant, n, r, dr, ps):
     assert not got[pos < 0].any()
 
 
-@pytest.mark.parametrize("context", [16, 128, 63 * 16],
-                         ids=["one_page", "one_split", "63_pages"])
-def test_k7_split_kernel_at_moonlight_widths(card, context):
-    """bf16 K7 (split-KV on the tensor cores) at Moonlight's widths (n 16,
-    r 512, dr 64, 16-token pages, 64-page tables): a context of one page,
-    of exactly one split (128 kv) and of 63 pages, each as a decode row,
-    a prefill row halfway and a row on the last page's first kv, beside a
-    pad row."""
+def _moonlight_split_case(card, context, quant):
+    """bf16 queries at Moonlight's widths (n 16, r 512, dr 64, 16-token
+    pages, 64-page tables) over int8 (K7) or bf16 (K6) pages: a context as
+    a decode row, a prefill row halfway and a row on the last page's first
+    kv, beside a pad row. Returns (kernel output, plain output, positions)."""
     from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
 
     n, r, dr, ps, P, N = 16, 512, 64, 16, 64, 200
@@ -221,26 +219,99 @@ def test_k7_split_kernel_at_moonlight_widths(card, context):
     gen = torch.Generator(device=card).manual_seed(5)
     q_abs = torch.randn(4, n, r, generator=gen, device=card).bfloat16()
     q_rope = torch.randn(4, n, dr, generator=gen, device=card).bfloat16()
-    c, cs = _int8_pages(gen, card, N + 1, ps, r)
-    kr, krs = _int8_pages(gen, card, N + 1, ps, dr)
     scale = (128 + 64) ** -0.5
-    got = mla.paged_mla_attention_quant_cuda(q_abs, q_rope, c, kr, cs, krs,
-                                             pt, pos, scale=scale)
+    if quant:
+        c, cs = _int8_pages(gen, card, N + 1, ps, r)
+        kr, krs = _int8_pages(gen, card, N + 1, ps, dr)
+        got = mla.paged_mla_attention_quant_cuda(q_abs, q_rope, c, kr, cs, krs,
+                                                 pt, pos, scale=scale)
+        plain = dict(c_scales=cs, kr_scales=krs)
+    else:
+        c = torch.randn(N + 1, ps, r, generator=gen, device=card).bfloat16()
+        kr = torch.randn(N + 1, ps, dr, generator=gen, device=card).bfloat16()
+        got = mla.paged_mla_attention_cuda(q_abs, q_rope, c, kr, pt, pos,
+                                           scale=scale)
+        plain = {}
     torch.cuda.synchronize()
     want = ragged_paged_mla_attention_ref(q_abs, q_rope, c, kr, pt, pos,
-                                          scale=scale, c_scales=cs,
-                                          kr_scales=krs)
+                                          scale=scale, **plain)
+    return got, want, pos
+
+
+@pytest.mark.parametrize("context", [16, 128, 63 * 16],
+                         ids=["one_page", "one_split", "63_pages"])
+def test_k7_split_kernel_at_moonlight_widths(card, context):
+    """bf16 K7 (split-KV on the tensor cores) at Moonlight's widths: a
+    context of one page, of exactly one split (128 kv) and of 63 pages."""
+    got, want, pos = _moonlight_split_case(card, context, quant=True)
     assert _rel_err(got, want) <= PAGED_TOL[torch.bfloat16]
     assert not got[pos < 0].any()
+
+
+@pytest.mark.parametrize("context", [16, 128, 63 * 16],
+                         ids=["one_page", "one_split", "63_pages"])
+def test_k6_split_kernel_at_moonlight_widths(card, context):
+    """bf16 K6 (the split kernel over bf16 pages) at Moonlight's widths."""
+    got, want, pos = _moonlight_split_case(card, context, quant=False)
+    assert _rel_err(got, want) <= PAGED_TOL[torch.bfloat16]
+    assert not got[pos < 0].any()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["k6", "k7"])
+@pytest.mark.parametrize("n", [64, 128], ids=["kimi_k2", "deepseek_v3"])
+def test_split_route_takes_many_heads(card, n, quant):
+    """The bf16 route of K6 and K7 tiles heads by 16 over the grid: 64 and
+    128 heads x r 512, dr 64 (n * r past the fp32 route's 16384)."""
+    from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
+
+    pt, pos = _paged_rows(card, 16, seed=7)
+    gen = torch.Generator(device=card).manual_seed(8)
+    T, r, dr, N = len(pos), 512, 64, 40
+    q_abs = torch.randn(T, n, r, generator=gen, device=card).bfloat16()
+    q_rope = torch.randn(T, n, dr, generator=gen, device=card).bfloat16()
+    scale = (128 + 64) ** -0.5
+    if quant:
+        c, cs = _int8_pages(gen, card, N + 1, 16, r)
+        kr, krs = _int8_pages(gen, card, N + 1, 16, dr)
+        got = mla.paged_mla_attention_quant_cuda(q_abs, q_rope, c, kr, cs, krs,
+                                                 pt, pos, scale=scale)
+        plain = dict(c_scales=cs, kr_scales=krs)
+    else:
+        c = torch.randn(N + 1, 16, r, generator=gen, device=card).bfloat16()
+        kr = torch.randn(N + 1, 16, dr, generator=gen, device=card).bfloat16()
+        got = mla.paged_mla_attention_cuda(q_abs, q_rope, c, kr, pt, pos,
+                                           scale=scale)
+        plain = {}
+    torch.cuda.synchronize()
+    want = ragged_paged_mla_attention_ref(q_abs, q_rope, c, kr, pt, pos,
+                                          scale=scale, **plain)
+    assert _rel_err(got, want) <= PAGED_TOL[torch.bfloat16]
+    assert not got[pos < 0].any()
+
+
+def _assert_route(fn, module, dtype):
+    """`fn()` launches the device kernels that `module.route(dtype)` names,
+    once each, and none of the other route's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # the build
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    want = module.KERNELS[module.route(dtype)]
+    other = {k for r in module.KERNELS.values() for k in r} - set(want)
+    for kernel in want:
+        assert sum(kernel + "<" in name for name in names) == 1, (kernel, names)
+    for kernel in other:
+        assert not any(kernel + "<" in name for name in names), (kernel, names)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k7_route_follows_dtype(card, dtype):
     """K7 launches the device kernels that `route(dtype)` names and none of
     the other route's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
 
     pt, pos = _paged_rows(card, 16, seed=2)
@@ -250,17 +321,35 @@ def test_k7_route_follows_dtype(card, dtype):
     c, cs = _int8_pages(gen, card, 41, 16, 512)
     kr, krs = _int8_pages(gen, card, 41, 16, 64)
     args = (q_abs, q_rope, c, kr, cs, krs, pt, pos)
-    mla.paged_mla_attention_quant_cuda(*args, scale=0.07)  # the build
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        mla.paged_mla_attention_quant_cuda(*args, scale=0.07)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    want = mla.KERNELS[mla.route(dtype)]
-    other = {k for r in mla.KERNELS.values() for k in r} - set(want)
-    for kernel in want:
-        assert sum(kernel + "<" in name for name in names) == 1, (kernel, names)
-    for kernel in other:
-        assert not any(kernel + "<" in name for name in names), (kernel, names)
+    _assert_route(lambda: mla.paged_mla_attention_quant_cuda(*args, scale=0.07),
+                  mla, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k6_route_follows_dtype(card, dtype):
+    from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
+
+    pt, pos = _paged_rows(card, 16, seed=2)
+    gen = torch.Generator(device=card).manual_seed(6)
+    q_abs = torch.randn(len(pos), 16, 512, generator=gen, device=card).to(dtype)
+    q_rope = torch.randn(len(pos), 16, 64, generator=gen, device=card).to(dtype)
+    c = torch.randn(41, 16, 512, generator=gen, device=card).to(dtype)
+    kr = torch.randn(41, 16, 64, generator=gen, device=card).to(dtype)
+    _assert_route(lambda: mla.paged_mla_attention_cuda(
+        q_abs, q_rope, c, kr, pt, pos, scale=0.07), mla, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k5_route_follows_dtype(card, dtype):
+    from automodel_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+
+    pt, pos = _paged_rows(card, 16, seed=2)
+    gen = torch.Generator(device=card).manual_seed(6)
+    q = torch.randn(len(pos), 32, 128, generator=gen, device=card).to(dtype)
+    kp, ks = _int8_pages(gen, card, 41, 16, 8, 128)
+    vp, vs = _int8_pages(gen, card, 41, 16, 8, 128)
+    _assert_route(lambda: rpa.ragged_paged_attention_quant_cuda(
+        q, kp, vp, ks, vs, pt, pos, scale=0.09), rpa, dtype)
 
 
 def test_k5_k6_k7_reject_what_they_do_not_take(card):

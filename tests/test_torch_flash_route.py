@@ -59,3 +59,14 @@ def test_k7_route_follows_dtype():
     assert mla.route(torch.bfloat16) == "mma"
     assert mla.route(torch.float32) == "fma"
     assert not set(mla.KERNELS["mma"]) & set(mla.KERNELS["fma"])
+
+
+def test_k5_route_follows_dtype():
+    from automodel_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+
+    assert rpa.route(torch.bfloat16) == "mma"
+    assert rpa.route(torch.float32) == "fma"
+    assert not set(rpa.KERNELS["mma"]) & set(rpa.KERNELS["fma"])
+    # no profiler substring of K4's kernel (`gqa_kernel<`) matches K5's
+    # split-route kernels
+    assert not any("gqa_kernel<" in k + "<" for k in rpa.KERNELS["mma"])
