@@ -1,5 +1,5 @@
 // Split-KV paged attention on the tensor cores (flash decoding), shared by
-// the bf16-query routes of K5 (GQA over int8 pages,
+// the bf16-query routes of K4 and K5 (GQA over bf16 and int8 pages,
 // ragged_paged_attention.cu), K6 and K7 (absorbed MLA over bf16 and int8
 // latent pages, paged_mla_attention.cu). Include after mma_helpers.cuh.
 //

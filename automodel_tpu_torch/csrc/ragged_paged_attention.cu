@@ -14,37 +14,43 @@
 // unscaled p. No dequantized copy of a page is ever written to device
 // memory, and the output has q's dtype.
 //
-// Two designs:
+// Two designs, picked by the query dtype (route() in
+// ops/cuda/ragged_paged_attention.py):
 //
-// gqa_split_kernel + gqa_combine_kernel (K5 for bfloat16 queries; tensor
-// cores; route() in ops/cuda/ragged_paged_attention.py). The split-KV
-// design of paged_split.cuh: the grid is (row x split, kv head x head
-// tile); a split is a run of whole pages of ~128 kv positions (8 pages of
-// 16), so the longest decode row spreads over several blocks and a split
-// past its row's last live kv exits at once. The G = Hq / Hkv query heads
-// of kv head h are the M of mma.sync m16n8k16 (zero rows pad the rest: the
+// gqa_split_kernel + gqa_combine_kernel (bfloat16 queries: K4 over bf16
+// pages, K5 over int8 pages; tensor cores). The split-KV design of
+// paged_split.cuh: the grid is (row x split, kv head x head tile); a split
+// is a run of whole pages of ~128 kv positions (8 pages of 16), so the
+// longest decode row spreads over several blocks and a split past its
+// row's last live kv exits at once. The G = Hq / Hkv query heads of kv
+// head h are the M of mma.sync m16n8k16 (zero rows pad the rest: the
 // kernel is bound by bytes, so the unused rows cost nothing that matters).
 // Each kv row's (D,) K and (Dv,) V slice of head h (strided by Hkv * D in
-// the page) is gathered by 16-byte cp.async into a two-stage int8 ring,
-// with the (ps,) scale rows beside it, and converted to a padded bf16 tile
-// (exact). Scores Q . K^T take K through ldmatrix, values V through
-// ldmatrix.trans; fp32 partials (m, l, the (G, Dv) accumulator) go to a
-// workspace the combine merges per (row, head).
-// - Deviation from the Pallas kernel: it keeps p * vs in fp32 for the value
+// the page) is gathered by 16-byte cp.async into a two-stage ring: bf16
+// pages (K4) land as the padded bf16 tiles ldmatrix reads, with no
+// conversion; int8 pages (K5) land as bytes, with the (ps,) scale rows
+// beside them, and are converted to a padded bf16 tile (exact). Scores
+// Q . K^T take K through ldmatrix, values V through ldmatrix.trans; fp32
+// partials (m, l, the (G, Dv) accumulator) go to a workspace the combine
+// merges per (row, head).
+// - K4 has no deviation from the Pallas kernel: the A operand of the
+//   value product is bf16(p), the Pallas kernel's own p.astype(v.dtype).
+// - K5 deviates: the Pallas kernel keeps p * vs in fp32 for the value
 //   product; the A operand of a bf16 mma rounds it to bf16, about 2^-9 of
 //   each term (K7's deviation, too).
 //
-// gqa_kernel (K4 for both dtypes, K5 for float32 queries, CUDA cores). The
-// TPU grid (T, P) walks every page slot of every row in order and
-// predicates the dead ones off, with the page table in scalar prefetch.
-// Here one thread block owns one (token row, kv head) pair: it reads its
-// own page_tables[t] and positions[t], loops only over pages 0 .. pos / ps,
-// stages each page's (ps, D) K and (ps, Dv) V slice of its head in shared
-// memory as fp32 (int8 values are exact in fp32), scores the G query heads
-// of its group against them (one warp per (head, page row) dot product),
-// and keeps the running max, sum and (G, Dv) accumulator in fp32 shared
-// memory. Rows past pos in the last page are masked; the output is
-// acc / sum, or 0 when the row had no page (pad rows).
+// gqa_kernel (float32 queries: K4 over fp32 pages, K5 over int8 pages;
+// CUDA cores). The TPU grid (T, P) walks every page slot of every row in
+// order and predicates the dead ones off, with the page table in scalar
+// prefetch. Here one thread block owns one (token row, kv head) pair: it
+// reads its own page_tables[t] and positions[t], loops only over pages
+// 0 .. pos / ps, stages each page's (ps, D) K and (ps, Dv) V slice of its
+// head in shared memory as fp32 (int8 values are exact in fp32), scores
+// the G query heads of its group against them (one warp per (head, page
+// row) dot product), and keeps the running max, sum and (G, Dv)
+// accumulator in fp32 shared memory. Rows past pos in the last page are
+// masked; the output is acc / sum, or 0 when the row had no page (pad
+// rows).
 //
 // Bound. The work is bound by bytes from device memory: each needed page's
 // K/V slice is read once per block, and the arithmetic is 4 * G * Dv
@@ -70,20 +76,8 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float to_float(int8_t x) {
   return static_cast<float>(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -105,8 +99,8 @@ size_t smem_bytes(int G, int D, int Dv, int ps) {
           (size_t)G * Dv + 3 * (size_t)G + 2 * (size_t)ps);
 }
 
-// T: q and output dtype; TKV: page dtype (T for K4, int8_t for K5, which
-// also takes k_scales / v_scales, (N+1, ps) fp32; K4 passes nullptr).
+// T: q and output dtype (float); TKV: page dtype (T for K4, int8_t for K5,
+// which also takes k_scales / v_scales, (N+1, ps) fp32; K4 passes nullptr).
 template <typename T, typename TKV>
 __global__ void __launch_bounds__(kThreads)
 gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
@@ -237,7 +231,7 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
   T* o_row = out + ((size_t)t * Hq + (size_t)h * G) * Dv;
   for (int i = tid; i < G * Dv; i += kThreads) {
     const float l = l_s[i / Dv];
-    o_row[i] = from_float<T>(l > 0.f ? acc[i] / l : 0.f);
+    o_row[i] = l > 0.f ? acc[i] / l : 0.f;
   }
 }
 
@@ -263,8 +257,9 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 }
 
 // ---------------------------------------------------------------------------
-// K5 for bfloat16 queries: split-KV on the tensor cores (paged_split.cuh);
-// GQA scores K (part a) and takes values from V (part b)
+// bfloat16 queries (K4 over bf16 pages, K5 over int8 pages): split-KV on the
+// tensor cores (paged_split.cuh); GQA scores K (part a) and takes values
+// from V (part b)
 // ---------------------------------------------------------------------------
 
 template <typename TKV, int KS, int NCH>
@@ -273,33 +268,58 @@ gqa_split_kernel(const SplitArgs<TKV> a, const SplitShape sh) {
   split_attention<TKV, true, KS, NCH>(a, sh);
 }
 
-template <typename T>
+// TKV names the page type only, so that K4's and K5's combines are two
+// device kernels a profiler tells apart; both write bf16
+template <typename TKV>
 __global__ void __launch_bounds__(kCombineThreads)
 gqa_combine_kernel(const float* __restrict__ ws_acc,
                    const float* __restrict__ ws_ml,
-                   const int* __restrict__ positions, T* __restrict__ out,
+                   const int* __restrict__ positions, bf16* __restrict__ out,
                    const SplitShape sh) {
   combine_splits(ws_acc, ws_ml, positions, out, sh);
 }
 
+// e: bytes per page value, 1 (int8, K5) or 2 (bf16, K4)
 SplitShape gqa_shape(int Hq, int Hkv, int D, int Dv, int ps, int P,
-                     float scale, float soft_cap, const void* k,
+                     float scale, float soft_cap, int e, const void* k,
                      const void* v, const void* q) {
-  return split_shape(Hq / Hkv, Hkv, D, Dv, true, ps, P, scale, soft_cap, 1, k,
+  return split_shape(Hq / Hkv, Hkv, D, Dv, true, ps, P, scale, soft_cap, e, k,
                      v, q, nullptr);
 }
 
-template <int KS, int NCH>
-int launch_gqa_split_kernel(const SplitArgs<int8_t>& a, const SplitShape& sh,
+template <typename TKV, int KS, int NCH>
+int launch_gqa_split_kernel(const SplitArgs<TKV>& a, const SplitShape& sh,
                             int T, cudaStream_t stream) {
   const size_t smem = split_smem(sh);
   const cudaError_t e = cudaFuncSetAttribute(
-      gqa_split_kernel<int8_t, KS, NCH>,
+      gqa_split_kernel<TKV, KS, NCH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid = split_grid(sh, T);
-  gqa_split_kernel<int8_t, KS, NCH><<<grid, kSplitThreads, smem, stream>>>(
-      a, sh);
+  gqa_split_kernel<TKV, KS, NCH><<<grid, kSplitThreads, smem, stream>>>(a, sh);
+  return (int)cudaGetLastError();
+}
+
+// The split kernel for the shape's step rows (KS) and columns per warp
+// (NCH 16-column chunks), then the combine into out (bf16).
+template <typename TKV>
+int launch_gqa_split(const SplitArgs<TKV>& a, void* out, const SplitShape& sh,
+                     int T, cudaStream_t stream) {
+  int e = split_launchable(sh, T);
+  if (e != 0) return e;
+  typedef int (*Launch)(const SplitArgs<TKV>&, const SplitShape&, int,
+                        cudaStream_t);
+  const Launch variants[2][4] = {
+      {launch_gqa_split_kernel<TKV, 1, 1>, launch_gqa_split_kernel<TKV, 1, 2>,
+       launch_gqa_split_kernel<TKV, 1, 4>, launch_gqa_split_kernel<TKV, 1, 8>},
+      {launch_gqa_split_kernel<TKV, 2, 1>, launch_gqa_split_kernel<TKV, 2, 2>,
+       launch_gqa_split_kernel<TKV, 2, 4>, launch_gqa_split_kernel<TKV, 2, 8>}};
+  e = variants[split_ks(sh) - 1][split_nch_index(sh)](a, sh, T, stream);
+  if (e != 0) return e;
+  const unsigned blocks = (unsigned)((long long)T * sh.groups * sh.heads);
+  gqa_combine_kernel<TKV><<<blocks, kCombineThreads,
+                             sizeof(float) * kCombineThreads, stream>>>(
+      a.ws_acc, a.ws_ml, a.positions, static_cast<bf16*>(out), sh);
   return (int)cudaGetLastError();
 }
 
@@ -307,25 +327,20 @@ int launch_gqa_split_kernel(const SplitArgs<int8_t>& a, const SplitShape& sh,
 
 extern "C" {
 
-// K4. dtype (q, pages and out): 0 = float32, 1 = bfloat16. soft_cap <= 0
-// means none. Returns cudaGetLastError() after the launch (0 = success).
+// K4 for float32 queries and pages (the CUDA-core gqa_kernel); dtype must
+// be 0 (float32). soft_cap <= 0 means none. Returns cudaGetLastError()
+// after the launch (0 = success).
 int rpa_gqa_forward(const void* q, const void* k_pages, const void* v_pages,
                     const void* page_tables, const void* positions, void* out,
                     int T, int Hq, int Hkv, int D, int Dv, int ps, int P,
                     float scale, float soft_cap, int dtype, void* stream) {
   if (T == 0) return 0;
-  const int* pt = static_cast<const int*>(page_tables);
-  const int* pos = static_cast<const int*>(positions);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float, float>(q, k_pages, v_pages, nullptr, nullptr, pt,
-                                pos, out, T, Hq, Hkv, D, Dv, ps, P, scale,
-                                soft_cap, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k_pages, v_pages, nullptr, nullptr, pt, pos, out, T, Hq, Hkv, D,
-        Dv, ps, P, scale, soft_cap, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return launch<float, float>(
+      q, k_pages, v_pages, nullptr, nullptr,
+      static_cast<const int*>(page_tables), static_cast<const int*>(positions),
+      out, T, Hq, Hkv, D, Dv, ps, P, scale, soft_cap,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K5 for float32 queries (the CUDA-core gqa_kernel): int8 pages with
@@ -345,22 +360,46 @@ int rpa_gqa_quant_forward(const void* q, const void* k_pages,
       soft_cap, static_cast<cudaStream_t>(stream));
 }
 
-// floats of the workspace rpa_gqa_quant_split_forward needs for this shape
+// floats of the workspace the split route (rpa_gqa_split_forward,
+// rpa_gqa_quant_split_forward) needs for this shape
 long long rpa_split_workspace_floats(int T, int Hq, int Hkv, int D, int Dv,
                                      int ps, int P) {
-  return split_workspace(
-      gqa_shape(Hq, Hkv, D, Dv, ps, P, 1.f, 0.f, nullptr, nullptr, nullptr), T);
+  return split_workspace(gqa_shape(Hq, Hkv, D, Dv, ps, P, 1.f, 0.f, 1,
+                                   nullptr, nullptr, nullptr),
+                         T);
 }
 
-// dynamic shared memory (bytes) of the split kernel at this shape
-int rpa_split_smem_bytes(int Hq, int Hkv, int D, int Dv, int ps, int P) {
-  return (int)split_smem(
-      gqa_shape(Hq, Hkv, D, Dv, ps, P, 1.f, 0.f, nullptr, nullptr, nullptr));
+// dynamic shared memory (bytes) of the split kernel at this shape, over
+// pages of page_bytes per value (1: int8, K5; 2: bfloat16, K4)
+int rpa_split_smem_bytes(int Hq, int Hkv, int D, int Dv, int ps, int P,
+                         int page_bytes) {
+  return (int)split_smem(gqa_shape(Hq, Hkv, D, Dv, ps, P, 1.f, 0.f,
+                                   page_bytes, nullptr, nullptr, nullptr));
 }
 
-// K5 for bfloat16 queries: the split-KV kernel on the tensor cores and the
-// combine; out (T, Hq, Dv) bfloat16. soft_cap <= 0 means none. workspace:
-// rpa_split_workspace_floats() fp32 values.
+// K4 for bfloat16 queries and pages: the split-KV kernel on the tensor
+// cores and the combine; out (T, Hq, Dv) bfloat16. soft_cap <= 0 means
+// none. workspace: rpa_split_workspace_floats() fp32 values.
+int rpa_gqa_split_forward(const void* q, const void* k_pages,
+                          const void* v_pages, const void* page_tables,
+                          const void* positions, void* out, void* workspace,
+                          int T, int Hq, int Hkv, int D, int Dv, int ps, int P,
+                          float scale, float soft_cap, void* stream) {
+  if (T == 0) return 0;
+  const SplitShape sh = gqa_shape(Hq, Hkv, D, Dv, ps, P, scale, soft_cap, 2,
+                                  k_pages, v_pages, q);
+  float* ws = static_cast<float*>(workspace);
+  const SplitArgs<bf16> a = {
+      static_cast<const bf16*>(q), nullptr,
+      static_cast<const bf16*>(k_pages), static_cast<const bf16*>(v_pages),
+      nullptr, nullptr, static_cast<const int*>(page_tables),
+      static_cast<const int*>(positions), ws,
+      ws + (size_t)T * sh.n_splits * Hq * Dv};
+  return launch_gqa_split(a, out, sh, T, static_cast<cudaStream_t>(stream));
+}
+
+// K5 for bfloat16 queries: as rpa_gqa_split_forward over int8 pages with
+// (N+1, ps) fp32 per-row scales.
 int rpa_gqa_quant_split_forward(const void* q, const void* k_pages,
                                 const void* v_pages, const void* k_scales,
                                 const void* v_scales, const void* page_tables,
@@ -369,10 +408,8 @@ int rpa_gqa_quant_split_forward(const void* q, const void* k_pages,
                                 int Dv, int ps, int P, float scale,
                                 float soft_cap, void* stream) {
   if (T == 0) return 0;
-  const SplitShape sh = gqa_shape(Hq, Hkv, D, Dv, ps, P, scale, soft_cap,
+  const SplitShape sh = gqa_shape(Hq, Hkv, D, Dv, ps, P, scale, soft_cap, 1,
                                   k_pages, v_pages, q);
-  int e = split_launchable(sh, T);
-  if (e != 0) return e;
   float* ws = static_cast<float*>(workspace);
   const SplitArgs<int8_t> a = {
       static_cast<const bf16*>(q), nullptr,
@@ -380,21 +417,7 @@ int rpa_gqa_quant_split_forward(const void* q, const void* k_pages,
       static_cast<const float*>(k_scales), static_cast<const float*>(v_scales),
       static_cast<const int*>(page_tables), static_cast<const int*>(positions),
       ws, ws + (size_t)T * sh.n_splits * Hq * Dv};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  typedef int (*Launch)(const SplitArgs<int8_t>&, const SplitShape&, int,
-                        cudaStream_t);
-  const Launch variants[2][4] = {
-      {launch_gqa_split_kernel<1, 1>, launch_gqa_split_kernel<1, 2>,
-       launch_gqa_split_kernel<1, 4>, launch_gqa_split_kernel<1, 8>},
-      {launch_gqa_split_kernel<2, 1>, launch_gqa_split_kernel<2, 2>,
-       launch_gqa_split_kernel<2, 4>, launch_gqa_split_kernel<2, 8>}};
-  e = variants[split_ks(sh) - 1][split_nch_index(sh)](a, sh, T, s);
-  if (e != 0) return e;
-  const unsigned blocks = (unsigned)((long long)T * Hq);
-  gqa_combine_kernel<bf16><<<blocks, kCombineThreads,
-                              sizeof(float) * kCombineThreads, s>>>(
-      a.ws_acc, a.ws_ml, a.positions, static_cast<bf16*>(out), sh);
-  return (int)cudaGetLastError();
+  return launch_gqa_split(a, out, sh, T, static_cast<cudaStream_t>(stream));
 }
 
 const char* rpa_error_string(int code) {

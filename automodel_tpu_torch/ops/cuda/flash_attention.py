@@ -27,10 +27,11 @@ HEAD_DIMS = (16, 64, 128)  # the tiny recipe's, TinyLlama's, Llama-3's
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
-# the device kernels of K1, K2 and K3 on each route
+# the device kernels of K1, K2 and K3 on each route: substrings of the
+# names a profiler shows
 KERNELS = {
-    "mma": ("fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel"),
-    "fma": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
+    "mma": ("fwd_mma_kernel<", "dq_mma_kernel<", "dkv_mma_kernel<"),
+    "fma": ("fwd_kernel<", "dq_kernel<", "dkv_kernel<"),
 }
 
 launches_fwd = 0

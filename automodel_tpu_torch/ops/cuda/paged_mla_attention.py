@@ -33,10 +33,11 @@ SOURCE = "paged_mla_attention.cu"
 MAX_HEADS_X_RANK = 256 * 64
 
 _ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
-#: K6's and K7's device kernels on each route
+#: K6's and K7's device kernels on each route: substrings of the names a
+#: profiler shows
 KERNELS = {
-    "mma": ("mla_split_kernel", "mla_combine_kernel"),
-    "fma": ("mla_kernel",),
+    "mma": ("mla_split_kernel<", "mla_combine_kernel<"),
+    "fma": ("mla_kernel<",),
 }
 
 

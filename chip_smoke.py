@@ -13,8 +13,8 @@ one JSON line each:
    contexts up to 999 tokens, pad rows), each timed beside its bound: K4
    (fp pages) and K5 (int8 pages) at Llama-3-8B's heads (32/8, D 128), K6
    (fp latent pages) and K7 (int8) at Moonlight's MLA widths (16 heads,
-   r 512, dr 64); bf16 K5, K6 and K7 are split-KV kernels on the tensor
-   cores and their combines, K4 and fp32 K5-K7 the CUDA-core kernels;
+   r 512, dr 64); bf16 K4-K7 are split-KV kernels on the tensor cores and
+   their combines, fp32 K4-K7 the CUDA-core kernels;
 3. flash: K1-K3 (flash attention forward, dq, dk/dv) against their plain
    versions at the training shapes (B 1, S 4096, Hq 32, Hkv 8, D 128,
    causal) in bf16 (K1-K3 on the tensor cores) and fp32 (CUDA cores),
@@ -37,12 +37,12 @@ one JSON line each:
    the int8 pool): the same step plans run through the engine with the
    kernels and with the plain versions, whose logits and greedy tokens
    must agree; then the same engines in bf16 on the tensor-core routes
-   (Llama on the int8 pool, K5; Moonlight on the fp pool, K6, and on the
-   int8 pool, K7), on the kernels and on the plain versions, each held to
-   the same model in fp32: the kernels' logits no farther from it than
-   the plain version's plus the bf16 tolerance, every kernel call within
-   `PAGED_TOL` of its plain version on the same inputs, greedy agreements
-   reported;
+   (Llama on the fp pool, K4, and on the int8 pool, K5; Moonlight on the
+   fp pool, K6, and on the int8 pool, K7), on the kernels and on the plain
+   versions, each held to the same model in fp32: the kernels' logits no
+   farther from it than the plain version's plus the bf16 tolerance,
+   every kernel call within `PAGED_TOL` of its plain version on the same
+   inputs, greedy agreements reported;
 7. train: the training CLI (`python -m automodel_tpu_torch`, run in this
    process) on `examples/llm_pretrain/llama3_8b_mock_bf16.yaml` at its
    published width, bf16 and full remat, cut to 8 layers, 2 microbatches
@@ -59,9 +59,8 @@ one JSON line each:
    the loss curves must agree.
 
 The build line carries ptxas's registers and spills of every kernel, and of
-the tensor-core K1-K3 and K5-K7 kernels by name with their dynamic shared
-memory. Then it
-prints the `{"kernels": [...]}` line and, last, the
+the tensor-core K1-K7 kernels by name with their dynamic shared memory.
+Then it prints the `{"kernels": [...]}` line and, last, the
 `{"ok": true, "device": {...}}` line. Any failed check raises and the exit
 code is not 0. Without CUDA it exits 2 and prints no result.
 """
@@ -161,9 +160,10 @@ SERVE = ServingConfig(
 # K4 tolerances against the plain version on the same inputs.
 # fp32: both sum in fp32; only the order (online vs two-pass softmax, the
 # kernel's warp reductions) differs, which moves outputs by ~1e-6.
-# bf16: the plain version rounds the probabilities and the value product to
-# bf16, the kernel accumulates in fp32 and rounds once; 2e-2 is about two
-# bf16 ulps at |out| ~ 1.
+# bf16: both round the probabilities to bf16 for the value product (the
+# Pallas kernel's cast); the plain version rounds the value product to
+# bf16, the kernel accumulates it in fp32 over splits and rounds once;
+# 2e-2 is about two bf16 ulps at |out| ~ 1.
 K4_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # fp32 logits of the 2-layer engines, kernel vs plain version: attention
 # differences of ~1e-6 pass through 2 layers and the unembed
@@ -181,8 +181,8 @@ ENGINE_BF16_LOGITS_TOL = 2e-2
 # largest magnitude. fp32: only the order of sums differs. bf16: the plain
 # versions round dequantized pages, probabilities and the value product to
 # bf16; K5 and K7 round p times the value scale to bf16 for the value
-# product and their output once (K6 rounds p to bf16 as its plain version
-# does); 2e-2 is about two bf16 ulps at the largest value.
+# product and their output once (K4 and K6 round p to bf16 as their plain
+# versions do); 2e-2 is about two bf16 ulps at the largest value.
 PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # every paged-attention kernel's wrapper, whose `launches` the serve runs read
 PAGED_KERNELS = {
@@ -316,8 +316,10 @@ def k4_bound(q, kp, vp, pt, pos):
 
 
 def kernel_phase(flush) -> dict:
-    """K4 against its plain version in bf16 and fp32; returns the bf16
-    (main-path dtype) entry for the kernels line."""
+    """K4 against its plain version on both routes, bf16 (split-KV on the
+    tensor cores) and fp32 (CUDA cores), with and without the soft cap, pad
+    rows 0; returns the bf16 (main-path dtype) entry for the kernels
+    line."""
     checks = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, kp, vp, pt, pos = k4_inputs(dtype)
@@ -339,7 +341,8 @@ def kernel_phase(flush) -> dict:
         bound_ms, bound_by, nbytes, ops = k4_bound(q, kp, vp, pt, pos)
         tol = K4_TOL[dtype]
         entry = {
-            "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+            "dtype": str(dtype).removeprefix("torch."),
+            "route": rpa_cuda.route(dtype), "max_abs_err": err,
             "max_abs_err_soft_cap": err_cap, "tol": tol,
             "pad_rows_zero": pad_zero, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
@@ -664,7 +667,9 @@ def serve_phase(card: str) -> dict:
     setup_s = time.perf_counter() - t0
     model = "Llama-3-8B widths, 32 layers, bf16"
     k4, fp = serve_run(engine, cfg, card, "serve", model, "K4", setup_s)
-    profile_steps(engine, cfg, card, "serve", ("gqa_kernel",))
+    # bf16 queries: K4 is the split kernel and its combine over bf16 pages
+    profile_steps(engine, cfg, card, "serve",
+                  rpa_cuda.KERNELS["K4"][rpa_cuda.route(torch.bfloat16)])
     del engine
     torch.cuda.empty_cache()
 
@@ -682,7 +687,7 @@ def serve_phase(card: str) -> dict:
           "tokens": len(pairs), "first_divergence_per_request": first})
     # bf16 queries: K5 is the split kernel and its combine
     profile_steps(engine, cfg, card, "serve_int8",
-                  rpa_cuda.KERNELS[rpa_cuda.route(torch.bfloat16)])
+                  rpa_cuda.KERNELS["K5"][rpa_cuda.route(torch.bfloat16)])
     del engine, params
     torch.cuda.empty_cache()
     return {"K4": k4, "K5": k5}
@@ -719,13 +724,21 @@ def serve_mla_phase(card: str) -> dict:
     return launches
 
 
+# the runtime calls by which the host launches a kernel, as the profiler
+# names them
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx")
+
+
 def profile_steps(engine, cfg, card: str, phase: str,
                   kernel_keys: tuple[str, ...]) -> None:
     """Where a serve step's time goes: the same traffic again, 40 steps to
     reach a mix of prefill and decode, then 10 steps under torch.profiler.
-    Prints device busy time per step by kernel and the device's idle share
-    of the window's wall time. `kernel_keys` name the attention kernel's
-    device kernels (one template each: `name<`)."""
+    Prints device busy time per step by kernel, the device's idle share of
+    the window's wall time, the host's kernel launches per step and its
+    operators with the most self time. `kernel_keys` name the attention
+    kernel's device kernels (substrings of the profiler's names, as
+    `KERNELS` gives them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -757,11 +770,17 @@ def profile_steps(engine, cfg, card: str, phase: str,
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
             for k in kernel_keys:
-                attn_launches[k] += (k + "<") in e.name
+                attn_launches[k] += k in e.name
     busy_ms = sum(by_name.values())
     attn_ms = sum(v for k, v in by_name.items()
-                  if any(key + "<" in k for key in kernel_keys))
+                  if any(key in k for key in kernel_keys))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # the host's side of the window: kernel launches it issued, and the
+    # operators that took the most of its own time (self CPU time)
+    ops = prof.key_averages()
+    launch_calls = sum(e.count for e in ops if e.key in HOST_LAUNCH_CALLS)
+    host_top = sorted(((e.key, e.self_cpu_time_total / 1e3) for e in ops),
+                      key=lambda kv: -kv[1])[:8]
     emit({
         "phase": "profile", "of": phase, "card": card, "steps": n_steps,
         "rows_per_step": rows / n_steps,
@@ -775,6 +794,8 @@ def profile_steps(engine, cfg, card: str, phase: str,
         "attn_kernel_ms_per_step": attn_ms / n_steps,
         "attn_kernel_share_of_busy": attn_ms / busy_ms if busy_ms else None,
         "top_kernels_ms_per_step": [[k[:80], v / n_steps] for k, v in top],
+        "host_launch_calls_per_step": launch_calls / n_steps,
+        "top_host_self_ms_per_step": [[k[:80], v / n_steps] for k, v in host_top],
     })
 
 
@@ -816,7 +837,8 @@ def engine_check(phase: str, cfg, params, sc, tol: float) -> None:
 
 
 # the engine's dispatcher of each kernel that engine_bf16_check holds
-PAGED_DISPATCH = {"K5": "ragged_paged_attention",
+PAGED_DISPATCH = {"K4": "ragged_paged_attention",
+                  "K5": "ragged_paged_attention",
                   "K6": "ragged_paged_mla_attention",
                   "K7": "ragged_paged_mla_attention"}
 
@@ -912,8 +934,8 @@ def engine_bf16_check(phase: str, cfg, params, sc, tol: float,
 
 def engine_phase() -> None:
     """2-layer fp32 engine at Llama-3-8B width: K4 against the plain
-    version through the engine; then the same engine in bf16 on the int8
-    pool, which takes K5's tensor-core route."""
+    version through the engine; then the same engine in bf16 on the fp pool
+    and on the int8 pool, which take K4's and K5's tensor-core routes."""
     cfg = dataclasses.replace(
         llama_config(LLAMA3_8B), num_layers=2, dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -922,8 +944,11 @@ def engine_phase() -> None:
     engine_check("engine", cfg, params, sc, ENGINE_LOGITS_TOL)
     params16 = tree_map(lambda t: t.to(torch.bfloat16), params)
     del params
-    engine_bf16_check("engine_int8_bf16", dataclasses.replace(cfg, dtype=torch.bfloat16),
-                      params16, dataclasses.replace(sc, kv_cache_dtype="int8"),
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    engine_bf16_check("engine_bf16", cfg16, params16, sc,
+                      ENGINE_BF16_LOGITS_TOL, "K4")
+    engine_bf16_check("engine_int8_bf16", cfg16, params16,
+                      dataclasses.replace(sc, kv_cache_dtype="int8"),
                       ENGINE_BF16_LOGITS_TOL, "K5")
     del params16
     torch.cuda.empty_cache()
@@ -1005,7 +1030,7 @@ def train_phase(card: str) -> dict:
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
     by_name = device_ms_by_kernel(prof)
     busy_ms = sum(by_name.values())
-    fa_names = {n + "<" for names in fa_cuda.KERNELS.values() for n in names}
+    fa_names = {n for names in fa_cuda.KERNELS.values() for n in names}
     fa_ms = sum(v for k, v in by_name.items() if any(f in k for f in fa_names))
     top = [[k[:80], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]
     emit({
@@ -1121,15 +1146,17 @@ MMA_KERNELS = (
     (r"((?:fwd|dkv|dq)_mma_kernel)ILi(\d+)E", lambda m: f"{m[1]}<{m[2]}>"),
     (r"((?:mla|gqa)_split_kernel)I(a|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
      lambda m: f"{m[1]}<{'int8' if m[2] == 'a' else 'bf16'}, {m[3]}, {m[4]}>"),
-    (r"((?:mla|gqa)_combine_kernel)I13__nv_bfloat16E", lambda m: f"{m[1]}<bf16>"),
+    # mla_combine_kernel<bf16 out>, gqa_combine_kernel<int8 or bf16 pages>
+    (r"((?:mla|gqa)_combine_kernel)I(a|13__nv_bfloat16)E",
+     lambda m: f"{m[1]}<{'int8' if m[2] == 'a' else 'bf16'}>"),
 )
 
 
 def mma_ptxas(log: str) -> dict:
     """ptxas's report on the bf16 tensor-core instantiations (K1-K3 at each
-    head dim; the split kernels of K5, K6 and K7 at each step and column
-    count, their combines): registers, spill bytes and, for K1-K3 and the
-    split kernels at Llama-3-8B's (K5) and Moonlight's (K6, K7) widths,
+    head dim; the split kernels of K4-K7 at each step and column count,
+    their combines): registers, spill bytes and, for K1-K3 and the split
+    kernels at Llama-3-8B's (K4, K5) and Moonlight's (K6, K7) widths,
     dynamic shared memory (the launch size)."""
     out, name = {}, None
     for line in log.splitlines():
@@ -1151,14 +1178,14 @@ def mma_ptxas(log: str) -> dict:
             name = None
     which = {"fwd": 0, "dkv": 1, "dq": 2}
     for key, entry in out.items():
+        page = torch.int8 if "int8" in key else torch.bfloat16
         if key.startswith("mla_split"):
             n, r, dr = MOONLIGHT_MLA
-            page = torch.int8 if "int8" in key else torch.bfloat16
             entry["dynamic_smem_bytes_moonlight"] = mla_cuda.split_smem_bytes(
                 n, r, dr, SERVE.page_size, SERVE.pages_per_slot, page)
         elif key.startswith("gqa_split"):
             entry["dynamic_smem_bytes_llama3_8b"] = rpa_cuda.split_smem_bytes(
-                32, 8, 128, 128, SERVE.page_size, SERVE.pages_per_slot)
+                32, 8, 128, 128, SERVE.page_size, SERVE.pages_per_slot, page)
         elif "_mma_" in key:
             entry["dynamic_smem_bytes"] = fa_cuda.mma_smem_bytes(
                 which[key.split("_")[0]], int(key[:-1].split("<")[1]))
@@ -1232,8 +1259,8 @@ def main() -> int:
             "library_why": no_library,
             "card": card,
         })
-        # K4 has one route; K5's, K6's and K7's follow the query dtype
-        if name == "K5":
+        # each paged kernel's route follows the query dtype
+        if name in ("K4", "K5"):
             kernels[-1]["kernel_route"] = rpa_cuda.route(torch.bfloat16)
         elif name in ("K6", "K7"):
             kernels[-1]["kernel_route"] = mla_cuda.route(torch.bfloat16)

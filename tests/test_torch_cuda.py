@@ -61,11 +61,16 @@ def _batch(card, dtype, G, D, Dv, ps, seed=0):
     return q, kp, vp, pt, torch.tensor(pos, dtype=torch.int32, device=card)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,D,Dv,ps,soft_cap", [
+# G, D, Dv, page size, soft cap: D = Dv = 256 as in dense families with
+# 256-wide heads, G 20 over two 16-head tiles of the bf16 route
+K4_CASES = [
     (1, 64, 64, 16, None), (4, 128, 128, 16, 30.0), (2, 64, 32, 8, None),
-    (8, 128, 128, 32, None),
-])
+    (8, 128, 128, 32, None), (2, 256, 256, 16, 30.0), (20, 64, 64, 8, 30.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D,Dv,ps,soft_cap", K4_CASES)
 def test_k4_matches_plain_version(card, dtype, G, D, Dv, ps, soft_cap):
     args = _batch(card, dtype, G, D, Dv, ps)
     n0 = ragged_paged_attention_cuda.launches
@@ -87,6 +92,14 @@ def test_k4_rejects_what_it_does_not_take(card):
         ragged_paged_attention_cuda(q[:, :3], kp, vp, pt, pos, scale=0.1)
     with pytest.raises(ValueError):
         ragged_paged_attention_cuda(q.cpu(), kp, vp, pt, pos, scale=0.1)
+    # a bf16 shape the split route cannot launch (16 query rows of 8192
+    # columns, K and V, are past shared memory) raises; nothing else runs
+    # in its place
+    q, kp, vp, pt, pos = _batch(card, torch.bfloat16, 16, 4096, 4096, 16)
+    n0 = ragged_paged_attention_cuda.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ragged_paged_attention_cuda(q, kp, vp, pt, pos, scale=0.1)
+    assert ragged_paged_attention_cuda.launches == n0
 
 
 def test_engine_kernel_matches_plain_version(card):
@@ -289,9 +302,17 @@ def test_split_route_takes_many_heads(card, n, quant):
     assert not got[pos < 0].any()
 
 
-def _assert_route(fn, module, dtype):
-    """`fn()` launches the device kernels that `module.route(dtype)` names,
-    once each, and none of the other route's."""
+def _kernel_names(kernels) -> set:
+    """Every device-kernel name of a module's `KERNELS` (route -> names, or
+    kernel -> route -> names)."""
+    if isinstance(kernels, dict):
+        return {n for v in kernels.values() for n in _kernel_names(v)}
+    return set(kernels)
+
+
+def _assert_route(fn, want, kernels):
+    """`fn()` launches the device kernels `want` names, once each, and none
+    of the others in `kernels` (the module's `KERNELS`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -300,12 +321,10 @@ def _assert_route(fn, module, dtype):
         fn()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    want = module.KERNELS[module.route(dtype)]
-    other = {k for r in module.KERNELS.values() for k in r} - set(want)
     for kernel in want:
-        assert sum(kernel + "<" in name for name in names) == 1, (kernel, names)
-    for kernel in other:
-        assert not any(kernel + "<" in name for name in names), (kernel, names)
+        assert sum(kernel in name for name in names) == 1, (kernel, names)
+    for kernel in _kernel_names(kernels) - set(want):
+        assert not any(kernel in name for name in names), (kernel, names)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -322,7 +341,7 @@ def test_k7_route_follows_dtype(card, dtype):
     kr, krs = _int8_pages(gen, card, 41, 16, 64)
     args = (q_abs, q_rope, c, kr, cs, krs, pt, pos)
     _assert_route(lambda: mla.paged_mla_attention_quant_cuda(*args, scale=0.07),
-                  mla, dtype)
+                  mla.KERNELS[mla.route(dtype)], mla.KERNELS)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -336,7 +355,8 @@ def test_k6_route_follows_dtype(card, dtype):
     c = torch.randn(41, 16, 512, generator=gen, device=card).to(dtype)
     kr = torch.randn(41, 16, 64, generator=gen, device=card).to(dtype)
     _assert_route(lambda: mla.paged_mla_attention_cuda(
-        q_abs, q_rope, c, kr, pt, pos, scale=0.07), mla, dtype)
+        q_abs, q_rope, c, kr, pt, pos, scale=0.07),
+        mla.KERNELS[mla.route(dtype)], mla.KERNELS)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -349,7 +369,21 @@ def test_k5_route_follows_dtype(card, dtype):
     kp, ks = _int8_pages(gen, card, 41, 16, 8, 128)
     vp, vs = _int8_pages(gen, card, 41, 16, 8, 128)
     _assert_route(lambda: rpa.ragged_paged_attention_quant_cuda(
-        q, kp, vp, ks, vs, pt, pos, scale=0.09), rpa, dtype)
+        q, kp, vp, ks, vs, pt, pos, scale=0.09),
+        rpa.KERNELS["K5"][rpa.route(dtype)], rpa.KERNELS)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G,D,Dv,ps,soft_cap", K4_CASES)
+def test_k4_route_follows_dtype(card, dtype, G, D, Dv, ps, soft_cap):
+    """bf16 K4 launches the split kernel and its combine over bf16 pages,
+    fp32 K4 the CUDA-core kernel, and none of K5's kernels."""
+    from automodel_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+
+    args = _batch(card, dtype, G, D, Dv, ps)
+    _assert_route(lambda: rpa.ragged_paged_attention_cuda(
+        *args, scale=D ** -0.5, soft_cap=soft_cap),
+        rpa.KERNELS["K4"][rpa.route(dtype)], rpa.KERNELS)
 
 
 def test_k5_k6_k7_reject_what_they_do_not_take(card):
@@ -538,9 +572,9 @@ def test_flash_route_follows_dtype(card, dtype):
     want = fa_cuda.KERNELS[fa_cuda.route(dtype)]
     other = {n for r in fa_cuda.KERNELS.values() for n in r} - set(want)
     for kernel in want:
-        assert sum(kernel + "<" in name for name in names) == 1, (kernel, names)
+        assert sum(kernel in name for name in names) == 1, (kernel, names)
     for kernel in other:
-        assert not any(kernel + "<" in name for name in names), (kernel, names)
+        assert not any(kernel in name for name in names), (kernel, names)
     assert (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv) == (
         n[0] + 1, n[1] + 1, n[2] + 1)
 

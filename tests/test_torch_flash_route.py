@@ -61,12 +61,24 @@ def test_k7_route_follows_dtype():
     assert not set(mla.KERNELS["mma"]) & set(mla.KERNELS["fma"])
 
 
-def test_k5_route_follows_dtype():
+def _check_rpa_kernels(kernel):
+    """K4's or K5's route follows the query dtype, and every profiler key
+    of theirs picks out one device kernel: K4 and K5 share the split and
+    combine templates (they differ in the page type), so no key may be a
+    substring of another."""
     from automodel_tpu_torch.ops.cuda import ragged_paged_attention as rpa
 
     assert rpa.route(torch.bfloat16) == "mma"
     assert rpa.route(torch.float32) == "fma"
-    assert not set(rpa.KERNELS["mma"]) & set(rpa.KERNELS["fma"])
-    # no profiler substring of K4's kernel (`gqa_kernel<`) matches K5's
-    # split-route kernels
-    assert not any("gqa_kernel<" in k + "<" for k in rpa.KERNELS["mma"])
+    assert not set(rpa.KERNELS[kernel]["mma"]) & set(rpa.KERNELS[kernel]["fma"])
+    keys = [n for routes in rpa.KERNELS.values() for r in routes.values()
+            for n in r]
+    assert not any(a != b and a in b for a in keys for b in keys)
+
+
+def test_k5_route_follows_dtype():
+    _check_rpa_kernels("K5")
+
+
+def test_k4_route_follows_dtype():
+    _check_rpa_kernels("K4")

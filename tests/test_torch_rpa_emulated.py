@@ -1,13 +1,15 @@
-"""K5's CUDA source (`automodel_tpu_torch/csrc/ragged_paged_attention.cu`
+"""K4's and K5's CUDA source (`automodel_tpu_torch/csrc/ragged_paged_attention.cu`
 with `paged_split.cuh`) compiled for the CPU with g++ against
 `tests/cuda_emulation/cuda_emulation.h` and held to the plain version
-(`ragged_paged_attention_ref` with `k_scales`/`v_scales`) on the same
-inputs: the split-KV tensor-core kernel and its combine for bf16 queries,
-the CUDA-core kernel for fp32 queries. The cases cover rows that span
-several splits, a split boundary inside a page table, contexts that end
-mid-page, one-page and pad rows, 8- and 16-token pages, G 1, 3, 4, 8 and
-20 (two head tiles), D 64 and 128, Dv != D, zero-padded and odd widths,
-and the soft cap on and off. Skips without g++."""
+(`ragged_paged_attention_ref`; with `k_scales`/`v_scales` for K5) on the
+same inputs. Each kernel on both routes: the split-KV tensor-core kernel
+and its combine for bf16 queries (K4 over bf16 pages, K5 over int8
+pages), the CUDA-core kernel for fp32 queries. The cases cover rows that
+span several splits, a split boundary inside a page table, contexts that
+end mid-page, one-page and pad rows, 8- and 16-token pages, G 1, 3, 4, 8
+and 20 (two head tiles), D 64 and 128, Dv != D, zero-padded and odd
+widths, and the soft cap on and off; K4 also D = Dv = 256 (1040-byte tile
+rows). Skips without g++."""
 
 import ctypes
 import shutil
@@ -22,8 +24,8 @@ from automodel_tpu_torch.ops.paged_attention import ragged_paged_attention_ref
 
 # as on the card (tests/test_torch_cuda.py), a share of the largest value:
 # fp32 differs by summation order; bf16 by where the plain version rounds
-# dequantized pages, probabilities and the value product and the kernel
-# rounds p * vs
+# dequantized pages (K5) and the value product and the kernel rounds p * vs
+# (K5), and by the order of the sums (both round p to bf16 in K4)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 CASES = {
     # Hkv, G, D, Dv, page size, table width P, contexts, soft cap
@@ -36,6 +38,9 @@ CASES = {
     "odd_widths_g2_d30_dv10": (2, 2, 30, 10, 8, 12, (70, 9), None),
     "g20_two_head_tiles": (1, 20, 64, 64, 16, 12, (150, 1), 30.0),
 }
+# K4 also at the widest heads of dense families
+K4_CASES = {**CASES,
+            "d256_dv256_g2_cap": (2, 2, 256, 256, 16, 12, (150, 17), 30.0)}
 
 
 @pytest.fixture(scope="module")
@@ -54,13 +59,20 @@ def lib(tmp_path_factory):
     lib.rpa_gqa_quant_forward.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.rpa_gqa_split_forward.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    lib.rpa_gqa_forward.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return lib
 
 
-def _inputs(case, dtype, seed=0):
+def _inputs(case, dtype, seed=0, cases=CASES):
     """A ragged batch: for each request a decode row at its last position
-    and a row halfway, then a pad row; int8 pages in permuted order."""
-    Hkv, G, D, Dv, ps, P, contexts, _ = CASES[case]
+    and a row halfway, then a pad row; int8 pages with per-row scales in
+    permuted order."""
+    Hkv, G, D, Dv, ps, P, contexts, _ = cases[case]
     rng = np.random.default_rng(seed)
     N = P * len(contexts)
     perm = iter(rng.permutation(N))
@@ -80,6 +92,11 @@ def _inputs(case, dtype, seed=0):
     vs = torch.from_numpy(rng.uniform(0.002, 0.032, (N + 1, ps)).astype(np.float32))
     return (q, k, v, ks, vs, torch.tensor(tables, dtype=torch.int32),
             torch.tensor(pos, dtype=torch.int32))
+
+
+def _rel_err(out, want):
+    return ((out.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1.0)).item()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -107,7 +124,38 @@ def test_emulated_k5_matches_plain_version(lib, case, dtype):
     want = ragged_paged_attention_ref(q, k, v, pt, pos, scale=scale,
                                       soft_cap=soft_cap, k_scales=ks,
                                       v_scales=vs)
-    rel = ((out.float() - want.float()).abs().max()
-           / want.float().abs().max().clamp(min=1.0)).item()
-    assert rel <= TOL[dtype]
+    assert _rel_err(out, want) <= TOL[dtype]
+    assert not out[pos < 0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_emulated_k4_matches_plain_version(lib, case, dtype):
+    """K4 over pages of the query dtype: bf16 on the split route
+    (`rpa_gqa_split_forward`), fp32 on the CUDA-core one (`rpa_gqa_forward`,
+    dtype 0)."""
+    q, k8, v8, _, _, pt, pos = _inputs(case, dtype, cases=K4_CASES)
+    rng = np.random.default_rng(1)
+    k, v = (torch.from_numpy(rng.standard_normal(x.shape, np.float32)).to(dtype)
+            for x in (k8, v8))
+    soft_cap = K4_CASES[case][-1]
+    T, Hq, D = q.shape
+    _, ps, Hkv, Dv = v.shape
+    P = pt.shape[1]
+    scale = D ** -0.5
+    out = torch.full((T, Hq, Dv), float("nan"), dtype=dtype)
+    ptrs = [x.data_ptr() for x in (q, k, v, pt, pos, out)]
+    cap = soft_cap or 0.0
+    if dtype == torch.bfloat16:
+        ws = torch.full((lib.rpa_split_workspace_floats(T, Hq, Hkv, D, Dv, ps, P),),
+                        float("nan"))
+        err = lib.rpa_gqa_split_forward(*ptrs, ws.data_ptr(), T, Hq, Hkv, D, Dv,
+                                        ps, P, scale, cap, None)
+    else:
+        err = lib.rpa_gqa_forward(*ptrs, T, Hq, Hkv, D, Dv, ps, P, scale, cap, 0,
+                                  None)
+    assert err == 0
+    want = ragged_paged_attention_ref(q, k, v, pt, pos, scale=scale,
+                                      soft_cap=soft_cap)
+    assert _rel_err(out, want) <= TOL[dtype]
     assert not out[pos < 0].any()
