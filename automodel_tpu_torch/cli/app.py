@@ -3,8 +3,8 @@
 
 The recipe class resolves from the ``recipe._target_`` field (JAX-package
 names map to the port's), a bare ``recipe:`` alias, or the default
-next-token-prediction trainer. Only the training aliases are ported; the
-others raise and name the recipe.
+next-token-prediction trainer. The training aliases and `llm_serve` are
+ported; the others raise and name the recipe.
 """
 
 from __future__ import annotations
@@ -13,17 +13,19 @@ from automodel_tpu_torch.config import ConfigNode, parse_args_and_load_config
 from automodel_tpu_torch.config.loader import _resolve_target
 
 _TRAIN_FT = "automodel_tpu_torch.recipes.llm.train_ft.TrainFinetuneRecipeForNextTokenPrediction"
+_SERVE = "automodel_tpu_torch.recipes.llm.serve.ServeRecipe"
 
 RECIPE_ALIASES = {
     "llm_train_ft": _TRAIN_FT,
     "llm_finetune": _TRAIN_FT,
     "llm_pretrain": _TRAIN_FT,
+    "llm_serve": _SERVE,
 }
 
 # the JAX CLI's other aliases: recipes this package does not have yet
 UNPORTED_RECIPES = (
     "llm_benchmark", "llm_kd", "llm_train_eagle3", "llm_train_eagle1",
-    "llm_train_eagle2", "llm_train_dflash", "llm_serve", "llm_spec_bench",
+    "llm_train_eagle2", "llm_train_dflash", "llm_spec_bench",
     "llm_dflash_decode_eval", "dllm_train_ft", "diffusion_train",
     "bagel_finetune", "multimodal_pretrain", "vlm_finetune", "vlm_kd",
     "vlm_generate", "multimodal_finetune", "llm_seq_cls",
@@ -48,8 +50,9 @@ def resolve_recipe_class(cfg: ConfigNode):
 
 
 def main(argv=None):
-    """Load the YAML and overrides, build the recipe, train; returns the
-    recipe (its state and logs stay readable by the caller)."""
+    """Load the YAML and overrides, build the recipe, run it (train or
+    serve); returns the recipe (its state and logs stay readable by the
+    caller)."""
     cfg = parse_args_and_load_config(argv)
     recipe = resolve_recipe_class(cfg)(cfg)
     recipe.setup()

@@ -19,6 +19,8 @@ class ModelSpec:
     name: str
     config_from_hf: Callable[..., Any]
     module: Any  # provides init / forward / head_kernel / unembed
+    adapter_name: str = "dense_decoder"  # checkpoint/hf_adapter.py ADAPTERS key
+    adapter_kwargs: dict = dataclasses.field(default_factory=dict)
 
 
 MODEL_ARCH_MAPPING: dict[str, ModelSpec] = {
@@ -26,7 +28,8 @@ MODEL_ARCH_MAPPING: dict[str, ModelSpec] = {
     # MLA + MoE (Moonlight-16B-A3B runs as this); its module serves through
     # the engine, its training forward raises
     "DeepseekV3ForCausalLM": ModelSpec(
-        "deepseek_v3", moe_families.deepseek_v3_moe_config, moe_decoder
+        "deepseek_v3", moe_families.deepseek_v3_moe_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "deepseek"},
     ),
 }
 

@@ -3,12 +3,12 @@
 `automodel_tpu/moe/experts.py`).
 
 The JAX dropless path sorts the (token, slot) pairs by expert and runs the
-three expert products as `lax.ragged_dot` (an XLA op, not a Pallas kernel).
-Here the same sort feeds a per-expert loop of plain products over each
-expert's contiguous rows, and `index_add_` scatters the weighted rows back
-into token order. The loop reads the group sizes on the host (one sync per
-MoE layer); a grouped GEMM is later work. The capacity (einsum) dispatch and
-the expert-parallel all-to-all are not ported.
+three expert products as `lax.ragged_dot` over device group sizes (an XLA
+op, not a Pallas kernel). Here the same sort feeds one grouped product per
+projection, and `index_add_` scatters the weighted rows back into token
+order. Nothing is read to the host, so a MoE layer queues its kernels
+without waiting for the device. The capacity (einsum) dispatch and the
+expert-parallel all-to-all are not ported.
 """
 
 from __future__ import annotations
@@ -60,10 +60,25 @@ def init_experts(cfg: MoEConfig, hidden_size: int, gen: torch.Generator,
     return params
 
 
-def _linear(rows, p, e):
-    y = rows @ p["kernel"][e]
+def _expert_linear(rows, p, offs, expert):
+    """rows (TK, in) sorted by expert -> (TK, out) through each row's expert.
+
+    bf16 runs `torch._grouped_mm` over the group ends `offs`: one launch,
+    each group's rows through its expert's kernel (E, in, out) as stored.
+    It needs in and out to be multiples of 8 (16-byte strides) and writes
+    no row past `offs[-1]`. On the card it takes bf16 alone: other dtypes
+    take a fallback that copies `offs` to the host. So every other dtype
+    runs each row through every expert and keeps its own expert's result:
+    E times the products, one batched launch, no host read. Only fp32
+    parity checks run that route."""
+    kernel = p["kernel"].to(rows.dtype)
+    if rows.dtype == torch.bfloat16:
+        y = torch._grouped_mm(rows, kernel, offs=offs)
+    else:
+        every = torch.matmul(rows, kernel)  # (E, TK, out)
+        y = every[expert, torch.arange(rows.shape[0], device=rows.device)]
     if "bias" in p:
-        y = y + p["bias"][e]
+        y = y + p["bias"].to(rows.dtype)[expert]
     return y
 
 
@@ -76,8 +91,8 @@ def experts_forward_dropless(
 ) -> torch.Tensor:
     """Dropless sort-based dispatch: (token, slot) pairs sorted stably by
     expert, each expert's rows through its gated MLP, rows weighted and
-    added back into token order. Masked pairs (index E) sort last and
-    contribute nothing."""
+    added back into token order. Masked pairs (index E) sort last, past
+    every group, and contribute exactly 0."""
     T, H = x.shape
     K, E = cfg.experts_per_token, cfg.n_routed_experts
     dtype = x.dtype
@@ -86,26 +101,28 @@ def experts_forward_dropless(
     # stable sort groups rows by expert while keeping token order within
     sort_idx = torch.argsort(flat_expert, stable=True)
     token_of = sort_idx // K
+    expert_of = flat_expert[sort_idx]
     xs = x[token_of]  # (TK, H)
-    sizes = torch.bincount(flat_expert, minlength=E + 1)[:E].tolist()
+    # group ends on the device: offs[e] = pairs routed to experts 0..e
+    # (`bincount` on the card reads its input's maximum to the host)
+    offs = torch.searchsorted(
+        expert_of, torch.arange(1, E + 1, device=x.device), out_int32=True)
+    # masked pairs carry the sentinel E: clipped for the bias gathers (as the
+    # JAX path does), zeroed in the combine below
+    safe_expert = torch.clamp(expert_of, 0, E - 1)
 
-    y = torch.zeros((T * K, H), dtype=dtype, device=x.device)
-    start = 0
-    for e, n in enumerate(sizes):
-        if n == 0:
-            continue
-        rows = xs[start:start + n]
-        u = _linear(rows, params["up_proj"], e)
-        if cfg.gated_experts:
-            g = _linear(rows, params["gate_proj"], e)
-            h_in = gated_combine(g, u, cfg.expert_activation, cfg.swiglu_limit)
-        else:
-            h_in = _EXPERT_ACT[cfg.expert_activation](u)
-        y[start:start + n] = _linear(h_in, params["down_proj"], e)
-        start += n
+    u = _expert_linear(xs, params["up_proj"], offs, safe_expert)
+    if cfg.gated_experts:
+        g = _expert_linear(xs, params["gate_proj"], offs, safe_expert)
+        h_in = gated_combine(g, u, cfg.expert_activation, cfg.swiglu_limit)
+    else:
+        h_in = _EXPERT_ACT[cfg.expert_activation](u)
+    y = _expert_linear(h_in, params["down_proj"], offs, safe_expert)
 
     w_sorted = weights.reshape(T * K)[sort_idx].to(dtype)
-    contrib = y * w_sorted[:, None]
+    # rows of masked pairs hold whatever the grouped product left there
+    # (`ragged_dot` gives 0): zero them, as 0 * NaN would not be
+    contrib = torch.where((expert_of < E)[:, None], y * w_sorted[:, None], 0)
     return torch.zeros((T, H), dtype=dtype, device=x.device).index_add_(
         0, token_of, contrib)
 

@@ -12,8 +12,12 @@ The same YAML files drive both packages. What the port does not have yet
 raises NotImplementedError instead of being skipped: distributed sizes
 other than 1 (`dp_shard: -1` resolves to 1 on one device), PEFT, MoE and
 other unported architectures (`models/registry.py`), validation, trackers,
-resilience, QAT, pretrained weights, and checkpointing, which is on unless
-`checkpoint.enabled: false`.
+resilience, QAT, `model.linear_precision`, and the train-state
+checkpointer, which is on unless `checkpoint.enabled: false`.
+
+`model.pretrained_path` names a local HF safetensors checkpoint: its
+`config.json` gives the HF config and `checkpoint/hf_adapter.py` fills the
+params on the device.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ import os
 import time
 
 import numpy as np
+import torch
 
+from automodel_tpu_torch.checkpoint import HFCheckpointReader, get_adapter
 from automodel_tpu_torch.config import ConfigNode, parse_args_and_load_config
 from automodel_tpu_torch.datasets.loader import make_global_batch, stack_microbatches
 from automodel_tpu_torch.loggers.metric_logger import MetricLogger, setup_logging
@@ -64,7 +70,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         setup_logging()
         self._refuse_unported()
         self.rng = StatefulRNG(seed=int(cfg.get("seed", 42)), device=self.device)
-        self._build_model()
+        self._build_model(torch.float32)  # fp32 masters
         self._build_optimizer()
         self._build_data()
         run_dir = cfg.get("run_dir", ".")
@@ -90,29 +96,48 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 raise NotImplementedError(f"config section '{key}' is not ported")
         if cfg.get("qat.enabled", False):
             raise NotImplementedError("qat is not ported")
-        if cfg.get("model.pretrained_path") or cfg.get("model.linear_precision"):
-            raise NotImplementedError(
-                "model.pretrained_path / linear_precision are not ported")
+        if cfg.get("model.linear_precision"):
+            raise NotImplementedError("model.linear_precision is not ported")
         if cfg.get("checkpoint.enabled", True):
             raise NotImplementedError(
-                "checkpointing is not ported (ROADMAP.md queue 1: the "
-                "checkpointer and hf_adapter); run with --checkpoint.enabled=false")
+                "the train-state checkpointer is not ported (ROADMAP.md queue 1 "
+                "item 4); run with --checkpoint.enabled=false")
 
     # ------------------------------------------------------------------
-    def _build_model(self) -> None:
+    def _build_model(self, param_dtype: torch.dtype | None) -> None:
+        """The model config, and its params on the device in `param_dtype`
+        (None: the model's compute dtype): read from the HF checkpoint at
+        `model.pretrained_path`, whose config.json gives the HF config, or
+        drawn from the recipe's generator."""
         mcfg = self.cfg.get("model")
         overrides = dict(
             dtype=torch_dtype(mcfg.get("dtype", "bfloat16")),
             remat_policy=mcfg.get("remat_policy", "full"),
             attn_impl=mcfg.get("attn_impl", "auto"),
         )
-        hf_config = mcfg.get("hf_config")
-        hf_config = hf_config.to_dict() if isinstance(hf_config, ConfigNode) else dict(hf_config)
-        self.model_spec = get_model_spec(hf_config)
-        self.model_cfg = self.model_spec.config_from_hf(hf_config, **overrides)
-        # fp32 masters, made on the device from the recipe's generator
-        self._init_params = self.model_spec.module.init(
-            self.model_cfg, self.rng.next_key())
+
+        def build_config(hf_config) -> torch.dtype:
+            self.model_spec = get_model_spec(hf_config)
+            self.model_cfg = self.model_spec.config_from_hf(hf_config, **overrides)
+            return self.model_cfg.dtype if param_dtype is None else param_dtype
+
+        pretrained = mcfg.get("pretrained_path")
+        if pretrained:
+            with HFCheckpointReader(pretrained) as reader:
+                hf_config = reader.hf_config()
+                if hf_config is None:
+                    raise FileNotFoundError(f"{pretrained}: no config.json")
+                dtype = build_config(hf_config)
+                adapter = get_adapter(self.model_spec.adapter_name, self.model_cfg,
+                                      **self.model_spec.adapter_kwargs)
+                self._init_params = adapter.from_hf(reader, device=self.device, dtype=dtype)
+            logger.info("loaded pretrained weights from %s", pretrained)
+        else:
+            hf_config = mcfg.get("hf_config")
+            dtype = build_config(hf_config.to_dict() if isinstance(hf_config, ConfigNode)
+                                 else dict(hf_config))
+            self._init_params = self.model_spec.module.init(
+                self.model_cfg, self.rng.next_key(), dtype=dtype)
         logger.info("model %s: %d parameters", self.model_spec.name,
                     count_params(self._init_params))
 

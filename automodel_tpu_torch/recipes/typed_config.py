@@ -1,11 +1,20 @@
 """Typed recipe-config facade (port of the sections of
-`automodel_tpu/recipes/typed_config.py` that the training recipe reads):
-lazy coercion of raw ConfigNode sections into the port's dataclass configs.
-Unknown keys inside a section raise, as in the JAX package."""
+`automodel_tpu/recipes/typed_config.py` that the training and serving
+recipes read): lazy coercion of raw ConfigNode sections into the port's
+dataclass configs. Unknown keys inside a section raise, as in the JAX
+package.
+
+The serving sections the port does not run yet (`mesh`, `disaggregation`,
+`online`, `speculative`, `resilience`, `observability`) are parsed into
+copies of the JAX package's dataclasses, fields and defaults alone, so a
+YAML may carry them at their defaults; `refuse_unported_serving` raises for
+any that asks for more than the single-replica offline engine.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from automodel_tpu_torch.config import ConfigNode
 
@@ -29,6 +38,101 @@ def dataclass_from_node(cls, node, *, strict: bool = True, allow: tuple = (), **
             if f.name in node and f.name not in kwargs:
                 kwargs[f.name] = node.get(f.name)
     return cls(**kwargs)
+
+
+# -- the serving sections' fields, as the JAX package declares them ----------
+@dataclasses.dataclass(frozen=True)
+class ServeMeshConfig:
+    """`serving.mesh` (JAX `serving/router.py`)."""
+
+    replicas: int = 1
+    tp: int = 1
+    ep: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoscaleConfig:
+    """`serving.disaggregation.autoscale` (JAX `serving/router.py`)."""
+
+    enabled: bool = False
+    grow_ratio: float = 4.0
+    shrink_ratio: float = 1.0
+    sustain: int = 8
+    cooldown: int = 32
+    min_decode: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DisaggConfig:
+    """`serving.disaggregation` (JAX `serving/router.py`)."""
+
+    enabled: bool = False
+    prefill_replicas: int = 1
+    decode_replicas: int = 1
+    transfer_pages: int = 8
+    prefill_token_budget: Optional[int] = None
+    autoscale: AutoscaleConfig = AutoscaleConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """`serving.online` (JAX `serving/frontend.py`); the recipe itself
+    reads `enabled` and `deadline_steps`."""
+
+    stream_buffer: int = 32
+    max_waiting: Optional[int] = None
+    shed_deadlines: bool = True
+    shed_safety: float = 1.0
+    itl_decay: float = 0.9
+    idle_sleep_s: float = 0.001
+    drain: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeculativeConfig:
+    """`serving.speculative` (JAX `speculative/serve_draft.py`)."""
+
+    enabled: bool = False
+    draft_source: str = "ngram"
+    draft_len: int = 4
+    acceptance: str = "greedy"
+    adaptive: bool = False
+    adaptive_threshold: float = 0.5
+    adaptive_decay: float = 0.5
+    ngram_max: int = 3
+    ngram_min: int = 1
+    ngram_window: int = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeResilienceConfig:
+    """`serving.resilience` (JAX `serving/resilience.py`): replica failure
+    handling, which the single-replica offline branch ignores."""
+
+    enabled: bool = True
+    degrade: bool = True
+    degraded_failures: int = 3
+    transfer_retry_attempts: int = 3
+    transfer_retry_base_delay_s: float = 0.005
+    transfer_retry_max_delay_s: float = 0.25
+    transfer_retry_jitter: float = 0.25
+    retry_seed: int = 0
+    ack_every_steps: int = 0
+    ack_timeout_ms: int = 10_000
+
+
+@dataclasses.dataclass(frozen=True)
+class ObservabilityConfig:
+    """`serving.observability` (JAX `observability/__init__.py`)."""
+
+    enabled: bool = False
+    trace_path: Optional[str] = None
+    flight_recorder_len: int = 256
+    flight_recorder_path: Optional[str] = None
+    profile_window: Optional[tuple] = None
+    itl_spike_ms: Optional[float] = None
+    profile_dir: Optional[str] = None
+    http_port: Optional[int] = None
 
 
 class RecipeConfig:
@@ -70,3 +174,74 @@ class RecipeConfig:
         from automodel_tpu_torch.training.step_scheduler import StepSchedulerConfig
 
         return self._section("step_scheduler", StepSchedulerConfig)
+
+    # -- serving ---------------------------------------------------------------
+    def _serving(self, name: str, cls, allow: tuple = (), **extra):
+        key = ("serving." + name, cls.__name__)
+        if key not in self._cache:
+            node = self.raw.get("serving")
+            sub = node.get(name) if node is not None else None
+            self._cache[key] = dataclass_from_node(cls, sub, allow=allow, **extra)
+        return self._cache[key]
+
+    @property
+    def serving_prefix_cache(self):
+        """`serving.prefix_cache` -> PrefixCacheConfig (disabled when absent)."""
+        from automodel_tpu_torch.serving.prefix_cache import PrefixCacheConfig
+
+        return self._serving("prefix_cache", PrefixCacheConfig)
+
+    @property
+    def serving_mesh(self) -> ServeMeshConfig:
+        return self._serving("mesh", ServeMeshConfig)
+
+    @property
+    def serving_disaggregation(self) -> DisaggConfig:
+        sub = self.raw.get("serving.disaggregation.autoscale")
+        extra = {} if sub is None else {"autoscale": dataclass_from_node(AutoscaleConfig, sub)}
+        return self._serving("disaggregation", DisaggConfig, **extra)
+
+    @property
+    def serving_online(self) -> FrontendConfig:
+        return self._serving("online", FrontendConfig, allow=("enabled", "deadline_steps"))
+
+    @property
+    def serving_speculative(self) -> SpeculativeConfig:
+        return self._serving("speculative", SpeculativeConfig)
+
+    @property
+    def serving_resilience(self) -> ServeResilienceConfig:
+        return self._serving("resilience", ServeResilienceConfig)
+
+    @property
+    def serving_observability(self) -> ObservabilityConfig:
+        window = self.raw.get("serving.observability.profile_window")
+        extra = {} if window is None else {"profile_window": tuple(window)}
+        return self._serving("observability", ObservabilityConfig, **extra)
+
+    def refuse_unported_serving(self) -> None:
+        """The port serves through the single-replica offline engine alone.
+        A serving section that asks for more raises NotImplementedError
+        naming the section and its ROADMAP.md queue 1 item;
+        `serving.resilience` is parsed and, as on the JAX package's
+        single-replica branch, has no effect."""
+        mesh = self.serving_mesh
+        if (mesh.replicas, mesh.tp, mesh.ep) != (1, 1, 1):
+            raise NotImplementedError(
+                f"serving.mesh={dataclasses.asdict(mesh)}: replicated and sharded "
+                "serving are not ported (ROADMAP.md queue 1 item 15)")
+        _ = self.serving_online, self.serving_resilience  # parsed: unknown keys raise
+        wants = (
+            ("disaggregation", self.serving_disaggregation.enabled, 18),
+            ("online", bool(self.raw.get("serving.online.enabled", False)), 18),
+            ("speculative", self.serving_speculative.enabled, 17),
+            ("observability", self.serving_observability.enabled, 6),
+        )
+        for name, enabled, item in wants:
+            if enabled:
+                raise NotImplementedError(
+                    f"serving.{name}.enabled: not ported (ROADMAP.md queue 1 item {item})")
+        if self.raw.get("resilience.faults") is not None:
+            raise NotImplementedError(
+                "resilience.faults: fault injection is not ported "
+                "(ROADMAP.md queue 1 item 6)")

@@ -32,7 +32,20 @@ one JSON line each:
    at full width and all 27 layers, bf16, random weights from seed 0, on
    the same traffic, on the fp pool (K6) and on the int8 pool (K7), each
    with its profile;
-6. engine / engine_mla: 2-layer fp32 engines at Llama-3-8B width (K4) and
+   moe_sync: one Moonlight MoE block (gate, grouped expert products,
+   shared experts, combine) in bf16 at full width under
+   `torch.cuda.set_sync_debug_mode("error")`: it reads nothing to the host;
+6. recipe_serve: the `llm_serve` recipe through the CLI entry
+   (`automodel_tpu_torch.cli.app.main([yaml])`, the card by default) on
+   an HF safetensors checkpoint of Llama-3-8B (full width, 32 layers,
+   bf16, seed-0 weights) that the port's `save_hf_checkpoint` writes to a
+   temporary directory first: 16 mock prompts of 512 tokens, the serve
+   config above, 32 new tokens each. The weights the recipe holds must
+   equal the written ones bit for bit, every request must finish with 32
+   tokens, K4 must launch on every layer of every step, and the recipe's
+   tokens must equal a `ServingEngine.serve_batch` on the same weights and
+   requests in this process;
+7. engine / engine_mla: 2-layer fp32 engines at Llama-3-8B width (K4) and
    at Moonlight width (one dense, one MoE layer; K6 on the fp pool, K7 on
    the int8 pool): the same step plans run through the engine with the
    kernels and with the plain versions, whose logits and greedy tokens
@@ -43,17 +56,17 @@ one JSON line each:
    farther from it than the plain version's plus the bf16 tolerance,
    every kernel call within `PAGED_TOL` of its plain version on the same
    inputs, greedy agreements reported;
-7. train: the training CLI (`python -m automodel_tpu_torch`, run in this
+8. train: the training CLI (`python -m automodel_tpu_torch`, run in this
    process) on `examples/llm_pretrain/llama3_8b_mock_bf16.yaml` at its
    published width, bf16 and full remat, cut to 8 layers, 2 microbatches
    of 4096 tokens per step, 5 steps: every loss and grad norm finite, the
    first loss near ln(vocab), K1 launched 2 x layers x microbatches x steps
    times (forward and remat recompute), K2 and K3 half that; then one more
    step under torch.profiler;
-8. train check: the same width, 2 layers, fp32, one accumulated step from
+9. train check: the same width, 2 layers, fp32, one accumulated step from
    the same weights and batch with the kernels and with the plain
    attention: losses and gradients must agree;
-9. train paths: `examples/llm_finetune/tiny_llama_mock_smoke.yaml` (fp32,
+10. train paths: `examples/llm_finetune/tiny_llama_mock_smoke.yaml` (fp32,
    head dim 16) for its 10 steps through the CLI with the kernels and
    through the recipe class called directly with the plain attention:
    the loss curves must agree.
@@ -83,6 +96,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from automodel_tpu_torch.checkpoint import DenseDecoderAdapter, save_hf_checkpoint
 from automodel_tpu_torch.cli.app import main as cli_main
 from automodel_tpu_torch.config import parse_args_and_load_config
 from automodel_tpu_torch.datasets.loader import make_global_batch, stack_microbatches
@@ -93,6 +107,7 @@ from automodel_tpu_torch.models.llm import decoder
 from automodel_tpu_torch.models.llm.families import llama_config
 from automodel_tpu_torch.models.moe_lm import decoder as moe_decoder
 from automodel_tpu_torch.models.moe_lm.families import deepseek_v3_moe_config
+from automodel_tpu_torch.moe.layer import init_moe, moe_forward
 from automodel_tpu_torch.ops import flash_attention as fa
 from automodel_tpu_torch.ops.cuda import _build
 from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
@@ -156,6 +171,8 @@ SERVE = ServingConfig(
     page_size=16, num_pages=2048, max_slots=16, pages_per_slot=64,
     token_budget=64, prefill_chunk=48,
 )
+# the recipe_serve phase: 16 mock prompts of this many tokens, 32 new each
+RECIPE_PROMPT_LEN = 512
 
 # K4 tolerances against the plain version on the same inputs.
 # fp32: both sum in fp32; only the order (online vs two-pass softmax, the
@@ -724,6 +741,121 @@ def serve_mla_phase(card: str) -> dict:
     return launches
 
 
+def moe_sync_phase(card: str) -> None:
+    """One Moonlight MoE block in bf16 at full width (64 experts, top-6,
+    H 2048, I 1408, 2 shared experts) on one serve step's 64 rows, one in 8
+    masked: the forward runs under set_sync_debug_mode("error"), which
+    raises at any device-to-host read."""
+    cfg = deepseek_v3_moe_config(MOONLIGHT, dtype=torch.bfloat16).moe
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_moe(cfg, MOONLIGHT["hidden_size"], gen, torch.bfloat16)
+    params["gate"]["e_score_bias"].normal_(0, 0.1, generator=gen)
+    x = torch.randn(1, 64, MOONLIGHT["hidden_size"], device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    mask = (torch.arange(64, device="cuda") % 8 != 5)[None]
+    moe_forward(params, cfg, x, mask)  # warm-up: library handles, workspaces
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, _, _ = moe_forward(params, cfg, x, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out).all())
+    emit({"phase": "moe_sync", "card": card, "rows": 64, "dtype": "bfloat16",
+          "sync_debug_mode": "error", "finite": finite})
+    if not finite:
+        raise AssertionError("moe_sync: the MoE block gave non-finite values")
+
+
+def tree_bitwise_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_bitwise_equal(a[k], b[k]) for k in a)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(torch.int16), b.view(torch.int16)))
+
+
+def recipe_serve_phase(card: str) -> int:
+    """The llm_serve recipe through the CLI on a Llama-3-8B checkpoint that
+    the port writes first; returns the recipe's launches of K4."""
+    cfg = llama_config(LLAMA3_8B, dtype=torch.bfloat16)
+    params = decoder.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          dtype=torch.bfloat16)
+    hf = dict(LLAMA3_8B, architectures=["LlamaForCausalLM"], model_type="llama",
+              torch_dtype="bfloat16")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        save_hf_checkpoint(DenseDecoderAdapter(cfg).to_hf(params), str(tmp / "ckpt"),
+                           hf_config=hf)
+        write_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / "ckpt").iterdir())
+        serving = {f.name: getattr(SERVE, f.name) for f in dataclasses.fields(SERVE)
+                   if f.name in ("page_size", "num_pages", "max_slots", "pages_per_slot",
+                                 "token_budget", "prefill_chunk")}
+        node = {
+            "recipe": "llm_serve", "seed": 0, "run_dir": str(tmp / "run"),
+            "model": {"pretrained_path": str(tmp / "ckpt"), "dtype": "bfloat16"},
+            "dataset": {"_target_": "automodel_tpu_torch.datasets.mock.MockDatasetConfig",
+                        "num_samples": 16, "seq_len": RECIPE_PROMPT_LEN,
+                        "vocab_size": cfg.vocab_size},
+            "dataloader": {"microbatch_size": 16, "grad_acc_steps": 1},
+            "max_requests": 16,
+            "serving": {**serving, "max_new_tokens": 32, "temperature": 0.0,
+                        "arrival_stride": 2},
+        }
+        (tmp / "serve.yaml").write_text(json.dumps(node, indent=1))  # JSON is YAML
+        torch.cuda.reset_peak_memory_stats()
+        for fn in PAGED_KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        recipe = cli_main([str(tmp / "serve.yaml")])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in PAGED_KERNELS.items()}
+        gens = [json.loads(line) for line in (tmp / "run" / "generations.jsonl").open()]
+        serve_log = [json.loads(line) for line in (tmp / "run" / "serving.jsonl").open()]
+        stats = {k.removeprefix("serve_"): v for k, v in serve_log[-1].items()
+                 if k.startswith("serve_")}
+        same_weights = tree_bitwise_equal(recipe.params, params)
+        steps = recipe.engine.steps_run
+        del recipe
+        torch.cuda.empty_cache()
+    # the same weights and requests through the engine, in this process
+    reqs = [Request(prompt=g["prompt_ids"], max_new_tokens=32, seed=i, arrival=i // 2)
+            for i, g in enumerate(gens)]
+    engine = ServingEngine(params, cfg, SERVE)
+    direct = engine.serve_batch(reqs)["outputs"]
+    del engine, params
+    torch.cuda.empty_cache()
+    emit({
+        "phase": "recipe_serve", "card": card,
+        "model": "Llama-3-8B widths, 32 layers, bf16, seed-0 weights",
+        "checkpoint_gb": ckpt_bytes / 1e9, "write_s": write_s, "cli_s": cli_s,
+        "load_s": cli_s - stats["elapsed_s"], "serve_s": stats["elapsed_s"],
+        "requests": len(gens), "prompt_tokens": RECIPE_PROMPT_LEN, "steps": steps,
+        "decode_tokens_per_sec": stats["decode_tokens_per_sec"],
+        "itl_p50_ms": stats["itl_p50_ms"], "itl_p95_ms": stats["itl_p95_ms"],
+        "ttft_p50_ms": stats["ttft_p50_ms"], "ttft_p95_ms": stats["ttft_p95_ms"],
+        "launches": launches, "weights_bitwise_equal": same_weights,
+        "equal_to_serve_batch": [g["generated_ids"] for g in gens] == direct,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    })
+    if not same_weights:
+        raise AssertionError("recipe_serve: the loaded weights differ from the written ones")
+    if len(gens) != 16 or any(len(g["generated_ids"]) != 32 for g in gens):
+        raise AssertionError("recipe_serve: not every request finished with 32 tokens")
+    want = {name: 0 for name in PAGED_KERNELS}
+    want["K4"] = cfg.num_layers * steps
+    if launches != want:
+        raise AssertionError(
+            f"recipe_serve: paged kernels launched {launches} in {steps} steps "
+            f"of {cfg.num_layers} layers; expected {want}")
+    if [g["generated_ids"] for g in gens] != direct:
+        raise AssertionError("recipe_serve: the recipe's tokens differ from serve_batch's")
+    return launches["K4"]
+
+
 # the runtime calls by which the host launches a kernel, as the profiler
 # names them
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
@@ -1224,6 +1356,8 @@ def main() -> int:
     del flush
     launches = serve_phase(card)
     launches.update(serve_mla_phase(card))
+    moe_sync_phase(card)
+    launches["K4_recipe"] = recipe_serve_phase(card)
     engine_phase()
     engine_mla_phase()
     torch.cuda.empty_cache()
@@ -1259,6 +1393,8 @@ def main() -> int:
             "library_why": no_library,
             "card": card,
         })
+        if name == "K4":  # the llm_serve recipe's run, counted apart
+            kernels[-1]["recipe_serve_launches"] = launches["K4_recipe"]
         # each paged kernel's route follows the query dtype
         if name in ("K4", "K5"):
             kernels[-1]["kernel_route"] = rpa_cuda.route(torch.bfloat16)

@@ -629,3 +629,106 @@ def test_flash_launch_error_raises(card):
     k = torch.zeros(1, 1, 1, 64, device=card)
     with pytest.raises(RuntimeError, match="launch failed"):
         fa_cuda.flash_fwd_cuda(q, k, k, scale=0.125)
+
+
+# -- the MoE layer without host reads; HF checkpoints on the card -------------
+# MoE outputs against the same block run otherwise. bf16: a per-expert loop
+# of the same three products through cuBLAS rounds at the same three
+# points; only the order of the fp32 accumulation (and of index_add_'s
+# atomic adds) differs, ~2 bf16 ulps of the largest value. fp32: summation
+# order alone.
+GROUPED_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _moonlight_moe(card, dtype, T=64, seed=0):
+    """One Moonlight-16B-A3B MoE block (64 experts, top-6, H 2048, I 1408,
+    2 shared experts, sigmoid routing with the correction bias) and T
+    tokens, one in 8 masked."""
+    from automodel_tpu_torch.moe.config import MoEConfig
+    from automodel_tpu_torch.moe.layer import init_moe
+
+    cfg = MoEConfig(n_routed_experts=64, n_shared_experts=2, experts_per_token=6,
+                    score_func="sigmoid", route_scale=2.446, moe_intermediate_size=1408,
+                    gate_bias_update_speed=0.001)
+    gen = torch.Generator(device=card).manual_seed(seed)
+    params = init_moe(cfg, 2048, gen, dtype)
+    params["gate"]["e_score_bias"].normal_(0, 0.1, generator=gen)
+    x = torch.randn(1, T, 2048, device=card, generator=gen).to(dtype)
+    mask = (torch.arange(T, device=card) % 8 != 5)[None]
+    return cfg, params, x, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_layer_makes_no_host_read_at_moonlight_width(card, dtype):
+    """Routing, the grouped (bf16) or batched (fp32) expert products, the
+    shared experts and the combine queue without waiting for the device."""
+    from automodel_tpu_torch.moe.layer import moe_forward
+
+    cfg, params, x, mask = _moonlight_moe(card, dtype)
+    want, _, _ = moe_forward(params, cfg, x, mask)  # warm-up: handles, workspaces
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _, _ = moe_forward(params, cfg, x, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    # index_add_ on the card adds each token's rows in no fixed order
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GROUPED_TOL[dtype] * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grouped_expert_product_matches_per_expert_loop(card, dtype):
+    import torch.nn.functional as F
+
+    from automodel_tpu_torch.moe.experts import experts_forward_dropless
+    from automodel_tpu_torch.moe.gate import gate_forward
+
+    cfg, params, x, mask = _moonlight_moe(card, dtype, T=200, seed=1)
+    flat = x[0]
+    w, idx, _, _ = gate_forward(params["gate"], cfg, flat, mask[0])
+    got = experts_forward_dropless(params["experts"], cfg, flat, w, idx)
+    ex = params["experts"]
+    want = torch.zeros_like(flat, dtype=torch.float32)
+    for e in range(cfg.n_routed_experts):
+        tok, slot = (idx == e).nonzero(as_tuple=True)
+        if len(tok):
+            rows = flat[tok]
+            h = F.silu(rows @ ex["gate_proj"]["kernel"][e]) * (rows @ ex["up_proj"]["kernel"][e])
+            y = h @ ex["down_proj"]["kernel"][e]
+            want.index_add_(0, tok, y.float() * w[tok, slot, None])
+    err = (got.float() - want).abs().max().item()
+    assert err <= GROUPED_TOL[dtype] * want.abs().max().item(), err
+    assert (got[~mask[0]] == 0).all()
+
+
+def test_llama_checkpoint_round_trip_on_the_card(card, tmp_path):
+    """A 2-layer bf16 Llama written from the card and read back onto it:
+    every tensor bit for bit."""
+    from automodel_tpu_torch.checkpoint import (
+        DenseDecoderAdapter,
+        HFCheckpointReader,
+        save_hf_checkpoint,
+    )
+
+    cfg = decoder.TransformerConfig(vocab_size=1024, hidden_size=512, intermediate_size=1408,
+                                    num_layers=2, num_heads=8, num_kv_heads=2,
+                                    dtype=torch.bfloat16)
+    params = decoder.init(cfg, torch.Generator(device=card).manual_seed(0), torch.bfloat16)
+    adapter = DenseDecoderAdapter(cfg)
+    save_hf_checkpoint(adapter.to_hf(params), str(tmp_path / "ckpt"), max_shard_bytes=4 << 20)
+    with HFCheckpointReader(str(tmp_path / "ckpt")) as reader:
+        got = adapter.from_hf(reader, device=card, dtype=torch.bfloat16)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            yield from (leaves(v, f"{prefix}{k}.") if isinstance(v, dict) else [(prefix + k, v)])
+
+    want = dict(leaves(params))
+    have = dict(leaves(got))
+    assert sorted(have) == sorted(want)
+    for k, v in want.items():
+        assert have[k].device.type == "cuda" and have[k].dtype == v.dtype, k
+        assert torch.equal(have[k].view(torch.int16), v.view(torch.int16)), k

@@ -22,8 +22,9 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 leaked = sorted(m for m in sys.modules
-                if m in ("jax", "jaxlib", "automodel_tpu")
-                or m.startswith(("jax.", "jaxlib.", "automodel_tpu.")))
+                if m in ("jax", "jaxlib", "automodel_tpu", "safetensors", "ml_dtypes")
+                or m.startswith(("jax.", "jaxlib.", "automodel_tpu.", "safetensors.",
+                                 "ml_dtypes.")))
 print(json.dumps({"modules": mods, "leaked": leaked}))
 """
 
@@ -45,7 +46,8 @@ def test_port_imports_no_jax():
                 "ops.quant", "ops.cuda.paged_mla_attention", "models.llm.mla",
                 "moe.config", "moe.gate", "moe.experts", "moe.layer",
                 "models.moe_lm.decoder", "models.moe_lm.families",
-                "inference.generate"):
+                "inference.generate", "checkpoint.safetensors_io",
+                "checkpoint.hf_adapter", "recipes.llm.serve"):
         assert f"automodel_tpu_torch.{mod}" in res["modules"]
     assert res["leaked"] == []
 
@@ -71,9 +73,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         TrainFinetuneRecipeForNextTokenPrediction,
     )
 
+    from automodel_tpu_torch.recipes.llm.serve import ServeRecipe
+
     node = load_yaml(str(ROOT / "examples/llm_finetune/tiny_llama_mock_smoke.yaml"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TrainFinetuneRecipeForNextTokenPrediction(node)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeRecipe(load_yaml(str(ROOT / "examples/llm_serve/llama_serve_smoke.yaml")))
     out = _run(["-m", "automodel_tpu_torch",
                 "examples/llm_finetune/tiny_llama_mock_smoke.yaml",
                 "--checkpoint.enabled=false"])

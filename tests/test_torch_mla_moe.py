@@ -12,6 +12,10 @@ says otherwise; the same numpy inputs and weights go to both packages).
   correction bias and group-limited routing, softmax, the masked-token
   sentinel, routing replay); `moe_forward` and `mla_absorbed_inputs`
   within 1e-5;
+- `experts_forward_dropless` reads nothing to the host (no
+  `aten._local_scalar_dense`, which `.item()` and `.tolist()` dispatch to),
+  runs bf16 as one `_grouped_mm` per projection, and masked pairs add
+  exactly 0 even where the grouped product leaves NaN;
 - the engine: an MLA decoder and a DeepSeek-V3-style MLA + MoE decoder
   (one dense and one MoE layer, `q_lora_rank` set) serve the same request
   streams as the JAX engine, in lockstep: equal StepPlans, sample-row
@@ -25,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from automodel_tpu.inference import generate as j_generate
 from automodel_tpu.models.llm import decoder as j_decoder
@@ -48,6 +53,7 @@ from automodel_tpu_torch.models.llm.decoder import TransformerConfig
 from automodel_tpu_torch.models.moe_lm import decoder as moe_decoder
 from automodel_tpu_torch.models.moe_lm.families import deepseek_v3_moe_config
 from automodel_tpu_torch.moe.config import MoEConfig
+from automodel_tpu_torch.moe.experts import experts_forward_dropless
 from automodel_tpu_torch.moe.gate import gate_forward
 from automodel_tpu_torch.moe.layer import moe_forward
 from automodel_tpu_torch.ops.paged_attention import (
@@ -231,6 +237,67 @@ def test_moe_forward_refuses_what_is_not_ported():
         moe_forward(tp, dataclasses.replace(t_cfg, dispatcher="capacity"), x)
     with pytest.raises(NotImplementedError, match="mesh"):
         moe_forward(tp, t_cfg, x, mesh_ctx=object())
+
+
+class _OpLog(TorchDispatchMode):
+    """Records the name of every aten op dispatched while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func.overloadpacket))
+        return func(*args, **(kwargs or {}))
+
+
+def _expert_inputs(dtype, seed=3, T=40):
+    """Routed expert weights, tokens and a selection in which every 5th
+    token is masked (index E on all its slots) and every 7th from token 3
+    on keeps its first slot alone."""
+    _, t_cfg, params = _moe_params(GATES["sigmoid_bias"], seed=seed)
+    experts = params_from_jax(params["experts"], device="cpu", dtype=dtype)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(T, 24)).astype(np.float32)).to(dtype)
+    K, E = t_cfg.experts_per_token, t_cfg.n_routed_experts
+    idx = np.stack([rng.permutation(E)[:K] for _ in range(T)]).astype(np.int32)
+    idx[::5] = E
+    idx[3::7, 1:] = E
+    w = torch.from_numpy(rng.uniform(0.1, 1.0, (T, K)).astype(np.float32))
+    return t_cfg, experts, x, w, torch.from_numpy(idx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_experts_dropless_reads_nothing_to_the_host(dtype):
+    t_cfg, experts, x, w, idx = _expert_inputs(dtype)
+    with _OpLog() as log:
+        experts_forward_dropless(experts, t_cfg, x, w, idx)
+    assert "aten._local_scalar_dense" not in log.ops, log.ops
+    assert "aten.bincount" not in log.ops
+    assert (log.ops.count("aten._grouped_mm") == 3) == (dtype == torch.bfloat16)
+
+
+def test_experts_dropless_masked_pairs_add_exactly_zero(monkeypatch):
+    """The grouped product writes no row past the last group; those rows
+    (the masked pairs') are poisoned with NaN here and must not leak."""
+    t_cfg, experts, x, w, idx = _expert_inputs(torch.bfloat16)
+    clean = experts_forward_dropless(experts, t_cfg, x, w, idx)
+    grouped_mm = torch._grouped_mm
+
+    def poisoned(a, b, offs):
+        y = grouped_mm(a, b, offs=offs)
+        y[int(offs[-1]):] = float("nan")
+        return y
+
+    monkeypatch.setattr(torch, "_grouped_mm", poisoned)
+    got = experts_forward_dropless(experts, t_cfg, x, w, idx)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, clean)
+    assert (got[::5] == 0).all()  # every slot of these tokens is masked
+    # masked slots add nothing: the token equals its live slot alone
+    one = dataclasses.replace(t_cfg, experts_per_token=1)
+    alone = experts_forward_dropless(experts, one, x[3:4], w[3:4, :1], idx[3:4, :1])
+    assert torch.equal(got[3:4], alone)
 
 
 # -- MLA projections ---------------------------------------------------------

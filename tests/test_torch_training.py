@@ -327,8 +327,8 @@ def test_recipe_and_cli_refuse_what_is_not_ported(tmp_path):
     node.set("model.hf_config.architectures", ["Qwen3MoeForCausalLM"])
     with pytest.raises(NotImplementedError, match="Qwen3MoeForCausalLM"):
         TrainFinetuneRecipeForNextTokenPrediction(node, device="cpu").setup()
-    with pytest.raises(NotImplementedError, match="llm_serve"):
-        app.resolve_recipe_class(ConfigNode({"recipe": "llm_serve"}))
+    with pytest.raises(NotImplementedError, match="llm_kd"):
+        app.resolve_recipe_class(ConfigNode({"recipe": "llm_kd"}))
     assert (app.resolve_recipe_class(ConfigNode({"recipe": "llm_pretrain"}))
             is TrainFinetuneRecipeForNextTokenPrediction)
     # JAX-package targets map to the port; a missing counterpart names itself
