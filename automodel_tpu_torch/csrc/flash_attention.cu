@@ -18,13 +18,21 @@
 // plain versions, so fp32 keeps the CUDA-core kernels.
 // Masks: causal by global index, segment ids, logit soft cap. GQA maps query
 // head h to kv head h / (Hq / Hkv). Any S and T: the ragged edge is masked.
-// Head dims 16, 64 and 128. Windows, position-causal masking and Dv != D are
-// refused by the wrapper (automodel_tpu_torch/ops/cuda/flash_attention.py).
+// Head dims: every kernel is a template on the pair (DQK, DV), the head dim
+// of q and k and that of v, as the Pallas kernels take MLA's asymmetric
+// heads; instantiated for (16, 16), (64, 64), (128, 128) and (192, 128)
+// (MLA: qk_nope 128 + qk_rope 64, v 128). S = scale Q.K^T and
+// dS.K / dS^T.Q run over DQK; O = P.V, dP = dO.V^T, delta = rowsum(dO o O)
+// and dV = P^T.dO over DV. 192 is 12 k-steps of the m16n8k16 mma, so
+// nothing is padded (the TPU pads it to 256 lanes). Windows,
+// position-causal masking and other pairs are refused by the wrapper
+// (automodel_tpu_torch/ops/cuda/flash_attention.py).
 //
-// Layout. q, out, dO, dq are (B, S, Hq, D); k, v, dk, dv are (B, T, Hkv, D),
-// all contiguous, in float32 or bfloat16; lse and delta are (B, Hq, S) fp32;
-// segment ids are (B, S) / (B, T) int32. The kernels read the public layout
-// directly, so the wrapper transposes nothing.
+// Layout. q, dq are (B, S, Hq, DQK); out, dO are (B, S, Hq, DV); k, dk are
+// (B, T, Hkv, DQK) and v, dv (B, T, Hkv, DV), all contiguous, in float32 or
+// bfloat16; lse and delta are (B, Hq, S) fp32; segment ids are (B, S) /
+// (B, T) int32. The kernels read the public layout directly, so the wrapper
+// transposes nothing.
 //
 // Order. The TPU walks a sequential kv grid axis and carries (m, l, acc) in
 // VMEM scratch across grid steps; CUDA blocks run in no order, so each output
@@ -35,9 +43,10 @@
 //
 // Bound. At the training shapes (B 1, S = T = 4096, Hq 32, Hkv 8, D 128,
 // causal) the work is bound by operations: per unmasked (q, k) pair and
-// query head K1 does 4 D flops, K2 6 D, K3 8 D, i.e. 137, 206 and 275 GFLOP
-// against ~2 D bytes read per row; at the card's 989 TFLOP/s bf16 peak that
-// is 0.139, 0.209 and 0.278 ms.
+// query head K1 does 2 DQK + 2 DV flops (Q.K^T, P.V), K2 4 DQK + 2 DV
+// (Q.K^T, dS.K, dO.V^T), K3 4 DQK + 4 DV (Q.K^T, dS^T.Q, dO.V^T, P^T.dO),
+// i.e. 137, 206 and 275 GFLOP at D 128 against ~2 D bytes read per row; at
+// the card's 989 TFLOP/s bf16 peak that is 0.139, 0.209 and 0.278 ms.
 //
 // bf16 K1 (fwd_mma_kernel): 4 warps own a 64-row q tile of one (b, h), 16
 // rows each; 2048 blocks at the training shape, 2 per SM. Each warp keeps
@@ -91,6 +100,11 @@
 // raises the dynamic limit. Registers (ptxas, D =
 // 128): K1 206, K2 243, K3 244, no spills. Softmax state, scores and accumulators
 // are fp32.
+// At (192, 128) the DQK-side fragments grow 1.5x (K1's Q, K2's dQ and K3's
+// dK accumulators) while the DV side stays: K2 then re-reads its Q
+// fragments from the shared Q tile per k-step, as it does dO (kQInRegs),
+// and K1 and K3 keep theirs; shared memory K1 107,264 bytes, K2 123,648,
+// K3 82,944 (Q and K tiles 64 x 192, V and dO 64 x 128).
 //
 // fp32 (fwd_kernel, dq_kernel, dkv_kernel): 64 x 64
 // tiles staged in shared memory as fp32 (rows padded to D + 1 floats), 256
@@ -201,25 +215,26 @@ __device__ __forceinline__ int kv_tiles(const Problem& p, int q0) {
 // ---------------------------------------------------------------------------
 // K1: forward
 // ---------------------------------------------------------------------------
-template <int D>
+template <int DQK, int DV>
 constexpr size_t fwd_smem() {
   // q, k, v tiles | probabilities | q and kv segment ids
-  return sizeof(float) * (3 * kTile * (D + 1) + kTile * kLdp) +
+  return sizeof(float) * (kTile * (2 * (DQK + 1) + DV + 1) + kTile * kLdp) +
          sizeof(int) * 2 * kTile;
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ out,
            float* __restrict__ lse, Problem p) {
-  constexpr int LD = D + 1;
-  constexpr int NJ = D / 16;
+  constexpr int LD = DQK + 1;
+  constexpr int LDV = DV + 1;
+  constexpr int NJ = DV / 16;
   extern __shared__ float smem[];
   float* q_s = smem;
   float* k_s = q_s + kTile * LD;
   float* v_s = k_s + kTile * LD;
-  float* p_s = v_s + kTile * LD;
+  float* p_s = v_s + kTile * LDV;
   int* qseg_s = reinterpret_cast<int*>(p_s + kTile * kLdp);
   int* kseg_s = qseg_s + kTile;
 
@@ -231,7 +246,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<T, D>(q_s, q, b, q0, p.S, p.Hq, h);
+  load_tile<T, DQK>(q_s, q, b, q0, p.S, p.Hq, h);
   load_seg(qseg_s, p.q_seg, b, q0, p.S);
 
   float m[4], l[4], acc[4][NJ];
@@ -247,8 +262,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = 0; it < n_kv; ++it) {
     const int k0 = it * kTile;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(k_s, k, b, k0, p.T, p.Hkv, hk);
-    load_tile<T, D>(v_s, v, b, k0, p.T, p.Hkv, hk);
+    load_tile<T, DQK>(k_s, k, b, k0, p.T, p.Hkv, hk);
+    load_tile<T, DV>(v_s, v, b, k0, p.T, p.Hkv, hk);
     load_seg(kseg_s, p.kv_seg, b, k0, p.T);
     __syncthreads();
 
@@ -258,7 +273,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float a[4], c[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = q_s[(ty + 16 * i) * LD + d];
@@ -310,7 +325,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) pr[i] = p_s[(ty + 16 * i) * kLdp + c];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = v_s[c * LD + tx + 16 * j];
+      for (int j = 0; j < NJ; ++j) vv[j] = v_s[c * LDV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -323,7 +338,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty + 16 * i;
     if (qi >= p.S) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    T* o = out + (((size_t)b * p.S + qi) * p.Hq + h) * D;
+    T* o = out + (((size_t)b * p.S + qi) * p.Hq + h) * DV;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) o[tx + 16 * j] = from_float<T>(acc[i][j] * inv);
     if (tx == 0)
@@ -358,27 +373,29 @@ __device__ __forceinline__ void recompute_p_ds(const Problem& p, bool ok,
 // ---------------------------------------------------------------------------
 // K2: dq
 // ---------------------------------------------------------------------------
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dq_smem() {
   // q, dO, k, v tiles | ds | lse, delta | q and kv segment ids
-  return sizeof(float) * (4 * kTile * (D + 1) + kTile * kLdp + 2 * kTile) +
+  return sizeof(float) * (2 * kTile * (DQK + DV + 2) + kTile * kLdp +
+                          2 * kTile) +
          sizeof(int) * 2 * kTile;
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           T* __restrict__ dq, Problem p) {
-  constexpr int LD = D + 1;
-  constexpr int NJ = D / 16;
+  constexpr int LD = DQK + 1;
+  constexpr int LDV = DV + 1;
+  constexpr int NJ = DQK / 16;
   extern __shared__ float smem[];
   float* q_s = smem;
   float* do_s = q_s + kTile * LD;
-  float* k_s = do_s + kTile * LD;
+  float* k_s = do_s + kTile * LDV;
   float* v_s = k_s + kTile * LD;
-  float* ds_s = v_s + kTile * LD;
+  float* ds_s = v_s + kTile * LDV;
   float* lse_s = ds_s + kTile * kLdp;
   float* delta_s = lse_s + kTile;
   int* qseg_s = reinterpret_cast<int*>(delta_s + kTile);
@@ -392,8 +409,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  load_tile<T, D>(q_s, q, b, q0, p.S, p.Hq, h);
-  load_tile<T, D>(do_s, dout, b, q0, p.S, p.Hq, h);
+  load_tile<T, DQK>(q_s, q, b, q0, p.S, p.Hq, h);
+  load_tile<T, DV>(do_s, dout, b, q0, p.S, p.Hq, h);
   load_row_vec(lse_s, lse, b, h, p.Hq, q0, p.S);
   load_row_vec(delta_s, delta, b, h, p.Hq, q0, p.S);
   load_seg(qseg_s, p.q_seg, b, q0, p.S);
@@ -408,28 +425,30 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = 0; it < n_kv; ++it) {
     const int k0 = it * kTile;
     __syncthreads();
-    load_tile<T, D>(k_s, k, b, k0, p.T, p.Hkv, hk);
-    load_tile<T, D>(v_s, v, b, k0, p.T, p.Hkv, hk);
+    load_tile<T, DQK>(k_s, k, b, k0, p.T, p.Hkv, hk);
+    load_tile<T, DV>(v_s, v, b, k0, p.T, p.Hkv, hk);
     load_seg(kseg_s, p.kv_seg, b, k0, p.T);
     __syncthreads();
 
+    // S = Q K^T over DQK and dP = dO V^T over DV (DV <= DQK)
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
+      const bool dv_col = DV == DQK || d < DV;
       float a[4], o[4], c[4], w[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         a[i] = q_s[(ty + 16 * i) * LD + d];
-        o[i] = do_s[(ty + 16 * i) * LD + d];
+        o[i] = dv_col ? do_s[(ty + 16 * i) * LDV + d] : 0.f;
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         c[j] = k_s[(tx + 16 * j) * LD + d];
-        w[j] = v_s[(tx + 16 * j) * LD + d];
+        w[j] = dv_col ? v_s[(tx + 16 * j) * LDV + d] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -473,7 +492,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= p.S) continue;
-    T* o = dq + (((size_t)b * p.S + qi) * p.Hq + h) * D;
+    T* o = dq + (((size_t)b * p.S + qi) * p.Hq + h) * DQK;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) o[tx + 16 * j] = from_float<T>(acc[i][j]);
   }
@@ -482,28 +501,30 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // K3: dk, dv
 // ---------------------------------------------------------------------------
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dkv_smem() {
   // k, v, q, dO tiles | p^T, ds^T | lse, delta | kv and q segment ids
-  return sizeof(float) *
-             (4 * kTile * (D + 1) + 2 * kTile * kLdp + 2 * kTile) +
+  return sizeof(float) * (2 * kTile * (DQK + DV + 2) + 2 * kTile * kLdp +
+                          2 * kTile) +
          sizeof(int) * 2 * kTile;
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            T* __restrict__ dk, T* __restrict__ dv, Problem p) {
-  constexpr int LD = D + 1;
-  constexpr int NJ = D / 16;
+  constexpr int LD = DQK + 1;
+  constexpr int LDV = DV + 1;
+  constexpr int NJ = DQK / 16;   // dK columns per thread
+  constexpr int NJV = DV / 16;   // dV columns per thread
   extern __shared__ float smem[];
   float* k_s = smem;
   float* v_s = k_s + kTile * LD;
-  float* q_s = v_s + kTile * LD;
+  float* q_s = v_s + kTile * LDV;
   float* do_s = q_s + kTile * LD;
-  float* pt_s = do_s + kTile * LD;
+  float* pt_s = do_s + kTile * LDV;
   float* dst_s = pt_s + kTile * kLdp;
   float* lse_s = dst_s + kTile * kLdp;
   float* delta_s = lse_s + kTile;
@@ -517,15 +538,18 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15;  // q column of the transposed scores
   const int ty = threadIdx.x >> 4;  // kv row
 
-  load_tile<T, D>(k_s, k, b, k0, p.T, p.Hkv, hk);
-  load_tile<T, D>(v_s, v, b, k0, p.T, p.Hkv, hk);
+  load_tile<T, DQK>(k_s, k, b, k0, p.T, p.Hkv, hk);
+  load_tile<T, DV>(v_s, v, b, k0, p.T, p.Hkv, hk);
   load_seg(kseg_s, p.kv_seg, b, k0, p.T);
 
-  float dk_acc[4][NJ], dv_acc[4][NJ];
+  float dk_acc[4][NJ], dv_acc[4][NJV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJV; ++j) dv_acc[i][j] = 0.f;
+  }
 
   const int nq = (p.S + kTile - 1) / kTile;
   const int iq0 = p.causal ? k0 / kTile : 0;  // first q tile reaching k0
@@ -534,8 +558,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int iq = iq0; iq < nq; ++iq) {
       const int q0 = iq * kTile;
       __syncthreads();
-      load_tile<T, D>(q_s, q, b, q0, p.S, p.Hq, h);
-      load_tile<T, D>(do_s, dout, b, q0, p.S, p.Hq, h);
+      load_tile<T, DQK>(q_s, q, b, q0, p.S, p.Hq, h);
+      load_tile<T, DV>(do_s, dout, b, q0, p.S, p.Hq, h);
       load_row_vec(lse_s, lse, b, h, p.Hq, q0, p.S);
       load_row_vec(delta_s, delta, b, h, p.Hq, q0, p.S);
       load_seg(qseg_s, p.q_seg, b, q0, p.S);
@@ -548,17 +572,18 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
+      for (int d = 0; d < DQK; ++d) {
+        const bool dv_col = DV == DQK || d < DV;
         float kk[4], vv[4], a[4], o[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           kk[i] = k_s[(ty + 16 * i) * LD + d];
-          vv[i] = v_s[(ty + 16 * i) * LD + d];
+          vv[i] = dv_col ? v_s[(ty + 16 * i) * LDV + d] : 0.f;
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           a[j] = q_s[(tx + 16 * j) * LD + d];
-          o[j] = do_s[(tx + 16 * j) * LD + d];
+          o[j] = dv_col ? do_s[(tx + 16 * j) * LDV + d] : 0.f;
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -587,24 +612,25 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll 4
       for (int r = 0; r < kTile; ++r) {
-        float pr[4], g_[4], o[NJ], a[NJ];
+        float pr[4], g_[4], o[NJV], a[NJ];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           pr[i] = pt_s[(ty + 16 * i) * kLdp + r];
           g_[i] = dst_s[(ty + 16 * i) * kLdp + r];
         }
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          o[j] = do_s[r * LD + tx + 16 * j];
-          a[j] = q_s[r * LD + tx + 16 * j];
-        }
+        for (int j = 0; j < NJV; ++j) o[j] = do_s[r * LDV + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < NJ; ++j) a[j] = q_s[r * LD + tx + 16 * j];
 #pragma unroll
-          for (int j = 0; j < NJ; ++j) {
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < NJV; ++j)
             dv_acc[i][j] = fmaf(pr[i], o[j], dv_acc[i][j]);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
             dk_acc[i][j] = fmaf(g_[i], a[j], dk_acc[i][j]);
-          }
+        }
       }
     }
   }
@@ -613,12 +639,13 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int ki = k0 + ty + 16 * i;
     if (ki >= p.T) continue;
-    const size_t off = (((size_t)b * p.T + ki) * p.Hkv + hk) * D;
+    const size_t row = ((size_t)b * p.T + ki) * p.Hkv + hk;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dk[off + tx + 16 * j] = from_float<T>(dk_acc[i][j]);
-      dv[off + tx + 16 * j] = from_float<T>(dv_acc[i][j]);
-    }
+    for (int j = 0; j < NJ; ++j)
+      dk[row * DQK + tx + 16 * j] = from_float<T>(dk_acc[i][j]);
+#pragma unroll
+    for (int j = 0; j < NJV; ++j)
+      dv[row * DV + tx + 16 * j] = from_float<T>(dv_acc[i][j]);
   }
 }
 
@@ -711,21 +738,22 @@ __device__ __forceinline__ void load_vec_async(V* dst,
 // ---------------------------------------------------------------------------
 // K1 (bf16): forward on the tensor cores
 // ---------------------------------------------------------------------------
-template <int D>
+template <int DQK, int DV>
 constexpr size_t fwd_mma_smem() {
   // q tile | k, v tiles x 2 stages (bf16) | q segment ids | kv ids x 2
-  return sizeof(bf16) * (kFwdM * D + 4 * kFwdN * D) +
+  return sizeof(bf16) * (kFwdM * DQK + 2 * kFwdN * (DQK + DV)) +
          sizeof(int) * (kFwdM + 2 * kFwdN);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ out,
                float* __restrict__ lse, Problem p) {
-  using Tile = SwzTile<D>;
-  constexpr int KD = D / 16;  // k-steps of Q.K^T over the head dim
-  constexpr int ND = D / 8;   // n-tiles of P.V over the head dim
+  using Tile = SwzTile<DQK>;   // Q and K tiles
+  using TileV = SwzTile<DV>;   // V tiles
+  constexpr int KD = DQK / 16;  // k-steps of Q.K^T over the qk head dim
+  constexpr int ND = DV / 8;    // n-tiles of P.V over the v head dim
   constexpr int NS = kFwdN / 8;
   // fragments of one tile's products, each feeding two mma, loaded kRing - 1
   // ahead of their use so that ldmatrix latency hides behind the products
@@ -734,9 +762,9 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   static_assert(NK >= kRing - 1 && NV >= kRing - 1, "ring deeper than a tile");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + kFwdM * D;
-  bf16* v_s = k_s + 2 * kFwdN * D;
-  int* qseg_s = reinterpret_cast<int*>(v_s + 2 * kFwdN * D);
+  bf16* k_s = q_s + kFwdM * DQK;
+  bf16* v_s = k_s + 2 * kFwdN * DQK;
+  int* qseg_s = reinterpret_cast<int*>(v_s + 2 * kFwdN * DV);
   int* kseg_s = qseg_s + kFwdM;
 
   // block -> (q tile, head, batch); the heaviest (last) q tiles of every
@@ -757,15 +785,15 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_kv = [&](int it) {
     const int st = it & 1;
-    load_tile_async<D, kFwdN>(k_s + st * kFwdN * D, k, b, it * kFwdN, p.T,
-                              p.Hkv, hk);
-    load_tile_async<D, kFwdN>(v_s + st * kFwdN * D, v, b, it * kFwdN, p.T,
-                              p.Hkv, hk);
+    load_tile_async<DQK, kFwdN>(k_s + st * kFwdN * DQK, k, b, it * kFwdN, p.T,
+                                p.Hkv, hk);
+    load_tile_async<DV, kFwdN>(v_s + st * kFwdN * DV, v, b, it * kFwdN, p.T,
+                               p.Hkv, hk);
     if (segs)
       load_vec_async<kFwdN>(kseg_s + st * kFwdN, p.kv_seg, (size_t)b * p.T,
                             it * kFwdN, p.T, 0);
   };
-  load_tile_async<D, kFwdM>(q_s, q, b, q0, p.S, p.Hq, h);
+  load_tile_async<DQK, kFwdM>(q_s, q, b, q0, p.S, p.Hq, h);
   if (segs) load_vec_async<kFwdM>(qseg_s, p.q_seg, (size_t)b * p.S, q0, p.S, 0);
   load_kv(0);
   cp_async_commit();
@@ -804,16 +832,16 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         q_uniform = __all_sync(0xffffffffu, s == q_val);
       }
     }
-    const bf16* ks = k_s + st * kFwdN * D;
-    const bf16* vs = v_s + st * kFwdN * D;
+    const bf16* ks = k_s + st * kFwdN * DQK;
+    const bf16* vs = v_s + st * kFwdN * DV;
     const int* kseg = kseg_s + st * kFwdN;
     auto k_frag = [&](int i, uint32_t (&r)[4]) {
       ldsm_x4(r, Tile::b_addr(ks, (i % (NS / 2)) * 16, (i / (NS / 2)) * 16,
                               lane));
     };
     auto v_frag = [&](int i, uint32_t (&r)[4]) {
-      ldsm_x4_trans(r, Tile::a_addr(vs, (i / (ND / 2)) * 16,
-                                     (i % (ND / 2)) * 16, lane));
+      ldsm_x4_trans(r, TileV::a_addr(vs, (i / (ND / 2)) * 16,
+                                      (i % (ND / 2)) * 16, lane));
     };
 
     // S = Q K^T: 16 rows x 64 keys per warp
@@ -925,7 +953,7 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qi = q0 + r0 + g + 8 * i;
     if (qi >= p.S) continue;
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
-    bf16* orow = out + (((size_t)b * p.S + qi) * p.Hq + h) * D;
+    bf16* orow = out + (((size_t)b * p.S + qi) * p.Hq + h) * DV;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t) =
@@ -939,30 +967,34 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 // K3 (bf16): dk, dv on the tensor cores
 // ---------------------------------------------------------------------------
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dkv_mma_smem() {
   // k, v tiles | q, dO tiles x 2 stages (bf16) | lse, delta, q segment ids
   // x 2 stages | kv segment ids
-  return sizeof(bf16) * (2 * kDkvN * D + 4 * kDkvM * D) +
+  return sizeof(bf16) * (kDkvN + 2 * kDkvM) * (DQK + DV) +
          sizeof(float) * (6 * kDkvM + kDkvN);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                bf16* __restrict__ dk, bf16* __restrict__ dv, Problem p) {
-  using Tile = SwzTile<D>;
-  constexpr int KD = D / 16;
-  constexpr int ND = D / 8;
+  static_assert(DV <= DQK, "the v head dim is at most the qk head dim");
+  using Tile = SwzTile<DQK>;   // K and Q tiles
+  using TileV = SwzTile<DV>;   // V and dO tiles
+  constexpr int KD = DQK / 16;   // k-steps of K.Q^T
+  constexpr int KDV = DV / 16;   // k-steps of V.dO^T (the first KDV of KD)
+  constexpr int ND = DQK / 8;    // n-tiles of dK
+  constexpr int NDV = DV / 8;    // n-tiles of dV (the first NDV of ND)
   constexpr int NS = kDkvM / 8;  // n-tiles of the transposed scores
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + kDkvN * D;
-  bf16* q_s = v_s + kDkvN * D;      // two stages
-  bf16* do_s = q_s + 2 * kDkvM * D;  // two stages
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kDkvM * D);
+  bf16* v_s = k_s + kDkvN * DQK;
+  bf16* q_s = v_s + kDkvN * DV;        // two stages
+  bf16* do_s = q_s + 2 * kDkvM * DQK;  // two stages
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kDkvM * DV);
   float* delta_s = lse_s + 2 * kDkvM;
   int* qseg_s = reinterpret_cast<int*>(delta_s + 2 * kDkvM);
   int* kseg_s = qseg_s + 2 * kDkvM;
@@ -990,9 +1022,10 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int st = i & 1;
     const int h = hk * G + i / per_head;
     const int q0 = (iq0 + i % per_head) * kDkvM;
-    load_tile_async<D, kDkvM>(q_s + st * kDkvM * D, q, b, q0, p.S, p.Hq, h);
-    load_tile_async<D, kDkvM>(do_s + st * kDkvM * D, dout, b, q0, p.S, p.Hq,
-                              h);
+    load_tile_async<DQK, kDkvM>(q_s + st * kDkvM * DQK, q, b, q0, p.S, p.Hq,
+                                h);
+    load_tile_async<DV, kDkvM>(do_s + st * kDkvM * DV, dout, b, q0, p.S, p.Hq,
+                               h);
     const size_t row = ((size_t)b * p.Hq + h) * p.S;
     load_vec_async<kDkvM>(lse_s + st * kDkvM, lse, row, q0, p.S, 0);
     load_vec_async<kDkvM>(delta_s + st * kDkvM, delta, row, q0, p.S, kDkvM);
@@ -1000,18 +1033,21 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_vec_async<kDkvM>(qseg_s + st * kDkvM, p.q_seg, (size_t)b * p.S, q0,
                             p.S, 2 * kDkvM);
   };
-  load_tile_async<D, kDkvN>(k_s, k, b, k0, p.T, p.Hkv, hk);
-  load_tile_async<D, kDkvN>(v_s, v, b, k0, p.T, p.Hkv, hk);
+  load_tile_async<DQK, kDkvN>(k_s, k, b, k0, p.T, p.Hkv, hk);
+  load_tile_async<DV, kDkvN>(v_s, v, b, k0, p.T, p.Hkv, hk);
   if (segs)
     load_vec_async<kDkvN>(kseg_s, p.kv_seg, (size_t)b * p.T, k0, p.T, 0);
   if (n_steps > 0) load_step(0);
   cp_async_commit();
 
-  float dk_acc[ND][4], dv_acc[ND][4];
+  float dk_acc[ND][4], dv_acc[NDV][4];
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
+  for (int e = 0; e < 4; ++e) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+    for (int j = 0; j < ND; ++j) dk_acc[j][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NDV; ++j) dv_acc[j][e] = 0.f;
+  }
   int k_val = 0;
   bool k_uniform = true;
 
@@ -1031,33 +1067,36 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       k_val = __shfl_sync(0xffffffffu, s, 0);
       k_uniform = __all_sync(0xffffffffu, s == k_val);
     }
-    const bf16* qs = q_s + st * kDkvM * D;
-    const bf16* dos = do_s + st * kDkvM * D;
+    const bf16* qs = q_s + st * kDkvM * DQK;
+    const bf16* dos = do_s + st * kDkvM * DV;
     const float* lse_c = lse_s + st * kDkvM;
     const float* delta_c = delta_s + st * kDkvM;
     const int* qseg = qseg_s + st * kDkvM;
 
-    // transposed scores S^T = K Q^T and dP^T = V dO^T: the warp's 16 kv
-    // rows by the step's 32 q columns
+    // transposed scores S^T = K Q^T over DQK and dP^T = V dO^T over DV: the
+    // warp's 16 kv rows by the step's 32 q columns
     float s[NS][4], dp[NS][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
     // operands one (kk, np) step ahead of their products: K and V rows as
-    // A, Q and dO rows as B
+    // A, Q and dO rows as B; the V and dO operands only for the k-steps
+    // within DV
     auto a_frags = [&](int kk, uint32_t (&ka)[4], uint32_t (&va)[4]) {
       ldsm_x4(ka, Tile::a_addr(k_s, r0, kk * 16, lane));
-      ldsm_x4(va, Tile::a_addr(v_s, r0, kk * 16, lane));
+      if (kk < KDV) ldsm_x4(va, TileV::a_addr(v_s, r0, kk * 16, lane));
     };
     auto b_frags = [&](int i, uint32_t (&bq)[4], uint32_t (&bo)[4]) {
       const int kk = i / (NS / 2), np = i % (NS / 2);
       ldsm_x4(bq, Tile::b_addr(qs, np * 16, kk * 16, lane));
-      ldsm_x4(bo, Tile::b_addr(dos, np * 16, kk * 16, lane));
+      if (kk < KDV) ldsm_x4(bo, TileV::b_addr(dos, np * 16, kk * 16, lane));
     };
+    // dV's dO operand for the n-tiles within DV, dK's Q operand for all
     auto t_frags = [&](int i, uint32_t (&bo)[4], uint32_t (&bq)[4]) {
       const int kk = i / (ND / 2), dd = i % (ND / 2);
-      ldsm_x4_trans(bo, Tile::a_addr(dos, kk * 16, dd * 16, lane));
+      if (dd < NDV / 2)
+        ldsm_x4_trans(bo, TileV::a_addr(dos, kk * 16, dd * 16, lane));
       ldsm_x4_trans(bq, Tile::a_addr(qs, kk * 16, dd * 16, lane));
     };
     uint32_t ka[2][4], va[2][4], bq[2][4], bo[2][4];
@@ -1073,8 +1112,10 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int kk = i / (NS / 2), np = i % (NS / 2);
       mma_bf16(s[2 * np], ka[kk & 1], bq[i & 1][0], bq[i & 1][1]);
       mma_bf16(s[2 * np + 1], ka[kk & 1], bq[i & 1][2], bq[i & 1][3]);
-      mma_bf16(dp[2 * np], va[kk & 1], bo[i & 1][0], bo[i & 1][1]);
-      mma_bf16(dp[2 * np + 1], va[kk & 1], bo[i & 1][2], bo[i & 1][3]);
+      if (kk < KDV) {
+        mma_bf16(dp[2 * np], va[kk & 1], bo[i & 1][0], bo[i & 1][1]);
+        mma_bf16(dp[2 * np + 1], va[kk & 1], bo[i & 1][2], bo[i & 1][3]);
+      }
     }
 
     // the first dO and Q fragments of dV and dK load meanwhile (the loop
@@ -1134,8 +1175,10 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (i + 1 < (NS / 2) * (ND / 2))
         t_frags(i + 1, bo[(i + 1) & 1], bq[(i + 1) & 1]);
       const int kk = i / (ND / 2), dd = i % (ND / 2);
-      mma_bf16(dv_acc[2 * dd], pa[kk], bo[i & 1][0], bo[i & 1][1]);
-      mma_bf16(dv_acc[2 * dd + 1], pa[kk], bo[i & 1][2], bo[i & 1][3]);
+      if (dd < NDV / 2) {
+        mma_bf16(dv_acc[2 * dd], pa[kk], bo[i & 1][0], bo[i & 1][1]);
+        mma_bf16(dv_acc[2 * dd + 1], pa[kk], bo[i & 1][2], bo[i & 1][3]);
+      }
       mma_bf16(dk_acc[2 * dd], da[kk], bq[i & 1][0], bq[i & 1][1]);
       mma_bf16(dk_acc[2 * dd + 1], da[kk], bq[i & 1][2], bq[i & 1][3]);
     }
@@ -1146,45 +1189,53 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int ki = k0 + r0 + g + 8 * i;
     if (ki >= p.T) continue;
-    const size_t off = (((size_t)b * p.T + ki) * p.Hkv + hk) * D;
+    const size_t row = ((size_t)b * p.T + ki) * p.Hkv + hk;
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + j * 8 + 2 * t) =
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dk + row * DQK + j * 8 + 2 * t) =
           __floats2bfloat162_rn(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + j * 8 + 2 * t) =
+#pragma unroll
+    for (int j = 0; j < NDV; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dv + row * DV + j * 8 + 2 * t) =
           __floats2bfloat162_rn(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
-    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // K2 (bf16): dq on the tensor cores
 // ---------------------------------------------------------------------------
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dq_mma_smem() {
   // q, dO tiles | k, v tiles x 2 stages (bf16) | q segment ids | kv ids x 2
-  return sizeof(bf16) * (2 * kFwdM * D + 4 * kFwdN * D) +
+  return sizeof(bf16) * (kFwdM + 2 * kFwdN) * (DQK + DV) +
          sizeof(int) * (kFwdM + 2 * kFwdN);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, Problem p) {
-  using Tile = SwzTile<D>;
-  constexpr int KD = D / 16;  // k-steps of Q.K^T and dO.V^T over the head dim
-  constexpr int ND = D / 8;   // n-tiles of dS.K over the head dim
+  static_assert(DV <= DQK, "the v head dim is at most the qk head dim");
+  using Tile = SwzTile<DQK>;   // Q and K tiles
+  using TileV = SwzTile<DV>;   // dO and V tiles
+  constexpr int KD = DQK / 16;  // k-steps of Q.K^T
+  constexpr int KDV = DV / 16;  // k-steps of dO.V^T (the first KDV of KD)
+  constexpr int ND = DQK / 8;   // n-tiles of dS.K
   constexpr int NS = kFwdN / 8;
   constexpr int NK = KD * (NS / 2);        // steps of the two score products
   constexpr int NQ = (NS / 2) * (ND / 2);  // steps of dS.K
+  // Q fragments in registers for the whole kv loop up to DQK 128; past it
+  // the dQ accumulators (ND x 4) leave no room, and Q is re-read from the
+  // shared Q tile per k-step, as dO is
+  constexpr bool kQInRegs = DQK <= 128;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + kFwdM * D;
-  bf16* k_s = do_s + kFwdM * D;
-  bf16* v_s = k_s + 2 * kFwdN * D;
-  int* qseg_s = reinterpret_cast<int*>(v_s + 2 * kFwdN * D);
+  bf16* do_s = q_s + kFwdM * DQK;
+  bf16* k_s = do_s + kFwdM * DV;
+  bf16* v_s = k_s + 2 * kFwdN * DQK;
+  int* qseg_s = reinterpret_cast<int*>(v_s + 2 * kFwdN * DV);
   int* kseg_s = qseg_s + kFwdM;
 
   // block -> (q tile, head, batch), the heaviest q tiles first, as in K1
@@ -1204,16 +1255,16 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_kv = [&](int it) {
     const int st = it & 1;
-    load_tile_async<D, kFwdN>(k_s + st * kFwdN * D, k, b, it * kFwdN, p.T,
-                              p.Hkv, hk);
-    load_tile_async<D, kFwdN>(v_s + st * kFwdN * D, v, b, it * kFwdN, p.T,
-                              p.Hkv, hk);
+    load_tile_async<DQK, kFwdN>(k_s + st * kFwdN * DQK, k, b, it * kFwdN, p.T,
+                                p.Hkv, hk);
+    load_tile_async<DV, kFwdN>(v_s + st * kFwdN * DV, v, b, it * kFwdN, p.T,
+                               p.Hkv, hk);
     if (segs)
       load_vec_async<kFwdN>(kseg_s + st * kFwdN, p.kv_seg, (size_t)b * p.T,
                             it * kFwdN, p.T, 0);
   };
-  load_tile_async<D, kFwdM>(q_s, q, b, q0, p.S, p.Hq, h);
-  load_tile_async<D, kFwdM>(do_s, dout, b, q0, p.S, p.Hq, h);
+  load_tile_async<DQK, kFwdM>(q_s, q, b, q0, p.S, p.Hq, h);
+  load_tile_async<DV, kFwdM>(do_s, dout, b, q0, p.S, p.Hq, h);
   if (segs) load_vec_async<kFwdM>(qseg_s, p.q_seg, (size_t)b * p.S, q0, p.S, 0);
   load_kv(0);
   cp_async_commit();
@@ -1227,7 +1278,10 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lse2[i] = qi < p.S ? lse[at] * kLog2e : 0.f;
     dlt[i] = qi < p.S ? delta[at] : 0.f;
   }
-  uint32_t qf[KD][4];
+  uint32_t qf[kQInRegs ? KD : 2][4];
+  auto q_frag = [&](int kk) -> uint32_t (&)[4] {
+    return qf[kQInRegs ? kk : (kk & 1)];
+  };
   float acc[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j)
@@ -1249,48 +1303,55 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_commit();
     }
     if (it == 0) {
+      if (kQInRegs) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldsm_x4(qf[kk], Tile::a_addr(q_s, r0, kk * 16, lane));
+        for (int kk = 0; kk < KD; ++kk)
+          ldsm_x4(q_frag(kk), Tile::a_addr(q_s, r0, kk * 16, lane));
+      }
       if (segs) {
         const int s = qseg_s[r0 + (lane & 15)];
         q_val = __shfl_sync(0xffffffffu, s, 0);
         q_uniform = __all_sync(0xffffffffu, s == q_val);
       }
     }
-    const bf16* ks = k_s + st * kFwdN * D;
-    const bf16* vs = v_s + st * kFwdN * D;
+    const bf16* ks = k_s + st * kFwdN * DQK;
+    const bf16* vs = v_s + st * kFwdN * DV;
     const int* kseg = kseg_s + st * kFwdN;
 
-    // S = Q K^T and dP = dO V^T, 16 rows x 64 keys per warp; operands one
-    // step ahead of their products (dO fragments re-read from shared
-    // memory: kept in registers beside Q, dQ, S and dP they would spill)
+    // S = Q K^T over DQK and dP = dO V^T over DV, 16 rows x 64 keys per
+    // warp; operands one step ahead of their products (dO fragments, and
+    // past DQK 128 the Q fragments, re-read from shared memory: kept in
+    // registers beside dQ, S and dP they would spill)
     float s[NS][4], dp[NS][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    uint32_t kb[2][4], vb[2][4], of[2][4];
+    auto row_frags = [&](int kk) {  // this warp's Q and dO rows at k-step kk
+      if (!kQInRegs) ldsm_x4(q_frag(kk), Tile::a_addr(q_s, r0, kk * 16, lane));
+      if (kk < KDV) ldsm_x4(of[kk & 1], TileV::a_addr(do_s, r0, kk * 16, lane));
+    };
     auto kv_frags = [&](int i, uint32_t (&kb)[4], uint32_t (&vb)[4]) {
       const int kk = i / (NS / 2), np = i % (NS / 2);
       ldsm_x4(kb, Tile::b_addr(ks, np * 16, kk * 16, lane));
-      ldsm_x4(vb, Tile::b_addr(vs, np * 16, kk * 16, lane));
+      if (kk < KDV) ldsm_x4(vb, TileV::b_addr(vs, np * 16, kk * 16, lane));
     };
-    uint32_t kb[2][4], vb[2][4], of[2][4];
-    ldsm_x4(of[0], Tile::a_addr(do_s, r0, 0, lane));
+    row_frags(0);
     kv_frags(0, kb[0], vb[0]);
 #pragma unroll
     for (int i = 0; i < NK; ++i) {
       if (i + 1 < NK) {
-        const int kk1 = (i + 1) / (NS / 2);
-        if ((i + 1) % (NS / 2) == 0)
-          ldsm_x4(of[kk1 & 1], Tile::a_addr(do_s, r0, kk1 * 16, lane));
+        if ((i + 1) % (NS / 2) == 0) row_frags((i + 1) / (NS / 2));
         kv_frags(i + 1, kb[(i + 1) & 1], vb[(i + 1) & 1]);
       }
       const int kk = i / (NS / 2), np = i % (NS / 2);
-      mma_bf16(s[2 * np], qf[kk], kb[i & 1][0], kb[i & 1][1]);
-      mma_bf16(s[2 * np + 1], qf[kk], kb[i & 1][2], kb[i & 1][3]);
-      mma_bf16(dp[2 * np], of[kk & 1], vb[i & 1][0], vb[i & 1][1]);
-      mma_bf16(dp[2 * np + 1], of[kk & 1], vb[i & 1][2], vb[i & 1][3]);
+      mma_bf16(s[2 * np], q_frag(kk), kb[i & 1][0], kb[i & 1][1]);
+      mma_bf16(s[2 * np + 1], q_frag(kk), kb[i & 1][2], kb[i & 1][3]);
+      if (kk < KDV) {
+        mma_bf16(dp[2 * np], of[kk & 1], vb[i & 1][0], vb[i & 1][1]);
+        mma_bf16(dp[2 * np + 1], of[kk & 1], vb[i & 1][2], vb[i & 1][3]);
+      }
     }
     // the first K fragment of dS.K loads meanwhile (slot 0 is free: the
     // loop above ended on slot 1)
@@ -1360,7 +1421,7 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int qi = q0 + r0 + g + 8 * i;
     if (qi >= p.S) continue;
-    bf16* row = dq + (((size_t)b * p.S + qi) * p.Hq + h) * D;
+    bf16* row = dq + (((size_t)b * p.S + qi) * p.Hq + h) * DQK;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
       *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + 2 * t) =
@@ -1384,45 +1445,45 @@ int grid_1d(long long blocks, dim3& grid) {
   return 0;
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                void* lse, const Problem& p, cudaStream_t stream) {
-  const size_t smem = fwd_smem<D>();
-  const int e = prepare(fwd_kernel<T, D>, smem);
+  const size_t smem = fwd_smem<DQK, DV>();
+  const int e = prepare(fwd_kernel<T, DQK, DV>, smem);
   if (e != 0) return e;
   const dim3 grid((p.S + kTile - 1) / kTile, p.Hq, p.B);
-  fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<T, DQK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_fwd_mma(const void* q, const void* k, const void* v, void* out,
                    void* lse, const Problem& p, cudaStream_t stream) {
-  const size_t smem = fwd_mma_smem<D>();
-  int e = prepare(fwd_mma_kernel<D>, smem);
+  const size_t smem = fwd_mma_smem<DQK, DV>();
+  int e = prepare(fwd_mma_kernel<DQK, DV>, smem);
   dim3 grid;
   if (e == 0)
     e = grid_1d((long long)((p.S + kFwdM - 1) / kFwdM) * p.Hq * p.B, grid);
   if (e != 0) return e;
-  fwd_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+  fwd_mma_kernel<DQK, DV><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, const Problem& p,
               cudaStream_t stream) {
-  const size_t smem = dq_smem<D>();
-  const int e = prepare(dq_kernel<T, D>, smem);
+  const size_t smem = dq_smem<DQK, DV>();
+  const int e = prepare(dq_kernel<T, DQK, DV>, smem);
   if (e != 0) return e;
   const dim3 grid((p.S + kTile - 1) / kTile, p.Hq, p.B);
-  dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  dq_kernel<T, DQK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1430,17 +1491,17 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_dq_mma(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dq, const Problem& p, cudaStream_t stream) {
-  const size_t smem = dq_mma_smem<D>();
-  int e = prepare(dq_mma_kernel<D>, smem);
+  const size_t smem = dq_mma_smem<DQK, DV>();
+  int e = prepare(dq_mma_kernel<DQK, DV>, smem);
   dim3 grid;
   if (e == 0)
     e = grid_1d((long long)((p.S + kFwdM - 1) / kFwdM) * p.Hq * p.B, grid);
   if (e != 0) return e;
-  dq_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+  dq_mma_kernel<DQK, DV><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1448,15 +1509,15 @@ int launch_dq_mma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const Problem& p, cudaStream_t stream) {
-  const size_t smem = dkv_smem<D>();
-  const int e = prepare(dkv_kernel<T, D>, smem);
+  const size_t smem = dkv_smem<DQK, DV>();
+  const int e = prepare(dkv_kernel<T, DQK, DV>, smem);
   if (e != 0) return e;
   const dim3 grid((p.T + kTile - 1) / kTile, p.Hkv, p.B);
-  dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  dkv_kernel<T, DQK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1464,17 +1525,17 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_dkv_mma(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, const Problem& p, cudaStream_t stream) {
-  const size_t smem = dkv_mma_smem<D>();
-  int e = prepare(dkv_mma_kernel<D>, smem);
+  const size_t smem = dkv_mma_smem<DQK, DV>();
+  int e = prepare(dkv_mma_kernel<DQK, DV>, smem);
   dim3 grid;
   if (e == 0)
     e = grid_1d((long long)((p.T + kDkvN - 1) / kDkvN) * p.Hkv * p.B, grid);
   if (e != 0) return e;
-  dkv_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+  dkv_mma_kernel<DQK, DV><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1499,40 +1560,45 @@ Problem make_problem(int B, int S, int T, int Hq, int Hkv, float scale,
   return p;
 }
 
-// fn(std::integral_constant<int, D>()) for a head dim D of 16, 64 or 128;
+// fn(DQK, DV) as two std::integral_constant for an instantiated pair of head
+// dims (q/k, v): (16, 16), (64, 64), (128, 128) or (192, 128) (MLA);
 // cudaErrorInvalidValue for any other
 template <typename F>
-int with_head_dim(int D, F fn) {
-  switch (D) {
-    case 16: return fn(std::integral_constant<int, 16>());
-    case 64: return fn(std::integral_constant<int, 64>());
-    case 128: return fn(std::integral_constant<int, 128>());
-    default: return (int)cudaErrorInvalidValue;
-  }
+int with_head_dims(int DQK, int DV, F fn) {
+  using std::integral_constant;
+  if (DQK == 16 && DV == 16)
+    return fn(integral_constant<int, 16>(), integral_constant<int, 16>());
+  if (DQK == 64 && DV == 64)
+    return fn(integral_constant<int, 64>(), integral_constant<int, 64>());
+  if (DQK == 128 && DV == 128)
+    return fn(integral_constant<int, 128>(), integral_constant<int, 128>());
+  if (DQK == 192 && DV == 128)
+    return fn(integral_constant<int, 192>(), integral_constant<int, 128>());
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; D: 16, 64 or 128 (v's head dim equals
-// D). q_seg / kv_seg: (B, S) / (B, T) int32, both null without
-// segment ids. soft_cap <= 0 means none. Each returns cudaGetLastError()
-// after its launch (0 = success), or cudaErrorInvalidValue for a dtype or D
-// it does not take. bfloat16 runs K1-K3 on the tensor cores, float32 on the
-// CUDA cores.
+// dtype: 0 = float32, 1 = bfloat16; (D, Dv): the head dims of q/k and of v,
+// one of the pairs of with_head_dims. q_seg / kv_seg: (B, S) / (B, T) int32,
+// both null without segment ids. soft_cap <= 0 means none. Each returns
+// cudaGetLastError() after its launch (0 = success), or
+// cudaErrorInvalidValue for a dtype or head dims it does not take. bfloat16
+// runs K1-K3 on the tensor cores, float32 on the CUDA cores.
 
 int fa_forward(const void* q, const void* k, const void* v, const void* q_seg,
                const void* kv_seg, void* out, void* lse, int B, int S, int T,
-               int Hq, int Hkv, int D, float scale, float soft_cap,
+               int Hq, int Hkv, int D, int Dv, float scale, float soft_cap,
                int causal, int dtype, void* stream) {
   const Problem p =
       make_problem(B, S, T, Hq, Hkv, scale, soft_cap, causal, q_seg, kv_seg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_head_dim(D, [&](auto d) {
-    constexpr int kD = decltype(d)::value;
-    if (dtype == 0) return launch_fwd<float, kD>(q, k, v, out, lse, p, s);
-    if (dtype == 1) return launch_fwd_mma<kD>(q, k, v, out, lse, p, s);
+  return with_head_dims(D, Dv, [&](auto dqk, auto dv) {
+    constexpr int kDQK = decltype(dqk)::value, kDV = decltype(dv)::value;
+    if (dtype == 0) return launch_fwd<float, kDQK, kDV>(q, k, v, out, lse, p, s);
+    if (dtype == 1) return launch_fwd_mma<kDQK, kDV>(q, k, v, out, lse, p, s);
     return (int)cudaErrorInvalidValue;
   });
 }
@@ -1540,17 +1606,17 @@ int fa_forward(const void* q, const void* k, const void* v, const void* q_seg,
 int fa_backward_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    const void* q_seg, const void* kv_seg, void* dq, int B,
-                   int S, int T, int Hq, int Hkv, int D, float scale,
+                   int S, int T, int Hq, int Hkv, int D, int Dv, float scale,
                    float soft_cap, int causal, int dtype, void* stream) {
   const Problem p =
       make_problem(B, S, T, Hq, Hkv, scale, soft_cap, causal, q_seg, kv_seg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_head_dim(D, [&](auto d) {
-    constexpr int kD = decltype(d)::value;
+  return with_head_dims(D, Dv, [&](auto dqk, auto dv) {
+    constexpr int kDQK = decltype(dqk)::value, kDV = decltype(dv)::value;
     if (dtype == 0)
-      return launch_dq<float, kD>(q, k, v, dout, lse, delta, dq, p, s);
+      return launch_dq<float, kDQK, kDV>(q, k, v, dout, lse, delta, dq, p, s);
     if (dtype == 1)
-      return launch_dq_mma<kD>(q, k, v, dout, lse, delta, dq, p, s);
+      return launch_dq_mma<kDQK, kDV>(q, k, v, dout, lse, delta, dq, p, s);
     return (int)cudaErrorInvalidValue;
   });
 }
@@ -1558,29 +1624,32 @@ int fa_backward_dq(const void* q, const void* k, const void* v,
 int fa_backward_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     const void* q_seg, const void* kv_seg, void* dk, void* dv,
-                    int B, int S, int T, int Hq, int Hkv, int D, float scale,
-                    float soft_cap, int causal, int dtype, void* stream) {
+                    int B, int S, int T, int Hq, int Hkv, int D, int Dv,
+                    float scale, float soft_cap, int causal, int dtype,
+                    void* stream) {
   const Problem p =
       make_problem(B, S, T, Hq, Hkv, scale, soft_cap, causal, q_seg, kv_seg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_head_dim(D, [&](auto d) {
-    constexpr int kD = decltype(d)::value;
+  return with_head_dims(D, Dv, [&](auto dqk, auto dvd) {
+    constexpr int kDQK = decltype(dqk)::value, kDV = decltype(dvd)::value;
     if (dtype == 0)
-      return launch_dkv<float, kD>(q, k, v, dout, lse, delta, dk, dv, p, s);
+      return launch_dkv<float, kDQK, kDV>(q, k, v, dout, lse, delta, dk, dv,
+                                          p, s);
     if (dtype == 1)
-      return launch_dkv_mma<kD>(q, k, v, dout, lse, delta, dk, dv, p, s);
+      return launch_dkv_mma<kDQK, kDV>(q, k, v, dout, lse, delta, dk, dv, p,
+                                       s);
     return (int)cudaErrorInvalidValue;
   });
 }
 
 // dynamic shared memory (bytes) of the bf16 tensor-core K1 (which = 0), K3
-// (which = 1) or K2 (which = 2) at head dim D
-int fa_mma_smem_bytes(int which, int D) {
-  return with_head_dim(D, [&](auto d) {
-    constexpr int kD = decltype(d)::value;
-    if (which == 0) return (int)fwd_mma_smem<kD>();
-    if (which == 1) return (int)dkv_mma_smem<kD>();
-    return (int)dq_mma_smem<kD>();
+// (which = 1) or K2 (which = 2) at head dims (D, Dv)
+int fa_mma_smem_bytes(int which, int D, int Dv) {
+  return with_head_dims(D, Dv, [&](auto dqk, auto dv) {
+    constexpr int kDQK = decltype(dqk)::value, kDV = decltype(dv)::value;
+    if (which == 0) return (int)fwd_mma_smem<kDQK, kDV>();
+    if (which == 1) return (int)dkv_mma_smem<kDQK, kDV>();
+    return (int)dq_mma_smem<kDQK, kDV>();
   });
 }
 

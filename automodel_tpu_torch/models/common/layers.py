@@ -10,7 +10,9 @@ leading `(L, ...)` dim, under `jax.checkpoint`. Here the same stacked
 weights are split into per-layer views once (`unstack_layers`: one
 `unbind`, whose backward stacks the L layer gradients in one pass) and a
 Python loop runs the layers, each under `torch.utils.checkpoint` when the
-remat policy is "full".
+remat policy is "full". The carry may be any nesting of tuples of tensors,
+as JAX's scan carry: the MoE decoder's holds the hidden state, the summed
+aux loss and a tuple of the MoE layers' tokens per expert.
 """
 
 from __future__ import annotations

@@ -7,9 +7,10 @@ and applied as `x @ W`. So weights convert by copying (`convert.py`).
 Ported here: the config (with the MLA fields), `layer_windows`, `init`
 (GQA or MLA attention), the layer pieces the serving engine runs (`_dense`,
 `head_kernel`/`unembed`, `project_qkv`, `mlp_inner`) and the full-sequence
-training `forward` (`attention_block`, `mlp_block`, `_decoder_layer`).
-Meshes, pipeline and context parallelism, the MLA training forward and the
-EAGLE-3 aux-hidden capture raise NotImplementedError.
+training `forward` (`attention_block`, which hands MLA layers to
+`models/llm/mla.py`, `mlp_block`, `_decoder_layer`). Meshes, pipeline and
+context parallelism and the EAGLE-3 aux-hidden capture raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -163,6 +164,17 @@ ACTIVATIONS = {
 }
 
 
+def make_freq_for(cfg: TransformerConfig, device):
+    """Per-layer-window rope frequencies on `device`: gemma3's sliding
+    layers rotate with the local unscaled theta, every other layer with
+    rope_theta and rope_scaling."""
+    inv_freq = rope_frequencies(cfg.rope_dim, cfg.rope_theta, cfg.rope_scaling).to(device)
+    if cfg.rope_local_theta is None:
+        return lambda window: inv_freq
+    local = rope_frequencies(cfg.rope_dim, cfg.rope_local_theta, None).to(device)
+    return lambda window: local if window is not None else inv_freq
+
+
 def init_attention_layers(cfg: TransformerConfig, gen: torch.Generator, L: int,
                           dtype: torch.dtype = torch.float32) -> dict:
     """Attention + norms portion of an L-layer stack (shared with the MoE
@@ -309,7 +321,7 @@ def forward(
             "mesh_ctx: meshes, pipeline and context parallelism are not ported")
     if return_aux_hidden is not None:
         raise NotImplementedError("return_aux_hidden (EAGLE-3 capture) is not ported")
-    if cfg.attention_type != "gqa":
+    if cfg.attention_type not in ("gqa", "mla"):
         raise NotImplementedError(f"attention_type {cfg.attention_type!r}")
     dtype = cfg.dtype
     B, S = input_ids.shape
@@ -325,15 +337,11 @@ def forward(
     if cfg.embed_scale != 1.0:
         h = h * torch.tensor(cfg.embed_scale, dtype=dtype)
 
-    inv_freq = rope_frequencies(cfg.rope_dim, cfg.rope_theta, cfg.rope_scaling).to(dev)
-    local_freq = None
-    if cfg.rope_local_theta is not None:
-        local_freq = rope_frequencies(cfg.rope_dim, cfg.rope_local_theta, None).to(dev)
+    freq_for = make_freq_for(cfg, dev)
 
     def layer(h, lp, window):
-        freq = local_freq if (window is not None and local_freq is not None) else inv_freq
         return _decoder_layer(h, cast_params(lp, dtype), cfg, positions,
-                              segment_ids, freq, window)
+                              segment_ids, freq_for(window), window)
 
     h = scan_layers_windowed(layer, h, params["layers"], layer_windows(cfg),
                              remat_policy=cfg.remat_policy)
@@ -344,7 +352,13 @@ def forward(
 
 def attention_block(h, lp, cfg: TransformerConfig, positions, segment_ids,
                     inv_freq, sliding_window):
-    """Pre-norm attention with residual (lp in the compute dtype)."""
+    """Pre-norm attention with residual (lp in the compute dtype); MLA
+    layers go to `mla.mla_attention_block`."""
+    if cfg.attention_type == "mla":
+        from automodel_tpu_torch.models.llm.mla import mla_attention_block
+
+        return mla_attention_block(h, lp, cfg, positions, segment_ids, inv_freq,
+                                   sliding_window)
     B, S, _ = h.shape
     x = rms_norm(h, lp["input_norm"]["scale"], cfg.rms_norm_eps, cfg.zero_centered_norm)
     q, k, v = project_qkv(x, lp, cfg, positions, inv_freq)

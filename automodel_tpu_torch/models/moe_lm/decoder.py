@@ -1,11 +1,15 @@
 """MoE decoder LM, the engine behind DeepSeek-style sparse models (port of
-`MoETransformerConfig` and `init` from `automodel_tpu/models/moe_lm/decoder.py`).
+`MoETransformerConfig`, `init`, `forward` and `apply_gate_bias_update` from
+`automodel_tpu/models/moe_lm/decoder.py`).
 
 The first `first_k_dense` layers are dense decoder layers (`dense_layers`),
 the rest replace the gated MLP with the MoE block (`moe_layers`, the MoE
 params under `moe`), each stack's weights stacked on dim 0 with the JAX
-package's keys. The serving engine runs both stacks; the training forward,
-the MTP head and the parameter specs are not ported yet.
+package's keys. The serving engine runs both stacks; the training `forward`
+runs them on one device, the aux (load-balance) loss and each MoE layer's
+tokens per expert riding the layer loop's carry. The pipeline branch, DSA,
+routing replay, the EAGLE-3 aux-hidden capture, VLM inputs (embeds, MRoPE
+angles, deepstack), the MTP head and the parameter specs are not ported.
 """
 
 from __future__ import annotations
@@ -14,17 +18,29 @@ import dataclasses
 
 import torch
 
-from automodel_tpu_torch.models.common.layers import embed_init, init_fns
+from automodel_tpu_torch.models.common.layers import (
+    cast_params,
+    embed_init,
+    init_fns,
+    scan_layers_windowed,
+)
 from automodel_tpu_torch.models.llm.decoder import (
     TransformerConfig,
+    attention_block,
     head_kernel,
     init_attention_layers,
+    layer_windows,
+    make_freq_for,
+    mlp_block,
     unembed,
 )
 from automodel_tpu_torch.moe.config import MoEConfig
-from automodel_tpu_torch.moe.layer import init_moe
+from automodel_tpu_torch.moe.gate import update_gate_bias
+from automodel_tpu_torch.moe.layer import init_moe, moe_forward
+from automodel_tpu_torch.ops.norms import rms_norm
 
-__all__ = ["MoETransformerConfig", "forward", "head_kernel", "init", "unembed"]
+__all__ = ["MoETransformerConfig", "apply_gate_bias_update", "forward",
+           "head_kernel", "init", "unembed"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +104,101 @@ def init(cfg: MoETransformerConfig, gen: torch.Generator,
     return params
 
 
-def forward(params: dict, cfg: MoETransformerConfig, input_ids, **kwargs):
-    """The MoE training forward is not ported yet (the MoE decoder serves
-    through `serving/engine.py`)."""
-    raise NotImplementedError("the MoE decoder's training forward is not ported")
+def forward(
+    params: dict,
+    cfg: MoETransformerConfig,
+    input_ids: torch.Tensor,  # (B, S) integer
+    *,
+    positions: torch.Tensor | None = None,
+    segment_ids: torch.Tensor | None = None,
+    mesh_ctx=None,
+    return_hidden: bool = False,
+    token_mask: torch.Tensor | None = None,  # (B, S) bool; False = pad tokens
+    return_stats: bool = False,
+    return_routing: bool = False,
+    routing_override=None,
+    return_aux_hidden: tuple | None = None,
+    inputs_embeds=None,
+    rope_angles=None,
+    deepstack_embeds=None,
+) -> tuple:
+    """Returns (logits-or-hidden, aux_loss[, stats]), as the JAX `forward`
+    on one device: logits (B, S, V) fp32, or hidden (B, S, H) with
+    `return_hidden`; aux_loss the sum of the MoE layers' load-balance
+    losses (fp32 scalar); stats["tokens_per_expert"] (num_moe_layers, E),
+    which `apply_gate_bias_update` takes after the optimizer step. Masked
+    tokens (`token_mask` False) route nowhere and drop out of the aux loss
+    and the counts. The fp32 masters are cast to `cfg.dtype` inside each
+    layer (under its remat), so autograd carries fp32 gradients back."""
+    unported = {
+        "mesh_ctx (pipeline, expert and context parallelism)": mesh_ctx,
+        "return_routing (routing replay)": return_routing or None,
+        "routing_override (routing replay)": routing_override,
+        "return_aux_hidden (the EAGLE-3 aux-hidden capture)": return_aux_hidden,
+        "inputs_embeds (VLM merged embeddings)": inputs_embeds,
+        "rope_angles (MRoPE)": rope_angles,
+        "deepstack_embeds (deepstack injection)": deepstack_embeds,
+    }
+    for name, value in unported.items():
+        if value is not None:
+            raise NotImplementedError(f"MoE forward: {name} is not ported")
+    dtype = cfg.dtype
+    B, S = input_ids.shape
+    dev = input_ids.device
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+
+    h = params["embed"]["embedding"][input_ids].to(dtype)
+    if cfg.embed_scale != 1.0:
+        h = h * torch.tensor(cfg.embed_scale, dtype=dtype)
+    freq_for = make_freq_for(cfg, dev)
+    windows = layer_windows(cfg)
+
+    def attn(h, lp, window):
+        return attention_block(h, lp, cfg, positions, segment_ids,
+                               freq_for(window), window)
+
+    # the carry: (hidden, aux loss, tokens per expert of the MoE layers run)
+    def dense_layer(carry, lp, window):
+        h, aux, tpe = carry
+        lp = cast_params(lp, dtype)
+        return mlp_block(attn(h, lp, window), lp, cfg), aux, tpe
+
+    def moe_layer(carry, lp, window):
+        h, aux, tpe = carry
+        lp = cast_params(lp, dtype)
+        h = attn(h, lp, window)
+        x = rms_norm(h, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps,
+                     cfg.zero_centered_norm)
+        moe_out, layer_aux, stats = moe_forward(lp["moe"], cfg.moe, x, token_mask)
+        return h + moe_out, aux + layer_aux, tpe + (stats["tokens_per_expert"],)
+
+    carry = (h, torch.zeros((), dtype=torch.float32, device=dev), ())
+    K = cfg.first_k_dense
+    if K > 0:
+        carry = scan_layers_windowed(dense_layer, carry, params["dense_layers"],
+                                     windows[:K], remat_policy=cfg.remat_policy)
+    carry = scan_layers_windowed(moe_layer, carry, params["moe_layers"],
+                                 windows[K:], remat_policy=cfg.remat_policy)
+    h, aux_loss, tpe = carry
+
+    h = rms_norm(h, params["final_norm"]["scale"].to(dtype), cfg.rms_norm_eps,
+                 cfg.zero_centered_norm)
+    out = h if return_hidden else unembed(params, cfg, h)
+    if return_stats:
+        return out, aux_loss, {"tokens_per_expert": torch.stack(tpe)}
+    return out, aux_loss
+
+
+@torch.no_grad()
+def apply_gate_bias_update(params: dict, cfg: MoETransformerConfig,
+                           tokens_per_expert: torch.Tensor) -> dict:
+    """DeepSeek aux-free balancing across all MoE layers at once, after the
+    optimizer step: tokens_per_expert (num_moe_layers, E) from
+    forward(..., return_stats=True). Updates the stacked `e_score_bias` in
+    place (the master leaf the optimizer holds) and returns `params`."""
+    gate = params["moe_layers"]["moe"]["gate"]
+    new = update_gate_bias(gate, cfg.moe, tokens_per_expert)
+    if new is not gate:
+        gate["e_score_bias"].copy_(new["e_score_bias"])
+    return params

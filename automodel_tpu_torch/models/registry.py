@@ -1,6 +1,6 @@
 """Architecture registry: HF `architectures[0]` -> the port's implementation
 (port of the entries of `automodel_tpu/models/registry.py` whose family
-configs the port has: Llama, and DeepSeek-V3 for serving)."""
+configs the port has: Llama, and DeepSeek-V3 for training and serving)."""
 
 from __future__ import annotations
 
@@ -25,8 +25,8 @@ class ModelSpec:
 
 MODEL_ARCH_MAPPING: dict[str, ModelSpec] = {
     "LlamaForCausalLM": ModelSpec("llama", families.llama_config, decoder),
-    # MLA + MoE (Moonlight-16B-A3B runs as this); its module serves through
-    # the engine, its training forward raises
+    # MLA + MoE (Moonlight-16B-A3B runs as this): trains through `forward`
+    # (aux loss, gate-bias update), serves through the engine
     "DeepseekV3ForCausalLM": ModelSpec(
         "deepseek_v3", moe_families.deepseek_v3_moe_config, moe_decoder,
         adapter_name="moe_decoder", adapter_kwargs={"style": "deepseek"},

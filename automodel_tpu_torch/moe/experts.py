@@ -7,7 +7,9 @@ three expert products as `lax.ragged_dot` over device group sizes (an XLA
 op, not a Pallas kernel). Here the same sort feeds one grouped product per
 projection, and `index_add_` scatters the weighted rows back into token
 order. Nothing is read to the host, so a MoE layer queues its kernels
-without waiting for the device. The capacity (einsum) dispatch and the
+without waiting for the device, forward and backward: bf16 differentiates
+through `torch._grouped_mm`'s own autograd, other dtypes through a batched
+product and a gather. The capacity (einsum) dispatch and the
 expert-parallel all-to-all are not ported.
 """
 
@@ -74,6 +76,10 @@ def _expert_linear(rows, p, offs, expert):
     kernel = p["kernel"].to(rows.dtype)
     if rows.dtype == torch.bfloat16:
         y = torch._grouped_mm(rows, kernel, offs=offs)
+        if y.requires_grad:
+            # its backward refuses a cotangent with zero strides (an
+            # expanded one, as `.sum()` hands down)
+            y.register_hook(torch.Tensor.contiguous)
     else:
         every = torch.matmul(rows, kernel)  # (E, TK, out)
         y = every[expert, torch.arange(rows.shape[0], device=rows.device)]
@@ -102,7 +108,14 @@ def experts_forward_dropless(
     sort_idx = torch.argsort(flat_expert, stable=True)
     token_of = sort_idx // K
     expert_of = flat_expert[sort_idx]
+    valid = (expert_of < E)[:, None]
+    # masked pairs' rows sort past the last group, where the grouped product
+    # neither reads nor writes, nor does its backward: `where` (not a
+    # product, as 0 * NaN is NaN) keeps what lies there out of the output
+    # and, in a hook that only the backward runs, out of x's gradient
     xs = x[token_of]  # (TK, H)
+    if xs.requires_grad:
+        xs.register_hook(lambda g: torch.where(valid, g, 0))
     # group ends on the device: offs[e] = pairs routed to experts 0..e
     # (`bincount` on the card reads its input's maximum to the host)
     offs = torch.searchsorted(
@@ -121,10 +134,11 @@ def experts_forward_dropless(
 
     w_sorted = weights.reshape(T * K)[sort_idx].to(dtype)
     # rows of masked pairs hold whatever the grouped product left there
-    # (`ragged_dot` gives 0): zero them, as 0 * NaN would not be
-    contrib = torch.where((expert_of < E)[:, None], y * w_sorted[:, None], 0)
+    # (`ragged_dot` gives 0): zeroed before the weighting, so that neither
+    # the output nor the weights' gradient (y times the cotangent) sees them
+    y = torch.where(valid, y, 0)
     return torch.zeros((T, H), dtype=dtype, device=x.device).index_add_(
-        0, token_of, contrib)
+        0, token_of, y * w_sorted[:, None])
 
 
 def shared_expert_forward(params: dict, cfg: MoEConfig,

@@ -1,12 +1,12 @@
-"""MoE router / gate (port of `init_gate`, `_group_limited_mask` and
-`gate_forward` from `automodel_tpu/moe/gate.py`).
+"""MoE router / gate (port of `init_gate`, `_group_limited_mask`,
+`gate_forward` and `update_gate_bias` from `automodel_tpu/moe/gate.py`).
 
 Softmax or sigmoid scoring, the DeepSeek correction bias (`e_score_bias`,
-used for the selection only), group-limited top-k, top-k renormalization
+used for the selection only: no gradient reaches it, as JAX's
+stop_gradient gives it none), group-limited top-k, top-k renormalization
 and the routed scaling factor, the masked-token sentinel (index E), routing
-replay, the deterministic balanced gate and the switch-style aux loss.
-The aux-free bias update (`update_gate_bias`) is training-only and is not
-ported yet.
+replay, the deterministic balanced gate, the switch-style aux loss and the
+aux-free bias update.
 """
 
 from __future__ import annotations
@@ -127,3 +127,17 @@ def gate_forward(
     aux_loss = cfg.aux_loss_coeff * E * torch.sum(fraction * mean_prob)
     stats = {"tokens_per_expert": tokens_per_expert, "mean_prob": mean_prob}
     return weights.float(), indices.to(torch.int32), aux_loss, stats
+
+
+def update_gate_bias(params: dict, cfg: MoEConfig,
+                     tokens_per_expert: torch.Tensor) -> dict:
+    """DeepSeek aux-free balancing: raise the selection bias of under-loaded
+    experts and lower that of over-loaded ones by `gate_bias_update_speed`.
+    Takes one layer's (E,) counts or a stack's (L, E), each layer against
+    its own mean; returns new params (`params` itself without a bias)."""
+    if "e_score_bias" not in params:
+        return params
+    tpe = tokens_per_expert.float()
+    err = tpe.mean(-1, keepdim=True) - tpe  # > 0: under-loaded
+    new_bias = params["e_score_bias"] + cfg.gate_bias_update_speed * torch.sign(err)
+    return {**params, "e_score_bias": new_bias}

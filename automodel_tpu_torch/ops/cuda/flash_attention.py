@@ -2,6 +2,10 @@
 replace `automodel_tpu/ops/pallas/flash_attention.py:_fwd_kernel`,
 `_dq_kernel` and `_dkv_kernel`).
 
+Each kernel is instantiated for the pairs of head dims in `HEAD_DIMS`: q/k
+and v alike at 16, 64 and 128, and MLA's q/k 192 with v 128 (DeepSeek-V3
+and Moonlight: qk_nope 128 + qk_rope 64).
+
 The input dtype picks the route, `route(dtype)`: bfloat16 runs K1-K3 on the
 tensor cores (`mma.sync`), float32 on the CUDA cores, whose fp32 products
 keep the fp32 results within ~1e-6 of the plain versions (an fp32 `mma`
@@ -23,7 +27,9 @@ import torch
 from automodel_tpu_torch.ops.cuda._build import load_library
 
 SOURCE = "flash_attention.cu"
-HEAD_DIMS = (16, 64, 128)  # the tiny recipe's, TinyLlama's, Llama-3's
+# (q/k head dim, v head dim) of each instantiation: the tiny recipe's,
+# TinyLlama's, Llama-3's, and MLA's (Moonlight, DeepSeek-V3)
+HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 128))
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
@@ -42,14 +48,14 @@ launches_dkv = 0
 def _lib() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     if lib.fa_forward.argtypes is None:
-        tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float] + [
+        tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float] + [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.fa_forward.argtypes = [ctypes.c_void_p] * 7 + tail
         lib.fa_backward_dq.argtypes = [ctypes.c_void_p] * 9 + tail
         lib.fa_backward_dkv.argtypes = [ctypes.c_void_p] * 10 + tail
         for fn in (lib.fa_forward, lib.fa_backward_dq, lib.fa_backward_dkv):
             fn.restype = ctypes.c_int
-        lib.fa_mma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.fa_mma_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.fa_mma_smem_bytes.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [ctypes.c_int]
         lib.fa_error_string.restype = ctypes.c_char_p
@@ -62,15 +68,17 @@ def route(dtype: torch.dtype) -> str:
     return _ROUTES[dtype]
 
 
-def mma_smem_bytes(which: int, D: int) -> int:
+def mma_smem_bytes(which: int, D: int, Dv: int) -> int:
     """Dynamic shared memory (bytes) of the tensor-core K1 (`which` 0), K3
-    (`which` 1) or K2 (`which` 2) at head dim D."""
-    return _lib().fa_mma_smem_bytes(which, D)
+    (`which` 1) or K2 (`which` 2) at q/k head dim D and v head dim Dv."""
+    return _lib().fa_mma_smem_bytes(which, D, Dv)
 
 
 def check_supported(q, k, v, *, sliding_window=None, position_causal=False):
-    """Raise NotImplementedError for what K1-K3 do not cover. Called before
-    any device check, so the refusal is the same on every device."""
+    """Raise NotImplementedError for what K1-K3 do not cover: windows,
+    position-causal masking, q and k head dims that differ, and (q/k, v)
+    head dims that are not an instantiated pair. Called before any device
+    check, so the refusal is the same on every device."""
     if sliding_window is not None:
         raise NotImplementedError(
             "flash attention kernels: sliding windows are not supported")
@@ -79,12 +87,14 @@ def check_supported(q, k, v, *, sliding_window=None, position_causal=False):
             "flash attention kernels: position-causal masking (independent "
             "kv positions or segment ids) is not supported")
     D, Dk, Dv = q.shape[-1], k.shape[-1], v.shape[-1]
-    if not D == Dk == Dv:
+    if D != Dk:
         raise NotImplementedError(
             f"flash attention kernels: head dims q {D}, k {Dk}, v {Dv} differ")
-    if D not in HEAD_DIMS:
+    if (D, Dv) not in HEAD_DIMS:
+        what = f"head dim {D}" if D == Dv else f"head dims q/k {D}, v {Dv}"
         raise NotImplementedError(
-            f"flash attention kernels: head dim {D} is not one of {HEAD_DIMS}")
+            f"flash attention kernels: {what} is not one of the instantiated "
+            f"(q/k, v) pairs {HEAD_DIMS}")
 
 
 def _check(tensors: dict, q, segment_ids):
@@ -104,11 +114,14 @@ def _check(tensors: dict, q, segment_ids):
         if name in tensors and tensors[name].dtype != torch.float32:
             raise TypeError(f"{name} must be float32")
     k, v = tensors["k"], tensors["v"]
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("q must be (B, S, Hq, D), k and v (B, T, Hkv, D)")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError("q must be (B, S, Hq, D), k (B, T, Hkv, D) and v "
+                         "(B, T, Hkv, Dv)")
     B, S, Hq, D = q.shape
     if k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    if "dout" in tensors and tensors["dout"].shape != (B, S, Hq, v.shape[3]):
+        raise ValueError(f"dout must be (B, S, Hq, Dv) = {(B, S, Hq, v.shape[3])}")
     if Hq % k.shape[2]:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={k.shape[2]}")
     if S == 0 or k.shape[1] == 0:
@@ -130,12 +143,12 @@ def _aligned(*tensors):
     return [x if x.data_ptr() % 16 == 0 else x.clone() for x in tensors]
 
 
-def _common(q, k, segment_ids, scale, soft_cap, causal):
+def _common(q, k, v, segment_ids, scale, soft_cap, causal):
     if soft_cap is not None and soft_cap <= 0:
         raise ValueError(f"soft_cap must be positive (got {soft_cap})")
     B, S, Hq, D = q.shape
     seg = 0 if segment_ids is None else segment_ids.data_ptr()
-    dims = (B, S, k.shape[1], Hq, k.shape[2], D, float(scale),
+    dims = (B, S, k.shape[1], Hq, k.shape[2], D, v.shape[3], float(scale),
             float(soft_cap or 0.0), int(bool(causal)), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     return seg, dims
@@ -149,18 +162,19 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 def flash_fwd_cuda(q, k, v, segment_ids=None, *, scale: float,
                    soft_cap: float | None = None, causal: bool = True):
-    """K1 on `route(q.dtype)`. q (B, S, Hq, D), k/v (B, T, Hkv, D), float32
-    or bfloat16; segment_ids (B, S) int32 or None (then S == T). Returns out
-    (B, S, Hq, D) in q's dtype and lse (B, Hq, S) fp32, EMPTY_LSE on fully
+    """K1 on `route(q.dtype)`. q (B, S, Hq, D), k (B, T, Hkv, D), v
+    (B, T, Hkv, Dv), float32 or bfloat16, (D, Dv) in `HEAD_DIMS`;
+    segment_ids (B, S) int32 or None (then S == T). Returns out
+    (B, S, Hq, Dv) in q's dtype and lse (B, Hq, S) fp32, EMPTY_LSE on fully
     masked rows."""
     global launches_fwd
     check_supported(q, k, v)
     _check(dict(q=q, k=k, v=v), q, segment_ids)
-    seg, dims = _common(q, k, segment_ids, scale, soft_cap, causal)
+    seg, dims = _common(q, k, v, segment_ids, scale, soft_cap, causal)
     if route(q.dtype) == "mma":
         q, k, v = _aligned(q, k, v)
     B, S, Hq, _ = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty((B, S, Hq, v.shape[3]), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
@@ -174,12 +188,12 @@ def flash_fwd_cuda(q, k, v, segment_ids=None, *, scale: float,
 def flash_dq_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
                   scale: float, soft_cap: float | None = None,
                   causal: bool = True):
-    """K2 on `route(q.dtype)`: dq (B, S, Hq, D) in q's dtype from dout (q's
-    dtype and shape) and the fp32 (B, Hq, S) lse and delta."""
+    """K2 on `route(q.dtype)`: dq (B, S, Hq, D) in q's dtype from dout
+    (B, S, Hq, Dv) in q's dtype and the fp32 (B, Hq, S) lse and delta."""
     global launches_dq
     check_supported(q, k, v)
     _check(dict(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta), q, segment_ids)
-    seg, dims = _common(q, k, segment_ids, scale, soft_cap, causal)
+    seg, dims = _common(q, k, v, segment_ids, scale, soft_cap, causal)
     if route(q.dtype) == "mma":
         q, k, v, dout = _aligned(q, k, v, dout)
     dq = torch.empty_like(q)
@@ -196,12 +210,12 @@ def flash_dq_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
 def flash_dkv_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
                    scale: float, soft_cap: float | None = None,
                    causal: bool = True):
-    """K3 on `route(q.dtype)`: (dk, dv), each (B, T, Hkv, D) in k's dtype;
-    inputs as K2's."""
+    """K3 on `route(q.dtype)`: (dk, dv), (B, T, Hkv, D) and (B, T, Hkv, Dv)
+    in k's dtype; inputs as K2's."""
     global launches_dkv
     check_supported(q, k, v)
     _check(dict(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta), q, segment_ids)
-    seg, dims = _common(q, k, segment_ids, scale, soft_cap, causal)
+    seg, dims = _common(q, k, v, segment_ids, scale, soft_cap, causal)
     if route(q.dtype) == "mma":
         q, k, v, dout = _aligned(q, k, v, dout)
     dk = torch.empty_like(k)

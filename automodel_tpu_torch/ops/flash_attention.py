@@ -12,9 +12,12 @@ the forward saves (out, lse); the backward forms
 delta = rowsum(dO * O) - dlse in torch and runs the dq and dk/dv passes. The
 sink rescale and d(sinks) stay in torch, as in the JAX wrapper. On CUDA
 tensors the passes are the hand-written kernels K1-K3
-(`ops/cuda/flash_attention.py`), which raise NotImplementedError for what they
-do not cover (windows, position-causal masking, Dv != D); on CPU tensors they
-are the plain versions below, which cover every mask.
+(`ops/cuda/flash_attention.py`), instantiated for q/k and v head dims of
+(16, 16), (64, 64), (128, 128) and MLA's (192, 128), which raise
+NotImplementedError for what they do not cover (windows, position-causal
+masking, other head dims); on CPU tensors they are the plain versions
+below, which cover every mask and head dim. delta and dv run over v's head
+dim, dq and dk over q/k's.
 """
 
 from __future__ import annotations

@@ -14,7 +14,9 @@ The learning rate is the schedule at the count before the increment, as
 optax's `scale_by_learning_rate` reads it. Weight decay applies where the
 mask is true; the default mask is `ndim >= 2` on the stacked-layer layout,
 so per-layer norm scales, stacked as (L, H), are decayed, as in the JAX
-package.
+package, and so is the MoE gate's stacked (Lm, E) correction bias
+`e_score_bias`, whose gradient is 0: AdamW moves it by -lr * wd * p
+besides the aux-free sign updates.
 """
 
 from __future__ import annotations

@@ -8,10 +8,19 @@ the chunked linear cross-entropy, the backward (K2, K3), global-norm
 clipping and the optimizer update (`training/train_step.py`). Each step
 appends a `training.jsonl` record with the JAX recipe's keys.
 
+A MoE model (a config with `moe`, e.g. DeepSeek-V3 / Moonlight) trains as
+in the JAX recipe: pad labels (-100) mask their tokens out of routing, the
+aux loss joins the CE sum scaled by the label-token count
+(`combine_losses`), each microbatch's tokens per expert add up over the
+step, the DeepSeek gate bias moves after the optimizer step
+(`apply_gate_bias_update`), and the record carries `moe_load_imbalance`.
+`model.fake_balanced_gate` and `model.moe_dispatcher` override the MoE
+config; the capacity dispatcher and the MTP head raise.
+
 The same YAML files drive both packages. What the port does not have yet
 raises NotImplementedError instead of being skipped: distributed sizes
-other than 1 (`dp_shard: -1` resolves to 1 on one device), PEFT, MoE and
-other unported architectures (`models/registry.py`), validation, trackers,
+other than 1 (`dp_shard: -1` resolves to 1 on one device), PEFT, other
+unported architectures (`models/registry.py`), validation, trackers,
 resilience, QAT, `model.linear_precision`, and the train-state
 checkpointer, which is on unless `checkpoint.enabled: false`.
 
@@ -118,7 +127,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
 
         def build_config(hf_config) -> torch.dtype:
             self.model_spec = get_model_spec(hf_config)
-            self.model_cfg = self.model_spec.config_from_hf(hf_config, **overrides)
+            cfg = self.model_spec.config_from_hf(hf_config, **overrides)
+            self.model_cfg = self._moe_overrides(cfg, mcfg)
             return self.model_cfg.dtype if param_dtype is None else param_dtype
 
         pretrained = mcfg.get("pretrained_path")
@@ -141,6 +151,25 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         logger.info("model %s: %d parameters", self.model_spec.name,
                     count_params(self._init_params))
 
+    def _moe_overrides(self, cfg, mcfg):
+        """A MoE config with the recipe's `model.fake_balanced_gate` and
+        `model.moe_dispatcher` applied (JAX recipe, the benchmark's
+        balanced gate); sets `is_moe`. The capacity dispatcher raises."""
+        self.is_moe = getattr(cfg, "moe", None) is not None
+        if not self.is_moe:
+            return cfg
+        over = {}
+        if mcfg.get("fake_balanced_gate", False):
+            over["fake_balanced_gate"] = True
+        dispatcher = mcfg.get("moe_dispatcher")
+        if dispatcher:
+            if dispatcher != "dropless":
+                raise NotImplementedError(
+                    f"model.moe_dispatcher={dispatcher!r}: the capacity "
+                    "dispatcher is not ported (dropless only)")
+            over["dispatcher"] = dispatcher
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **over))
+
     def _build_optimizer(self) -> None:
         opt_cfg = self.typed.optimizer
         self.lr_schedule = self.typed.lr_scheduler.build(opt_cfg.lr)
@@ -159,17 +188,26 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         model_cfg = self.model_cfg
         chunk = int(self.cfg.get("loss.chunk_size", 1024))
 
+        is_moe = self.is_moe
+
         def loss_fn(params, batch, rng):
             kw = {k: batch[k] for k in ("positions", "segment_ids") if k in batch}
-            hidden = module.forward(params, model_cfg, batch["input_ids"],
-                                    return_hidden=True, **kw)
+            aux, extra = None, {}
+            if is_moe:
+                hidden, aux, stats = module.forward(
+                    params, model_cfg, batch["input_ids"], return_hidden=True,
+                    return_stats=True, token_mask=batch["labels"] != -100, **kw)
+                extra = {"tokens_per_expert": stats["tokens_per_expert"]}
+            else:
+                hidden = module.forward(params, model_cfg, batch["input_ids"],
+                                        return_hidden=True, **kw)
             kernel = module.head_kernel(params, model_cfg)
             ce_sum, n = fused_linear_cross_entropy(
                 hidden, kernel, batch["labels"], chunk_size=chunk,
                 logits_soft_cap=model_cfg.logits_soft_cap,
             )
-            total, n = combine_losses(ce_sum, n)
-            return total, {"num_label_tokens": n}
+            total, n = combine_losses(ce_sum, n, aux)
+            return total, {"num_label_tokens": n, **extra}
 
         return loss_fn
 
@@ -189,6 +227,11 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         batch = make_global_batch(stack_microbatches(microbatches), self.device)
         self.train_state, metrics = self._train_step(
             self.train_state, batch, self.rng.next_key())
+        if self.is_moe and self.model_cfg.moe.gate_bias_update_speed > 0:
+            # DeepSeek aux-free balancing after the optimizer step
+            self.model_spec.module.apply_gate_bias_update(
+                self.train_state.params, self.model_cfg,
+                metrics["tokens_per_expert"])
         return metrics
 
     def run_train_validation_loop(self) -> None:
@@ -211,6 +254,10 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                     "num_label_tokens": float(metrics["num_label_tokens"]),
                     **{k: (None if v is None else round(v, 4)) for k, v in perf.items()},
                 }
+                if "tokens_per_expert" in metrics:
+                    tpe = metrics["tokens_per_expert"]
+                    record["moe_load_imbalance"] = float(
+                        tpe.amax(-1).mean() / torch.clamp(tpe.mean(), min=1e-9))
                 if "skipped_nonfinite" in metrics:
                     record["skipped_nonfinite"] = metrics["skipped_nonfinite"]
                 if not np.isfinite(loss):

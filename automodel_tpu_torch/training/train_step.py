@@ -6,7 +6,9 @@ The JAX step is one jitted pure function with the microbatches in a
 backward, and autograd sums their gradients into the fp32 masters' `.grad`;
 then, once, the sum is divided by the global number of label tokens, clipped
 by the global norm and handed to the optimizer, which updates the masters in
-place.
+place. The loss function's aux dict is summed over the microbatches, key by
+key, as the JAX scan sums it: the MoE decoder's (num_moe_layers, E) tokens
+per expert come out of the step as the whole batch's counts.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """MFU / FLOPs accounting (port of `automodel_tpu/utils/flops.py`): the
 per-architecture FLOPs formula lives on the model config
-(`flops_per_token`); this module has the card's peak and the MFU/TPS
-computation the recipe logs."""
+(`flops_per_token`: the dense decoder's, or the MoE decoder's with the
+routed experts counted at top-k of E and the router); this module has the
+card's peak and the MFU/TPS computation the recipe logs."""
 
 from __future__ import annotations
 

@@ -95,6 +95,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+import yaml
 
 from automodel_tpu_torch.checkpoint import DenseDecoderAdapter, save_hf_checkpoint
 from automodel_tpu_torch.cli.app import main as cli_main
@@ -102,6 +103,7 @@ from automodel_tpu_torch.config import parse_args_and_load_config
 from automodel_tpu_torch.datasets.loader import make_global_batch, stack_microbatches
 from automodel_tpu_torch.datasets.mock import MockDatasetConfig
 from automodel_tpu_torch.loss import fused_linear_cross_entropy
+from automodel_tpu_torch.loss.utils import combine_losses
 from automodel_tpu_torch.models.common.layers import count_params
 from automodel_tpu_torch.models.llm import decoder
 from automodel_tpu_torch.models.llm.families import llama_config
@@ -218,7 +220,10 @@ PAGED_KERNELS = {
 # largest value.
 FA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the training shapes: one 4096-token microbatch of Llama-3-8B attention
-FA_SHAPE = dict(B=1, S=4096, Hq=32, Hkv=8, D=128)
+FA_SHAPE = dict(B=1, S=4096, Hq=32, Hkv=8, D=128, Dv=128)
+# ... and of Moonlight-16B-A3B's MLA attention: q/k 192 (qk_nope 128 +
+# qk_rope 64), v 128, 16 heads for q and kv alike
+FA_MLA_SHAPE = dict(B=1, S=4096, Hq=16, Hkv=16, D=192, Dv=128)
 
 TRAIN_YAML = "examples/llm_pretrain/llama3_8b_mock_bf16.yaml"
 TRAIN_LAYERS, TRAIN_ACCUM, TRAIN_STEPS = 8, 2, 5
@@ -232,6 +237,24 @@ TRAIN_GRAD_TOL = 1e-3
 # (plain attention) from the same weights: docs/PARITY.md's loss-curve
 # tolerances, 1e-4 relative for steps 1-5 and 5e-3 after
 TINY_YAML = "examples/llm_finetune/tiny_llama_mock_smoke.yaml"
+# train_moe: Moonlight-16B-A3B at full width through the training CLI, on a
+# YAML the phase writes. Cut: 27 -> 4 layers (1 dense + 3 MoE), ~2.5 B
+# parameters whose fp32 masters, gradients and AdamW moments take ~40 GB;
+# all 27 layers (~16 B parameters, ~256 GB of that state) do not fit one
+# 80 GB card. Sequences of 4096 tokens, microbatch 1, 5 steps. The mock
+# tokens are drawn from the first MOE_TRAIN_TOKEN_IDS ids, as a finetuning
+# corpus uses a small share of a 163840-token vocabulary: uniform tokens
+# over the whole vocabulary leave nothing to learn in 5 steps (the loss
+# then stays at ln(V) plus the init's excess).
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_SEQ = 4, 5, 4096
+MOE_TRAIN_TOKEN_IDS = 4096
+# train_moe_check: 2 layers (1 dense + 1 MoE) at Moonlight width in fp32,
+# one step of 2 microbatches of this many tokens, kernels vs plain
+# attention; the tolerances of the dense check
+MOE_CHECK_SEQ = 2048
+# the <192, 128> instantiations of K1-K3 in the profiler's kernel names
+MLA_FA_KERNELS = {"K1": r"fwd_mma_kernel<192,\s*128>", "K2": r"dq_mma_kernel<192,\s*128>",
+                  "K3": r"dkv_mma_kernel<192,\s*128>"}
 
 
 def emit(obj) -> None:
@@ -475,16 +498,16 @@ def paged_kernels_phase(flush) -> dict:
     return out
 
 
-def fa_inputs(dtype, B, S, Hq, Hkv, D, packed: bool, seed: int = 0):
-    """Random q, k, v, dO on the card (S == T) and packed segment ids
-    (four documents) or None."""
+def fa_inputs(dtype, B, S, Hq, Hkv, D, Dv, packed: bool, seed: int = 0):
+    """Random q, k (head dim D), v, dO (Dv) on the card (S == T) and packed
+    segment ids (four documents) or None."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
-    dout = randn(B, S, Hq, D)
+    q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, Dv)
+    dout = randn(B, S, Hq, Dv)
     seg = None
     if packed:
         cuts = torch.tensor([S // 5, S // 2, S // 2 + 7], device="cuda")
@@ -500,23 +523,30 @@ def fa_mask(B, S, seg):
                          qseg=qs, kpos=None, kseg=qs, has_window=False)
 
 
-def fa_bound(kernel: str, q, k, pairs: int):
+def fa_bound(kernel: str, q, k, v, pairs: int):
     """Least time of one K1/K2/K3 call: the larger of its bytes over HBM
     bandwidth (each input read once, each output written once) and its
-    operations over the dtype's peak. Per unmasked (q, k) pair and query
-    head: K1 does 4 D flops (QK^T and PV), K2 6 D (QK^T, dO V^T, ds K), K3
-    8 D (QK^T, dO V^T, p^T dO, ds^T Q)."""
+    operations over the dtype's peak. Each product counts at its own width:
+    per unmasked (q, k) pair and query head, Q.K^T, dS.K (dq) and dS^T.Q
+    (dk) take 2 DQK flops, P.V, dO.V^T and P^T.dO (dv) 2 DV. So K1 does
+    2 DQK + 2 DV, K2 4 DQK + 2 DV, K3 4 DQK + 4 DV (4, 6 and 8 D at
+    DQK = DV = D)."""
     B, S, Hq, D = q.shape
+    Dv = v.shape[-1]
     elt = q.element_size()
-    q_bytes = q.numel() * elt          # q, out, dO and dq share one shape
-    kv_bytes = k.numel() * elt          # k, v, dk and dv share one shape
-    row_bytes = B * Hq * S * 4          # lse and delta, fp32
+    q_bytes = q.numel() * elt               # q and dq
+    o_bytes = q_bytes // D * Dv             # out and dO
+    k_bytes, v_bytes = k.numel() * elt, v.numel() * elt  # k, dk; v, dv
+    row_bytes = B * Hq * S * 4              # lse and delta, fp32
     nbytes, flops_per_pair = {
-        "K1": (2 * q_bytes + 2 * kv_bytes + row_bytes, 4),
-        "K2": (3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 6),
-        "K3": (2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 8),
+        "K1": (q_bytes + k_bytes + v_bytes + o_bytes + row_bytes,
+               2 * D + 2 * Dv),
+        "K2": (2 * q_bytes + k_bytes + v_bytes + o_bytes + 2 * row_bytes,
+               4 * D + 2 * Dv),
+        "K3": (q_bytes + o_bytes + 2 * k_bytes + 2 * v_bytes + 2 * row_bytes,
+               4 * D + 4 * Dv),
     }[kernel]
-    ops = flops_per_pair * D * pairs * Hq
+    ops = flops_per_pair * pairs * Hq
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[q.dtype] * 1e3
     if t_bytes >= t_ops:
@@ -524,12 +554,14 @@ def fa_bound(kernel: str, q, k, pairs: int):
     return t_ops, "operations", nbytes, ops
 
 
-def fa_check_case(dtype, S, packed, flush, timed: bool, D=FA_SHAPE["D"]) -> dict:
-    """K1-K3 against their plain versions on one input; with `timed`, also
-    their times, the plain versions' and scaled_dot_product_attention's."""
-    sh = dict(FA_SHAPE, S=S, D=D)
+def fa_check_case(dtype, S, packed, flush, timed: bool, shape=None, **dims) -> dict:
+    """K1-K3 against their plain versions on one input of `shape` (the
+    Llama-3-8B training shape unless given; `dims` override its keys);
+    with `timed`, also their times, the plain versions' and
+    scaled_dot_product_attention's."""
+    sh = dict(shape or FA_SHAPE, S=S, **dims)
     B, Hq, D = sh["B"], sh["Hq"], sh["D"]
-    q, k, v, dout, seg = fa_inputs(dtype, B, S, Hq, sh["Hkv"], D, packed)
+    q, k, v, dout, seg = fa_inputs(dtype, B, S, Hq, sh["Hkv"], D, sh["Dv"], packed)
     scale = D ** -0.5
     mask = fa_mask(B, S, seg)
     kw = dict(scale=scale, causal=True)
@@ -553,7 +585,8 @@ def fa_check_case(dtype, S, packed, flush, timed: bool, D=FA_SHAPE["D"]) -> dict
         if not err <= tol * max(1.0, ref_max):
             raise AssertionError(
                 f"K1-K3 {name} disagrees with its plain version ({dtype}, "
-                f"S={S}, D={D}, packed={packed}): {err} > {tol} x {max(1.0, ref_max)}")
+                f"S={S}, D={D}, Dv={sh['Dv']}, packed={packed}): {err} > "
+                f"{tol} x {max(1.0, ref_max)}")
     entry = {"phase": "flash", "dtype": str(dtype).removeprefix("torch."),
              "route": fa_cuda.route(dtype), "shape": sh, "packed_segments": packed,
              "tol": tol, "errors": errs}
@@ -564,6 +597,33 @@ def fa_check_case(dtype, S, packed, flush, timed: bool, D=FA_SHAPE["D"]) -> dict
                                   pairs, flush)
     emit(entry)
     return entry
+
+
+# substrings of the device kernels' names -> scaled_dot_product_attention's
+# backend, in the order they are tried (cuDNN's names also say "flash")
+SDPA_BACKENDS = (("cudnn", "cuDNN"), ("fmha", "memory-efficient (CUTLASS fmha)"),
+                 ("efficient", "memory-efficient (CUTLASS fmha)"),
+                 ("flash", "FlashAttention"))
+
+
+def sdpa_backend(fn) -> dict:
+    """The device kernels one call of `fn` launches and the
+    scaled_dot_product_attention backend they name (from the kernel
+    names: FlashAttention, CUTLASS's memory-efficient fmha, cuDNN; "math"
+    when none of theirs ran)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+    backend = "math"
+    for key, label in SDPA_BACKENDS:
+        if any(key in n.lower() for n in names):
+            backend = label
+            break
+    return {"backend": backend, "kernels": [n[:90] for n in names][:6]}
 
 
 def fa_times(q, k, v, dout, lse, delta, seg, mask, scale, pairs, flush) -> dict:
@@ -581,15 +641,16 @@ def fa_times(q, k, v, dout, lse, delta, seg, mask, scale, pairs, flush) -> dict:
     # the yardstick: PyTorch's fused attention on the same inputs, (B, H, S, D)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
+                                                  enable_gqa=True, scale=scale)
     sdpa_fwd = time_ms(sdpa, 10, flush)
     o = sdpa()
     dot = dout.transpose(1, 2)
-    sdpa_bwd = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
-                                                   retain_graph=True), 10, flush)
+    sdpa_grad = lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+    sdpa_bwd = time_ms(sdpa_grad, 10, flush)
+    backends = {"forward": sdpa_backend(sdpa), "backward": sdpa_backend(sdpa_grad)}
     out = {}
     for name in ("K1", "K2", "K3"):
-        bound_ms, bound_by, nbytes, ops = fa_bound(name, q, k, pairs)
+        bound_ms, bound_by, nbytes, ops = fa_bound(name, q, k, v, pairs)
         out[name] = {
             "ms": times[name], "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": nbytes, "operations": ops,
@@ -601,29 +662,44 @@ def fa_times(q, k, v, dout, lse, delta, seg, mask, scale, pairs, flush) -> dict:
             "library_call": (
                 "scaled_dot_product_attention forward" if name == "K1" else
                 "scaled_dot_product_attention backward (dq, dk and dv in one call)"),
+            "library_backend": backends["forward" if name == "K1" else "backward"]["backend"],
         }
     out["sdpa_fwd_bwd_ms"] = sdpa_fwd + sdpa_bwd
+    out["sdpa_backends"] = backends
     return out
 
 
-def flash_phase(flush) -> dict:
-    """K1-K3 against their plain versions: the training shapes in bf16
-    (timed) and fp32, a packed-segment case and a ragged S; returns the bf16
-    entries for the kernels line."""
-    main = fa_check_case(torch.bfloat16, FA_SHAPE["S"], False, flush, timed=True)
-    fa_check_case(torch.float32, FA_SHAPE["S"], False, flush, timed=False)
-    fa_check_case(torch.bfloat16, FA_SHAPE["S"], True, flush, timed=False)
-    fa_check_case(torch.bfloat16, FA_SHAPE["S"] - 96 - 5, False, flush, timed=False)
-    fa_check_case(torch.bfloat16, FA_SHAPE["S"], False, flush, timed=False, D=64)
-    torch.cuda.empty_cache()
-    errs = main["errors"]
+def fa_entries(case: dict) -> dict:
+    """A timed case's K1, K2 and K3 numbers for the kernels line."""
+    errs = case["errors"]
     return {
-        "K1": dict(main["times"]["K1"], max_abs_err=max(
+        "K1": dict(case["times"]["K1"], max_abs_err=max(
             errs["out"]["max_abs_err"], errs["lse"]["max_abs_err"])),
-        "K2": dict(main["times"]["K2"], max_abs_err=errs["dq"]["max_abs_err"]),
-        "K3": dict(main["times"]["K3"], max_abs_err=max(
+        "K2": dict(case["times"]["K2"], max_abs_err=errs["dq"]["max_abs_err"]),
+        "K3": dict(case["times"]["K3"], max_abs_err=max(
             errs["dk"]["max_abs_err"], errs["dv"]["max_abs_err"])),
     }
+
+
+def flash_phase(flush) -> dict:
+    """K1-K3 against their plain versions: the Llama-3-8B training shapes
+    in bf16 (timed) and fp32, a packed-segment case, a ragged S and head
+    dim 64; then Moonlight's MLA heads (q/k 192, v 128) in bf16 (timed),
+    packed and ragged, and in fp32. Returns the two timed cases' bf16
+    entries for the kernels line, keyed "dense" and "mla"."""
+    S = FA_SHAPE["S"]
+    main = fa_check_case(torch.bfloat16, S, False, flush, timed=True)
+    fa_check_case(torch.float32, S, False, flush, timed=False)
+    fa_check_case(torch.bfloat16, S, True, flush, timed=False)
+    fa_check_case(torch.bfloat16, S - 96 - 5, False, flush, timed=False)
+    fa_check_case(torch.bfloat16, S, False, flush, timed=False, D=64, Dv=64)
+    mla = fa_check_case(torch.bfloat16, S, False, flush, timed=True, shape=FA_MLA_SHAPE)
+    fa_check_case(torch.bfloat16, S, True, flush, timed=False, shape=FA_MLA_SHAPE)
+    fa_check_case(torch.bfloat16, S - 96 - 5, False, flush, timed=False,
+                  shape=FA_MLA_SHAPE, Hq=4, Hkv=2)
+    fa_check_case(torch.float32, S, False, flush, timed=False, shape=FA_MLA_SHAPE)
+    torch.cuda.empty_cache()
+    return {"dense": fa_entries(main), "mla": fa_entries(mla)}
 
 
 def serve_traffic(vocab_size: int, seed: int = 0) -> list:
@@ -1273,9 +1349,243 @@ def train_paths_phase() -> None:
         raise AssertionError("tiny recipe: kernel and plain loss curves differ")
 
 
+def train_moe_yaml(run_dir: str) -> str:
+    """The train_moe phase's recipe, written to `run_dir`: Moonlight's
+    config.json at MOE_TRAIN_LAYERS layers, bf16 over fp32 masters, full
+    remat, mock data over MOE_TRAIN_TOKEN_IDS token ids, AdamW; returns its
+    path."""
+    cfg = {
+        "seed": 0, "run_dir": run_dir,
+        "model": {"hf_config": dict(MOONLIGHT, num_hidden_layers=MOE_TRAIN_LAYERS),
+                  "dtype": "bfloat16", "remat_policy": "full"},
+        "distributed": {"dp_shard": -1},
+        "dataset": {"_target_": "automodel_tpu_torch.datasets.mock.MockDatasetConfig",
+                    "num_samples": 64, "seq_len": MOE_TRAIN_SEQ,
+                    "vocab_size": MOE_TRAIN_TOKEN_IDS},
+        "dataloader": {"microbatch_size": 1, "grad_acc_steps": 1},
+        "optimizer": {"name": "adamw", "lr": 1.0e-3, "weight_decay": 0.1},
+        "lr_scheduler": {"style": "constant", "warmup_steps": 0},
+        "step_scheduler": {"max_steps": MOE_TRAIN_STEPS},
+        "checkpoint": {"enabled": False},
+        "loss": {"chunk_size": 2048},
+    }
+    path = Path(run_dir) / "moonlight_train.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def moe_block_sync_check(recipe, card: str) -> dict:
+    """The first MoE layer of the trained model, its weights cast to bf16,
+    forward and backward on one 4096-token microbatch (one token in 8
+    masked) under set_sync_debug_mode("error"), which raises at any
+    device-to-host read."""
+    cfg = recipe.model_cfg
+    moe_params = tree_map(lambda t: t[0].detach().to(cfg.dtype).requires_grad_(),
+                          recipe.train_state.params["moe_layers"]["moe"])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(1, MOE_TRAIN_SEQ, cfg.hidden_size, device="cuda",
+                    generator=gen).to(cfg.dtype).requires_grad_()
+    mask = (torch.arange(MOE_TRAIN_SEQ, device="cuda") % 8 != 5)[None]
+
+    def fwd_bwd():
+        out, aux, _ = moe_forward(moe_params, cfg.moe, x, mask)
+        (out.float().square().mean() + aux).backward()
+
+    fwd_bwd()  # warm-up: library handles, workspaces
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fwd_bwd()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(x.grad).all()) and all(
+        p.grad is None or bool(torch.isfinite(p.grad).all())
+        for p in tree_leaves(moe_params))
+    if not finite:
+        raise AssertionError("train_moe: the MoE block's gradients are not finite")
+    return {"rows": MOE_TRAIN_SEQ, "dtype": str(cfg.dtype).removeprefix("torch."),
+            "sync_debug_mode": "error", "forward_and_backward": True,
+            "finite": finite}
+
+
+def train_moe_phase(card: str) -> dict:
+    """Moonlight-16B-A3B training through the CLI (full width, 4 layers, 5
+    steps); returns K1-K3 launches of that run, all at <192, 128>."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_moe_")
+    torch.cuda.reset_peak_memory_stats()
+    fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
+    t0 = time.perf_counter()
+    recipe = cli_main([train_moe_yaml(run_dir)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"K1": fa_cuda.launches_fwd, "K2": fa_cuda.launches_dq,
+                "K3": fa_cuda.launches_dkv}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    records = [json.loads(l) for l in
+               (Path(run_dir) / "training.jsonl").read_text().splitlines()]
+    cfg = recipe.model_cfg
+    L = cfg.num_layers
+    n = L * MOE_TRAIN_STEPS
+    steady = records[1:]  # step 1 carries the first-call set-up
+    tps = statistics.median(r["tps"] for r in steady)
+
+    # one more step under the profiler: device time by kernel and by op
+    mbs = [next(iter(recipe.dataloader))]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        recipe.run_step(mbs)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    by_name = device_ms_by_kernel(prof)
+    busy_ms = sum(by_name.values())
+    mla_launches = {k: sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                           and re.search(pat, e.name))
+                    for k, pat in MLA_FA_KERNELS.items()}
+    attn_ms = sum(v for k, v in by_name.items()
+                  if any(re.search(pat, k) for pat in MLA_FA_KERNELS.values()))
+    self_dev = {}  # device time of the kernels each aten op launched itself
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t > 0 and e.key.startswith("aten::"):
+            self_dev[e.key] = t / 1e3
+    grouped_ms = self_dev.get("aten::_grouped_mm", 0.0)
+    dense_gemm_ms = sum(self_dev.get(k, 0.0) for k in ("aten::mm", "aten::addmm",
+                                                          "aten::bmm", "aten::baddbmm"))
+    top = [[k[:80], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]]
+    top_ops = [[k, v] for k, v in sorted(self_dev.items(), key=lambda kv: -kv[1])[:12]]
+
+    moe_sync = moe_block_sync_check(recipe, card)
+    # the chunked CE (forward and backward) of one microbatch alone, and one
+    # AdamW update of every master alone (zero gradients: the phase's last
+    # use of these weights)
+    params = recipe.train_state.params
+    kernel = moe_decoder.head_kernel(params, cfg).detach().to(cfg.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    hidden = torch.randn(1, MOE_TRAIN_SEQ, cfg.hidden_size, device="cuda",
+                         generator=gen).to(cfg.dtype).requires_grad_()
+    labels = torch.randint(1, cfg.vocab_size, (1, MOE_TRAIN_SEQ), device="cuda",
+                           generator=gen)
+
+    def ce_fwd_bwd():
+        ce, _ = fused_linear_cross_entropy(hidden, kernel, labels, chunk_size=2048)
+        ce.backward()
+
+    no_flush = torch.empty(0, device="cuda")  # both run warm, as in a step
+    ce_ms = time_ms(ce_fwd_bwd, 1, no_flush)
+    del kernel, hidden
+    zeros = tree_map(torch.zeros_like, params)
+    opt_ms = time_ms(lambda: recipe.tx.update(zeros, recipe.train_state.opt_state,
+                                              params), 1, no_flush)
+    del zeros
+    emit({
+        "phase": "train_moe", "card": card,
+        "model": f"Moonlight-16B-A3B widths, {L} layers ({cfg.first_k_dense} dense + "
+                 f"{cfg.num_moe_layers} MoE), {cfg.dtype}, remat {cfg.remat_policy}",
+        "cut": "27 -> 4 layers: ~16 B parameters need ~256 GB of fp32 masters, "
+               "gradients and AdamW moments; 4 layers need ~40 GB",
+        "params": count_params(params),
+        "steps": len(records), "tokens_per_step": MOE_TRAIN_SEQ,
+        "losses": [r["loss"] for r in records],
+        "grad_norms": [r["grad_norm"] for r in records],
+        "moe_load_imbalance": [r["moe_load_imbalance"] for r in records],
+        "ms_per_step": MOE_TRAIN_SEQ / tps * 1e3, "tokens_per_s": tps,
+        "mfu_pct": statistics.median(r["mfu_pct"] for r in steady),
+        "tflops_per_device": statistics.median(r["tflops_per_device"] for r in steady),
+        "flops_per_token": cfg.flops_per_token(MOE_TRAIN_SEQ),
+        "wall_s_with_setup": wall_s, "peak_mem_gib": peak_gib,
+        "launches": launches,
+        "expected_launches": {"K1": 2 * n, "K2": n, "K3": n},
+        "profiled_step": {
+            "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
+            "mla_flash_launches_by_profiler_name": mla_launches,
+            "attention_k1_k3_ms": attn_ms,
+            "grouped_expert_gemm_ms": grouped_ms,
+            "dense_gemm_ms": dense_gemm_ms,
+            "other_ms": busy_ms - attn_ms - grouped_ms - dense_gemm_ms,
+            "top_kernels_ms": top, "top_ops_self_device_ms": top_ops},
+        "ce_fwd_bwd_ms_alone": ce_ms, "adamw_update_ms_alone": opt_ms,
+        "moe_block_sync": moe_sync,
+    })
+    losses = [r["loss"] for r in records]
+    if len(records) != MOE_TRAIN_STEPS:
+        raise AssertionError(f"{len(records)} MoE training records, not {MOE_TRAIN_STEPS}")
+    if not all(math.isfinite(x) for x in losses + [r["grad_norm"] for r in records]):
+        raise AssertionError(f"train_moe: non-finite loss or grad norm: {records}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_moe: the loss did not fall: {losses}")
+    if launches != {"K1": 2 * n, "K2": n, "K3": n}:
+        raise AssertionError(f"train_moe: K1-K3 launches {launches} on {n} layer-steps")
+    if mla_launches != {"K1": 2 * L, "K2": L, "K3": L}:
+        raise AssertionError(
+            f"train_moe: the profiled step's <192, 128> K1-K3 launches {mla_launches}")
+    del recipe, prof, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_moe_check_phase() -> None:
+    """fp32, 2 layers (1 dense + 1 MoE) at Moonlight width: one accumulated
+    step (2 microbatches of MOE_CHECK_SEQ tokens) from the same weights and
+    batch with attn_impl "flash" (K1-K3 at <192, 128> on the CUDA cores) and
+    "torch" (the plain attention). The balanced gate holds the routing
+    equal in both: a top-k near-tie could otherwise move a token to another
+    expert between two runs whose attention differs by ~1e-6."""
+    base = deepseek_v3_moe_config(dict(MOONLIGHT, num_hidden_layers=2),
+                                  dtype=torch.float32, remat_policy="full")
+    base = dataclasses.replace(base, moe=dataclasses.replace(base.moe, fake_balanced_gate=True))
+    params0 = moe_decoder.init(base, torch.Generator(device="cuda").manual_seed(4))
+    ds = MockDatasetConfig(num_samples=4, seq_len=MOE_CHECK_SEQ,
+                           vocab_size=base.vocab_size, seed=5).build()
+    batch = make_global_batch(stack_microbatches(
+        [{k: v[None] for k, v in ds[i].items()} for i in range(2)]), "cuda")
+    results = {}
+    for impl in ("flash", "torch"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+
+        def loss_fn(params, mb, rng, cfg=cfg):
+            h, aux, _ = moe_decoder.forward(params, cfg, mb["input_ids"],
+                                            return_hidden=True, return_stats=True,
+                                            token_mask=mb["labels"] != -100)
+            ce, n = fused_linear_cross_entropy(
+                h, moe_decoder.head_kernel(params, cfg), mb["labels"], chunk_size=2048)
+            return combine_losses(ce, n, aux)
+
+        params = tree_map(lambda t: t.clone().requires_grad_(), params0)
+        leaves = tree_leaves(params)
+        fa_cuda.launches_fwd = 0
+        ce, aux = accumulate_grads(loss_fn, params, batch)
+        results[impl] = (float(ce / aux["num_label_tokens"]),
+                         [t.grad for t in leaves], fa_cuda.launches_fwd)
+        del params, leaves
+        torch.cuda.empty_cache()
+    (loss_f, g_f, n_f), (loss_t, g_t, n_t) = results["flash"], results["torch"]
+    if any((a is None) != (b is None) for a, b in zip(g_f, g_t)):
+        raise AssertionError("train_moe_check: the two runs reach different leaves")
+    grad_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                   for a, b in zip(g_f, g_t) if a is not None)
+    loss_rel = abs(loss_f - loss_t) / abs(loss_t)
+    emit({"phase": "train_moe_check", "layers": 2, "dtype": "float32",
+          "tokens": [2, MOE_CHECK_SEQ], "loss_flash": loss_f, "loss_torch": loss_t,
+          "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+          "grad_max_rel_err": grad_err, "grad_tol": TRAIN_GRAD_TOL,
+          "k1_launches": [n_f, n_t]})
+    if n_f == 0 or n_t != 0:
+        raise AssertionError("train_moe_check: attn_impl did not select the kernels / plain path")
+    if loss_rel > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_TOL:
+        raise AssertionError("train_moe_check: the step differs between kernels and plain")
+
+
 # the tensor-core kernels in ptxas's mangled names: (pattern, readable name)
 MMA_KERNELS = (
-    (r"((?:fwd|dkv|dq)_mma_kernel)ILi(\d+)E", lambda m: f"{m[1]}<{m[2]}>"),
+    (r"((?:fwd|dkv|dq)_mma_kernel)ILi(\d+)ELi(\d+)E",
+     lambda m: f"{m[1]}<{m[2]}, {m[3]}>"),
     (r"((?:mla|gqa)_split_kernel)I(a|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
      lambda m: f"{m[1]}<{'int8' if m[2] == 'a' else 'bf16'}, {m[3]}, {m[4]}>"),
     # mla_combine_kernel<bf16 out>, gqa_combine_kernel<int8 or bf16 pages>
@@ -1286,7 +1596,7 @@ MMA_KERNELS = (
 
 def mma_ptxas(log: str) -> dict:
     """ptxas's report on the bf16 tensor-core instantiations (K1-K3 at each
-    head dim; the split kernels of K4-K7 at each step and column count,
+    (q/k, v) pair of head dims; the split kernels of K4-K7 at each step and column count,
     their combines): registers, spill bytes and, for K1-K3 and the split
     kernels at Llama-3-8B's (K4, K5) and Moonlight's (K6, K7) widths,
     dynamic shared memory (the launch size)."""
@@ -1319,8 +1629,9 @@ def mma_ptxas(log: str) -> dict:
             entry["dynamic_smem_bytes_llama3_8b"] = rpa_cuda.split_smem_bytes(
                 32, 8, 128, 128, SERVE.page_size, SERVE.pages_per_slot, page)
         elif "_mma_" in key:
+            d, dv = (int(x) for x in key[:-1].split("<")[1].split(","))
             entry["dynamic_smem_bytes"] = fa_cuda.mma_smem_bytes(
-                which[key.split("_")[0]], int(key[:-1].split("<")[1]))
+                which[key.split("_")[0]], d, dv)
     return out
 
 
@@ -1364,6 +1675,8 @@ def main() -> int:
     train_launches = train_phase(card)
     train_check_phase()
     train_paths_phase()
+    moe_launches = train_moe_phase(card)
+    train_moe_check_phase()
 
     no_library = ("no single PyTorch call attends over per-row page tables; "
                   "scaled_dot_product_attention needs each row's KV gathered "
@@ -1400,27 +1713,33 @@ def main() -> int:
             kernels[-1]["kernel_route"] = rpa_cuda.route(torch.bfloat16)
         elif name in ("K6", "K7"):
             kernels[-1]["kernel_route"] = mla_cuda.route(torch.bfloat16)
-    for name, replaces in (("K1", ":140"), ("K2", ":238"), ("K3", ":283")):
-        e = flash[name]
-        kernels.append({
-            "name": {"K1": "flash_attention_fwd", "K2": "flash_attention_dq",
-                     "K3": "flash_attention_dkv"}[name],
-            "route": "cuda",
-            "source": "automodel_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "automodel_tpu/ops/pallas/flash_attention.py" + replaces,
-            "launches": train_launches[name],
-            "max_abs_err": e["max_abs_err"],
-            "ms": e["ms"],
-            "plain_ms": e["plain_ms"],
-            "bound_ms": e["bound_ms"],
-            "bound_by": e["bound_by"],
-            "library_ms": e["library_ms"],
-            "library_call": e["library_call"],
-            "kernel_route": fa_cuda.route(torch.bfloat16),
-            "tflops": e["tflops"],
-            "bound_share": e["bound_share"],
-            "card": card,
-        })
+    # K1-K3 at Llama-3-8B's heads (<128, 128>, the dense train run's
+    # launches) and at Moonlight's MLA heads (<192, 128>, train_moe's)
+    for key, suffix, dims, runs in (("dense", "", (128, 128), train_launches),
+                                    ("mla", "_mla", (192, 128), moe_launches)):
+        for name, replaces in (("K1", ":140"), ("K2", ":238"), ("K3", ":283")):
+            e = flash[key][name]
+            kernels.append({
+                "name": {"K1": "flash_attention_fwd", "K2": "flash_attention_dq",
+                         "K3": "flash_attention_dkv"}[name] + suffix,
+                "route": "cuda",
+                "source": "automodel_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "automodel_tpu/ops/pallas/flash_attention.py" + replaces,
+                "launches": runs[name],
+                "max_abs_err": e["max_abs_err"],
+                "ms": e["ms"],
+                "plain_ms": e["plain_ms"],
+                "bound_ms": e["bound_ms"],
+                "bound_by": e["bound_by"],
+                "library_ms": e["library_ms"],
+                "library_call": e["library_call"],
+                "library_backend": e["library_backend"],
+                "kernel_route": fa_cuda.route(torch.bfloat16),
+                "head_dims": list(dims),
+                "tflops": e["tflops"],
+                "bound_share": e["bound_share"],
+                "card": card,
+            })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

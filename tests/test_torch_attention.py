@@ -111,10 +111,13 @@ def test_layer_norm():
 
 
 FLASH_CASES = {
-    # S, Hq, Hkv, D, extra flash_attention kwargs
+    # S, Hq, Hkv, D, extra flash_attention kwargs (Dv: v's head dim, else D)
     "causal_gqa": (128, 4, 2, 64, {}),
     "packed_segments": (128, 4, 4, 64, {"packed": True}),
     "softcap_sinks_lse": (128, 4, 2, 64, {"logits_soft_cap": 5.0, "sinks": True}),
+    # MLA's heads: q/k 192, v 128 (the Pallas kernel pads q/k to 256 lanes)
+    "mla_dv_packed": (128, 2, 2, 192, {"Dv": 128, "packed": True}),
+    "mla_dv_gqa_sinks": (128, 4, 2, 192, {"Dv": 128, "sinks": True}),
 }
 
 
@@ -124,12 +127,13 @@ def test_flash_attention_matches_pallas(case):
     the port's flash attention on CPU tensors against the Pallas kernels."""
     S, Hq, Hkv, D, kw = FLASH_CASES[case]
     kw = dict(kw)
+    Dv = kw.pop("Dv", D)
     B = 1
     rng = np.random.default_rng(1)
     q = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
     k = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
-    v = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
-    dout = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, Dv)).astype(np.float32)
+    dout = rng.normal(size=(B, S, Hq, Dv)).astype(np.float32)
     dlse = rng.normal(size=(B, Hq, S)).astype(np.float32)
     sinks = rng.normal(size=(Hq,)).astype(np.float32) if kw.pop("sinks", False) else None
     call = dict(logits_soft_cap=kw.get("logits_soft_cap"))

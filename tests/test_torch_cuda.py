@@ -5,6 +5,7 @@ imports no JAX, so it runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import shutil
 
 import numpy as np
@@ -478,7 +479,8 @@ def test_engines_kernels_match_plain_versions(card, model, kv):
 FA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 FA_CASES = {
-    # B, S, T, Hq, Hkv, D, causal, packed segments, soft cap
+    # B, S, T, Hq, Hkv, D, causal, packed segments, soft cap (D: q/k and v
+    # alike, or a (q/k, v) pair)
     "causal_gqa_ragged": (2, 200, 200, 4, 2, 64, True, False, None),
     "causal_d128_segments": (1, 192, 192, 8, 2, 128, True, True, None),
     "bidirectional_softcap": (1, 96, 96, 2, 1, 64, False, False, 20.0),
@@ -488,6 +490,10 @@ FA_CASES = {
     "causal_d128_s1000_gqa4": (1, 1000, 1000, 8, 2, 128, True, False, None),
     "causal_softcap": (1, 300, 300, 4, 2, 64, True, False, 30.0),
     "causal_s_lt_t_d64": (1, 200, 330, 4, 2, 64, True, False, None),
+    # MLA's heads (Moonlight, DeepSeek-V3): q/k 192, v 128
+    "mla_causal_segments": (1, 700, 700, 16, 16, (192, 128), True, True, None),
+    "mla_causal_gqa2_ragged": (2, 333, 333, 4, 2, (192, 128), True, False, None),
+    "mla_softcap_s_gt_t": (1, 200, 130, 2, 1, (192, 128), True, False, 25.0),
 }
 
 
@@ -497,8 +503,9 @@ def _fa_inputs(card, dtype, B, S, T, Hq, Hkv, D, packed, seed=0):
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=card).to(dtype)
 
-    q, k, v = randn(B, S, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
-    dout = randn(B, S, Hq, D)
+    D, Dv = D if isinstance(D, tuple) else (D, D)
+    q, k, v = randn(B, S, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, Dv)
+    dout = randn(B, S, Hq, Dv)
     seg = None
     if packed:
         cuts = torch.tensor([0, S // 3, S // 3 + 1, S - 5], device=card)
@@ -520,7 +527,7 @@ def test_flash_kernels_match_plain_versions(card, dtype, case):
 
     B, S, T, Hq, Hkv, D, causal, packed, cap = FA_CASES[case]
     q, k, v, dout, seg = _fa_inputs(card, dtype, B, S, T, Hq, Hkv, D, packed)
-    scale = D ** -0.5
+    scale = q.shape[-1] ** -0.5
     zeros = torch.zeros((B, S), dtype=torch.int32, device=card)
     qs = seg if seg is not None else zeros
     mask = fa.flash_mask(
@@ -618,6 +625,17 @@ def test_flash_kernels_refuse_what_they_do_not_cover(card):
         fa_cuda.flash_fwd_cuda(q.half(), k.half(), v.half(), scale=0.1)
     with pytest.raises(ValueError):
         fa_cuda.flash_fwd_cuda(q.cpu(), k, v, scale=0.1)
+    # MLA's (192, 128) pair is taken, but not with a window or with
+    # position-causal masking, and no other pair with Dv != D
+    q, k, v, _, _ = _fa_inputs(card, torch.bfloat16, 1, 64, 64, 4, 2, (192, 128), False)
+    with pytest.raises(NotImplementedError, match="window"):
+        dot_product_attention(q, k, v, sliding_window=16)
+    with pytest.raises(NotImplementedError, match="position-causal"):
+        fa_cuda.check_supported(q, k, v, position_causal=True)
+    with pytest.raises(NotImplementedError, match="head dims q/k 192, v 64"):
+        fa_cuda.flash_fwd_cuda(q, k, v[..., :64].contiguous(), scale=0.1)
+    out = dot_product_attention(q, k, v)
+    assert out.shape == (1, 64, 4, 128)
 
 
 def test_flash_launch_error_raises(card):
@@ -677,6 +695,41 @@ def test_moe_layer_makes_no_host_read_at_moonlight_width(card, dtype):
     # index_add_ on the card adds each token's rows in no fixed order
     err = (got.float() - want.float()).abs().max().item()
     assert err <= GROUPED_TOL[dtype] * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_layer_backward_makes_no_host_read_at_moonlight_width(card, dtype):
+    """The training path: the block's forward and backward (the gate's
+    gradient, `_grouped_mm`'s own backward in bf16, the batched products'
+    in fp32, index_add_ and the gathers) queue without a host read; every
+    gradient is finite, the correction bias gets none."""
+    from automodel_tpu_torch.moe.layer import moe_forward
+    from automodel_tpu_torch.utils.tree import tree_leaves
+
+    cfg, params, x, mask = _moonlight_moe(card, dtype, T=256)
+    cfg = dataclasses.replace(cfg, aux_loss_coeff=0.01)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    x.requires_grad_()
+
+    def step():
+        out, aux, _ = moe_forward(params, cfg, x, mask)
+        (out.float().square().mean() + aux).backward()
+
+    step()  # warm-up: handles, workspaces
+    torch.cuda.synchronize()
+    for p in (*leaves, x):
+        p.grad = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    assert params["gate"]["e_score_bias"].grad is None  # selection only
+    for p in leaves:
+        if p is not params["gate"]["e_score_bias"]:
+            assert p.grad is not None and torch.isfinite(p.grad).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -31,14 +31,31 @@ def _qkv(dtype, D=64, Dv=None):
     ("position_causal", "position-causal"),
     ("dv_ne_d", "head dims"),
     ("head_dim_48", "head dim 48"),
+    # MLA's pair is taken, but not with a window or position-causal masking,
+    # and no other pair with Dv != D
+    ("mla_window", "sliding windows"),
+    ("mla_position_causal", "position-causal"),
+    ("dv_192_192", "head dim 192"),
+    ("dv_96_64", "head dims q/k 96, v 64"),
 ])
 def test_unsupported_cases_are_refused(dtype, case, match):
-    q, k, v = _qkv(dtype, D=48 if case == "head_dim_48" else 64,
-                   Dv=32 if case == "dv_ne_d" else None)
+    D, Dv = {"head_dim_48": (48, None), "dv_ne_d": (64, 32),
+             "mla_window": (192, 128), "mla_position_causal": (192, 128),
+             "dv_192_192": (192, 192), "dv_96_64": (96, 64)}.get(case, (64, None))
+    q, k, v = _qkv(dtype, D=D, Dv=Dv)
     kw = {"window": dict(sliding_window=16),
-          "position_causal": dict(position_causal=True)}.get(case, {})
+          "position_causal": dict(position_causal=True),
+          "mla_window": dict(sliding_window=16),
+          "mla_position_causal": dict(position_causal=True)}.get(case, {})
     with pytest.raises(NotImplementedError, match=match):
         fa_cuda.check_supported(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dims", fa_cuda.HEAD_DIMS)
+def test_instantiated_head_dims_are_taken(dtype, dims):
+    q, k, v = _qkv(dtype, D=dims[0], Dv=dims[1])
+    fa_cuda.check_supported(q, k, v)  # no refusal, on either route
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

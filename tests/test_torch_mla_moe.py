@@ -522,5 +522,23 @@ def test_moonlight_config_and_registry():
     with pytest.raises(NotImplementedError, match="yarn"):
         deepseek_v3_moe_config(dict(hf, rope_scaling={
             "type": "yarn", "factor": 40, "mscale_all_dim": 1.0}))
-    with pytest.raises(NotImplementedError, match="training forward"):
-        spec.module.forward({}, got, None)
+    # the MoE decoder trains; the MTP head, DSA and the capacity dispatcher
+    # still raise
+    tiny = deepseek_v3_moe_config(dict(
+        hf, vocab_size=32, hidden_size=16, intermediate_size=24,
+        moe_intermediate_size=8, num_hidden_layers=2, num_attention_heads=2,
+        num_key_value_heads=2, n_routed_experts=4, num_experts_per_tok=2,
+        kv_lora_rank=8, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8),
+        dtype=torch.float32, remat_policy="none")
+    params = moe_decoder.init(tiny, torch.Generator().manual_seed(0))
+    ids = torch.zeros((1, 4), dtype=torch.int64)
+    logits, aux = spec.module.forward(params, tiny, ids)
+    assert logits.shape == (1, 4, 32) and aux.shape == ()
+    with pytest.raises(NotImplementedError, match="MTP"):
+        moe_decoder.init(dataclasses.replace(tiny, mtp_num_layers=1),
+                         torch.Generator())
+    with pytest.raises(NotImplementedError, match="DSA"):
+        spec.module.forward(params, dataclasses.replace(tiny, dsa_index_topk=2), ids)
+    with pytest.raises(NotImplementedError, match="capacity"):
+        spec.module.forward(params, dataclasses.replace(
+            tiny, moe=dataclasses.replace(tiny.moe, dispatcher="capacity")), ids)
