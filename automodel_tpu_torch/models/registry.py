@@ -1,6 +1,7 @@
 """Architecture registry: HF `architectures[0]` -> the port's implementation
 (port of the entries of `automodel_tpu/models/registry.py` whose family
-configs the port has: Llama, and DeepSeek-V3 for training and serving)."""
+configs the port has: the dense Llama, Mistral, Qwen2, Qwen3, Gemma-2 and
+Gemma-3, and DeepSeek-V3 for training and serving)."""
 
 from __future__ import annotations
 
@@ -25,6 +26,11 @@ class ModelSpec:
 
 MODEL_ARCH_MAPPING: dict[str, ModelSpec] = {
     "LlamaForCausalLM": ModelSpec("llama", families.llama_config, decoder),
+    "MistralForCausalLM": ModelSpec("mistral", families.mistral_config, decoder),
+    "Qwen2ForCausalLM": ModelSpec("qwen2", families.qwen2_config, decoder),
+    "Qwen3ForCausalLM": ModelSpec("qwen3", families.qwen3_config, decoder),
+    "Gemma2ForCausalLM": ModelSpec("gemma2", families.gemma2_config, decoder),
+    "Gemma3ForCausalLM": ModelSpec("gemma3", families.gemma3_config, decoder),
     # MLA + MoE (Moonlight-16B-A3B runs as this): trains through `forward`
     # (aux loss, gate-bias update), serves through the engine
     "DeepseekV3ForCausalLM": ModelSpec(

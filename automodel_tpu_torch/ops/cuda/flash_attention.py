@@ -3,8 +3,18 @@ replace `automodel_tpu/ops/pallas/flash_attention.py:_fwd_kernel`,
 `_dq_kernel` and `_dkv_kernel`).
 
 Each kernel is instantiated for the pairs of head dims in `HEAD_DIMS`: q/k
-and v alike at 16, 64 and 128, and MLA's q/k 192 with v 128 (DeepSeek-V3
-and Moonlight: qk_nope 128 + qk_rope 64).
+and v alike at 16, 64, 128 and 256 (Gemma-2, Gemma-3), and MLA's q/k 192
+with v 128 (DeepSeek-V3 and Moonlight: qk_nope 128 + qk_rope 64).
+
+Masks, as the Pallas kernels take them: causal by index, or by position
+when the kv side has positions or segment ids of its own (`kv_positions`,
+`kv_segment_ids`; then T may differ from S); segment ids; a sliding window
+on positions (two-sided without causal masking); a logit soft cap. Under a
+window or position-causal masking each wrapper hands its kernel the
+positions and their min and max per 32-row granule (`granule_ranges`,
+computed on the device), from which the kernel skips the tile pairs that
+hold no allowed pair; `mask_args` makes these once for a caller that runs
+K1-K3 on the same masks.
 
 The input dtype picks the route, `route(dtype)`: bfloat16 runs K1-K3 on the
 tensor cores (`mma.sync`), float32 on the CUDA cores, whose fp32 products
@@ -21,15 +31,20 @@ module-level integer: `launches_fwd`, `launches_dq`, `launches_dkv`.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from automodel_tpu_torch.ops.cuda._build import load_library
 
 SOURCE = "flash_attention.cu"
 # (q/k head dim, v head dim) of each instantiation: the tiny recipe's,
-# TinyLlama's, Llama-3's, and MLA's (Moonlight, DeepSeek-V3)
-HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 128))
+# TinyLlama's, Llama-3's and Mistral's, MLA's (Moonlight, DeepSeek-V3), and
+# Gemma-2's and Gemma-3's
+HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 128), (256, 256))
+# rows per granule of the position ranges (the kernels' kGran)
+GRANULE = 32
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
@@ -49,14 +64,14 @@ def _lib() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     if lib.fa_forward.argtypes is None:
         tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float] + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.fa_forward.argtypes = [ctypes.c_void_p] * 7 + tail
-        lib.fa_backward_dq.argtypes = [ctypes.c_void_p] * 9 + tail
-        lib.fa_backward_dkv.argtypes = [ctypes.c_void_p] * 10 + tail
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.fa_forward.argtypes = [ctypes.c_void_p] * 11 + tail
+        lib.fa_backward_dq.argtypes = [ctypes.c_void_p] * 13 + tail
+        lib.fa_backward_dkv.argtypes = [ctypes.c_void_p] * 14 + tail
         for fn in (lib.fa_forward, lib.fa_backward_dq, lib.fa_backward_dkv):
             fn.restype = ctypes.c_int
-        lib.fa_mma_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.fa_mma_smem_bytes.restype = ctypes.c_int
+        lib.fa_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.fa_smem_bytes.restype = ctypes.c_int
         lib.fa_error_string.argtypes = [ctypes.c_int]
         lib.fa_error_string.restype = ctypes.c_char_p
     return lib
@@ -68,24 +83,22 @@ def route(dtype: torch.dtype) -> str:
     return _ROUTES[dtype]
 
 
-def mma_smem_bytes(which: int, D: int, Dv: int) -> int:
-    """Dynamic shared memory (bytes) of the tensor-core K1 (`which` 0), K3
-    (`which` 1) or K2 (`which` 2) at q/k head dim D and v head dim Dv."""
-    return _lib().fa_mma_smem_bytes(which, D, Dv)
+# smem_bytes' kernel codes: (route, kernel) -> which
+SMEM_WHICH = {("mma", "fwd"): 0, ("mma", "dkv"): 1, ("mma", "dq"): 2,
+              ("fma", "fwd"): 3, ("fma", "dkv"): 4, ("fma", "dq"): 5}
 
 
-def check_supported(q, k, v, *, sliding_window=None, position_causal=False):
-    """Raise NotImplementedError for what K1-K3 do not cover: windows,
-    position-causal masking, q and k head dims that differ, and (q/k, v)
-    head dims that are not an instantiated pair. Called before any device
-    check, so the refusal is the same on every device."""
-    if sliding_window is not None:
-        raise NotImplementedError(
-            "flash attention kernels: sliding windows are not supported")
-    if position_causal:
-        raise NotImplementedError(
-            "flash attention kernels: position-causal masking (independent "
-            "kv positions or segment ids) is not supported")
+def smem_bytes(route_name: str, kernel: str, D: int, Dv: int) -> int:
+    """Dynamic shared memory (bytes) of K1 ("fwd"), K2 ("dq") or K3 ("dkv")
+    on `route_name` ("mma" or "fma") at q/k head dim D and v head dim Dv."""
+    return _lib().fa_smem_bytes(SMEM_WHICH[route_name, kernel], D, Dv)
+
+
+def check_supported(q, k, v):
+    """Raise NotImplementedError for the head dims K1-K3 do not cover: q and
+    k head dims that differ, and (q/k, v) head dims that are not an
+    instantiated pair. Called before any device check, so the refusal is
+    the same on every device."""
     D, Dk, Dv = q.shape[-1], k.shape[-1], v.shape[-1]
     if D != Dk:
         raise NotImplementedError(
@@ -97,7 +110,7 @@ def check_supported(q, k, v, *, sliding_window=None, position_causal=False):
             f"(q/k, v) pairs {HEAD_DIMS}")
 
 
-def _check(tensors: dict, q, segment_ids):
+def _check(tensors: dict, q):
     for name, x in tensors.items():
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor (got {x.device})")
@@ -126,14 +139,80 @@ def _check(tensors: dict, q, segment_ids):
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={k.shape[2]}")
     if S == 0 or k.shape[1] == 0:
         raise ValueError("empty sequence")
-    if segment_ids is not None:
-        if segment_ids.dtype != torch.int32 or segment_ids.shape != (B, S):
-            raise TypeError("segment_ids must be int32 (B, S)")
-        if k.shape[1] != S:
-            raise ValueError("segment ids need S == T")
     for name in ("lse", "delta"):
         if name in tensors and tensors[name].shape != (B, Hq, S):
             raise ValueError(f"{name} must be (B, Hq, S)")
+
+
+def granule_ranges(pos: torch.Tensor) -> torch.Tensor:
+    """(B, ceil(N / GRANULE), 2) int32: the min and max of each GRANULE-row
+    granule of the (B, N) int32 positions, on their device (no host read)."""
+    B, N = pos.shape
+    pad = (-N) % GRANULE
+    lim = torch.iinfo(torch.int32)
+    lo = F.pad(pos, (0, pad), value=lim.max).view(B, -1, GRANULE).amin(-1)
+    hi = F.pad(pos, (0, pad), value=lim.min).view(B, -1, GRANULE).amax(-1)
+    return torch.stack((lo, hi), -1).contiguous()
+
+
+class Masks(NamedTuple):
+    """The kernels' mask arguments: the causal code (0 none, 1 by index, 2
+    by position), the window (0 none) and the int32 tensors (q_seg, kv_seg,
+    q_pos, kv_pos, q_rng, kv_rng), each None where the masks do not read
+    it."""
+    code: int
+    window: int
+    ints: tuple
+
+
+def mask_args(q, k, *, causal=True, segment_ids=None, kv_segment_ids=None,
+              positions=None, kv_positions=None, sliding_window=None) -> Masks:
+    """The kernels' `Masks` for the wrappers' mask keywords, the Pallas
+    entry's contract: causal by position when the kv side has positions or
+    segment ids of its own. The int32 tensors must lie on q's device; the
+    granule ranges are computed there. A caller that runs K1-K3 on the same
+    masks makes them once and hands them to each wrapper as `masks`."""
+    B, S, T = q.shape[0], q.shape[1], k.shape[1]
+    asym = kv_positions is not None or kv_segment_ids is not None
+    code = 0 if not causal else (2 if asym else 1)
+    window = 0
+    if sliding_window is not None:
+        window = int(sliding_window)
+        if window < 1:
+            raise ValueError(f"sliding_window must be positive (got {window})")
+
+    def ints(x, n, name):
+        if x.dtype != torch.int32 or tuple(x.shape) != (B, n):
+            raise TypeError(f"{name} must be int32 (B, {n}) = {(B, n)}")
+        if x.device != q.device:
+            raise ValueError(f"{name} must be on q's device {q.device}")
+        return x.contiguous()
+
+    def zeros(n):
+        return torch.zeros((B, n), dtype=torch.int32, device=q.device)
+
+    qs = ks = qp = kp = qr = kr = None
+    if segment_ids is not None or kv_segment_ids is not None:
+        qs = zeros(S) if segment_ids is None else ints(segment_ids, S, "segment_ids")
+        if asym:
+            ks = zeros(T) if kv_segment_ids is None else ints(
+                kv_segment_ids, T, "kv_segment_ids")
+        elif S != T:
+            raise ValueError("segment ids without kv_segment_ids need S == T")
+        else:
+            ks = qs
+    if window or code == 2:
+        qp = (torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
+              .contiguous() if positions is None else ints(positions, S, "positions"))
+        if kv_positions is not None:
+            kp = ints(kv_positions, T, "kv_positions")
+        elif S == T:
+            kp = qp
+        else:
+            raise ValueError("positions without kv_positions need S == T")
+        qr = granule_ranges(qp)
+        kr = qr if kp is qp else granule_ranges(kp)
+    return Masks(code, window, (qs, ks, qp, kp, qr, kr))
 
 
 def _aligned(*tensors):
@@ -143,15 +222,17 @@ def _aligned(*tensors):
     return [x if x.data_ptr() % 16 == 0 else x.clone() for x in tensors]
 
 
-def _common(q, k, v, segment_ids, scale, soft_cap, causal):
+def _common(q, k, v, scale, soft_cap, code, window):
     if soft_cap is not None and soft_cap <= 0:
         raise ValueError(f"soft_cap must be positive (got {soft_cap})")
     B, S, Hq, D = q.shape
-    seg = 0 if segment_ids is None else segment_ids.data_ptr()
-    dims = (B, S, k.shape[1], Hq, k.shape[2], D, v.shape[3], float(scale),
-            float(soft_cap or 0.0), int(bool(causal)), _DTYPE_CODES[q.dtype],
+    return (B, S, k.shape[1], Hq, k.shape[2], D, v.shape[3], float(scale),
+            float(soft_cap or 0.0), code, window, _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
-    return seg, dims
+
+
+def _ptrs(ints) -> list:
+    return [0 if x is None else x.data_ptr() for x in ints]
 
 
 def _raise_on(err: int, lib, what: str) -> None:
@@ -161,16 +242,26 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 
 def flash_fwd_cuda(q, k, v, segment_ids=None, *, scale: float,
-                   soft_cap: float | None = None, causal: bool = True):
+                   soft_cap: float | None = None, causal: bool = True,
+                   kv_segment_ids=None, positions=None, kv_positions=None,
+                   sliding_window: int | None = None, masks: Masks | None = None):
     """K1 on `route(q.dtype)`. q (B, S, Hq, D), k (B, T, Hkv, D), v
-    (B, T, Hkv, Dv), float32 or bfloat16, (D, Dv) in `HEAD_DIMS`;
-    segment_ids (B, S) int32 or None (then S == T). Returns out
+    (B, T, Hkv, Dv), float32 or bfloat16, (D, Dv) in `HEAD_DIMS`. The masks
+    take the Pallas entry's keywords: segment_ids (B, S) and kv_segment_ids
+    (B, T), positions (B, S) and kv_positions (B, T), int32 on the card or
+    None; causal masking is by position when the kv side has positions or
+    segment ids of its own, else by index; sliding_window None or a
+    positive int, on positions (arange when not given). Returns out
     (B, S, Hq, Dv) in q's dtype and lse (B, Hq, S) fp32, EMPTY_LSE on fully
-    masked rows."""
+    masked rows. `masks`, when given (`mask_args`'s), replaces the mask
+    keywords."""
     global launches_fwd
     check_supported(q, k, v)
-    _check(dict(q=q, k=k, v=v), q, segment_ids)
-    seg, dims = _common(q, k, v, segment_ids, scale, soft_cap, causal)
+    _check(dict(q=q, k=k, v=v), q)
+    code, window, ints = masks or mask_args(
+        q, k, causal=causal, segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,
+        positions=positions, kv_positions=kv_positions, sliding_window=sliding_window)
+    dims = _common(q, k, v, scale, soft_cap, code, window)
     if route(q.dtype) == "mma":
         q, k, v = _aligned(q, k, v)
     B, S, Hq, _ = q.shape
@@ -178,8 +269,8 @@ def flash_fwd_cuda(q, k, v, segment_ids=None, *, scale: float,
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
-        err = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg, seg,
-                             out.data_ptr(), lse.data_ptr(), *dims)
+        err = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             *_ptrs(ints), out.data_ptr(), lse.data_ptr(), *dims)
     _raise_on(err, lib, "forward")
     launches_fwd += 1
     return out, lse
@@ -187,13 +278,18 @@ def flash_fwd_cuda(q, k, v, segment_ids=None, *, scale: float,
 
 def flash_dq_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
                   scale: float, soft_cap: float | None = None,
-                  causal: bool = True):
+                  causal: bool = True, kv_segment_ids=None, positions=None,
+                  kv_positions=None, sliding_window: int | None = None,
+                  masks: Masks | None = None):
     """K2 on `route(q.dtype)`: dq (B, S, Hq, D) in q's dtype from dout
     (B, S, Hq, Dv) in q's dtype and the fp32 (B, Hq, S) lse and delta."""
     global launches_dq
     check_supported(q, k, v)
-    _check(dict(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta), q, segment_ids)
-    seg, dims = _common(q, k, v, segment_ids, scale, soft_cap, causal)
+    _check(dict(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta), q)
+    code, window, ints = masks or mask_args(
+        q, k, causal=causal, segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,
+        positions=positions, kv_positions=kv_positions, sliding_window=sliding_window)
+    dims = _common(q, k, v, scale, soft_cap, code, window)
     if route(q.dtype) == "mma":
         q, k, v, dout = _aligned(q, k, v, dout)
     dq = torch.empty_like(q)
@@ -201,7 +297,8 @@ def flash_dq_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
     with torch.cuda.device(q.device):
         err = lib.fa_backward_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), seg, seg, dq.data_ptr(), *dims)
+            lse.data_ptr(), delta.data_ptr(), *_ptrs(ints), dq.data_ptr(),
+            *dims)
     _raise_on(err, lib, "dq")
     launches_dq += 1
     return dq
@@ -209,13 +306,18 @@ def flash_dq_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
 
 def flash_dkv_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
                    scale: float, soft_cap: float | None = None,
-                   causal: bool = True):
+                   causal: bool = True, kv_segment_ids=None, positions=None,
+                   kv_positions=None, sliding_window: int | None = None,
+                   masks: Masks | None = None):
     """K3 on `route(q.dtype)`: (dk, dv), (B, T, Hkv, D) and (B, T, Hkv, Dv)
     in k's dtype; inputs as K2's."""
     global launches_dkv
     check_supported(q, k, v)
-    _check(dict(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta), q, segment_ids)
-    seg, dims = _common(q, k, v, segment_ids, scale, soft_cap, causal)
+    _check(dict(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta), q)
+    code, window, ints = masks or mask_args(
+        q, k, causal=causal, segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,
+        positions=positions, kv_positions=kv_positions, sliding_window=sliding_window)
+    dims = _common(q, k, v, scale, soft_cap, code, window)
     if route(q.dtype) == "mma":
         q, k, v, dout = _aligned(q, k, v, dout)
     dk = torch.empty_like(k)
@@ -224,7 +326,7 @@ def flash_dkv_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
     with torch.cuda.device(q.device):
         err = lib.fa_backward_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), seg, seg, dk.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *_ptrs(ints), dk.data_ptr(),
             dv.data_ptr(), *dims)
     _raise_on(err, lib, "dk/dv")
     launches_dkv += 1

@@ -12,12 +12,11 @@ the forward saves (out, lse); the backward forms
 delta = rowsum(dO * O) - dlse in torch and runs the dq and dk/dv passes. The
 sink rescale and d(sinks) stay in torch, as in the JAX wrapper. On CUDA
 tensors the passes are the hand-written kernels K1-K3
-(`ops/cuda/flash_attention.py`), instantiated for q/k and v head dims of
-(16, 16), (64, 64), (128, 128) and MLA's (192, 128), which raise
-NotImplementedError for what they do not cover (windows, position-causal
-masking, other head dims); on CPU tensors they are the plain versions
-below, which cover every mask and head dim. delta and dv run over v's head
-dim, dq and dk over q/k's.
+(`ops/cuda/flash_attention.py`), which take every mask and are instantiated
+for q/k and v head dims of (16, 16), (64, 64), (128, 128), (256, 256) and
+MLA's (192, 128): other head dims raise NotImplementedError; on CPU tensors
+they are the plain versions below, which cover every mask and head dim.
+delta and dv run over v's head dim, dq and dk over q/k's.
 """
 
 from __future__ import annotations
@@ -113,10 +112,88 @@ def flash_attention_bwd_ref(q, k, v, dout, lse, delta, mask, *, scale: float,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _kernel_args(causal_mode, qseg, has_seg):
-    """(segment ids, causal) as K1-K3 take them: index-causal or none."""
-    seg = qseg.to(torch.int32).contiguous() if has_seg else None
-    return seg, causal_mode == "index"
+def _kernel_kwargs(aux, opts) -> dict:
+    """The mask keywords of K1-K3 for the JAX entry's masks: segment ids
+    only where some were given, positions only where a window or the
+    position-causal mode reads them, kv positions and segment ids of their
+    own only in that mode (`asym`)."""
+    qpos, _, qseg, kpos, kseg = aux
+    causal_mode, window, asym, has_seg = opts[:4]
+    return dict(causal=causal_mode is not None,
+                segment_ids=qseg if has_seg else None,
+                kv_segment_ids=kseg if asym and has_seg else None,
+                positions=qpos if window is not None or asym else None,
+                kv_positions=kpos if asym else None,
+                sliding_window=window)
+
+
+def _mask_inputs(B, S, T, device, *, causal=True, segment_ids=None,
+                 positions=None, kv_segment_ids=None, kv_positions=None,
+                 sliding_window=None):
+    """The JAX entry's mask keywords as int32 arrays, aux = (qpos, qwin,
+    qseg, kpos, kseg), (B, S) and (B, T), and the options (causal_mode,
+    window, asym, has_seg): causal by position when the kv side has
+    positions or segment ids of its own, else by index."""
+    asym = kv_positions is not None or kv_segment_ids is not None
+    causal_mode = None if not causal else ("position" if asym else "index")
+
+    def as_int(x, n):
+        return torch.as_tensor(x, device=device).to(torch.int32).expand(B, n)
+
+    qp = as_int(positions if positions is not None
+                else torch.arange(S, device=device)[None], S)
+    zeros_q = torch.zeros((B, S), dtype=torch.int32, device=device)
+    zeros_kv = torch.zeros((B, T), dtype=torch.int32, device=device)
+    qs = as_int(segment_ids, S) if segment_ids is not None else zeros_q
+    if asym:
+        kp = as_int(kv_positions if kv_positions is not None else qp, T)
+        ks = as_int(kv_segment_ids, T) if kv_segment_ids is not None else zeros_kv
+    elif S == T:
+        kp, ks = qp, qs
+    else:  # causal by index over T != S rows, as K1-K3 take it
+        kp, ks = as_int(torch.arange(T, device=device)[None], T), zeros_kv
+    window = int(sliding_window) if sliding_window is not None else None
+    qwin = qp - (window - 1) if window is not None else zeros_q
+    has_seg = segment_ids is not None or kv_segment_ids is not None
+    return (qp, qwin, qs, kp, ks), (causal_mode, window, asym, has_seg)
+
+
+def mask_case(B, S, T, *, device, causal=True, segment_ids=None,
+              sliding_window=None, ring=None):
+    """`flash_attention`'s mask keywords for a batch of packed documents or
+    for one step of ring (context-parallel) attention, and the (B, S, T)
+    boolean mask they make. Positions restart at 0 with each document of
+    the (B, S) int32 `segment_ids`. `ring = (q_offset, kv_offset,
+    kv_other_rows)`: the q rows sit at positions q_offset.., the kv rows at
+    kv_offset.. with their first kv_other_rows in a document of their own,
+    and causal masking is by position (T may differ from S)."""
+    i32 = dict(dtype=torch.int32, device=device)
+    pos = torch.arange(S, **i32)[None].expand(B, S)
+    kw = dict(causal=causal, segment_ids=segment_ids, sliding_window=sliding_window)
+    if segment_ids is not None:
+        new_doc = torch.ones((B, S), dtype=torch.bool, device=device)
+        new_doc[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+        starts = torch.where(new_doc, torch.arange(S, **i32), 0).cummax(1).values
+        pos = pos - starts
+    if sliding_window is not None or segment_ids is not None:
+        kw["positions"] = pos.contiguous()
+    if ring is not None:
+        if segment_ids is not None:
+            raise ValueError("mask_case: a ring step takes no packed segments")
+        q_off, kv_off, other = ring
+        kv_rows = torch.arange(T, **i32)[None].expand(B, T)
+        kw.update(positions=(pos + q_off).contiguous(),
+                  kv_positions=(kv_rows + kv_off).contiguous(),
+                  segment_ids=torch.zeros((B, S), **i32),
+                  kv_segment_ids=(kv_rows < other).to(torch.int32).contiguous())
+    aux, opts = _mask_inputs(B, S, T, device, **kw)
+    return kw, _mask_of(B, S, T, aux, opts)
+
+
+def _mask_of(B, S, T, aux, opts) -> torch.Tensor:
+    qpos, qwin, qseg, kpos, kseg = aux
+    return flash_mask(B, S, T, causal_mode=opts[0], qpos=qpos, qwin=qwin,
+                      qseg=qseg, kpos=kpos, kseg=kseg, has_window=opts[1] is not None)
 
 
 class _Flash(torch.autograd.Function):
@@ -124,25 +201,21 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, sinks, aux, opts):
-        (qpos, qwin, qseg, kpos, kseg) = aux
-        causal_mode, has_window, asym, has_seg, soft_cap, scale = opts
+        soft_cap, scale = opts[4:]
         B, S, Hq, _ = q.shape
         T = k.shape[1]
         if q.is_cuda:
             from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
 
-            fa_cuda.check_supported(
-                q, k, v, sliding_window=True if has_window else None,
-                position_causal=asym)
-            seg, causal = _kernel_args(causal_mode, qseg, has_seg)
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            # the kernels' mask arguments (positions, their granule ranges),
+            # made once for K1 here and K2, K3 in the backward
+            ctx.cuda_masks = fa_cuda.mask_args(q, k, **_kernel_kwargs(aux, opts))
             out, lse_raw = fa_cuda.flash_fwd_cuda(
-                q, k, v, seg, scale=scale, soft_cap=soft_cap, causal=causal)
+                q, k, v, scale=scale, soft_cap=soft_cap, masks=ctx.cuda_masks)
             mask = None
         else:
-            mask = flash_mask(B, S, T, causal_mode=causal_mode, qpos=qpos,
-                              qwin=qwin, qseg=qseg, kpos=kpos, kseg=kseg,
-                              has_window=has_window)
+            mask = _mask_of(B, S, T, aux, opts)
             out, lse_raw = flash_attention_ref(q, k, v, mask, scale=scale,
                                                soft_cap=soft_cap)
         empty = lse_raw >= 0.5 * EMPTY_LSE
@@ -156,14 +229,14 @@ class _Flash(torch.autograd.Function):
             out = (out.float() * scale_rows).to(out.dtype)
             lse_pub = lse_tot
         lse_res = torch.where(empty, EMPTY_LSE, lse_pub)
-        ctx.save_for_backward(q, k, v, sinks, out, lse_pub, lse_res, mask, qseg)
-        ctx.opts = (causal_mode, has_seg, soft_cap, scale)
+        ctx.save_for_backward(q, k, v, sinks, out, lse_pub, lse_res, mask)
+        ctx.opts = opts
         return out, lse_pub
 
     @staticmethod
     def backward(ctx, dout, dlse):
-        q, k, v, sinks, out, lse_pub, lse_res, mask, qseg = ctx.saved_tensors
-        causal_mode, has_seg, soft_cap, scale = ctx.opts
+        q, k, v, sinks, out, lse_pub, lse_res, mask = ctx.saved_tensors
+        soft_cap, scale = ctx.opts[4:]
         Hq = q.shape[2]
         # delta = rowsum(dO * O) - dlse: the lse cotangent rides the same
         # p * (dp - delta) term (d lse / d s = p)
@@ -174,11 +247,10 @@ class _Flash(torch.autograd.Function):
         if q.is_cuda:
             from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
 
-            seg, causal = _kernel_args(causal_mode, qseg, has_seg)
             do = do.contiguous()
-            kw = dict(scale=scale, soft_cap=soft_cap, causal=causal)
-            dq = fa_cuda.flash_dq_cuda(q, k, v, do, lse_res, delta, seg, **kw)
-            dk, dv = fa_cuda.flash_dkv_cuda(q, k, v, do, lse_res, delta, seg, **kw)
+            kw = dict(scale=scale, soft_cap=soft_cap, masks=ctx.cuda_masks)
+            dq = fa_cuda.flash_dq_cuda(q, k, v, do, lse_res, delta, **kw)
+            dk, dv = fa_cuda.flash_dkv_cuda(q, k, v, do, lse_res, delta, **kw)
         else:
             dq, dk, dv = flash_attention_bwd_ref(
                 q, k, v, do, lse_res, delta, mask, scale=scale,
@@ -211,8 +283,8 @@ def flash_attention(
     `sinks` is a (Hq,) vector of sink logits. With `return_lse=True` returns
     (out, lse), lse (B, Hq, S) fp32 (NEG_INF on fully masked rows) and
     differentiable. Raises NotImplementedError for q/k head dims that differ
-    or Hq not a multiple of Hkv, and on CUDA tensors for what the kernels do
-    not cover: nothing falls back to another implementation."""
+    or Hq not a multiple of Hkv, and on CUDA tensors for head dims the
+    kernels do not cover: nothing falls back to another implementation."""
     B, S, Hq, Dq = q.shape
     _, T, Hkv, Dk = k.shape
     if Dq != Dk:
@@ -220,37 +292,12 @@ def flash_attention(
     if Hq % Hkv != 0:
         raise NotImplementedError("flash_attention: GQA needs Hq % Hkv == 0")
     scale = scale if scale is not None else float(Dq) ** -0.5
-    dev = q.device
-
-    asym = kv_positions is not None or kv_segment_ids is not None
-    if not causal:
-        causal_mode = None
-    elif asym:
-        causal_mode = "position"
-    else:
-        causal_mode = "index"
-
-    def as_int(x, n):
-        return torch.as_tensor(x, device=dev).to(torch.int32).expand(B, n)
-
-    qp = as_int(positions if positions is not None
-                else torch.arange(S, device=dev)[None], S)
-    kp = as_int(kv_positions if kv_positions is not None else qp, T) if asym else qp
-    zeros_q = torch.zeros((B, S), dtype=torch.int32, device=dev)
-    qs = as_int(segment_ids, S) if segment_ids is not None else zeros_q
-    if asym:
-        ks = (as_int(kv_segment_ids, T) if kv_segment_ids is not None
-              else torch.zeros((B, T), dtype=torch.int32, device=dev))
-    else:
-        ks = qs
-    has_window = sliding_window is not None
-    qwin = qp - (int(sliding_window) - 1) if has_window else zeros_q
-
-    out, lse = _Flash.apply(
-        q, k, v, sinks, (qp, qwin, qs, kp, ks),
-        (causal_mode, has_window, asym, segment_ids is not None,
-         logits_soft_cap, float(scale)),
-    )
+    aux, opts = _mask_inputs(
+        B, S, T, q.device, causal=causal, segment_ids=segment_ids,
+        positions=positions, kv_segment_ids=kv_segment_ids,
+        kv_positions=kv_positions, sliding_window=sliding_window)
+    out, lse = _Flash.apply(q, k, v, sinks, aux,
+                            (*opts, logits_soft_cap, float(scale)))
     if return_lse:
         return out, lse
     return out

@@ -106,7 +106,7 @@ from automodel_tpu_torch.loss import fused_linear_cross_entropy
 from automodel_tpu_torch.loss.utils import combine_losses
 from automodel_tpu_torch.models.common.layers import count_params
 from automodel_tpu_torch.models.llm import decoder
-from automodel_tpu_torch.models.llm.families import llama_config
+from automodel_tpu_torch.models.llm.families import gemma2_config, llama_config
 from automodel_tpu_torch.models.moe_lm import decoder as moe_decoder
 from automodel_tpu_torch.models.moe_lm.families import deepseek_v3_moe_config
 from automodel_tpu_torch.moe.layer import init_moe, moe_forward
@@ -224,6 +224,39 @@ FA_SHAPE = dict(B=1, S=4096, Hq=32, Hkv=8, D=128, Dv=128)
 # ... and of Moonlight-16B-A3B's MLA attention: q/k 192 (qk_nope 128 +
 # qk_rope 64), v 128, 16 heads for q and kv alike
 FA_MLA_SHAPE = dict(B=1, S=4096, Hq=16, Hkv=16, D=192, Dv=128)
+# Gemma-2-2B's attention at its published 8192-token context (a sliding
+# layer: window 4096, soft cap 50, query_pre_attn_scalar 256) and
+# Gemma-3-1B's at 4096 tokens (MQA 4:1, window 512)
+FA_GEMMA2_SHAPE = dict(B=1, S=8192, Hq=8, Hkv=4, D=256, Dv=256)
+FA_GEMMA2_MASKS = dict(window=4096, soft_cap=50.0, scale=256 ** -0.5)
+FA_GEMMA3_SHAPE = dict(B=1, S=4096, Hq=4, Hkv=1, D=256, Dv=256)
+FA_GEMMA3_MASKS = dict(window=512, scale=256 ** -0.5)
+# Mistral-7B's heads (32/8, D 128); its own window is 4096, here 1024 so that
+# the window masks at 4096 tokens, where the plain versions' (B, H, S, T)
+# fp32 intermediates still fit beside the kernels' inputs
+FA_MISTRAL_MASKS = dict(window=1024)
+
+# Gemma-2-2B (google/gemma-2-2b, config.json) and Gemma-3-1B
+# (google/gemma-3-1b-pt, config.json), as the model-configs catalog gives
+# them; both tie the head to the embedding
+GEMMA2_2B = {
+    "architectures": ["Gemma2ForCausalLM"], "vocab_size": 256000,
+    "hidden_size": 2304, "intermediate_size": 9216, "num_hidden_layers": 26,
+    "num_attention_heads": 8, "num_key_value_heads": 4, "head_dim": 256,
+    "sliding_window": 4096, "attn_logit_softcapping": 50.0,
+    "final_logit_softcapping": 30.0, "query_pre_attn_scalar": 256,
+    "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+    "max_position_embeddings": 8192, "tie_word_embeddings": True,
+}
+GEMMA3_1B = {
+    "architectures": ["Gemma3ForCausalLM"], "vocab_size": 262144,
+    "hidden_size": 1152, "intermediate_size": 6912, "num_hidden_layers": 26,
+    "num_attention_heads": 4, "num_key_value_heads": 1, "head_dim": 256,
+    "sliding_window": 512, "sliding_window_pattern": 6,
+    "rope_theta": 1000000.0, "rope_local_base_freq": 10000.0,
+    "query_pre_attn_scalar": 256, "rms_norm_eps": 1e-6,
+    "max_position_embeddings": 32768, "tie_word_embeddings": True,
+}
 
 TRAIN_YAML = "examples/llm_pretrain/llama3_8b_mock_bf16.yaml"
 TRAIN_LAYERS, TRAIN_ACCUM, TRAIN_STEPS = 8, 2, 5
@@ -253,8 +286,27 @@ MOE_TRAIN_TOKEN_IDS = 4096
 # attention; the tolerances of the dense check
 MOE_CHECK_SEQ = 2048
 # the <192, 128> instantiations of K1-K3 in the profiler's kernel names
-MLA_FA_KERNELS = {"K1": r"fwd_mma_kernel<192,\s*128>", "K2": r"dq_mma_kernel<192,\s*128>",
-                  "K3": r"dkv_mma_kernel<192,\s*128>"}
+MLA_FA_KERNELS = {"K1": r"fwd_mma_kernel<192,\s*128,", "K2": r"dq_mma_kernel<192,\s*128,",
+                  "K3": r"dkv_mma_kernel<192,\s*128,"}
+# ... and the <256, 256> ones (Gemma-2, Gemma-3), with and without the
+# position code (windowed and global layers)
+GEMMA_FA_KERNELS = {"K1": r"fwd_mma_kernel<256,\s*256,", "K2": r"dq_mma_kernel<256,\s*256,",
+                    "K3": r"dkv_mma_kernel<256,\s*256,"}
+# train_gemma2 / train_gemma3: the training CLI at full width and full depth
+# on a YAML the phase writes (nothing cut), bf16 over fp32 masters, full
+# remat, AdamW, mock tokens over the first GEMMA_TRAIN_TOKEN_IDS ids (as
+# train_moe draws them), microbatch 1, this many steps at these lengths
+GEMMA_TRAIN_STEPS = 5
+GEMMA_TRAIN_TOKEN_IDS = 4096
+GEMMA2_TRAIN_SEQ, GEMMA3_TRAIN_SEQ = 8192, 4096
+# train_gemma2_plain: step 1 of train_gemma2 with the plain attention, from
+# the same weights and batch, against the kernels' in bf16: the loss to 1e-2
+# relative, the grad norm to 5e-2 (bf16 rounds attention's probabilities and
+# outputs at other places in the two paths, through 26 layers)
+GEMMA_PLAIN_LOSS_RTOL, GEMMA_PLAIN_GNORM_RTOL = 1e-2, 5e-2
+# train_gemma_check: Gemma-2-2B widths, 2 layers (one sliding, one global),
+# fp32, 2 microbatches of this many tokens, a window that masks
+GEMMA_CHECK_SEQ, GEMMA_CHECK_WINDOW = 2048, 512
 
 
 def emit(obj) -> None:
@@ -498,15 +550,15 @@ def paged_kernels_phase(flush) -> dict:
     return out
 
 
-def fa_inputs(dtype, B, S, Hq, Hkv, D, Dv, packed: bool, seed: int = 0):
-    """Random q, k (head dim D), v, dO (Dv) on the card (S == T) and packed
-    segment ids (four documents) or None."""
+def fa_inputs(dtype, B, S, T, Hq, Hkv, D, Dv, packed: bool, seed: int = 0):
+    """Random q (B, S), k (head dim D), v, dO (Dv) and k, v (B, T) on the
+    card, and packed segment ids (four documents) or None."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, Dv)
+    q, k, v = randn(B, S, Hq, D), randn(B, T, Hkv, D), randn(B, T, Hkv, Dv)
     dout = randn(B, S, Hq, Dv)
     seg = None
     if packed:
@@ -516,11 +568,16 @@ def fa_inputs(dtype, B, S, Hq, Hkv, D, Dv, packed: bool, seed: int = 0):
     return q, k, v, dout, seg
 
 
-def fa_mask(B, S, seg):
-    zeros = torch.zeros((B, S), dtype=torch.int32, device="cuda")
-    qs = seg if seg is not None else zeros
-    return fa.flash_mask(B, S, S, causal_mode="index", qpos=None, qwin=None,
-                         qseg=qs, kpos=None, kseg=qs, has_window=False)
+def fa_masks(B, S, T, seg, masks: dict):
+    """A case's masks: the kernel wrappers' mask keywords and the plain
+    versions' (B, S, T) mask. Causal by index unless `masks` says
+    "causal": False (a window is then two-sided) or "ring": the q rows at
+    positions S/4.., the kv rows at S/2.. with the first 64 in a document of
+    their own, causal by position (the first S/4 q rows see no key). Packed
+    documents restart their positions; a "window" is on positions."""
+    return fa.mask_case(B, S, T, device="cuda", causal=masks.get("causal", True),
+                        segment_ids=seg, sliding_window=masks.get("window"),
+                        ring=(S // 4, S // 2, 64) if masks.get("ring") else None)
 
 
 def fa_bound(kernel: str, q, k, v, pairs: int):
@@ -554,26 +611,38 @@ def fa_bound(kernel: str, q, k, v, pairs: int):
     return t_ops, "operations", nbytes, ops
 
 
-def fa_check_case(dtype, S, packed, flush, timed: bool, shape=None, **dims) -> dict:
+def fa_check_case(dtype, S, packed, flush, timed: bool, shape=None,
+                  masks: dict | None = None, **dims) -> dict:
     """K1-K3 against their plain versions on one input of `shape` (the
-    Llama-3-8B training shape unless given; `dims` override its keys);
-    with `timed`, also their times, the plain versions' and
+    Llama-3-8B training shape unless given; `dims` override its keys) under
+    `masks` (`fa_masks`'s, plus "soft_cap" and "scale"; "ring" makes
+    T = 3 S / 2); with `timed`, also their times, the plain versions' and
     scaled_dot_product_attention's."""
+    masks = dict(masks or {})
     sh = dict(shape or FA_SHAPE, S=S, **dims)
     B, Hq, D = sh["B"], sh["Hq"], sh["D"]
-    q, k, v, dout, seg = fa_inputs(dtype, B, S, Hq, sh["Hkv"], D, sh["Dv"], packed)
-    scale = D ** -0.5
-    mask = fa_mask(B, S, seg)
-    kw = dict(scale=scale, causal=True)
-    out, lse = fa_cuda.flash_fwd_cuda(q, k, v, seg, **kw)
+    T = S + S // 2 if masks.get("ring") else S
+    q, k, v, dout, seg = fa_inputs(dtype, B, S, T, Hq, sh["Hkv"], D, sh["Dv"], packed)
+    scale = masks.pop("scale", D ** -0.5)
+    cap = masks.pop("soft_cap", None)
+    if cap is not None:
+        # the unit-variance logits (at scale D^-0.5) spread over a quarter of
+        # the cap, so the largest reach it and the cap bends them: a kernel
+        # that dropped the cap or its gradient fails the check by far
+        q = (q.float() * (cap / 4)).to(dtype)
+    mkw, mask = fa_masks(B, S, T, seg, masks)
+    if masks.get("window"):  # the window masks pairs the causal mask keeps
+        assert masks["window"] < S
+    kw = dict(scale=scale, soft_cap=cap, **mkw)
+    out, lse = fa_cuda.flash_fwd_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
-    out_ref, lse_ref = fa.flash_attention_ref(q, k, v, mask, scale=scale)
+    out_ref, lse_ref = fa.flash_attention_ref(q, k, v, mask, scale=scale, soft_cap=cap)
     delta = (dout.float() * out_ref.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = fa_cuda.flash_dq_cuda(q, k, v, dout, lse_ref, delta, seg, **kw)
-    dk, dv = fa_cuda.flash_dkv_cuda(q, k, v, dout, lse_ref, delta, seg, **kw)
+    dq = fa_cuda.flash_dq_cuda(q, k, v, dout, lse_ref, delta, **kw)
+    dk, dv = fa_cuda.flash_dkv_cuda(q, k, v, dout, lse_ref, delta, **kw)
     torch.cuda.synchronize()
     grads_ref = fa.flash_attention_bwd_ref(q, k, v, dout, lse_ref, delta, mask,
-                                           scale=scale)
+                                           scale=scale, soft_cap=cap)
     tol = FA_TOL[dtype]
     errs = {}
     for name, got, want in (("out", out, out_ref), ("lse", lse, lse_ref),
@@ -585,16 +654,28 @@ def fa_check_case(dtype, S, packed, flush, timed: bool, shape=None, **dims) -> d
         if not err <= tol * max(1.0, ref_max):
             raise AssertionError(
                 f"K1-K3 {name} disagrees with its plain version ({dtype}, "
-                f"S={S}, D={D}, Dv={sh['Dv']}, packed={packed}): {err} > "
-                f"{tol} x {max(1.0, ref_max)}")
+                f"S={S}, T={T}, D={D}, Dv={sh['Dv']}, packed={packed}, "
+                f"masks={masks}, soft_cap={cap}): {err} > {tol} x {max(1.0, ref_max)}")
+    pairs = int(mask.sum().item())  # unmasked (q, k) pairs per head
     entry = {"phase": "flash", "dtype": str(dtype).removeprefix("torch."),
-             "route": fa_cuda.route(dtype), "shape": sh, "packed_segments": packed,
-             "tol": tol, "errors": errs}
+             "route": fa_cuda.route(dtype), "shape": dict(sh, T=T),
+             "packed_segments": packed, "masks": masks, "soft_cap": cap,
+             "q_scaled_by": None if cap is None else cap / 4,
+             "scale": scale, "unmasked_pairs_per_head": pairs,
+             "causal_pairs_per_head": S * (S + 1) // 2, "tol": tol, "errors": errs}
     if timed:
-        pairs = int(mask.sum().item())  # unmasked (q, k) pairs per head
         del grads_ref, out_ref
-        entry["times"] = fa_times(q, k, v, dout, lse, delta, seg, mask, scale,
-                                  pairs, flush)
+        # the yardstick: the causal call for the unmasked cases, an explicit
+        # boolean mask for the others (windows, segments, positions)
+        plain_causal = not masks and seg is None
+        entry["times"] = fa_times(q, k, v, dout, lse, delta, kw, mask, pairs,
+                                  flush, None if plain_causal else mask)
+        if cap is not None:
+            for name in ("K1", "K2", "K3"):
+                entry["times"][name]["library_same_function"] = False
+                entry["times"][name]["library_why"] = (
+                    "no single PyTorch call caps the logits (tanh soft cap) "
+                    "inside attention: the yardstick is the same call uncapped")
     emit(entry)
     return entry
 
@@ -626,28 +707,38 @@ def sdpa_backend(fn) -> dict:
     return {"backend": backend, "kernels": [n[:90] for n in names][:6]}
 
 
-def fa_times(q, k, v, dout, lse, delta, seg, mask, scale, pairs, flush) -> dict:
-    kw = dict(scale=scale, causal=True)
+def fa_times(q, k, v, dout, lse, delta, kw, mask, pairs, flush, sdpa_mask) -> dict:
+    """K1-K3's times with the wrapper keywords `kw`, the plain versions' on
+    `mask`, and scaled_dot_product_attention's: causal when `sdpa_mask` is
+    None, else with that (B, S, T) boolean mask (never soft-capped)."""
+    scale, cap = kw["scale"], kw["soft_cap"]
     times = {
-        "K1": time_ms(lambda: fa_cuda.flash_fwd_cuda(q, k, v, seg, **kw), 10, flush),
+        "K1": time_ms(lambda: fa_cuda.flash_fwd_cuda(q, k, v, **kw), 10, flush),
         "K2": time_ms(lambda: fa_cuda.flash_dq_cuda(
-            q, k, v, dout, lse, delta, seg, **kw), 10, flush),
+            q, k, v, dout, lse, delta, **kw), 10, flush),
         "K3": time_ms(lambda: fa_cuda.flash_dkv_cuda(
-            q, k, v, dout, lse, delta, seg, **kw), 10, flush),
+            q, k, v, dout, lse, delta, **kw), 10, flush),
     }
-    plain_fwd = time_ms(lambda: fa.flash_attention_ref(q, k, v, mask, scale=scale), 3, flush)
+    plain_fwd = time_ms(lambda: fa.flash_attention_ref(
+        q, k, v, mask, scale=scale, soft_cap=cap), 3, flush)
     plain_bwd = time_ms(lambda: fa.flash_attention_bwd_ref(
-        q, k, v, dout, lse, delta, mask, scale=scale), 3, flush)
+        q, k, v, dout, lse, delta, mask, scale=scale, soft_cap=cap), 3, flush)
     # the yardstick: PyTorch's fused attention on the same inputs, (B, H, S, D)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True, scale=scale)
+    if sdpa_mask is None:
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)
+    else:
+        am = sdpa_mask[:, None]
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=am, enable_gqa=True, scale=scale)
     sdpa_fwd = time_ms(sdpa, 10, flush)
     o = sdpa()
     dot = dout.transpose(1, 2)
     sdpa_grad = lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
     sdpa_bwd = time_ms(sdpa_grad, 10, flush)
     backends = {"forward": sdpa_backend(sdpa), "backward": sdpa_backend(sdpa_grad)}
+    mask_note = "is_causal" if sdpa_mask is None else "an explicit boolean mask"
     out = {}
     for name in ("K1", "K2", "K3"):
         bound_ms, bound_by, nbytes, ops = fa_bound(name, q, k, v, pairs)
@@ -660,8 +751,8 @@ def fa_times(q, k, v, dout, lse, delta, seg, mask, scale, pairs, flush) -> dict:
             "plain_ms": plain_fwd if name == "K1" else plain_bwd,
             "library_ms": sdpa_fwd if name == "K1" else sdpa_bwd,
             "library_call": (
-                "scaled_dot_product_attention forward" if name == "K1" else
-                "scaled_dot_product_attention backward (dq, dk and dv in one call)"),
+                f"scaled_dot_product_attention forward ({mask_note})" if name == "K1" else
+                f"scaled_dot_product_attention backward ({mask_note}; dq, dk and dv in one call)"),
             "library_backend": backends["forward" if name == "K1" else "backward"]["backend"],
         }
     out["sdpa_fwd_bwd_ms"] = sdpa_fwd + sdpa_bwd
@@ -684,9 +775,15 @@ def fa_entries(case: dict) -> dict:
 def flash_phase(flush) -> dict:
     """K1-K3 against their plain versions: the Llama-3-8B training shapes
     in bf16 (timed) and fp32, a packed-segment case, a ragged S and head
-    dim 64; then Moonlight's MLA heads (q/k 192, v 128) in bf16 (timed),
-    packed and ragged, and in fp32. Returns the two timed cases' bf16
-    entries for the kernels line, keyed "dense" and "mla"."""
+    dim 64; Moonlight's MLA heads (q/k 192, v 128) in bf16 (timed), packed
+    and ragged, and in fp32; then the sliding-window masks, each timed in
+    bf16: Gemma-2-2B's heads at 8192 tokens (window 4096, soft cap 50),
+    Gemma-3-1B's at 4096 (MQA, window 512), Gemma-2's heads over packed
+    documents with a window, a two-sided window, causal masking by
+    position with T != S (ring-attention shaped), Mistral's heads with a
+    window; and Gemma-2's heads in fp32 at train_gemma_check's length.
+    Returns the timed bf16 entries for the kernels line, keyed "dense",
+    "mla", "gemma2", "gemma3" and the other windowed cases' names."""
     S = FA_SHAPE["S"]
     main = fa_check_case(torch.bfloat16, S, False, flush, timed=True)
     fa_check_case(torch.float32, S, False, flush, timed=False)
@@ -699,7 +796,27 @@ def flash_phase(flush) -> dict:
                   shape=FA_MLA_SHAPE, Hq=4, Hkv=2)
     fa_check_case(torch.float32, S, False, flush, timed=False, shape=FA_MLA_SHAPE)
     torch.cuda.empty_cache()
-    return {"dense": fa_entries(main), "mla": fa_entries(mla)}
+    out = {"dense": fa_entries(main), "mla": fa_entries(mla)}
+    g2, g3 = FA_GEMMA2_SHAPE, FA_GEMMA3_SHAPE
+    windowed = {
+        "gemma2": (g2["S"], False, g2, FA_GEMMA2_MASKS),
+        "gemma3": (g3["S"], False, g3, FA_GEMMA3_MASKS),
+        "gemma2_packed_window": (4096, True, g2, dict(FA_GEMMA2_MASKS, window=1024)),
+        "two_sided_window": (4096, False, g2, dict(window=512, causal=False,
+                                                   scale=256 ** -0.5)),
+        "position_causal_ring": (4096, False, g2, dict(ring=True, scale=256 ** -0.5)),
+        "mistral_window": (4096, False, FA_SHAPE, FA_MISTRAL_MASKS),
+    }
+    for name, (s_len, packed, shape, masks) in windowed.items():
+        out[name] = fa_entries(fa_check_case(torch.bfloat16, s_len, packed, flush,
+                                             timed=True, shape=shape, masks=masks))
+        torch.cuda.empty_cache()
+    fa_check_case(torch.float32, GEMMA_CHECK_SEQ, False, flush, timed=False, shape=g2,
+                  masks=dict(FA_GEMMA2_MASKS, window=GEMMA_CHECK_WINDOW))
+    fa_check_case(torch.float32, 2048, False, flush, timed=False, shape=g2,
+                  masks=dict(ring=True, window=700, scale=256 ** -0.5))
+    torch.cuda.empty_cache()
+    return out
 
 
 def serve_traffic(vocab_size: int, seed: int = 0) -> list:
@@ -1349,6 +1466,45 @@ def train_paths_phase() -> None:
         raise AssertionError("tiny recipe: kernel and plain loss curves differ")
 
 
+# the aten ops whose own kernels are the dense GEMMs
+DENSE_GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def self_device_ms_by_op(prof) -> dict:
+    """Device time (ms) of the kernels each aten op launched itself."""
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t > 0 and e.key.startswith("aten::"):
+            out[e.key] = t / 1e3
+    return out
+
+
+def profile_step(recipe, mbs, patterns: dict, want: dict, attempts: int = 3):
+    """One more optimizer step of `recipe` on `mbs` under torch.profiler:
+    (profile, wall ms, device-kernel launches counted by the regex
+    `patterns`). torch.profiler now and then loses a session's device
+    events: up to `attempts` steps are profiled and the first whose counts
+    equal `want` kept (the last one if none does)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            recipe.run_step(mbs)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        got = {k: sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and re.search(pat, e.name))
+               for k, pat in patterns.items()}
+        if got == want:
+            break
+    return prof, wall_ms, got
+
+
 def train_moe_yaml(run_dir: str) -> str:
     """The train_moe phase's recipe, written to `run_dir`: Moonlight's
     config.json at MOE_TRAIN_LAYERS layers, bf16 over fp32 masters, full
@@ -1412,8 +1568,6 @@ def moe_block_sync_check(recipe, card: str) -> dict:
 def train_moe_phase(card: str) -> dict:
     """Moonlight-16B-A3B training through the CLI (full width, 4 layers, 5
     steps); returns K1-K3 launches of that run, all at <192, 128>."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_moe_")
     torch.cuda.reset_peak_memory_stats()
@@ -1435,28 +1589,15 @@ def train_moe_phase(card: str) -> dict:
 
     # one more step under the profiler: device time by kernel and by op
     mbs = [next(iter(recipe.dataloader))]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        recipe.run_step(mbs)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    prof, prof_wall_ms, mla_launches = profile_step(
+        recipe, mbs, MLA_FA_KERNELS, {"K1": 2 * L, "K2": L, "K3": L})
     by_name = device_ms_by_kernel(prof)
     busy_ms = sum(by_name.values())
-    mla_launches = {k: sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-                           and re.search(pat, e.name))
-                    for k, pat in MLA_FA_KERNELS.items()}
     attn_ms = sum(v for k, v in by_name.items()
                   if any(re.search(pat, k) for pat in MLA_FA_KERNELS.values()))
-    self_dev = {}  # device time of the kernels each aten op launched itself
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0)
-        if t > 0 and e.key.startswith("aten::"):
-            self_dev[e.key] = t / 1e3
+    self_dev = self_device_ms_by_op(prof)
     grouped_ms = self_dev.get("aten::_grouped_mm", 0.0)
-    dense_gemm_ms = sum(self_dev.get(k, 0.0) for k in ("aten::mm", "aten::addmm",
-                                                          "aten::bmm", "aten::baddbmm"))
+    dense_gemm_ms = sum(self_dev.get(k, 0.0) for k in DENSE_GEMM_OPS)
     top = [[k[:80], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]]
     top_ops = [[k, v] for k, v in sorted(self_dev.items(), key=lambda kv: -kv[1])[:12]]
 
@@ -1582,10 +1723,229 @@ def train_moe_check_phase() -> None:
         raise AssertionError("train_moe_check: the step differs between kernels and plain")
 
 
+def gemma_train_yaml(run_dir: str, hf: dict, seq: int, attn_impl: str = "auto") -> str:
+    """A train_gemma phase's recipe, written to `run_dir`: the published
+    config at full width and depth, bf16 over fp32 masters, full remat,
+    mock data over GEMMA_TRAIN_TOKEN_IDS token ids, microbatch 1, AdamW,
+    attention by `attn_impl`; returns its path."""
+    cfg = {
+        "seed": 0, "run_dir": run_dir,
+        "model": {"hf_config": dict(hf), "dtype": "bfloat16", "remat_policy": "full",
+                  "attn_impl": attn_impl},
+        "distributed": {"dp_shard": -1},
+        "dataset": {"_target_": "automodel_tpu_torch.datasets.mock.MockDatasetConfig",
+                    "num_samples": 64, "seq_len": seq,
+                    "vocab_size": GEMMA_TRAIN_TOKEN_IDS},
+        "dataloader": {"microbatch_size": 1, "grad_acc_steps": 1},
+        "optimizer": {"name": "adamw", "lr": 1.0e-3, "weight_decay": 0.1},
+        "lr_scheduler": {"style": "constant", "warmup_steps": 0},
+        "step_scheduler": {"max_steps": GEMMA_TRAIN_STEPS},
+        "checkpoint": {"enabled": False},
+        "loss": {"chunk_size": 2048},
+    }
+    path = Path(run_dir) / f"{hf['architectures'][0]}_train.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def train_gemma_phase(card: str, phase: str, model: str, hf: dict, seq: int) -> dict:
+    """Gemma-2-2B or Gemma-3-1B training through the CLI at full width and
+    full depth, GEMMA_TRAIN_STEPS steps of `seq` tokens; returns K1-K3
+    launches of that run, all at <256, 256>, and its training records."""
+
+    run_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
+    torch.cuda.reset_peak_memory_stats()
+    fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
+    t0 = time.perf_counter()
+    recipe = cli_main([gemma_train_yaml(run_dir, hf, seq)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"K1": fa_cuda.launches_fwd, "K2": fa_cuda.launches_dq,
+                "K3": fa_cuda.launches_dkv}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    records = [json.loads(l) for l in
+               (Path(run_dir) / "training.jsonl").read_text().splitlines()]
+    cfg = recipe.model_cfg
+    L = cfg.num_layers
+    windows = decoder.layer_windows(cfg)
+    n = L * GEMMA_TRAIN_STEPS
+    steady = records[1:]  # step 1 carries the first-call set-up
+    tps = statistics.median(r["tps"] for r in steady)
+
+    # one more step under the profiler: device time by kernel, idle share
+    mbs = [next(iter(recipe.dataloader))]
+    prof, prof_wall_ms, fa_launches = profile_step(
+        recipe, mbs, GEMMA_FA_KERNELS, {"K1": 2 * L, "K2": L, "K3": L})
+    by_name = device_ms_by_kernel(prof)
+    busy_ms = sum(by_name.values())
+    attn_ms = {k: sum(v for name, v in by_name.items() if re.search(pat, name))
+               for k, pat in GEMMA_FA_KERNELS.items()}
+    self_dev = self_device_ms_by_op(prof)
+    dense_gemm_ms = sum(self_dev.get(k, 0.0) for k in DENSE_GEMM_OPS)
+    top = [[k[:80], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]]
+    top_ops = [[k, v] for k, v in sorted(self_dev.items(), key=lambda kv: -kv[1])[:12]]
+    losses = [r["loss"] for r in records]
+    # the init's excess over ln(V): logits are the unit-RMS final hidden
+    # state times the final norm's scale 2 (zero-centred, stored 1) times the
+    # tied 0.02-std (truncated at 2 std: 0.0176) embedding, a spread of
+    # sigma = 2 sqrt(H) 0.0176 and an excess of about sigma^2 / 2
+    sigma = 2 * math.sqrt(cfg.hidden_size) * 0.0176
+    ln_v = math.log(cfg.vocab_size)
+    emit({
+        "phase": phase, "card": card,
+        "model": f"{model}, full width and all {L} layers, {cfg.dtype}, "
+                 f"remat {cfg.remat_policy}",
+        "cut": "nothing: full width, full depth, the published context "
+               f"({seq} tokens)",
+        "windows": {"sliding_layers": sum(w is not None for w in windows),
+                    "global_layers": sum(w is None for w in windows),
+                    "window": cfg.sliding_window},
+        "params": count_params(recipe.train_state.params),
+        "steps": len(records), "tokens_per_step": seq,
+        "losses": losses, "grad_norms": [r["grad_norm"] for r in records],
+        "ln_vocab": ln_v, "init_excess_estimate": sigma ** 2 / 2,
+        "ms_per_step": seq / tps * 1e3, "tokens_per_s": tps,
+        "mfu_pct": statistics.median(r["mfu_pct"] for r in steady),
+        "tflops_per_device": statistics.median(r["tflops_per_device"] for r in steady),
+        "flops_per_token": cfg.flops_per_token(seq),
+        "flops_per_token_note": "the JAX formula: full causal attention on every "
+                                "layer, windowed ones included",
+        "wall_s_with_setup": wall_s, "peak_mem_gib": peak_gib,
+        "launches": launches,
+        "expected_launches": {"K1": 2 * n, "K2": n, "K3": n},
+        "profiled_step": {
+            "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
+            "flash_256_launches_by_profiler_name": fa_launches,
+            "attention_ms_by_kernel": attn_ms,
+            "dense_gemm_ms": dense_gemm_ms,
+            "other_ms": busy_ms - sum(attn_ms.values()) - dense_gemm_ms,
+            "top_kernels_ms": top, "top_ops_self_device_ms": top_ops},
+    })
+    if len(records) != GEMMA_TRAIN_STEPS:
+        raise AssertionError(f"{phase}: {len(records)} records, not {GEMMA_TRAIN_STEPS}")
+    if not all(math.isfinite(x) for x in losses + [r["grad_norm"] for r in records]):
+        raise AssertionError(f"{phase}: non-finite loss or grad norm: {records}")
+    if not ln_v - 0.5 <= losses[0] <= ln_v + sigma ** 2 + 1.0:
+        raise AssertionError(
+            f"{phase}: step-1 loss {losses[0]} is not near ln(V) = {ln_v} plus "
+            f"the init's excess ~{sigma ** 2 / 2}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
+    if launches != {"K1": 2 * n, "K2": n, "K3": n}:
+        raise AssertionError(f"{phase}: K1-K3 launches {launches} on {n} layer-steps")
+    if fa_launches != {"K1": 2 * L, "K2": L, "K3": L}:
+        raise AssertionError(
+            f"{phase}: the profiled step's <256, 256> K1-K3 launches {fa_launches}")
+    del recipe, prof
+    torch.cuda.empty_cache()
+    return launches, records
+
+
+def train_gemma2_plain_phase(card: str, flash_records: list) -> None:
+    """train_gemma2 again with the plain attention (attn_impl "torch"):
+    the same YAML, seed, weights and batches, bf16, full depth. Step 1 runs
+    from the same weights on the same batch, so its loss and grad norm must
+    agree with the kernels' run to bf16's rounding (GEMMA_PLAIN_LOSS_RTOL,
+    GEMMA_PLAIN_GNORM_RTOL); the later steps are recorded beside the
+    kernels' (AdamW at a constant 1e-3 from random weights moves far enough
+    that bf16 differences grow), with the step at which each curve rises."""
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_gemma2_plain_")
+    torch.cuda.reset_peak_memory_stats()
+    fa_cuda.launches_fwd = 0
+    t0 = time.perf_counter()
+    cli_main([gemma_train_yaml(run_dir, GEMMA2_2B, GEMMA2_TRAIN_SEQ, attn_impl="torch")])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    records = [json.loads(l) for l in
+               (Path(run_dir) / "training.jsonl").read_text().splitlines()]
+
+    def rises(rs):
+        return [i + 2 for i in range(len(rs) - 1) if rs[i + 1]["loss"] > rs[i]["loss"]]
+
+    f_loss, p_loss = flash_records[0]["loss"], records[0]["loss"]
+    f_gn, p_gn = flash_records[0]["grad_norm"], records[0]["grad_norm"]
+    loss_rel, gn_rel = abs(f_loss - p_loss) / abs(p_loss), abs(f_gn - p_gn) / abs(p_gn)
+    emit({"phase": "train_gemma2_plain", "card": card,
+          "model": "Gemma-2-2B, full width and all 26 layers, bf16, remat full, "
+                   "attn_impl torch (the plain attention)",
+          "steps": len(records), "tokens_per_step": GEMMA2_TRAIN_SEQ,
+          "losses_plain": [r["loss"] for r in records],
+          "losses_kernels": [r["loss"] for r in flash_records],
+          "grad_norms_plain": [r["grad_norm"] for r in records],
+          "grad_norms_kernels": [r["grad_norm"] for r in flash_records],
+          "loss_rises_at_step": {"plain": rises(records), "kernels": rises(flash_records)},
+          "step1_loss_rel_err": loss_rel, "loss_rtol": GEMMA_PLAIN_LOSS_RTOL,
+          "step1_grad_norm_rel_err": gn_rel, "grad_norm_rtol": GEMMA_PLAIN_GNORM_RTOL,
+          "ms_per_step": GEMMA2_TRAIN_SEQ / statistics.median(r["tps"] for r in records[1:]) * 1e3,
+          "ms_per_step_kernels": GEMMA2_TRAIN_SEQ / statistics.median(
+              r["tps"] for r in flash_records[1:]) * 1e3,
+          "k1_launches": fa_cuda.launches_fwd, "wall_s_with_setup": wall_s,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if fa_cuda.launches_fwd != 0:
+        raise AssertionError("train_gemma2_plain: attn_impl torch launched K1")
+    if len(records) != GEMMA_TRAIN_STEPS or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
+        raise AssertionError(f"train_gemma2_plain: bad records {records}")
+    if loss_rel > GEMMA_PLAIN_LOSS_RTOL or gn_rel > GEMMA_PLAIN_GNORM_RTOL:
+        raise AssertionError(
+            "train_gemma2_plain: step 1 differs between kernels and plain attention")
+    torch.cuda.empty_cache()
+
+
+def train_gemma_check_phase() -> None:
+    """fp32, Gemma-2-2B widths, 2 layers (one sliding with a window of
+    GEMMA_CHECK_WINDOW, one global), soft caps and tied head: one
+    accumulated step (2 microbatches of GEMMA_CHECK_SEQ tokens) from the
+    same weights and batch with attn_impl "flash" (K1-K3 at <256, 256> on
+    the CUDA cores) and "torch" (the plain attention)."""
+    base = gemma2_config(dict(GEMMA2_2B, num_hidden_layers=2,
+                              sliding_window=GEMMA_CHECK_WINDOW),
+                         dtype=torch.float32, remat_policy="full")
+    windows = decoder.layer_windows(base)
+    assert windows == (GEMMA_CHECK_WINDOW, None), windows
+    params0 = decoder.init(base, torch.Generator(device="cuda").manual_seed(6))
+    ds = MockDatasetConfig(num_samples=4, seq_len=GEMMA_CHECK_SEQ,
+                           vocab_size=GEMMA_TRAIN_TOKEN_IDS, seed=7).build()
+    batch = make_global_batch(stack_microbatches(
+        [{k: v[None] for k, v in ds[i].items()} for i in range(2)]), "cuda")
+    results = {}
+    for impl in ("flash", "torch"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+
+        def loss_fn(params, mb, rng, cfg=cfg):
+            h = decoder.forward(params, cfg, mb["input_ids"], return_hidden=True)
+            return fused_linear_cross_entropy(
+                h, decoder.head_kernel(params, cfg), mb["labels"], chunk_size=2048,
+                logits_soft_cap=cfg.logits_soft_cap)
+
+        params = tree_map(lambda t: t.clone().requires_grad_(), params0)
+        leaves = tree_leaves(params)
+        fa_cuda.launches_fwd = 0
+        ce, aux = accumulate_grads(loss_fn, params, batch)
+        results[impl] = (float(ce / aux["num_label_tokens"]),
+                         [t.grad for t in leaves], fa_cuda.launches_fwd)
+        del params, leaves
+        torch.cuda.empty_cache()
+    (loss_f, g_f, n_f), (loss_t, g_t, n_t) = results["flash"], results["torch"]
+    grad_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                   for a, b in zip(g_f, g_t))
+    loss_rel = abs(loss_f - loss_t) / abs(loss_t)
+    emit({"phase": "train_gemma_check", "layers": 2, "windows": list(windows),
+          "dtype": "float32", "tokens": [2, GEMMA_CHECK_SEQ], "loss_flash": loss_f,
+          "loss_torch": loss_t, "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+          "grad_max_rel_err": grad_err, "grad_tol": TRAIN_GRAD_TOL,
+          "k1_launches": [n_f, n_t]})
+    if n_f == 0 or n_t != 0:
+        raise AssertionError("train_gemma_check: attn_impl did not select the kernels / plain path")
+    if loss_rel > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_TOL:
+        raise AssertionError("train_gemma_check: the step differs between kernels and plain")
+
+
 # the tensor-core kernels in ptxas's mangled names: (pattern, readable name)
 MMA_KERNELS = (
-    (r"((?:fwd|dkv|dq)_mma_kernel)ILi(\d+)ELi(\d+)E",
-     lambda m: f"{m[1]}<{m[2]}, {m[3]}>"),
+    (r"((?:fwd|dkv|dq)_mma_kernel)ILi(\d+)ELi(\d+)ELb([01])E",
+     lambda m: f"{m[1]}<{m[2]}, {m[3]}, {'true' if m[4] == '1' else 'false'}>"),
     (r"((?:mla|gqa)_split_kernel)I(a|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
      lambda m: f"{m[1]}<{'int8' if m[2] == 'a' else 'bf16'}, {m[3]}, {m[4]}>"),
     # mla_combine_kernel<bf16 out>, gqa_combine_kernel<int8 or bf16 pages>
@@ -1594,17 +1954,25 @@ MMA_KERNELS = (
 )
 
 
-def mma_ptxas(log: str) -> dict:
-    """ptxas's report on the bf16 tensor-core instantiations (K1-K3 at each
-    (q/k, v) pair of head dims; the split kernels of K4-K7 at each step and column count,
-    their combines): registers, spill bytes and, for K1-K3 and the split
-    kernels at Llama-3-8B's (K4, K5) and Moonlight's (K6, K7) widths,
-    dynamic shared memory (the launch size)."""
+# K1-K3's CUDA-core (fp32) instantiations in ptxas's mangled names
+FMA_FLASH_KERNELS = (
+    (r"((?:fwd|dkv|dq)_kernel)IfLi(\d+)ELi(\d+)E",
+     lambda m: f"{m[1]}<float, {m[2]}, {m[3]}>"),
+)
+
+
+def mma_ptxas(log: str, patterns=MMA_KERNELS) -> dict:
+    """ptxas's report on the kernels `patterns` name (by default the bf16
+    tensor-core instantiations: K1-K3 at each (q/k, v) pair of head dims;
+    the split kernels of K4-K7 at each step and column count, their
+    combines): registers, spill bytes and, for K1-K3 (on either route) and
+    the split kernels at Llama-3-8B's (K4, K5) and Moonlight's (K6, K7)
+    widths, dynamic shared memory (the launch size)."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
             name = None
-            for pattern, readable in MMA_KERNELS:
+            for pattern, readable in patterns:
                 m = re.search(pattern, line)
                 if m:
                     name = readable(m)
@@ -1618,7 +1986,6 @@ def mma_ptxas(log: str) -> dict:
         elif "Used" in line and "registers" in line:
             entry["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
             name = None
-    which = {"fwd": 0, "dkv": 1, "dq": 2}
     for key, entry in out.items():
         page = torch.int8 if "int8" in key else torch.bfloat16
         if key.startswith("mla_split"):
@@ -1628,10 +1995,10 @@ def mma_ptxas(log: str) -> dict:
         elif key.startswith("gqa_split"):
             entry["dynamic_smem_bytes_llama3_8b"] = rpa_cuda.split_smem_bytes(
                 32, 8, 128, 128, SERVE.page_size, SERVE.pages_per_slot, page)
-        elif "_mma_" in key:
-            d, dv = (int(x) for x in key[:-1].split("<")[1].split(","))
-            entry["dynamic_smem_bytes"] = fa_cuda.mma_smem_bytes(
-                which[key.split("_")[0]], d, dv)
+        elif key.startswith(("fwd_", "dq_", "dkv_")):
+            d, dv = (int(x) for x in re.findall(r"\d+", key.split("<")[1])[:2])
+            entry["dynamic_smem_bytes"] = fa_cuda.smem_bytes(
+                "mma" if "_mma_" in key else "fma", key.split("_")[0], d, dv)
     return out
 
 
@@ -1658,7 +2025,9 @@ def main() -> int:
           "tensor_core_kernels": mma_ptxas(
               logs[_build.library_path(fa_cuda.SOURCE).stem]
               + logs[_build.library_path(MLA_SOURCE).stem]
-              + logs[_build.library_path(K4_SOURCE).stem])})
+              + logs[_build.library_path(K4_SOURCE).stem]),
+          "cuda_core_flash_kernels": mma_ptxas(
+              logs[_build.library_path(fa_cuda.SOURCE).stem], FMA_FLASH_KERNELS)})
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     k4 = kernel_phase(flush)
@@ -1677,6 +2046,12 @@ def main() -> int:
     train_paths_phase()
     moe_launches = train_moe_phase(card)
     train_moe_check_phase()
+    gemma_launches, gemma2_records = train_gemma_phase(
+        card, "train_gemma2", "Gemma-2-2B", GEMMA2_2B, GEMMA2_TRAIN_SEQ)
+    gemma_launches = {"gemma2": gemma_launches, "gemma3": train_gemma_phase(
+        card, "train_gemma3", "Gemma-3-1B", GEMMA3_1B, GEMMA3_TRAIN_SEQ)[0]}
+    train_gemma2_plain_phase(card, gemma2_records)
+    train_gemma_check_phase()
 
     no_library = ("no single PyTorch call attends over per-row page tables; "
                   "scaled_dot_product_attention needs each row's KV gathered "
@@ -1714,12 +2089,17 @@ def main() -> int:
         elif name in ("K6", "K7"):
             kernels[-1]["kernel_route"] = mla_cuda.route(torch.bfloat16)
     # K1-K3 at Llama-3-8B's heads (<128, 128>, the dense train run's
-    # launches) and at Moonlight's MLA heads (<192, 128>, train_moe's)
-    for key, suffix, dims, runs in (("dense", "", (128, 128), train_launches),
-                                    ("mla", "_mla", (192, 128), moe_launches)):
+    # launches), at Moonlight's MLA heads (<192, 128>, train_moe's), and at
+    # Gemma-2-2B's and Gemma-3-1B's windowed heads (<256, 256>, their
+    # training runs')
+    for key, suffix, dims, runs in (
+            ("dense", "", (128, 128), train_launches),
+            ("mla", "_mla", (192, 128), moe_launches),
+            ("gemma2", "_gemma2", (256, 256), gemma_launches["gemma2"]),
+            ("gemma3", "_gemma3", (256, 256), gemma_launches["gemma3"])):
         for name, replaces in (("K1", ":140"), ("K2", ":238"), ("K3", ":283")):
             e = flash[key][name]
-            kernels.append({
+            row = {
                 "name": {"K1": "flash_attention_fwd", "K2": "flash_attention_dq",
                          "K3": "flash_attention_dkv"}[name] + suffix,
                 "route": "cuda",
@@ -1739,7 +2119,11 @@ def main() -> int:
                 "tflops": e["tflops"],
                 "bound_share": e["bound_share"],
                 "card": card,
-            })
+            }
+            if "library_why" in e:
+                row["library_same_function"] = e["library_same_function"]
+                row["library_why"] = e["library_why"]
+            kernels.append(row)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

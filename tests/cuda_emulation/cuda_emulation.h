@@ -3,7 +3,7 @@
 // without a GPU (tests/test_torch_flash_emulated.py,
 // tests/test_torch_mla_emulated.py). One std::thread per CUDA thread; blocks run
 // one after another; __syncthreads is a block barrier; warp collectives
-// (shuffles, votes, ldmatrix, mma.sync m16n8k16 bf16) exchange operands
+// (shuffles, votes, ballots, ldmatrix, mma.sync m16n8k16 bf16) exchange operands
 // through a per-warp buffer between two warp barriers. cp.async copies at
 // once, so the emulation checks indexing, layouts and masks, not the
 // timing of the copy pipeline. The kernel source's own inline-asm helpers
@@ -105,6 +105,12 @@ inline bool __all_sync(unsigned, bool v) {
   bool r = true; for (int i = 0; i < 32; ++i) r = r && wb().u[i][0]; wsync();
   return r;
 }
+inline unsigned __ballot_sync(unsigned, bool v) {
+  wb().u[lane_()][0] = v; wsync();
+  unsigned r = 0; for (int i = 0; i < 32; ++i) r |= (wb().u[i][0] ? 1u : 0u) << i; wsync();
+  return r;
+}
+inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 inline size_t __cvta_generic_to_shared(const void* p) { return (const unsigned char*)p - g_smem; }
 
 // ---- emulated asm helpers

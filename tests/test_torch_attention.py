@@ -191,15 +191,21 @@ def test_dispatcher_raises_instead_of_falling_back():
         attention.dot_product_attention(q, k, k, impl="flash")
     with pytest.raises(ValueError, match="Unknown attention impl"):
         attention.dot_product_attention(q, q, q, impl="pallas")
-    # what the kernels refuse, they refuse before looking at the device
-    with pytest.raises(NotImplementedError, match="window"):
-        fa_cuda.check_supported(q, q, q, sliding_window=8)
-    with pytest.raises(NotImplementedError, match="position-causal"):
-        fa_cuda.check_supported(q, q, q, position_causal=True)
+    # what the kernels refuse, they refuse before looking at the device:
+    # head-dim pairs outside HEAD_DIMS (they take every mask)
     with pytest.raises(NotImplementedError, match="head dims"):
         fa_cuda.check_supported(q, q, k)
     with pytest.raises(NotImplementedError, match="head dim 32"):
         fa_cuda.check_supported(q, q, q)
+    q96 = torch.zeros(1, 16, 2, 96)
+    with pytest.raises(NotImplementedError, match="head dim 96"):
+        fa_cuda.check_supported(q96, q96, q96)
+    # the kernel wrappers refuse it first, with a window too: no fallback
+    with pytest.raises(NotImplementedError, match="head dim 96"):
+        fa_cuda.flash_fwd_cuda(q96, q96, q96, scale=0.1, sliding_window=8)
+    for d in (16, 64, 128, 256):
+        x = torch.zeros(1, 16, 2, d)
+        fa_cuda.check_supported(x, x, x)
     # "auto" on CPU tensors is the plain path, which covers windows
     out = attention.dot_product_attention(q, q, q, sliding_window=4)
     assert out.shape == q.shape

@@ -311,17 +311,36 @@ def _kernel_names(kernels) -> set:
     return set(kernels)
 
 
-def _assert_route(fn, want, kernels):
-    """`fn()` launches the device kernels `want` names, once each, and none
-    of the others in `kernels` (the module's `KERNELS`)."""
+def _profiled_names(fn) -> list:
+    """The device-kernel names of one call of `fn` under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()  # the build
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _route_names(fn, want, attempts: int = 3) -> list:
+    """The device-kernel names of a profiled call of `fn` in which each of
+    `want` shows up once. torch.profiler now and then loses the device
+    events of a session, most often the first of a process: one warm-up
+    session is thrown away, then up to `attempts` sessions are taken and
+    the first complete one kept (the last one if none is)."""
+    _profiled_names(fn)  # warm-up session
+    for _ in range(attempts):
+        names = _profiled_names(fn)
+        if all(sum(kernel in name for name in names) == 1 for kernel in want):
+            break
+    return names
+
+
+def _assert_route(fn, want, kernels):
+    """`fn()` launches the device kernels `want` names, once each, and none
+    of the others in `kernels` (the module's `KERNELS`)."""
+    fn()  # the build
+    names = _route_names(fn, want)
     for kernel in want:
         assert sum(kernel in name for name in names) == 1, (kernel, names)
     for kernel in _kernel_names(kernels) - set(want):
@@ -479,21 +498,40 @@ def test_engines_kernels_match_plain_versions(card, model, kv):
 FA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 FA_CASES = {
-    # B, S, T, Hq, Hkv, D, causal, packed segments, soft cap (D: q/k and v
-    # alike, or a (q/k, v) pair)
-    "causal_gqa_ragged": (2, 200, 200, 4, 2, 64, True, False, None),
-    "causal_d128_segments": (1, 192, 192, 8, 2, 128, True, True, None),
-    "bidirectional_softcap": (1, 96, 96, 2, 1, 64, False, False, 20.0),
-    "causal_s_gt_t": (1, 130, 70, 4, 4, 128, True, False, None),
-    "causal_d16_batch8": (8, 128, 128, 4, 2, 16, True, False, None),
+    # B, S, T, Hq, Hkv, D, causal, packed segments, soft cap (q is scaled so
+    # that the cap bends the logits: `_capped_q`) (D: q/k and v alike, or a
+    # (q/k, v) pair), masks: a window on positions, "ring" (kv positions and
+    # segment ids of their own: causal by position)
+    "causal_gqa_ragged": (2, 200, 200, 4, 2, 64, True, False, None, {}),
+    "causal_d128_segments": (1, 192, 192, 8, 2, 128, True, True, None, {}),
+    "bidirectional_softcap": (1, 96, 96, 2, 1, 64, False, False, 20.0, {}),
+    "causal_s_gt_t": (1, 130, 70, 4, 4, 128, True, False, None, {}),
+    "causal_d16_batch8": (8, 128, 128, 4, 2, 16, True, False, None, {}),
     # many 64-row tiles with a ragged tail, GQA 4
-    "causal_d128_s1000_gqa4": (1, 1000, 1000, 8, 2, 128, True, False, None),
-    "causal_softcap": (1, 300, 300, 4, 2, 64, True, False, 30.0),
-    "causal_s_lt_t_d64": (1, 200, 330, 4, 2, 64, True, False, None),
+    "causal_d128_s1000_gqa4": (1, 1000, 1000, 8, 2, 128, True, False, None, {}),
+    "causal_softcap": (1, 300, 300, 4, 2, 64, True, False, 30.0, {}),
+    "causal_s_lt_t_d64": (1, 200, 330, 4, 2, 64, True, False, None, {}),
     # MLA's heads (Moonlight, DeepSeek-V3): q/k 192, v 128
-    "mla_causal_segments": (1, 700, 700, 16, 16, (192, 128), True, True, None),
-    "mla_causal_gqa2_ragged": (2, 333, 333, 4, 2, (192, 128), True, False, None),
-    "mla_softcap_s_gt_t": (1, 200, 130, 2, 1, (192, 128), True, False, 25.0),
+    "mla_causal_segments": (1, 700, 700, 16, 16, (192, 128), True, True, None, {}),
+    "mla_causal_gqa2_ragged": (2, 333, 333, 4, 2, (192, 128), True, False, None, {}),
+    "mla_softcap_s_gt_t": (1, 200, 130, 2, 1, (192, 128), True, False, 25.0, {}),
+    "mla_window": (1, 400, 400, 4, 2, (192, 128), True, False, None, {"window": 100}),
+    # sliding windows (Mistral's 128 heads; two-sided when not causal; packed
+    # documents whose positions restart)
+    "window_causal_d128_gqa4": (1, 1000, 1000, 8, 2, 128, True, False, None,
+                                {"window": 200}),
+    "window_two_sided_softcap": (1, 300, 300, 4, 2, 64, False, False, 20.0,
+                                 {"window": 64}),
+    "window_packed_d64": (1, 700, 700, 4, 4, 64, True, True, None, {"window": 100}),
+    # causal by position, T != S, kv segment ids of its own (ring-attention
+    # shaped: the first q rows see no key)
+    "ring_position_causal": (2, 200, 330, 4, 2, 64, True, False, None, {"ring": True}),
+    # Gemma's head dim 256: window and soft cap (Gemma-2), GQA 4 (Gemma-3),
+    # causal by position
+    "d256_window_softcap": (1, 600, 600, 8, 4, 256, True, False, 50.0,
+                            {"window": 128}),
+    "d256_gqa4_ragged": (1, 500, 500, 4, 1, 256, True, False, None, {}),
+    "d256_ring": (1, 300, 400, 2, 1, 256, True, False, None, {"ring": True}),
 }
 
 
@@ -514,6 +552,26 @@ def _fa_inputs(card, dtype, B, S, T, Hq, Hkv, D, packed, seed=0):
     return q, k, v, dout, seg
 
 
+def _fa_masks(card, B, S, T, causal, seg, masks):
+    """The wrappers' mask keywords of a case and the plain versions' mask:
+    packed documents restart their positions; a ring case puts the q rows
+    at positions 40.., the kv rows at 70.. with the first 9 in a document
+    of their own."""
+    from automodel_tpu_torch.ops import flash_attention as fa
+
+    return fa.mask_case(B, S, T, device=card, causal=causal, segment_ids=seg,
+                        sliding_window=masks.get("window"),
+                        ring=(40, 70, 9) if masks.get("ring") else None)
+
+
+def _capped_q(q, cap):
+    """q scaled by cap / 4 under a soft cap: the unit-variance logits at
+    scale D^-0.5 then spread over a quarter of the cap, so the largest reach
+    it and the cap bends them (1 - tanh^2 falls to ~0.26), far past the
+    tolerance."""
+    return q if cap is None else (q.float() * (cap / 4)).to(q.dtype)
+
+
 def _rel_err(got, want):
     return ((got.float() - want.float()).abs().max()
             / want.float().abs().max().clamp(min=1.0)).item()
@@ -525,27 +583,24 @@ def test_flash_kernels_match_plain_versions(card, dtype, case):
     from automodel_tpu_torch.ops import flash_attention as fa
     from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
 
-    B, S, T, Hq, Hkv, D, causal, packed, cap = FA_CASES[case]
+    B, S, T, Hq, Hkv, D, causal, packed, cap, masks = FA_CASES[case]
     q, k, v, dout, seg = _fa_inputs(card, dtype, B, S, T, Hq, Hkv, D, packed)
+    q = _capped_q(q, cap)
     scale = q.shape[-1] ** -0.5
-    zeros = torch.zeros((B, S), dtype=torch.int32, device=card)
-    qs = seg if seg is not None else zeros
-    mask = fa.flash_mask(
-        B, S, T, causal_mode="index" if causal else None, qpos=None,
-        qwin=None, qseg=qs, kpos=None,
-        kseg=qs if seg is not None else torch.zeros((B, T), dtype=torch.int32, device=card),
-        has_window=False)
+    mkw, mask = _fa_masks(card, B, S, T, causal, seg, masks)
+    if masks.get("ring"):
+        assert not mask.any(-1).all()  # some q rows see no key
     n = (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv)
-    kw = dict(scale=scale, soft_cap=cap, causal=causal)
-    out, lse = fa_cuda.flash_fwd_cuda(q, k, v, seg, **kw)
+    kw = dict(scale=scale, soft_cap=cap, **mkw)
+    out, lse = fa_cuda.flash_fwd_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
     out_ref, lse_ref = fa.flash_attention_ref(q, k, v, mask, scale=scale, soft_cap=cap)
     assert _rel_err(out, out_ref) <= FA_TOL[dtype]
     assert (lse - lse_ref).abs().max().item() <= FA_TOL[dtype]
 
     delta = (dout.float() * out_ref.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = fa_cuda.flash_dq_cuda(q, k, v, dout, lse_ref, delta, seg, **kw)
-    dk, dv = fa_cuda.flash_dkv_cuda(q, k, v, dout, lse_ref, delta, seg, **kw)
+    dq = fa_cuda.flash_dq_cuda(q, k, v, dout, lse_ref, delta, **kw)
+    dk, dv = fa_cuda.flash_dkv_cuda(q, k, v, dout, lse_ref, delta, **kw)
     torch.cuda.synchronize()
     want = fa.flash_attention_bwd_ref(q, k, v, dout, lse_ref, delta, mask,
                                       scale=scale, soft_cap=cap)
@@ -559,31 +614,54 @@ def test_flash_kernels_match_plain_versions(card, dtype, case):
 def test_flash_route_follows_dtype(card, dtype):
     """K1-K3 launch the device kernels that `route(dtype)` names, none of
     the other route's, and each wrapper counts its launch."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
 
     q, k, v, dout, _ = _fa_inputs(card, dtype, 1, 128, 128, 4, 2, 64, False)
     lse = torch.zeros((1, 4, 128), device=card)
     delta = torch.zeros_like(lse)
     kw = dict(scale=0.125)
-    fa_cuda.flash_fwd_cuda(q, k, v, **kw)  # the build, outside the window
-    n = (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def k1_k3():
         fa_cuda.flash_fwd_cuda(q, k, v, **kw)
         fa_cuda.flash_dq_cuda(q, k, v, dout, lse, delta, **kw)
         fa_cuda.flash_dkv_cuda(q, k, v, dout, lse, delta, **kw)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    k1_k3()  # the build
+    n = (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv)
+    k1_k3()
+    assert (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv) == (
+        n[0] + 1, n[1] + 1, n[2] + 1)
     want = fa_cuda.KERNELS[fa_cuda.route(dtype)]
+    names = _route_names(k1_k3, want)
     other = {n for r in fa_cuda.KERNELS.values() for n in r} - set(want)
     for kernel in want:
         assert sum(kernel in name for name in names) == 1, (kernel, names)
     for kernel in other:
         assert not any(kernel in name for name in names), (kernel, names)
-    assert (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv) == (
-        n[0] + 1, n[1] + 1, n[2] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_256_kernels_launch_through_autograd(card, dtype):
+    """At head dim 256 with a window, the autograd path launches the
+    <256, 256> instantiations of the dtype's route, forward and backward,
+    once each."""
+    from automodel_tpu_torch.ops.attention import dot_product_attention
+    from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
+
+    q, k, v, dout, _ = _fa_inputs(card, dtype, 1, 256, 256, 4, 2, 256, False)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def step():
+        out = dot_product_attention(*leaves, sliding_window=64, logits_soft_cap=50.0)
+        torch.autograd.grad(out, leaves, dout)
+
+    step()  # the build
+    # the tensor-core kernels' instantiation with the position code
+    dims = "256, 256, true>" if dtype == torch.bfloat16 else "float, 256, 256>"
+    want = [name + dims for name in fa_cuda.KERNELS[fa_cuda.route(dtype)]]
+    names = _route_names(step, want)
+    for kernel in want:
+        assert sum(kernel in name for name in names) == 1, (kernel, names)
 
 
 def test_flash_attention_on_card_matches_plain_attention(card):
@@ -616,8 +694,9 @@ def test_flash_kernels_refuse_what_they_do_not_cover(card):
     from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
 
     q, k, v, _, _ = _fa_inputs(card, torch.bfloat16, 1, 64, 64, 4, 2, 64, False)
-    with pytest.raises(NotImplementedError, match="window"):
-        dot_product_attention(q, k, v, sliding_window=16)
+    # windows run on the kernels; head dims outside HEAD_DIMS are refused
+    out = dot_product_attention(q, k, v, sliding_window=16)
+    assert out.shape == (1, 64, 4, 64)
     with pytest.raises(NotImplementedError, match="head dim"):
         dot_product_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
                               v[..., :48].contiguous())
@@ -625,13 +704,13 @@ def test_flash_kernels_refuse_what_they_do_not_cover(card):
         fa_cuda.flash_fwd_cuda(q.half(), k.half(), v.half(), scale=0.1)
     with pytest.raises(ValueError):
         fa_cuda.flash_fwd_cuda(q.cpu(), k, v, scale=0.1)
-    # MLA's (192, 128) pair is taken, but not with a window or with
-    # position-causal masking, and no other pair with Dv != D
+    with pytest.raises(ValueError, match="sliding_window"):
+        fa_cuda.flash_fwd_cuda(q, k, v, scale=0.1, sliding_window=0)
+    # MLA's (192, 128) pair is taken, windowed too, but no other pair with
+    # Dv != D
     q, k, v, _, _ = _fa_inputs(card, torch.bfloat16, 1, 64, 64, 4, 2, (192, 128), False)
-    with pytest.raises(NotImplementedError, match="window"):
-        dot_product_attention(q, k, v, sliding_window=16)
-    with pytest.raises(NotImplementedError, match="position-causal"):
-        fa_cuda.check_supported(q, k, v, position_causal=True)
+    out = dot_product_attention(q, k, v, sliding_window=16)
+    assert out.shape == (1, 64, 4, 128)
     with pytest.raises(NotImplementedError, match="head dims q/k 192, v 64"):
         fa_cuda.flash_fwd_cuda(q, k, v[..., :64].contiguous(), scale=0.1)
     out = dot_product_attention(q, k, v)

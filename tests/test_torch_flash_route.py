@@ -27,28 +27,61 @@ def _qkv(dtype, D=64, Dv=None):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case, match", [
-    ("window", "sliding windows"),
-    ("position_causal", "position-causal"),
     ("dv_ne_d", "head dims"),
     ("head_dim_48", "head dim 48"),
-    # MLA's pair is taken, but not with a window or position-causal masking,
-    # and no other pair with Dv != D
-    ("mla_window", "sliding windows"),
-    ("mla_position_causal", "position-causal"),
+    ("head_dim_96", "head dim 96"),
+    # MLA's pair is taken, but no other pair with Dv != D
     ("dv_192_192", "head dim 192"),
     ("dv_96_64", "head dims q/k 96, v 64"),
+    # with a window or causal masking by position, an uninstantiated pair
+    # is refused all the same, before the device is looked at
+    ("window_head_dim_96", "head dim 96"),
+    ("position_causal_dv_96_64", "head dims q/k 96, v 64"),
 ])
 def test_unsupported_cases_are_refused(dtype, case, match):
     D, Dv = {"head_dim_48": (48, None), "dv_ne_d": (64, 32),
-             "mla_window": (192, 128), "mla_position_causal": (192, 128),
-             "dv_192_192": (192, 192), "dv_96_64": (96, 64)}.get(case, (64, None))
+             "head_dim_96": (96, None), "window_head_dim_96": (96, None),
+             "dv_192_192": (192, 192), "dv_96_64": (96, 64),
+             "position_causal_dv_96_64": (96, 64)}[case]
     q, k, v = _qkv(dtype, D=D, Dv=Dv)
-    kw = {"window": dict(sliding_window=16),
-          "position_causal": dict(position_causal=True),
-          "mla_window": dict(sliding_window=16),
-          "mla_position_causal": dict(position_causal=True)}.get(case, {})
     with pytest.raises(NotImplementedError, match=match):
-        fa_cuda.check_supported(q, k, v, **kw)
+        fa_cuda.check_supported(q, k, v)
+    kw = {"window_head_dim_96": dict(sliding_window=16),
+          "position_causal_dv_96_64": dict(
+              kv_positions=torch.arange(8, dtype=torch.int32)[None])}.get(case, {})
+    with pytest.raises(NotImplementedError, match=match):
+        fa_cuda.flash_fwd_cuda(q, k, v, scale=0.125, **kw)
+
+
+MASKS = {
+    "window": dict(sliding_window=16),
+    "two_sided_window": dict(sliding_window=4, causal=False),
+    "position_causal": dict(kv_positions=torch.arange(8, dtype=torch.int32)[None] + 3,
+                            kv_segment_ids=torch.zeros((1, 8), dtype=torch.int32)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dims", [(64, 64), (192, 128), (256, 256)])
+@pytest.mark.parametrize("mask", sorted(MASKS))
+def test_masks_are_taken(dtype, dims, mask):
+    """Windows (one- and two-sided) and causal masking by position pass
+    the kernels' checks at every instantiated pair, Gemma's 256 included:
+    a CPU tensor then meets the device check, not a refusal."""
+    q, k, v = _qkv(dtype, D=dims[0], Dv=dims[1])
+    fa_cuda.check_supported(q, k, v)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa_cuda.flash_fwd_cuda(q, k, v, scale=0.125, **MASKS[mask])
+
+
+def test_granule_ranges_are_min_and_max_per_32_rows():
+    """The position ranges the kernels skip tiles by: per 32-row granule,
+    the min and max of the positions, a ragged last granule included."""
+    pos = torch.tensor([[5, 3, 9] + list(range(40, 80)) + [1, 2]], dtype=torch.int32)
+    rng = fa_cuda.granule_ranges(pos)
+    assert rng.dtype == torch.int32 and rng.shape == (1, 2, 2)
+    assert rng[0, 0].tolist() == [3, 68]
+    assert rng[0, 1].tolist() == [1, 79]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
