@@ -1,0 +1,303 @@
+"""Train-state checkpointer: save, retention, best-step tracking and restore
+(port of `automodel_tpu/checkpoint/checkpointer.py`).
+
+The JAX package saves through orbax; the port writes one directory per
+step on one device:
+
+    <checkpoint_dir>/step_<N>/state.pt      the train state (torch.save)
+                             /extra.json    the recipe's tracked host state
+                             /metrics.json  the metrics `best_metric` reads
+
+`state.pt` holds the train state's tree (a dataclass becomes a dict of its
+fields) with every tensor moved to the host: the params, the optimizer's
+state and the host integers (steps, counts). A step is written into
+`step_<N>.tmp/` and renamed on commit, so `latest_step` never sees a
+half-written step. The `step_` prefix keeps the port's steps apart from
+orbax's bare `<N>/` directories.
+
+Retention keeps the `max_recent_checkpoints` newest steps, and the best
+step too when `best_metric` is set. With `async_save` the state is copied
+to host memory on the caller's thread and written by a background thread;
+`wait()` joins it and re-raises a failed write. Device tensors are copied
+into host buffers that the checkpointer keeps from one save to the next
+(the next save waits for the previous write) until `close()`, so the
+trainer is held for one device-to-host copy at the card's transfer rate.
+The buffers are page-locked up to a quarter of the host's memory
+(`PINNED_SHARE`) and pageable past it. `restore`
+copies the saved tensors into the live ones, which keep their device and
+dtype.
+`last_save` holds the newest save's step, bytes (those of `state.pt`, and
+the page-locked part of the buffers) and seconds: the copy to host memory
+(`host_s`, on the caller's thread) and the write and commit
+(`write_s`, set when the write lands).
+
+The two packages' train states do not read each other: orbax cannot read
+`state.pt` and the port does not read orbax's directories. They meet at the
+consolidated HF export (`hf_adapter.save_hf_checkpoint`). What is not
+ported: remote URIs (`gs://...`, ROADMAP.md queue 1 item 16), the retry
+wiring of the `resilience` section (`set_retry`, item 12) and resharding
+across topologies (item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import re
+import shutil
+import threading
+import time
+from typing import Any, Optional
+
+import torch
+
+logger = logging.getLogger(__name__)
+
+_STEP_DIR = re.compile(r"step_(\d+)")
+# the share of the host's memory that snapshot buffers may page-lock
+PINNED_SHARE = 0.25
+
+
+def is_remote_path(path: str) -> bool:
+    """True for fsspec-style URIs (gs://..., s3://..., file://...).
+    Windows drive letters (C:\\...) are NOT URIs."""
+    scheme, sep, _ = str(path).partition("://")
+    return bool(sep) and scheme.isalnum() and len(scheme) > 1
+
+
+@dataclasses.dataclass
+class CheckpointingConfig:
+    """The JAX package's checkpoint section, fields and defaults."""
+
+    enabled: bool = True
+    checkpoint_dir: str = "checkpoints"
+    save_every_steps: int = 1000
+    max_recent_checkpoints: Optional[int] = 5
+    async_save: bool = True
+    save_consolidated: str | bool = False  # False | "final" | "every"
+    best_metric: Optional[str] = None  # e.g. "val_loss": keeps the best too
+    best_mode: str = "min"
+
+    def build(self) -> "Checkpointer":
+        return Checkpointer(self)
+
+
+def _as_tree(state: Any) -> Any:
+    """A dataclass state as the dict of its fields (no copies)."""
+    if dataclasses.is_dataclass(state) and not isinstance(state, type):
+        return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+    return state
+
+
+@torch.no_grad()
+def _fill(live: Any, saved: Any, path: str = "state") -> Any:
+    """Copy `saved` into the live tree's tensors in place; host values
+    (ints) come from `saved`. Trees and shapes must match."""
+    if isinstance(live, dict):
+        if not isinstance(saved, dict) or live.keys() != saved.keys():
+            raise ValueError(f"{path}: the checkpoint's keys differ from the state's")
+        return {k: _fill(live[k], saved[k], f"{path}.{k}") for k in live}
+    if torch.is_tensor(live):
+        if not torch.is_tensor(saved) or saved.shape != live.shape:
+            raise ValueError(f"{path}: the checkpoint holds "
+                             f"{getattr(saved, 'shape', type(saved))}, the state {live.shape}")
+        live.copy_(saved)
+        return live
+    return saved
+
+
+class Checkpointer:
+    def __init__(self, config: CheckpointingConfig):
+        if is_remote_path(config.checkpoint_dir):
+            raise NotImplementedError(
+                f"checkpoint_dir {config.checkpoint_dir!r} is a remote URI: the port "
+                "writes local directories only (ROADMAP.md queue 1 item 16)")
+        self.config = config
+        os.makedirs(config.checkpoint_dir, exist_ok=True)
+        self.root = os.path.abspath(config.checkpoint_dir)
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._host_buffers: dict = {}  # snapshot buffers, by path
+        self._pinned_bytes = 0
+        self._pinned_limit = int(PINNED_SHARE * os.sysconf("SC_PAGE_SIZE")
+                                 * os.sysconf("SC_PHYS_PAGES"))
+        self.last_save: dict = {}
+
+    def _to_host(self, tree: Any, path: str = "") -> Any:
+        """A copy of the tree with every tensor on the host. A device tensor
+        is copied without waiting into its buffer in `_host_buffers` (by
+        path; made, or remade when its shape or dtype changed; page-locked
+        while the pinned total stays within `_pinned_limit`); the caller
+        synchronizes before reading."""
+        if isinstance(tree, dict):
+            return {k: self._to_host(v, f"{path}.{k}") for k, v in tree.items()}
+        if not torch.is_tensor(tree):
+            return tree
+        if tree.device.type == "cpu":
+            return tree.detach().clone()
+        buf = self._host_buffers.get(path)
+        if buf is None or buf.shape != tree.shape or buf.dtype != tree.dtype:
+            if buf is not None and buf.is_pinned():
+                self._pinned_bytes -= buf.nbytes
+            nbytes = tree.numel() * tree.element_size()
+            pin = self._pinned_bytes + nbytes <= self._pinned_limit
+            self._pinned_bytes += nbytes if pin else 0
+            buf = self._host_buffers[path] = torch.empty(
+                tree.shape, dtype=tree.dtype, pin_memory=pin)
+        return buf.copy_(tree.detach(), non_blocking=True)
+
+    def _dir(self, step: int) -> str:
+        return os.path.join(self.root, f"step_{step}")
+
+    def all_steps(self) -> list[int]:
+        """The committed steps, ascending (`.tmp` directories are not)."""
+        steps = []
+        for name in os.listdir(self.root):
+            m = _STEP_DIR.fullmatch(name)
+            if m and os.path.isfile(os.path.join(self.root, name, "state.pt")):
+                steps.append(int(m.group(1)))
+        return sorted(steps)
+
+    # -- save ------------------------------------------------------------
+    def save(self, step: int, state: Any, extra: dict | None = None,
+             metrics: dict | None = None) -> bool:
+        """Save the train state plus a JSON side-car of host state (the
+        recipe's tracked dataloader, scheduler and RNG). A step already
+        committed is not saved again. Every call saves: the caller decides
+        when (`should_save`)."""
+        if not self.config.enabled:
+            return False
+        self.wait()  # one write at a time; a failed earlier write raises
+        if step in self.all_steps():
+            return False
+        t0 = time.perf_counter()
+        snapshot = self._to_host(_as_tree(state))
+        if torch.cuda.is_available() and self._host_buffers:
+            torch.cuda.synchronize()  # the copies into the buffers have landed
+        self.last_save = {"step": step, "host_s": time.perf_counter() - t0,
+                          "pinned_bytes": self._pinned_bytes}
+        if self.config.async_save:
+            self._writer = threading.Thread(
+                target=self._write_async, args=(step, snapshot, extra, metrics),
+                name=f"checkpoint-step-{step}", daemon=True)
+            self._writer.start()
+        else:
+            self._write(step, snapshot, extra, metrics)
+        return True
+
+    def _write_async(self, *args) -> None:
+        try:
+            self._write(*args)
+        except Exception as e:  # noqa: BLE001 - re-raised by wait()
+            self._error = e
+
+    def _write(self, step: int, snapshot: dict, extra: dict | None,
+               metrics: dict | None) -> None:
+        t0 = time.perf_counter()
+        final = self._dir(step)
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(snapshot, os.path.join(tmp, "state.pt"))
+        nbytes = os.path.getsize(os.path.join(tmp, "state.pt"))
+        for name, obj in (("extra.json", extra), ("metrics.json", metrics)):
+            if obj is not None:
+                with open(os.path.join(tmp, name), "w") as f:
+                    json.dump(obj, f)
+        os.rename(tmp, final)
+        self.last_save.update(bytes=nbytes, write_s=time.perf_counter() - t0)
+        logger.info("saved checkpoint at step %d", step)
+        self._prune()
+
+    def _prune(self) -> None:
+        """Drop the steps retention does not keep."""
+        keep_n = self.config.max_recent_checkpoints
+        steps = self.all_steps()
+        if keep_n is None:
+            return
+        keep = set(steps[-keep_n:]) if keep_n > 0 else set()
+        best = self.best_step()
+        if best is not None:
+            keep.add(best)
+        for step in steps:
+            if step not in keep:
+                shutil.rmtree(self._dir(step), ignore_errors=True)
+
+    def should_save(self, step: int) -> bool:
+        return (
+            self.config.enabled
+            and step > 0
+            and step % self.config.save_every_steps == 0
+        )
+
+    # -- load ------------------------------------------------------------
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def best_step(self) -> Optional[int]:
+        """The committed step whose `best_metric` is best, or None."""
+        name = self.config.best_metric
+        if name is None:
+            return None
+        scored = []
+        for step in self.all_steps():
+            path = os.path.join(self._dir(step), "metrics.json")
+            if os.path.isfile(path):
+                with open(path) as f:
+                    value = json.load(f).get(name)
+                if value is not None:
+                    scored.append((float(value), step))
+        if not scored:
+            return None
+        pick = min if self.config.best_mode == "min" else max
+        return pick(scored)[1]
+
+    def restore(self, state: Any, step: Optional[int] = None,
+                with_extra: bool = False):
+        """Restore `step` (the latest when None) into the live `state`: its
+        tensors are filled in place, keeping their device and dtype; returns
+        the restored state (a new dataclass for a dataclass state), and the
+        side-car dict with `with_extra`."""
+        step = step if step is not None else self.latest_step()
+        if step is None or step not in self.all_steps():
+            raise FileNotFoundError(
+                f"no checkpoint{'' if step is None else f' at step {step}'} "
+                f"under {self.config.checkpoint_dir}")
+        saved = torch.load(os.path.join(self._dir(step), "state.pt"),
+                           map_location="cpu", weights_only=True, mmap=True)
+        filled = _fill(_as_tree(state), saved)
+        if dataclasses.is_dataclass(state) and not isinstance(state, type):
+            filled = dataclasses.replace(state, **filled)
+        if not with_extra:
+            return filled
+        path = os.path.join(self._dir(step), "extra.json")
+        extra = {}
+        if os.path.isfile(path):
+            with open(path) as f:
+                extra = json.load(f)
+        return filled, extra
+
+    # -- lifecycle ---------------------------------------------------------
+    def wait(self) -> None:
+        """Block until the background write has landed; re-raise its error.
+
+        Deliberately NOT retried: the failed write is consumed, and waiting
+        again would turn a missing checkpoint into silent success. The
+        caller's save cadence (or the emergency path's committed=False
+        report) is the recovery story."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def close(self) -> None:
+        """Wait for the write, then free the snapshot buffers (a later save
+        makes them anew)."""
+        self.wait()
+        self._host_buffers.clear()
+        self._pinned_bytes = 0

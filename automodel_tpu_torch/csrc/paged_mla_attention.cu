@@ -301,7 +301,7 @@ mla_combine_kernel(const float* __restrict__ ws_acc,
                    const float* __restrict__ ws_ml,
                    const int* __restrict__ positions, T* __restrict__ out,
                    const SplitShape sh) {
-  combine_splits(ws_acc, ws_ml, positions, out, sh);
+  combine_splits(ws_acc, ws_ml, positions, nullptr, out, sh);
 }
 
 SplitShape mla_shape(int n, int r, int dr, int ps, int P, float scale, int e,

@@ -37,6 +37,15 @@
 //   are zero-padded; a step shrinks below 32 kv rows where 32 would not
 //   fit shared memory, and outputs wider than 512 columns run in column
 //   groups.
+// - Sliding windows (GQA): row t attends kv j iff j <= pos and
+//   pos - j < window. A split wholly below the window's first kv
+//   lo = pos - window + 1 exits at once, as one past the row's end does,
+//   so pages wholly below the window are never read; the others start at
+//   max(j0, lo), mid-page if need be (rows are gathered one by one), so
+//   no kv row any step reads lies outside the window and nothing is masked
+//   inside a step. The combine reads the splits [lo / split_kv, live).
+// - Sinks (GQA): one logit per query head joins the combine's softmax
+//   denominator, unscaled and uncapped, with no value row.
 
 #pragma once
 
@@ -77,6 +86,7 @@ struct SplitShape {
   int kv_rows;    // kv rows per step
   int split_kv;   // kv positions per split: whole pages, about kSplitKv
   int n_splits;   // splits of a page-table row
+  int window;     // GQA: kv j is attended iff pos - j < window; 0: none
   int vec;        // bytes per page-row copy: 16, 4 or 1
   int qvec;       // 1: query rows copy in 16-byte pieces
   float scale;
@@ -148,6 +158,7 @@ SplitShape split_shape(int heads, int groups, int aw, int bw, bool gqa,
   sh.qvec = aw % 8 == 0 && (gqa || bw % 8 == 0) && qal % 16 == 0;
   sh.scale = scale;
   sh.soft_cap = soft_cap;
+  sh.window = 0;
   // 32 kv rows per step, fewer where a step's rows would not fit
   for (sh.kv_rows = 32; sh.kv_rows > 1 && split_smem(sh) > kMaxSmem;
        sh.kv_rows /= 2) {
@@ -187,6 +198,11 @@ int split_nch_index(const SplitShape& sh) {
   return per_warp <= 1 ? 0 : per_warp <= 2 ? 1 : per_warp <= 4 ? 2 : 3;
 }
 
+// the first kv a row at `pos` attends under `window` (0: none)
+__device__ __forceinline__ int window_start(int pos, int window) {
+  return window > 0 ? max(pos - window + 1, 0) : 0;
+}
+
 // One split of one (row, group, head tile, column group): the body of
 // mla_split_kernel and gqa_split_kernel.
 template <typename TKV, bool kGqa, int KS, int NCH>
@@ -204,13 +220,16 @@ __device__ __forceinline__ void split_attention(const SplitArgs<TKV>& a,
   const int h0 = (blockIdx.y % tiles) * kHeadTile;
   const int pos = a.positions[t];
   const int end = min(pos + 1, sh.P * sh.ps);
+  const int lo = window_start(pos, sh.window);
   const int j0 = split * sh.split_kv;
-  // no live kv in this split (or a pad row): nothing to write, the combine
-  // reads only the splits that hold live kv
-  if (pos < 0 || j0 >= end) return;
+  // no live kv in this split (a pad row, past the row's end or wholly below
+  // its window): nothing to write, the combine reads only the splits that
+  // hold live kv
+  if (pos < 0 || j0 >= end || j0 + sh.split_kv <= lo) return;
+  const int jlo = max(j0, lo);  // the split's first live kv
   const int j1 = min(j0 + sh.split_kv, end);
   const int rows = sh.kv_rows;
-  const int n_steps = (j1 - j0 + rows - 1) / rows;
+  const int n_steps = (j1 - jlo + rows - 1) / rows;
   const int hq = min(kHeadTile, sh.heads - h0);
   const int wal = sh.a_al + sh.b_al;
 
@@ -234,7 +253,7 @@ __device__ __forceinline__ void split_attention(const SplitArgs<TKV>& a,
   // copied (they read the zero row, or convert to zeros)
   auto load_step = [&](int i) {
     const int st = i & 1;
-    const int j = j0 + i * rows + my_row;
+    const int j = jlo + i * rows + my_row;
     if (j >= j1) return;
     const size_t row = (size_t)pt[j / sh.ps] * sh.ps + j % sh.ps;
     unsigned char* dst = stage + (st * rows + my_row) * sh.stage_w;
@@ -338,7 +357,7 @@ __device__ __forceinline__ void split_attention(const SplitArgs<TKV>& a,
 
   for (int it = 0; it < n_steps; ++it) {
     const int st = it & 1;
-    const int jb = j0 + it * rows;
+    const int jb = jlo + it * rows;
     const int live = min(rows, j1 - jb);  // kv rows of this step
     cp_async_wait<0>();
     // step it has landed; every warp is done with step it - 1's tile and
@@ -522,13 +541,18 @@ __device__ __forceinline__ void split_attention(const SplitArgs<TKV>& a,
 }
 
 // out[t, h, c] = sum_s e^(m_s - M) acc_s[h, c] / sum_s e^(m_s - M) l_s over
-// the row's live splits s (M their largest max); 0 for pad rows. One block
-// per (row, head) of the groups * heads output heads: its threads share
-// the split weights and each writes columns of the head's output row. The
-// body of mla_combine_kernel and gqa_combine_kernel.
+// the row's live splits s (M their largest max); with sinks (the GQA sink
+// logit of query head h) M also covers sink[h] and the denominator gains
+// e^(sink[h] - M). 0 for pad rows. The live splits are
+// [window_start / split_kv, ceil(end / split_kv)): the splits outside never
+// wrote their workspace slots. One block per (row, head) of the
+// groups * heads output heads: its threads share the split weights and each
+// writes columns of the head's output row. The body of mla_combine_kernel
+// and gqa_combine_kernel.
 __device__ __forceinline__ void combine_splits(const float* __restrict__ ws_acc,
                                                const float* __restrict__ ws_ml,
                                                const int* __restrict__ positions,
+                                               const float* __restrict__ sinks,
                                                bf16* __restrict__ out,
                                                const SplitShape& sh) {
   extern __shared__ float w_s[];  // kCombineThreads split weights
@@ -538,13 +562,18 @@ __device__ __forceinline__ void combine_splits(const float* __restrict__ ws_acc,
   const int h = blockIdx.x % H;
   const int pos = positions[t];
   const int end = min(pos + 1, sh.P * sh.ps);
+  const int first = pos < 0 ? 0 : window_start(pos, sh.window) / sh.split_kv;
   const int live = pos < 0 ? 0 : (end + sh.split_kv - 1) / sh.split_kv;
   const size_t at0 = (size_t)t * sh.n_splits * H + h;  // split 0's (t, h)
   float mx = -INFINITY;
-  for (int s = 0; s < live; ++s)
+  for (int s = first; s < live; ++s)
     mx = fmaxf(mx, ws_ml[(at0 + (size_t)s * H) * 2]);
   float den = 0.f;
-  for (int s = 0; s < live; ++s) {
+  if (sinks != nullptr) {
+    mx = fmaxf(mx, sinks[h]);
+    den = expf(sinks[h] - mx);
+  }
+  for (int s = first; s < live; ++s) {
     const float* ml = ws_ml + (at0 + (size_t)s * H) * 2;
     den += expf(ml[0] - mx) * ml[1];
   }
@@ -553,7 +582,7 @@ __device__ __forceinline__ void combine_splits(const float* __restrict__ ws_acc,
 #pragma unroll
   for (int k = 0; k < kCombineCols; ++k) num[k] = 0.f;
   // kCombineThreads splits' weights at a time through shared memory
-  for (int s0 = 0; s0 < live; s0 += kCombineThreads) {
+  for (int s0 = first; s0 < live; s0 += kCombineThreads) {
     const int s = s0 + (int)threadIdx.x;
     __syncthreads();
     if (s < live) w_s[threadIdx.x] = expf(ws_ml[(at0 + (size_t)s * H) * 2] - mx) * inv;
@@ -578,7 +607,7 @@ __device__ __forceinline__ void combine_splits(const float* __restrict__ ws_acc,
   for (int c = threadIdx.x + kCombineCols * kCombineThreads; c < W;
        c += kCombineThreads) {
     float v = 0.f;
-    for (int s = 0; s < live; ++s) {
+    for (int s = first; s < live; ++s) {
       const size_t at = at0 + (size_t)s * H;
       v += expf(ws_ml[at * 2] - mx) * inv * ws_acc[at * W + c];
     }

@@ -7,7 +7,13 @@
 // function as their Pallas kernel: each token row t attends over the pages
 // of its page-table row up to global kv index positions[t], with an fp32
 // online softmax, an optional logit soft cap, and a zero output for pad rows
-// (positions[t] < 0). K5 dequantizes algebraically, as the Pallas kernel
+// (positions[t] < 0). Beyond the Pallas kernels (which refuse both, so the
+// JAX engine serves windowed and sinked models on its XLA path), both take
+// a sliding window (kv j is attended iff positions[t] - j < window; 0 means
+// none) and sinks (one logit per query head that joins the softmax
+// denominator, not scaled, not capped, with no value row), as the plain
+// version (ops/paged_attention.py ragged_paged_attention_ref) computes
+// them. K5 dequantizes algebraically, as the Pallas kernel
 // does: the score of kv row r is (q . k_int8[r]) * ks[r] * scale, before the
 // soft cap and the mask; the V scale folds into the probabilities, so the
 // value product is sum_r (p[r] * vs[r]) * v_int8[r]; the sum l takes the
@@ -50,10 +56,13 @@
 // row) dot product), and keeps the running max, sum and (G, Dv)
 // accumulator in fp32 shared memory. Rows past pos in the last page are
 // masked; the output is acc / sum, or 0 when the row had no page (pad
-// rows).
+// rows). With a window the page loop starts at the page of the window's
+// first kv lo and masks rows below lo in it; a sink rescales the output
+// once after the loop.
 //
 // Bound. The work is bound by bytes from device memory: each needed page's
-// K/V slice is read once per block, and the arithmetic is 4 * G * Dv
+// K/V slice (with a window, each page that meets the window) is read once
+// per block, and the arithmetic is 4 * G * Dv
 // operations per K/V row, far below the card's operations-per-byte line.
 // Both designs re-read a request's pages once per prefill row of the same
 // request (a 48-row chunk reads its pages 48 times); L2 (50 MB) absorbs
@@ -110,9 +119,10 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
            const float* __restrict__ v_scales,  // (N+1, ps) or nullptr
            const int* __restrict__ page_tables, // (T, P)
            const int* __restrict__ positions,   // (T,)
+           const float* __restrict__ sinks,     // (Hq,) or nullptr
            T* __restrict__ out,                 // (T, Hq, Dv)
            int Hq, int Hkv, int D, int Dv, int ps, int P, float scale,
-           float soft_cap) {
+           float soft_cap, int window) {
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   extern __shared__ float smem[];
   const int G = Hq / Hkv;
@@ -135,6 +145,7 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
 
   const int pos = positions[t];
   const int n_pages = pos < 0 ? 0 : min(pos / ps + 1, P);
+  const int lo = window_start(pos, window);  // first kv in the window
 
   // the G query heads of kv head h are rows h*G .. h*G+G-1 of q[t]
   const T* q_row = q + ((size_t)t * Hq + (size_t)h * G) * D;
@@ -150,7 +161,7 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
   const size_t v_page_stride = (size_t)ps * Hkv * Dv;
   const int* pt_row = page_tables + (size_t)t * P;
 
-  for (int j = 0; j < n_pages; ++j) {
+  for (int j = lo / ps; j < n_pages; ++j) {
     const size_t page = (size_t)pt_row[j];
     const TKV* k_src = k_pages + page * k_page_stride + (size_t)h * D;
     const TKV* v_src = v_pages + page * v_page_stride + (size_t)h * Dv;
@@ -182,13 +193,14 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
         if constexpr (kQuant) s *= ks_s[r];
         s *= scale;
         if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
-        p_s[pr] = (base + r <= pos) ? s : -INFINITY;
+        p_s[pr] = (base + r <= pos && base + r >= lo) ? s : -INFINITY;
       }
     }
     __syncthreads();
 
-    // online softmax: one warp per query head. Row j*ps <= pos always holds
-    // for a live page, so the new max is finite.
+    // online softmax: one warp per query head. Every page of the loop holds
+    // a kv in [lo, pos] (the first holds lo, the others start in
+    // (lo, pos]), so the new max is finite.
     for (int g = warp; g < G; g += kWarps) {
       float mx = -INFINITY;
       for (int r = lane; r < ps; r += 32) mx = fmaxf(mx, p_s[g * ps + r]);
@@ -197,8 +209,9 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
       for (int r = lane; r < ps; r += 32) {
-        const float e =
-            (base + r <= pos) ? expf(p_s[g * ps + r] - m_new) : 0.f;
+        const float e = (base + r <= pos && base + r >= lo)
+                            ? expf(p_s[g * ps + r] - m_new)
+                            : 0.f;
         sum += e;
         // K5: the V scale folds into the weight of its kv row
         if constexpr (kQuant)
@@ -228,19 +241,31 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
     __syncthreads();
   }
 
-  T* o_row = out + ((size_t)t * Hq + (size_t)h * G) * Dv;
-  for (int i = tid; i < G * Dv; i += kThreads) {
-    const float l = l_s[i / Dv];
-    o_row[i] = l > 0.f ? acc[i] / l : 0.f;
+  // each head's output factor: 1 / l, or with a sink logit s the rescale
+  // to M = max(m, s) over l e^(m - M) + e^(s - M); 0 for pad rows (l 0,
+  // m -inf)
+  for (int g = tid; g < G; g += kThreads) {
+    const float l = l_s[g];
+    float f = l > 0.f ? 1.f / l : 0.f;
+    if (sinks != nullptr) {
+      const float s = sinks[h * G + g];
+      const float mx = fmaxf(m_s[g], s);
+      const float a = expf(m_s[g] - mx);
+      f = a / (l * a + expf(s - mx));
+    }
+    a_s[g] = f;
   }
+  __syncthreads();
+  T* o_row = out + ((size_t)t * Hq + (size_t)h * G) * Dv;
+  for (int i = tid; i < G * Dv; i += kThreads) o_row[i] = acc[i] * a_s[i / Dv];
 }
 
 template <typename T, typename TKV>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const float* k_scales, const float* v_scales,
-           const int* page_tables, const int* positions, void* out, int T_,
-           int Hq, int Hkv, int D, int Dv, int ps, int P, float scale,
-           float soft_cap, cudaStream_t stream) {
+           const int* page_tables, const int* positions, const float* sinks,
+           void* out, int T_, int Hq, int Hkv, int D, int Dv, int ps, int P,
+           float scale, float soft_cap, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(Hq / Hkv, D, Dv, ps);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -251,8 +276,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   gqa_kernel<T, TKV><<<T_ * Hkv, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const TKV*>(k_pages),
       static_cast<const TKV*>(v_pages), k_scales, v_scales, page_tables,
-      positions, static_cast<T*>(out), Hq, Hkv, D, Dv, ps, P, scale,
-      soft_cap);
+      positions, sinks, static_cast<T*>(out), Hq, Hkv, D, Dv, ps, P, scale,
+      soft_cap, window);
   return (int)cudaGetLastError();
 }
 
@@ -274,17 +299,20 @@ template <typename TKV>
 __global__ void __launch_bounds__(kCombineThreads)
 gqa_combine_kernel(const float* __restrict__ ws_acc,
                    const float* __restrict__ ws_ml,
-                   const int* __restrict__ positions, bf16* __restrict__ out,
+                   const int* __restrict__ positions,
+                   const float* __restrict__ sinks, bf16* __restrict__ out,
                    const SplitShape sh) {
-  combine_splits(ws_acc, ws_ml, positions, out, sh);
+  combine_splits(ws_acc, ws_ml, positions, sinks, out, sh);
 }
 
 // e: bytes per page value, 1 (int8, K5) or 2 (bf16, K4)
 SplitShape gqa_shape(int Hq, int Hkv, int D, int Dv, int ps, int P,
-                     float scale, float soft_cap, int e, const void* k,
-                     const void* v, const void* q) {
-  return split_shape(Hq / Hkv, Hkv, D, Dv, true, ps, P, scale, soft_cap, e, k,
-                     v, q, nullptr);
+                     float scale, float soft_cap, int window, int e,
+                     const void* k, const void* v, const void* q) {
+  SplitShape sh = split_shape(Hq / Hkv, Hkv, D, Dv, true, ps, P, scale,
+                              soft_cap, e, k, v, q, nullptr);
+  sh.window = window;
+  return sh;
 }
 
 template <typename TKV, int KS, int NCH>
@@ -301,10 +329,11 @@ int launch_gqa_split_kernel(const SplitArgs<TKV>& a, const SplitShape& sh,
 }
 
 // The split kernel for the shape's step rows (KS) and columns per warp
-// (NCH 16-column chunks), then the combine into out (bf16).
+// (NCH 16-column chunks), then the combine into out (bf16) with the sink
+// logits (null: none).
 template <typename TKV>
-int launch_gqa_split(const SplitArgs<TKV>& a, void* out, const SplitShape& sh,
-                     int T, cudaStream_t stream) {
+int launch_gqa_split(const SplitArgs<TKV>& a, const float* sinks, void* out,
+                     const SplitShape& sh, int T, cudaStream_t stream) {
   int e = split_launchable(sh, T);
   if (e != 0) return e;
   typedef int (*Launch)(const SplitArgs<TKV>&, const SplitShape&, int,
@@ -319,7 +348,7 @@ int launch_gqa_split(const SplitArgs<TKV>& a, void* out, const SplitShape& sh,
   const unsigned blocks = (unsigned)((long long)T * sh.groups * sh.heads);
   gqa_combine_kernel<TKV><<<blocks, kCombineThreads,
                              sizeof(float) * kCombineThreads, stream>>>(
-      a.ws_acc, a.ws_ml, a.positions, static_cast<bf16*>(out), sh);
+      a.ws_acc, a.ws_ml, a.positions, sinks, static_cast<bf16*>(out), sh);
   return (int)cudaGetLastError();
 }
 
@@ -328,19 +357,20 @@ int launch_gqa_split(const SplitArgs<TKV>& a, void* out, const SplitShape& sh,
 extern "C" {
 
 // K4 for float32 queries and pages (the CUDA-core gqa_kernel); dtype must
-// be 0 (float32). soft_cap <= 0 means none. Returns cudaGetLastError()
-// after the launch (0 = success).
+// be 0 (float32). soft_cap <= 0 and window 0 mean none; sinks is (Hq,)
+// fp32 or null. Returns cudaGetLastError() after the launch (0 = success).
 int rpa_gqa_forward(const void* q, const void* k_pages, const void* v_pages,
-                    const void* page_tables, const void* positions, void* out,
-                    int T, int Hq, int Hkv, int D, int Dv, int ps, int P,
-                    float scale, float soft_cap, int dtype, void* stream) {
+                    const void* page_tables, const void* positions,
+                    const void* sinks, void* out, int T, int Hq, int Hkv,
+                    int D, int Dv, int ps, int P, float scale, float soft_cap,
+                    int window, int dtype, void* stream) {
   if (T == 0) return 0;
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   return launch<float, float>(
       q, k_pages, v_pages, nullptr, nullptr,
       static_cast<const int*>(page_tables), static_cast<const int*>(positions),
-      out, T, Hq, Hkv, D, Dv, ps, P, scale, soft_cap,
-      static_cast<cudaStream_t>(stream));
+      static_cast<const float*>(sinks), out, T, Hq, Hkv, D, Dv, ps, P, scale,
+      soft_cap, window, static_cast<cudaStream_t>(stream));
 }
 
 // K5 for float32 queries (the CUDA-core gqa_kernel): int8 pages with
@@ -348,23 +378,25 @@ int rpa_gqa_forward(const void* q, const void* k_pages, const void* v_pages,
 int rpa_gqa_quant_forward(const void* q, const void* k_pages,
                           const void* v_pages, const void* k_scales,
                           const void* v_scales, const void* page_tables,
-                          const void* positions, void* out, int T, int Hq,
-                          int Hkv, int D, int Dv, int ps, int P, float scale,
-                          float soft_cap, int dtype, void* stream) {
+                          const void* positions, const void* sinks, void* out,
+                          int T, int Hq, int Hkv, int D, int Dv, int ps, int P,
+                          float scale, float soft_cap, int window, int dtype,
+                          void* stream) {
   if (T == 0) return 0;
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   return launch<float, int8_t>(
       q, k_pages, v_pages, static_cast<const float*>(k_scales),
       static_cast<const float*>(v_scales), static_cast<const int*>(page_tables),
-      static_cast<const int*>(positions), out, T, Hq, Hkv, D, Dv, ps, P, scale,
-      soft_cap, static_cast<cudaStream_t>(stream));
+      static_cast<const int*>(positions), static_cast<const float*>(sinks),
+      out, T, Hq, Hkv, D, Dv, ps, P, scale, soft_cap, window,
+      static_cast<cudaStream_t>(stream));
 }
 
 // floats of the workspace the split route (rpa_gqa_split_forward,
 // rpa_gqa_quant_split_forward) needs for this shape
 long long rpa_split_workspace_floats(int T, int Hq, int Hkv, int D, int Dv,
                                      int ps, int P) {
-  return split_workspace(gqa_shape(Hq, Hkv, D, Dv, ps, P, 1.f, 0.f, 1,
+  return split_workspace(gqa_shape(Hq, Hkv, D, Dv, ps, P, 1.f, 0.f, 0, 1,
                                    nullptr, nullptr, nullptr),
                          T);
 }
@@ -373,21 +405,23 @@ long long rpa_split_workspace_floats(int T, int Hq, int Hkv, int D, int Dv,
 // pages of page_bytes per value (1: int8, K5; 2: bfloat16, K4)
 int rpa_split_smem_bytes(int Hq, int Hkv, int D, int Dv, int ps, int P,
                          int page_bytes) {
-  return (int)split_smem(gqa_shape(Hq, Hkv, D, Dv, ps, P, 1.f, 0.f,
+  return (int)split_smem(gqa_shape(Hq, Hkv, D, Dv, ps, P, 1.f, 0.f, 0,
                                    page_bytes, nullptr, nullptr, nullptr));
 }
 
 // K4 for bfloat16 queries and pages: the split-KV kernel on the tensor
-// cores and the combine; out (T, Hq, Dv) bfloat16. soft_cap <= 0 means
-// none. workspace: rpa_split_workspace_floats() fp32 values.
+// cores and the combine; out (T, Hq, Dv) bfloat16. soft_cap <= 0 and
+// window 0 mean none; sinks is (Hq,) fp32 or null. workspace:
+// rpa_split_workspace_floats() fp32 values.
 int rpa_gqa_split_forward(const void* q, const void* k_pages,
                           const void* v_pages, const void* page_tables,
-                          const void* positions, void* out, void* workspace,
-                          int T, int Hq, int Hkv, int D, int Dv, int ps, int P,
-                          float scale, float soft_cap, void* stream) {
+                          const void* positions, const void* sinks, void* out,
+                          void* workspace, int T, int Hq, int Hkv, int D,
+                          int Dv, int ps, int P, float scale, float soft_cap,
+                          int window, void* stream) {
   if (T == 0) return 0;
-  const SplitShape sh = gqa_shape(Hq, Hkv, D, Dv, ps, P, scale, soft_cap, 2,
-                                  k_pages, v_pages, q);
+  const SplitShape sh = gqa_shape(Hq, Hkv, D, Dv, ps, P, scale, soft_cap,
+                                  window, 2, k_pages, v_pages, q);
   float* ws = static_cast<float*>(workspace);
   const SplitArgs<bf16> a = {
       static_cast<const bf16*>(q), nullptr,
@@ -395,7 +429,8 @@ int rpa_gqa_split_forward(const void* q, const void* k_pages,
       nullptr, nullptr, static_cast<const int*>(page_tables),
       static_cast<const int*>(positions), ws,
       ws + (size_t)T * sh.n_splits * Hq * Dv};
-  return launch_gqa_split(a, out, sh, T, static_cast<cudaStream_t>(stream));
+  return launch_gqa_split(a, static_cast<const float*>(sinks), out, sh, T,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // K5 for bfloat16 queries: as rpa_gqa_split_forward over int8 pages with
@@ -403,13 +438,14 @@ int rpa_gqa_split_forward(const void* q, const void* k_pages,
 int rpa_gqa_quant_split_forward(const void* q, const void* k_pages,
                                 const void* v_pages, const void* k_scales,
                                 const void* v_scales, const void* page_tables,
-                                const void* positions, void* out,
-                                void* workspace, int T, int Hq, int Hkv, int D,
-                                int Dv, int ps, int P, float scale,
-                                float soft_cap, void* stream) {
+                                const void* positions, const void* sinks,
+                                void* out, void* workspace, int T, int Hq,
+                                int Hkv, int D, int Dv, int ps, int P,
+                                float scale, float soft_cap, int window,
+                                void* stream) {
   if (T == 0) return 0;
-  const SplitShape sh = gqa_shape(Hq, Hkv, D, Dv, ps, P, scale, soft_cap, 1,
-                                  k_pages, v_pages, q);
+  const SplitShape sh = gqa_shape(Hq, Hkv, D, Dv, ps, P, scale, soft_cap,
+                                  window, 1, k_pages, v_pages, q);
   float* ws = static_cast<float*>(workspace);
   const SplitArgs<int8_t> a = {
       static_cast<const bf16*>(q), nullptr,
@@ -417,7 +453,8 @@ int rpa_gqa_quant_split_forward(const void* q, const void* k_pages,
       static_cast<const float*>(k_scales), static_cast<const float*>(v_scales),
       static_cast<const int*>(page_tables), static_cast<const int*>(positions),
       ws, ws + (size_t)T * sh.n_splits * Hq * Dv};
-  return launch_gqa_split(a, out, sh, T, static_cast<cudaStream_t>(stream));
+  return launch_gqa_split(a, static_cast<const float*>(sinks), out, sh, T,
+                          static_cast<cudaStream_t>(stream));
 }
 
 const char* rpa_error_string(int code) {

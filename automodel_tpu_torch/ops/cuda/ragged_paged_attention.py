@@ -10,8 +10,11 @@ queries run the split-KV kernel on the tensor cores and its combine
 K4, int8 pages in K5), float32 queries the CUDA-core `gqa_kernel`. K4's
 bfloat16 route rounds the probabilities to bf16 for the value product, as
 the Pallas kernel does (`p.astype(v.dtype)`): it has no rounding deviation
-from it. `KERNELS` names each kernel's device kernels on each route, as a
-profiler shows them.
+from it. Both routes take a sliding window (`window`, a positive int, or
+None for none) and sinks (`sinks`, a (Hq,) float32 logit per query head),
+which the Pallas kernels refuse: the split route skips the splits and pages
+wholly below the window and folds the sinks into its combine. `KERNELS`
+names each kernel's device kernels on each route, as a profiler shows them.
 
 The plain version of both is
 `automodel_tpu_torch.ops.paged_attention.ragged_paged_attention_ref`.
@@ -57,24 +60,23 @@ def route(dtype: torch.dtype) -> str:
 def _lib() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     if lib.rpa_gqa_forward.argtypes is None:
+        tail = [ctypes.c_float, ctypes.c_float, ctypes.c_int]  # scale, cap, window
         lib.rpa_gqa_forward.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + tail
+            + [ctypes.c_int, ctypes.c_void_p]
         )
         lib.rpa_gqa_forward.restype = ctypes.c_int
         lib.rpa_gqa_quant_forward.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + tail
+            + [ctypes.c_int, ctypes.c_void_p]
         )
         lib.rpa_gqa_quant_forward.restype = ctypes.c_int
         lib.rpa_gqa_quant_split_forward.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + tail + [ctypes.c_void_p]
         )
         lib.rpa_gqa_quant_split_forward.restype = ctypes.c_int
         lib.rpa_gqa_split_forward.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + tail + [ctypes.c_void_p]
         )
         lib.rpa_gqa_split_forward.restype = ctypes.c_int
         lib.rpa_split_workspace_floats.argtypes = [ctypes.c_int] * 7
@@ -142,6 +144,22 @@ def check_scales(pages, scales, name: str) -> None:
         )
 
 
+def check_window_and_sinks(q, window, sinks) -> int:
+    """The C interface's window (0: none) after checking `window` (None or a
+    positive int) and `sinks` (None or a (Hq,) float32 CUDA tensor on q's
+    device)."""
+    if window is not None and (isinstance(window, bool) or not isinstance(window, int)
+                               or window <= 0):
+        raise ValueError(f"window must be a positive int or None (got {window!r})")
+    if sinks is not None:
+        check_on_card(q, sinks=sinks)
+        if sinks.dtype != torch.float32 or tuple(sinks.shape) != (q.shape[1],):
+            raise ValueError(
+                f"sinks must be ({q.shape[1]},) float32 (got {tuple(sinks.shape)} "
+                f"{sinks.dtype})")
+    return window or 0
+
+
 def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
         msg = lib.rpa_error_string(err).decode()
@@ -161,15 +179,19 @@ def ragged_paged_attention_cuda(
     *,
     scale: float,
     soft_cap: float | None = None,
+    window: int | None = None,
+    sinks: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K4 on CUDA tensors, on `route(q.dtype)`: q (T, Hq, D), pages
     (N+1, ps, Hkv, D[v]), all float32 or all bfloat16; page_tables (T, P)
-    and positions (T,) int32. Returns (T, Hq, Dv) in q's dtype. Page-table
-    entries must index the pool (the kernel does not bound-check them). A
-    shape the bfloat16 route cannot launch raises."""
+    and positions (T,) int32; a sliding `window` (a positive int, None for
+    none) and `sinks` ((Hq,) float32 sink logits). Returns (T, Hq, Dv) in
+    q's dtype. Page-table entries must index the pool (the kernel does not
+    bound-check them). A shape the bfloat16 route cannot launch raises."""
     _check(q, k_pages, v_pages, page_tables, positions, q.dtype)
     if soft_cap is not None and soft_cap <= 0:
         raise ValueError(f"soft_cap must be positive (got {soft_cap})")
+    win = check_window_and_sinks(q, window, sinks)
     T, Hq, D = q.shape
     _, ps, Hkv, _ = k_pages.shape
     Dv = v_pages.shape[-1]
@@ -177,18 +199,19 @@ def ragged_paged_attention_cuda(
     out = torch.empty((T, Hq, Dv), dtype=q.dtype, device=q.device)
     lib = _lib()
     ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_tables.data_ptr(), positions.data_ptr(), out.data_ptr())
+            page_tables.data_ptr(), positions.data_ptr(),
+            None if sinks is None else sinks.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route(q.dtype) == "mma":
             ws = _split_workspace(lib, q, T, Hq, Hkv, D, Dv, ps, P)
             err = lib.rpa_gqa_split_forward(
                 *ptrs, ws.data_ptr(), T, Hq, Hkv, D, Dv, ps, P, float(scale),
-                float(soft_cap or 0.0), stream)
+                float(soft_cap or 0.0), win, stream)
         else:
             err = lib.rpa_gqa_forward(
                 *ptrs, T, Hq, Hkv, D, Dv, ps, P, float(scale),
-                float(soft_cap or 0.0), DTYPE_CODES[q.dtype], stream)
+                float(soft_cap or 0.0), win, DTYPE_CODES[q.dtype], stream)
     _raise_on(lib, err, "ragged paged attention")
     ragged_paged_attention_cuda.launches += 1
     return out
@@ -202,17 +225,20 @@ def ragged_paged_attention_quant_cuda(
     *,
     scale: float,
     soft_cap: float | None = None,
+    window: int | None = None,
+    sinks: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K5 on CUDA tensors, on `route(q.dtype)`: q (T, Hq, D) float32 or
     bfloat16, int8 pages (N+1, ps, Hkv, D[v]) with (N+1, ps) float32 per-row
-    scales, page_tables (T, P) and positions (T,) int32. Returns (T, Hq, Dv)
-    in q's dtype."""
+    scales, page_tables (T, P) and positions (T,) int32; `window` and
+    `sinks` as for K4. Returns (T, Hq, Dv) in q's dtype."""
     _check(q, k_pages, v_pages, page_tables, positions, torch.int8)
     check_on_card(q, k_scales=k_scales, v_scales=v_scales)
     check_scales(k_pages, k_scales, "k_scales")
     check_scales(v_pages, v_scales, "v_scales")
     if soft_cap is not None and soft_cap <= 0:
         raise ValueError(f"soft_cap must be positive (got {soft_cap})")
+    win = check_window_and_sinks(q, window, sinks)
     T, Hq, D = q.shape
     _, ps, Hkv, _ = k_pages.shape
     Dv = v_pages.shape[-1]
@@ -221,18 +247,19 @@ def ragged_paged_attention_quant_cuda(
     lib = _lib()
     ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scales.data_ptr(), v_scales.data_ptr(), page_tables.data_ptr(),
-            positions.data_ptr(), out.data_ptr())
+            positions.data_ptr(), None if sinks is None else sinks.data_ptr(),
+            out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route(q.dtype) == "mma":
             ws = _split_workspace(lib, q, T, Hq, Hkv, D, Dv, ps, P)
             err = lib.rpa_gqa_quant_split_forward(
                 *ptrs, ws.data_ptr(), T, Hq, Hkv, D, Dv, ps, P, float(scale),
-                float(soft_cap or 0.0), stream)
+                float(soft_cap or 0.0), win, stream)
         else:
             err = lib.rpa_gqa_quant_forward(
                 *ptrs, T, Hq, Hkv, D, Dv, ps, P, float(scale),
-                float(soft_cap or 0.0), DTYPE_CODES[q.dtype], stream)
+                float(soft_cap or 0.0), win, DTYPE_CODES[q.dtype], stream)
     _raise_on(lib, err, "quantized ragged paged attention")
     ragged_paged_attention_quant_cuda.launches += 1
     return out

@@ -31,7 +31,9 @@ Two implementations of each:
 
 The dispatchers pick the kernel for CUDA tensors and the plain version for
 CPU tensors (`impl="auto"`). There is no fallback: a feature a kernel does
-not cover (sliding windows, sinks) raises on CUDA tensors.
+not cover (a sliding window in K6/K7: no MLA family has one) raises on
+CUDA tensors. K4 and K5 take the engine's per-layer window (an int, 0 for
+a global layer) and the sink logits.
 """
 
 from __future__ import annotations
@@ -169,9 +171,10 @@ def ragged_paged_attention(
 ):
     """GQA entry. impl: "auto" (the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors) | "cuda" | "torch". With `k_scales`/`v_scales`
-    ((N, ps) per-row scales) the pages are int8: K5 instead of K4. The
-    kernels raise for what they do not cover; nothing here switches to the
-    plain version."""
+    ((N, ps) per-row scales) the pages are int8: K5 instead of K4. `window`
+    is None or an int (0: global), `sinks` None or (Hq,) logits (float32
+    for the kernels). The kernels raise for what they do not cover;
+    nothing here switches to the plain version."""
     scale = scale if scale is not None else float(q.shape[-1]) ** -0.5
     if _resolve(impl, q) == "torch":
         return ragged_paged_attention_ref(
@@ -179,22 +182,15 @@ def ragged_paged_attention(
             scale=scale, window=window, soft_cap=soft_cap, sinks=sinks,
             k_scales=k_scales, v_scales=v_scales,
         )
-    if window is not None or sinks is not None:
-        raise NotImplementedError(
-            "the CUDA paged attention kernels cover neither sliding "
-            "windows nor sinks"
-        )
     from automodel_tpu_torch.ops.cuda import ragged_paged_attention as k
 
+    # window 0 is a global layer (the engine's convention), None to the kernels
+    kw = dict(scale=scale, soft_cap=soft_cap, window=int(window or 0) or None,
+              sinks=sinks)
     if k_scales is not None:
         return k.ragged_paged_attention_quant_cuda(
-            q, k_pages, v_pages, k_scales, v_scales, page_tables, positions,
-            scale=scale, soft_cap=soft_cap,
-        )
-    return k.ragged_paged_attention_cuda(
-        q, k_pages, v_pages, page_tables, positions,
-        scale=scale, soft_cap=soft_cap,
-    )
+            q, k_pages, v_pages, k_scales, v_scales, page_tables, positions, **kw)
+    return k.ragged_paged_attention_cuda(q, k_pages, v_pages, page_tables, positions, **kw)
 
 
 def ragged_paged_mla_attention(

@@ -17,12 +17,24 @@ step, the DeepSeek gate bias moves after the optimizer step
 `model.fake_balanced_gate` and `model.moe_dispatcher` override the MoE
 config; the capacity dispatcher and the MTP head raise.
 
+The train-state checkpointer runs as in the JAX recipe (on unless
+`checkpoint.enabled: false`): a save every `step_scheduler.ckpt_every_steps`
+steps, a final save and wait (which then frees the checkpointer's host
+snapshot buffers), `checkpoint.save_consolidated` as a
+consolidated HF export to `<checkpoint_dir>/hf` after the final save,
+`checkpoint.restore_from` / `restore_step` or else auto-resume from the
+newest committed step (`auto_resume`, default true), and
+`time_to_resume_s` on the first record after a resume. SIGTERM sets the
+step scheduler's flag; after the step it lands in, the recipe forces a
+save, waits for its commit at most the JAX default grace of 30 s from the
+signal (the `resilience` section that sets it is not ported), logs an
+`emergency_checkpoint` record and returns.
+
 The same YAML files drive both packages. What the port does not have yet
 raises NotImplementedError instead of being skipped: distributed sizes
 other than 1 (`dp_shard: -1` resolves to 1 on one device), PEFT, other
 unported architectures (`models/registry.py`), validation, trackers,
-resilience, QAT, `model.linear_precision`, and the train-state
-checkpointer, which is on unless `checkpoint.enabled: false`.
+resilience, QAT, `model.linear_precision` and a remote `checkpoint_dir`.
 
 `model.pretrained_path` names a local HF safetensors checkpoint: its
 `config.json` gives the HF config and `checkpoint/hf_adapter.py` fills the
@@ -39,7 +51,11 @@ import time
 import numpy as np
 import torch
 
-from automodel_tpu_torch.checkpoint import HFCheckpointReader, get_adapter
+from automodel_tpu_torch.checkpoint import (
+    HFCheckpointReader,
+    get_adapter,
+    save_hf_checkpoint,
+)
 from automodel_tpu_torch.config import ConfigNode, parse_args_and_load_config
 from automodel_tpu_torch.datasets.loader import make_global_batch, stack_microbatches
 from automodel_tpu_torch.loggers.metric_logger import MetricLogger, setup_logging
@@ -48,6 +64,7 @@ from automodel_tpu_torch.loss.utils import combine_losses
 from automodel_tpu_torch.models.common.layers import count_params
 from automodel_tpu_torch.models.registry import get_model_spec
 from automodel_tpu_torch.recipes.base_recipe import BaseRecipe
+from automodel_tpu_torch.resilience import wait_with_deadline
 from automodel_tpu_torch.training import (
     TrainStepConfig,
     init_train_state,
@@ -66,6 +83,9 @@ _UNPORTED_SECTIONS = (
     "peft", "validation_dataset", "validation_generation", "wandb", "mlflow",
     "comet", "resilience", "packing", "tokenizer",
 )
+# seconds the emergency save may take from the SIGTERM: the JAX
+# ResilienceConfig.sigterm_grace_s default (that section is not ported)
+SIGTERM_GRACE_S = 30.0
 
 
 class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
@@ -82,6 +102,11 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         self._build_model(torch.float32)  # fp32 masters
         self._build_optimizer()
         self._build_data()
+        ckpt_cfg = dataclasses.replace(
+            self.typed.checkpoint,
+            save_every_steps=self.step_scheduler.config.ckpt_every_steps,
+        )
+        self.checkpointer = ckpt_cfg.build() if ckpt_cfg.enabled else None
         run_dir = cfg.get("run_dir", ".")
         self.metric_logger = MetricLogger(os.path.join(run_dir, "training.jsonl"))
         seq_len = int(cfg.get("dataset.seq_len", 512))
@@ -91,6 +116,21 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 device_peak_tflops(self.device) if self.device.type == "cuda" else None
             ),
         )
+
+        restore_from = cfg.get("checkpoint.restore_from", None)
+        t_restore = time.perf_counter()
+        resumed = False
+        self._time_to_resume_s = None
+        self._preempt_finished = False
+        if restore_from:
+            self.restore_from(restore_from, step=cfg.get("checkpoint.restore_step"))
+            resumed = True
+        elif cfg.get("auto_resume", True):
+            resumed = self.load_checkpoint()
+        if resumed:
+            # restore only: the model build is the same either way
+            self._time_to_resume_s = round(time.perf_counter() - t_restore, 3)
+        self.step_scheduler.install_sigterm_handler()
 
     def _refuse_unported(self) -> None:
         cfg = self.cfg
@@ -107,10 +147,6 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             raise NotImplementedError("qat is not ported")
         if cfg.get("model.linear_precision"):
             raise NotImplementedError("model.linear_precision is not ported")
-        if cfg.get("checkpoint.enabled", True):
-            raise NotImplementedError(
-                "the train-state checkpointer is not ported (ROADMAP.md queue 1 "
-                "item 4); run with --checkpoint.enabled=false")
 
     # ------------------------------------------------------------------
     def _build_model(self, param_dtype: torch.dtype | None) -> None:
@@ -126,6 +162,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         )
 
         def build_config(hf_config) -> torch.dtype:
+            self._hf_config = dict(hf_config)
             self.model_spec = get_model_spec(hf_config)
             cfg = self.model_spec.config_from_hf(hf_config, **overrides)
             self.model_cfg = self._moe_overrides(cfg, mcfg)
@@ -236,6 +273,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
 
     def run_train_validation_loop(self) -> None:
         t_last = time.perf_counter()
+        first_record = True
         try:
             for microbatches in self.step_scheduler:
                 step = self.step_scheduler.step
@@ -260,11 +298,72 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                         tpe.amax(-1).mean() / torch.clamp(tpe.mean(), min=1e-9))
                 if "skipped_nonfinite" in metrics:
                     record["skipped_nonfinite"] = metrics["skipped_nonfinite"]
+                if first_record and self._time_to_resume_s is not None:
+                    record["time_to_resume_s"] = self._time_to_resume_s
+                first_record = False
                 if not np.isfinite(loss):
                     logger.warning("step %d: non-finite loss %s", step, loss)
                 self.metric_logger.log(record)
+                if self.step_scheduler.sigterm_received:
+                    self._finish_preempted(step)
+                    break
+                if self.step_scheduler.is_ckpt_step:
+                    self.save_checkpoint(step)
+
+            if self.step_scheduler.sigterm_received:
+                if not self._preempt_finished:
+                    # the signal landed after the last in-loop check (during
+                    # the final step or its cadenced save)
+                    self._finish_preempted(self.step_scheduler.step)
+                # preempted: no further unbounded finalization (a re-save,
+                # wait or export would block past the grace window)
+                return
+            if self.checkpointer is not None:
+                self.save_checkpoint(self.step_scheduler.step)
+                self.checkpointer.close()
+            if self.cfg.get("checkpoint.save_consolidated", False):
+                self.save_consolidated_hf()
         finally:
             self.metric_logger.close()
+
+    def _finish_preempted(self, step: int) -> None:
+        """SIGTERM: a forced save, then a wait for its commit bounded by
+        what is left of the grace window, then the `emergency_checkpoint`
+        record."""
+        self._preempt_finished = True
+        t0 = time.perf_counter()
+        saved = self.save_checkpoint(step)
+        committed = True
+        if self.checkpointer is not None:
+            committed = wait_with_deadline(
+                self.checkpointer, self.step_scheduler.grace_remaining(SIGTERM_GRACE_S))
+            if committed:  # else the write still reads the snapshot buffers
+                self.checkpointer.close()
+        self.metric_logger.log({
+            "step": step, "event": "emergency_checkpoint", "saved": bool(saved),
+            "committed": bool(committed),
+            "seconds": round(time.perf_counter() - t0, 3),
+        })
+        if not committed:
+            logger.error(
+                "emergency checkpoint at step %d NOT committed within the grace "
+                "window; resume will fall back to step %s", step,
+                self.checkpointer.latest_step() if self.checkpointer else None)
+        logger.info("SIGTERM received: checkpointed and exiting")
+
+    def save_consolidated_hf(self, out_dir: str | None = None) -> str:
+        """The consolidated HF safetensors export of the params (the fp32
+        masters), with the model's config.json, to
+        `<checkpoint_dir>/hf` by default: what `llm_serve` reads."""
+        out_dir = out_dir or os.path.join(
+            self.cfg.get("checkpoint.checkpoint_dir", "checkpoints"), "hf")
+        adapter = get_adapter(self.model_spec.adapter_name, self.model_cfg,
+                              **self.model_spec.adapter_kwargs)
+        with torch.no_grad():
+            save_hf_checkpoint(adapter.to_hf(self.train_state.params), out_dir,
+                               hf_config=self._hf_config)
+        logger.info("consolidated HF checkpoint written to %s", out_dir)
+        return out_dir
 
 
 def main(argv=None) -> TrainFinetuneRecipeForNextTokenPrediction:

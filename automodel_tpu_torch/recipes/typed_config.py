@@ -170,6 +170,17 @@ class RecipeConfig:
         return self._section("dataloader", DataloaderConfig)
 
     @property
+    def checkpoint(self):
+        """`checkpoint` -> CheckpointingConfig; the recipe reads
+        `restore_from` and `restore_step` itself."""
+        from automodel_tpu_torch.checkpoint import CheckpointingConfig
+
+        return self._section(
+            "checkpoint", CheckpointingConfig,
+            allow=("restore_from", "restore_step"),
+        )
+
+    @property
     def step_scheduler(self):
         from automodel_tpu_torch.training.step_scheduler import StepSchedulerConfig
 

@@ -35,10 +35,12 @@ What differs from the JAX engine:
   engine's fold_in(key(seed), position) — but a different draw, so sampled
   tokens match JAX in distribution, not bit for bit. Greedy decoding
   matches token for token.
+- Sliding-window and sinked layers stay on the kernels: each layer hands
+  K4/K5 its own window (0 for a global layer) and sink logits. The JAX
+  engine routes every layer of such a model to its XLA path, because the
+  Pallas kernels refuse windows and sinks.
 - Not ported yet (they raise NotImplementedError): speculative decoding,
-  low-precision serve linears, a serving mesh (tp, ep), and sliding windows
-  or sinks through the CUDA kernels (pass `attn_impl="torch"` to serve them
-  with the plain version).
+  low-precision serve linears and a serving mesh (tp, ep).
 """
 
 from __future__ import annotations
@@ -227,18 +229,14 @@ class ServingEngine:
             for li in range(L)
         ]
         n_layers = len(self._layers)
+        # sink logits in float32 once, as the kernels take them
+        for _, _, lp, _ in self._layers:
+            if "sinks" in lp:
+                lp["sinks"] = lp["sinks"].float().contiguous()
 
+        # each layer's window, 0 for a global layer
         self._windows = [w or 0 for w in layer_windows(cfg, n_layers)]
         self._any_window = any(self._windows)
-        has_sinks = any("sinks" in self.params[key] for key, _, _ in stacks)
-        uses_kernel = attn_impl == "cuda" or (
-            attn_impl == "auto" and self.device.type == "cuda"
-        )
-        if uses_kernel and (self._any_window or has_sinks):
-            raise NotImplementedError(
-                "the CUDA paged attention kernels cover neither sliding "
-                "windows nor sinks; pass attn_impl='torch' for the plain version"
-            )
         self._attn_impl = attn_impl
         inv_freq = rope_frequencies(
             cfg.rope_dim, cfg.rope_theta, cfg.rope_scaling

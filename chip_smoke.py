@@ -15,6 +15,12 @@ one JSON line each:
    (fp latent pages) and K7 (int8) at Moonlight's MLA widths (16 heads,
    r 512, dr 64); bf16 K4-K7 are split-KV kernels on the tensor cores and
    their combines, fp32 K4-K7 the CUDA-core kernels;
+   kernel_window: K4 and K5 with sliding windows and sinks on both routes
+   against the plain version, over contexts longer than each window (a
+   window of no multiple of the page or the split; gpt-oss-20b's heads with
+   window 128 and sinks), and timed at Gemma-2-2B's heads (8/4, D 256, cap
+   50) on 64 rows at positions of ~8000 with window 4096 and without, each
+   beside its bound over the pages that meet the rows' windows;
 3. flash: K1-K3 (flash attention forward, dq, dk/dv) against their plain
    versions at the training shapes (B 1, S 4096, Hq 32, Hkv 8, D 128,
    causal) in bf16 (K1-K3 on the tensor cores) and fp32 (CUDA cores),
@@ -32,6 +38,12 @@ one JSON line each:
    at full width and all 27 layers, bf16, random weights from seed 0, on
    the same traffic, on the fp pool (K6) and on the int8 pool (K7), each
    with its profile;
+   serve_gemma2 / serve_gemma2_int8: the windowed main path,
+   google/gemma-2-2b at full width and all 26 layers (window 4096 and
+   global, alternating), bf16, 16 requests of 4200-7800 prompt tokens, 32
+   greedy tokens each, on the fp pool (K4 on every layer of every step,
+   the global layers with no window) and the int8 pool (K5), no plain
+   attention call, with a profile of the fp pool's steps;
    moe_sync: one Moonlight MoE block (gate, grouped expert products,
    shared experts, combine) in bf16 at full width under
    `torch.cuda.set_sync_debug_mode("error")`: it reads nothing to the host;
@@ -55,7 +67,9 @@ one JSON line each:
    versions, each held to the same model in fp32: the kernels' logits no
    farther from it than the plain version's plus the bf16 tolerance,
    every kernel call within `PAGED_TOL` of its plain version on the same
-   inputs, greedy agreements reported;
+   inputs, greedy agreements reported; engine_window: the same four checks
+   on a 2-layer Gemma-2 engine at Gemma-2-2B widths (window 512 and a
+   global layer) with prompts of 600-900 tokens;
 8. train: the training CLI (`python -m automodel_tpu_torch`, run in this
    process) on `examples/llm_pretrain/llama3_8b_mock_bf16.yaml` at its
    published width, bf16 and full remat, cut to 8 layers, 2 microbatches
@@ -69,7 +83,15 @@ one JSON line each:
 10. train paths: `examples/llm_finetune/tiny_llama_mock_smoke.yaml` (fp32,
    head dim 16) for its 10 steps through the CLI with the kernels and
    through the recipe class called directly with the plain attention:
-   the loss curves must agree.
+   the loss curves must agree;
+11. train_gemma3_ckpt: the Gemma-3-1B training recipe at full width and
+   depth with the train-state checkpointer on (a save every 3 steps,
+   async, one kept, the consolidated HF export at the end): 5 unbroken
+   steps; a new process resumed from the step-3 checkpoint runs steps 4-5
+   with the unbroken run's losses and grad norms (1e-6 relative); then the
+   `llm_serve` recipe through the CLI on the export, prompts of 900 tokens
+   over the 512 window, K4 on every layer of every step. Checkpoint bytes,
+   save seconds and time_to_resume_s are printed.
 
 The build line carries ptxas's registers and spills of every kernel, and of
 the tensor-core K1-K7 kernels by name with their dynamic shared memory.
@@ -84,7 +106,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -97,7 +121,11 @@ import torch
 import torch.nn.functional as F
 import yaml
 
-from automodel_tpu_torch.checkpoint import DenseDecoderAdapter, save_hf_checkpoint
+from automodel_tpu_torch.checkpoint import (
+    Checkpointer,
+    DenseDecoderAdapter,
+    save_hf_checkpoint,
+)
 from automodel_tpu_torch.cli.app import main as cli_main
 from automodel_tpu_torch.config import parse_args_and_load_config
 from automodel_tpu_torch.datasets.loader import make_global_batch, stack_microbatches
@@ -111,6 +139,7 @@ from automodel_tpu_torch.models.moe_lm import decoder as moe_decoder
 from automodel_tpu_torch.models.moe_lm.families import deepseek_v3_moe_config
 from automodel_tpu_torch.moe.layer import init_moe, moe_forward
 from automodel_tpu_torch.ops import flash_attention as fa
+from automodel_tpu_torch.ops import paged_attention as paged_ops
 from automodel_tpu_torch.ops.cuda import _build
 from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
 from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla_cuda
@@ -168,6 +197,18 @@ MOONLIGHT = {
 }
 # Moonlight's absorbed-MLA widths: heads, latent rank, rope dim
 MOONLIGHT_MLA = (16, 512, 64)
+# serve_gemma2: contexts to 8192 tokens (Gemma-2's max_position_embeddings)
+# for 16 resident requests, and 512 rows per step (480 of one prefill
+# chunk), so that the ~96k prompt tokens prefill in ~200 steps
+SERVE_GEMMA2 = ServingConfig(
+    page_size=16, num_pages=8192, max_slots=16, pages_per_slot=512,
+    token_budget=512, prefill_chunk=480,
+)
+# ... whose prompts of 4200-7800 tokens are longer than the 4096 window
+GEMMA2_SERVE_PROMPTS = (4200, 7800)
+# engine_window_phase: Gemma-2-2B widths, 2 layers, window 512, prompts
+# longer than it
+ENGINE_WINDOW, ENGINE_WINDOW_PROMPTS = 512, (900, 700, 600)
 # the llm_serve recipe's default ServingConfig (recipes/llm/serve.py)
 SERVE = ServingConfig(
     page_size=16, num_pages=2048, max_slots=16, pages_per_slot=64,
@@ -203,6 +244,26 @@ ENGINE_BF16_LOGITS_TOL = 2e-2
 # product and their output once (K4 and K6 round p to bf16 as their plain
 # versions do); 2e-2 is about two bf16 ulps at the largest value.
 PAGED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# K4 and K5 with windows and sinks (window_kernels_phase): case, heads
+# (Hq, Hkv, D), decode contexts (`window_rows`), window (0: none), soft cap,
+# sinks, timed. Every row's position exceeds its window, so the window masks.
+# An output over thousands of kv rows is small (about 0.02 at Gemma-2-2B's
+# heads), so these cases hold the error to PAGED_TOL times the plain
+# result's own largest value and root mean square (no floor of 1), and
+# require the plain version without the window, and without the sinks, to
+# lie more than 3 x PAGED_TOL from it: a kernel that ignores either fails.
+WINDOW_KERNEL_CASES = (
+    # gpt-oss-20b's attention (openai/gpt-oss-20b config.json: 64 q / 8 kv
+    # heads of 64; window 128 on its sliding layers; one sink per head)
+    ("gpt_oss_20b_window_sinks", (64, 8, 64), (600, 1000), 128, None, True, False),
+    # a window of no multiple of the page (16) or of the split (128), at
+    # Gemma-3-1B's heads (4 q / 1 kv of 256)
+    ("gemma3_window_1000", (4, 1, 256), (1100, 2000), 1000, None, False, False),
+    # Gemma-2-2B's heads (8 q / 4 kv of 256, cap 50) at positions of ~8000:
+    # its sliding layers' window 4096, and its global layers
+    ("gemma2_2b_window_4096", (8, 4, 256), (7800, 8192), 4096, 50.0, False, True),
+    ("gemma2_2b_global", (8, 4, 256), (7800, 8192), 0, 50.0, False, True),
+)
 # every paged-attention kernel's wrapper, whose `launches` the serve runs read
 PAGED_KERNELS = {
     "K4": ragged_paged_attention_cuda,
@@ -304,6 +365,13 @@ GEMMA2_TRAIN_SEQ, GEMMA3_TRAIN_SEQ = 8192, 4096
 # relative, the grad norm to 5e-2 (bf16 rounds attention's probabilities and
 # outputs at other places in the two paths, through 26 layers)
 GEMMA_PLAIN_LOSS_RTOL, GEMMA_PLAIN_GNORM_RTOL = 1e-2, 5e-2
+# train_gemma3_ckpt: train_gemma3 with the checkpointer on, a save every
+# CKPT_EVERY steps; the run resumed from that save in a new process must
+# give the unbroken run's losses and grad norms within this relative
+# tolerance (the same state and batches; the backward's atomic sums may
+# take another order, which moves fp32 grad norms by ~1e-7); then the
+# llm_serve recipe on its HF export with prompts of this many tokens
+CKPT_EVERY, CKPT_RESUME_RTOL, CKPT_SERVE_PROMPT_LEN = 3, 1e-6, 900
 # train_gemma_check: Gemma-2-2B widths, 2 layers (one sliding, one global),
 # fp32, 2 microbatches of this many tokens, a window that masks
 GEMMA_CHECK_SEQ, GEMMA_CHECK_WINDOW = 2048, 512
@@ -373,21 +441,23 @@ def k4_inputs(dtype, seed: int = 0):
 
 
 def paged_bound(pt, pos, ps: int, page_bytes: int, io_bytes: int,
-                ops_per_kv: int, dtype):
+                ops_per_kv: int, dtype, window: int = 0):
     """Least time of one paged-attention call: the larger of (bytes it must
     move over HBM bandwidth) and (operations over the peak rate of the
     query dtype). Bytes: every distinct page any live row needs, once
-    (`page_bytes` each, scales included), plus `io_bytes` (queries, output)
-    and the page tables and positions. Operations: `ops_per_kv` for each
-    kv index each live row attends to."""
+    (`page_bytes` each, scales included; with a `window`, only the pages
+    that meet the row's window), plus `io_bytes` (queries, output) and the
+    page tables and positions. Operations: `ops_per_kv` for each kv index
+    each live row attends to."""
     pos_h = pos.cpu().numpy()
     pt_h = pt.cpu().numpy()
     pages = set()
     for p, row in zip(pos_h, pt_h):
         if p >= 0:
-            pages.update(int(x) for x in row[: p // ps + 1])
+            lo = max(int(p) - window + 1, 0) if window else 0
+            pages.update(int(x) for x in row[lo // ps: p // ps + 1])
     nbytes = len(pages) * page_bytes + io_bytes + pt.numel() * 4 + pos.numel() * 4
-    ops = sum(int(p) + 1 for p in pos_h if p >= 0) * ops_per_kv
+    ops = sum(min(int(p) + 1, window or int(p) + 1) for p in pos_h if p >= 0) * ops_per_kv
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     if t_bytes >= t_ops:
@@ -547,6 +617,125 @@ def paged_kernels_phase(flush) -> dict:
                 out[name] = entry
             del got, want
         torch.cuda.empty_cache()
+    return out
+
+
+def window_rows(ctx_lo: int, ctx_hi: int, ps: int, seed: int = 0):
+    """The rows of one serve step over long contexts: T=64 (12 decode rows of
+    12 requests with contexts in [ctx_lo, ctx_hi], one request's 48-row
+    prefill chunk ending at ctx_hi, 4 pad rows), pages in permuted order,
+    tables as wide as ctx_hi, padded with the trash page. Returns
+    (page_tables, positions, N) on the card."""
+    rng = np.random.default_rng(seed)
+    P = pages_for(ctx_hi, ps)
+    ctx = [int(c) for c in rng.integers(ctx_lo, ctx_hi + 1, 12)] + [ctx_hi]
+    N = sum(pages_for(c, ps) for c in ctx)
+    perm = iter(rng.permutation(N))
+    tables = []
+    for c in ctx:
+        pages = [int(next(perm)) for _ in range(pages_for(c, ps))]
+        tables.append(pages + [N] * (P - len(pages)))
+    rows_pt = tables[:12] + [tables[12]] * 48 + [tables[0]] * 4
+    rows_pos = [c - 1 for c in ctx[:12]] + list(range(ctx_hi - 48, ctx_hi)) + [-1] * 4
+    return (torch.tensor(rows_pt, dtype=torch.int32, device="cuda"),
+            torch.tensor(rows_pos, dtype=torch.int32, device="cuda"), N)
+
+
+def k45_window_case(kernel: str, dtype, heads, ctx, window: int, soft_cap,
+                    sinks: bool, seed: int = 0):
+    """K4 (pages of the query dtype) or K5 (int8 pages) on `window_rows(*ctx)`
+    at heads (Hq, Hkv, D), with a window (0: none), a soft cap and sink
+    logits or not: (kernel call, plain call, positions, bound). The plain
+    call takes keyword overrides (`window=None`, `sinks=None`)."""
+    Hq, Hkv, D = heads
+    ps = 16
+    pt, pos, N = window_rows(*ctx, ps, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(64, Hq, D, generator=gen, device="cuda").to(dtype)
+    sink = torch.randn(Hq, generator=gen, device="cuda") + 3.0 if sinks else None
+    kw = dict(scale=D ** -0.5, soft_cap=soft_cap, window=window or None, sinks=sink)
+    elt = q.element_size()
+    io, ops = 2 * q.numel() * elt, Hq * 4 * D
+    if kernel == "K5":
+        kp, ks = int8_pages(gen, N + 1, ps, Hkv, D)
+        vp, vs = int8_pages(gen, N + 1, ps, Hkv, D)
+        bound = paged_bound(pt, pos, ps, ps * Hkv * 2 * D + 2 * ps * 4, io, ops,
+                            dtype, window)
+        return (
+            lambda: ragged_paged_attention_quant_cuda(q, kp, vp, ks, vs, pt, pos, **kw),
+            lambda **o: ragged_paged_attention_ref(q, kp, vp, pt, pos, k_scales=ks,
+                                                   v_scales=vs, **{**kw, **o}),
+            pos, bound,
+        )
+    kp = torch.randn(N + 1, ps, Hkv, D, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(N + 1, ps, Hkv, D, generator=gen, device="cuda").to(dtype)
+    bound = paged_bound(pt, pos, ps, ps * Hkv * 2 * D * elt, io, ops, dtype, window)
+    return (
+        lambda: ragged_paged_attention_cuda(q, kp, vp, pt, pos, **kw),
+        lambda **o: ragged_paged_attention_ref(q, kp, vp, pt, pos, **{**kw, **o}),
+        pos, bound,
+    )
+
+
+def window_kernels_phase(flush) -> dict:
+    """K4 and K5 with sliding windows and sinks against their plain versions
+    in bf16 (split-KV on the tensor cores) and fp32 (CUDA cores), on
+    `WINDOW_KERNEL_CASES`; the timed cases are timed (median of 10 launches,
+    each after an L2 flush) beside their bound over the pages that meet
+    each row's window. The tolerance is stated at WINDOW_KERNEL_CASES.
+    Returns {(kernel, case): bf16 entry} of the timed cases."""
+    out = {}
+    for case, heads, ctx, window, cap, sinks, timed in WINDOW_KERNEL_CASES:
+        if window:  # every row's window masks
+            assert ctx[0] > window, case
+        for kernel in ("K4", "K5"):
+            for dtype in (torch.bfloat16, torch.float32):
+                fn, plain, pos, bound = k45_window_case(kernel, dtype, heads, ctx,
+                                                        window, cap, sinks)
+                got = fn()
+                torch.cuda.synchronize()
+                want = plain()
+                diff = got.float() - want.float()
+                err = diff.abs().max().item()
+                ref_max = want.float().abs().max().item()
+                ref_norm = want.float().norm().item()
+                rel_rms = diff.norm().item() / ref_norm
+                # how far off a kernel that ignored the window / the sinks is
+                off = {knob: (plain(**{knob: None}).float() - want.float()).norm().item()
+                       / ref_norm for knob, on in (("window", window), ("sinks", sinks))
+                       if on}
+                pad_zero = bool((got[pos < 0] == 0).all().item())
+                tol = PAGED_TOL[dtype]
+                bound_ms, bound_by, nbytes, ops = bound
+                entry = {
+                    "case": case, "heads": list(heads), "contexts": list(ctx),
+                    "window": window, "soft_cap": cap, "sinks": sinks,
+                    "dtype": str(dtype).removeprefix("torch."),
+                    "route": rpa_cuda.route(dtype), "max_abs_err": err,
+                    "ref_max": ref_max, "rel_rms_err": rel_rms,
+                    "ref_rms": ref_norm / want.numel() ** 0.5,
+                    "rel_rms_without": off, "tol": tol, "pad_rows_zero": pad_zero,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                    "operations": ops,
+                }
+                del diff
+                del got, want
+                if timed:
+                    entry["ms"] = time_ms(fn, 10, flush)
+                    entry["plain_ms"] = time_ms(plain, 3, flush)
+                emit({"phase": "kernel_window", "kernel": kernel, **entry})
+                if not (err <= tol * ref_max and rel_rms <= tol and pad_zero):
+                    raise AssertionError(
+                        f"{kernel} with a window / sinks disagrees with its plain "
+                        f"version: {entry}")
+                if any(v <= 3 * tol for v in off.values()):
+                    raise AssertionError(
+                        f"{case}: the window / sinks barely move the plain version, "
+                        f"so the check cannot see a kernel ignore them: {entry}")
+                if timed and dtype == torch.bfloat16:
+                    out[(kernel, case)] = entry
+                del fn, plain
+                torch.cuda.empty_cache()
     return out
 
 
@@ -819,38 +1008,67 @@ def flash_phase(flush) -> dict:
     return out
 
 
-def serve_traffic(vocab_size: int, seed: int = 0) -> list:
-    """16 requests of 64-900 prompt tokens arriving every 2 steps, 32 greedy
-    tokens each."""
+def serve_traffic(vocab_size: int, seed: int = 0, lens=(64, 900)) -> list:
+    """16 requests of `lens` (64-900) prompt tokens arriving every 2 steps,
+    32 greedy tokens each."""
     rng = np.random.default_rng(seed)
     return [
         Request(
             prompt=[int(t) for t in rng.integers(1, vocab_size, (int(n),))],
             max_new_tokens=32, arrival=2 * i,
         )
-        for i, n in enumerate(rng.integers(64, 901, 16))
+        for i, n in enumerate(rng.integers(lens[0], lens[1] + 1, 16))
     ]
 
 
+@contextlib.contextmanager
+def plain_calls_counted():
+    """Within the block, the paged attention dispatchers' calls of the
+    plain versions are counted into the yielded dict (a route check: on
+    the card's main path they must stay 0)."""
+    counts = {}
+    saved = {}
+    for name in ("ragged_paged_attention_ref", "ragged_paged_mla_attention_ref"):
+        fn = saved[name] = getattr(paged_ops, name)
+        counts[name] = 0
+
+        def counted(*args, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*args, **kw)
+
+        setattr(paged_ops, name, counted)
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(paged_ops, name, fn)
+
+
 def serve_run(engine, cfg, card: str, phase: str, model: str, kernel: str,
-              setup_s: float) -> tuple[int, dict]:
-    """One main-path run: `serve_batch` on `serve_traffic`, with every
+              setup_s: float, lens=(64, 900)) -> tuple[int, dict]:
+    """One main-path run: `serve_batch` on `serve_traffic(lens)`, with every
     kernel's launch count set to 0 just before and read just after. Every
-    layer of every step must have launched `kernel` and no other paged
-    kernel. Returns (launches of `kernel`, the serve result)."""
-    reqs = serve_traffic(cfg.vocab_size)
+    layer of every step must have launched `kernel`, no other paged kernel,
+    and no plain version. Returns (launches of `kernel`, the serve
+    result)."""
+    reqs = serve_traffic(cfg.vocab_size, lens=lens)
     torch.cuda.reset_peak_memory_stats()
     for fn in PAGED_KERNELS.values():
         fn.launches = 0
-    res = engine.serve_batch(reqs)
+    with plain_calls_counted() as plain_calls:
+        res = engine.serve_batch(reqs)
     launches = {name: fn.launches for name, fn in PAGED_KERNELS.items()}
     stats = res["stats"]
     emit({
         "phase": phase, "card": card, "model": model, "setup_s": setup_s,
-        "kv_cache_dtype": engine.serve_cfg.kv_cache_dtype, "stats": stats,
-        "launches": launches,
+        "kv_cache_dtype": engine.serve_cfg.kv_cache_dtype,
+        "prompt_tokens": list(lens), "stats": stats, "launches": launches,
+        "launches_per_step": launches[kernel] / stats["steps"],
+        "plain_attention_calls": plain_calls,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     })
+    if any(plain_calls.values()):
+        raise AssertionError(f"{phase}: the plain attention ran: {plain_calls}")
     if len(res["outputs"]) != 16 or any(len(o) != 32 for o in res["outputs"]):
         raise AssertionError(f"{phase}: not every request finished with 32 tokens")
     if any(not 0 <= t < cfg.vocab_size for o in res["outputs"] for t in o):
@@ -1056,7 +1274,7 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
 
 
 def profile_steps(engine, cfg, card: str, phase: str,
-                  kernel_keys: tuple[str, ...]) -> None:
+                  kernel_keys: tuple[str, ...], lens=(64, 900)) -> None:
     """Where a serve step's time goes: the same traffic again, 40 steps to
     reach a mix of prefill and decode, then 10 steps under torch.profiler.
     Prints device busy time per step by kernel, the device's idle share of
@@ -1068,7 +1286,7 @@ def profile_steps(engine, cfg, card: str, phase: str,
     from torch.profiler import ProfilerActivity, profile
 
     sched = engine.make_scheduler()
-    for r in serve_traffic(cfg.vocab_size, seed=1):
+    for r in serve_traffic(cfg.vocab_size, seed=1, lens=lens):
         sched.submit(r)
     for step in range(30):
         engine.run_one_step(sched, step)
@@ -1124,23 +1342,24 @@ def profile_steps(engine, cfg, card: str, phase: str,
     })
 
 
-def submit_engine_requests(sched, cfg) -> None:
+def submit_engine_requests(sched, cfg, lens=(100, 60, 30)) -> None:
     rng = np.random.default_rng(1)
-    for n in (100, 60, 30):
+    for n in lens:
         sched.submit(Request(
             prompt=[int(t) for t in rng.integers(1, cfg.vocab_size, (n,))],
             max_new_tokens=4,
         ))
 
 
-def engine_check(phase: str, cfg, params, sc, tol: float) -> None:
+def engine_check(phase: str, cfg, params, sc, tol: float,
+                 lens=(100, 60, 30)) -> None:
     """Identical step plans through an engine on the kernels and one on the
-    plain versions (same weights, fp32): every step's logits within `tol`,
-    greedy tokens equal."""
+    plain versions (same weights, fp32), prompts of `lens` tokens: every
+    step's logits within `tol`, greedy tokens equal."""
     e_cuda = ServingEngine(params, cfg, sc, attn_impl="cuda")
     e_torch = ServingEngine(params, cfg, sc, attn_impl="torch")
     sched = e_cuda.make_scheduler()
-    submit_engine_requests(sched, cfg)
+    submit_engine_requests(sched, cfg, lens)
     worst, steps = 0.0, 0
     while sched.has_work:
         plan = sched.schedule(steps)
@@ -1194,7 +1413,7 @@ def held_to_plain(kernel: str, errors: list):
 
 
 def engine_bf16_check(phase: str, cfg, params, sc, tol: float,
-                      kernel: str) -> None:
+                      kernel: str, lens=(100, 60, 30)) -> None:
     """A bf16 engine on the kernels and one on the plain versions, on
     identical step plans, each held to the same model in fp32 (the bf16
     weights upcast exactly, plain attention): the kernels' logits may stray
@@ -1214,7 +1433,7 @@ def engine_bf16_check(phase: str, cfg, params, sc, tol: float,
                               attn_impl="torch"),
     }
     sched = engines["cuda"].make_scheduler()
-    submit_engine_requests(sched, cfg)
+    submit_engine_requests(sched, cfg, lens)
     err = {"cuda_vs_fp32": 0.0, "plain_vs_fp32": 0.0, "cuda_vs_plain": 0.0}
     agree = {"cuda_vs_fp32": 0, "plain_vs_fp32": 0, "cuda_vs_plain": 0}
     steps, rows, errors = 0, 0, []
@@ -1300,6 +1519,74 @@ def engine_mla_phase() -> None:
                       ENGINE_BF16_LOGITS_TOL, "K7")
     del params16
     torch.cuda.empty_cache()
+
+
+def engine_window_phase() -> None:
+    """A 2-layer Gemma-2 engine at Gemma-2-2B widths (one sliding layer with
+    a window of ENGINE_WINDOW, one global; soft caps 50 and 30) on prompts
+    longer than the window: in fp32 on the fp and the int8 pool (K4's and
+    K5's CUDA-core routes) against the plain version, logits within the
+    engine tolerances and greedy tokens equal; then in bf16 on both pools
+    (the tensor-core routes), held to the fp32 model as engine_bf16_check
+    holds the other engines. The global layer launches the kernels too,
+    with no window."""
+    cfg = gemma2_config(dict(GEMMA2_2B, num_hidden_layers=2, sliding_window=ENGINE_WINDOW),
+                        dtype=torch.float32)
+    assert decoder.layer_windows(cfg) == (ENGINE_WINDOW, None)
+    params = decoder.init(cfg, torch.Generator(device="cuda").manual_seed(2))
+    sc = dataclasses.replace(SERVE, num_pages=256)
+    int8 = dataclasses.replace(sc, kv_cache_dtype="int8")
+    lens = ENGINE_WINDOW_PROMPTS
+    engine_check("engine_window", cfg, params, sc, ENGINE_LOGITS_TOL, lens)
+    engine_check("engine_window_int8", cfg, params, int8, ENGINE_INT8_LOGITS_TOL, lens)
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    params16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    engine_bf16_check("engine_window_bf16", cfg16, params16, sc,
+                      ENGINE_BF16_LOGITS_TOL, "K4", lens)
+    engine_bf16_check("engine_window_int8_bf16", cfg16, params16, int8,
+                      ENGINE_BF16_LOGITS_TOL, "K5", lens)
+    del params16
+    torch.cuda.empty_cache()
+
+
+def serve_gemma2_phase(card: str) -> dict:
+    """The windowed main path: google/gemma-2-2b at full width and all 26
+    layers (alternating window 4096 and global, soft caps 50 / 30), bf16,
+    random weights from seed 0, on SERVE_GEMMA2 traffic (prompts of
+    4200-7800 tokens, so the window masks) on the fp pool (K4), with its
+    profile, and then on the int8 pool (K5); returns the launches of K4
+    and K5."""
+    cfg = gemma2_config(GEMMA2_2B, dtype=torch.bfloat16)
+    windows = decoder.layer_windows(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = decoder.init(cfg, gen, dtype=torch.bfloat16)
+    engine = ServingEngine(params, cfg, SERVE_GEMMA2)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model = (f"Gemma-2-2B, full width and all {cfg.num_layers} layers "
+             f"({sum(w is not None for w in windows)} with window {cfg.sliding_window}, "
+             f"{sum(w is None for w in windows)} global), bf16, "
+             f"{count_params(params)} params")
+    launches = {}
+    for kernel, kv in (("K4", None), ("K5", "int8")):
+        if kv is not None:
+            engine = ServingEngine(params, cfg,
+                                   dataclasses.replace(SERVE_GEMMA2, kv_cache_dtype=kv))
+        phase = "serve_gemma2" + ("_int8" if kv else "")
+        launches[kernel], _ = serve_run(engine, cfg, card, phase, model, kernel,
+                                        setup_s if kv is None else 0.0,
+                                        lens=GEMMA2_SERVE_PROMPTS)
+        if kv is None:
+            profile_steps(engine, cfg, card, phase,
+                          rpa_cuda.KERNELS[kernel][rpa_cuda.route(torch.bfloat16)],
+                          lens=GEMMA2_SERVE_PROMPTS)
+        del engine
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def device_ms_by_kernel(prof) -> dict:
@@ -1723,11 +2010,13 @@ def train_moe_check_phase() -> None:
         raise AssertionError("train_moe_check: the step differs between kernels and plain")
 
 
-def gemma_train_yaml(run_dir: str, hf: dict, seq: int, attn_impl: str = "auto") -> str:
+def gemma_train_yaml(run_dir: str, hf: dict, seq: int, attn_impl: str = "auto",
+                     checkpoint: dict | None = None, ckpt_every_steps: int = 1000) -> str:
     """A train_gemma phase's recipe, written to `run_dir`: the published
     config at full width and depth, bf16 over fp32 masters, full remat,
     mock data over GEMMA_TRAIN_TOKEN_IDS token ids, microbatch 1, AdamW,
-    attention by `attn_impl`; returns its path."""
+    attention by `attn_impl`, the `checkpoint` section (off when None);
+    returns its path."""
     cfg = {
         "seed": 0, "run_dir": run_dir,
         "model": {"hf_config": dict(hf), "dtype": "bfloat16", "remat_policy": "full",
@@ -1739,8 +2028,9 @@ def gemma_train_yaml(run_dir: str, hf: dict, seq: int, attn_impl: str = "auto") 
         "dataloader": {"microbatch_size": 1, "grad_acc_steps": 1},
         "optimizer": {"name": "adamw", "lr": 1.0e-3, "weight_decay": 0.1},
         "lr_scheduler": {"style": "constant", "warmup_steps": 0},
-        "step_scheduler": {"max_steps": GEMMA_TRAIN_STEPS},
-        "checkpoint": {"enabled": False},
+        "step_scheduler": {"max_steps": GEMMA_TRAIN_STEPS,
+                           "ckpt_every_steps": ckpt_every_steps},
+        "checkpoint": checkpoint or {"enabled": False},
         "loss": {"chunk_size": 2048},
     }
     path = Path(run_dir) / f"{hf['architectures'][0]}_train.yaml"
@@ -1942,6 +2232,163 @@ def train_gemma_check_phase() -> None:
         raise AssertionError("train_gemma_check: the step differs between kernels and plain")
 
 
+def train_gemma3_ckpt_phase(card: str) -> int:
+    """The train_gemma3 recipe with the train-state checkpointer on, in a
+    temporary directory deleted at the end: `ckpt_every_steps` 3,
+    `max_recent_checkpoints` 1, `async_save`, `save_consolidated: final`.
+
+    1. The unbroken 5-step run through the CLI in this process. Its step-3
+       checkpoint is hard-linked aside when it commits (retention deletes it
+       when step 5 commits).
+    2. A new process (`python -m automodel_tpu_torch`) on that step-3
+       checkpoint auto-resumes and runs steps 4-5: its losses and grad norms
+       must equal the unbroken run's within CKPT_RESUME_RTOL relative.
+    3. The `llm_serve` recipe through the CLI on the consolidated export:
+       16 mock prompts of CKPT_SERVE_PROMPT_LEN tokens over Gemma-3-1B's
+       512 window, 32 new tokens each, K4 on every layer of every step.
+
+    Returns the serve's K4 launches."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_gemma3_ckpt_"))
+    try:
+        ck_a, ck_b = tmp / "ckpt", tmp / "ckpt_resume"
+        (tmp / "run").mkdir()
+        (tmp / "run_resume").mkdir()
+        ckpt = {"enabled": True, "checkpoint_dir": str(ck_a), "async_save": True,
+                "max_recent_checkpoints": 1, "save_consolidated": "final"}
+        yaml_a = gemma_train_yaml(str(tmp / "run"), GEMMA3_1B, GEMMA3_TRAIN_SEQ,
+                                  checkpoint=ckpt, ckpt_every_steps=CKPT_EVERY)
+        # the step-3 save as it committed, and its files linked aside
+        cadenced: dict = {}
+        prune = Checkpointer._prune
+
+        def keep_cadenced_step(self):
+            if self.root == str(ck_a) and CKPT_EVERY in self.all_steps() and not cadenced:
+                cadenced.update(self.last_save)
+                shutil.copytree(self._dir(CKPT_EVERY), ck_b / f"step_{CKPT_EVERY}",
+                                copy_function=os.link)
+            prune(self)
+
+        Checkpointer._prune = keep_cadenced_step
+        try:
+            t0 = time.perf_counter()
+            recipe = cli_main([yaml_a])
+            torch.cuda.synchronize()
+            wall_a = time.perf_counter() - t0
+        finally:
+            Checkpointer._prune = prune
+        final = dict(recipe.checkpointer.last_save)
+        steps_a = recipe.checkpointer.all_steps()
+        n_layers = recipe.model_cfg.num_layers
+        del recipe
+        torch.cuda.empty_cache()
+        export = ck_a / "hf"
+        export_bytes = sum(f.stat().st_size for f in export.iterdir())
+        shutil.rmtree(ck_a / f"step_{GEMMA_TRAIN_STEPS}")  # disk for the resume
+        records_a = [json.loads(l) for l in (tmp / "run" / "training.jsonl").open()]
+
+        # 2. a new process resumes from the linked step-3 checkpoint
+        yaml_b = gemma_train_yaml(str(tmp / "run_resume"), GEMMA3_1B, GEMMA3_TRAIN_SEQ,
+                                  checkpoint=dict(ckpt, checkpoint_dir=str(ck_b),
+                                                  save_consolidated=False),
+                                  ckpt_every_steps=CKPT_EVERY)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "automodel_tpu_torch", yaml_b],
+                              capture_output=True, text=True, timeout=900,
+                              env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)))
+        wall_b = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"train_gemma3_ckpt: the resumed process failed:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        records_b = [json.loads(l) for l in
+                     (tmp / "run_resume" / "training.jsonl").open()]
+        tail_a = records_a[CKPT_EVERY:]
+        pairs = [(a[k], b[k]) for a, b in zip(tail_a, records_b)
+                 for k in ("loss", "grad_norm")]
+        rel = max(abs(a - b) / abs(a) for a, b in pairs)
+
+        # 3. llm_serve on the export
+        node = {
+            "recipe": "llm_serve", "seed": 0, "run_dir": str(tmp / "serve"),
+            "model": {"pretrained_path": str(export), "dtype": "bfloat16"},
+            "dataset": {"_target_": "automodel_tpu_torch.datasets.mock.MockDatasetConfig",
+                        "num_samples": 16, "seq_len": CKPT_SERVE_PROMPT_LEN,
+                        "vocab_size": GEMMA_TRAIN_TOKEN_IDS},
+            "dataloader": {"microbatch_size": 16, "grad_acc_steps": 1},
+            "max_requests": 16,
+            "serving": {"page_size": SERVE.page_size, "num_pages": SERVE.num_pages,
+                        "max_slots": SERVE.max_slots, "pages_per_slot": SERVE.pages_per_slot,
+                        "token_budget": SERVE.token_budget,
+                        "prefill_chunk": SERVE.prefill_chunk, "max_new_tokens": 32,
+                        "temperature": 0.0, "arrival_stride": 2},
+        }
+        (tmp / "serve.yaml").write_text(json.dumps(node, indent=1))  # JSON is YAML
+        for fn in PAGED_KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with plain_calls_counted() as plain_calls:
+            served = cli_main([str(tmp / "serve.yaml")])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in PAGED_KERNELS.items()}
+        gens = [json.loads(l) for l in (tmp / "serve" / "generations.jsonl").open()]
+        stats = {k.removeprefix("serve_"): v for k, v in json.loads(
+            (tmp / "serve" / "serving.jsonl").read_text().splitlines()[-1]).items()
+                 if k.startswith("serve_")}
+        serve_steps, serve_windows = served.engine.steps_run, served.engine._windows
+        del served
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    resume_rec = records_b[0] if records_b else {}
+    emit({
+        "phase": "train_gemma3_ckpt", "card": card,
+        "model": f"Gemma-3-1B, full width and all {n_layers} layers, bf16 over fp32 "
+                 "masters, remat full",
+        "checkpoint": {"ckpt_every_steps": CKPT_EVERY, "max_recent_checkpoints": 1,
+                       "async_save": True, "save_consolidated": "final"},
+        "steps_kept": steps_a, "wall_s_unbroken": wall_a,
+        "state_bytes": final.get("bytes"),
+        "host_ram_bytes": os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"),
+        "save_step3_async": cadenced, "save_final": final,
+        "export_bytes": export_bytes,
+        "resume_process_wall_s": wall_b,
+        "resumed_steps": [r["step"] for r in records_b],
+        "time_to_resume_s": resume_rec.get("time_to_resume_s"),
+        "losses_unbroken": [r["loss"] for r in records_a],
+        "losses_resumed": [r["loss"] for r in records_b],
+        "grad_norms_unbroken": [r["grad_norm"] for r in records_a],
+        "grad_norms_resumed": [r["grad_norm"] for r in records_b],
+        "resume_max_rel_err": rel, "resume_rtol": CKPT_RESUME_RTOL,
+        "resume_bit_equal": all(a == b for a, b in pairs),
+        "serve": {"prompt_tokens": CKPT_SERVE_PROMPT_LEN, "windows": serve_windows,
+                  "cli_s": cli_s, "load_s": cli_s - stats["elapsed_s"],
+                  "serve_s": stats["elapsed_s"], "steps": serve_steps,
+                  "decode_tokens_per_sec": stats["decode_tokens_per_sec"],
+                  "ttft_p50_ms": stats["ttft_p50_ms"], "itl_p50_ms": stats["itl_p50_ms"],
+                  "launches": launches, "plain_attention_calls": plain_calls},
+    })
+    if steps_a != [GEMMA_TRAIN_STEPS] or len(records_a) != GEMMA_TRAIN_STEPS:
+        raise AssertionError(f"train_gemma3_ckpt: kept steps {steps_a}, "
+                             f"{len(records_a)} records")
+    if not cadenced or cadenced.get("bytes") != final.get("bytes"):
+        raise AssertionError(f"train_gemma3_ckpt: the step-{CKPT_EVERY} save {cadenced}")
+    if [r["step"] for r in records_b] != list(range(CKPT_EVERY + 1, GEMMA_TRAIN_STEPS + 1)):
+        raise AssertionError(f"train_gemma3_ckpt: the resumed run's records {records_b}")
+    if "time_to_resume_s" not in resume_rec:
+        raise AssertionError("train_gemma3_ckpt: the resumed run did not resume")
+    if rel > CKPT_RESUME_RTOL:
+        raise AssertionError("train_gemma3_ckpt: the resumed curve left the unbroken one")
+    if len(gens) != 16 or any(len(g["generated_ids"]) != 32 for g in gens):
+        raise AssertionError("train_gemma3_ckpt: not every request finished with 32 tokens")
+    want = {name: 0 for name in PAGED_KERNELS}
+    want["K4"] = n_layers * serve_steps
+    if launches != want or any(plain_calls.values()):
+        raise AssertionError(
+            f"train_gemma3_ckpt: paged kernels launched {launches} (plain calls "
+            f"{plain_calls}) in {serve_steps} steps of {n_layers} layers; expected {want}")
+    return launches["K4"]
+
+
 # the tensor-core kernels in ptxas's mangled names: (pattern, readable name)
 MMA_KERNELS = (
     (r"((?:fwd|dkv|dq)_mma_kernel)ILi(\d+)ELi(\d+)ELb([01])E",
@@ -2032,14 +2479,17 @@ def main() -> int:
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     k4 = kernel_phase(flush)
     paged = paged_kernels_phase(flush)
+    windowed = window_kernels_phase(flush)
     flash = flash_phase(flush)
     del flush
     launches = serve_phase(card)
     launches.update(serve_mla_phase(card))
+    window_launches = serve_gemma2_phase(card)
     moe_sync_phase(card)
     launches["K4_recipe"] = recipe_serve_phase(card)
     engine_phase()
     engine_mla_phase()
+    engine_window_phase()
     torch.cuda.empty_cache()
     train_launches = train_phase(card)
     train_check_phase()
@@ -2052,6 +2502,7 @@ def main() -> int:
         card, "train_gemma3", "Gemma-3-1B", GEMMA3_1B, GEMMA3_TRAIN_SEQ)[0]}
     train_gemma2_plain_phase(card, gemma2_records)
     train_gemma_check_phase()
+    ckpt_serve_launches = train_gemma3_ckpt_phase(card)
 
     no_library = ("no single PyTorch call attends over per-row page tables; "
                   "scaled_dot_product_attention needs each row's KV gathered "
@@ -2088,6 +2539,35 @@ def main() -> int:
             kernels[-1]["kernel_route"] = rpa_cuda.route(torch.bfloat16)
         elif name in ("K6", "K7"):
             kernels[-1]["kernel_route"] = mla_cuda.route(torch.bfloat16)
+    # K4 and K5 with windows (and sinks, checked apart): Gemma-2-2B's heads at
+    # positions of ~8000, window 4096, beside the same rows with no window;
+    # the launches of the serve_gemma2 runs (every layer, windowed or global)
+    for name, kname, line in (
+            ("K4", "ragged_paged_attention_gqa_window", ":42"),
+            ("K5", "ragged_paged_attention_gqa_int8_window", ":170")):
+        e = windowed[(name, "gemma2_2b_window_4096")]
+        g = windowed[(name, "gemma2_2b_global")]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "automodel_tpu_torch/csrc/ragged_paged_attention.cu",
+            "replaces": "automodel_tpu/ops/pallas/ragged_paged_attention.py" + line,
+            "launches": window_launches[name],
+            "max_abs_err": e["max_abs_err"],
+            "ms": e["ms"],
+            "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"],
+            "bound_by": e["bound_by"],
+            "library_ms": None,
+            "library_why": no_library,
+            "card": card,
+            "kernel_route": rpa_cuda.route(torch.bfloat16),
+            "window": e["window"], "heads": e["heads"], "contexts": e["contexts"],
+            "unwindowed_ms": g["ms"], "unwindowed_bound_ms": g["bound_ms"],
+            "unwindowed_plain_ms": g["plain_ms"],
+        })
+        if name == "K4":  # the llm_serve run of the Gemma-3-1B export
+            kernels[-1]["ckpt_serve_launches"] = ckpt_serve_launches
     # K1-K3 at Llama-3-8B's heads (<128, 128>, the dense train run's
     # launches), at Moonlight's MLA heads (<192, 128>, train_moe's), and at
     # Gemma-2-2B's and Gemma-3-1B's windowed heads (<256, 256>, their

@@ -83,6 +83,87 @@ def test_k4_matches_plain_version(card, dtype, G, D, Dv, ps, soft_cap):
     assert not got[args[4] < 0].any()
 
 
+# kernel, G, D, Dv, page size, soft cap, window, sinks: windows that start
+# mid-split and mid-page (no multiple of the page or of the 128-kv split),
+# sinks alone and with a window and the cap; Gemma-2-2B's heads (G 2, D 256)
+# and gpt-oss-20b's (G 8, D 64, window 128, sinks)
+K45_WINDOW_CASES = {
+    "k4_window_mid_split": ("K4", 4, 128, 128, 16, None, 100, False),
+    "k4_window_ps8_cap": ("K4", 1, 64, 64, 8, 30.0, 77, False),
+    "k4_sinks": ("K4", 8, 64, 64, 16, None, 0, True),
+    "k4_gemma2_window_cap": ("K4", 2, 256, 256, 16, 50.0, 129, False),
+    "k4_gpt_oss_window_sinks": ("K4", 8, 64, 64, 16, None, 128, True),
+    "k5_window_sinks_cap": ("K5", 3, 72, 40, 16, 20.0, 129, True),
+    "k5_window_mid_split": ("K5", 4, 128, 128, 16, None, 100, False),
+}
+
+
+def _window_batch(card, dtype, G, D, Dv, ps, quant, seed=0):
+    """Three requests of 333, 150 and 1 tokens, each with a decode row and a
+    row halfway, and a pad row; int8 pages with per-row scales for K5."""
+    rng = np.random.default_rng(seed)
+    Hkv, contexts = 2, (333, 150, 1)
+    P = -(-max(contexts) // ps)
+    N = P * len(contexts)
+    perm = iter(rng.permutation(N))
+    tables, pos = [], []
+    for n in contexts:
+        pages = [int(next(perm)) for _ in range(-(-n // ps))]
+        tables += [pages + [N] * (P - len(pages))] * 2
+        pos += [n - 1, (n - 1) // 2]
+    tables.append(tables[0])
+    pos.append(-1)
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(len(pos), Hkv * G, D, generator=gen, device=card).to(dtype)
+    pt = torch.tensor(tables, dtype=torch.int32, device=card)
+    pos = torch.tensor(pos, dtype=torch.int32, device=card)
+    if not quant:
+        kp = torch.randn(N + 1, ps, Hkv, D, generator=gen, device=card).to(dtype)
+        vp = torch.randn(N + 1, ps, Hkv, Dv, generator=gen, device=card).to(dtype)
+        return (q, kp, vp, pt, pos), {}
+    pages = [torch.randint(-127, 128, (N + 1, ps, Hkv, d), generator=gen, device=card,
+                           dtype=torch.int32).to(torch.int8) for d in (D, Dv)]
+    scales = [0.002 + 0.03 * torch.rand(N + 1, ps, generator=gen, device=card)
+              for _ in range(2)]
+    return (q, *pages, pt, pos), dict(k_scales=scales[0], v_scales=scales[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(K45_WINDOW_CASES))
+def test_k4_k5_windows_and_sinks_match_plain_version(card, dtype, case):
+    from automodel_tpu_torch.ops.cuda.ragged_paged_attention import (
+        ragged_paged_attention_quant_cuda,
+    )
+
+    kernel, G, D, Dv, ps, soft_cap, window, with_sinks = K45_WINDOW_CASES[case]
+    args, scales = _window_batch(card, dtype, G, D, Dv, ps, kernel == "K5")
+    q, kp, vp, pt, pos = args
+    sinks = (torch.randn(q.shape[1], generator=torch.Generator(device=card).manual_seed(1),
+                         device=card) + 3.0) if with_sinks else None
+    kw = dict(scale=D ** -0.5, soft_cap=soft_cap, window=window or None, sinks=sinks)
+    fn, call_args = (ragged_paged_attention_cuda, args) if kernel == "K4" else (
+        ragged_paged_attention_quant_cuda,
+        (q, kp, vp, scales["k_scales"], scales["v_scales"], pt, pos))
+    n0 = fn.launches
+    got = fn(*call_args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    want = ragged_paged_attention_ref(*args, **kw, **scales).float()
+    # held to the plain result's own largest value and root mean square (an
+    # output averaged over many kv rows is small), and the plain version
+    # without the window, or the sinks, lies well outside that
+    tol = PAGED_TOL[dtype]
+    diff = got.float() - want
+    assert diff.abs().max().item() <= tol * want.abs().max().item()
+    assert diff.norm().item() <= tol * want.norm().item()
+    for knob in [k for k, on in (("window", window), ("sinks", with_sinks)) if on]:
+        off = ragged_paged_attention_ref(*args, **dict(kw, **{knob: None}), **scales)
+        assert (off.float() - want).norm().item() > 3 * tol * want.norm().item(), knob
+    assert not got[pos < 0].any()
+    with pytest.raises(ValueError, match="window"):
+        fn(*call_args, **dict(kw, window=0))
+
+
 def test_k4_rejects_what_it_does_not_take(card):
     q, kp, vp, pt, pos = _batch(card, torch.float32, 2, 64, 64, 16)
     with pytest.raises(TypeError):
@@ -490,6 +571,64 @@ def test_engines_kernels_match_plain_versions(card, model, kv):
     assert outs[0] == outs[1]
 
 
+@pytest.mark.parametrize("sinks", [False, True])
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_windowed_engine_kernels_match_plain_version(card, kv, sinks):
+    """A tiny Gemma-2 engine (one sliding layer with a window of 5, one
+    global; soft caps) on the card, fp32, prompts longer than the window,
+    with sink logits added to its layers or not: greedy outputs with K4 / K5
+    equal those with the plain version, and every layer of every step
+    launched the kernel (the global layer too, with no window)."""
+    from automodel_tpu_torch.models.llm.families import gemma2_config
+    from automodel_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+
+    cfg = gemma2_config(dict(
+        vocab_size=256, hidden_size=128, intermediate_size=192, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=32, sliding_window=5,
+        attn_logit_softcapping=20.0, final_logit_softcapping=15.0,
+        query_pre_attn_scalar=32), dtype=torch.float32)
+    assert decoder.layer_windows(cfg) == (5, None)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = decoder.init(cfg, gen)
+    if sinks:
+        params["layers"]["sinks"] = torch.randn(2, 4, generator=gen, device=card)
+    counter = rpa.ragged_paged_attention_quant_cuda if kv else rpa.ragged_paged_attention_cuda
+    sc = ServingConfig(page_size=4, num_pages=48, max_slots=3, pages_per_slot=10,
+                       token_budget=8, prefill_chunk=4, kv_cache_dtype=kv)
+    outs = []
+    for impl in ("cuda", "torch"):
+        engine = ServingEngine(params, cfg, sc, attn_impl=impl)
+        reqs = [Request(prompt=list(range(1 + i, 12 + 3 * i)), max_new_tokens=6,
+                        arrival=i) for i in range(4)]
+        n0 = counter.launches
+        res = engine.serve_batch(reqs)
+        outs.append(res["outputs"])
+        launched = counter.launches - n0
+        assert launched == (cfg.num_layers * res["stats"]["steps"] if impl == "cuda" else 0)
+    assert outs[0] == outs[1]
+
+
+def test_checkpointer_pins_within_its_limit_and_frees_on_close(card, tmp_path):
+    """An async save of a state on the card copies into host buffers that
+    are page-locked up to the checkpointer's limit and pageable past it;
+    the step restores bit-equal, and `close()` frees the buffers."""
+    from automodel_tpu_torch.checkpoint import CheckpointingConfig
+
+    ck = CheckpointingConfig(checkpoint_dir=str(tmp_path), async_save=True).build()
+    ck._pinned_limit = 4096  # room for one of the two tensors
+    gen = torch.Generator(device=card).manual_seed(0)
+    state = {k: torch.randn(1024, generator=gen, device=card) for k in ("a", "b")}
+    assert ck.save(1, state)
+    ck.wait()
+    assert sorted(b.is_pinned() for b in ck._host_buffers.values()) == [False, True]
+    assert ck.last_save["pinned_bytes"] == 4096
+    live = {k: torch.zeros_like(v) for k, v in state.items()}
+    restored = ck.restore(live, step=1)
+    assert all(torch.equal(restored[k], state[k]) and restored[k].is_cuda for k in state)
+    ck.close()
+    assert not ck._host_buffers and ck._pinned_bytes == 0
+
+
 # K1-K3. fp32: summation order only (the kernels sum tiles online, the plain
 # version in one pass). bf16: both round probabilities (K1) and ds to bf16
 # before their products; K3 also rounds p for dv, which the plain version
@@ -864,3 +1003,32 @@ def test_llama_checkpoint_round_trip_on_the_card(card, tmp_path):
     for k, v in want.items():
         assert have[k].device.type == "cuda" and have[k].dtype == v.dtype, k
         assert torch.equal(have[k].view(torch.int16), v.view(torch.int16)), k
+
+
+def test_train_state_checkpoint_round_trip_on_the_card(card, tmp_path):
+    """An async save of a train state on the card (snapshot into reused
+    page-locked buffers, written in the background), then a restore into
+    live tensors that keep their device and dtype."""
+    from automodel_tpu_torch.checkpoint import CheckpointingConfig
+    from automodel_tpu_torch.optim import OptimizerConfig
+    from automodel_tpu_torch.training import init_train_state
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = {"w": torch.randn(64, 32, generator=gen, device=card),
+              "e": torch.randn(16, generator=gen, device=card).to(torch.bfloat16)}
+    state = init_train_state(params, OptimizerConfig(name="adamw").build())
+    ck = CheckpointingConfig(checkpoint_dir=str(tmp_path / "ck"), async_save=True).build()
+    assert ck.save(1, state)
+    want = {k: v.detach().clone() for k, v in state.params.items()}
+    with torch.no_grad():
+        state.params["w"].add_(1.0)  # after the snapshot: not in step 1
+    ck.wait()
+    buffers = {k: v.data_ptr() for k, v in ck._host_buffers.items()}
+    assert all(v.is_pinned() for v in ck._host_buffers.values())
+    assert ck.save(2, state)
+    ck.wait()
+    assert {k: v.data_ptr() for k, v in ck._host_buffers.items()} == buffers
+    restored = ck.restore(state, step=1)
+    for k, v in restored.params.items():
+        assert v.device == want[k].device and v.dtype == want[k].dtype
+        assert torch.equal(v, want[k])

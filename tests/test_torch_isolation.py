@@ -88,8 +88,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 def test_unported_options_raise():
     """What is still unported raises: speculative decoding, low-precision
-    serve linears, a serving mesh, yarn rope and the DSA indexer; windows
-    reach the kernels only if asked for. int8 KV pages serve."""
+    serve linears, a serving mesh, yarn rope and the DSA indexer. A windowed
+    model asked onto the kernels reaches them (which refuse CPU tensors).
+    int8 KV pages serve."""
     from automodel_tpu_torch.models.llm import decoder
     from automodel_tpu_torch.models.moe_lm.families import deepseek_v3_moe_config
     from automodel_tpu_torch.serving import Request, ServingConfig, ServingEngine
@@ -103,9 +104,11 @@ def test_unported_options_raise():
     params = decoder.init(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="mesh"):
         ServingEngine(params, cfg, device="cpu", mesh_ctx=object())
-    # windows go through the kernel only if asked for the kernel
-    with pytest.raises(NotImplementedError, match="windows"):
-        ServingEngine(params, cfg, device="cpu", attn_impl="cuda")
+    # a windowed layer goes to the kernel when asked for: K4 takes windows,
+    # and refuses CPU tensors
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ServingEngine(params, cfg, device="cpu", attn_impl="cuda").serve_batch(
+            [Request(prompt=[1, 2, 3], max_new_tokens=2)])
     ServingEngine(params, cfg, device="cpu")
     # int8 KV pages serve
     sc = ServingConfig(page_size=4, num_pages=8, max_slots=1, pages_per_slot=2,

@@ -18,6 +18,7 @@ from automodel_tpu.ops.pallas.ragged_paged_attention import paged_attention_kern
 from automodel_tpu_torch.ops.paged_attention import (
     ragged_paged_attention,
     ragged_paged_attention_ref,
+    ragged_paged_mla_attention,
 )
 
 ATOL = 1e-5  # fp32 on both sides
@@ -90,17 +91,22 @@ def test_ref_window_and_sinks_match_jax_xla(window, sinks):
 
 def test_dispatch_on_cpu_tensors():
     """impl="auto" takes the plain version for CPU tensors; impl="cuda"
-    raises for them; windows and sinks never reach the kernel."""
+    raises for them, windows and sinks included (K4 and K5 take both);
+    K6/K7 refuse windows (no MLA family has one)."""
     args = _torch(*_paged_batch(seed=9))
     want = ragged_paged_attention_ref(*args, scale=0.25)
     assert torch.equal(ragged_paged_attention(*args, scale=0.25), want)
     assert torch.equal(ragged_paged_attention(*args, scale=0.25, impl="torch"), want)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ragged_paged_attention(*args, scale=0.25, impl="cuda")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         ragged_paged_attention(*args, scale=0.25, window=4, impl="cuda")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         ragged_paged_attention(
             *args, scale=0.25, sinks=torch.zeros(args[0].shape[1]), impl="cuda")
+    q, kp, _, pt, pos = args
+    with pytest.raises(NotImplementedError, match="window"):
+        ragged_paged_mla_attention(q, q, kp[:, :, 0], kp[:, :, 0], pt, pos,
+                                   scale=0.25, window=4, impl="cuda")
     with pytest.raises(ValueError, match="Unknown"):
         ragged_paged_attention(*args, scale=0.25, impl="xla")

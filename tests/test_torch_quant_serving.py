@@ -123,10 +123,10 @@ def test_plain_k5_matches_jax_xla_and_pallas(dtype, G, soft_cap):
     _check_close(got, want_pallas, dtype)
     assert not got[arrays[4] < 0].any()
     # the dispatcher routes scales to the plain version on CPU tensors, and
-    # refuses windows on the kernel route
+    # hands windows to K5, which refuses CPU tensors
     assert np.array_equal(ragged_paged_attention(
         q, kp, vp, pt, pos, k_scales=ks, v_scales=vs, **kw).float().numpy(), got)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         ragged_paged_attention(q, kp, vp, pt, pos, k_scales=ks, v_scales=vs,
                                window=3, impl="cuda", **kw)
 

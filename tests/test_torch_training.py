@@ -316,8 +316,10 @@ def test_recipe_loss_curve_matches_live_jax_run(tmp_path):
 
 
 def test_recipe_and_cli_refuse_what_is_not_ported(tmp_path):
-    node = load_yaml(TINY_YAML)  # checkpoint.enabled: true
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    node = load_yaml(TINY_YAML)  # checkpoint.enabled: true, to a remote URI
+    node.set("run_dir", str(tmp_path / "remote"))
+    node.set("checkpoint.checkpoint_dir", "gs://bucket/tiny")
+    with pytest.raises(NotImplementedError, match="remote URI"):
         TrainFinetuneRecipeForNextTokenPrediction(node, device="cpu").setup()
     node = _recipe_node(load_yaml(TINY_YAML), tmp_path, "x")
     node.set("distributed.tp", 2)
