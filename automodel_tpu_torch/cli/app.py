@@ -49,12 +49,13 @@ def resolve_recipe_class(cfg: ConfigNode):
     return _resolve_target(path)
 
 
-def main(argv=None):
-    """Load the YAML and overrides, build the recipe, run it (train or
-    serve); returns the recipe (its state and logs stay readable by the
-    caller)."""
+def main(argv=None, device=None):
+    """Load the YAML and overrides, build the recipe on `device` (None, as
+    from the command line, means CUDA; the CPU only when asked for), run it
+    (train or serve); returns the recipe (its state and logs stay readable
+    by the caller)."""
     cfg = parse_args_and_load_config(argv)
-    recipe = resolve_recipe_class(cfg)(cfg)
+    recipe = resolve_recipe_class(cfg)(cfg, device=device)
     recipe.setup()
     recipe.run_train_validation_loop()
     return recipe

@@ -35,6 +35,7 @@ from automodel_tpu_torch.ops.rope import (
     apply_rope,
     rope_frequencies,
 )
+from automodel_tpu_torch.peft.lora import layer_stack, merge_lora
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,11 +312,18 @@ def forward(
     return_hidden: bool = False,
     inputs_embeds: torch.Tensor | None = None,  # (B, S, H)
     return_aux_hidden: tuple | None = None,
+    lora: dict | None = None,
+    lora_cfg=None,
 ) -> torch.Tensor:
     """Run the decoder. Returns logits (B, S, V) fp32, or hidden (B, S, H)
     when `return_hidden` (pair with loss/linear_ce.py, which never builds the
     full logits). The fp32 masters are cast to `cfg.dtype` here, so autograd
-    carries fp32 gradients back to them."""
+    carries fp32 gradients back to them.
+
+    With `lora` (the adapter tree of `peft/lora.py`, and its `lora_cfg`),
+    `params` is the frozen base (QLoRA leaves too): each layer's adapters
+    merge into its kernels inside the layer loop, under its remat, before
+    the cast, and the head merges where `unembed` uses it."""
     if mesh_ctx is not None:
         raise NotImplementedError(
             "mesh_ctx: meshes, pipeline and context parallelism are not ported")
@@ -338,16 +346,21 @@ def forward(
         h = h * torch.tensor(cfg.embed_scale, dtype=dtype)
 
     freq_for = make_freq_for(cfg, dev)
+    stacked, merged = layer_stack(params, "layers", lora, lora_cfg)
 
     def layer(h, lp, window):
-        return _decoder_layer(h, cast_params(lp, dtype), cfg, positions,
+        return _decoder_layer(h, cast_params(merged(lp), dtype), cfg, positions,
                               segment_ids, freq_for(window), window)
 
-    h = scan_layers_windowed(layer, h, params["layers"], layer_windows(cfg),
+    h = scan_layers_windowed(layer, h, stacked, layer_windows(cfg),
                              remat_policy=cfg.remat_policy)
     h = rms_norm(h, params["final_norm"]["scale"].to(dtype), cfg.rms_norm_eps,
                  cfg.zero_centered_norm)
-    return h if return_hidden else unembed(params, cfg, h)
+    if return_hidden:
+        return h
+    if lora is not None:
+        params = merge_lora(params, lora, lora_cfg, skip=("layers",))
+    return unembed(params, cfg, h)
 
 
 def attention_block(h, lp, cfg: TransformerConfig, positions, segment_ids,

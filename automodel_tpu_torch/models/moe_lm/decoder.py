@@ -38,6 +38,7 @@ from automodel_tpu_torch.moe.config import MoEConfig
 from automodel_tpu_torch.moe.gate import update_gate_bias
 from automodel_tpu_torch.moe.layer import init_moe, moe_forward
 from automodel_tpu_torch.ops.norms import rms_norm
+from automodel_tpu_torch.peft.lora import layer_stack, merge_lora
 
 __all__ = ["MoETransformerConfig", "apply_gate_bias_update", "forward",
            "head_kernel", "init", "unembed"]
@@ -121,6 +122,8 @@ def forward(
     inputs_embeds=None,
     rope_angles=None,
     deepstack_embeds=None,
+    lora: dict | None = None,
+    lora_cfg=None,
 ) -> tuple:
     """Returns (logits-or-hidden, aux_loss[, stats]), as the JAX `forward`
     on one device: logits (B, S, V) fp32, or hidden (B, S, H) with
@@ -129,7 +132,9 @@ def forward(
     which `apply_gate_bias_update` takes after the optimizer step. Masked
     tokens (`token_mask` False) route nowhere and drop out of the aux loss
     and the counts. The fp32 masters are cast to `cfg.dtype` inside each
-    layer (under its remat), so autograd carries fp32 gradients back."""
+    layer (under its remat), so autograd carries fp32 gradients back. With
+    `lora` and `lora_cfg`, `params` is the frozen base and each layer's
+    adapters merge inside the layer loop, as in the dense `forward`."""
     unported = {
         "mesh_ctx (pipeline, expert and context parallelism)": mesh_ctx,
         "return_routing (routing replay)": return_routing or None,
@@ -159,14 +164,18 @@ def forward(
                                freq_for(window), window)
 
     # the carry: (hidden, aux loss, tokens per expert of the MoE layers run)
+    dense_stack, dense_merged = (layer_stack(params, "dense_layers", lora, lora_cfg)
+                                 if cfg.first_k_dense > 0 else (None, None))
+    moe_stack, moe_merged = layer_stack(params, "moe_layers", lora, lora_cfg)
+
     def dense_layer(carry, lp, window):
         h, aux, tpe = carry
-        lp = cast_params(lp, dtype)
+        lp = cast_params(dense_merged(lp), dtype)
         return mlp_block(attn(h, lp, window), lp, cfg), aux, tpe
 
     def moe_layer(carry, lp, window):
         h, aux, tpe = carry
-        lp = cast_params(lp, dtype)
+        lp = cast_params(moe_merged(lp), dtype)
         h = attn(h, lp, window)
         x = rms_norm(h, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps,
                      cfg.zero_centered_norm)
@@ -176,14 +185,16 @@ def forward(
     carry = (h, torch.zeros((), dtype=torch.float32, device=dev), ())
     K = cfg.first_k_dense
     if K > 0:
-        carry = scan_layers_windowed(dense_layer, carry, params["dense_layers"],
+        carry = scan_layers_windowed(dense_layer, carry, dense_stack,
                                      windows[:K], remat_policy=cfg.remat_policy)
-    carry = scan_layers_windowed(moe_layer, carry, params["moe_layers"],
+    carry = scan_layers_windowed(moe_layer, carry, moe_stack,
                                  windows[K:], remat_policy=cfg.remat_policy)
     h, aux_loss, tpe = carry
 
     h = rms_norm(h, params["final_norm"]["scale"].to(dtype), cfg.rms_norm_eps,
                  cfg.zero_centered_norm)
+    if not return_hidden and lora is not None:
+        params = merge_lora(params, lora, lora_cfg, skip=("dense_layers", "moe_layers"))
     out = h if return_hidden else unembed(params, cfg, h)
     if return_stats:
         return out, aux_loss, {"tokens_per_expert": torch.stack(tpe)}

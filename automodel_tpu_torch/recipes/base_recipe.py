@@ -7,6 +7,9 @@ registered by `__setattr__` and rides the checkpoint's JSON side-car; the
 train state (params, optimizer state, step) goes through the
 `Checkpointer`, which also keeps the latest, retention and best steps.
 Restores copy into the live tensors, which keep their device and dtype.
+Under PEFT the train state holds the adapters alone (the frozen base is
+no tracked state): a resume rebuilds the base as the first run built it,
+then fills the adapters and their optimizer state.
 """
 
 from __future__ import annotations

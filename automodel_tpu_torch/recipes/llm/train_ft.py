@@ -30,11 +30,21 @@ save, waits for its commit at most the JAX default grace of 30 s from the
 signal (the `resilience` section that sets it is not ported), logs an
 `emergency_checkpoint` record and returns.
 
+The `peft` section trains LoRA / DoRA adapters over a frozen base, int8
+for QLoRA (`peft/lora.py`): the adapters are the train state (the
+optimizer's, the checkpoint's), merged into the base one layer at a time
+inside the decoder; the consolidated export holds the merged weights.
+`validation_dataset` runs every `step_scheduler.val_every_steps` steps:
+`validation.jsonl` gets the token-weighted `val_loss` and, with
+`validation_generation`, the greedy sampling eval (`eval/sampling.py`).
+
 The same YAML files drive both packages. What the port does not have yet
 raises NotImplementedError instead of being skipped: distributed sizes
-other than 1 (`dp_shard: -1` resolves to 1 on one device), PEFT, other
-unported architectures (`models/registry.py`), validation, trackers,
-resilience, QAT, `model.linear_precision` and a remote `checkpoint_dir`.
+other than 1 (`dp_shard: -1` resolves to 1 on one device), other
+unported architectures (`models/registry.py`), trackers, resilience,
+packing, the tokenizer, QAT (with or without PEFT),
+`model.linear_precision`, a remote `checkpoint_dir` and PEFT on a MoE
+model with the gate-bias update.
 
 `model.pretrained_path` names a local HF safetensors checkpoint: its
 `config.json` gives the HF config and `checkpoint/hf_adapter.py` fills the
@@ -63,6 +73,13 @@ from automodel_tpu_torch.loss import fused_linear_cross_entropy
 from automodel_tpu_torch.loss.utils import combine_losses
 from automodel_tpu_torch.models.common.layers import count_params
 from automodel_tpu_torch.models.registry import get_model_spec
+from automodel_tpu_torch.peft.lora import (
+    LAYER_STACKS,
+    init_lora,
+    merge_lora,
+    merged_state_dict,
+    quantize_base,
+)
 from automodel_tpu_torch.recipes.base_recipe import BaseRecipe
 from automodel_tpu_torch.resilience import wait_with_deadline
 from automodel_tpu_torch.training import (
@@ -74,14 +91,14 @@ from automodel_tpu_torch.training.rng import StatefulRNG
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
 from automodel_tpu_torch.utils.device import resolve_device, torch_dtype
 from automodel_tpu_torch.utils.flops import MFUCalculator, device_peak_tflops
+from automodel_tpu_torch.utils.tree import tree_leaves
 
 logger = logging.getLogger(__name__)
 
 _MESH_AXES = ("pp", "dp_replicate", "dp_shard", "ep", "cp", "tp")
 # sections of the JAX recipe this port does not run yet
 _UNPORTED_SECTIONS = (
-    "peft", "validation_dataset", "validation_generation", "wandb", "mlflow",
-    "comet", "resilience", "packing", "tokenizer",
+    "wandb", "mlflow", "comet", "resilience", "packing", "tokenizer",
 )
 # seconds the emergency save may take from the SIGTERM: the JAX
 # ResilienceConfig.sigterm_grace_s default (that section is not ported)
@@ -100,6 +117,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         self._refuse_unported()
         self.rng = StatefulRNG(seed=int(cfg.get("seed", 42)), device=self.device)
         self._build_model(torch.float32)  # fp32 masters
+        self._build_peft()
         self._build_optimizer()
         self._build_data()
         ckpt_cfg = dataclasses.replace(
@@ -109,6 +127,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         self.checkpointer = ckpt_cfg.build() if ckpt_cfg.enabled else None
         run_dir = cfg.get("run_dir", ".")
         self.metric_logger = MetricLogger(os.path.join(run_dir, "training.jsonl"))
+        self.val_logger = MetricLogger(os.path.join(run_dir, "validation.jsonl"))
         seq_len = int(cfg.get("dataset.seq_len", 512))
         self.mfu = MFUCalculator(
             flops_per_token=self.model_cfg.flops_per_token(seq_len),
@@ -207,6 +226,31 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             over["dispatcher"] = dispatcher
         return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **over))
 
+    def _build_peft(self) -> None:
+        """The `peft` section (JAX recipe): the adapters from the recipe's
+        generator become the trainable tree; the base, int8 for QLoRA, stays
+        frozen in `base_params`, outside the optimizer, the gradients and
+        the checkpoint, which then holds the adapters and their optimizer
+        state alone. A resume rebuilds the base from `pretrained_path` or
+        the seed, as here, before the checkpoint fills the adapters."""
+        self.peft_cfg = self.typed.peft
+        self.base_params = None
+        if self.peft_cfg is None:
+            return
+        if self.is_moe and self.model_cfg.moe.gate_bias_update_speed > 0:
+            raise NotImplementedError(
+                "peft with the DeepSeek gate-bias update: the correction bias "
+                "lives in the frozen base, which no step updates")
+        lora = init_lora(self._init_params, self.peft_cfg, self.rng.next_key())
+        base = quantize_base(self._init_params, self.peft_cfg)
+        if self.peft_cfg.quantize_base:
+            logger.info("QLoRA: base weights stored %s", self.peft_cfg.quantize_base)
+        for p in tree_leaves(base):
+            p.requires_grad_(False)
+        self.base_params = base
+        self._init_params = lora
+        logger.info("LoRA enabled: %d trainable adapter params", count_params(lora))
+
     def _build_optimizer(self) -> None:
         opt_cfg = self.typed.optimizer
         self.lr_schedule = self.typed.lr_scheduler.build(opt_cfg.lr)
@@ -217,18 +261,26 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             max_grad_norm=self.cfg.get("max_grad_norm", 1.0),
             skip_nonfinite_updates=bool(self.cfg.get("skip_nonfinite_updates", False)),
         )
+        self._loss_fn = self._make_loss_fn()
         self._train_step = make_train_step(
-            self._make_loss_fn(), self.tx, self.lr_schedule, step_cfg)
+            self._loss_fn, self.tx, self.lr_schedule, step_cfg)
 
     def _make_loss_fn(self):
+        """`loss_fn(params, microbatch, rng) -> (CE sum, aux)`; under PEFT
+        `params` is the adapter tree, merged into the frozen base layer by
+        layer inside the decoder and into the head here."""
         module = self.model_spec.module
         model_cfg = self.model_cfg
         chunk = int(self.cfg.get("loss.chunk_size", 1024))
-
         is_moe = self.is_moe
+        peft_cfg, base = self.peft_cfg, self.base_params
 
         def loss_fn(params, batch, rng):
             kw = {k: batch[k] for k in ("positions", "segment_ids") if k in batch}
+            lora = None
+            if peft_cfg is not None:
+                lora, params = params, base
+                kw.update(lora=lora, lora_cfg=peft_cfg)
             aux, extra = None, {}
             if is_moe:
                 hidden, aux, stats = module.forward(
@@ -238,6 +290,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             else:
                 hidden = module.forward(params, model_cfg, batch["input_ids"],
                                         return_hidden=True, **kw)
+            if lora is not None:
+                params = merge_lora(params, lora, peft_cfg, skip=LAYER_STACKS)
             kernel = module.head_kernel(params, model_cfg)
             ce_sum, n = fused_linear_cross_entropy(
                 hidden, kernel, batch["labels"], chunk_size=chunk,
@@ -256,6 +310,10 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         ss_cfg = dataclasses.replace(
             self.typed.step_scheduler, grad_acc_steps=dl_cfg.grad_acc_steps)
         self.step_scheduler = StepScheduler(ss_cfg, self.dataloader)
+        val_node = self.cfg.get("validation_dataset")
+        self.val_dataloader = None
+        if val_node is not None:
+            self.val_dataloader = dl_cfg.build(val_node.instantiate().build())
 
     # ------------------------------------------------------------------
     def run_step(self, microbatches: list) -> dict:
@@ -304,6 +362,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 if not np.isfinite(loss):
                     logger.warning("step %d: non-finite loss %s", step, loss)
                 self.metric_logger.log(record)
+                if self.step_scheduler.is_val_step and self.val_dataloader is not None:
+                    self._run_validation(step)
                 if self.step_scheduler.sigterm_received:
                     self._finish_preempted(step)
                     break
@@ -325,6 +385,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 self.save_consolidated_hf()
         finally:
             self.metric_logger.close()
+            self.val_logger.close()
 
     def _finish_preempted(self, step: int) -> None:
         """SIGTERM: a forced save, then a wait for its commit bounded by
@@ -351,17 +412,66 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 self.checkpointer.latest_step() if self.checkpointer else None)
         logger.info("SIGTERM received: checkpointed and exiting")
 
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _run_validation(self, step: int) -> None:
+        """The token-weighted CE over the whole `validation_dataset`, plus
+        the sampling eval's metrics, as one `validation.jsonl` record."""
+        total, count = 0.0, 0.0
+        for mb in self.val_dataloader:
+            loss_sum, aux = self._loss_fn(self.train_state.params,
+                                          make_global_batch(mb, self.device), None)
+            total += float(loss_sum)
+            count += float(aux["num_label_tokens"])
+        rec = {"step": step, "val_loss": total / max(count, 1.0)}
+        rec.update(self._run_sampling_eval())
+        self.val_logger.log(rec)
+
+    def _run_sampling_eval(self) -> dict:
+        """`validation_generation: {prompt_len, max_new_tokens, max_batches,
+        eos_token_id}`: greedy continuations of the val batches' prompts
+        scored against the corpus (`eval/sampling.py`). The val loader's
+        position is put back after the sweep, so the next val-loss pass
+        sees the same data."""
+        node = self.cfg.get("validation_generation")
+        if node is None or self.val_dataloader is None:
+            return {}
+        from automodel_tpu_torch.eval.sampling import run_sampling_eval
+
+        params = self.train_state.params
+        if self.peft_cfg is not None:
+            # straight into the compute dtype that generate() casts to
+            params = merge_lora(self.base_params, params, self.peft_cfg,
+                                dtype=self.model_cfg.dtype)
+        dl_state = self.val_dataloader.state_dict()
+        try:
+            return run_sampling_eval(
+                params, self.model_cfg, iter(self.val_dataloader),
+                prompt_len=int(node.get("prompt_len", 16)),
+                max_new_tokens=int(node.get("max_new_tokens", 32)),
+                max_batches=int(node.get("max_batches", 4)),
+                eos_token_id=node.get("eos_token_id"),
+                seed=int(self.cfg.get("seed", 42)),
+            )
+        finally:
+            self.val_dataloader.load_state_dict(dl_state)
+
     def save_consolidated_hf(self, out_dir: str | None = None) -> str:
         """The consolidated HF safetensors export of the params (the fp32
-        masters), with the model's config.json, to
+        masters; under PEFT the base merged with the adapters,
+        `merged_state_dict`), with the model's config.json, to
         `<checkpoint_dir>/hf` by default: what `llm_serve` reads."""
         out_dir = out_dir or os.path.join(
             self.cfg.get("checkpoint.checkpoint_dir", "checkpoints"), "hf")
         adapter = get_adapter(self.model_spec.adapter_name, self.model_cfg,
                               **self.model_spec.adapter_kwargs)
+        if self.peft_cfg is not None:
+            params = merged_state_dict(self.base_params, self.train_state.params,
+                                       self.peft_cfg)
+        else:
+            params = self.train_state.params
         with torch.no_grad():
-            save_hf_checkpoint(adapter.to_hf(self.train_state.params), out_dir,
-                               hf_config=self._hf_config)
+            save_hf_checkpoint(adapter.to_hf(params), out_dir, hf_config=self._hf_config)
         logger.info("consolidated HF checkpoint written to %s", out_dir)
         return out_dir
 

@@ -186,6 +186,24 @@ class RecipeConfig:
 
         return self._section("step_scheduler", StepSchedulerConfig)
 
+    @property
+    def peft(self):
+        """`peft` -> LoRAConfig, or None without the section; a YAML list of
+        `target_modules` becomes the config's tuple."""
+        node = self.raw.get("peft")
+        if node is None:
+            return None
+        from automodel_tpu_torch.peft.lora import LoRAConfig
+
+        key = ("peft", "LoRAConfig")
+        if key not in self._cache:
+            cfg = dataclass_from_node(LoRAConfig, node)
+            if "target_modules" in node:
+                cfg = dataclasses.replace(
+                    cfg, target_modules=tuple(node.get("target_modules")))
+            self._cache[key] = cfg
+        return self._cache[key]
+
     # -- serving ---------------------------------------------------------------
     def _serving(self, name: str, cls, allow: tuple = (), **extra):
         key = ("serving." + name, cls.__name__)

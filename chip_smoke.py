@@ -84,14 +84,36 @@ one JSON line each:
    head dim 16) for its 10 steps through the CLI with the kernels and
    through the recipe class called directly with the plain attention:
    the loss curves must agree;
-11. train_gemma3_ckpt: the Gemma-3-1B training recipe at full width and
-   depth with the train-state checkpointer on (a save every 3 steps,
+11. train_gemma3_ckpt: the Gemma-3-1B training recipe at full width, cut
+   to 12 of 26 layers (the script's disk budget, below), with the
+   train-state checkpointer on (a save every 3 steps,
    async, one kept, the consolidated HF export at the end): 5 unbroken
-   steps; a new process resumed from the step-3 checkpoint runs steps 4-5
+   steps; a new process restored from the step-3 checkpoint runs steps 4-5
    with the unbroken run's losses and grad norms (1e-6 relative); then the
    `llm_serve` recipe through the CLI on the export, prompts of 900 tokens
    over the 512 window, K4 on every layer of every step. Checkpoint bytes,
-   save seconds and time_to_resume_s are printed.
+   save seconds and time_to_resume_s are printed;
+12. train_lora (right after recipe_serve, whose Llama-3-8B checkpoint is
+   its base at `model.pretrained_path`): `examples/llm_finetune/
+   llama_lora.yaml`'s peft section (r 16, alpha 32, q/k/v/o), optimizer and
+   schedule on Llama-3-8B at its published config with nothing cut (32
+   layers, seq 4096, bf16 over the fp32 base, full remat), 2 accumulated
+   microbatches, 6 steps, validation (loss on 2 mock samples of 4096
+   tokens, and the sampling eval: 16-token prompt, 32 greedy tokens) every
+   3 steps, a PEFT-only checkpoint every 3 steps and the merged
+   consolidated export, read back and held to the merge; K1-K3 counted
+   against 2n + the validation forwards, n, n; one profiled step; then a
+   new recipe object restored from the step-3 checkpoint, which rebuilds
+   the base from the HF checkpoint: its steps 4-6 and validation must
+   equal the unbroken run's bit for bit. train_qlora: the same with
+   `quantize_base: int8`, 3 steps, its peak below train_lora's;
+13. generate_check (after the engine phases): greedy `generate()` on
+   2-layer fp32 models at the full widths of Llama-3-8B, Gemma-2-2B and
+   Moonlight-16B-A3B, 8 prompts of 64-512 tokens, 32 new tokens, equal to
+   the teacher-forced `forward` argmax and to `serve_batch` (K4, K6);
+14. train_lora_check (after train_check): fp32, 2 layers at Llama-3-8B
+   width, one step each of LoRA, DoRA and QLoRA adapters with K1-K3 and
+   with the plain attention: losses and adapter gradients agree.
 
 The build line carries ptxas's registers and spills of every kernel, and of
 the tensor-core K1-K7 kernels by name with their dynamic shared memory.
@@ -124,12 +146,15 @@ import yaml
 from automodel_tpu_torch.checkpoint import (
     Checkpointer,
     DenseDecoderAdapter,
+    HFCheckpointReader,
     save_hf_checkpoint,
 )
 from automodel_tpu_torch.cli.app import main as cli_main
+from automodel_tpu_torch.cli.app import resolve_recipe_class
 from automodel_tpu_torch.config import parse_args_and_load_config
 from automodel_tpu_torch.datasets.loader import make_global_batch, stack_microbatches
 from automodel_tpu_torch.datasets.mock import MockDatasetConfig
+from automodel_tpu_torch.inference.generate import GenerateConfig, generate
 from automodel_tpu_torch.loss import fused_linear_cross_entropy
 from automodel_tpu_torch.loss.utils import combine_losses
 from automodel_tpu_torch.models.common.layers import count_params
@@ -158,6 +183,14 @@ from automodel_tpu_torch.ops.paged_attention import (
     ragged_paged_attention_ref,
     ragged_paged_mla_attention_ref,
 )
+from automodel_tpu_torch.peft import (
+    LoRAConfig,
+    init_lora,
+    merge_lora,
+    merged_state_dict,
+    quantize_base,
+)
+from automodel_tpu_torch.peft.lora import dequantize
 from automodel_tpu_torch.recipes.llm.train_ft import (
     TrainFinetuneRecipeForNextTokenPrediction,
 )
@@ -372,9 +405,36 @@ GEMMA_PLAIN_LOSS_RTOL, GEMMA_PLAIN_GNORM_RTOL = 1e-2, 5e-2
 # take another order, which moves fp32 grad norms by ~1e-7); then the
 # llm_serve recipe on its HF export with prompts of this many tokens
 CKPT_EVERY, CKPT_RESUME_RTOL, CKPT_SERVE_PROMPT_LEN = 3, 1e-6, 900
+# ... cut to this many of Gemma-3-1B's 26 layers (two whole patterns of 5
+# sliding and 1 global). The script keeps what it writes to disk, files
+# deleted again included, under 45 GiB (~40 GB now): beside the 16.06 GB
+# Llama-3-8B checkpoint the full-depth phase's two 12.0 GB saves, 4.0 GB
+# export and the resumed run's 12.0 GB save passed that; 12 layers write
+# two 7.5 GB saves and a 2.5 GB export, and the resumed run saves nothing
+CKPT_GEMMA3_LAYERS = 12
 # train_gemma_check: Gemma-2-2B widths, 2 layers (one sliding, one global),
 # fp32, 2 microbatches of this many tokens, a window that masks
 GEMMA_CHECK_SEQ, GEMMA_CHECK_WINDOW = 2048, 512
+# train_lora / train_qlora: examples/llm_finetune/llama_lora.yaml (its peft
+# section: r 16, alpha 32 on q/k/v/o; its optimizer and schedule) on
+# Llama-3-8B at its published config, nothing cut: 32 layers, sequences of
+# 4096 tokens, bf16 over the fp32 base, full remat; the base read from the
+# recipe_serve phase's checkpoint at model.pretrained_path; microbatch 1,
+# 2 accumulation steps; validation on 2 mock samples of 4096 tokens every 3
+# steps with the sampling eval below; a PEFT-only checkpoint every 3 steps
+LORA_YAML = "examples/llm_finetune/llama_lora.yaml"
+LORA_STEPS, LORA_ACCUM, LORA_SEQ, LORA_EVERY, LORA_VAL_SAMPLES = 6, 2, 4096, 3, 2
+LORA_VAL_GENERATION = {"prompt_len": 16, "max_new_tokens": 32, "max_batches": 1}
+QLORA_STEPS = 3
+# the adapters' parameters: 32 layers x r 16 x (in + out) of q, k, v, o
+LORA_TRAINABLE = 32 * 16 * ((4096 + 4096) * 2 + (4096 + 1024) * 2)
+# K1-K3 at Llama-3-8B's heads in the profiler's kernel names
+DENSE_FA_KERNELS = {"K1": r"fwd_mma_kernel<128,\s*128,", "K2": r"dq_mma_kernel<128,\s*128,",
+                    "K3": r"dkv_mma_kernel<128,\s*128,"}
+# generate_check: 2 layers at full width in fp32, 8 prompts of these
+# lengths, GEN_NEW greedy tokens each
+GEN_PROMPTS = tuple(int(x) for x in np.linspace(64, 512, 8))
+GEN_NEW = 32
 
 
 def emit(obj) -> None:
@@ -1186,9 +1246,10 @@ def tree_bitwise_equal(a, b) -> bool:
             and torch.equal(a.view(torch.int16), b.view(torch.int16)))
 
 
-def recipe_serve_phase(card: str) -> int:
+def recipe_serve_phase(card: str, ckpt_dir: Path) -> int:
     """The llm_serve recipe through the CLI on a Llama-3-8B checkpoint that
-    the port writes first; returns the recipe's launches of K4."""
+    the port writes first to `ckpt_dir` (kept for the LoRA phases); returns
+    the recipe's launches of K4."""
     cfg = llama_config(LLAMA3_8B, dtype=torch.bfloat16)
     params = decoder.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                           dtype=torch.bfloat16)
@@ -1197,16 +1258,16 @@ def recipe_serve_phase(card: str) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        save_hf_checkpoint(DenseDecoderAdapter(cfg).to_hf(params), str(tmp / "ckpt"),
+        save_hf_checkpoint(DenseDecoderAdapter(cfg).to_hf(params), str(ckpt_dir),
                            hf_config=hf)
         write_s = time.perf_counter() - t0
-        ckpt_bytes = sum(f.stat().st_size for f in (tmp / "ckpt").iterdir())
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.iterdir())
         serving = {f.name: getattr(SERVE, f.name) for f in dataclasses.fields(SERVE)
                    if f.name in ("page_size", "num_pages", "max_slots", "pages_per_slot",
                                  "token_budget", "prefill_chunk")}
         node = {
             "recipe": "llm_serve", "seed": 0, "run_dir": str(tmp / "run"),
-            "model": {"pretrained_path": str(tmp / "ckpt"), "dtype": "bfloat16"},
+            "model": {"pretrained_path": str(ckpt_dir), "dtype": "bfloat16"},
             "dataset": {"_target_": "automodel_tpu_torch.datasets.mock.MockDatasetConfig",
                         "num_samples": 16, "seq_len": RECIPE_PROMPT_LEN,
                         "vocab_size": cfg.vocab_size},
@@ -2240,9 +2301,12 @@ def train_gemma3_ckpt_phase(card: str) -> int:
     1. The unbroken 5-step run through the CLI in this process. Its step-3
        checkpoint is hard-linked aside when it commits (retention deletes it
        when step 5 commits).
-    2. A new process (`python -m automodel_tpu_torch`) on that step-3
-       checkpoint auto-resumes and runs steps 4-5: its losses and grad norms
+    2. A new process (`python -m automodel_tpu_torch`) restores that step-3
+       checkpoint (`checkpoint.restore_from`, the checkpointer otherwise
+       off: it saves nothing) and runs steps 4-5: its losses and grad norms
        must equal the unbroken run's within CKPT_RESUME_RTOL relative.
+
+    The model is cut to CKPT_GEMMA3_LAYERS layers (see there).
     3. The `llm_serve` recipe through the CLI on the consolidated export:
        16 mock prompts of CKPT_SERVE_PROMPT_LEN tokens over Gemma-3-1B's
        512 window, 32 new tokens each, K4 on every layer of every step.
@@ -2255,7 +2319,8 @@ def train_gemma3_ckpt_phase(card: str) -> int:
         (tmp / "run_resume").mkdir()
         ckpt = {"enabled": True, "checkpoint_dir": str(ck_a), "async_save": True,
                 "max_recent_checkpoints": 1, "save_consolidated": "final"}
-        yaml_a = gemma_train_yaml(str(tmp / "run"), GEMMA3_1B, GEMMA3_TRAIN_SEQ,
+        hf = dict(GEMMA3_1B, num_hidden_layers=CKPT_GEMMA3_LAYERS)
+        yaml_a = gemma_train_yaml(str(tmp / "run"), hf, GEMMA3_TRAIN_SEQ,
                                   checkpoint=ckpt, ckpt_every_steps=CKPT_EVERY)
         # the step-3 save as it committed, and its files linked aside
         cadenced: dict = {}
@@ -2287,9 +2352,8 @@ def train_gemma3_ckpt_phase(card: str) -> int:
         records_a = [json.loads(l) for l in (tmp / "run" / "training.jsonl").open()]
 
         # 2. a new process resumes from the linked step-3 checkpoint
-        yaml_b = gemma_train_yaml(str(tmp / "run_resume"), GEMMA3_1B, GEMMA3_TRAIN_SEQ,
-                                  checkpoint=dict(ckpt, checkpoint_dir=str(ck_b),
-                                                  save_consolidated=False),
+        yaml_b = gemma_train_yaml(str(tmp / "run_resume"), hf, GEMMA3_TRAIN_SEQ,
+                                  checkpoint={"enabled": False, "restore_from": str(ck_b)},
                                   ckpt_every_steps=CKPT_EVERY)
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "automodel_tpu_torch", yaml_b],
@@ -2342,7 +2406,7 @@ def train_gemma3_ckpt_phase(card: str) -> int:
     resume_rec = records_b[0] if records_b else {}
     emit({
         "phase": "train_gemma3_ckpt", "card": card,
-        "model": f"Gemma-3-1B, full width and all {n_layers} layers, bf16 over fp32 "
+        "model": f"Gemma-3-1B, full width, {n_layers} of 26 layers, bf16 over fp32 "
                  "masters, remat full",
         "checkpoint": {"ckpt_every_steps": CKPT_EVERY, "max_recent_checkpoints": 1,
                        "async_save": True, "save_consolidated": "final"},
@@ -2387,6 +2451,414 @@ def train_gemma3_ckpt_phase(card: str) -> int:
             f"train_gemma3_ckpt: paged kernels launched {launches} (plain calls "
             f"{plain_calls}) in {serve_steps} steps of {n_layers} layers; expected {want}")
     return launches["K4"]
+
+
+def lora_yaml(path: Path, model: dict, run_dir: Path, steps: int, peft: dict,
+              checkpoint: dict, validation: bool) -> str:
+    """llama_lora.yaml on Llama-3-8B: its peft section (updated by `peft`),
+    optimizer and schedule as written; `model` (where the base comes from)
+    in bf16 with full remat; mock data of LORA_SEQ tokens over the whole
+    vocabulary; written to `path`."""
+    cfg = yaml.safe_load(Path(LORA_YAML).read_text())
+    cfg.update({
+        "seed": 0, "run_dir": str(run_dir),
+        "model": dict(model, dtype="bfloat16", remat_policy="full"),
+        "peft": dict(cfg["peft"], **peft),
+        "dataset": {"_target_": "automodel_tpu_torch.datasets.mock.MockDatasetConfig",
+                    "num_samples": 64, "seq_len": LORA_SEQ,
+                    "vocab_size": LLAMA3_8B["vocab_size"]},
+        "dataloader": {"microbatch_size": 1, "grad_acc_steps": LORA_ACCUM},
+        "step_scheduler": {"max_steps": steps, "ckpt_every_steps": LORA_EVERY},
+        "checkpoint": checkpoint,
+        "loss": {"chunk_size": 2048},
+    })
+    if validation:
+        cfg["step_scheduler"]["val_every_steps"] = LORA_EVERY
+        cfg["validation_dataset"] = {
+            "_target_": "automodel_tpu_torch.datasets.mock.MockDatasetConfig",
+            "num_samples": LORA_VAL_SAMPLES, "seq_len": LORA_SEQ,
+            "vocab_size": LLAMA3_8B["vocab_size"], "seed": 1}
+        cfg["validation_generation"] = dict(LORA_VAL_GENERATION)
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def run_recipe(yaml_path: str):
+    """The recipe the CLI builds for `yaml_path`, set up and run as the CLI
+    runs it, with the device's peak memory read after the set-up (the base
+    read) and reset for the training loop; returns (recipe, seconds of
+    set-up, seconds of the loop, set-up peak GiB, loop peak GiB)."""
+    cfg = parse_args_and_load_config([yaml_path])
+    recipe = resolve_recipe_class(cfg)(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    recipe.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    recipe.run_train_validation_loop()
+    torch.cuda.synchronize()
+    return (recipe, setup_s, time.perf_counter() - t0, setup_peak,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def flash_launches() -> dict:
+    return {"K1": fa_cuda.launches_fwd, "K2": fa_cuda.launches_dq,
+            "K3": fa_cuda.launches_dkv}
+
+
+def jsonl(path: Path) -> list:
+    return [json.loads(l) for l in path.read_text().splitlines()]
+
+
+def lora_export_check(recipe, export: Path) -> dict:
+    """The consolidated export read back tensor by tensor against the HF
+    tensors of `merged_state_dict` of the base and the final adapters."""
+    adapter = DenseDecoderAdapter(recipe.model_cfg)
+    merged = merged_state_dict(recipe.base_params, recipe.train_state.params,
+                               recipe.peft_cfg)
+    n = n_equal = 0
+    with HFCheckpointReader(str(export)) as reader:
+        for name, want in adapter.to_hf(merged):
+            got = reader(name).to("cuda")
+            n += 1
+            n_equal += int(got.dtype == want.dtype and torch.equal(got, want))
+    base_q = dequantize(recipe.base_params["layers"]["q_proj"]["kernel"], torch.float32)
+    moved = float((merged["layers"]["q_proj"]["kernel"] - base_q).abs().max())
+    return {"tensors": n, "bitwise_equal": n_equal, "q_proj_max_change": moved}
+
+
+def train_lora_phase(card: str, ckpt_dir: Path) -> dict:
+    """LoRA fine-tuning of Llama-3-8B at its published config (nothing cut)
+    from the HF checkpoint at `ckpt_dir`, through the training recipe:
+
+    1. the unbroken run: LORA_STEPS steps, validation (loss and the sampling
+       eval) every LORA_EVERY steps, a PEFT-only checkpoint every
+       LORA_EVERY steps (async); then one more step under torch.profiler
+       (the merged export is checked at 2 layers in train_lora_check: at
+       32 layers its 32.1 GB beside the 16.06 GB base would pass the
+       script's 45 GiB disk budget);
+    2. a new recipe object on `checkpoint.restore_from` = that checkpoint at
+       step LORA_EVERY, which rebuilds the base from `ckpt_dir`: its steps
+       and validation records must equal the unbroken run's bit for bit.
+
+    Returns the unbroken run's K1-K3 launches and its loop's peak GiB."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_lora_"))
+    try:
+        ck_a = tmp / "ckpt"
+        base = {"pretrained_path": str(ckpt_dir)}
+        yaml_a = lora_yaml(tmp / "lora.yaml", base, tmp / "run", LORA_STEPS, {},
+                           {"enabled": True, "checkpoint_dir": str(ck_a),
+                            "async_save": True}, True)
+        fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
+        recipe, setup_s, loop_s, setup_peak, peak = run_recipe(yaml_a)
+        launches = flash_launches()
+        cfg = recipe.model_cfg
+        L = cfg.num_layers
+        records, val = jsonl(tmp / "run" / "training.jsonl"), jsonl(tmp / "run" / "validation.jsonl")
+        n = L * LORA_ACCUM * LORA_STEPS
+        n_val = L * LORA_VAL_SAMPLES * (LORA_STEPS // LORA_EVERY)
+        want = {"K1": 2 * n + n_val, "K2": n, "K3": n}
+        trainable = count_params(recipe.train_state.params)
+        save = dict(recipe.checkpointer.last_save)
+        steps_kept = recipe.checkpointer.all_steps()
+        final = tree_map(lambda t: t.detach().cpu().clone(), recipe.train_state.params)
+        steady = [r for r in records[1:]]
+        tps = statistics.median(r["tps"] for r in steady)
+
+        mbs = [next(iter(recipe.dataloader)) for _ in range(LORA_ACCUM)]
+        prof, prof_wall_ms, prof_launches = profile_step(
+            recipe, mbs, DENSE_FA_KERNELS,
+            {"K1": 2 * L * LORA_ACCUM, "K2": L * LORA_ACCUM, "K3": L * LORA_ACCUM})
+        by_name = device_ms_by_kernel(prof)
+        busy_ms = sum(by_name.values())
+        fa_ms = sum(v for k, v in by_name.items()
+                    if any(re.search(pat, k) for pat in DENSE_FA_KERNELS.values()))
+        self_dev = self_device_ms_by_op(prof)
+        gemm_ms = sum(self_dev.get(k, 0.0) for k in DENSE_GEMM_OPS)
+        top = [[k[:80], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]]
+        top_ops = [[k, v] for k, v in sorted(self_dev.items(), key=lambda kv: -kv[1])[:12]]
+        del recipe, prof
+        torch.cuda.empty_cache()
+
+        # 2. a new recipe object resumes from the step-LORA_EVERY checkpoint
+        yaml_b = lora_yaml(tmp / "resume.yaml", base, tmp / "run_resume", LORA_STEPS, {},
+                           {"enabled": True, "checkpoint_dir": str(tmp / "ckpt_resume"),
+                            "restore_from": str(ck_a), "restore_step": LORA_EVERY}, True)
+        fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
+        t0 = time.perf_counter()
+        resumed = cli_main([yaml_b])
+        torch.cuda.synchronize()
+        resume_wall_s = time.perf_counter() - t0
+        resume_launches = flash_launches()
+        records_b = jsonl(tmp / "run_resume" / "training.jsonl")
+        val_b = jsonl(tmp / "run_resume" / "validation.jsonl")
+        final_b = tree_map(lambda t: t.detach().cpu(), resumed.train_state.params)
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tail = records[LORA_EVERY:]
+    resume_equal = (
+        [r["step"] for r in records_b] == [r["step"] for r in tail]
+        and all(a[k] == b[k] for a, b in zip(tail, records_b) for k in ("loss", "grad_norm")))
+    strip = lambda recs: [{k: v for k, v in r.items() if k != "ts"} for r in recs]
+    val_equal = strip(val_b) == strip(val[1:])
+    adapters_equal = all(torch.equal(final[p][k], final_b[p][k]) for p in final for k in final[p])
+    n_b = L * LORA_ACCUM * (LORA_STEPS - LORA_EVERY)
+    want_b = {"K1": 2 * n_b + L * LORA_VAL_SAMPLES, "K2": n_b, "K3": n_b}
+    emit({
+        "phase": "train_lora", "card": card,
+        "model": f"Llama-3-8B, all {L} layers, seq {LORA_SEQ}, {cfg.dtype} over the "
+                 f"fp32 base, remat {cfg.remat_policy}; nothing cut",
+        "peft": {"r": 16, "alpha": 32.0, "targets": ["q_proj", "k_proj", "v_proj", "o_proj"]},
+        "trainable_params": trainable, "expected_trainable": LORA_TRAINABLE,
+        "steps": len(records), "tokens_per_step": LORA_ACCUM * LORA_SEQ,
+        "losses": [r["loss"] for r in records],
+        "grad_norms": [r["grad_norm"] for r in records],
+        "ms_per_step": LORA_ACCUM * LORA_SEQ / tps * 1e3, "tokens_per_s": tps,
+        "mfu_pct": statistics.median(r["mfu_pct"] for r in steady),
+        "tflops_per_device": statistics.median(r["tflops_per_device"] for r in steady),
+        "flops_per_token": cfg.flops_per_token(LORA_SEQ),
+        "setup_s": setup_s, "loop_s": loop_s,
+        "setup_peak_mem_gib": setup_peak, "peak_mem_gib": peak,
+        "validation": val,
+        "launches": launches, "expected_launches": want,
+        "checkpoint": {"steps_kept": steps_kept, "bytes": save.get("bytes"),
+                       "host_s": save.get("host_s"), "write_s": save.get("write_s"),
+                       "pinned_bytes": save.get("pinned_bytes")},
+        "export": "not at 32 layers: its 32.1 GB (fp32) beside the 16.06 GB base "
+                  "pass the script's 45 GiB disk budget; train_lora_check exports "
+                  "the merge at 2 layers",
+        "resume": {"wall_s": resume_wall_s,
+                   "time_to_resume_s": records_b[0].get("time_to_resume_s") if records_b else None,
+                   "steps": [r["step"] for r in records_b],
+                   "losses": [r["loss"] for r in records_b],
+                   "bit_equal": resume_equal, "validation_equal": val_equal,
+                   "adapters_equal": adapters_equal,
+                   "launches": resume_launches, "expected_launches": want_b},
+        "profiled_step": {"wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+                          "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
+                          "flash_launches_by_profiler_name": prof_launches,
+                          "flash_kernels_ms": fa_ms, "dense_gemm_ms": gemm_ms,
+                          "top_kernels_ms": top, "top_ops_self_device_ms": top_ops},
+    })
+    if trainable != LORA_TRAINABLE:
+        raise AssertionError(f"train_lora: {trainable} trainable parameters")
+    if len(records) != LORA_STEPS or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
+        raise AssertionError(f"train_lora: records {records}")
+    if [v["step"] for v in val] != list(range(LORA_EVERY, LORA_STEPS + 1, LORA_EVERY)) or any(
+            not math.isfinite(v["val_loss"]) or v["gen_samples"] != 1 for v in val):
+        raise AssertionError(f"train_lora: validation records {val}")
+    if launches != want or resume_launches != want_b:
+        raise AssertionError(f"train_lora: K1-K3 launches {launches} / {resume_launches}; "
+                             f"expected {want} / {want_b}")
+    if steps_kept != [LORA_EVERY, LORA_STEPS]:
+        raise AssertionError(f"train_lora: checkpoint steps {steps_kept}")
+    if not (resume_equal and val_equal and adapters_equal):
+        raise AssertionError("train_lora: the resumed run left the unbroken one")
+    return {"launches": launches, "peak_mem_gib": peak}
+
+
+def train_qlora_phase(card: str, ckpt_dir: Path, lora_peak_gib: float) -> dict:
+    """train_lora's model and base with `peft.quantize_base: int8` (the
+    frozen kernels int8, dequantized layer by layer at use), QLORA_STEPS
+    steps, no checkpoint or validation. Its loop's peak must lie below
+    train_lora's. Returns its K1-K3 launches."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_qlora_"))
+    try:
+        path = lora_yaml(tmp / "qlora.yaml", {"pretrained_path": str(ckpt_dir)},
+                         tmp / "run", QLORA_STEPS,
+                         {"quantize_base": "int8"}, {"enabled": False}, False)
+        fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
+        recipe, setup_s, loop_s, setup_peak, peak = run_recipe(path)
+        launches = flash_launches()
+        records = jsonl(tmp / "run" / "training.jsonl")
+        cfg = recipe.model_cfg
+        base_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(recipe.base_params))
+        int8_leaves = sum(1 for t in tree_leaves(recipe.base_params) if t.dtype == torch.int8)
+        del recipe
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = cfg.num_layers * LORA_ACCUM * QLORA_STEPS
+    want = {"K1": 2 * n, "K2": n, "K3": n}
+    tps = statistics.median(r["tps"] for r in records[1:])
+    emit({
+        "phase": "train_qlora", "card": card,
+        "model": f"Llama-3-8B, all {cfg.num_layers} layers, seq {LORA_SEQ}, int8 base "
+                 f"(absmax per output channel), {cfg.dtype} compute; nothing cut",
+        "steps": len(records), "losses": [r["loss"] for r in records],
+        "grad_norms": [r["grad_norm"] for r in records],
+        "ms_per_step": LORA_ACCUM * LORA_SEQ / tps * 1e3, "tokens_per_s": tps,
+        "mfu_pct": statistics.median(r["mfu_pct"] for r in records[1:]),
+        "base_bytes": base_bytes, "int8_leaves": int8_leaves,
+        "setup_s": setup_s, "loop_s": loop_s,
+        "setup_peak_mem_gib": setup_peak, "peak_mem_gib": peak,
+        "train_lora_peak_mem_gib": lora_peak_gib,
+        "launches": launches, "expected_launches": want,
+    })
+    if len(records) != QLORA_STEPS or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
+        raise AssertionError(f"train_qlora: records {records}")
+    if launches != want:
+        raise AssertionError(f"train_qlora: K1-K3 launches {launches}, expected {want}")
+    if not peak < lora_peak_gib:
+        raise AssertionError(f"train_qlora: peak {peak} GiB not below train_lora's "
+                             f"{lora_peak_gib}")
+    return launches
+
+
+def train_lora_check_phase() -> None:
+    """fp32, 2 layers at Llama-3-8B width: one accumulated step (2
+    microbatches of 4096 tokens) of LoRA, DoRA and QLoRA adapters (b and
+    DoRA's m drawn away from their init, so that every adapter has a
+    gradient) on the same base and batch, with attn_impl "flash" (K1-K3)
+    and "torch" (the plain attention): losses and adapter gradients within
+    train_check's tolerances. Then llama_lora.yaml with DoRA over the int8
+    base at 2 layers of the same width through the recipe, 2 steps, and its
+    merged consolidated export (5.9 GB, fp32) read back tensor for tensor
+    against `merged_state_dict` of the base and the final adapters."""
+    base_cfg = llama_config(LLAMA3_8B, num_layers=2, dtype=torch.float32,
+                            remat_policy="full")
+    params0 = decoder.init(base_cfg, torch.Generator(device="cuda").manual_seed(2))
+    ds = MockDatasetConfig(num_samples=4, seq_len=4096, vocab_size=base_cfg.vocab_size,
+                           seed=3).build()
+    batch = make_global_batch(stack_microbatches(
+        [{k: v[None] for k, v in ds[i].items()} for i in range(2)]), "cuda")
+    out = {}
+    for variant, extra in (("lora", {}), ("dora", {"dora": True}),
+                           ("qlora", {"quantize_base": "int8"})):
+        lcfg = LoRAConfig(r=16, alpha=32.0, **extra)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        base = quantize_base(params0, lcfg)
+        adapters0 = init_lora(params0, lcfg, gen)
+        for ab in adapters0.values():
+            ab["b"].normal_(0.0, 0.02, generator=gen)
+            if "m" in ab:
+                ab["m"].mul_(torch.empty_like(ab["m"]).uniform_(0.5, 1.5, generator=gen))
+        results = {}
+        for impl in ("flash", "torch"):
+            cfg = dataclasses.replace(base_cfg, attn_impl=impl)
+
+            def loss_fn(ad, mb, rng, cfg=cfg):
+                h = decoder.forward(base, cfg, mb["input_ids"], return_hidden=True,
+                                    lora=ad, lora_cfg=lcfg)
+                head = decoder.head_kernel(merge_lora(base, ad, lcfg, skip=("layers",)), cfg)
+                return fused_linear_cross_entropy(h, head, mb["labels"], chunk_size=2048)
+
+            adapters = tree_map(lambda t: t.clone().requires_grad_(), adapters0)
+            fa_cuda.launches_fwd = 0
+            ce, aux = accumulate_grads(loss_fn, adapters, batch)
+            results[impl] = (float(ce / aux["num_label_tokens"]),
+                             [t.grad for t in tree_leaves(adapters)], fa_cuda.launches_fwd)
+            del adapters
+        (loss_f, g_f, n_f), (loss_t, g_t, n_t) = results["flash"], results["torch"]
+        out[variant] = {
+            "loss_flash": loss_f, "loss_torch": loss_t,
+            "loss_rel_err": abs(loss_f - loss_t) / abs(loss_t),
+            "grad_max_rel_err": max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                                    for a, b in zip(g_f, g_t)),
+            "grad_leaves": len(g_f),
+            "k1_launches": [n_f, n_t]}
+        del base, adapters0, results, g_f, g_t
+        torch.cuda.empty_cache()
+    del params0
+    torch.cuda.empty_cache()
+    # the recipe's merged consolidated export, at 2 layers: DoRA over the
+    # int8 base (dequantize, merge, renormalize), 2 steps (the YAML's warmup
+    # gives step 1 no learning rate)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lora_export_"))
+    try:
+        ck = tmp / "ckpt"
+        path = lora_yaml(
+            tmp / "export.yaml",
+            {"hf_config": dict(LLAMA3_8B, architectures=["LlamaForCausalLM"],
+                               num_hidden_layers=2)},
+            tmp / "run", 2, {"dora": True, "quantize_base": "int8"},
+            {"enabled": True, "checkpoint_dir": str(ck), "async_save": False,
+             "save_consolidated": "final"}, False)
+        recipe = run_recipe(path)[0]
+        export_bytes = sum(f.stat().st_size for f in (ck / "hf").iterdir())
+        t0 = time.perf_counter()
+        export = lora_export_check(recipe, ck / "hf")
+        export.update(bytes=export_bytes, readback_s=time.perf_counter() - t0)
+        del recipe
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "train_lora_check", "layers": 2, "dtype": "float32",
+          "loss_rtol": TRAIN_LOSS_RTOL, "grad_tol": TRAIN_GRAD_TOL, **out,
+          "recipe_export_dora_int8_base": export})
+    if export["bitwise_equal"] != export["tensors"] or export["q_proj_max_change"] == 0.0:
+        raise AssertionError(f"train_lora_check: the export is not the merge: {export}")
+    for variant, r in out.items():
+        if r["k1_launches"][0] == 0 or r["k1_launches"][1] != 0:
+            raise AssertionError(f"train_lora_check {variant}: attn_impl did not select "
+                                 "the kernels / the plain path")
+        if r["loss_rel_err"] > TRAIN_LOSS_RTOL or r["grad_max_rel_err"] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"train_lora_check {variant}: kernels and plain differ")
+
+
+def generate_check_phase() -> None:
+    """Greedy `generate()` (plain attention over its dense cache, as in the
+    JAX package) on 2-layer fp32 models at the full widths of Llama-3-8B,
+    Gemma-2-2B and Moonlight-16B-A3B (one dense, one MoE layer), 8 prompts
+    of 64-512 tokens, GEN_NEW new tokens each, against the teacher-forced
+    `forward` argmax over the generated sequence (one pass; K1 on the card)
+    and against `ServingEngine.serve_batch` on the same weights (K4 and K6,
+    fp32 routes)."""
+    models = (
+        ("Llama-3-8B", decoder, llama_config(LLAMA3_8B, num_layers=2, dtype=torch.float32)),
+        ("Gemma-2-2B", decoder, gemma2_config(dict(GEMMA2_2B, num_hidden_layers=2),
+                                              dtype=torch.float32)),
+        ("Moonlight-16B-A3B", moe_decoder, dataclasses.replace(
+            deepseek_v3_moe_config(MOONLIGHT), num_layers=2, dtype=torch.float32)),
+    )
+    report = {}
+    for name, module, cfg in models:
+        params = module.init(cfg, torch.Generator(device="cuda").manual_seed(6))
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in GEN_PROMPTS]
+        t0 = time.perf_counter()
+        gen_tokens = [generate(params, cfg, torch.tensor([p], device="cuda"), None,
+                               GenerateConfig(max_new_tokens=GEN_NEW))[0, len(p):].tolist()
+                      for p in prompts]
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        fa_cuda.launches_fwd = 0
+        teacher = []
+        with torch.no_grad():
+            for p, g in zip(prompts, gen_tokens):
+                out = module.forward(params, cfg, torch.tensor([p + g], device="cuda"))
+                logits = out[0] if isinstance(out, tuple) else out
+                teacher.append(logits[0, len(p) - 1:-1].argmax(-1).tolist())
+        k1 = fa_cuda.launches_fwd
+        for fn in PAGED_KERNELS.values():
+            fn.launches = 0
+        engine = ServingEngine(params, cfg, SERVE)
+        served = engine.serve_batch([Request(prompt=list(p), max_new_tokens=GEN_NEW, seed=i)
+                                     for i, p in enumerate(prompts)])["outputs"]
+        paged = {k: fn.launches for k, fn in PAGED_KERNELS.items() if fn.launches}
+        # the first new token at which each prompt's tokens differ, if any
+        misses = {ref_name: {i: next(j for j, (a, b) in enumerate(zip(g, ref)) if a != b)
+                             for i, (g, ref) in enumerate(zip(gen_tokens, refs)) if g != ref}
+                  for ref_name, refs in (("teacher", teacher), ("serve_batch", served))}
+        report[name] = {"prompt_lens": list(GEN_PROMPTS), "new_tokens": GEN_NEW,
+                        "generate_s": gen_s, "k1_launches_teacher": k1,
+                        "paged_launches_serve": paged, "first_miss_by_prompt": misses}
+        del params, engine, logits
+        torch.cuda.empty_cache()
+    emit({"phase": "generate_check", "dtype": "float32", "layers": 2, **report})
+    for name, r in report.items():
+        if any(r["first_miss_by_prompt"].values()):
+            raise AssertionError(f"generate_check {name}: greedy tokens differ: "
+                                 f"{r['first_miss_by_prompt']}")
+        if r["k1_launches_teacher"] == 0 or not r["paged_launches_serve"]:
+            raise AssertionError(f"generate_check {name}: the references ran no kernel")
 
 
 # the tensor-core kernels in ptxas's mangled names: (pattern, readable name)
@@ -2486,13 +2958,23 @@ def main() -> int:
     launches.update(serve_mla_phase(card))
     window_launches = serve_gemma2_phase(card)
     moe_sync_phase(card)
-    launches["K4_recipe"] = recipe_serve_phase(card)
+    # Llama-3-8B's HF checkpoint: served by recipe_serve, the base of the
+    # LoRA phases
+    hf_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_llama3_8b_"))
+    try:
+        launches["K4_recipe"] = recipe_serve_phase(card, hf_dir / "hf")
+        lora = train_lora_phase(card, hf_dir / "hf")
+        qlora_launches = train_qlora_phase(card, hf_dir / "hf", lora["peak_mem_gib"])
+    finally:
+        shutil.rmtree(hf_dir, ignore_errors=True)
     engine_phase()
     engine_mla_phase()
     engine_window_phase()
+    generate_check_phase()
     torch.cuda.empty_cache()
     train_launches = train_phase(card)
     train_check_phase()
+    train_lora_check_phase()
     train_paths_phase()
     moe_launches = train_moe_phase(card)
     train_moe_check_phase()
@@ -2603,6 +3085,9 @@ def main() -> int:
             if "library_why" in e:
                 row["library_same_function"] = e["library_same_function"]
                 row["library_why"] = e["library_why"]
+            if key == "dense":  # the LoRA runs at the same heads, counted apart
+                row["train_lora_launches"] = lora["launches"][name]
+                row["train_qlora_launches"] = qlora_launches[name]
             kernels.append(row)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

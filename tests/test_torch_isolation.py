@@ -47,7 +47,8 @@ def test_port_imports_no_jax():
                 "moe.config", "moe.gate", "moe.experts", "moe.layer",
                 "models.moe_lm.decoder", "models.moe_lm.families",
                 "inference.generate", "checkpoint.safetensors_io",
-                "checkpoint.hf_adapter", "recipes.llm.serve"):
+                "checkpoint.hf_adapter", "recipes.llm.serve", "peft.lora",
+                "eval.sampling"):
         assert f"automodel_tpu_torch.{mod}" in res["modules"]
     assert res["leaked"] == []
 
