@@ -37,14 +37,20 @@
 // mla_kernel (float32 queries: K6 and K7, CUDA cores). MLA is multi-query
 // attention: all n heads of a row share one latent row c (r wide) and one
 // rope row kr (dr wide) per kv position. So one thread block owns one token
-// row and ALL its heads, and each live page's (ps, r) latent slice and
-// (ps, dr) rope slice are read from device memory once per row and staged
-// in shared memory as fp32. The block's queries (n, r + dr) sit in shared
-// memory too; scores are one warp per (head, page row) dot product; the
-// (n, r) fp32 accumulator is spread over the block's threads in registers
-// (element i = tid + k * 256, kAcc of them per thread, so n * r <= 16384),
-// and only the output row is written back. It walks the row's pages one
-// after another, one block per row: latency-bound (~37 us per page).
+// row and a tile of its heads, and each live page's (ps, r) latent slice
+// and (ps, dr) rope slice are read from device memory once per head tile
+// and staged in shared memory as fp32. The block's queries (n_tile,
+// r + dr) sit in shared memory too; scores are one warp per (head, page
+// row) dot product; the (n_tile, r) fp32 accumulator is spread over the
+// block's threads in registers (element i = tid + k * 256, kAcc of them per
+// thread), and only the tile's output is written back. Each head's softmax
+// is its own, so the heads tile over the grid's second dimension: n_tile
+// (head_tile()) is the most heads whose accumulators fit, n_tile * r <=
+// 16384 (32 heads at r 512), and a row of n heads takes ceil(n / n_tile)
+// blocks, each reading the row's pages itself (DeepSeek-V3's 128 heads at
+// r 512: 4 blocks, 4x the page bytes; the fp32 route serves parity checks).
+// It walks the row's pages one after another: latency-bound (~37 us per
+// page).
 //
 // Bound. Bytes: each live page's latent and rope rows are read once per row
 // that attends to them, and the arithmetic is 4 * n * r operations per kv
@@ -68,6 +74,15 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// the most fp32 accumulators per thread of mla_kernel
+constexpr int kMaxAcc = 64;
+
+// heads per block of mla_kernel: the most whose (n_tile, r) accumulators fit
+// kThreads * kMaxAcc registers, at most n; 0 if not even one head's fit
+int head_tile(int n, int r) {
+  const int fit = kThreads * kMaxAcc / r;
+  return n < fit ? n : fit;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(int8_t x) {
@@ -100,7 +115,8 @@ size_t smem_bytes(int n, int r, int dr, int ps) {
 
 // T: q and output dtype (float); TKV: page dtype (T for K6, int8_t for K7,
 // which also takes c_scales / kr_scales, (N+1, ps) fp32; K6 passes nullptr).
-// kAcc accumulators per thread cover n * r <= kThreads * kAcc.
+// Block (t, y) takes row t's heads [y * n_tile, min(n, (y + 1) * n_tile));
+// kAcc accumulators per thread cover n_tile * r <= kThreads * kAcc.
 template <typename T, typename TKV, int kAcc>
 __global__ void __launch_bounds__(kThreads)
 mla_kernel(const T* __restrict__ q_abs,         // (T, n, r)
@@ -112,10 +128,13 @@ mla_kernel(const T* __restrict__ q_abs,         // (T, n, r)
            const int* __restrict__ page_tables, // (T, P)
            const int* __restrict__ positions,   // (T,)
            T* __restrict__ out,                 // (T, n, r)
-           int n, int r, int dr, int ps, int P, float scale) {
+           int n_total, int n_tile, int r, int dr, int ps, int P,
+           float scale) {
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   extern __shared__ float smem[];
   const int t = blockIdx.x;
+  const int h0 = blockIdx.y * n_tile;  // this block's first head
+  const int n = min(n_tile, n_total - h0);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -135,8 +154,8 @@ mla_kernel(const T* __restrict__ q_abs,         // (T, n, r)
   const int pos = positions[t];
   const int n_pages = pos < 0 ? 0 : min(pos / ps + 1, P);
 
-  const T* qa_row = q_abs + (size_t)t * nr;
-  const T* qr_row = q_rope + (size_t)t * n * dr;
+  const T* qa_row = q_abs + ((size_t)t * n_total + h0) * r;
+  const T* qr_row = q_rope + ((size_t)t * n_total + h0) * dr;
   for (int i = tid; i < nr; i += kThreads) qa_s[i] = to_float(qa_row[i]);
   for (int i = tid; i < n * dr; i += kThreads) qr_s[i] = to_float(qr_row[i]);
   if (tid < n) {
@@ -232,7 +251,7 @@ mla_kernel(const T* __restrict__ q_abs,         // (T, n, r)
     __syncthreads();
   }
 
-  T* o_row = out + (size_t)t * nr;
+  T* o_row = out + ((size_t)t * n_total + h0) * r;
 #pragma unroll
   for (int k = 0; k < kAcc; ++k) {
     const int i = tid + k * kThreads;
@@ -249,18 +268,20 @@ int launch_acc(const void* q_abs, const void* q_rope, const void* c_pages,
                const float* kr_scales, const int* page_tables,
                const int* positions, void* out, int T_, int n, int r, int dr,
                int ps, int P, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(n, r, dr, ps);
+  const int n_tile = head_tile(n, r);
+  const size_t smem = smem_bytes(n_tile, r, dr, ps);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         mla_kernel<T, TKV, kAcc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  mla_kernel<T, TKV, kAcc><<<T_, kThreads, smem, stream>>>(
+  const dim3 grid(T_, (n + n_tile - 1) / n_tile);
+  mla_kernel<T, TKV, kAcc><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q_abs), static_cast<const T*>(q_rope),
       static_cast<const TKV*>(c_pages), static_cast<const TKV*>(kr_pages),
-      c_scales, kr_scales, page_tables, positions, static_cast<T*>(out), n, r,
-      dr, ps, P, scale);
+      c_scales, kr_scales, page_tables, positions, static_cast<T*>(out), n,
+      n_tile, r, dr, ps, P, scale);
   return (int)cudaGetLastError();
 }
 
@@ -270,7 +291,9 @@ int launch(const void* q_abs, const void* q_rope, const void* c_pages,
            const float* kr_scales, const int* page_tables,
            const int* positions, void* out, int T_, int n, int r, int dr,
            int ps, int P, float scale, cudaStream_t stream) {
-  const int need = (n * r + kThreads - 1) / kThreads;
+  const int n_tile = head_tile(n, r);
+  if (n_tile < 1) return (int)cudaErrorInvalidValue;
+  const int need = (n_tile * r + kThreads - 1) / kThreads;
 #define MLA_LAUNCH(K)                                                       \
   return launch_acc<T, TKV, K>(q_abs, q_rope, c_pages, kr_pages, c_scales,  \
                                kr_scales, page_tables, positions, out, T_, n, \
@@ -279,6 +302,7 @@ int launch(const void* q_abs, const void* q_rope, const void* c_pages,
   if (need <= 8) MLA_LAUNCH(8);
   if (need <= 16) MLA_LAUNCH(16);
   if (need <= 32) MLA_LAUNCH(32);
+  static_assert(kMaxAcc == 64, "the largest instantiation is kMaxAcc");
   if (need <= 64) MLA_LAUNCH(64);
 #undef MLA_LAUNCH
   return (int)cudaErrorInvalidValue;
@@ -350,9 +374,10 @@ int launch_mla_split(const SplitArgs<TKV>& a, void* out, const SplitShape& sh,
 
 extern "C" {
 
-// Largest n * r one block's accumulators cover on the fp32 route
-// (kThreads * 64).
-int mla_max_heads_x_rank() { return kThreads * 64; }
+// Heads per block of the fp32 route at this shape (the blocks of a row:
+// ceil(n / mla_head_tile(n, r))); 0 when one head's r accumulators do not
+// fit a block.
+int mla_head_tile(int n, int r) { return head_tile(n, r); }
 
 // K6 for float32 queries and pages (the CUDA-core mla_kernel); dtype must
 // be 0 (float32). Returns cudaGetLastError() after the launch (0 =

@@ -9,7 +9,9 @@ package's keys. The serving engine runs both stacks; the training `forward`
 runs them on one device, the aux (load-balance) loss and each MoE layer's
 tokens per expert riding the layer loop's carry. The pipeline branch, DSA,
 routing replay, the EAGLE-3 aux-hidden capture, VLM inputs (embeds, MRoPE
-angles, deepstack), the MTP head and the parameter specs are not ported.
+angles, deepstack) and the parameter specs are not ported. With
+`mtp_num_layers > 0`, `init` adds the MTP head's params under `mtp`
+(`mtp.py`), which the training recipe's loss runs.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from automodel_tpu_torch.models.llm.decoder import (
     mlp_block,
     unembed,
 )
+from automodel_tpu_torch.models.moe_lm.mtp import init_mtp
 from automodel_tpu_torch.moe.config import MoEConfig
 from automodel_tpu_torch.moe.gate import update_gate_bias
 from automodel_tpu_torch.moe.layer import init_moe, moe_forward
@@ -48,7 +51,7 @@ __all__ = ["MoETransformerConfig", "apply_gate_bias_update", "forward",
 class MoETransformerConfig(TransformerConfig):
     moe: MoEConfig = dataclasses.field(default_factory=MoEConfig)
     first_k_dense: int = 0  # deepseek first_k_dense_replace
-    mtp_num_layers: int = 0      # depth-1 MTP head when > 0 (not ported)
+    mtp_num_layers: int = 0      # depth-1 MTP head when > 0
     mtp_loss_coeff: float = 0.1  # weight of the MTP CE term
 
     @property
@@ -80,9 +83,9 @@ def init(cfg: MoETransformerConfig, gen: torch.Generator,
          dtype: torch.dtype = torch.float32) -> dict:
     """Random params on the generator's device: the `dense_layers` stack
     (when first_k_dense > 0), then the `moe_layers` stack. Pass the compute
-    dtype for a large model: every leaf is drawn directly in it."""
-    if cfg.mtp_num_layers > 0:
-        raise NotImplementedError("the MTP head (mtp_num_layers > 0) is not ported")
+    dtype for a large model: every leaf is drawn directly in it. With
+    `mtp_num_layers > 0` the MTP head's params follow, under `mtp`, drawn
+    last, so the other leaves do not depend on it."""
     H, I = cfg.hidden_size, cfg.intermediate_size
     ones, _, dense = init_fns(gen, dtype)
     params: dict = {
@@ -102,6 +105,8 @@ def init(cfg: MoETransformerConfig, gen: torch.Generator,
     params["moe_layers"] = moe_layers
     if not cfg.tie_word_embeddings:
         params["lm_head"] = {"kernel": dense(H, cfg.vocab_size)}
+    if cfg.mtp_num_layers > 0:
+        params["mtp"] = init_mtp(cfg, gen, dtype)
     return params
 
 
@@ -197,7 +202,11 @@ def forward(
         params = merge_lora(params, lora, lora_cfg, skip=("dense_layers", "moe_layers"))
     out = h if return_hidden else unembed(params, cfg, h)
     if return_stats:
-        return out, aux_loss, {"tokens_per_expert": torch.stack(tpe)}
+        # (num_moe_layers, E): a dense prefix alone (every layer dense, as a
+        # depth-cut DeepSeek-V3 is) has no MoE layer to count
+        tpe = (torch.stack(tpe) if tpe else
+               torch.zeros((0, cfg.moe.n_routed_experts), device=dev))
+        return out, aux_loss, {"tokens_per_expert": tpe}
     return out, aux_loss
 
 

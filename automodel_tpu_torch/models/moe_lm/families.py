@@ -14,8 +14,8 @@ def deepseek_v3_moe_config(hf: Mapping[str, Any], **overrides) -> MoETransformer
     """DeepSeek-V3-style MoE body: sigmoid scores, group-limited routing,
     shared experts, aux-free gate-bias balancing, first-k-dense layers.
     Uses MLA attention when the HF config carries kv_lora_rank. Yarn rope
-    (the V3 checkpoints' long-context scaling, which also folds mscale² into
-    the attention scale) raises until `ops/rope.py` has yarn."""
+    (the V3 checkpoints' long-context scaling) folds its mscale² into the
+    attention scale. Kimi-K2's config names the same architecture."""
     kw = _base_kwargs(hf)
     moe = MoEConfig(
         n_routed_experts=int(hf["n_routed_experts"]),
@@ -33,10 +33,6 @@ def deepseek_v3_moe_config(hf: Mapping[str, Any], **overrides) -> MoETransformer
     first_k = int(hf.get("first_k_dense_replace", 0))
     if hf.get("num_nextn_predict_layers"):
         kw["mtp_num_layers"] = min(int(hf["num_nextn_predict_layers"]), 1)
-    if kw["rope_scaling"].rope_type == "yarn":
-        raise NotImplementedError(
-            "yarn rope scaling is not ported (ops/rope.py); DeepSeek-V3 "
-            "configs with rope_scaling.type = yarn cannot be built yet")
     if hf.get("kv_lora_rank"):
         kw["attention_type"] = "mla"
         kw["mla_q_lora_rank"] = int(hf["q_lora_rank"]) if hf.get("q_lora_rank") else None
@@ -45,6 +41,10 @@ def deepseek_v3_moe_config(hf: Mapping[str, Any], **overrides) -> MoETransformer
         kw["mla_qk_rope_head_dim"] = int(hf.get("qk_rope_head_dim", 64))
         kw["mla_v_head_dim"] = int(hf.get("v_head_dim", 128))
         kw["head_dim"] = None
+        rs = kw["rope_scaling"]
+        if rs.rope_type == "yarn":
+            qk = kw["mla_qk_nope_head_dim"] + kw["mla_qk_rope_head_dim"]
+            kw["attn_scale"] = qk ** -0.5 * rs.yarn_mscale() ** 2
     moe_overrides = overrides.pop("moe", None)
     kw.update(overrides)
     return MoETransformerConfig(moe=moe_overrides or moe, first_k_dense=first_k, **kw)

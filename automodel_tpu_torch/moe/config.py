@@ -1,10 +1,9 @@
 """MoE configuration (port of `automodel_tpu/moe/config.py`, field for field).
 
 Routed/shared expert counts, top-k, grouped routing, score function,
-aux-loss coefficient, the DeepSeek-style gate-bias update speed and the
-expert activations. `capacity_factor` and the "capacity" dispatcher are kept
-so JAX configs load unchanged; the port's MoE layer runs dropless only and
-raises for "capacity".
+aux-loss coefficient, the DeepSeek-style gate-bias update speed, the
+expert activations and the dispatcher ("dropless", or "capacity" with its
+`capacity_factor`).
 """
 
 from __future__ import annotations
@@ -36,8 +35,7 @@ class MoEConfig:
     shared_expert_gated: bool = False  # qwen3-next: sigmoid(gate(x))·shared(x)
     shared_expert_activation: str = "silu"  # nemotron: relu2 (non-gated)
     capacity_factor: float = 1.25    # static-shape dispatch headroom
-    # "dropless": sort + grouped GEMM (the only dispatcher the port runs);
-    # "capacity": the JAX package's padded einsum dispatch
+    # "dropless": sort + grouped GEMM; "capacity": padded einsum dispatch
     dispatcher: str = "dropless"
     router_dtype: str = "float32"
     fake_balanced_gate: bool = False  # perf benchmarking

@@ -1,4 +1,5 @@
-"""Expert compute, dropless (port of `gated_combine`, `init_experts`,
+"""Expert compute and token dispatch (port of `gated_combine`,
+`init_experts`, `compute_capacity`, `dispatch_tensors`, `experts_forward`,
 `experts_forward_dropless` and `shared_expert_forward` from
 `automodel_tpu/moe/experts.py`).
 
@@ -9,8 +10,13 @@ projection, and `index_add_` scatters the weighted rows back into token
 order. Nothing is read to the host, so a MoE layer queues its kernels
 without waiting for the device, forward and backward: bf16 differentiates
 through `torch._grouped_mm`'s own autograd, other dtypes through a batched
-product and a gather. The capacity (einsum) dispatch and the
-expert-parallel all-to-all are not ported.
+product and a gather.
+
+The capacity dispatcher is the JAX package's padded einsum dispatch: each
+expert takes at most `compute_capacity` (token, slot) pairs, filled in
+token-major order over the flattened (T*K) routing, and drops the rest; a
+(T, E, C) one-hot moves the kept rows to expert-major buffers and back.
+The expert-parallel all-to-all is not ported.
 """
 
 from __future__ import annotations
@@ -86,6 +92,77 @@ def _expert_linear(rows, p, offs, expert):
     if "bias" in p:
         y = y + p["bias"].to(rows.dtype)[expert]
     return y
+
+
+def compute_capacity(cfg: MoEConfig, num_tokens: int) -> int:
+    """Pairs each expert's buffer holds: the even share times
+    `capacity_factor`, at least 8 and rounded up to a multiple of 8."""
+    per_expert = num_tokens * cfg.experts_per_token / cfg.n_routed_experts
+    cap = int(per_expert * cfg.capacity_factor)
+    return max(8, ((cap + 7) // 8) * 8)
+
+
+def dispatch_tensors(
+    cfg: MoEConfig,
+    indices: torch.Tensor,  # (T, K) integer; E marks a masked token
+    weights: torch.Tensor,  # (T, K) f32
+    capacity: int,
+    dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dispatch one-hot (T, E, C) in `dtype` and the combine weights
+    (T, E) f32. The position of a pair within expert e's buffer is the
+    number of earlier (token, slot) pairs routed to e, a cumsum over the
+    flattened (T*K) routing order (Megatron's capacity semantics); pairs at
+    or past `capacity` are dropped. A masked pair (index E) matches no
+    expert and takes no place. The K slots accumulate into the (T, E, C)
+    tensor one by one: no (T*K, E, C) tensor is made."""
+    T, K = indices.shape
+    E = cfg.n_routed_experts
+    experts = torch.arange(E, device=indices.device)
+    onehot = (indices.reshape(T * K, 1) == experts).to(torch.int32)  # (T*K, E)
+    pos = torch.cumsum(onehot, dim=0) - onehot
+    pos_in_expert = (pos * onehot).sum(-1).reshape(T, K)
+    keep = (pos_in_expert < capacity).to(dtype)  # (T, K)
+    slots = torch.arange(capacity, device=indices.device)
+    dispatch = torch.zeros((T, E, capacity), dtype=dtype, device=indices.device)
+    combine_w = torch.zeros((T, E), dtype=torch.float32, device=indices.device)
+    for k in range(K):
+        eh = (indices[:, k:k + 1] == experts).to(dtype)                # (T, E)
+        ch = (pos_in_expert[:, k:k + 1] == slots).to(dtype)            # (T, C)
+        kept_e = eh * keep[:, k:k + 1]
+        dispatch = dispatch + kept_e[:, :, None] * ch[:, None, :]
+        combine_w = combine_w + kept_e.float() * weights[:, k][:, None]
+    return dispatch, combine_w
+
+
+def experts_forward(
+    params: dict,
+    cfg: MoEConfig,
+    x: torch.Tensor,          # (T, H)
+    dispatch: torch.Tensor,   # (T, E, C) one-hot
+    combine_w: torch.Tensor,  # (T, E) routing weights
+) -> torch.Tensor:
+    """Dispatch -> batched expert MLP -> weighted combine. Returns (T, H).
+    The per-token routing weight factors as (T, E) and joins the combine
+    product: no second (T, E, C) tensor."""
+    dtype = x.dtype
+    xe = torch.einsum("tec,th->ech", dispatch.to(dtype), x)
+
+    def linear(a, p):
+        y = torch.einsum("ech,ehi->eci", a, p["kernel"].to(dtype))
+        if "bias" in p:
+            y = y + p["bias"].to(dtype)[:, None, :]
+        return y
+
+    u = linear(xe, params["up_proj"])
+    if cfg.gated_experts:
+        g = linear(xe, params["gate_proj"])
+        h_in = gated_combine(g, u, cfg.expert_activation, cfg.swiglu_limit)
+    else:
+        h_in = _EXPERT_ACT[cfg.expert_activation](u)
+    y = linear(h_in, params["down_proj"])
+    return torch.einsum("tec,te,ech->th", dispatch.to(dtype),
+                        combine_w.to(dtype), y)
 
 
 def experts_forward_dropless(

@@ -1,5 +1,6 @@
 """The MoE block: gate + routed experts + shared experts (port of `init_moe`
-and `moe_forward` from `automodel_tpu/moe/layer.py`, dropless with ep = 1).
+and `moe_forward` from `automodel_tpu/moe/layer.py`, dropless or capacity
+dispatch with ep = 1).
 """
 
 from __future__ import annotations
@@ -9,6 +10,9 @@ import torch
 from automodel_tpu_torch.models.common.layers import init_fns
 from automodel_tpu_torch.moe.config import MoEConfig
 from automodel_tpu_torch.moe.experts import (
+    compute_capacity,
+    dispatch_tensors,
+    experts_forward,
     experts_forward_dropless,
     init_experts,
     shared_expert_forward,
@@ -49,11 +53,8 @@ def moe_forward(
     forced_indices: torch.Tensor | None = None,  # (B*S, K) routing replay
 ):
     """Returns (out (B,S,H), aux_loss scalar, stats); stats["indices"] is
-    the (T,K) selection. Dropless only: the capacity dispatcher and an
-    expert-parallel mesh raise NotImplementedError."""
-    if cfg.dispatcher != "dropless":
-        raise NotImplementedError(
-            f"MoE dispatcher {cfg.dispatcher!r} is not ported (dropless only)")
+    the (T,K) selection. An expert-parallel mesh raises
+    NotImplementedError."""
     if mesh_ctx is not None:
         raise NotImplementedError("expert parallelism (mesh_ctx) is not ported")
     B, S, H = x.shape
@@ -63,7 +64,14 @@ def moe_forward(
         params["gate"], cfg, flat, flat_mask, forced_indices
     )
     stats = {**stats, "indices": indices}
-    out = experts_forward_dropless(params["experts"], cfg, flat, weights, indices)
+    if cfg.dispatcher == "dropless":
+        out = experts_forward_dropless(params["experts"], cfg, flat, weights, indices)
+    else:
+        capacity = compute_capacity(cfg, B * S)
+        # the one-hot in the compute dtype (0 and 1 are exact in any)
+        dispatch, combine = dispatch_tensors(cfg, indices, weights, capacity,
+                                             dtype=flat.dtype)
+        out = experts_forward(params["experts"], cfg, flat, dispatch, combine)
     if cfg.n_shared_experts > 0:
         out = out + shared_expert_forward(params["shared"], cfg, flat)
     return out.reshape(B, S, H).to(x.dtype), aux_loss, stats

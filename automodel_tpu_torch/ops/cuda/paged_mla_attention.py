@@ -7,7 +7,9 @@ over fp latent pages (K6) and over int8 latent pages with per-row scales
 K6 and K7 each take one of two routes by the query dtype, `route(dtype)`:
 bfloat16 queries run the split-KV kernel on the tensor cores and its
 combine (`mla_split_kernel`, `mla_combine_kernel`; instantiated for bf16
-pages in K6, int8 pages in K7), float32 queries the CUDA-core `mla_kernel`.
+pages in K6, int8 pages in K7), float32 queries the CUDA-core `mla_kernel`,
+whose blocks each take `head_tile(n, r)` heads of a row (all n up to
+n * r = 16384; DeepSeek-V3's 128 heads at r 512 take 4 blocks a row).
 `KERNELS` names each route's device kernels, as a profiler shows them.
 
 The plain version of both is
@@ -28,9 +30,6 @@ from automodel_tpu_torch.ops.cuda.ragged_paged_attention import (
 )
 
 SOURCE = "paged_mla_attention.cu"
-
-#: the largest heads x latent rank the fp32 route's accumulators cover
-MAX_HEADS_X_RANK = 256 * 64
 
 _ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
 #: K6's and K7's device kernels on each route: substrings of the names a
@@ -74,13 +73,17 @@ def _lib() -> ctypes.CDLL:
         lib.mla_split_workspace_floats.restype = ctypes.c_longlong
         lib.mla_split_smem_bytes.argtypes = [ctypes.c_int] * 6
         lib.mla_split_smem_bytes.restype = ctypes.c_int
-        lib.mla_max_heads_x_rank.argtypes = []
-        lib.mla_max_heads_x_rank.restype = ctypes.c_int
+        lib.mla_head_tile.argtypes = [ctypes.c_int] * 2
+        lib.mla_head_tile.restype = ctypes.c_int
         lib.mla_error_string.argtypes = [ctypes.c_int]
         lib.mla_error_string.restype = ctypes.c_char_p
-        if lib.mla_max_heads_x_rank() != MAX_HEADS_X_RANK:
-            raise RuntimeError("paged_mla_attention.cu and its wrapper disagree")
     return lib
+
+
+def head_tile(n: int, r: int) -> int:
+    """Heads per block of the float32 route at n heads of latent rank r: a
+    row takes ceil(n / head_tile(n, r)) blocks, each reading its pages."""
+    return _lib().mla_head_tile(n, r)
 
 
 def split_smem_bytes(n: int, r: int, dr: int, ps: int, P: int,
@@ -116,10 +119,10 @@ def _check(q_abs, q_rope, c_pages, kr_pages, page_tables, positions,
             f"shapes q_abs {tuple(q_abs.shape)}, q_rope {tuple(q_rope.shape)}, "
             f"c_pages {tuple(c_pages.shape)}, kr_pages {tuple(kr_pages.shape)} "
             "do not match")
-    if route(q_abs.dtype) == "fma" and n * r > MAX_HEADS_X_RANK:
+    if route(q_abs.dtype) == "fma" and head_tile(n, r) < 1:
         raise NotImplementedError(
-            f"the fp32 MLA kernel holds n * r <= {MAX_HEADS_X_RANK} "
-            f"accumulators per row (got {n} heads x rank {r})")
+            f"the fp32 MLA kernel holds at most 16384 accumulators per block: "
+            f"one head of rank {r} does not fit")
     if page_tables.dim() != 2 or page_tables.shape[0] != T:
         raise ValueError("page_tables must be (T, P)")
     if positions.shape != (T,):

@@ -1,8 +1,10 @@
 """Rotary position embeddings (port of `automodel_tpu/ops/rope.py`).
 
-Covers the default, linear and llama3 frequency scalings and the half-split
-and interleaved rotations. The yarn scaling (DeepSeek MLA) and precomputed
-multi-axis angles (MRoPE) belong to model families this port has not reached.
+Covers the default, linear, llama3 and yarn (DeepSeek-style: the MLA
+models' long-context scaling, whose mscale² the model family folds into
+the attention scale) frequency scalings and the half-split and interleaved
+rotations. Precomputed multi-axis angles (MRoPE) belong to model families
+this port has not reached.
 """
 
 from __future__ import annotations
@@ -15,13 +17,18 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class RopeScalingConfig:
-    """Frequency scaling (HF `rope_scaling`): llama3 / linear."""
+    """Frequency scaling (HF `rope_scaling`): llama3 / linear / yarn."""
 
-    rope_type: str = "default"  # "default" | "llama3" | "linear"
+    rope_type: str = "default"  # "default" | "llama3" | "linear" | "yarn"
     factor: float = 1.0
     low_freq_factor: float = 1.0
     high_freq_factor: float = 4.0
     original_max_position_embeddings: int = 8192
+    # yarn (deepseek-style)
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
     @classmethod
     def from_hf(cls, d: dict | None) -> "RopeScalingConfig":
@@ -35,7 +42,19 @@ class RopeScalingConfig:
             original_max_position_embeddings=int(
                 d.get("original_max_position_embeddings", 8192)
             ),
+            beta_fast=float(d.get("beta_fast", 32.0)),
+            beta_slow=float(d.get("beta_slow", 1.0)),
+            mscale=float(d.get("mscale", 1.0)),
+            mscale_all_dim=float(d.get("mscale_all_dim", 0.0)),
         )
+
+    def yarn_mscale(self) -> float:
+        """Attention-scale correction for yarn (deepseek convention):
+        scale *= mscale² with mscale = 0.1·m·ln(factor)+1."""
+        if self.rope_type != "yarn" or self.factor <= 1.0:
+            return 1.0
+        m = self.mscale_all_dim if self.mscale_all_dim else self.mscale
+        return float(0.1 * m * math.log(self.factor) + 1.0)
 
 
 def rope_frequencies(
@@ -43,7 +62,8 @@ def rope_frequencies(
     theta: float = 10000.0,
     scaling: RopeScalingConfig | None = None,
 ) -> torch.Tensor:
-    """Inverse frequencies, shape (head_dim // 2,), float32, on the CPU."""
+    """Inverse frequencies, shape (head_dim // 2,), float32, on the CPU.
+    `head_dim` is the rotated width (an MLA model's rope dim)."""
     inv_freq = 1.0 / (
         theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim)
     )
@@ -68,7 +88,27 @@ def rope_frequencies(
             inv_freq,
             torch.where(wavelen > low_wavelen, scaled, blended),
         )
-    raise NotImplementedError(f"rope_type '{scaling.rope_type}' is not ported")
+    if scaling.rope_type == "yarn":
+        # deepseek-yarn: interpolate low-frequency dims, keep high-frequency
+        # dims, with a linear ramp between correction dims (beta_fast/slow)
+        def correction_dim(num_rot: float) -> float:
+            return (
+                head_dim
+                * math.log(scaling.original_max_position_embeddings / (num_rot * 2 * math.pi))
+                / (2 * math.log(theta))
+            )
+
+        low = max(math.floor(correction_dim(scaling.beta_fast)), 0)
+        high = min(math.ceil(correction_dim(scaling.beta_slow)), head_dim // 2 - 1)
+        ramp = torch.clamp(
+            (torch.arange(head_dim // 2, dtype=torch.float32) - low)
+            / max(high - low, 0.001),
+            0.0, 1.0,
+        )
+        keep_mask = 1.0 - ramp  # 1 near low dims (high freq): keep original
+        interp = inv_freq / scaling.factor
+        return interp * (1.0 - keep_mask) + inv_freq * keep_mask
+    raise ValueError(f"Unknown rope_type '{scaling.rope_type}'")
 
 
 def apply_rope(

@@ -14,8 +14,12 @@ aux loss joins the CE sum scaled by the label-token count
 (`combine_losses`), each microbatch's tokens per expert add up over the
 step, the DeepSeek gate bias moves after the optimizer step
 (`apply_gate_bias_update`), and the record carries `moe_load_imbalance`.
-`model.fake_balanced_gate` and `model.moe_dispatcher` override the MoE
-config; the capacity dispatcher and the MTP head raise.
+`model.fake_balanced_gate` and `model.moe_dispatcher` ("dropless" or
+"capacity") override the MoE config. A config with the MTP head
+(`num_nextn_predict_layers`) adds `mtp_loss_coeff` times its CE to the CE
+sum, normalised by the same label tokens; from `model.pretrained_path` the
+head starts fresh from the recipe's generator, as HF checkpoints do not
+map it.
 
 The train-state checkpointer runs as in the JAX recipe (on unless
 `checkpoint.enabled: false`): a save every `step_scheduler.ckpt_every_steps`
@@ -43,8 +47,8 @@ raises NotImplementedError instead of being skipped: distributed sizes
 other than 1 (`dp_shard: -1` resolves to 1 on one device), other
 unported architectures (`models/registry.py`), trackers, resilience,
 packing, the tokenizer, QAT (with or without PEFT),
-`model.linear_precision`, a remote `checkpoint_dir` and PEFT on a MoE
-model with the gate-bias update.
+`model.linear_precision`, a remote `checkpoint_dir`, and PEFT on a MoE
+model with the gate-bias update or the MTP head.
 
 `model.pretrained_path` names a local HF safetensors checkpoint: its
 `config.json` gives the HF config and `checkpoint/hf_adapter.py` fills the
@@ -72,6 +76,7 @@ from automodel_tpu_torch.loggers.metric_logger import MetricLogger, setup_loggin
 from automodel_tpu_torch.loss import fused_linear_cross_entropy
 from automodel_tpu_torch.loss.utils import combine_losses
 from automodel_tpu_torch.models.common.layers import count_params
+from automodel_tpu_torch.models.moe_lm.mtp import init_mtp, mtp_hidden, mtp_loss
 from automodel_tpu_torch.models.registry import get_model_spec
 from automodel_tpu_torch.peft.lora import (
     LAYER_STACKS,
@@ -197,6 +202,11 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 adapter = get_adapter(self.model_spec.adapter_name, self.model_cfg,
                                       **self.model_spec.adapter_kwargs)
                 self._init_params = adapter.from_hf(reader, device=self.device, dtype=dtype)
+            if getattr(self.model_cfg, "mtp_num_layers", 0) > 0:
+                # MTP weights are training-only and not part of HF
+                # checkpoints: they start fresh
+                self._init_params["mtp"] = init_mtp(
+                    self.model_cfg, self.rng.next_key(), dtype=dtype)
             logger.info("loaded pretrained weights from %s", pretrained)
         else:
             hf_config = mcfg.get("hf_config")
@@ -210,20 +220,15 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
     def _moe_overrides(self, cfg, mcfg):
         """A MoE config with the recipe's `model.fake_balanced_gate` and
         `model.moe_dispatcher` applied (JAX recipe, the benchmark's
-        balanced gate); sets `is_moe`. The capacity dispatcher raises."""
+        balanced gate); sets `is_moe`."""
         self.is_moe = getattr(cfg, "moe", None) is not None
         if not self.is_moe:
             return cfg
         over = {}
         if mcfg.get("fake_balanced_gate", False):
             over["fake_balanced_gate"] = True
-        dispatcher = mcfg.get("moe_dispatcher")
-        if dispatcher:
-            if dispatcher != "dropless":
-                raise NotImplementedError(
-                    f"model.moe_dispatcher={dispatcher!r}: the capacity "
-                    "dispatcher is not ported (dropless only)")
-            over["dispatcher"] = dispatcher
+        if mcfg.get("moe_dispatcher"):
+            over["dispatcher"] = mcfg.get("moe_dispatcher")
         return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **over))
 
     def _build_peft(self) -> None:
@@ -241,6 +246,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             raise NotImplementedError(
                 "peft with the DeepSeek gate-bias update: the correction bias "
                 "lives in the frozen base, which no step updates")
+        if getattr(self.model_cfg, "mtp_num_layers", 0) > 0:
+            raise NotImplementedError("peft with the MTP head is not ported")
         lora = init_lora(self._init_params, self.peft_cfg, self.rng.next_key())
         base = quantize_base(self._init_params, self.peft_cfg)
         if self.peft_cfg.quantize_base:
@@ -268,11 +275,14 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
     def _make_loss_fn(self):
         """`loss_fn(params, microbatch, rng) -> (CE sum, aux)`; under PEFT
         `params` is the adapter tree, merged into the frozen base layer by
-        layer inside the decoder and into the head here."""
+        layer inside the decoder and into the head here. With the MTP head,
+        the CE sum gains `mtp_loss_coeff` times the head's CE sum (JAX
+        recipe): both count against the main CE's label tokens."""
         module = self.model_spec.module
         model_cfg = self.model_cfg
         chunk = int(self.cfg.get("loss.chunk_size", 1024))
         is_moe = self.is_moe
+        use_mtp = is_moe and getattr(model_cfg, "mtp_num_layers", 0) > 0
         peft_cfg, base = self.peft_cfg, self.base_params
 
         def loss_fn(params, batch, rng):
@@ -297,6 +307,15 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 hidden, kernel, batch["labels"], chunk_size=chunk,
                 logits_soft_cap=model_cfg.logits_soft_cap,
             )
+            if use_mtp:
+                h_mtp = mtp_hidden(params, model_cfg, hidden, batch["input_ids"],
+                                   kw.get("positions"), kw.get("segment_ids"))
+                mtp_ce, _ = mtp_loss(
+                    h_mtp, kernel, batch["labels"], chunk_size=chunk,
+                    segment_ids=kw.get("segment_ids"),
+                    logits_soft_cap=model_cfg.logits_soft_cap,
+                )
+                ce_sum = ce_sum + model_cfg.mtp_loss_coeff * mtp_ce
             total, n = combine_losses(ce_sum, n, aux)
             return total, {"num_label_tokens": n, **extra}
 
@@ -350,7 +369,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                     "num_label_tokens": float(metrics["num_label_tokens"]),
                     **{k: (None if v is None else round(v, 4)) for k, v in perf.items()},
                 }
-                if "tokens_per_expert" in metrics:
+                if "tokens_per_expert" in metrics and metrics["tokens_per_expert"].numel():
                     tpe = metrics["tokens_per_expert"]
                     record["moe_load_imbalance"] = float(
                         tpe.amax(-1).mean() / torch.clamp(tpe.mean(), min=1e-9))

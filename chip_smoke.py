@@ -35,7 +35,7 @@ one JSON line each:
    two; a profile of 10 more steps of the same traffic follows each
    (device time by kernel, idle share);
 5. serve_mla / serve_mla_int8: the MLA + MoE main path, Moonlight-16B-A3B
-   at full width and all 27 layers, bf16, random weights from seed 0, on
+   at full width cut to 9 of its 27 layers, bf16, random weights from seed 0, on
    the same traffic, on the fp pool (K6) and on the int8 pool (K7), each
    with its profile;
    serve_gemma2 / serve_gemma2_int8: the windowed main path,
@@ -44,6 +44,14 @@ one JSON line each:
    greedy tokens each, on the fp pool (K4 on every layer of every step,
    the global layers with no window) and the int8 pool (K5), no plain
    attention call, with a profile of the fp pool's steps;
+   serve_dsv3 / serve_dsv3_int8 / serve_kimi_k2: DeepSeek-V3 (cut to 4
+   layers: 3 dense + 1 MoE of 256 experts) and Kimi-K2 (cut to 2: 1 dense
+   + 1 MoE of 384 experts) at their published widths with yarn rope, bf16,
+   random weights from seed 0, on serve's traffic: DeepSeek-V3 on the fp
+   (K6) and int8 (K7) pools, Kimi-K2 on the fp pool, K6 / K7 on every
+   layer of every step at 128 and 64 heads, each with its profile and a
+   few steps of the engine with every kernel call held to its plain
+   version;
    moe_sync: one Moonlight MoE block (gate, grouped expert products,
    shared experts, combine) in bf16 at full width under
    `torch.cuda.set_sync_debug_mode("error")`: it reads nothing to the host;
@@ -108,12 +116,25 @@ one JSON line each:
    equal the unbroken run's bit for bit. train_qlora: the same with
    `quantize_base: int8`, 3 steps, its peak below train_lora's;
 13. generate_check (after the engine phases): greedy `generate()` on
-   2-layer fp32 models at the full widths of Llama-3-8B, Gemma-2-2B and
-   Moonlight-16B-A3B, 8 prompts of 64-512 tokens, 32 new tokens, equal to
-   the teacher-forced `forward` argmax and to `serve_batch` (K4, K6);
+   2-layer fp32 models at the full widths of Llama-3-8B, Gemma-2-2B,
+   Moonlight-16B-A3B and DeepSeek-V3 and a 1-layer Kimi-K2 (both with
+   yarn), 8 prompts of 64-512 tokens, 32 new tokens, equal to the
+   teacher-forced `forward` argmax and to `serve_batch` (K4, K6; the fp32
+   K6 at 128 and 64 heads in head tiles);
 14. train_lora_check (after train_check): fp32, 2 layers at Llama-3-8B
    width, one step each of LoRA, DoRA and QLoRA adapters with K1-K3 and
-   with the plain attention: losses and adapter gradients agree.
+   with the plain attention: losses and adapter gradients agree;
+15. train_moe_capacity (after train_moe): train_moe's recipe with
+   `model.moe_dispatcher: capacity`, 3 steps, its ms per step beside the
+   dropless run's and the share of routed pairs the capacity dropped;
+   train_dsv3_mtp: the training CLI on DeepSeek-V3's published widths with
+   yarn and the MTP head, cut to its 2 first (dense) layers, seq 2048, 5
+   steps: finite losses, the main and MTP losses apart, K1-K3 at <192, 128>
+   on the 2 layers and the MTP block (K1 twice under full remat).
+
+The paged kernel phase also holds fp32 K6 and K7 at DeepSeek-V3's 128 and
+Kimi-K2's 64 heads x r 512 to their plain versions, timed beside their
+bound.
 
 The build line carries ptxas's registers and spills of every kernel, and of
 the tensor-core K1-K7 kernels by name with their dynamic shared memory.
@@ -230,6 +251,60 @@ MOONLIGHT = {
 }
 # Moonlight's absorbed-MLA widths: heads, latent rank, rope dim
 MOONLIGHT_MLA = (16, 512, 64)
+# serve_mla: Moonlight cut 27 -> 9 layers (1 dense + 8 MoE) since the
+# DeepSeek-V3 and Kimi-K2 serve phases came: the script ran past ~780 s,
+# and those phases run the same MLA + MoE engine path at wider widths
+MLA_SERVE_LAYERS = 9
+# DeepSeek-V3 (https://huggingface.co/deepseek-ai/DeepSeek-V3/blob/main/config.json)
+# and Kimi-K2 (https://huggingface.co/moonshotai/Kimi-K2-Instruct/blob/main/config.json),
+# as the model-configs catalog gives them: MLA at 128 and 64 heads (q rank
+# 1536, kv rank 512), 256 and 384 routed experts, yarn rope (factor 40 and
+# 32), DeepSeek-V3's one MTP layer; Kimi-K2 names DeepSeek-V3's architecture
+DEEPSEEK_V3 = {
+    "architectures": ["DeepseekV3ForCausalLM"], "vocab_size": 129280,
+    "hidden_size": 7168, "intermediate_size": 18432,
+    "moe_intermediate_size": 2048, "num_hidden_layers": 61,
+    "num_attention_heads": 128, "num_key_value_heads": 128,
+    "n_shared_experts": 1, "n_routed_experts": 256,
+    "routed_scaling_factor": 2.5, "kv_lora_rank": 512, "q_lora_rank": 1536,
+    "qk_rope_head_dim": 64, "qk_nope_head_dim": 128, "v_head_dim": 128,
+    "n_group": 8, "topk_group": 4, "num_experts_per_tok": 8,
+    "first_k_dense_replace": 3, "norm_topk_prob": True,
+    "scoring_func": "sigmoid", "topk_method": "noaux_tc",
+    "rope_theta": 10000, "rms_norm_eps": 1e-6,
+    "max_position_embeddings": 163840, "num_nextn_predict_layers": 1,
+    "tie_word_embeddings": False,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 1,
+                     "mscale_all_dim": 1, "original_max_position_embeddings": 4096,
+                     "type": "yarn"},
+}
+KIMI_K2 = {
+    "architectures": ["DeepseekV3ForCausalLM"], "vocab_size": 163840,
+    "hidden_size": 7168, "intermediate_size": 18432,
+    "moe_intermediate_size": 2048, "num_hidden_layers": 61,
+    "num_attention_heads": 64, "num_key_value_heads": 64,
+    "n_shared_experts": 1, "n_routed_experts": 384,
+    "routed_scaling_factor": 2.827, "kv_lora_rank": 512, "q_lora_rank": 1536,
+    "qk_rope_head_dim": 64, "qk_nope_head_dim": 128, "v_head_dim": 128,
+    "n_group": 1, "topk_group": 1, "num_experts_per_tok": 8,
+    "first_k_dense_replace": 1, "norm_topk_prob": True,
+    "scoring_func": "sigmoid", "topk_method": "noaux_tc",
+    "rope_theta": 50000, "rms_norm_eps": 1e-6,
+    "max_position_embeddings": 131072, "num_nextn_predict_layers": 0,
+    "tie_word_embeddings": False,
+    "rope_scaling": {"beta_fast": 1, "beta_slow": 1, "factor": 32, "mscale": 1,
+                     "mscale_all_dim": 1, "original_max_position_embeddings": 4096,
+                     "type": "yarn"},
+}
+# serve_dsv3: DeepSeek-V3 cut 61 -> 4 layers (3 dense + 1 MoE): 15.1 B
+# parameters, 30.2 GB in bf16 (its 256 experts 11.3 B); serve_kimi_k2:
+# Kimi-K2 cut 61 -> 2 layers (1 dense + 1 MoE): 19.9 B, 39.8 GB (its 384
+# experts 16.9 B). Every layer of one MoE layer's model fits one card with
+# its pools; all 61 do not. A served model carries no MTP head (training
+# state the HF adapter does not map).
+DSV3_SERVE_LAYERS, KIMI_SERVE_LAYERS = 4, 2
+# the fp32 route of K6 / K7 at the many-head widths: heads, rank, rope dim
+MANY_HEADS_MLA = {"deepseek_v3": (128, 512, 64), "kimi_k2": (64, 512, 64)}
 # serve_gemma2: contexts to 8192 tokens (Gemma-2's max_position_embeddings)
 # for 16 resident requests, and 512 rows per step (480 of one prefill
 # chunk), so that the ~96k prompt tokens prefill in ~200 steps
@@ -431,6 +506,14 @@ LORA_TRAINABLE = 32 * 16 * ((4096 + 4096) * 2 + (4096 + 1024) * 2)
 # K1-K3 at Llama-3-8B's heads in the profiler's kernel names
 DENSE_FA_KERNELS = {"K1": r"fwd_mma_kernel<128,\s*128,", "K2": r"dq_mma_kernel<128,\s*128,",
                     "K3": r"dkv_mma_kernel<128,\s*128,"}
+# train_dsv3_mtp: DeepSeek-V3's published widths with yarn and the MTP head,
+# cut 61 -> 2 layers: the dense prefix, as one MoE layer's fp32 masters,
+# gradients and AdamW moments (~180 GB) do not fit; 2 layers plus the MTP
+# head are 3.71 B parameters, ~59 GB of that state. Sequences of 2048
+# tokens, microbatch 1, 5 steps, bf16 over fp32 masters, full remat
+DSV3_MTP_LAYERS, DSV3_MTP_SEQ, DSV3_MTP_STEPS = 2, 2048, 5
+# train_moe_capacity: train_moe's YAML with the capacity dispatcher
+CAPACITY_STEPS = 3
 # generate_check: 2 layers at full width in fp32, 8 prompts of these
 # lengths, GEN_NEW greedy tokens each
 GEN_PROMPTS = tuple(int(x) for x in np.linspace(64, 512, 8))
@@ -605,11 +688,12 @@ def k5_case(dtype, seed: int = 0):
     )
 
 
-def k67_case(dtype, quant: bool, seed: int = 0):
-    """K6 (fp pages) or K7 (int8 pages) at Moonlight's latent widths: n 16
-    heads, r 512, dr 64, scale (128 + 64)^-0.5."""
+def k67_case(dtype, quant: bool, seed: int = 0, widths=MOONLIGHT_MLA):
+    """K6 (fp pages) or K7 (int8 pages) at `widths` (heads, latent rank,
+    rope dim; Moonlight's n 16, r 512, dr 64 by default), scale
+    (128 + 64)^-0.5."""
     pt, pos, N, ps = step_rows(seed)
-    n, r, dr = MOONLIGHT_MLA
+    n, r, dr = widths
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q_abs = torch.randn(64, n, r, generator=gen, device="cuda").to(dtype)
     q_rope = torch.randn(64, n, dr, generator=gen, device="cuda").to(dtype)
@@ -643,39 +727,53 @@ def k67_case(dtype, quant: bool, seed: int = 0):
 def paged_kernels_phase(flush) -> dict:
     """K5, K6 and K7 against their plain versions in bf16 and fp32 at the
     serve step's shapes, timed (median of 10 launches, each after an L2
-    flush) beside their bound; returns the bf16 entries for the kernels
-    line."""
+    flush) beside their bound; then fp32 K6 and K7 at DeepSeek-V3's 128 and
+    Kimi-K2's 64 heads x r 512, whose rows the fp32 route splits into head
+    tiles of several blocks. Returns the bf16 entries for the kernels line,
+    each K6 / K7 entry with its fp32 many-head entries under
+    "fp32_many_heads"."""
     cases = {
         "K5": lambda dtype: k5_case(dtype),
         "K6": lambda dtype: k67_case(dtype, quant=False),
         "K7": lambda dtype: k67_case(dtype, quant=True),
     }
+    runs = [(name, make, dtype, None) for name, make in cases.items()
+            for dtype in (torch.bfloat16, torch.float32)]
+    runs += [(name, (lambda dtype, q=quant, w=widths: k67_case(dtype, q, widths=w)),
+              torch.float32, model)
+             for model, widths in MANY_HEADS_MLA.items()
+             for name, quant in (("K6", False), ("K7", True))]
     out = {}
-    for name, make in cases.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            kernel, plain, pos, bound = make(dtype)
-            got = kernel()
-            torch.cuda.synchronize()
-            want = plain()
-            err = (got.float() - want.float()).abs().max().item()
-            ref_max = want.float().abs().max().item()
-            pad_zero = bool((got[pos < 0] == 0).all().item())
-            tol = PAGED_TOL[dtype]
-            bound_ms, bound_by, nbytes, ops = bound
-            entry = {
-                "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
-                "ref_max": ref_max, "tol": tol, "pad_rows_zero": pad_zero,
-                "ms": time_ms(kernel, 10, flush),
-                "plain_ms": time_ms(plain, 5, flush),
-                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-                "operations": ops,
-            }
-            emit({"phase": "kernel", "kernel": name, **entry})
-            if not (err <= tol * max(1.0, ref_max) and pad_zero):
-                raise AssertionError(f"{name} disagrees with its plain version: {entry}")
-            if dtype == torch.bfloat16:
-                out[name] = entry
-            del got, want
+    for name, make, dtype, model in runs:
+        kernel, plain, pos, bound = make(dtype)
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        err = (got.float() - want.float()).abs().max().item()
+        ref_max = want.float().abs().max().item()
+        pad_zero = bool((got[pos < 0] == 0).all().item())
+        tol = PAGED_TOL[dtype]
+        bound_ms, bound_by, nbytes, ops = bound
+        entry = {
+            "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+            "ref_max": ref_max, "tol": tol, "pad_rows_zero": pad_zero,
+            "ms": time_ms(kernel, 10, flush),
+            "plain_ms": time_ms(plain, 5, flush),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "operations": ops,
+        }
+        if model is not None:
+            n, r, _ = MANY_HEADS_MLA[model]
+            entry.update(model=model, heads=n, rank=r,
+                         blocks_per_row=-(-n // mla_cuda.head_tile(n, r)))
+        emit({"phase": "kernel", "kernel": name, **entry})
+        if not (err <= tol * max(1.0, ref_max) and pad_zero):
+            raise AssertionError(f"{name} disagrees with its plain version: {entry}")
+        if model is not None:
+            out[name].setdefault("fp32_many_heads", []).append(entry)
+        elif dtype == torch.bfloat16:
+            out[name] = entry
+        del got, want
         torch.cuda.empty_cache()
     return out
 
@@ -1182,10 +1280,12 @@ def serve_phase(card: str) -> dict:
 
 
 def serve_mla_phase(card: str) -> dict:
-    """The MLA + MoE main path: Moonlight-16B-A3B at full width and all 27
-    layers, bf16, random weights from seed 0, on the fp pool (K6) and then
-    on the int8 pool (K7); returns the launches of K6 and K7."""
-    cfg = deepseek_v3_moe_config(MOONLIGHT, dtype=torch.bfloat16)
+    """The MLA + MoE main path: Moonlight-16B-A3B at full width cut to
+    MLA_SERVE_LAYERS layers, bf16, random weights from seed 0, on the fp
+    pool (K6) and then on the int8 pool (K7); returns the launches of K6
+    and K7."""
+    cfg = deepseek_v3_moe_config(dict(MOONLIGHT, num_hidden_layers=MLA_SERVE_LAYERS),
+                                 dtype=torch.bfloat16)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = moe_decoder.init(cfg, gen, dtype=torch.bfloat16)
@@ -1853,27 +1953,27 @@ def profile_step(recipe, mbs, patterns: dict, want: dict, attempts: int = 3):
     return prof, wall_ms, got
 
 
-def train_moe_yaml(run_dir: str) -> str:
-    """The train_moe phase's recipe, written to `run_dir`: Moonlight's
-    config.json at MOE_TRAIN_LAYERS layers, bf16 over fp32 masters, full
-    remat, mock data over MOE_TRAIN_TOKEN_IDS token ids, AdamW; returns its
-    path."""
+def moe_train_yaml(run_dir: str, name: str, hf: dict, seq: int, steps: int,
+                   **model) -> str:
+    """A MoE training recipe written to `run_dir`: `hf` as the HF config,
+    bf16 over fp32 masters, full remat, mock data over MOE_TRAIN_TOKEN_IDS
+    token ids, microbatch 1, AdamW, `model` keys added to its model
+    section; returns its path."""
     cfg = {
         "seed": 0, "run_dir": run_dir,
-        "model": {"hf_config": dict(MOONLIGHT, num_hidden_layers=MOE_TRAIN_LAYERS),
-                  "dtype": "bfloat16", "remat_policy": "full"},
+        "model": {"hf_config": hf, "dtype": "bfloat16", "remat_policy": "full", **model},
         "distributed": {"dp_shard": -1},
         "dataset": {"_target_": "automodel_tpu_torch.datasets.mock.MockDatasetConfig",
-                    "num_samples": 64, "seq_len": MOE_TRAIN_SEQ,
+                    "num_samples": 64, "seq_len": seq,
                     "vocab_size": MOE_TRAIN_TOKEN_IDS},
         "dataloader": {"microbatch_size": 1, "grad_acc_steps": 1},
         "optimizer": {"name": "adamw", "lr": 1.0e-3, "weight_decay": 0.1},
         "lr_scheduler": {"style": "constant", "warmup_steps": 0},
-        "step_scheduler": {"max_steps": MOE_TRAIN_STEPS},
+        "step_scheduler": {"max_steps": steps},
         "checkpoint": {"enabled": False},
         "loss": {"chunk_size": 2048},
     }
-    path = Path(run_dir) / "moonlight_train.yaml"
+    path = Path(run_dir) / f"{name}.yaml"
     path.write_text(yaml.safe_dump(cfg))
     return str(path)
 
@@ -1913,22 +2013,24 @@ def moe_block_sync_check(recipe, card: str) -> dict:
             "finite": finite}
 
 
-def train_moe_phase(card: str) -> dict:
+def train_moe_phase(card: str) -> tuple[dict, float]:
     """Moonlight-16B-A3B training through the CLI (full width, 4 layers, 5
-    steps); returns K1-K3 launches of that run, all at <192, 128>."""
+    steps); returns K1-K3 launches of that run, all at <192, 128>, and its
+    ms per step."""
 
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_moe_")
     torch.cuda.reset_peak_memory_stats()
     fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
     t0 = time.perf_counter()
-    recipe = cli_main([train_moe_yaml(run_dir)])
+    hf = dict(MOONLIGHT, num_hidden_layers=MOE_TRAIN_LAYERS)
+    recipe = cli_main([moe_train_yaml(run_dir, "moonlight_train", hf, MOE_TRAIN_SEQ,
+                                      MOE_TRAIN_STEPS)])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {"K1": fa_cuda.launches_fwd, "K2": fa_cuda.launches_dq,
                 "K3": fa_cuda.launches_dkv}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    records = [json.loads(l) for l in
-               (Path(run_dir) / "training.jsonl").read_text().splitlines()]
+    records = jsonl(Path(run_dir) / "training.jsonl")
     cfg = recipe.model_cfg
     L = cfg.num_layers
     n = L * MOE_TRAIN_STEPS
@@ -2016,7 +2118,7 @@ def train_moe_phase(card: str) -> dict:
             f"train_moe: the profiled step's <192, 128> K1-K3 launches {mla_launches}")
     del recipe, prof, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, MOE_TRAIN_SEQ / tps * 1e3
 
 
 def train_moe_check_phase() -> None:
@@ -2806,17 +2908,22 @@ def train_lora_check_phase() -> None:
 def generate_check_phase() -> None:
     """Greedy `generate()` (plain attention over its dense cache, as in the
     JAX package) on 2-layer fp32 models at the full widths of Llama-3-8B,
-    Gemma-2-2B and Moonlight-16B-A3B (one dense, one MoE layer), 8 prompts
+    Gemma-2-2B, Moonlight-16B-A3B (one dense, one MoE layer) and
+    DeepSeek-V3, and on Kimi-K2's at 1 layer (both with yarn), 8 prompts
     of 64-512 tokens, GEN_NEW new tokens each, against the teacher-forced
     `forward` argmax over the generated sequence (one pass; K1 on the card)
     and against `ServingEngine.serve_batch` on the same weights (K4 and K6,
-    fp32 routes)."""
+    fp32 routes; K6 at 128 and 64 heads x r 512 in head tiles)."""
     models = (
         ("Llama-3-8B", decoder, llama_config(LLAMA3_8B, num_layers=2, dtype=torch.float32)),
         ("Gemma-2-2B", decoder, gemma2_config(dict(GEMMA2_2B, num_hidden_layers=2),
                                               dtype=torch.float32)),
         ("Moonlight-16B-A3B", moe_decoder, dataclasses.replace(
             deepseek_v3_moe_config(MOONLIGHT), num_layers=2, dtype=torch.float32)),
+        # yarn's scale in K1 at <192, 128>; the fp32 K6 at 128 and 64 heads
+        # (4 and 2 head tiles a row); both cuts are dense layers alone
+        ("DeepSeek-V3", moe_decoder, cut_config(DEEPSEEK_V3, 2, 2, torch.float32)),
+        ("Kimi-K2", moe_decoder, cut_config(KIMI_K2, 1, 1, torch.float32)),
     )
     report = {}
     for name, module, cfg in models:
@@ -2859,6 +2966,209 @@ def generate_check_phase() -> None:
                                  f"{r['first_miss_by_prompt']}")
         if r["k1_launches_teacher"] == 0 or not r["paged_launches_serve"]:
             raise AssertionError(f"generate_check {name}: the references ran no kernel")
+
+
+def cut_config(hf: dict, layers: int, dense: int, dtype):
+    """A published MLA + MoE config cut to `layers` layers, the first `dense`
+    of them dense, with no MTP head (training state, which the HF adapter
+    does not map either)."""
+    cut = dict(hf, num_hidden_layers=layers, first_k_dense_replace=dense)
+    return dataclasses.replace(deepseek_v3_moe_config(cut, dtype=dtype), mtp_num_layers=0)
+
+
+def engine_plain_check(phase: str, cfg, params, sc, kernel: str) -> dict:
+    """The bf16 engine on the kernels, a few short requests to their end:
+    every `kernel` call held to the plain version on the same inputs within
+    PAGED_TOL, and each step's logits beside those of the same engine on
+    the plain attention, same weights (reported, with the greedy agreement:
+    bf16 rounds attention at other places in the two, and the MoE routing
+    carries it)."""
+    e_cuda = ServingEngine(params, cfg, sc, attn_impl="cuda")
+    e_torch = ServingEngine(params, cfg, sc, attn_impl="torch")
+    sched = e_cuda.make_scheduler()
+    submit_engine_requests(sched, cfg)
+    wrapper = PAGED_KERNELS[kernel]
+    n0, errors, steps, rows, agree, gap = wrapper.launches, [], 0, 0, 0, 0.0
+    while sched.has_work:
+        plan = sched.schedule(steps)
+        with held_to_plain(kernel, errors):
+            got = e_cuda.step_logits(plan).float()
+        want = e_torch.step_logits(plan).float()
+        gap = max(gap, ((got - want).abs().max()
+                        / want.abs().max().clamp(min=1.0)).item())
+        live = torch.as_tensor(plan.sample_tok >= 0, device=got.device)
+        agree += int(((got.argmax(-1) == want.argmax(-1)) & live).sum().item())
+        rows += int(live.sum().item())
+        sched.update(plan, got.argmax(-1).to(torch.int32).cpu().numpy(), steps)
+        steps += 1
+    report = {"steps": steps, "kernel": kernel, "kernel_calls": len(errors),
+              "kernel_launches": wrapper.launches - n0,
+              "kernel_max_rel_err": max(errors),
+              "kernel_tol": PAGED_TOL[torch.bfloat16],
+              "max_rel_logit_gap_vs_plain_engine": gap,
+              "greedy_agreement_vs_plain_engine": agree / rows}
+    del e_cuda, e_torch
+    torch.cuda.empty_cache()
+    if wrapper.launches - n0 != len(errors) or not errors:
+        raise AssertionError(f"{phase}: the engine's {kernel} calls did not all launch {kernel}")
+    if max(errors) > PAGED_TOL[torch.bfloat16]:
+        raise AssertionError(f"{phase}: {kernel} calls disagree with the plain version: {report}")
+    return report
+
+
+def serve_published_mla_phase(card: str, name: str, hf: dict, layers: int,
+                              pools: tuple) -> dict:
+    """A published MLA + MoE model at its full widths, cut to `layers`
+    layers (the dense prefix's first ones, then one MoE layer), bf16,
+    random weights from seed 0, on each of `pools` ((phase, kernel):
+    "K6" the fp pool, "K7" the int8 pool): `serve_run` on the serve
+    traffic (K6 / K7 on every layer of every step), its profile, and
+    `engine_plain_check`; returns the launches of each kernel."""
+    cfg = cut_config(hf, layers, layers - 1, torch.bfloat16)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = moe_decoder.init(cfg, gen, dtype=torch.bfloat16)
+    n_params = count_params(params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model = (f"{name} widths, {cfg.num_layers} of {hf['num_hidden_layers']} layers "
+             f"({cfg.first_k_dense} dense + {cfg.num_moe_layers} MoE, "
+             f"{cfg.moe.n_routed_experts} experts), yarn, bf16, {n_params} params")
+    launches = {}
+    for phase, kernel in pools:
+        sc = SERVE if kernel == "K6" else dataclasses.replace(SERVE, kv_cache_dtype="int8")
+        engine = ServingEngine(params, cfg, sc)
+        launches[kernel], _ = serve_run(engine, cfg, card, phase, model, kernel, setup_s)
+        profile_steps(engine, cfg, card, phase,
+                      mla_cuda.KERNELS[mla_cuda.route(torch.bfloat16)])
+        del engine
+        torch.cuda.empty_cache()
+        emit({"phase": f"{phase}_check", "card": card, "model": model,
+              **engine_plain_check(phase, cfg, params, sc, kernel)})
+        setup_s = 0.0
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_dsv3_mtp_phase(card: str) -> dict:
+    """DeepSeek-V3 training through the CLI at its published widths with
+    yarn and the MTP head, cut to its first DSV3_MTP_LAYERS (dense) layers:
+    DSV3_MTP_STEPS steps of DSV3_MTP_SEQ tokens. K1-K3 at <192, 128> on the
+    main layers and the MTP block (forward twice under full remat); then,
+    on one more batch, the main CE and the MTP CE apart. Returns the K1-K3
+    launches."""
+    from automodel_tpu_torch.models.moe_lm.mtp import mtp_hidden, mtp_loss
+
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_dsv3_mtp_")
+    hf = dict(DEEPSEEK_V3, num_hidden_layers=DSV3_MTP_LAYERS,
+              first_k_dense_replace=DSV3_MTP_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
+    t0 = time.perf_counter()
+    recipe = cli_main([moe_train_yaml(run_dir, "dsv3_mtp", hf, DSV3_MTP_SEQ,
+                                      DSV3_MTP_STEPS)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"K1": fa_cuda.launches_fwd, "K2": fa_cuda.launches_dq,
+                "K3": fa_cuda.launches_dkv}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    records = jsonl(Path(run_dir) / "training.jsonl")
+    cfg = recipe.model_cfg
+    # the main layers and the MTP block: K1 twice each (full remat)
+    n = (cfg.num_layers + cfg.mtp_num_layers) * DSV3_MTP_STEPS
+    want = {"K1": 2 * n, "K2": n, "K3": n}
+    steady = records[1:]
+    tps = statistics.median(r["tps"] for r in steady)
+    params = recipe.train_state.params
+    batch = make_global_batch(next(iter(recipe.dataloader)), "cuda")
+    with torch.no_grad():  # the layers cast the fp32 masters, as in a step
+        hidden, _ = moe_decoder.forward(params, cfg, batch["input_ids"], return_hidden=True)
+        kernel = moe_decoder.head_kernel(params, cfg)
+        ce, n_tok = fused_linear_cross_entropy(hidden, kernel, batch["labels"],
+                                               chunk_size=2048)
+        mtp_ce, n_mtp = mtp_loss(mtp_hidden(params, cfg, hidden, batch["input_ids"]),
+                                 kernel, batch["labels"], chunk_size=2048)
+    main_loss, mtp_loss_value = float(ce / n_tok), float(mtp_ce / n_mtp)
+    emit({
+        "phase": "train_dsv3_mtp", "card": card,
+        "model": f"DeepSeek-V3 widths, {cfg.num_layers} dense layers + the MTP head, "
+                 f"yarn (attn_scale {cfg.attn_scale:.5f}), {cfg.dtype}, remat "
+                 f"{cfg.remat_policy}",
+        "cut": "61 -> 2 layers, the dense prefix: one MoE layer's fp32 masters, "
+               "gradients and AdamW moments need ~180 GB",
+        "params": count_params(params), "mtp_params": count_params(params["mtp"]),
+        "steps": len(records), "tokens_per_step": DSV3_MTP_SEQ,
+        "losses": [r["loss"] for r in records],
+        "grad_norms": [r["grad_norm"] for r in records],
+        "main_loss_after": main_loss, "mtp_loss_after": mtp_loss_value,
+        "ms_per_step": DSV3_MTP_SEQ / tps * 1e3, "tokens_per_s": tps,
+        "mfu_pct": statistics.median(r["mfu_pct"] for r in steady),
+        "flops_per_token": cfg.flops_per_token(DSV3_MTP_SEQ),
+        "wall_s_with_setup": wall_s, "peak_mem_gib": peak_gib,
+        "launches": launches, "expected_launches": want,
+    })
+    values = [r["loss"] for r in records] + [r["grad_norm"] for r in records]
+    if len(records) != DSV3_MTP_STEPS or not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"train_dsv3_mtp: {len(records)} records, or non-finite: {records}")
+    if not (math.isfinite(main_loss) and math.isfinite(mtp_loss_value)):
+        raise AssertionError(f"train_dsv3_mtp: losses {main_loss}, {mtp_loss_value}")
+    if launches != want:
+        raise AssertionError(f"train_dsv3_mtp: K1-K3 launches {launches}, expected {want}")
+    del recipe, params, hidden, kernel
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_moe_capacity_phase(card: str, dropless_ms: float) -> None:
+    """train_moe's recipe (Moonlight widths, 4 layers) with the capacity
+    dispatcher, CAPACITY_STEPS steps: ms per step beside train_moe's
+    dropless run, and the share of routed (token, expert) pairs the
+    capacity dropped, counted on the device over every dispatch of the
+    run (remat's recomputations included)."""
+    from automodel_tpu_torch.moe import layer as moe_layer
+
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_moe_capacity_")
+    dispatch = moe_layer.dispatch_tensors
+    kept = torch.zeros((), dtype=torch.float64, device="cuda")
+    routed = torch.zeros((), dtype=torch.float64, device="cuda")
+
+    def counted(cfg, indices, weights, capacity, dtype=torch.float32):
+        d, c = dispatch(cfg, indices, weights, capacity, dtype)
+        kept.add_(d.sum(dtype=torch.float64))
+        routed.add_((indices < cfg.n_routed_experts).sum())
+        return d, c
+
+    hf = dict(MOONLIGHT, num_hidden_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    moe_layer.dispatch_tensors = counted
+    try:
+        recipe = cli_main([moe_train_yaml(run_dir, "moonlight_capacity", hf, MOE_TRAIN_SEQ,
+                                          CAPACITY_STEPS, moe_dispatcher="capacity")])
+        torch.cuda.synchronize()
+    finally:
+        moe_layer.dispatch_tensors = dispatch
+    records = jsonl(Path(run_dir) / "training.jsonl")
+    steady = records[1:]
+    ms = MOE_TRAIN_SEQ / statistics.median(r["tps"] for r in steady) * 1e3
+    dropped = 1.0 - kept.item() / max(routed.item(), 1.0)
+    emit({"phase": "train_moe_capacity", "card": card,
+          "model": f"Moonlight-16B-A3B widths, {MOE_TRAIN_LAYERS} layers, "
+                   f"{recipe.model_cfg.moe.dispatcher} dispatcher, capacity_factor "
+                   f"{recipe.model_cfg.moe.capacity_factor}",
+          "steps": len(records), "losses": [r["loss"] for r in records],
+          "grad_norms": [r["grad_norm"] for r in records],
+          "ms_per_step": ms, "dropless_ms_per_step": dropless_ms,
+          "ratio_to_dropless": ms / dropless_ms,
+          "routed_pairs": routed.item(), "dropped_share": dropped,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    values = [r["loss"] for r in records] + [r["grad_norm"] for r in records]
+    if len(records) != CAPACITY_STEPS or not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"train_moe_capacity: {records}")
+    if recipe.model_cfg.moe.dispatcher != "capacity" or routed.item() == 0:
+        raise AssertionError("train_moe_capacity: the capacity dispatcher did not run")
+    del recipe
+    torch.cuda.empty_cache()
 
 
 # the tensor-core kernels in ptxas's mangled names: (pattern, readable name)
@@ -2948,43 +3258,89 @@ def main() -> int:
           "cuda_core_flash_kernels": mma_ptxas(
               logs[_build.library_path(fa_cuda.SOURCE).stem], FMA_FLASH_KERNELS)})
 
+    # each phase's seconds, for the total line
+    seconds, last = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = round(now - last[0], 1)
+        last[0] = now
+
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     k4 = kernel_phase(flush)
+    lap("kernel")
     paged = paged_kernels_phase(flush)
+    lap("paged_kernels")
     windowed = window_kernels_phase(flush)
+    lap("kernel_window")
     flash = flash_phase(flush)
+    lap("flash")
     del flush
     launches = serve_phase(card)
+    lap("serve")
     launches.update(serve_mla_phase(card))
+    lap("serve_mla")
+    published = {
+        "deepseek_v3": serve_published_mla_phase(
+            card, "DeepSeek-V3", DEEPSEEK_V3, DSV3_SERVE_LAYERS,
+            (("serve_dsv3", "K6"), ("serve_dsv3_int8", "K7"))),
+        "kimi_k2": serve_published_mla_phase(
+            card, "Kimi-K2", KIMI_K2, KIMI_SERVE_LAYERS, (("serve_kimi_k2", "K6"),)),
+    }
+    lap("serve_dsv3_kimi_k2")
     window_launches = serve_gemma2_phase(card)
+    lap("serve_gemma2")
     moe_sync_phase(card)
+    lap("moe_sync")
     # Llama-3-8B's HF checkpoint: served by recipe_serve, the base of the
     # LoRA phases
     hf_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_llama3_8b_"))
     try:
         launches["K4_recipe"] = recipe_serve_phase(card, hf_dir / "hf")
+        lap("recipe_serve")
         lora = train_lora_phase(card, hf_dir / "hf")
+        lap("train_lora")
         qlora_launches = train_qlora_phase(card, hf_dir / "hf", lora["peak_mem_gib"])
+        lap("train_qlora")
     finally:
         shutil.rmtree(hf_dir, ignore_errors=True)
     engine_phase()
+    lap("engine")
     engine_mla_phase()
+    lap("engine_mla")
     engine_window_phase()
+    lap("engine_window")
     generate_check_phase()
+    lap("generate_check")
     torch.cuda.empty_cache()
     train_launches = train_phase(card)
+    lap("train")
     train_check_phase()
+    lap("train_check")
     train_lora_check_phase()
+    lap("train_lora_check")
     train_paths_phase()
-    moe_launches = train_moe_phase(card)
+    lap("train_paths")
+    moe_launches, moe_ms = train_moe_phase(card)
+    lap("train_moe")
+    train_moe_capacity_phase(card, moe_ms)
+    lap("train_moe_capacity")
     train_moe_check_phase()
+    lap("train_moe_check")
+    mtp_launches = train_dsv3_mtp_phase(card)
+    lap("train_dsv3_mtp")
     gemma_launches, gemma2_records = train_gemma_phase(
         card, "train_gemma2", "Gemma-2-2B", GEMMA2_2B, GEMMA2_TRAIN_SEQ)
+    lap("train_gemma2")
     gemma_launches = {"gemma2": gemma_launches, "gemma3": train_gemma_phase(
         card, "train_gemma3", "Gemma-3-1B", GEMMA3_1B, GEMMA3_TRAIN_SEQ)[0]}
+    lap("train_gemma3")
     train_gemma2_plain_phase(card, gemma2_records)
+    lap("train_gemma2_plain")
     train_gemma_check_phase()
+    lap("train_gemma_check")
     ckpt_serve_launches = train_gemma3_ckpt_phase(card)
+    lap("train_gemma3_ckpt")
 
     no_library = ("no single PyTorch call attends over per-row page tables; "
                   "scaled_dot_product_attention needs each row's KV gathered "
@@ -3016,6 +3372,13 @@ def main() -> int:
         })
         if name == "K4":  # the llm_serve recipe's run, counted apart
             kernels[-1]["recipe_serve_launches"] = launches["K4_recipe"]
+        if name in ("K6", "K7"):
+            # the published models' serve runs, counted apart, and the fp32
+            # route at their head counts
+            kernels[-1]["deepseek_v3_serve_launches"] = published["deepseek_v3"][name]
+            if name in published["kimi_k2"]:
+                kernels[-1]["kimi_k2_serve_launches"] = published["kimi_k2"][name]
+            kernels[-1]["fp32_many_heads"] = e["fp32_many_heads"]
         # each paged kernel's route follows the query dtype
         if name in ("K4", "K5"):
             kernels[-1]["kernel_route"] = rpa_cuda.route(torch.bfloat16)
@@ -3088,8 +3451,11 @@ def main() -> int:
             if key == "dense":  # the LoRA runs at the same heads, counted apart
                 row["train_lora_launches"] = lora["launches"][name]
                 row["train_qlora_launches"] = qlora_launches[name]
+            if key == "mla":  # DeepSeek-V3 with yarn and the MTP head, apart
+                row["train_dsv3_mtp_launches"] = mtp_launches[name]
             kernels.append(row)
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": seconds})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

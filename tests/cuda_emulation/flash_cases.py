@@ -1,28 +1,19 @@
-"""K1-K3's CUDA source (`automodel_tpu_torch/csrc/flash_attention.cu`)
-compiled for the CPU with g++ against `tests/cuda_emulation/
-cuda_emulation.h`, which emulates threads, barriers, warp shuffles, votes
-and ballots, `ldmatrix`, `mma.sync` and `cp.async`, and held to the plain
-versions on the same inputs: the tensor-core bf16 K1-K3 and the CUDA-core
-fp32 K1-K3, at every instantiated pair of head dims, MLA's q/k 192 with
-v 128 and Gemma's 256 included, under every mask: causal by index, causal
-by position with kv positions and segment ids of their own and T != S
-(some q rows see no key), one- and two-sided windows on positions, packed
-segments with positions restarting per document. This checks the kernels'
-indexing, fragment layouts, masks, tile skipping and edges where no card is
-present; their speed, and the hardware's own reading of the PTX, are
-checked on the card (tests/test_torch_cuda.py, chip_smoke.py). Skips
-without g++."""
+"""K1-K3's emulated cases, shared by `tests/test_torch_flash_emulated_*.py`:
+`flash_attention.cu` compiled for the CPU with g++ against
+`cuda_emulation.h` (`build_lib`), the cases by group (`CASES`, `GROUPS`),
+their masks (`case_masks`), capped queries (`capped_q`) and the check of
+one case on both routes against the plain versions (`check_case`)."""
 
 import ctypes
 import shutil
 
 import pytest
 import torch
-from cuda_emulation import rewrite
 
 from automodel_tpu_torch.ops import flash_attention as fa
 from automodel_tpu_torch.ops.cuda import _build
 from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
+from cuda_emulation import rewrite
 
 # as on the card (tests/test_torch_cuda.py): fp32 differs by summation order,
 # bf16 by where probabilities round; a share of the largest magnitude
@@ -65,10 +56,23 @@ CASES = {
     "d256_gqa4": (1, 100, 100, 4, 1, 256, 256, True, False, None, {}),
     "d256_ring": (1, 70, 100, 2, 1, 256, 256, True, False, None, {"ring": True}),
 }
+# the test file of each case: base (head dims 16-128), MLA's heads, windows
+# and ring-shaped position-causal masks, and head dim 256
+GROUPS = {
+    "base": ("causal_gqa_ragged", "causal_d128_segments", "bidirectional_softcap",
+             "causal_s_gt_t_d128", "causal_s_lt_t_d16", "causal_softcap_d128"),
+    "mla": ("mla_causal_g1", "mla_causal_segments_g2", "mla_softcap_s_gt_t_g2",
+            "mla_bidirectional_g1"),
+    "window": ("window_causal_gqa", "window_two_sided_softcap", "window_packed_d128",
+               "window_mla", "ring_position_causal", "ring_position_causal_window_d128"),
+    "d256": ("d256_window_softcap", "d256_gqa4", "d256_ring"),
+}
+assert sorted(c for g in GROUPS.values() for c in g) == sorted(CASES)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def build_lib(tmp_path_factory):
+    """flash_attention.cu built for the CPU, its entry points typed; skips
+    without g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
@@ -110,9 +114,9 @@ def capped_q(q, cap):
     return q if cap is None else (q.float() * (cap / 4)).to(q.dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_emulated_kernels_match_plain_versions(lib, case, dtype):
+def check_case(lib, case, dtype):
+    """K1-K3 of `case` in `dtype` against the plain versions: out and lse,
+    then dq, dk and dv."""
     B, S, T, Hq, Hkv, D, Dv, causal, packed, cap, masks = CASES[case]
     gen = torch.Generator().manual_seed(0)
 
@@ -154,7 +158,7 @@ def test_emulated_kernels_match_plain_versions(lib, case, dtype):
         assert _rel_err(got, ref) <= TOL[dtype]
 
 
-def test_emulated_kernels_refuse_inconsistent_masks(lib):
+def check_refusals(lib):
     """A window or causal masking by position without positions, and
     segment ids on one side only, are refused before any launch."""
     q = torch.zeros(1, 8, 2, 64)

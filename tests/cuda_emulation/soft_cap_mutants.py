@@ -2,7 +2,7 @@
 
 Each mutant drops the cap, or the cap's gradient factor 1 - tanh^2, at one
 site of `automodel_tpu_torch/csrc/flash_attention.cu`; the capped cases of
-tests/test_torch_flash_emulated.py (both routes) run against each, in a copy
+tests/test_torch_flash_emulated_*.py (both routes) run against each, in a copy
 of the repo made under OUT_DIR. A mutant no case fails is a site the tests do
 not hold. `--unit-logits` runs the same with the cases' q left at unit
 variance (no `capped_q`), where the cap hardly bends the logits.
@@ -27,7 +27,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 CU = "automodel_tpu_torch/csrc/flash_attention.cu"
-TEST = "tests/test_torch_flash_emulated.py"
+TESTS = ("tests/test_torch_flash_emulated_base.py",
+         "tests/test_torch_flash_emulated_mla.py",
+         "tests/test_torch_flash_emulated_window.py",
+         "tests/test_torch_flash_emulated_d256.py")
+# where `capped_q` lives
+CASES = "tests/cuda_emulation/flash_cases.py"
 # mutant -> (the source text, its replacement); each text occurs once
 MUTANTS = {
     "none": None,
@@ -64,13 +69,13 @@ def run(name: str, out_dir: Path, unit_logits: bool) -> str:
         assert src.count(old) == 1, f"{name}: the site occurs {src.count(old)} times"
         (d / CU).write_text(src.replace(old, new))
     if unit_logits:
-        test = (d / TEST).read_text()
+        test = (d / CASES).read_text()
         old = "return q if cap is None else (q.float() * (cap / 4)).to(q.dtype)"
         assert old in test
-        (d / TEST).write_text(test.replace(old, "return q"))
+        (d / CASES).write_text(test.replace(old, "return q"))
     env = dict(os.environ, JAX_PLATFORMS="cpu", HOME=str(d))
     r = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
-                        "-k", "softcap", TEST], cwd=d, capture_output=True, text=True,
+                        "-k", "softcap", *TESTS], cwd=d, capture_output=True, text=True,
                        env=env)
     failed = sorted(set(re.findall(r"FAILED \S+\[(\S+)\]", r.stdout)))
     summary = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else r.stderr[-300:]

@@ -352,18 +352,16 @@ def test_k6_split_kernel_at_moonlight_widths(card, context):
     assert not got[pos < 0].any()
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["k6", "k7"])
-@pytest.mark.parametrize("n", [64, 128], ids=["kimi_k2", "deepseek_v3"])
-def test_split_route_takes_many_heads(card, n, quant):
-    """The bf16 route of K6 and K7 tiles heads by 16 over the grid: 64 and
-    128 heads x r 512, dr 64 (n * r past the fp32 route's 16384)."""
+def _many_heads_case(card, n, quant, dtype):
+    """K6 (quant False) or K7 at n heads x r 512, dr 64, queries in `dtype`:
+    (kernel output, plain output, positions)."""
     from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
 
     pt, pos = _paged_rows(card, 16, seed=7)
     gen = torch.Generator(device=card).manual_seed(8)
     T, r, dr, N = len(pos), 512, 64, 40
-    q_abs = torch.randn(T, n, r, generator=gen, device=card).bfloat16()
-    q_rope = torch.randn(T, n, dr, generator=gen, device=card).bfloat16()
+    q_abs = torch.randn(T, n, r, generator=gen, device=card).to(dtype)
+    q_rope = torch.randn(T, n, dr, generator=gen, device=card).to(dtype)
     scale = (128 + 64) ** -0.5
     if quant:
         c, cs = _int8_pages(gen, card, N + 1, 16, r)
@@ -372,15 +370,37 @@ def test_split_route_takes_many_heads(card, n, quant):
                                                  pt, pos, scale=scale)
         plain = dict(c_scales=cs, kr_scales=krs)
     else:
-        c = torch.randn(N + 1, 16, r, generator=gen, device=card).bfloat16()
-        kr = torch.randn(N + 1, 16, dr, generator=gen, device=card).bfloat16()
+        c = torch.randn(N + 1, 16, r, generator=gen, device=card).to(dtype)
+        kr = torch.randn(N + 1, 16, dr, generator=gen, device=card).to(dtype)
         got = mla.paged_mla_attention_cuda(q_abs, q_rope, c, kr, pt, pos,
                                            scale=scale)
         plain = {}
     torch.cuda.synchronize()
     want = ragged_paged_mla_attention_ref(q_abs, q_rope, c, kr, pt, pos,
                                           scale=scale, **plain)
+    return got, want, pos
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["k6", "k7"])
+@pytest.mark.parametrize("n", [64, 128], ids=["kimi_k2", "deepseek_v3"])
+def test_split_route_takes_many_heads(card, n, quant):
+    """The bf16 route of K6 and K7 tiles heads by 16 over the grid: 64 and
+    128 heads x r 512, dr 64."""
+    got, want, pos = _many_heads_case(card, n, quant, torch.bfloat16)
     assert _rel_err(got, want) <= PAGED_TOL[torch.bfloat16]
+    assert not got[pos < 0].any()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["k6", "k7"])
+@pytest.mark.parametrize("n", [64, 128], ids=["kimi_k2", "deepseek_v3"])
+def test_fp32_route_takes_many_heads(card, n, quant):
+    """The fp32 route of K6 and K7 tiles heads by 16384 / r over the grid:
+    64 and 128 heads x r 512 take 2 and 4 blocks a row."""
+    from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
+
+    assert -(-n // mla.head_tile(n, 512)) == n // 32
+    got, want, pos = _many_heads_case(card, n, quant, torch.float32)
+    assert _rel_err(got, want) <= PAGED_TOL[torch.float32]
     assert not got[pos < 0].any()
 
 
@@ -515,10 +535,11 @@ def test_k5_k6_k7_reject_what_they_do_not_take(card):
     with pytest.raises(ValueError):
         mla.paged_mla_attention_cuda(qa, qr, c, kr[..., :8].contiguous(), pt,
                                      pos, scale=0.1)
-    with pytest.raises(NotImplementedError):  # n * r past the accumulators
-        big = torch.zeros(len(pos), 128, 512, device=card)
-        mla.paged_mla_attention_cuda(big, torch.zeros(len(pos), 128, 16, device=card),
-                                     torch.zeros(41, 16, 512, device=card), kr,
+    with pytest.raises(NotImplementedError):  # one head's r past a block
+        wide = 2 * 16384
+        mla.paged_mla_attention_cuda(torch.zeros(len(pos), 1, wide, device=card),
+                                     torch.zeros(len(pos), 1, 16, device=card),
+                                     torch.zeros(41, 16, wide, device=card), kr,
                                      pt, pos, scale=0.1)
 
 

@@ -46,7 +46,8 @@ def test_port_imports_no_jax():
                 "ops.quant", "ops.cuda.paged_mla_attention", "models.llm.mla",
                 "moe.config", "moe.gate", "moe.experts", "moe.layer",
                 "models.moe_lm.decoder", "models.moe_lm.families",
-                "inference.generate", "checkpoint.safetensors_io",
+                "models.moe_lm.mtp", "inference.generate",
+                "checkpoint.safetensors_io",
                 "checkpoint.hf_adapter", "recipes.llm.serve", "peft.lora",
                 "eval.sampling"):
         assert f"automodel_tpu_torch.{mod}" in res["modules"]
@@ -89,7 +90,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 def test_unported_options_raise():
     """What is still unported raises: speculative decoding, low-precision
-    serve linears, a serving mesh, yarn rope and the DSA indexer. A windowed
+    serve linears, a serving mesh and the DSA indexer. A windowed
     model asked onto the kernels reaches them (which refuse CPU tensors).
     int8 KV pages serve."""
     from automodel_tpu_torch.models.llm import decoder
@@ -117,14 +118,14 @@ def test_unported_options_raise():
     out = ServingEngine(params, cfg, sc, device="cpu").serve_batch(
         [Request(prompt=[1, 2, 3], max_new_tokens=2)])
     assert len(out["outputs"][0]) == 2
-    # yarn rope (DeepSeek-V3's long-context scaling) and the DSA indexer
+    # the DSA indexer; yarn rope (DeepSeek-V3's long-context scaling) builds
     hf = dict(vocab_size=32, hidden_size=16, intermediate_size=24,
               moe_intermediate_size=8, num_hidden_layers=2,
               num_attention_heads=2, n_routed_experts=4,
               num_experts_per_tok=2, kv_lora_rank=8, qk_nope_head_dim=4,
               qk_rope_head_dim=4, v_head_dim=4, first_k_dense_replace=1)
-    with pytest.raises(NotImplementedError, match="yarn"):
-        deepseek_v3_moe_config(dict(hf, rope_scaling={"type": "yarn", "factor": 4.0}))
+    yarn = deepseek_v3_moe_config(dict(hf, rope_scaling={"type": "yarn", "factor": 4.0}))
+    assert yarn.attn_scale > 8 ** -0.5
     mla = deepseek_v3_moe_config(hf, dsa_index_topk=4, dtype=torch.float32)
     from automodel_tpu_torch.models.moe_lm import decoder as moe_decoder
 

@@ -4,7 +4,8 @@ g++ against `tests/cuda_emulation/cuda_emulation.h` and held to the plain
 version (`ragged_paged_mla_attention_ref`, with scales for K7) on the same
 inputs: the split-KV tensor-core kernel and its combine for bf16 queries
 (over int8 pages for K7, bf16 pages for K6), the CUDA-core kernel for fp32
-queries (K7). The cases cover rows that span several splits, a split
+queries (K7; K6 and K7 at 64 and 128 heads, several head tiles a row).
+The cases cover rows that span several splits, a split
 boundary inside a page table, contexts that end mid-page, one-page and pad
 rows, 8- and 16-token pages, zero-padded and odd widths, a latent rank
 wider than one block's columns and its shared memory, Moonlight's widths,
@@ -39,7 +40,9 @@ CASES = {
     # row widths of no 4-byte multiple: byte-wise page copies
     "odd_widths_n3_r30_dr10": (3, 30, 10, 8, 12, (70, 9)),
 }
-# the bf16 route tiles heads by 16 over the grid: no bound on n * r
+# both routes tile heads over the grid, so neither bounds n * r: the bf16
+# route by 16 heads, the fp32 route by 16384 / r (32 heads at r 512: 2 and
+# 4 blocks a row)
 MANY_HEADS = {
     "kimi_k2_n64": (64, 512, 64, 16, 12, (150,)),
     "deepseek_v3_n128": (128, 512, 64, 16, 4, (40,)),
@@ -65,6 +68,9 @@ def lib(tmp_path_factory):
     lib.mla_split_forward.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p])
+    lib.mla_forward.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return lib
 
 
@@ -116,14 +122,15 @@ def _run(lib, case, dtype, quant):
                     float("nan"))
     scales = (cs, krs) if quant else ()
     ptrs = [x.data_ptr() for x in (q_abs, q_rope, c, kr, *scales, pt, pos, out)]
-    if not quant:
-        err = lib.mla_split_forward(*ptrs, ws.data_ptr(), T, n, r, dr, ps, P,
-                                    scale, None)
-    elif dtype == torch.bfloat16:
+    if dtype == torch.float32:
+        fp32_route = lib.mla_quant_forward if quant else lib.mla_forward
+        err = fp32_route(*ptrs, T, n, r, dr, ps, P, scale, 0, None)
+    elif quant:
         err = lib.mla_quant_split_forward(*ptrs, ws.data_ptr(), T, n, r, dr,
                                           ps, P, scale, None)
     else:
-        err = lib.mla_quant_forward(*ptrs, T, n, r, dr, ps, P, scale, 0, None)
+        err = lib.mla_split_forward(*ptrs, ws.data_ptr(), T, n, r, dr, ps, P,
+                                    scale, None)
     assert err == 0
     want = ragged_paged_mla_attention_ref(
         q_abs, q_rope, c, kr, pt, pos, scale=scale,
@@ -154,4 +161,14 @@ def test_emulated_k6_matches_plain_version(lib, case):
 def test_emulated_split_route_takes_many_heads(lib, case, quant):
     rel, pad = _run(lib, case, torch.bfloat16, quant=quant)
     assert rel <= TOL[torch.bfloat16]
+    assert not pad.any()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["k6", "k7"])
+@pytest.mark.parametrize("case", sorted(MANY_HEADS))
+def test_emulated_fp32_route_takes_many_heads(lib, case, quant):
+    """fp32 K6 and K7 at Kimi-K2's 64 and DeepSeek-V3's 128 heads x r 512:
+    several head tiles per row, every head's output written."""
+    rel, pad = _run(lib, case, torch.float32, quant=quant)
+    assert rel <= TOL[torch.float32]
     assert not pad.any()

@@ -514,13 +514,15 @@ def test_moe_training_refuses_what_is_not_ported(tmp_path):
             moe_decoder.forward(params, tcfg, ids, **kw)
     with pytest.raises(NotImplementedError, match="DSA"):
         moe_decoder.forward(params, dataclasses.replace(tcfg, dsa_index_topk=2), ids)
-    with pytest.raises(NotImplementedError, match="capacity"):
-        moe_decoder.forward(params, dataclasses.replace(
-            tcfg, moe=dataclasses.replace(tcfg.moe, dispatcher="capacity")), ids)
+    # the capacity dispatcher and the MTP head run (their parity:
+    # tests/test_torch_deepseek_v3.py); PEFT with the MTP head raises
+    moe_decoder.forward(params, dataclasses.replace(
+        tcfg, moe=dataclasses.replace(tcfg.moe, dispatcher="capacity")), ids)
+    assert "mtp" in moe_decoder.init(
+        deepseek_v3_moe_config(dict(HF, num_nextn_predict_layers=1)), torch.Generator())
+    node = _recipe_node(load_yaml(SMOKE_YAML), tmp_path, "mtp_peft", 1)
+    node.set("model.hf_config.num_nextn_predict_layers", 1)
+    node.set("model.hf_config.bias_update_speed", 0.0)
+    node.set("peft", {"target_modules": ["q_proj"], "r": 2})
     with pytest.raises(NotImplementedError, match="MTP"):
-        moe_decoder.init(deepseek_v3_moe_config(dict(HF, num_nextn_predict_layers=1)),
-                         torch.Generator())
-    node = _recipe_node(load_yaml(SMOKE_YAML), tmp_path, "capacity", 1)
-    node.set("model.moe_dispatcher", "capacity")
-    with pytest.raises(NotImplementedError, match="capacity"):
         TrainFinetuneRecipeForNextTokenPrediction(node, device="cpu").setup()

@@ -11,7 +11,7 @@ kv positions and segment ids of their own and T != S (some q rows see no
 key), and Gemma's head dim 256 with a window and soft cap and with GQA 4.
 Every window here masks pairs the causal mask keeps. The kernels
 themselves are held to the same plain versions in
-tests/test_torch_flash_emulated.py and, on the card, tests/test_torch_cuda.py.
+tests/test_torch_flash_emulated_*.py and, on the card, tests/test_torch_cuda.py.
 """
 
 import jax
