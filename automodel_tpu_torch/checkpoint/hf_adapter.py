@@ -17,10 +17,16 @@ expert) slice at a time, the transpose done there, so host memory peaks at
 one HF tensor. The files are read and written by the port's own
 `safetensors_io` (no `safetensors` or `ml_dtypes` import).
 
-Ported styles: dense "llama" (GQA or MLA attention) and MoE "deepseek".
-GLM-4's fused gate/up, fused QKV layouts, the other MoE styles and the DSA
-indexer raise NotImplementedError: the port has none of those families. A checkpoint must carry the `model.` prefix and
-an `lm_head.weight` unless the embeddings are tied.
+Ported styles: dense "llama" (GQA or MLA attention), "hunyuan"
+(`query_layernorm` / `key_layernorm`) and "bailing" (Ling 2.0: fused
+`attention.query_key_value`, `attention.dense`, `word_embeddings`); MoE
+"deepseek", "qwen3_moe" (also GLM-4.5's), "mixtral", "minimax", "gpt_oss"
+(the fused, interleaved `gate_up_proj` with its biases, the router bias),
+"ernie" (the correction bias under `moe_statics` with a leading dim of 1),
+"hunyuan" (`gate.wg`, `shared_mlp`) and "bailing" (`gate.expert_bias`).
+GLM-4's fused gate/up (the dense "glm4" style) and the DSA indexer raise
+NotImplementedError. A checkpoint must carry the `model.` prefix and an
+`lm_head.weight` unless the embeddings are tied.
 """
 
 from __future__ import annotations
@@ -88,15 +94,17 @@ def _stack(shape: tuple, name_of: Callable[..., str], load: Callable[[str], torc
 
 @dataclasses.dataclass
 class DenseDecoderAdapter:
-    """Llama-style names <-> `models/llm/decoder` params (GQA or MLA)."""
+    """Llama-style names <-> `models/llm/decoder` params (GQA or MLA);
+    `style` "hunyuan" and "bailing" rename the attention's tensors."""
 
     cfg: Any  # TransformerConfig
     style: str = "llama"
 
     def __post_init__(self):
-        if self.style != "llama":
+        if self.style not in ("llama", "hunyuan", "bailing"):
             raise NotImplementedError(
-                f"dense adapter style {self.style!r} is not ported (llama only)")
+                f"dense adapter style {self.style!r} is not ported "
+                "(llama, hunyuan, bailing)")
         if self.cfg.dsa_index_topk is not None:
             raise NotImplementedError("the DSA indexer's checkpoint layout is not ported")
 
@@ -106,11 +114,14 @@ class DenseDecoderAdapter:
         cfg = self.cfg
         if cfg.attention_type == "mla":
             return self._mla_layer_entries()
-        e = [
-            ("self_attn.q_proj.weight", ("q_proj", "kernel"), True),
-            ("self_attn.k_proj.weight", ("k_proj", "kernel"), True),
-            ("self_attn.v_proj.weight", ("v_proj", "kernel"), True),
-            ("self_attn.o_proj.weight", ("o_proj", "kernel"), True),
+        e = []
+        if self._fused_qkv_name() is None:
+            e += [(f"self_attn.{p}.weight", (p, "kernel"), True)
+                  for p in ("q_proj", "k_proj", "v_proj")]
+        o_name = ("attention.dense.weight" if self.style == "bailing"
+                  else "self_attn.o_proj.weight")
+        e += [
+            (o_name, ("o_proj", "kernel"), True),
             ("mlp.down_proj.weight", ("down_proj", "kernel"), True),
             ("input_layernorm.weight", ("input_norm", "scale"), False),
             ("mlp.gate_proj.weight", ("gate_proj", "kernel"), True),
@@ -128,8 +139,12 @@ class DenseDecoderAdapter:
             e += [(f"self_attn.{p}.bias", (p, "bias"), False)
                   for p in ("q_proj", "k_proj", "v_proj")]
         if cfg.qk_norm or cfg.qk_norm_flat:
-            e += [("self_attn.q_norm.weight", ("q_norm", "scale"), False),
-                  ("self_attn.k_norm.weight", ("k_norm", "scale"), False)]
+            q_name, k_name = {
+                "hunyuan": ("self_attn.query_layernorm", "self_attn.key_layernorm"),
+                "bailing": ("attention.query_layernorm", "attention.key_layernorm"),
+            }.get(self.style, ("self_attn.q_norm", "self_attn.k_norm"))
+            e += [(f"{q_name}.weight", ("q_norm", "scale"), False),
+                  (f"{k_name}.weight", ("k_norm", "scale"), False)]
         if cfg.o_proj_bias:
             e.append(("self_attn.o_proj.bias", ("o_proj", "bias"), False))
         if cfg.attention_sinks:
@@ -159,9 +174,37 @@ class DenseDecoderAdapter:
               for p in ("gate_proj", "up_proj", "down_proj")]
         return e
 
+    def _fused_qkv_name(self) -> str | None:
+        """HF key suffix of the fused q/k/v (row order [Q|K|V]) of the
+        "bailing" style, else None."""
+        return "attention.query_key_value.weight" if self.style == "bailing" else None
+
+    def _qkv_cols(self) -> dict:
+        """Column range of q, k and v in the transposed fused kernel."""
+        D = self.cfg.resolved_head_dim
+        qd, kd = self.cfg.num_heads * D, self.cfg.num_kv_heads * D
+        return {"q_proj": (0, qd), "k_proj": (qd, qd + kd),
+                "v_proj": (qd + kd, qd + 2 * kd)}
+
+    def _fuse_qkv(self, layers: Mapping, i: int) -> torch.Tensor:
+        """Layer i's q/k/v kernels as the HF fused (q+k+v, H) weight."""
+        return _t(torch.cat([layers[p]["kernel"][i]
+                             for p in ("q_proj", "k_proj", "v_proj")], dim=1))
+
+    def _load_fused_qkv(self, out: dict, key: str, read: Reader, first: int,
+                        n: int, dtype, device) -> None:
+        """Split layers first..first+n of the fused q/k/v into
+        out[key][p]["kernel"]."""
+        for p, (a, b) in self._qkv_cols().items():
+            _set(out, (key, p, "kernel"), _stack(
+                (n,), lambda j: f"model.layers.{first + j}.{self._fused_qkv_name()}",
+                lambda name, a=a, b=b: _t(read(name).to(device))[:, a:b], dtype, device))
+
     def _top_entries(self) -> list[tuple]:
+        embed_name = ("model.word_embeddings.weight" if self.style == "bailing"
+                      else "model.embed_tokens.weight")
         e = [
-            ("model.embed_tokens.weight", ("embed", "embedding"), False, None),
+            (embed_name, ("embed", "embedding"), False, None),
             ("model.norm.weight", ("final_norm", "scale"), False, None),
         ]
         if not self.cfg.tie_word_embeddings:
@@ -200,6 +243,8 @@ class DenseDecoderAdapter:
             for suffix, path, transpose, tr in self._layer_entries():
                 yield (f"model.layers.{i}.{suffix}",
                        self._export(_get(layers, path)[i], transpose, tr))
+            if self._fused_qkv_name() is not None:
+                yield f"model.layers.{i}.{self._fused_qkv_name()}", self._fuse_qkv(layers, i)
 
     # -- import --------------------------------------------------------------
     def from_hf(self, read: Reader, device=None, dtype: torch.dtype = torch.float32) -> dict:
@@ -215,35 +260,64 @@ class DenseDecoderAdapter:
             _set(out, ("layers",) + path, _stack(
                 (self.cfg.num_layers,), lambda i: f"model.layers.{i}.{suffix}",
                 lambda n: load(n, transpose, tr), dtype, device))
+        if self._fused_qkv_name() is not None:
+            self._load_fused_qkv(out, "layers", read, 0, self.cfg.num_layers,
+                                 dtype, device)
         return out
 
 
 @dataclasses.dataclass
 class MoEDecoderAdapter:
-    """DeepSeek names <-> `models/moe_lm/decoder` params:
-    per-expert HF weights split and merged into the (L, E, in, out) grouped
-    kernels, the router, its correction bias and the shared experts."""
+    """MoE decoder names <-> `models/moe_lm/decoder` params: per-expert HF
+    weights split and merged into the (L, E, in, out) grouped kernels, the
+    router (and its bias), the correction bias and the shared experts, in
+    the naming of `style` (the module docstring lists them)."""
 
     cfg: Any  # MoETransformerConfig
-    style: str = "deepseek"
+    style: str = "qwen3_moe"
+
+    STYLES = ("qwen3_moe", "deepseek", "mixtral", "minimax", "gpt_oss", "ernie",
+              "hunyuan", "bailing")
 
     def __post_init__(self):
-        if self.style != "deepseek":
+        if self.style not in self.STYLES:
             raise NotImplementedError(
-                f"MoE adapter style {self.style!r} is not ported (deepseek only)")
-        self.dense = DenseDecoderAdapter(self.cfg)
+                f"MoE adapter style {self.style!r} is not ported; ported: {self.STYLES}")
+        # the styles whose attention and norms the dense adapter renames
+        self.dense = DenseDecoderAdapter(
+            self.cfg, style=self.style if self.style in ("hunyuan", "bailing") else "llama")
 
     def _expert_name(self, i: int, e: int, proj: str) -> str:
+        if self.style in ("mixtral", "minimax"):
+            w = {"gate_proj": "w1", "up_proj": "w3", "down_proj": "w2"}[proj]
+            return f"model.layers.{i}.block_sparse_moe.experts.{e}.{w}.weight"
         return f"model.layers.{i}.mlp.experts.{e}.{proj}.weight"
 
     def _gate_name(self, i: int) -> str:
-        return f"model.layers.{i}.mlp.gate.weight"
+        return {
+            "mixtral": f"model.layers.{i}.block_sparse_moe.gate.weight",
+            "minimax": f"model.layers.{i}.block_sparse_moe.gate.weight",
+            "gpt_oss": f"model.layers.{i}.mlp.router.weight",
+            "hunyuan": f"model.layers.{i}.mlp.gate.wg.weight",
+        }.get(self.style, f"model.layers.{i}.mlp.gate.weight")
 
     def _escore_name(self, i: int) -> str:
-        return f"model.layers.{i}.mlp.gate.e_score_correction_bias"
+        # ernie's carries a leading groups dim of 1 (Ernie4_5_MoeStatics)
+        return {
+            "ernie": f"model.layers.{i}.mlp.moe_statics.e_score_correction_bias",
+            "minimax": f"model.layers.{i}.block_sparse_moe.e_score_correction_bias",
+            "bailing": f"model.layers.{i}.mlp.gate.expert_bias",
+        }.get(self.style, f"model.layers.{i}.mlp.gate.e_score_correction_bias")
 
     def _shared_name(self, i: int, proj: str) -> str:
-        return f"model.layers.{i}.mlp.shared_experts.{proj}.weight"
+        base = "shared_mlp" if self.style == "hunyuan" else "shared_experts"
+        return f"model.layers.{i}.mlp.{base}.{proj}.weight"
+
+    def _gpt_oss_name(self, i: int, what: str) -> str:
+        """gpt-oss's per-layer expert tensors: `gate_up_proj` (E, H, 2I) with
+        gate in the even and up in the odd columns, `down_proj` (E, I, H),
+        both (in, out) as the port stores them, and their `_bias`."""
+        return f"model.layers.{i}.mlp.experts.{what}"
 
     def _attn_entries(self):
         mlp_keys = ("gate_proj", "up_proj", "down_proj")
@@ -251,6 +325,7 @@ class MoEDecoderAdapter:
 
     def to_hf(self, params: Mapping) -> Iterator[tuple[str, torch.Tensor]]:
         cfg, dense = self.cfg, self.dense
+        fused_qkv = dense._fused_qkv_name()
         for name, path, transpose, tr in dense._top_entries():
             yield name, dense._export(_get(params, path), transpose, tr)
         fk = cfg.first_k_dense
@@ -258,18 +333,33 @@ class MoEDecoderAdapter:
             for suffix, path, transpose, tr in dense._layer_entries():
                 yield (f"model.layers.{i}.{suffix}",
                        dense._export(_get(params["dense_layers"], path)[i], transpose, tr))
+            if fused_qkv is not None:
+                yield f"model.layers.{i}.{fused_qkv}", dense._fuse_qkv(params["dense_layers"], i)
         moe_layers = params["moe_layers"]
         for li in range(cfg.num_moe_layers):
             i = fk + li
             for suffix, path, transpose, tr in self._attn_entries():
                 yield (f"model.layers.{i}.{suffix}",
                        dense._export(_get(moe_layers, path)[li], transpose, tr))
+            if fused_qkv is not None:
+                yield f"model.layers.{i}.{fused_qkv}", dense._fuse_qkv(moe_layers, li)
             moe = moe_layers["moe"]
             yield self._gate_name(i), _t(moe["gate"]["weight"][li])
             if "bias" in moe["gate"]:
                 yield self._gate_name(i).replace(".weight", ".bias"), moe["gate"]["bias"][li]
+            if self.style == "gpt_oss":
+                ek = moe["experts"]
+                for leaf, sfx in (("kernel", ""), ("bias", "_bias")):
+                    g, u = ek["gate_proj"][leaf][li], ek["up_proj"][leaf][li]
+                    fused = g.new_empty((*g.shape[:-1], 2 * g.shape[-1]))
+                    fused[..., ::2] = g
+                    fused[..., 1::2] = u
+                    yield self._gpt_oss_name(i, "gate_up_proj" + sfx), fused
+                    yield self._gpt_oss_name(i, "down_proj" + sfx), ek["down_proj"][leaf][li]
+                continue
             if "e_score_bias" in moe["gate"]:
-                yield self._escore_name(i), moe["gate"]["e_score_bias"][li]
+                b = moe["gate"]["e_score_bias"][li]
+                yield self._escore_name(i), (b[None] if self.style == "ernie" else b)
             for e in range(cfg.moe.n_routed_experts):
                 for proj in ("gate_proj", "up_proj", "down_proj"):
                     yield (self._expert_name(i, e, proj),
@@ -296,6 +386,10 @@ class MoEDecoderAdapter:
             _set(out, ("moe_layers",) + path, _stack(
                 (Lm,), lambda li: f"model.layers.{fk + li}.{suffix}",
                 lambda n: load(n, transpose, tr), dtype, device))
+        if dense._fused_qkv_name() is not None:
+            if fk:
+                dense._load_fused_qkv(out, "dense_layers", read, 0, fk, dtype, device)
+            dense._load_fused_qkv(out, "moe_layers", read, fk, Lm, dtype, device)
         moe_path = ("moe_layers", "moe")
         plain = lambda n: load(n, False, None)  # noqa: E731
         _set(out, moe_path + ("gate", "weight"), _stack(
@@ -305,6 +399,18 @@ class MoEDecoderAdapter:
             _set(out, moe_path + ("gate", "bias"), _stack(
                 (Lm,), lambda li: self._gate_name(fk + li).replace(".weight", ".bias"),
                 plain, dtype, device))
+        if self.style == "gpt_oss":
+            experts = moe_path + ("experts",)
+            for leaf, sfx in (("kernel", ""), ("bias", "_bias")):
+                for proj, cols in (("gate_proj", slice(0, None, 2)),
+                                   ("up_proj", slice(1, None, 2))):
+                    _set(out, experts + (proj, leaf), _stack(
+                        (Lm,), lambda li, sfx=sfx: self._gpt_oss_name(fk + li, "gate_up_proj" + sfx),
+                        lambda n, cols=cols: plain(n)[..., cols], dtype, device))
+                _set(out, experts + ("down_proj", leaf), _stack(
+                    (Lm,), lambda li, sfx=sfx: self._gpt_oss_name(fk + li, "down_proj" + sfx),
+                    plain, dtype, device))
+            return out
         if cfg.moe.gate_bias_update_speed > 0:
             def escore(name):
                 # checkpoints trained without aux-free balancing carry none

@@ -1837,6 +1837,27 @@ int grid_1d(long long blocks, dim3& grid) {
   return 0;
 }
 
+// Launches issued without error since the counters were last reset (or the
+// library loaded), by kernel (fa_smem_bytes's codes: K1, K3, K2 on the
+// tensor cores, then on the CUDA cores) and head-dim pair (with_head_dims's
+// order); fa_launch_counts reads them and fa_reset_launch_counts resets them.
+constexpr int kCountedKernels = 6, kCountedPairs = 5;
+long long g_launches[kCountedKernels][kCountedPairs];
+enum { kFwdMma = 0, kDkvMma = 1, kDqMma = 2, kFwdFma = 3, kDkvFma = 4, kDqFma = 5 };
+
+template <int DQK, int DV>
+constexpr int pair_index() {
+  return DQK == 16 ? 0 : DQK == 64 ? 1 : DQK == 128 ? 2 : DQK == 192 ? 3 : 4;
+}
+
+// the launch's error, counting it as kernel `which` when there is none
+template <int DQK, int DV>
+int counted(int which) {
+  const int e = (int)cudaGetLastError();
+  if (e == 0) ++g_launches[which][pair_index<DQK, DV>()];
+  return e;
+}
+
 template <typename T, int DQK, int DV>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                void* lse, const Problem& p, cudaStream_t stream) {
@@ -1848,7 +1869,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), p);
-  return (int)cudaGetLastError();
+  return counted<DQK, DV>(kFwdFma);
 }
 
 template <int DQK, int DV, bool kPos>
@@ -1864,7 +1885,7 @@ int launch_fwd_mma_as(const void* q, const void* k, const void* v, void* out,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), p);
-  return (int)cudaGetLastError();
+  return counted<DQK, DV>(kFwdMma);
 }
 
 // positions read (a window, or causal masking by position) or not: two
@@ -1890,7 +1911,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dq), p);
-  return (int)cudaGetLastError();
+  return counted<DQK, DV>(kDqFma);
 }
 
 template <int DQK, int DV, bool kPos>
@@ -1908,7 +1929,7 @@ int launch_dq_mma_as(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dq), p);
-  return (int)cudaGetLastError();
+  return counted<DQK, DV>(kDqMma);
 }
 
 template <int DQK, int DV>
@@ -1935,7 +1956,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dk), static_cast<T*>(dv), p);
-  return (int)cudaGetLastError();
+  return counted<DQK, DV>(kDkvFma);
 }
 
 template <int DQK, int DV, bool kPos>
@@ -1955,7 +1976,7 @@ int launch_dkv_mma_as(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), p);
-  return (int)cudaGetLastError();
+  return counted<DQK, DV>(kDkvMma);
 }
 
 template <int DQK, int DV>
@@ -2119,6 +2140,22 @@ int fa_smem_bytes(int which, int D, int Dv) {
     }
     return -1;
   });
+}
+
+// the launch counters (g_launches), kernel by kernel, each kernel's head-dim
+// pairs in with_head_dims's order: the first n into out; returns how many
+// there are
+int fa_launch_counts(long long* out, int n) {
+  const int total = kCountedKernels * kCountedPairs;
+  for (int i = 0; i < n && i < total; ++i)
+    out[i] = g_launches[i / kCountedPairs][i % kCountedPairs];
+  return total;
+}
+
+// sets every launch counter to 0
+void fa_reset_launch_counts() {
+  for (auto& row : g_launches)
+    for (auto& n : row) n = 0;
 }
 
 const char* fa_error_string(int code) {

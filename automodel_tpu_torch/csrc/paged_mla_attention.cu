@@ -262,6 +262,24 @@ mla_kernel(const T* __restrict__ q_abs,         // (T, n, r)
   }
 }
 
+// Launches issued without error since the counters were last reset (or the
+// library loaded), by device kernel: the split kernel over bf16 (K6) and
+// over int8 (K7) pages, the combine kernel (bf16 queries, K6 and K7 alike),
+// mla_kernel over fp32 (K6) and over int8 (K7) pages; mla_launch_counts
+// reads them and mla_reset_launch_counts resets them.
+enum { kSplitCounter = 0, kCombineCounter = 2, kFmaCounter = 3, kCountedKernels = 5 };
+long long g_launches[kCountedKernels];
+
+template <typename TKV>
+constexpr int int8_pages() { return std::is_same<TKV, int8_t>::value ? 1 : 0; }
+
+// the launch's error, counting it as kernel `which` when there is none
+int counted(int which) {
+  const int e = (int)cudaGetLastError();
+  if (e == 0) ++g_launches[which];
+  return e;
+}
+
 template <typename T, typename TKV, int kAcc>
 int launch_acc(const void* q_abs, const void* q_rope, const void* c_pages,
                const void* kr_pages, const float* c_scales,
@@ -282,7 +300,7 @@ int launch_acc(const void* q_abs, const void* q_rope, const void* c_pages,
       static_cast<const TKV*>(c_pages), static_cast<const TKV*>(kr_pages),
       c_scales, kr_scales, page_tables, positions, static_cast<T*>(out), n,
       n_tile, r, dr, ps, P, scale);
-  return (int)cudaGetLastError();
+  return counted(kFmaCounter + int8_pages<TKV>());
 }
 
 template <typename T, typename TKV>
@@ -344,7 +362,7 @@ int launch_mla_split_kernel(const SplitArgs<TKV>& a, const SplitShape& sh,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid = split_grid(sh, T);
   mla_split_kernel<TKV, KS, NCH><<<grid, kSplitThreads, smem, stream>>>(a, sh);
-  return (int)cudaGetLastError();
+  return counted(kSplitCounter + int8_pages<TKV>());
 }
 
 // The split kernel for the shape's step rows (KS) and columns per warp
@@ -367,7 +385,7 @@ int launch_mla_split(const SplitArgs<TKV>& a, void* out, const SplitShape& sh,
   mla_combine_kernel<bf16><<<blocks, kCombineThreads,
                               sizeof(float) * kCombineThreads, stream>>>(
       a.ws_acc, a.ws_ml, a.positions, static_cast<bf16*>(out), sh);
-  return (int)cudaGetLastError();
+  return counted(kCombineCounter);
 }
 
 }  // namespace
@@ -472,6 +490,18 @@ int mla_quant_split_forward(const void* q_abs, const void* q_rope,
 
 const char* mla_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// the launch counters (g_launches), in their order: the first n into out;
+// returns how many there are
+int mla_launch_counts(long long* out, int n) {
+  for (int i = 0; i < n && i < kCountedKernels; ++i) out[i] = g_launches[i];
+  return kCountedKernels;
+}
+
+// sets every launch counter to 0
+void mla_reset_launch_counts() {
+  for (auto& n : g_launches) n = 0;
 }
 
 }  // extern "C"

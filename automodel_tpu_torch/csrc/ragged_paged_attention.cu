@@ -260,6 +260,24 @@ gqa_kernel(const T* __restrict__ q,             // (T, Hq, D)
   for (int i = tid; i < G * Dv; i += kThreads) o_row[i] = acc[i] * a_s[i / Dv];
 }
 
+// Launches issued without error since the counters were last reset (or the
+// library loaded), by device kernel: gqa_kernel over fp32 (K4) and int8
+// (K5) pages, then the split and the combine kernel over bf16 (K4) and over
+// int8 (K5) pages; rpa_launch_counts reads them and rpa_reset_launch_counts
+// resets them.
+constexpr int kCountedKernels = 6;
+long long g_launches[kCountedKernels];
+
+template <typename TKV>
+constexpr int int8_pages() { return std::is_same<TKV, int8_t>::value ? 1 : 0; }
+
+// the launch's error, counting it as kernel `which` when there is none
+int counted(int which) {
+  const int e = (int)cudaGetLastError();
+  if (e == 0) ++g_launches[which];
+  return e;
+}
+
 template <typename T, typename TKV>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const float* k_scales, const float* v_scales,
@@ -278,7 +296,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
       static_cast<const TKV*>(v_pages), k_scales, v_scales, page_tables,
       positions, sinks, static_cast<T*>(out), Hq, Hkv, D, Dv, ps, P, scale,
       soft_cap, window);
-  return (int)cudaGetLastError();
+  return counted(int8_pages<TKV>());
 }
 
 // ---------------------------------------------------------------------------
@@ -325,7 +343,7 @@ int launch_gqa_split_kernel(const SplitArgs<TKV>& a, const SplitShape& sh,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid = split_grid(sh, T);
   gqa_split_kernel<TKV, KS, NCH><<<grid, kSplitThreads, smem, stream>>>(a, sh);
-  return (int)cudaGetLastError();
+  return counted(2 + 2 * int8_pages<TKV>());
 }
 
 // The split kernel for the shape's step rows (KS) and columns per warp
@@ -349,7 +367,7 @@ int launch_gqa_split(const SplitArgs<TKV>& a, const float* sinks, void* out,
   gqa_combine_kernel<TKV><<<blocks, kCombineThreads,
                              sizeof(float) * kCombineThreads, stream>>>(
       a.ws_acc, a.ws_ml, a.positions, sinks, static_cast<bf16*>(out), sh);
-  return (int)cudaGetLastError();
+  return counted(3 + 2 * int8_pages<TKV>());
 }
 
 }  // namespace
@@ -459,6 +477,18 @@ int rpa_gqa_quant_split_forward(const void* q, const void* k_pages,
 
 const char* rpa_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// the launch counters (g_launches), in their order: the first n into out;
+// returns how many there are
+int rpa_launch_counts(long long* out, int n) {
+  for (int i = 0; i < n && i < kCountedKernels; ++i) out[i] = g_launches[i];
+  return kCountedKernels;
+}
+
+// sets every launch counter to 0
+void rpa_reset_launch_counts() {
+  for (auto& n : g_launches) n = 0;
 }
 
 }  // extern "C"

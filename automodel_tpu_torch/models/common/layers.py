@@ -91,8 +91,10 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32,
 
 
 #: a leaf of more elements than this in a narrower dtype than fp32 is drawn
-#: slice by slice along dim 0, so its fp32 draw never exists whole (a
-#: Moonlight expert stack is 4.8 G elements: 19 GB in fp32)
+#: in blocks of whole slices along dim 0, each of at most this many elements
+#: where a slice fits, so its fp32 draw never exists whole (a Moonlight
+#: expert stack is 4.8 G elements: 19 GB in fp32) and a wide table takes a
+#: few draws, not one per row (Qwen3-30B-A3B's embedding has 151936 rows)
 _CHUNKED_DRAW = 1 << 27
 
 
@@ -100,8 +102,11 @@ def _trunc_normal(gen, shape, std, dtype):
     shape = tuple(shape)
     if dtype != torch.float32 and math.prod(shape) > _CHUNKED_DRAW and len(shape) > 1:
         out = torch.empty(shape, dtype=dtype, device=gen.device)
-        for i in range(shape[0]):
-            out[i] = _trunc_normal(gen, shape[1:], std, dtype)
+        rows = max(1, _CHUNKED_DRAW // math.prod(shape[1:]))
+        for i in range(0, shape[0], rows):
+            n = min(rows, shape[0] - i)
+            block = _trunc_normal(gen, (n, *shape[1:]) if rows > 1 else shape[1:], std, dtype)
+            out[i:i + n] = block.reshape(n, *shape[1:])
         return out
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, std, -3.0 * std, 3.0 * std, generator=gen)

@@ -1,7 +1,9 @@
 """Architecture registry: HF `architectures[0]` -> the port's implementation
 (port of the entries of `automodel_tpu/models/registry.py` whose family
 configs the port has: the dense Llama, Mistral, Qwen2, Qwen3, Gemma-2 and
-Gemma-3, and DeepSeek-V3 for training and serving)."""
+Gemma-3; DeepSeek-V3 on MLA; and the GQA MoE families Qwen3-MoE,
+Mixtral, gpt-oss, GLM-4.5, ERNIE-4.5-MoE, Hunyuan-MoE, MiniMax-M2 and
+Ling 2.0, for training and serving)."""
 
 from __future__ import annotations
 
@@ -36,6 +38,39 @@ MODEL_ARCH_MAPPING: dict[str, ModelSpec] = {
     "DeepseekV3ForCausalLM": ModelSpec(
         "deepseek_v3", moe_families.deepseek_v3_moe_config, moe_decoder,
         adapter_name="moe_decoder", adapter_kwargs={"style": "deepseek"},
+    ),
+    # the GQA MoE families, with the JAX registry's adapter styles
+    "Qwen3MoeForCausalLM": ModelSpec(
+        "qwen3_moe", moe_families.qwen3_moe_config, moe_decoder, adapter_name="moe_decoder"
+    ),
+    "MixtralForCausalLM": ModelSpec(
+        "mixtral", moe_families.mixtral_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "mixtral"},
+    ),
+    "GptOssForCausalLM": ModelSpec(
+        "gpt_oss", moe_families.gpt_oss_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "gpt_oss"},
+    ),
+    "Glm4MoeForCausalLM": ModelSpec(
+        "glm4_moe", moe_families.glm4_moe_config, moe_decoder,
+        adapter_name="moe_decoder",
+    ),
+    "Ernie4_5_MoeForCausalLM": ModelSpec(
+        "ernie4_5_moe", moe_families.ernie4_5_moe_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "ernie"},
+    ),
+    "HunYuanMoEV1ForCausalLM": ModelSpec(
+        "hunyuan_moe", moe_families.hunyuan_moe_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "hunyuan"},
+    ),
+    "MiniMaxM2ForCausalLM": ModelSpec(
+        "minimax_m2", moe_families.minimax_m2_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "minimax"},
+    ),
+    # Ling 2.0: fused query_key_value checkpoint layout
+    "BailingMoeV2ForCausalLM": ModelSpec(
+        "ling_v2", moe_families.bailing_moe_v2_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "bailing"},
     ),
 }
 

@@ -1,11 +1,10 @@
 """Hand-written Hopper kernels: ctypes wrappers over `csrc/*.cu`.
 
 Each wrapper checks its inputs, allocates its output with `torch.empty`,
-launches on PyTorch's current stream and counts its launches in a plain
-integer (K4 and K5: `ragged_paged_attention_cuda.launches` and
-`ragged_paged_attention_quant_cuda.launches`; K6 and K7:
-`paged_mla_attention_cuda.launches` and
-`paged_mla_attention_quant_cuda.launches`; K1-K3: the module integers
-`flash_attention.launches_fwd`, `launches_dq`, `launches_dkv`). Kernels are
-built on first use.
+launches on PyTorch's current stream. Each library's C dispatch counts the
+launches of each device kernel it issues without error: each module's
+`launch_counts()` reads them, keyed as its `KERNELS` names the device
+kernels, `kernel_launches()` sums them by kernel (K1-K7) and
+`reset_launch_counts()` sets them to 0. Kernels are built on
+first use.
 """

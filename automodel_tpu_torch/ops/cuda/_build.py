@@ -6,7 +6,8 @@ headers it includes and the flags, so an edited source or header rebuilds
 and an unchanged one is reused. The libraries have
 a plain C interface: no PyTorch headers, so a build takes seconds. ptxas's
 resource report (registers, shared memory, spills) is kept beside each
-library as `<stem>-<hash>.log`.
+library as `<stem>-<hash>.log`. Each library's C dispatch counts the
+launches of each device kernel it issues; `read_counts` reads them.
 """
 
 from __future__ import annotations
@@ -88,3 +89,14 @@ def load_library(source: str) -> ctypes.CDLL:
         (path,) = build(source)
         lib = _loaded[source] = ctypes.CDLL(str(path))
     return lib
+
+
+def read_counts(fn) -> list[int]:
+    """The launch counters of a library's `<prefix>_launch_counts(out, n)`
+    (which writes the first n into out and returns how many there are)."""
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn(None, 0)
+    out = (ctypes.c_longlong * n)()
+    fn(out, n)
+    return list(out)

@@ -20,12 +20,12 @@ The input dtype picks the route, `route(dtype)`: bfloat16 runs K1-K3 on the
 tensor cores (`mma.sync`), float32 on the CUDA cores, whose fp32 products
 keep the fp32 results within ~1e-6 of the plain versions (an fp32 `mma`
 would be TF32). `KERNELS` names each route's device kernels, as a profiler
-shows them.
+shows them; `launch_counts()` gives the launches of each, as the library's
+C dispatch counts them.
 
 The plain versions of the same functions are
 `automodel_tpu_torch.ops.flash_attention.flash_attention_ref` (forward) and
-`flash_attention_bwd_ref` (backward). Each wrapper counts its launches in a
-module-level integer: `launches_fwd`, `launches_dq`, `launches_dkv`.
+`flash_attention_bwd_ref` (backward).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from automodel_tpu_torch.ops.cuda._build import load_library
+from automodel_tpu_torch.ops.cuda._build import load_library, read_counts
 
 SOURCE = "flash_attention.cu"
 # (q/k head dim, v head dim) of each instantiation: the tiny recipe's,
@@ -55,9 +55,10 @@ KERNELS = {
     "fma": ("fwd_kernel<", "dq_kernel<", "dkv_kernel<"),
 }
 
-launches_fwd = 0
-launches_dq = 0
-launches_dkv = 0
+# the kernels of the C dispatch's launch counters, in their order (K1, K3,
+# K2 on the tensor cores, then on the CUDA cores), each at every HEAD_DIMS pair
+_COUNTED = (KERNELS["mma"][0], KERNELS["mma"][2], KERNELS["mma"][1],
+            KERNELS["fma"][0], KERNELS["fma"][2], KERNELS["fma"][1])
 
 
 def _lib() -> ctypes.CDLL:
@@ -75,6 +76,34 @@ def _lib() -> ctypes.CDLL:
         lib.fa_error_string.argtypes = [ctypes.c_int]
         lib.fa_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch_counts(by_head_dims: bool = False, lib=None) -> dict:
+    """Launches of each device kernel since the counters were last reset,
+    as the library's C dispatch counts them (each launch issued without
+    error), keyed as `KERNELS` names the kernels; with `by_head_dims`,
+    keyed (name, (D, Dv)) for every pair of `HEAD_DIMS`. `lib`: the
+    library to read (the built one by default, built on first use)."""
+    counts = read_counts((lib or _lib()).fa_launch_counts)
+    keyed = {(name, dims): counts[i * len(HEAD_DIMS) + j]
+             for i, name in enumerate(_COUNTED) for j, dims in enumerate(HEAD_DIMS)}
+    if by_head_dims:
+        return keyed
+    return {name: sum(counts[i * len(HEAD_DIMS):(i + 1) * len(HEAD_DIMS)])
+            for i, name in enumerate(_COUNTED)}
+
+
+def kernel_launches(lib=None) -> dict:
+    """K1's, K2's and K3's launches since the counters were last reset, on
+    either route and at every head-dim pair, from `launch_counts()`."""
+    counts = launch_counts(lib=lib)
+    return {name: counts[KERNELS["mma"][i]] + counts[KERNELS["fma"][i]]
+            for i, name in enumerate(("K1", "K2", "K3"))}
+
+
+def reset_launch_counts(lib=None) -> None:
+    """Sets `launch_counts()`'s counters to 0."""
+    (lib or _lib()).fa_reset_launch_counts()
 
 
 def route(dtype: torch.dtype) -> str:
@@ -108,6 +137,26 @@ def check_supported(q, k, v):
         raise NotImplementedError(
             f"flash attention kernels: {what} is not one of the instantiated "
             f"(q/k, v) pairs {HEAD_DIMS}")
+
+
+def padded_head_dims(D: int, Dv: int) -> tuple:
+    """The instantiated (q/k, v) pair that K1-K3 run a (D, Dv) head at: the
+    smallest with q/k >= D and v >= Dv (8 -> 16, 32 -> 64, 96 -> 128,
+    (64, 96) -> (128, 128)). The caller zero-pads q and k to the first, v
+    to the second, as the Pallas entry pads every head dim to 128 lanes:
+    the pad lanes add zero logits and zero value columns. Raises
+    NotImplementedError above 256."""
+    fits = [p for p in HEAD_DIMS if p[0] >= D and p[1] >= Dv]
+    if not fits:
+        raise NotImplementedError(
+            f"flash attention kernels: head dims q/k {D}, v {Dv} exceed every "
+            f"instantiated (q/k, v) pair {HEAD_DIMS}")
+    return min(fits, key=sum)
+
+
+def pad_head_dim(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x zero-padded on its last dim to n (x itself when it is n wide)."""
+    return x if x.shape[-1] == n else F.pad(x, (0, n - x.shape[-1])).contiguous()
 
 
 def _check(tensors: dict, q):
@@ -255,7 +304,6 @@ def flash_fwd_cuda(q, k, v, segment_ids=None, *, scale: float,
     (B, S, Hq, Dv) in q's dtype and lse (B, Hq, S) fp32, EMPTY_LSE on fully
     masked rows. `masks`, when given (`mask_args`'s), replaces the mask
     keywords."""
-    global launches_fwd
     check_supported(q, k, v)
     _check(dict(q=q, k=k, v=v), q)
     code, window, ints = masks or mask_args(
@@ -272,7 +320,6 @@ def flash_fwd_cuda(q, k, v, segment_ids=None, *, scale: float,
         err = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              *_ptrs(ints), out.data_ptr(), lse.data_ptr(), *dims)
     _raise_on(err, lib, "forward")
-    launches_fwd += 1
     return out, lse
 
 
@@ -283,7 +330,6 @@ def flash_dq_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
                   masks: Masks | None = None):
     """K2 on `route(q.dtype)`: dq (B, S, Hq, D) in q's dtype from dout
     (B, S, Hq, Dv) in q's dtype and the fp32 (B, Hq, S) lse and delta."""
-    global launches_dq
     check_supported(q, k, v)
     _check(dict(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta), q)
     code, window, ints = masks or mask_args(
@@ -300,7 +346,6 @@ def flash_dq_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
             lse.data_ptr(), delta.data_ptr(), *_ptrs(ints), dq.data_ptr(),
             *dims)
     _raise_on(err, lib, "dq")
-    launches_dq += 1
     return dq
 
 
@@ -311,7 +356,6 @@ def flash_dkv_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
                    masks: Masks | None = None):
     """K3 on `route(q.dtype)`: (dk, dv), (B, T, Hkv, D) and (B, T, Hkv, Dv)
     in k's dtype; inputs as K2's."""
-    global launches_dkv
     check_supported(q, k, v)
     _check(dict(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta), q)
     code, window, ints = masks or mask_args(
@@ -329,5 +373,4 @@ def flash_dkv_cuda(q, k, v, dout, lse, delta, segment_ids=None, *,
             lse.data_ptr(), delta.data_ptr(), *_ptrs(ints), dk.data_ptr(),
             dv.data_ptr(), *dims)
     _raise_on(err, lib, "dk/dv")
-    launches_dkv += 1
     return dk, dv

@@ -10,7 +10,10 @@ combine (`mla_split_kernel`, `mla_combine_kernel`; instantiated for bf16
 pages in K6, int8 pages in K7), float32 queries the CUDA-core `mla_kernel`,
 whose blocks each take `head_tile(n, r)` heads of a row (all n up to
 n * r = 16384; DeepSeek-V3's 128 heads at r 512 take 4 blocks a row).
-`KERNELS` names each route's device kernels, as a profiler shows them.
+`KERNELS` names each kernel's device kernels on each route, as a profiler
+shows them; `launch_counts()` gives the launches of each, as the library's
+C dispatch counts them (the combine kernel's of K6 and K7 together: they
+share it).
 
 The plain version of both is
 `automodel_tpu_torch.ops.paged_attention.ragged_paged_mla_attention_ref`.
@@ -22,7 +25,7 @@ import ctypes
 
 import torch
 
-from automodel_tpu_torch.ops.cuda._build import load_library
+from automodel_tpu_torch.ops.cuda._build import load_library, read_counts
 from automodel_tpu_torch.ops.cuda.ragged_paged_attention import (
     DTYPE_CODES,
     check_on_card,
@@ -33,11 +36,45 @@ SOURCE = "paged_mla_attention.cu"
 
 _ROUTES = {torch.bfloat16: "mma", torch.float32: "fma"}
 #: K6's and K7's device kernels on each route: substrings of the names a
-#: profiler shows
+#: profiler shows, template arguments included (the two kernels share the
+#: templates and differ in the page type; the combine is one kernel)
 KERNELS = {
-    "mma": ("mla_split_kernel<", "mla_combine_kernel<"),
-    "fma": ("mla_kernel<",),
+    "K6": {
+        "mma": ("mla_split_kernel<__nv_bfloat16,", "mla_combine_kernel<"),
+        "fma": ("mla_kernel<float, float,",),
+    },
+    "K7": {
+        "mma": ("mla_split_kernel<signed char,", "mla_combine_kernel<"),
+        "fma": ("mla_kernel<float, signed char,",),
+    },
 }
+
+
+# the kernels of the C dispatch's launch counters, in their order
+_COUNTED = (KERNELS["K6"]["mma"][0], KERNELS["K7"]["mma"][0], KERNELS["K6"]["mma"][1],
+            KERNELS["K6"]["fma"][0], KERNELS["K7"]["fma"][0])
+
+
+def launch_counts(lib=None) -> dict:
+    """Launches of each device kernel since the counters were last reset,
+    as the library's C dispatch counts them (each launch issued without
+    error), keyed as `KERNELS` names the kernels. `lib`: the library to
+    read (the built one by default, built on first use)."""
+    return dict(zip(_COUNTED, read_counts((lib or _lib()).mla_launch_counts)))
+
+
+def kernel_launches(lib=None) -> dict:
+    """K6's and K7's launches since the counters were last reset, from
+    `launch_counts()`: each call launches its route's first device kernel
+    once."""
+    counts = launch_counts(lib)
+    return {name: sum(counts[r[0]] for r in routes.values())
+            for name, routes in KERNELS.items()}
+
+
+def reset_launch_counts(lib=None) -> None:
+    """Sets `launch_counts()`'s counters to 0."""
+    (lib or _lib()).mla_reset_launch_counts()
 
 
 def route(dtype: torch.dtype) -> str:
@@ -166,11 +203,8 @@ def paged_mla_attention_cuda(
                 *ptrs, T, n, r, dr, ps, P, float(scale),
                 DTYPE_CODES[q_abs.dtype], stream)
     _raise_on(lib, err, "paged MLA attention")
-    paged_mla_attention_cuda.launches += 1
     return out
 
-
-paged_mla_attention_cuda.launches = 0
 
 
 def paged_mla_attention_quant_cuda(
@@ -208,8 +242,5 @@ def paged_mla_attention_quant_cuda(
                 *ptrs, T, n, r, dr, ps, P, float(scale),
                 DTYPE_CODES[q_abs.dtype], stream)
     _raise_on(lib, err, "quantized paged MLA attention")
-    paged_mla_attention_quant_cuda.launches += 1
     return out
 
-
-paged_mla_attention_quant_cuda.launches = 0

@@ -14,7 +14,9 @@ from it. Both routes take a sliding window (`window`, a positive int, or
 None for none) and sinks (`sinks`, a (Hq,) float32 logit per query head),
 which the Pallas kernels refuse: the split route skips the splits and pages
 wholly below the window and folds the sinks into its combine. `KERNELS`
-names each kernel's device kernels on each route, as a profiler shows them.
+names each kernel's device kernels on each route, as a profiler shows them;
+`launch_counts()` gives the launches of each, as the library's C dispatch
+counts them.
 
 The plain version of both is
 `automodel_tpu_torch.ops.paged_attention.ragged_paged_attention_ref`.
@@ -26,7 +28,7 @@ import ctypes
 
 import torch
 
-from automodel_tpu_torch.ops.cuda._build import load_library
+from automodel_tpu_torch.ops.cuda._build import load_library, read_counts
 
 SOURCE = "ragged_paged_attention.cu"
 
@@ -49,6 +51,33 @@ KERNELS = {
         "fma": ("gqa_kernel<float, signed char>",),
     },
 }
+
+
+# the kernels of the C dispatch's launch counters, in their order
+_COUNTED = (KERNELS["K4"]["fma"][0], KERNELS["K5"]["fma"][0],
+            *KERNELS["K4"]["mma"], *KERNELS["K5"]["mma"])
+
+
+def launch_counts(lib=None) -> dict:
+    """Launches of each device kernel since the counters were last reset,
+    as the library's C dispatch counts them (each launch issued without
+    error), keyed as `KERNELS` names the kernels. `lib`: the library to
+    read (the built one by default, built on first use)."""
+    return dict(zip(_COUNTED, read_counts((lib or _lib()).rpa_launch_counts)))
+
+
+def kernel_launches(lib=None) -> dict:
+    """K4's and K5's launches since the counters were last reset, from
+    `launch_counts()`: each call launches its route's first device kernel
+    once."""
+    counts = launch_counts(lib)
+    return {name: sum(counts[r[0]] for r in routes.values())
+            for name, routes in KERNELS.items()}
+
+
+def reset_launch_counts(lib=None) -> None:
+    """Sets `launch_counts()`'s counters to 0."""
+    (lib or _lib()).rpa_reset_launch_counts()
 
 
 def route(dtype: torch.dtype) -> str:
@@ -213,11 +242,8 @@ def ragged_paged_attention_cuda(
                 *ptrs, T, Hq, Hkv, D, Dv, ps, P, float(scale),
                 float(soft_cap or 0.0), win, DTYPE_CODES[q.dtype], stream)
     _raise_on(lib, err, "ragged paged attention")
-    ragged_paged_attention_cuda.launches += 1
     return out
 
-
-ragged_paged_attention_cuda.launches = 0
 
 
 def ragged_paged_attention_quant_cuda(
@@ -261,8 +287,5 @@ def ragged_paged_attention_quant_cuda(
                 *ptrs, T, Hq, Hkv, D, Dv, ps, P, float(scale),
                 float(soft_cap or 0.0), win, DTYPE_CODES[q.dtype], stream)
     _raise_on(lib, err, "quantized ragged paged attention")
-    ragged_paged_attention_quant_cuda.launches += 1
     return out
 
-
-ragged_paged_attention_quant_cuda.launches = 0

@@ -12,11 +12,15 @@ the forward saves (out, lse); the backward forms
 delta = rowsum(dO * O) - dlse in torch and runs the dq and dk/dv passes. The
 sink rescale and d(sinks) stay in torch, as in the JAX wrapper. On CUDA
 tensors the passes are the hand-written kernels K1-K3
-(`ops/cuda/flash_attention.py`), which take every mask and are instantiated
-for q/k and v head dims of (16, 16), (64, 64), (128, 128), (256, 256) and
-MLA's (192, 128): other head dims raise NotImplementedError; on CPU tensors
-they are the plain versions below, which cover every mask and head dim.
-delta and dv run over v's head dim, dq and dk over q/k's.
+(`ops/cuda/flash_attention.py`, through `kernels_forward` and
+`kernels_backward`), which take every mask and are instantiated for q/k and
+v head dims of (16, 16), (64, 64), (128, 128), (256, 256) and MLA's
+(192, 128): a head of other dims up to 256 runs at the smallest of these
+that holds it, q and k zero-padded to its q/k dim and v to its v dim (the
+Pallas entry pads every head dim to 128 lanes), and its outputs and
+gradients are sliced back; above 256 raises NotImplementedError. On CPU
+tensors the passes are the plain versions below, which cover every mask and
+head dim. delta and dv run over v's head dim, dq and dk over q/k's.
 """
 
 from __future__ import annotations
@@ -196,6 +200,36 @@ def _mask_of(B, S, T, aux, opts) -> torch.Tensor:
                       qseg=qseg, kpos=kpos, kseg=kseg, has_window=opts[1] is not None)
 
 
+def kernels_forward(q, k, v, *, scale: float, soft_cap, masks):
+    """K1 on q (B, S, Hq, D), k (B, T, Hkv, D), v (B, T, Hkv, Dv) at any
+    head dims up to 256: zero-padded to `padded_head_dims`, the output
+    sliced back to Dv. `scale` is the caller's, from the true D; `masks`
+    is `mask_args`'s. Returns (out, raw lse)."""
+    from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
+
+    Dp, Dvp = fa_cuda.padded_head_dims(q.shape[-1], v.shape[-1])
+    out, lse = fa_cuda.flash_fwd_cuda(
+        fa_cuda.pad_head_dim(q, Dp), fa_cuda.pad_head_dim(k, Dp),
+        fa_cuda.pad_head_dim(v, Dvp), scale=scale, soft_cap=soft_cap, masks=masks)
+    return out[..., :v.shape[-1]].contiguous(), lse
+
+
+def kernels_backward(q, k, v, do, lse, delta, *, scale: float, soft_cap, masks):
+    """K2 and K3 at any head dims up to 256, padded as `kernels_forward`:
+    (dq, dk, dv) sliced back to q's, k's and v's head dims."""
+    from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
+
+    D, Dv = q.shape[-1], v.shape[-1]
+    Dp, Dvp = fa_cuda.padded_head_dims(D, Dv)
+    qp, kp = fa_cuda.pad_head_dim(q, Dp), fa_cuda.pad_head_dim(k, Dp)
+    vp, dop = fa_cuda.pad_head_dim(v, Dvp), fa_cuda.pad_head_dim(do, Dvp)
+    kw = dict(scale=scale, soft_cap=soft_cap, masks=masks)
+    dq = fa_cuda.flash_dq_cuda(qp, kp, vp, dop, lse, delta, **kw)
+    dk, dv = fa_cuda.flash_dkv_cuda(qp, kp, vp, dop, lse, delta, **kw)
+    return (dq[..., :D].contiguous(), dk[..., :D].contiguous(),
+            dv[..., :Dv].contiguous())
+
+
 class _Flash(torch.autograd.Function):
     """(q, k, v, sinks) -> (out, lse_pub), the JAX `_flash` custom VJP."""
 
@@ -211,8 +245,8 @@ class _Flash(torch.autograd.Function):
             # the kernels' mask arguments (positions, their granule ranges),
             # made once for K1 here and K2, K3 in the backward
             ctx.cuda_masks = fa_cuda.mask_args(q, k, **_kernel_kwargs(aux, opts))
-            out, lse_raw = fa_cuda.flash_fwd_cuda(
-                q, k, v, scale=scale, soft_cap=soft_cap, masks=ctx.cuda_masks)
+            out, lse_raw = kernels_forward(q, k, v, scale=scale, soft_cap=soft_cap,
+                                           masks=ctx.cuda_masks)
             mask = None
         else:
             mask = _mask_of(B, S, T, aux, opts)
@@ -245,12 +279,9 @@ class _Flash(torch.autograd.Function):
         delta = (delta - dlse.float()).contiguous()
         do = dout32.to(q.dtype)
         if q.is_cuda:
-            from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
-
-            do = do.contiguous()
-            kw = dict(scale=scale, soft_cap=soft_cap, masks=ctx.cuda_masks)
-            dq = fa_cuda.flash_dq_cuda(q, k, v, do, lse_res, delta, **kw)
-            dk, dv = fa_cuda.flash_dkv_cuda(q, k, v, do, lse_res, delta, **kw)
+            dq, dk, dv = kernels_backward(
+                q, k, v, do.contiguous(), lse_res, delta, scale=scale,
+                soft_cap=soft_cap, masks=ctx.cuda_masks)
         else:
             dq, dk, dv = flash_attention_bwd_ref(
                 q, k, v, do, lse_res, delta, mask, scale=scale,
@@ -283,8 +314,8 @@ def flash_attention(
     `sinks` is a (Hq,) vector of sink logits. With `return_lse=True` returns
     (out, lse), lse (B, Hq, S) fp32 (NEG_INF on fully masked rows) and
     differentiable. Raises NotImplementedError for q/k head dims that differ
-    or Hq not a multiple of Hkv, and on CUDA tensors for head dims the
-    kernels do not cover: nothing falls back to another implementation."""
+    or Hq not a multiple of Hkv, and on CUDA tensors for head dims above
+    256: nothing falls back to another implementation."""
     B, S, Hq, Dq = q.shape
     _, T, Hkv, Dk = k.shape
     if Dq != Dk:

@@ -26,7 +26,10 @@ one JSON line each:
    causal) in bf16 (K1-K3 on the tensor cores) and fp32 (CUDA cores),
    plus a packed-segment case, an S that is not a multiple of the tile and
    head dim 64 in bf16; timed beside their operations bound, the plain
-   versions and `scaled_dot_product_attention` as a yardstick;
+   versions and `scaled_dot_product_attention` as a yardstick; and, in bf16
+   and fp32, the head dims they run padded to an instantiated pair (8 at
+   the smoke YAMLs' shapes, 32, 96, (64, 96)), through the autograd
+   function's `kernels_forward` / `kernels_backward`;
 4. serve / serve_int8: the dense main path (`ServingEngine.serve_batch`) at
    the full width and depth of Llama-3-8B with random weights: 16 requests
    of 64-900 prompt tokens arriving every 2 steps, 32 greedy tokens each,
@@ -35,12 +38,12 @@ one JSON line each:
    two; a profile of 10 more steps of the same traffic follows each
    (device time by kernel, idle share);
 5. serve_mla / serve_mla_int8: the MLA + MoE main path, Moonlight-16B-A3B
-   at full width cut to 9 of its 27 layers, bf16, random weights from seed 0, on
+   at full width cut to 4 of its 27 layers, bf16, random weights from seed 0, on
    the same traffic, on the fp pool (K6) and on the int8 pool (K7), each
    with its profile;
    serve_gemma2 / serve_gemma2_int8: the windowed main path,
-   google/gemma-2-2b at full width and all 26 layers (window 4096 and
-   global, alternating), bf16, 16 requests of 4200-7800 prompt tokens, 32
+   google/gemma-2-2b at full width cut to 10 of its 26 layers (window 4096
+   and global, alternating), bf16, 16 requests of 4200-7800 prompt tokens, 32
    greedy tokens each, on the fp pool (K4 on every layer of every step,
    the global layers with no window) and the int8 pool (K5), no plain
    attention call, with a profile of the fp pool's steps;
@@ -52,6 +55,14 @@ one JSON line each:
    layer of every step at 128 and 64 heads, each with its profile and a
    few steps of the engine with every kernel call held to its plain
    version;
+   serve_qwen3_moe / serve_qwen3_moe_int8 / serve_gpt_oss / serve_mixtral:
+   the GQA MoE main path at published widths, bf16, random weights from
+   seed 0, on serve's traffic: Qwen3-30B-A3B at all 48 layers (128
+   experts, G 8 x D 128) on the fp (K4) and int8 (K5) pools, gpt-oss-20b
+   at all 24 layers (K4 with window 128 and sinks on the sliding layers,
+   sinks alone on the full ones), Mixtral-8x7B cut to 8 of 32 layers;
+   each with its profile and a few steps of the engine with every kernel
+   call held to its plain version;
    moe_sync: one Moonlight MoE block (gate, grouped expert products,
    shared experts, combine) in bf16 at full width under
    `torch.cuda.set_sync_debug_mode("error")`: it reads nothing to the host;
@@ -130,11 +141,29 @@ one JSON line each:
    train_dsv3_mtp: the training CLI on DeepSeek-V3's published widths with
    yarn and the MTP head, cut to its 2 first (dense) layers, seq 2048, 5
    steps: finite losses, the main and MTP losses apart, K1-K3 at <192, 128>
-   on the 2 layers and the MTP block (K1 twice under full remat).
+   on the 2 layers and the MTP block (K1 twice under full remat);
+16. train_qwen3_moe / train_gpt_oss: the training CLI at Qwen3-30B-A3B's
+   and gpt-oss-20b's published widths cut to 4 and 2 layers, seq 4096,
+   bf16, full remat, 5 steps: finite losses and `moe_load_imbalance`, K1-K3
+   counted, all at the heads' <128, 128> and <64, 64>, one profiled step;
+   train_gpt_oss_check: fp32, 2 layers (window 128 and full, random
+   sinks), one accumulated step with the kernels and with the plain
+   attention: losses and gradients, the sinks' included, agree; smoke_families: the eight GQA MoE families' smoke
+   YAMLs (head dim 8, which K1-K3 run padded to 16) through the CLI, 3
+   steps each with the kernels and with the plain attention: the curves
+   agree, and a control run with the kernels at the padded dim's softmax
+   scale must not.
 
 The paged kernel phase also holds fp32 K6 and K7 at DeepSeek-V3's 128 and
 Kimi-K2's 64 heads x r 512 to their plain versions, timed beside their
-bound.
+bound; the kernel phase times K4 at Qwen3-30B-A3B's heads too, and the
+flash phase K1-K3 at gpt-oss-20b's (64 / 8 heads of 64, window 128).
+
+Launch counts: each library's C dispatch counts the launches of every
+device kernel it issues without error (`launch_counts()`, summed by kernel
+in `kernel_launches()`); the main-path runs set every count to 0 just
+before they start and read them just after, and the kernels line gives
+those counts.
 
 The build line carries ptxas's registers and spills of every kernel, and of
 the tensor-core K1-K7 kernels by name with their dynamic shared memory.
@@ -183,6 +212,7 @@ from automodel_tpu_torch.models.llm import decoder
 from automodel_tpu_torch.models.llm.families import gemma2_config, llama_config
 from automodel_tpu_torch.models.moe_lm import decoder as moe_decoder
 from automodel_tpu_torch.models.moe_lm.families import deepseek_v3_moe_config
+from automodel_tpu_torch.models.registry import get_model_spec
 from automodel_tpu_torch.moe.layer import init_moe, moe_forward
 from automodel_tpu_torch.ops import flash_attention as fa
 from automodel_tpu_torch.ops import paged_attention as paged_ops
@@ -251,10 +281,11 @@ MOONLIGHT = {
 }
 # Moonlight's absorbed-MLA widths: heads, latent rank, rope dim
 MOONLIGHT_MLA = (16, 512, 64)
-# serve_mla: Moonlight cut 27 -> 9 layers (1 dense + 8 MoE) since the
-# DeepSeek-V3 and Kimi-K2 serve phases came: the script ran past ~780 s,
-# and those phases run the same MLA + MoE engine path at wider widths
-MLA_SERVE_LAYERS = 9
+# serve_mla: Moonlight cut 27 -> 9 layers (1 dense + 8 MoE) when the
+# DeepSeek-V3 and Kimi-K2 serve phases came, and 9 -> 4 (1 dense + 3 MoE)
+# when the GQA MoE ones came: the script ran past ~780 s each time, and
+# those phases run the same MLA + MoE engine path at wider widths
+MLA_SERVE_LAYERS = 4
 # DeepSeek-V3 (https://huggingface.co/deepseek-ai/DeepSeek-V3/blob/main/config.json)
 # and Kimi-K2 (https://huggingface.co/moonshotai/Kimi-K2-Instruct/blob/main/config.json),
 # as the model-configs catalog gives them: MLA at 128 and 64 heads (q rank
@@ -312,8 +343,12 @@ SERVE_GEMMA2 = ServingConfig(
     page_size=16, num_pages=8192, max_slots=16, pages_per_slot=512,
     token_budget=512, prefill_chunk=480,
 )
-# ... whose prompts of 4200-7800 tokens are longer than the 4096 window
+# ... whose prompts of 4200-7800 tokens are longer than the 4096 window;
+# cut 26 -> 10 layers (5 windowed, 5 global) when the GQA MoE
+# serve phases came: the script ran past ~780 s, and K4 / K5 take the same
+# windows on every windowed layer
 GEMMA2_SERVE_PROMPTS = (4200, 7800)
+GEMMA2_SERVE_LAYERS = 10
 # engine_window_phase: Gemma-2-2B widths, 2 layers, window 512, prompts
 # longer than it
 ENGINE_WINDOW, ENGINE_WINDOW_PROMPTS = 512, (900, 700, 600)
@@ -372,13 +407,36 @@ WINDOW_KERNEL_CASES = (
     ("gemma2_2b_window_4096", (8, 4, 256), (7800, 8192), 4096, 50.0, False, True),
     ("gemma2_2b_global", (8, 4, 256), (7800, 8192), 0, 50.0, False, True),
 )
-# every paged-attention kernel's wrapper, whose `launches` the serve runs read
-PAGED_KERNELS = {
-    "K4": ragged_paged_attention_cuda,
-    "K5": ragged_paged_attention_quant_cuda,
-    "K6": paged_mla_attention_cuda,
-    "K7": paged_mla_attention_quant_cuda,
+# the flash attention kernels and the paged-attention ones
+FLASH, PAGED = ("K1", "K2", "K3"), ("K4", "K5", "K6", "K7")
+# each paged kernel's device kernels on the bf16 route, which the libraries'
+# C dispatch counts (K6 and K7 share the combine)
+PAGED_DEVICE_KERNELS = {
+    "K4": rpa_cuda.KERNELS["K4"]["mma"], "K5": rpa_cuda.KERNELS["K5"]["mma"],
+    "K6": mla_cuda.KERNELS["K6"]["mma"], "K7": mla_cuda.KERNELS["K7"]["mma"],
 }
+
+
+def reset_counts() -> None:
+    """Sets every kernel library's launch counts to 0."""
+    for lib in (fa_cuda, rpa_cuda, mla_cuda):
+        lib.reset_launch_counts()
+
+
+def kernel_launches(*names) -> dict:
+    """The launches of K1-K7 (or of `names`) since the counts were last set
+    to 0, as the libraries' C dispatch counts them: each call's first device
+    kernel on its route, K1-K3 at every head-dim pair."""
+    counts = {**fa_cuda.kernel_launches(), **rpa_cuda.kernel_launches(),
+              **mla_cuda.kernel_launches()}
+    return {k: counts[k] for k in names or counts}
+
+
+def paged_counts(keys) -> dict:
+    """The launches so far of the paged kernels' device kernels `keys`
+    (`KERNELS` names), as their library's C dispatch counts them."""
+    counts = {**rpa_cuda.launch_counts(), **mla_cuda.launch_counts()}
+    return {k: counts[k] for k in keys}
 
 # K1-K3 against their plain versions, as a share of the largest magnitude of
 # the plain result. fp32: only the summation order differs (online tiles vs
@@ -400,10 +458,26 @@ FA_GEMMA2_SHAPE = dict(B=1, S=8192, Hq=8, Hkv=4, D=256, Dv=256)
 FA_GEMMA2_MASKS = dict(window=4096, soft_cap=50.0, scale=256 ** -0.5)
 FA_GEMMA3_SHAPE = dict(B=1, S=4096, Hq=4, Hkv=1, D=256, Dv=256)
 FA_GEMMA3_MASKS = dict(window=512, scale=256 ** -0.5)
+# gpt-oss-20b's attention on a sliding layer (64 q / 8 kv heads of 64, window
+# 128; its sinks are applied in torch, outside K1-K3) at 4096 tokens
+FA_GPT_OSS_SHAPE = dict(B=1, S=4096, Hq=64, Hkv=8, D=64, Dv=64)
+FA_GPT_OSS_MASKS = dict(window=128)
 # Mistral-7B's heads (32/8, D 128); its own window is 4096, here 1024 so that
 # the window masks at 4096 tokens, where the plain versions' (B, H, S, T)
 # fp32 intermediates still fit beside the kernels' inputs
 FA_MISTRAL_MASKS = dict(window=1024)
+# K1-K3 at head dims with no instantiation of their own, run padded through
+# `kernels_forward` / `kernels_backward`: head dim 8 (-> 16) at the smoke
+# YAMLs' shapes (qwen3_moe_ep: 8 x 256 tokens, 8 / 4 heads; gpt_oss: 8 x 32
+# tokens, 4 / 2 heads, window 16), then 32 (-> 64), 96 (-> 128) and (64, 96)
+# (-> (128, 128)) at 1024 tokens and 8 / 4 heads; each in bf16 and fp32
+FA_PADDED_CASES = (
+    (dict(B=8, S=256, Hq=8, Hkv=4, D=8, Dv=8), {}),
+    (dict(B=8, S=32, Hq=4, Hkv=2, D=8, Dv=8), dict(window=16)),
+    (dict(B=1, S=1024, Hq=8, Hkv=4, D=32, Dv=32), {}),
+    (dict(B=1, S=1024, Hq=8, Hkv=4, D=96, Dv=96), {}),
+    (dict(B=1, S=1024, Hq=8, Hkv=4, D=64, Dv=96), {}),
+)
 
 # Gemma-2-2B (google/gemma-2-2b, config.json) and Gemma-3-1B
 # (google/gemma-3-1b-pt, config.json), as the model-configs catalog gives
@@ -454,7 +528,8 @@ MOE_TRAIN_TOKEN_IDS = 4096
 # one step of 2 microbatches of this many tokens, kernels vs plain
 # attention; the tolerances of the dense check
 MOE_CHECK_SEQ = 2048
-# the <192, 128> instantiations of K1-K3 in the profiler's kernel names
+# the <192, 128> instantiations of K1-K3 in the profiler's kernel names (for
+# their device time; their launches come from the library's counters)
 MLA_FA_KERNELS = {"K1": r"fwd_mma_kernel<192,\s*128,", "K2": r"dq_mma_kernel<192,\s*128,",
                   "K3": r"dkv_mma_kernel<192,\s*128,"}
 # ... and the <256, 256> ones (Gemma-2, Gemma-3), with and without the
@@ -571,11 +646,11 @@ def step_rows(seed: int = 0):
     return pt, pos, N, ps
 
 
-def k4_inputs(dtype, seed: int = 0):
-    """A serve step's K4 call at Llama-3-8B's attention shapes (`step_rows`;
-    Hq 32 / Hkv 8 / D 128)."""
+def k4_inputs(dtype, seed: int = 0, heads=(32, 8, 128)):
+    """A serve step's K4 call (`step_rows`) at `heads` (Hq, Hkv, D):
+    Llama-3-8B's attention shapes by default."""
     pt, pos, N, ps = step_rows(seed)
-    Hq, Hkv, D = 32, 8, 128
+    Hq, Hkv, D = heads
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(64, Hq, D, generator=gen, device="cuda").to(dtype)
     kp = torch.randn(N + 1, ps, Hkv, D, generator=gen, device="cuda").to(dtype)
@@ -623,11 +698,14 @@ def k4_bound(q, kp, vp, pt, pos):
 def kernel_phase(flush) -> dict:
     """K4 against its plain version on both routes, bf16 (split-KV on the
     tensor cores) and fp32 (CUDA cores), with and without the soft cap, pad
-    rows 0; returns the bf16 (main-path dtype) entry for the kernels
-    line."""
+    rows 0, at Llama-3-8B's heads and (bf16) at Qwen3-30B-A3B's (32 q / 4 kv
+    of 128: G 8); returns the bf16 (main-path dtype) entries for the kernels
+    line, keyed "llama3_8b" and "qwen3_moe"."""
     checks = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        q, kp, vp, pt, pos = k4_inputs(dtype)
+    for model, heads, dtype in (("llama3_8b", (32, 8, 128), torch.bfloat16),
+                                ("llama3_8b", (32, 8, 128), torch.float32),
+                                ("qwen3_moe", (32, 4, 128), torch.bfloat16)):
+        q, kp, vp, pt, pos = k4_inputs(dtype, heads=heads)
         scale = q.shape[-1] ** -0.5
         got = ragged_paged_attention_cuda(q, kp, vp, pt, pos, scale=scale)
         torch.cuda.synchronize()
@@ -646,6 +724,7 @@ def kernel_phase(flush) -> dict:
         bound_ms, bound_by, nbytes, ops = k4_bound(q, kp, vp, pt, pos)
         tol = K4_TOL[dtype]
         entry = {
+            "model": model, "heads": list(heads),
             "dtype": str(dtype).removeprefix("torch."),
             "route": rpa_cuda.route(dtype), "max_abs_err": err,
             "max_abs_err_soft_cap": err_cap, "tol": tol,
@@ -656,8 +735,9 @@ def kernel_phase(flush) -> dict:
         emit({"phase": "kernel", "kernel": "K4", **entry})
         if not (err <= tol and err_cap <= tol and pad_zero):
             raise AssertionError(f"K4 disagrees with its plain version: {entry}")
-        checks[dtype] = entry
-    return checks[torch.bfloat16]
+        if dtype == torch.bfloat16:
+            checks[model] = entry
+    return checks
 
 
 def int8_pages(gen, *shape):
@@ -972,6 +1052,10 @@ def fa_check_case(dtype, S, packed, flush, timed: bool, shape=None,
     q, k, v, dout, seg = fa_inputs(dtype, B, S, T, Hq, sh["Hkv"], D, sh["Dv"], packed)
     scale = masks.pop("scale", D ** -0.5)
     cap = masks.pop("soft_cap", None)
+    # the head dims K1-K3 run at: a pair that is not instantiated goes
+    # through the autograd function's padding (`kernels_forward` and
+    # `kernels_backward`) at the caller's scale
+    dims = fa_cuda.padded_head_dims(D, sh["Dv"])
     if cap is not None:
         # the unit-variance logits (at scale D^-0.5) spread over a quarter of
         # the cap, so the largest reach it and the cap bends them: a kernel
@@ -981,12 +1065,20 @@ def fa_check_case(dtype, S, packed, flush, timed: bool, shape=None,
     if masks.get("window"):  # the window masks pairs the causal mask keeps
         assert masks["window"] < S
     kw = dict(scale=scale, soft_cap=cap, **mkw)
-    out, lse = fa_cuda.flash_fwd_cuda(q, k, v, **kw)
+    padded = dims != (D, sh["Dv"])
+    if padded:
+        pkw = dict(scale=scale, soft_cap=cap, masks=fa_cuda.mask_args(q, k, **mkw))
+        out, lse = fa.kernels_forward(q, k, v, **pkw)
+    else:
+        out, lse = fa_cuda.flash_fwd_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
     out_ref, lse_ref = fa.flash_attention_ref(q, k, v, mask, scale=scale, soft_cap=cap)
     delta = (dout.float() * out_ref.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = fa_cuda.flash_dq_cuda(q, k, v, dout, lse_ref, delta, **kw)
-    dk, dv = fa_cuda.flash_dkv_cuda(q, k, v, dout, lse_ref, delta, **kw)
+    if padded:
+        dq, dk, dv = fa.kernels_backward(q, k, v, dout, lse_ref, delta, **pkw)
+    else:
+        dq = fa_cuda.flash_dq_cuda(q, k, v, dout, lse_ref, delta, **kw)
+        dk, dv = fa_cuda.flash_dkv_cuda(q, k, v, dout, lse_ref, delta, **kw)
     torch.cuda.synchronize()
     grads_ref = fa.flash_attention_bwd_ref(q, k, v, dout, lse_ref, delta, mask,
                                            scale=scale, soft_cap=cap)
@@ -1001,16 +1093,18 @@ def fa_check_case(dtype, S, packed, flush, timed: bool, shape=None,
         if not err <= tol * max(1.0, ref_max):
             raise AssertionError(
                 f"K1-K3 {name} disagrees with its plain version ({dtype}, "
-                f"S={S}, T={T}, D={D}, Dv={sh['Dv']}, packed={packed}, "
+                f"S={S}, T={T}, D={D}, Dv={sh['Dv']} run at {dims}, packed={packed}, "
                 f"masks={masks}, soft_cap={cap}): {err} > {tol} x {max(1.0, ref_max)}")
     pairs = int(mask.sum().item())  # unmasked (q, k) pairs per head
     entry = {"phase": "flash", "dtype": str(dtype).removeprefix("torch."),
              "route": fa_cuda.route(dtype), "shape": dict(sh, T=T),
+             "kernel_head_dims": list(dims),
              "packed_segments": packed, "masks": masks, "soft_cap": cap,
              "q_scaled_by": None if cap is None else cap / 4,
              "scale": scale, "unmasked_pairs_per_head": pairs,
              "causal_pairs_per_head": S * (S + 1) // 2, "tol": tol, "errors": errs}
     if timed:
+        assert not padded, "the timed cases run at instantiated head dims"
         del grads_ref, out_ref
         # the yardstick: the causal call for the unmasked cases, an explicit
         # boolean mask for the others (windows, segments, positions)
@@ -1128,9 +1222,11 @@ def flash_phase(flush) -> dict:
     Gemma-3-1B's at 4096 (MQA, window 512), Gemma-2's heads over packed
     documents with a window, a two-sided window, causal masking by
     position with T != S (ring-attention shaped), Mistral's heads with a
-    window; and Gemma-2's heads in fp32 at train_gemma_check's length.
-    Returns the timed bf16 entries for the kernels line, keyed "dense",
-    "mla", "gemma2", "gemma3" and the other windowed cases' names."""
+    window, gpt-oss-20b's heads with its 128-token window; Gemma-2's heads
+    in fp32 at train_gemma_check's length; and FA_PADDED_CASES, the head
+    dims K1-K3 run padded, in bf16 and fp32. Returns the timed bf16
+    entries for the kernels line, keyed "dense", "mla", "gemma2", "gemma3",
+    "gpt_oss" and the other windowed cases' names."""
     S = FA_SHAPE["S"]
     main = fa_check_case(torch.bfloat16, S, False, flush, timed=True)
     fa_check_case(torch.float32, S, False, flush, timed=False)
@@ -1153,6 +1249,7 @@ def flash_phase(flush) -> dict:
                                                    scale=256 ** -0.5)),
         "position_causal_ring": (4096, False, g2, dict(ring=True, scale=256 ** -0.5)),
         "mistral_window": (4096, False, FA_SHAPE, FA_MISTRAL_MASKS),
+        "gpt_oss": (4096, False, FA_GPT_OSS_SHAPE, FA_GPT_OSS_MASKS),
     }
     for name, (s_len, packed, shape, masks) in windowed.items():
         out[name] = fa_entries(fa_check_case(torch.bfloat16, s_len, packed, flush,
@@ -1162,6 +1259,10 @@ def flash_phase(flush) -> dict:
                   masks=dict(FA_GEMMA2_MASKS, window=GEMMA_CHECK_WINDOW))
     fa_check_case(torch.float32, 2048, False, flush, timed=False, shape=g2,
                   masks=dict(ring=True, window=700, scale=256 ** -0.5))
+    for shape, masks in FA_PADDED_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            fa_check_case(dtype, shape["S"], False, flush, timed=False, shape=shape,
+                          masks=masks)
     torch.cuda.empty_cache()
     return out
 
@@ -1211,17 +1312,19 @@ def serve_run(engine, cfg, card: str, phase: str, model: str, kernel: str,
     result)."""
     reqs = serve_traffic(cfg.vocab_size, lens=lens)
     torch.cuda.reset_peak_memory_stats()
-    for fn in PAGED_KERNELS.values():
-        fn.launches = 0
+    keys = PAGED_DEVICE_KERNELS[kernel]
+    reset_counts()
     with plain_calls_counted() as plain_calls:
         res = engine.serve_batch(reqs)
-    launches = {name: fn.launches for name, fn in PAGED_KERNELS.items()}
+    launches = kernel_launches(*PAGED)
+    counted = paged_counts(keys)
     stats = res["stats"]
     emit({
         "phase": phase, "card": card, "model": model, "setup_s": setup_s,
         "kv_cache_dtype": engine.serve_cfg.kv_cache_dtype,
         "prompt_tokens": list(lens), "stats": stats, "launches": launches,
         "launches_per_step": launches[kernel] / stats["steps"],
+        "device_kernel_launches_counted": counted,
         "plain_attention_calls": plain_calls,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     })
@@ -1231,12 +1334,13 @@ def serve_run(engine, cfg, card: str, phase: str, model: str, kernel: str,
         raise AssertionError(f"{phase}: not every request finished with 32 tokens")
     if any(not 0 <= t < cfg.vocab_size for o in res["outputs"] for t in o):
         raise AssertionError(f"{phase}: a generated token is outside the vocabulary")
-    want = {name: 0 for name in PAGED_KERNELS}
+    want = dict.fromkeys(PAGED, 0)
     want[kernel] = cfg.num_layers * stats["steps"]
-    if launches != want:
+    if launches != want or counted != dict.fromkeys(keys, want[kernel]):
         raise AssertionError(
-            f"{phase}: paged kernels launched {launches} in {stats['steps']} "
-            f"steps of {cfg.num_layers} layers; expected {want}")
+            f"{phase}: paged kernels launched {launches} (device kernels counted "
+            f"{counted}) in {stats['steps']} steps of {cfg.num_layers} layers; "
+            f"expected {want}")
     return launches[kernel], res
 
 
@@ -1299,14 +1403,14 @@ def serve_mla_phase(card: str) -> dict:
     launches["K6"], _ = serve_run(engine, cfg, card, "serve_mla", model, "K6", setup_s)
     # bf16 queries: K6 is the split kernel and its combine over bf16 pages
     profile_steps(engine, cfg, card, "serve_mla",
-                  mla_cuda.KERNELS[mla_cuda.route(torch.bfloat16)])
+                  mla_cuda.KERNELS["K6"][mla_cuda.route(torch.bfloat16)])
     del engine
     torch.cuda.empty_cache()
     engine = ServingEngine(params, cfg, dataclasses.replace(SERVE, kv_cache_dtype="int8"))
     launches["K7"], _ = serve_run(engine, cfg, card, "serve_mla_int8", model, "K7", 0.0)
     # bf16 queries: K7 is the split kernel and its combine
     profile_steps(engine, cfg, card, "serve_mla_int8",
-                  mla_cuda.KERNELS[mla_cuda.route(torch.bfloat16)])
+                  mla_cuda.KERNELS["K7"][mla_cuda.route(torch.bfloat16)])
     del engine, params
     torch.cuda.empty_cache()
     return launches
@@ -1378,13 +1482,12 @@ def recipe_serve_phase(card: str, ckpt_dir: Path) -> int:
         }
         (tmp / "serve.yaml").write_text(json.dumps(node, indent=1))  # JSON is YAML
         torch.cuda.reset_peak_memory_stats()
-        for fn in PAGED_KERNELS.values():
-            fn.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         recipe = cli_main([str(tmp / "serve.yaml")])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in PAGED_KERNELS.items()}
+        launches = kernel_launches(*PAGED)
         gens = [json.loads(line) for line in (tmp / "run" / "generations.jsonl").open()]
         serve_log = [json.loads(line) for line in (tmp / "run" / "serving.jsonl").open()]
         stats = {k.removeprefix("serve_"): v for k, v in serve_log[-1].items()
@@ -1417,7 +1520,7 @@ def recipe_serve_phase(card: str, ckpt_dir: Path) -> int:
         raise AssertionError("recipe_serve: the loaded weights differ from the written ones")
     if len(gens) != 16 or any(len(g["generated_ids"]) != 32 for g in gens):
         raise AssertionError("recipe_serve: not every request finished with 32 tokens")
-    want = {name: 0 for name in PAGED_KERNELS}
+    want = dict.fromkeys(PAGED, 0)
     want["K4"] = cfg.num_layers * steps
     if launches != want:
         raise AssertionError(
@@ -1435,46 +1538,46 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
 
 
 def profile_steps(engine, cfg, card: str, phase: str,
-                  kernel_keys: tuple[str, ...], lens=(64, 900)) -> None:
-    """Where a serve step's time goes: the same traffic again, 40 steps to
-    reach a mix of prefill and decode, then 10 steps under torch.profiler.
+                  kernel_keys: tuple[str, ...], lens=(64, 900),
+                  n_steps: int = 10) -> None:
+    """Where a serve step's time goes: the same traffic again, 30 + n_steps
+    steps to reach a mix of prefill and decode, then `n_steps` under
+    torch.profiler.
     Prints device busy time per step by kernel, the device's idle share of
     the window's wall time, the host's kernel launches per step and its
     operators with the most self time. `kernel_keys` name the attention
     kernel's device kernels (substrings of the profiler's names, as
-    `KERNELS` gives them)."""
-    from torch.autograd import DeviceType
+    `KERNELS` gives them), whose device time the profiler gives and whose
+    launches their library counts."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_phase = time.perf_counter()
     sched = engine.make_scheduler()
     for r in serve_traffic(cfg.vocab_size, seed=1, lens=lens):
         sched.submit(r)
     for step in range(30):
         engine.run_one_step(sched, step)
-    # steps 30-39 unprofiled: the profiler's own host cost inflates the
-    # profiled window's wall time, so the idle share is also given against
-    # this window's (similar steps, no profiler)
+    # n_steps unprofiled steps from step 30: the profiler's own host cost
+    # inflates the profiled window's wall time, so the idle share is also
+    # given against this window's (similar steps, no profiler)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for step in range(30, 40):
+    for step in range(30, 30 + n_steps):
         engine.run_one_step(sched, step)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    n_steps, rows = 10, 0
+    rows = 0
+    before = paged_counts(kernel_keys)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for step in range(40, 40 + n_steps):
+        for step in range(30 + n_steps, 30 + 2 * n_steps):
             plan, _, _ = engine.run_one_step(sched, step)
             rows += plan.n_tokens if plan is not None else 0
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict[str, float] = {}
-    attn_launches = {k: 0 for k in kernel_keys}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            for k in kernel_keys:
-                attn_launches[k] += k in e.name
+    after = paged_counts(kernel_keys)
+    attn_launches = {k: after[k] - before[k] for k in kernel_keys}
+    by_name = device_ms_by_kernel(prof)
     busy_ms = sum(by_name.values())
     attn_ms = sum(v for k, v in by_name.items()
                   if any(key in k for key in kernel_keys))
@@ -1500,6 +1603,7 @@ def profile_steps(engine, cfg, card: str, phase: str,
         "top_kernels_ms_per_step": [[k[:80], v / n_steps] for k, v in top],
         "host_launch_calls_per_step": launch_calls / n_steps,
         "top_host_self_ms_per_step": [[k[:80], v / n_steps] for k, v in host_top],
+        "seconds": time.perf_counter() - t_phase,
     })
 
 
@@ -1554,8 +1658,8 @@ def held_to_plain(kernel: str, errors: list):
     also runs the plain version on the same inputs, and the kernel's error
     (a share of the plain result's largest magnitude, at least 1) is
     appended to `errors`. The engine module's reference to the dispatcher
-    is wrapped; the kernel's wrapper, and its launch count, stay as they
-    are."""
+    is wrapped; the kernel's wrapper stays as it is, and the plain calls
+    launch nothing."""
     name = PAGED_DISPATCH[kernel]
     dispatch = getattr(serving_engine, name)
 
@@ -1598,8 +1702,7 @@ def engine_bf16_check(phase: str, cfg, params, sc, tol: float,
     err = {"cuda_vs_fp32": 0.0, "plain_vs_fp32": 0.0, "cuda_vs_plain": 0.0}
     agree = {"cuda_vs_fp32": 0, "plain_vs_fp32": 0, "cuda_vs_plain": 0}
     steps, rows, errors = 0, 0, []
-    wrapper = PAGED_KERNELS[kernel]
-    n0 = wrapper.launches
+    n0 = kernel_launches()[kernel]
     while sched.has_work:
         plan = sched.schedule(steps)
         with held_to_plain(kernel, errors):
@@ -1623,10 +1726,10 @@ def engine_bf16_check(phase: str, cfg, params, sc, tol: float,
           "max_rel_logit_err": err, "tol": tol,
           "greedy_agreement": {k: v / rows for k, v in agree.items()},
           "kernel": kernel, "kernel_calls": len(errors),
-          "kernel_launches": wrapper.launches - n0,
+          "kernel_launches": kernel_launches()[kernel] - n0,
           "kernel_max_rel_err": max(errors),
           "kernel_tol": PAGED_TOL[torch.bfloat16]})
-    if wrapper.launches - n0 != len(errors) or not errors:
+    if kernel_launches()[kernel] - n0 != len(errors) or not errors:
         raise AssertionError(
             f"{phase}: the engine's {kernel} calls did not all launch {kernel}")
     if max(errors) > PAGED_TOL[torch.bfloat16]:
@@ -1712,13 +1815,15 @@ def engine_window_phase() -> None:
 
 
 def serve_gemma2_phase(card: str) -> dict:
-    """The windowed main path: google/gemma-2-2b at full width and all 26
-    layers (alternating window 4096 and global, soft caps 50 / 30), bf16,
+    """The windowed main path: google/gemma-2-2b at full width, cut to its
+    first GEMMA2_SERVE_LAYERS layers (alternating window 4096 and global,
+    soft caps 50 / 30), bf16,
     random weights from seed 0, on SERVE_GEMMA2 traffic (prompts of
     4200-7800 tokens, so the window masks) on the fp pool (K4), with its
     profile, and then on the int8 pool (K5); returns the launches of K4
     and K5."""
-    cfg = gemma2_config(GEMMA2_2B, dtype=torch.bfloat16)
+    cfg = gemma2_config(dict(GEMMA2_2B, num_hidden_layers=GEMMA2_SERVE_LAYERS),
+                        dtype=torch.bfloat16)
     windows = decoder.layer_windows(cfg)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1726,7 +1831,7 @@ def serve_gemma2_phase(card: str) -> dict:
     engine = ServingEngine(params, cfg, SERVE_GEMMA2)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    model = (f"Gemma-2-2B, full width and all {cfg.num_layers} layers "
+    model = (f"Gemma-2-2B, full width, {cfg.num_layers} of 26 layers "
              f"({sum(w is not None for w in windows)} with window {cfg.sliding_window}, "
              f"{sum(w is None for w in windows)} global), bf16, "
              f"{count_params(params)} params")
@@ -1777,13 +1882,12 @@ def train_phase(card: str) -> dict:
         f"--run_dir={run_dir}",
     ]
     torch.cuda.reset_peak_memory_stats()
-    fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
+    reset_counts()
     t0 = time.perf_counter()
     recipe = cli_main(argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"K1": fa_cuda.launches_fwd, "K2": fa_cuda.launches_dq,
-                "K3": fa_cuda.launches_dkv}
+    launches = kernel_launches(*FLASH)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     records = [json.loads(l) for l in
                (Path(run_dir) / "training.jsonl").read_text().splitlines()]
@@ -1863,10 +1967,10 @@ def train_check_phase() -> None:
 
         params = tree_map(lambda t: t.clone().requires_grad_(), params0)
         leaves = tree_leaves(params)
-        fa_cuda.launches_fwd = 0
+        reset_counts()
         ce, aux = accumulate_grads(loss_fn, params, batch)
         results[impl] = (float(ce / aux["num_label_tokens"]),
-                         [t.grad for t in leaves], fa_cuda.launches_fwd)
+                         [t.grad for t in leaves], kernel_launches()["K1"])
         del params, leaves
         torch.cuda.empty_cache()
     (loss_f, g_f, n_f), (loss_t, g_t, n_t) = results["flash"], results["torch"]
@@ -1891,7 +1995,7 @@ def train_paths_phase() -> None:
         run_dir = tempfile.mkdtemp(prefix=f"chip_smoke_tiny_{way}_")
         argv = [TINY_YAML, "--checkpoint.enabled=false", f"--run_dir={run_dir}",
                 f"--model.attn_impl={impl}"]
-        fa_cuda.launches_fwd = 0
+        reset_counts()
         if way == "cli":
             cli_main(argv)
         else:
@@ -1899,7 +2003,7 @@ def train_paths_phase() -> None:
                 parse_args_and_load_config(argv))
             recipe.setup()
             recipe.run_train_validation_loop()
-        k1[way] = fa_cuda.launches_fwd
+        k1[way] = kernel_launches()["K1"]
         losses[way] = [json.loads(l)["loss"] for l in
                        (Path(run_dir) / "training.jsonl").read_text().splitlines()]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses["cli"], losses["recipe"])]
@@ -1930,27 +2034,29 @@ def self_device_ms_by_op(prof) -> dict:
     return out
 
 
-def profile_step(recipe, mbs, patterns: dict, want: dict, attempts: int = 3):
+def flash_counts(dims: tuple, routes=("mma",)) -> dict:
+    """K1, K2 and K3's launches at head dims `dims` since the counts were
+    last set to 0, on `routes` (the tensor cores by default), as the flash
+    library's C dispatch counts them."""
+    counts = fa_cuda.launch_counts(by_head_dims=True)
+    return {k: sum(counts[(fa_cuda.KERNELS[r][i], tuple(dims))] for r in routes)
+            for i, k in enumerate(("K1", "K2", "K3"))}
+
+
+def profile_step(recipe, mbs, dims: tuple):
     """One more optimizer step of `recipe` on `mbs` under torch.profiler:
-    (profile, wall ms, device-kernel launches counted by the regex
-    `patterns`). torch.profiler now and then loses a session's device
-    events: up to `attempts` steps are profiled and the first whose counts
-    equal `want` kept (the last one if none does)."""
-    from torch.autograd import DeviceType
+    (profile, wall ms, the step's K1-K3 launches on the tensor cores at
+    head dims `dims`, as the flash library's C dispatch counts them)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            recipe.run_step(mbs)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t1) * 1e3
-        got = {k: sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-                      and re.search(pat, e.name))
-               for k, pat in patterns.items()}
-        if got == want:
-            break
-    return prof, wall_ms, got
+    before = flash_counts(dims)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        recipe.run_step(mbs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    after = flash_counts(dims)
+    return prof, wall_ms, {k: after[k] - before[k] for k in after}
 
 
 def moe_train_yaml(run_dir: str, name: str, hf: dict, seq: int, steps: int,
@@ -2020,15 +2126,14 @@ def train_moe_phase(card: str) -> tuple[dict, float]:
 
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_moe_")
     torch.cuda.reset_peak_memory_stats()
-    fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
+    reset_counts()
     t0 = time.perf_counter()
     hf = dict(MOONLIGHT, num_hidden_layers=MOE_TRAIN_LAYERS)
     recipe = cli_main([moe_train_yaml(run_dir, "moonlight_train", hf, MOE_TRAIN_SEQ,
                                       MOE_TRAIN_STEPS)])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"K1": fa_cuda.launches_fwd, "K2": fa_cuda.launches_dq,
-                "K3": fa_cuda.launches_dkv}
+    launches = kernel_launches(*FLASH)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     records = jsonl(Path(run_dir) / "training.jsonl")
     cfg = recipe.model_cfg
@@ -2039,8 +2144,7 @@ def train_moe_phase(card: str) -> tuple[dict, float]:
 
     # one more step under the profiler: device time by kernel and by op
     mbs = [next(iter(recipe.dataloader))]
-    prof, prof_wall_ms, mla_launches = profile_step(
-        recipe, mbs, MLA_FA_KERNELS, {"K1": 2 * L, "K2": L, "K3": L})
+    prof, prof_wall_ms, mla_launches = profile_step(recipe, mbs, (192, 128))
     by_name = device_ms_by_kernel(prof)
     busy_ms = sum(by_name.values())
     attn_ms = sum(v for k, v in by_name.items()
@@ -2095,7 +2199,7 @@ def train_moe_phase(card: str) -> tuple[dict, float]:
         "profiled_step": {
             "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
-            "mla_flash_launches_by_profiler_name": mla_launches,
+            "mla_flash_launches_counted": mla_launches,
             "attention_k1_k3_ms": attn_ms,
             "grouped_expert_gemm_ms": grouped_ms,
             "dense_gemm_ms": dense_gemm_ms,
@@ -2121,19 +2225,16 @@ def train_moe_phase(card: str) -> tuple[dict, float]:
     return launches, MOE_TRAIN_SEQ / tps * 1e3
 
 
-def train_moe_check_phase() -> None:
-    """fp32, 2 layers (1 dense + 1 MoE) at Moonlight width: one accumulated
-    step (2 microbatches of MOE_CHECK_SEQ tokens) from the same weights and
-    batch with attn_impl "flash" (K1-K3 at <192, 128> on the CUDA cores) and
-    "torch" (the plain attention). The balanced gate holds the routing
-    equal in both: a top-k near-tie could otherwise move a token to another
-    expert between two runs whose attention differs by ~1e-6."""
-    base = deepseek_v3_moe_config(dict(MOONLIGHT, num_hidden_layers=2),
-                                  dtype=torch.float32, remat_policy="full")
-    base = dataclasses.replace(base, moe=dataclasses.replace(base.moe, fake_balanced_gate=True))
-    params0 = moe_decoder.init(base, torch.Generator(device="cuda").manual_seed(4))
-    ds = MockDatasetConfig(num_samples=4, seq_len=MOE_CHECK_SEQ,
-                           vocab_size=base.vocab_size, seed=5).build()
+def moe_check_step(phase: str, base, params0: dict, seq: int, data_seed: int) -> None:
+    """fp32: one accumulated step (2 microbatches of `seq` tokens) of the
+    MoE decoder `base` from `params0` and one batch, with attn_impl "flash"
+    (K1-K3 on the CUDA cores) and "torch" (the plain attention): the losses
+    and every gradient leaf must agree, sink logits (`moe_layers.sinks`)
+    reported apart. `base` takes the balanced gate: a top-k near-tie could
+    otherwise move a token to another expert between two runs whose
+    attention differs by ~1e-6."""
+    ds = MockDatasetConfig(num_samples=4, seq_len=seq, vocab_size=base.vocab_size,
+                           seed=data_seed).build()
     batch = make_global_batch(stack_microbatches(
         [{k: v[None] for k, v in ds[i].items()} for i in range(2)]), "cuda")
     results = {}
@@ -2150,27 +2251,48 @@ def train_moe_check_phase() -> None:
 
         params = tree_map(lambda t: t.clone().requires_grad_(), params0)
         leaves = tree_leaves(params)
-        fa_cuda.launches_fwd = 0
+        sinks = params["moe_layers"].get("sinks")
+        reset_counts()
         ce, aux = accumulate_grads(loss_fn, params, batch)
         results[impl] = (float(ce / aux["num_label_tokens"]),
-                         [t.grad for t in leaves], fa_cuda.launches_fwd)
-        del params, leaves
+                         [t.grad for t in leaves], kernel_launches()["K1"],
+                         None if sinks is None else sinks.grad.clone())
+        del params, leaves, sinks
         torch.cuda.empty_cache()
-    (loss_f, g_f, n_f), (loss_t, g_t, n_t) = results["flash"], results["torch"]
+    (loss_f, g_f, n_f, s_f), (loss_t, g_t, n_t, s_t) = results["flash"], results["torch"]
     if any((a is None) != (b is None) for a, b in zip(g_f, g_t)):
-        raise AssertionError("train_moe_check: the two runs reach different leaves")
-    grad_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
-                   for a, b in zip(g_f, g_t) if a is not None)
+        raise AssertionError(f"{phase}: the two runs reach different leaves")
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+    grad_err = max(rel(a, b) for a, b in zip(g_f, g_t) if a is not None)
     loss_rel = abs(loss_f - loss_t) / abs(loss_t)
-    emit({"phase": "train_moe_check", "layers": 2, "dtype": "float32",
-          "tokens": [2, MOE_CHECK_SEQ], "loss_flash": loss_f, "loss_torch": loss_t,
-          "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
-          "grad_max_rel_err": grad_err, "grad_tol": TRAIN_GRAD_TOL,
-          "k1_launches": [n_f, n_t]})
+    entry = {"phase": phase, "layers": base.num_layers, "dtype": "float32",
+             "windows": list(decoder.layer_windows(base)), "tokens": [2, seq],
+             "loss_flash": loss_f, "loss_torch": loss_t, "loss_rel_err": loss_rel,
+             "loss_rtol": TRAIN_LOSS_RTOL, "grad_max_rel_err": grad_err,
+             "grad_tol": TRAIN_GRAD_TOL, "k1_launches": [n_f, n_t]}
+    if s_t is not None:
+        entry.update(sinks_grad_rel_err=rel(s_f, s_t), sinks_grad_max=s_t.abs().max().item())
+    emit(entry)
     if n_f == 0 or n_t != 0:
-        raise AssertionError("train_moe_check: attn_impl did not select the kernels / plain path")
+        raise AssertionError(f"{phase}: attn_impl did not select the kernels / plain path")
+    if s_t is not None and not s_t.abs().max().item() > 0:
+        raise AssertionError(f"{phase}: the sinks got no gradient")
     if loss_rel > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_TOL:
-        raise AssertionError("train_moe_check: the step differs between kernels and plain")
+        raise AssertionError(f"{phase}: the step differs between kernels and plain")
+
+
+def train_moe_check_phase() -> None:
+    """fp32, 2 layers (1 dense + 1 MoE) at Moonlight width, the balanced
+    gate: `moe_check_step` on 2 microbatches of MOE_CHECK_SEQ tokens (K1-K3
+    at <192, 128> on the CUDA cores)."""
+    base = deepseek_v3_moe_config(dict(MOONLIGHT, num_hidden_layers=2),
+                                  dtype=torch.float32, remat_policy="full")
+    base = dataclasses.replace(base, moe=dataclasses.replace(base.moe, fake_balanced_gate=True))
+    params0 = moe_decoder.init(base, torch.Generator(device="cuda").manual_seed(4))
+    moe_check_step("train_moe_check", base, params0, MOE_CHECK_SEQ, 5)
 
 
 def gemma_train_yaml(run_dir: str, hf: dict, seq: int, attn_impl: str = "auto",
@@ -2208,13 +2330,12 @@ def train_gemma_phase(card: str, phase: str, model: str, hf: dict, seq: int) -> 
 
     run_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
     torch.cuda.reset_peak_memory_stats()
-    fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
+    reset_counts()
     t0 = time.perf_counter()
     recipe = cli_main([gemma_train_yaml(run_dir, hf, seq)])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"K1": fa_cuda.launches_fwd, "K2": fa_cuda.launches_dq,
-                "K3": fa_cuda.launches_dkv}
+    launches = kernel_launches(*FLASH)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     records = [json.loads(l) for l in
                (Path(run_dir) / "training.jsonl").read_text().splitlines()]
@@ -2227,8 +2348,7 @@ def train_gemma_phase(card: str, phase: str, model: str, hf: dict, seq: int) -> 
 
     # one more step under the profiler: device time by kernel, idle share
     mbs = [next(iter(recipe.dataloader))]
-    prof, prof_wall_ms, fa_launches = profile_step(
-        recipe, mbs, GEMMA_FA_KERNELS, {"K1": 2 * L, "K2": L, "K3": L})
+    prof, prof_wall_ms, fa_launches = profile_step(recipe, mbs, (256, 256))
     by_name = device_ms_by_kernel(prof)
     busy_ms = sum(by_name.values())
     attn_ms = {k: sum(v for name, v in by_name.items() if re.search(pat, name))
@@ -2269,7 +2389,7 @@ def train_gemma_phase(card: str, phase: str, model: str, hf: dict, seq: int) -> 
         "profiled_step": {
             "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
-            "flash_256_launches_by_profiler_name": fa_launches,
+            "flash_256_launches_counted": fa_launches,
             "attention_ms_by_kernel": attn_ms,
             "dense_gemm_ms": dense_gemm_ms,
             "other_ms": busy_ms - sum(attn_ms.values()) - dense_gemm_ms,
@@ -2305,7 +2425,7 @@ def train_gemma2_plain_phase(card: str, flash_records: list) -> None:
     that bf16 differences grow), with the step at which each curve rises."""
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_gemma2_plain_")
     torch.cuda.reset_peak_memory_stats()
-    fa_cuda.launches_fwd = 0
+    reset_counts()
     t0 = time.perf_counter()
     cli_main([gemma_train_yaml(run_dir, GEMMA2_2B, GEMMA2_TRAIN_SEQ, attn_impl="torch")])
     torch.cuda.synchronize()
@@ -2333,9 +2453,9 @@ def train_gemma2_plain_phase(card: str, flash_records: list) -> None:
           "ms_per_step": GEMMA2_TRAIN_SEQ / statistics.median(r["tps"] for r in records[1:]) * 1e3,
           "ms_per_step_kernels": GEMMA2_TRAIN_SEQ / statistics.median(
               r["tps"] for r in flash_records[1:]) * 1e3,
-          "k1_launches": fa_cuda.launches_fwd, "wall_s_with_setup": wall_s,
+          "k1_launches": kernel_launches()["K1"], "wall_s_with_setup": wall_s,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    if fa_cuda.launches_fwd != 0:
+    if kernel_launches()["K1"] != 0:
         raise AssertionError("train_gemma2_plain: attn_impl torch launched K1")
     if len(records) != GEMMA_TRAIN_STEPS or not all(
             math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
@@ -2374,10 +2494,10 @@ def train_gemma_check_phase() -> None:
 
         params = tree_map(lambda t: t.clone().requires_grad_(), params0)
         leaves = tree_leaves(params)
-        fa_cuda.launches_fwd = 0
+        reset_counts()
         ce, aux = accumulate_grads(loss_fn, params, batch)
         results[impl] = (float(ce / aux["num_label_tokens"]),
-                         [t.grad for t in leaves], fa_cuda.launches_fwd)
+                         [t.grad for t in leaves], kernel_launches()["K1"])
         del params, leaves
         torch.cuda.empty_cache()
     (loss_f, g_f, n_f), (loss_t, g_t, n_t) = results["flash"], results["torch"]
@@ -2488,14 +2608,13 @@ def train_gemma3_ckpt_phase(card: str) -> int:
                         "temperature": 0.0, "arrival_stride": 2},
         }
         (tmp / "serve.yaml").write_text(json.dumps(node, indent=1))  # JSON is YAML
-        for fn in PAGED_KERNELS.values():
-            fn.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         with plain_calls_counted() as plain_calls:
             served = cli_main([str(tmp / "serve.yaml")])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in PAGED_KERNELS.items()}
+        launches = kernel_launches(*PAGED)
         gens = [json.loads(l) for l in (tmp / "serve" / "generations.jsonl").open()]
         stats = {k.removeprefix("serve_"): v for k, v in json.loads(
             (tmp / "serve" / "serving.jsonl").read_text().splitlines()[-1]).items()
@@ -2546,7 +2665,7 @@ def train_gemma3_ckpt_phase(card: str) -> int:
         raise AssertionError("train_gemma3_ckpt: the resumed curve left the unbroken one")
     if len(gens) != 16 or any(len(g["generated_ids"]) != 32 for g in gens):
         raise AssertionError("train_gemma3_ckpt: not every request finished with 32 tokens")
-    want = {name: 0 for name in PAGED_KERNELS}
+    want = dict.fromkeys(PAGED, 0)
     want["K4"] = n_layers * serve_steps
     if launches != want or any(plain_calls.values()):
         raise AssertionError(
@@ -2606,11 +2725,6 @@ def run_recipe(yaml_path: str):
             torch.cuda.max_memory_allocated() / 2**30)
 
 
-def flash_launches() -> dict:
-    return {"K1": fa_cuda.launches_fwd, "K2": fa_cuda.launches_dq,
-            "K3": fa_cuda.launches_dkv}
-
-
 def jsonl(path: Path) -> list:
     return [json.loads(l) for l in path.read_text().splitlines()]
 
@@ -2654,9 +2768,9 @@ def train_lora_phase(card: str, ckpt_dir: Path) -> dict:
         yaml_a = lora_yaml(tmp / "lora.yaml", base, tmp / "run", LORA_STEPS, {},
                            {"enabled": True, "checkpoint_dir": str(ck_a),
                             "async_save": True}, True)
-        fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
+        reset_counts()
         recipe, setup_s, loop_s, setup_peak, peak = run_recipe(yaml_a)
-        launches = flash_launches()
+        launches = kernel_launches(*FLASH)
         cfg = recipe.model_cfg
         L = cfg.num_layers
         records, val = jsonl(tmp / "run" / "training.jsonl"), jsonl(tmp / "run" / "validation.jsonl")
@@ -2671,9 +2785,7 @@ def train_lora_phase(card: str, ckpt_dir: Path) -> dict:
         tps = statistics.median(r["tps"] for r in steady)
 
         mbs = [next(iter(recipe.dataloader)) for _ in range(LORA_ACCUM)]
-        prof, prof_wall_ms, prof_launches = profile_step(
-            recipe, mbs, DENSE_FA_KERNELS,
-            {"K1": 2 * L * LORA_ACCUM, "K2": L * LORA_ACCUM, "K3": L * LORA_ACCUM})
+        prof, prof_wall_ms, prof_launches = profile_step(recipe, mbs, (128, 128))
         by_name = device_ms_by_kernel(prof)
         busy_ms = sum(by_name.values())
         fa_ms = sum(v for k, v in by_name.items()
@@ -2689,12 +2801,12 @@ def train_lora_phase(card: str, ckpt_dir: Path) -> dict:
         yaml_b = lora_yaml(tmp / "resume.yaml", base, tmp / "run_resume", LORA_STEPS, {},
                            {"enabled": True, "checkpoint_dir": str(tmp / "ckpt_resume"),
                             "restore_from": str(ck_a), "restore_step": LORA_EVERY}, True)
-        fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
+        reset_counts()
         t0 = time.perf_counter()
         resumed = cli_main([yaml_b])
         torch.cuda.synchronize()
         resume_wall_s = time.perf_counter() - t0
-        resume_launches = flash_launches()
+        resume_launches = kernel_launches(*FLASH)
         records_b = jsonl(tmp / "run_resume" / "training.jsonl")
         val_b = jsonl(tmp / "run_resume" / "validation.jsonl")
         final_b = tree_map(lambda t: t.detach().cpu(), resumed.train_state.params)
@@ -2743,7 +2855,7 @@ def train_lora_phase(card: str, ckpt_dir: Path) -> dict:
                    "launches": resume_launches, "expected_launches": want_b},
         "profiled_step": {"wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
                           "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
-                          "flash_launches_by_profiler_name": prof_launches,
+                          "flash_launches_counted": prof_launches,
                           "flash_kernels_ms": fa_ms, "dense_gemm_ms": gemm_ms,
                           "top_kernels_ms": top, "top_ops_self_device_ms": top_ops},
     })
@@ -2775,9 +2887,9 @@ def train_qlora_phase(card: str, ckpt_dir: Path, lora_peak_gib: float) -> dict:
         path = lora_yaml(tmp / "qlora.yaml", {"pretrained_path": str(ckpt_dir)},
                          tmp / "run", QLORA_STEPS,
                          {"quantize_base": "int8"}, {"enabled": False}, False)
-        fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
+        reset_counts()
         recipe, setup_s, loop_s, setup_peak, peak = run_recipe(path)
-        launches = flash_launches()
+        launches = kernel_launches(*FLASH)
         records = jsonl(tmp / "run" / "training.jsonl")
         cfg = recipe.model_cfg
         base_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(recipe.base_params))
@@ -2853,10 +2965,10 @@ def train_lora_check_phase() -> None:
                 return fused_linear_cross_entropy(h, head, mb["labels"], chunk_size=2048)
 
             adapters = tree_map(lambda t: t.clone().requires_grad_(), adapters0)
-            fa_cuda.launches_fwd = 0
+            reset_counts()
             ce, aux = accumulate_grads(loss_fn, adapters, batch)
             results[impl] = (float(ce / aux["num_label_tokens"]),
-                             [t.grad for t in tree_leaves(adapters)], fa_cuda.launches_fwd)
+                             [t.grad for t in tree_leaves(adapters)], kernel_launches()["K1"])
             del adapters
         (loss_f, g_f, n_f), (loss_t, g_t, n_t) = results["flash"], results["torch"]
         out[variant] = {
@@ -2936,20 +3048,19 @@ def generate_check_phase() -> None:
                       for p in prompts]
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
-        fa_cuda.launches_fwd = 0
+        reset_counts()
         teacher = []
         with torch.no_grad():
             for p, g in zip(prompts, gen_tokens):
                 out = module.forward(params, cfg, torch.tensor([p + g], device="cuda"))
                 logits = out[0] if isinstance(out, tuple) else out
                 teacher.append(logits[0, len(p) - 1:-1].argmax(-1).tolist())
-        k1 = fa_cuda.launches_fwd
-        for fn in PAGED_KERNELS.values():
-            fn.launches = 0
+        k1 = kernel_launches()["K1"]
+        reset_counts()
         engine = ServingEngine(params, cfg, SERVE)
         served = engine.serve_batch([Request(prompt=list(p), max_new_tokens=GEN_NEW, seed=i)
                                      for i, p in enumerate(prompts)])["outputs"]
-        paged = {k: fn.launches for k, fn in PAGED_KERNELS.items() if fn.launches}
+        paged = {k: n for k, n in kernel_launches(*PAGED).items() if n}
         # the first new token at which each prompt's tokens differ, if any
         misses = {ref_name: {i: next(j for j, (a, b) in enumerate(zip(g, ref)) if a != b)
                              for i, (g, ref) in enumerate(zip(gen_tokens, refs)) if g != ref}
@@ -2983,12 +3094,12 @@ def engine_plain_check(phase: str, cfg, params, sc, kernel: str) -> dict:
     the plain attention, same weights (reported, with the greedy agreement:
     bf16 rounds attention at other places in the two, and the MoE routing
     carries it)."""
+    t0 = time.perf_counter()
     e_cuda = ServingEngine(params, cfg, sc, attn_impl="cuda")
     e_torch = ServingEngine(params, cfg, sc, attn_impl="torch")
     sched = e_cuda.make_scheduler()
     submit_engine_requests(sched, cfg)
-    wrapper = PAGED_KERNELS[kernel]
-    n0, errors, steps, rows, agree, gap = wrapper.launches, [], 0, 0, 0, 0.0
+    n0, errors, steps, rows, agree, gap = kernel_launches()[kernel], [], 0, 0, 0, 0.0
     while sched.has_work:
         plan = sched.schedule(steps)
         with held_to_plain(kernel, errors):
@@ -3002,14 +3113,15 @@ def engine_plain_check(phase: str, cfg, params, sc, kernel: str) -> dict:
         sched.update(plan, got.argmax(-1).to(torch.int32).cpu().numpy(), steps)
         steps += 1
     report = {"steps": steps, "kernel": kernel, "kernel_calls": len(errors),
-              "kernel_launches": wrapper.launches - n0,
+              "kernel_launches": kernel_launches()[kernel] - n0,
               "kernel_max_rel_err": max(errors),
               "kernel_tol": PAGED_TOL[torch.bfloat16],
               "max_rel_logit_gap_vs_plain_engine": gap,
-              "greedy_agreement_vs_plain_engine": agree / rows}
+              "greedy_agreement_vs_plain_engine": agree / rows,
+              "seconds": time.perf_counter() - t0}
     del e_cuda, e_torch
     torch.cuda.empty_cache()
-    if wrapper.launches - n0 != len(errors) or not errors:
+    if kernel_launches()[kernel] - n0 != len(errors) or not errors:
         raise AssertionError(f"{phase}: the engine's {kernel} calls did not all launch {kernel}")
     if max(errors) > PAGED_TOL[torch.bfloat16]:
         raise AssertionError(f"{phase}: {kernel} calls disagree with the plain version: {report}")
@@ -3040,7 +3152,7 @@ def serve_published_mla_phase(card: str, name: str, hf: dict, layers: int,
         engine = ServingEngine(params, cfg, sc)
         launches[kernel], _ = serve_run(engine, cfg, card, phase, model, kernel, setup_s)
         profile_steps(engine, cfg, card, phase,
-                      mla_cuda.KERNELS[mla_cuda.route(torch.bfloat16)])
+                      mla_cuda.KERNELS[kernel][mla_cuda.route(torch.bfloat16)])
         del engine
         torch.cuda.empty_cache()
         emit({"phase": f"{phase}_check", "card": card, "model": model,
@@ -3064,14 +3176,13 @@ def train_dsv3_mtp_phase(card: str) -> dict:
     hf = dict(DEEPSEEK_V3, num_hidden_layers=DSV3_MTP_LAYERS,
               first_k_dense_replace=DSV3_MTP_LAYERS)
     torch.cuda.reset_peak_memory_stats()
-    fa_cuda.launches_fwd = fa_cuda.launches_dq = fa_cuda.launches_dkv = 0
+    reset_counts()
     t0 = time.perf_counter()
     recipe = cli_main([moe_train_yaml(run_dir, "dsv3_mtp", hf, DSV3_MTP_SEQ,
                                       DSV3_MTP_STEPS)])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"K1": fa_cuda.launches_fwd, "K2": fa_cuda.launches_dq,
-                "K3": fa_cuda.launches_dkv}
+    launches = kernel_launches(*FLASH)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     records = jsonl(Path(run_dir) / "training.jsonl")
     cfg = recipe.model_cfg
@@ -3169,6 +3280,311 @@ def train_moe_capacity_phase(card: str, dropless_ms: float) -> None:
         raise AssertionError("train_moe_capacity: the capacity dispatcher did not run")
     del recipe
     torch.cuda.empty_cache()
+
+
+# Qwen3-30B-A3B (https://huggingface.co/Qwen/Qwen3-30B-A3B/blob/main/config.json):
+# 48 GQA layers (32 q / 4 kv heads of 128, per-head q/k norms), each with
+# 128 experts of 768, 8 per token, renormalized; 30.5 B parameters, 56.9
+# GiB in bf16
+QWEN3_30B_A3B = {
+    "architectures": ["Qwen3MoeForCausalLM"], "vocab_size": 151936,
+    "hidden_size": 2048, "intermediate_size": 6144, "moe_intermediate_size": 768,
+    "num_hidden_layers": 48, "num_attention_heads": 32, "num_key_value_heads": 4,
+    "head_dim": 128, "num_experts": 128, "num_experts_per_tok": 8,
+    "norm_topk_prob": True, "decoder_sparse_step": 1, "mlp_only_layers": [],
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-6, "max_position_embeddings": 40960,
+    "router_aux_loss_coef": 0.001, "tie_word_embeddings": False,
+}
+# gpt-oss-20b (https://huggingface.co/openai/gpt-oss-20b/blob/main/config.json):
+# 24 layers alternating a 128-token window and full attention, 64 q / 8 kv
+# heads of 64 with biases and one sink per head, 32 experts of 2880 (4 per
+# token, biased router, the clamped swiglu at 7), yarn rope (factor 32);
+# ~20.9 B parameters with bf16 experts (the checkpoint's are MXFP4)
+GPT_OSS_20B = {
+    "architectures": ["GptOssForCausalLM"], "vocab_size": 201088,
+    "hidden_size": 2880, "intermediate_size": 2880, "num_hidden_layers": 24,
+    "num_attention_heads": 64, "num_key_value_heads": 8, "head_dim": 64,
+    "num_local_experts": 32, "num_experts_per_tok": 4, "experts_per_token": 4,
+    "sliding_window": 128,
+    "layer_types": ["sliding_attention", "full_attention"] * 12,
+    "attention_bias": True, "swiglu_limit": 7.0, "rope_theta": 150000,
+    "rope_scaling": {"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0,
+                     "beta_slow": 1.0, "truncate": False,
+                     "original_max_position_embeddings": 4096},
+    "rms_norm_eps": 1e-5, "max_position_embeddings": 131072,
+    "initial_context_length": 4096, "router_aux_loss_coef": 0.9,
+    "tie_word_embeddings": False,
+}
+# Mixtral-8x7B (https://huggingface.co/mistralai/Mixtral-8x7B-v0.1/blob/main/config.json):
+# 32 layers of 32 q / 8 kv heads of 128, 8 experts of 14336, 2 per token
+MIXTRAL_8X7B = {
+    "architectures": ["MixtralForCausalLM"], "vocab_size": 32000,
+    "hidden_size": 4096, "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "num_local_experts": 8,
+    "num_experts_per_tok": 2, "rope_theta": 1000000.0, "rms_norm_eps": 1e-5,
+    "max_position_embeddings": 32768, "router_aux_loss_coef": 0.02,
+    "tie_word_embeddings": False,
+}
+# serve_qwen3_moe and serve_gpt_oss run every layer; serve_mixtral is cut
+# 32 -> 8 layers: all 32 are 46.7 B parameters, 93 GB in bf16
+QWEN3_SERVE_LAYERS, GPT_OSS_SERVE_LAYERS, MIXTRAL_SERVE_LAYERS = 48, 24, 8
+# ... each profiled over 5 steps, not 10: the profiler's own processing of
+# one 48-layer step's ~5700 launches took ~4 s on an H100's host
+MOE_PROFILE_STEPS = 5
+# train_qwen3_moe / train_gpt_oss: the training CLI at the published widths,
+# cut to 4 and 2 layers: fp32 masters, gradients and AdamW moments take ~10
+# GB a Qwen3-30B-A3B layer and ~13 GB a gpt-oss-20b one, beside ~10 and ~19
+# GB for the embedding and the head; sequences of 4096 tokens, 5 steps
+QWEN3_TRAIN_LAYERS, GPT_OSS_TRAIN_LAYERS = 4, 2
+FAMILY_TRAIN_SEQ, FAMILY_TRAIN_STEPS = 4096, 5
+# train_gpt_oss_check: 2 layers (one sliding, one full) at gpt-oss-20b widths
+# in fp32, one step of 2 microbatches of this many tokens, kernels vs plain
+GPT_OSS_CHECK_SEQ = 1024
+# smoke_families: the eight GQA MoE families' smoke YAMLs as written (head
+# dim 8, which K1-K3 run padded to 16), SMOKE_STEPS steps each through the
+# CLI with the kernels and with the plain attention. Two set `ep: 2`, which
+# the port refuses: they run with `--distributed.ep=1`.
+SMOKE_FAMILIES = ("qwen3_moe_ep", "mixtral", "gpt_oss", "glm4_moe", "ernie4_5_moe",
+                  "hunyuan_moe", "minimax_m2", "ling_v2")
+SMOKE_STEPS = 3
+# the two curves' largest relative gap: docs/PARITY.md's 1e-4 in fp32; in
+# bf16 (qwen3_moe_ep's dtype) the two attentions round at other places.
+# Readings on an H100 (chip_smoke.py's smoke_families): the sound gaps at
+# most 1.8e-7 (fp32) and 3.38e-4 (bf16); the control's (the softmax scale
+# taken from the padded head dim) at least 3.53e-4 (fp32) and 1.57e-3
+# (bf16). Each limit lies between the two, and the phase fails if a
+# control's gap does not pass it.
+SMOKE_RTOL = {"float32": 1e-4, "bfloat16": 8e-4}
+
+
+def gqa_moe_config(hf: dict, layers: int, dtype, **overrides):
+    """A published GQA MoE config through its registry family, cut to its
+    first `layers` layers."""
+    cut = dict(hf, num_hidden_layers=layers)
+    if "layer_types" in hf:
+        cut["layer_types"] = hf["layer_types"][:layers]
+    return get_model_spec(cut).config_from_hf(cut, dtype=dtype, **overrides), cut
+
+
+def serve_gqa_moe_phase(card: str, name: str, hf: dict, layers: int,
+                        pools: tuple) -> dict:
+    """A published GQA MoE model at its full widths, its first `layers`
+    layers, bf16, random weights from seed 0 (each expert stack drawn
+    slice by slice in bf16, `models/common/layers._trunc_normal`), on each
+    of `pools` ((phase, kernel): "K4" the fp pool, "K5" the int8 pool):
+    `serve_run` on the serve traffic (the kernel on every layer of every
+    step, each layer with its own window and sinks), its profile, and
+    `engine_plain_check`; returns the launches of each kernel."""
+    cfg, _ = gqa_moe_config(hf, layers, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = moe_decoder.init(cfg, gen, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = count_params(params)
+    windows = decoder.layer_windows(cfg)
+    model = (f"{name}, {cfg.num_layers} of {hf['num_hidden_layers']} layers, "
+             f"{cfg.moe.n_routed_experts} experts (top {cfg.moe.experts_per_token}), "
+             f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, "
+             f"bf16, {n_params} params")
+    emit({"phase": f"{pools[0][0]}_weights", "card": card, "model": model,
+          "params": n_params, "weights_gib": n_params * 2 / 2**30,
+          "draw_s": setup_s, "draw_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "windows": sorted({w or 0 for w in windows}),
+          "sinked_layers": cfg.num_layers if cfg.attention_sinks else 0})
+    launches = {}
+    for phase, kernel in pools:
+        sc = SERVE if kernel == "K4" else dataclasses.replace(SERVE, kv_cache_dtype="int8")
+        engine = ServingEngine(params, cfg, sc)
+        if engine._windows != [w or 0 for w in windows]:
+            raise AssertionError(f"{phase}: the engine's windows {engine._windows}")
+        launches[kernel], _ = serve_run(engine, cfg, card, phase, model, kernel, setup_s)
+        profile_steps(engine, cfg, card, phase, PAGED_DEVICE_KERNELS[kernel],
+                      n_steps=MOE_PROFILE_STEPS)
+        del engine
+        torch.cuda.empty_cache()
+        emit({"phase": f"{phase}_check", "card": card, "model": model,
+              **engine_plain_check(phase, cfg, params, sc, kernel)})
+        setup_s = 0.0
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_gqa_moe_phase(card: str, phase: str, name: str, hf: dict,
+                        layers: int) -> dict:
+    """The training CLI at a published GQA MoE config's widths, its first
+    `layers` layers, on a YAML the phase writes (`moe_train_yaml`: bf16 over
+    fp32 masters, full remat, FAMILY_TRAIN_SEQ tokens, microbatch 1):
+    FAMILY_TRAIN_STEPS steps with finite losses and grad norms and the
+    routers' `moe_load_imbalance`; K1 2 x layers x steps (all of them on
+    the tensor cores at the head dims the kernels run), K2 and K3 half
+    that; then one profiled step. Returns the K1-K3 launches."""
+    run_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
+    _, cut = gqa_moe_config(hf, layers, torch.bfloat16)
+    D = hf["head_dim"]
+    dims = fa_cuda.padded_head_dims(D, D)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    recipe = cli_main([moe_train_yaml(run_dir, phase, cut, FAMILY_TRAIN_SEQ,
+                                      FAMILY_TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernel_launches(*FLASH)
+    counted = flash_counts(dims)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    records = jsonl(Path(run_dir) / "training.jsonl")
+    cfg = recipe.model_cfg
+    L = cfg.num_layers
+    n = L * FAMILY_TRAIN_STEPS
+    want = {"K1": 2 * n, "K2": n, "K3": n}
+    steady = records[1:]  # step 1 carries the first-call set-up
+    tps = statistics.median(r["tps"] for r in steady)
+
+    mbs = [next(iter(recipe.dataloader))]
+    prof, prof_wall_ms, prof_launches = profile_step(recipe, mbs, dims)
+    by_name = device_ms_by_kernel(prof)
+    busy_ms = sum(by_name.values())
+    attn_ms = sum(v for k, v in by_name.items()
+                  if any(f in k for f in fa_cuda.KERNELS["mma"]))
+    self_dev = self_device_ms_by_op(prof)
+    grouped_ms = self_dev.get("aten::_grouped_mm", 0.0)
+    dense_gemm_ms = sum(self_dev.get(k, 0.0) for k in DENSE_GEMM_OPS)
+    top = [[k[:80], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]]
+    emit({
+        "phase": phase, "card": card,
+        "model": f"{name} widths, {L} of {hf['num_hidden_layers']} layers, "
+                 f"{cfg.moe.n_routed_experts} experts, heads of {D} (K1-K3 at "
+                 f"{dims}), {cfg.dtype}, remat {cfg.remat_policy}",
+        "params": count_params(recipe.train_state.params),
+        "steps": len(records), "tokens_per_step": FAMILY_TRAIN_SEQ,
+        "losses": [r["loss"] for r in records],
+        "grad_norms": [r["grad_norm"] for r in records],
+        "moe_load_imbalance": [r.get("moe_load_imbalance") for r in records],
+        "ms_per_step": FAMILY_TRAIN_SEQ / tps * 1e3, "tokens_per_s": tps,
+        "mfu_pct": statistics.median(r["mfu_pct"] for r in steady),
+        "flops_per_token": cfg.flops_per_token(FAMILY_TRAIN_SEQ),
+        "wall_s_with_setup": wall_s, "peak_mem_gib": peak_gib,
+        "launches": launches, "launches_at_head_dims": counted, "expected_launches": want,
+        "profiled_step": {
+            "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
+            "flash_launches_counted": prof_launches,
+            "attention_k1_k3_ms": attn_ms, "grouped_expert_gemm_ms": grouped_ms,
+            "dense_gemm_ms": dense_gemm_ms,
+            "other_ms": busy_ms - attn_ms - grouped_ms - dense_gemm_ms,
+            "top_kernels_ms": top},
+    })
+    values = [r["loss"] for r in records] + [r["grad_norm"] for r in records]
+    imbalance = [r.get("moe_load_imbalance") for r in records]
+    if len(records) != FAMILY_TRAIN_STEPS or not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"{phase}: {len(records)} records, or non-finite: {records}")
+    if not all(x is not None and math.isfinite(x) for x in imbalance):
+        raise AssertionError(f"{phase}: moe_load_imbalance {imbalance}")
+    if launches != want or counted != want:
+        raise AssertionError(f"{phase}: K1-K3 launches {launches} (counted {counted}), "
+                             f"expected {want}")
+    if prof_launches != {"K1": 2 * L, "K2": L, "K3": L}:
+        raise AssertionError(f"{phase}: the profiled step's K1-K3 launches {prof_launches}")
+    del recipe, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_gpt_oss_check_phase() -> None:
+    """fp32, 2 layers at gpt-oss-20b widths (one with the 128-token window,
+    one full, sinks of random values on both), the balanced gate:
+    `moe_check_step` on 2 microbatches of GPT_OSS_CHECK_SEQ tokens (K1-K3
+    at <64, 64> on the CUDA cores, the sinks in torch); the sinks'
+    gradient must agree too."""
+    base, _ = gqa_moe_config(GPT_OSS_20B, 2, torch.float32, remat_policy="full")
+    base = dataclasses.replace(base, moe=dataclasses.replace(base.moe, fake_balanced_gate=True))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    params0 = moe_decoder.init(base, gen)
+    params0["moe_layers"]["sinks"] = torch.randn(
+        params0["moe_layers"]["sinks"].shape, generator=gen, device="cuda")
+    moe_check_step("train_gpt_oss_check", base, params0, GPT_OSS_CHECK_SEQ, 7)
+
+
+@contextlib.contextmanager
+def scale_from_padded_dim():
+    """Within the block, K1-K3 run a padded head at the softmax scale of
+    the padded head dim, not at the caller's: a deliberately wrong call,
+    the control that shows what the smoke curves' tolerance can see."""
+    saved = fa.kernels_forward, fa.kernels_backward
+
+    def wrong(fn):
+        def call(q, k, v, *args, scale, **kw):
+            Dp = fa_cuda.padded_head_dims(q.shape[-1], v.shape[-1])[0]
+            return fn(q, k, v, *args, scale=scale * (q.shape[-1] / Dp) ** 0.5, **kw)
+        return call
+
+    fa.kernels_forward, fa.kernels_backward = (wrong(f) for f in saved)
+    try:
+        yield
+    finally:
+        fa.kernels_forward, fa.kernels_backward = saved
+
+
+def smoke_families_phase(card: str) -> dict:
+    """Each of SMOKE_FAMILIES' `examples/llm_finetune/<name>_smoke.yaml`
+    through the CLI for SMOKE_STEPS steps, with the kernels (attn_impl
+    "auto": K1-K3 at head dim 8 padded to 16) and with the plain attention
+    ("torch"), from the same seed: the loss curves within SMOKE_RTOL of
+    each other, K1-K3 launched only by the first, all at <16, 16>. A third
+    run, the control, takes the kernels under `scale_from_padded_dim`: its
+    gap to the plain curve must pass SMOKE_RTOL, or the tolerance could not
+    see a wrong scale. Returns each family's K1-K3 launches."""
+    out = {}
+    for fam in SMOKE_FAMILIES:
+        yaml_path = f"examples/llm_finetune/{fam}_smoke.yaml"
+        losses, launches, at_16 = {}, {}, {}
+        for run in ("auto", "torch", "control"):
+            run_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{fam}_{run}_")
+            impl = "torch" if run == "torch" else "auto"
+            argv = [yaml_path, f"--run_dir={run_dir}", "--checkpoint.enabled=false",
+                    f"--step_scheduler.max_steps={SMOKE_STEPS}", "--distributed.ep=1",
+                    f"--model.attn_impl={impl}"]
+            reset_counts()
+            with scale_from_padded_dim() if run == "control" else contextlib.nullcontext():
+                recipe = cli_main(argv)
+            torch.cuda.synchronize()
+            launches[run] = kernel_launches(*FLASH)
+            at_16[run] = flash_counts((16, 16), ("mma", "fma"))
+            dtype = str(recipe.model_cfg.dtype).removeprefix("torch.")
+            D = recipe.model_cfg.resolved_head_dim
+            losses[run] = [r["loss"] for r in jsonl(Path(run_dir) / "training.jsonl")]
+            del recipe
+
+        def gap(run):
+            return max(abs(a - b) / abs(b) for a, b in zip(losses[run], losses["torch"]))
+
+        rel = gap("auto")
+        emit({"phase": "smoke_families", "card": card, "yaml": yaml_path,
+              "dtype": dtype, "head_dim": D, "kernel_head_dims": [16, 16],
+              "losses": losses, "max_rel_err": rel, "rtol": SMOKE_RTOL[dtype],
+              "control": "softmax scale from the padded head dim",
+              "control_max_rel_err": gap("control"),
+              "launches": launches["auto"], "launches_at_16": at_16["auto"],
+              "plain_launches": launches["torch"]})
+        if any(len(c) != SMOKE_STEPS for c in losses.values()):
+            raise AssertionError(f"smoke_families {fam}: {losses}")
+        if not all(math.isfinite(x) for c in losses.values() for x in c):
+            raise AssertionError(f"smoke_families {fam}: non-finite losses {losses}")
+        if launches["auto"]["K1"] == 0 or launches["auto"] != at_16["auto"] \
+                or any(launches["torch"].values()):
+            raise AssertionError(f"smoke_families {fam}: K1-K3 launches {launches}, "
+                                 f"at <16, 16> {at_16}")
+        if rel > SMOKE_RTOL[dtype]:
+            raise AssertionError(f"smoke_families {fam}: kernel and plain curves differ: {rel}")
+        if not gap("control") > SMOKE_RTOL[dtype]:
+            raise AssertionError(f"smoke_families {fam}: the control's curve is within "
+                                 f"{SMOKE_RTOL[dtype]} of the plain one: {gap('control')}")
+        out[fam] = launches["auto"]
+    torch.cuda.empty_cache()
+    return out
 
 
 # the tensor-core kernels in ptxas's mangled names: (pattern, readable name)
@@ -3288,6 +3704,16 @@ def main() -> int:
             card, "Kimi-K2", KIMI_K2, KIMI_SERVE_LAYERS, (("serve_kimi_k2", "K6"),)),
     }
     lap("serve_dsv3_kimi_k2")
+    gqa_moe = {"qwen3_moe": serve_gqa_moe_phase(
+        card, "Qwen3-30B-A3B", QWEN3_30B_A3B, QWEN3_SERVE_LAYERS,
+        (("serve_qwen3_moe", "K4"), ("serve_qwen3_moe_int8", "K5")))}
+    lap("serve_qwen3_moe")
+    gqa_moe["gpt_oss"] = serve_gqa_moe_phase(
+        card, "gpt-oss-20b", GPT_OSS_20B, GPT_OSS_SERVE_LAYERS, (("serve_gpt_oss", "K4"),))
+    lap("serve_gpt_oss")
+    gqa_moe["mixtral"] = serve_gqa_moe_phase(
+        card, "Mixtral-8x7B", MIXTRAL_8X7B, MIXTRAL_SERVE_LAYERS, (("serve_mixtral", "K4"),))
+    lap("serve_mixtral")
     window_launches = serve_gemma2_phase(card)
     lap("serve_gemma2")
     moe_sync_phase(card)
@@ -3329,6 +3755,16 @@ def main() -> int:
     lap("train_moe_check")
     mtp_launches = train_dsv3_mtp_phase(card)
     lap("train_dsv3_mtp")
+    family_launches = {"qwen3_moe": train_gqa_moe_phase(
+        card, "train_qwen3_moe", "Qwen3-30B-A3B", QWEN3_30B_A3B, QWEN3_TRAIN_LAYERS)}
+    lap("train_qwen3_moe")
+    family_launches["gpt_oss"] = train_gqa_moe_phase(
+        card, "train_gpt_oss", "gpt-oss-20b", GPT_OSS_20B, GPT_OSS_TRAIN_LAYERS)
+    lap("train_gpt_oss")
+    train_gpt_oss_check_phase()
+    lap("train_gpt_oss_check")
+    smoke_launches = smoke_families_phase(card)
+    lap("smoke_families")
     gemma_launches, gemma2_records = train_gemma_phase(
         card, "train_gemma2", "Gemma-2-2B", GEMMA2_2B, GEMMA2_TRAIN_SEQ)
     lap("train_gemma2")
@@ -3346,7 +3782,8 @@ def main() -> int:
                   "scaled_dot_product_attention needs each row's KV gathered "
                   "dense (and dequantized) first")
     paged_rows = (
-        ("K4", "ragged_paged_attention_gqa", "ragged_paged_attention.cu", ":42", k4),
+        ("K4", "ragged_paged_attention_gqa", "ragged_paged_attention.cu", ":42",
+         k4["llama3_8b"]),
         ("K5", "ragged_paged_attention_gqa_int8", "ragged_paged_attention.cu",
          ":170", paged["K5"]),
         ("K6", "paged_mla_attention", "paged_mla_attention.cu", ":315", paged["K6"]),
@@ -3372,6 +3809,10 @@ def main() -> int:
         })
         if name == "K4":  # the llm_serve recipe's run, counted apart
             kernels[-1]["recipe_serve_launches"] = launches["K4_recipe"]
+        if name in ("K4", "K5"):  # the GQA MoE serve runs, counted apart
+            for model, runs in gqa_moe.items():
+                if name in runs:
+                    kernels[-1][f"{model}_serve_launches"] = runs[name]
         if name in ("K6", "K7"):
             # the published models' serve runs, counted apart, and the fp32
             # route at their head counts
@@ -3413,6 +3854,26 @@ def main() -> int:
         })
         if name == "K4":  # the llm_serve run of the Gemma-3-1B export
             kernels[-1]["ckpt_serve_launches"] = ckpt_serve_launches
+    # K4 at Qwen3-30B-A3B's heads (G 8 x D 128), the serve_qwen3_moe run's
+    # launches
+    e = k4["qwen3_moe"]
+    kernels.append({
+        "name": "ragged_paged_attention_gqa_qwen3_moe",
+        "route": "cuda",
+        "source": "automodel_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "automodel_tpu/ops/pallas/ragged_paged_attention.py:42",
+        "launches": gqa_moe["qwen3_moe"]["K4"],
+        "max_abs_err": e["max_abs_err"],
+        "ms": e["ms"],
+        "plain_ms": e["plain_ms"],
+        "bound_ms": e["bound_ms"],
+        "bound_by": e["bound_by"],
+        "library_ms": None,
+        "library_why": no_library,
+        "card": card,
+        "kernel_route": rpa_cuda.route(torch.bfloat16),
+        "heads": e["heads"],
+    })
     # K1-K3 at Llama-3-8B's heads (<128, 128>, the dense train run's
     # launches), at Moonlight's MLA heads (<192, 128>, train_moe's), and at
     # Gemma-2-2B's and Gemma-3-1B's windowed heads (<256, 256>, their
@@ -3421,7 +3882,8 @@ def main() -> int:
             ("dense", "", (128, 128), train_launches),
             ("mla", "_mla", (192, 128), moe_launches),
             ("gemma2", "_gemma2", (256, 256), gemma_launches["gemma2"]),
-            ("gemma3", "_gemma3", (256, 256), gemma_launches["gemma3"])):
+            ("gemma3", "_gemma3", (256, 256), gemma_launches["gemma3"]),
+            ("gpt_oss", "_gpt_oss", (64, 64), family_launches["gpt_oss"])):
         for name, replaces in (("K1", ":140"), ("K2", ":238"), ("K3", ":283")):
             e = flash[key][name]
             row = {
@@ -3453,6 +3915,11 @@ def main() -> int:
                 row["train_qlora_launches"] = qlora_launches[name]
             if key == "mla":  # DeepSeek-V3 with yarn and the MTP head, apart
                 row["train_dsv3_mtp_launches"] = mtp_launches[name]
+            if key == "dense":  # Qwen3-30B-A3B's heads are <128, 128> too
+                row["train_qwen3_moe_launches"] = family_launches["qwen3_moe"][name]
+            if key == "gpt_oss":  # the smoke YAMLs' head dim 8, padded to 16
+                row["smoke_families_launches_at_16"] = {
+                    fam: c[name] for fam, c in smoke_launches.items()}
             kernels.append(row)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})

@@ -1,15 +1,20 @@
 // CPU emulation of the CUDA features that csrc/flash_attention.cu and
 // csrc/paged_mla_attention.cu use, so that their kernels run on a machine
 // without a GPU (tests/test_torch_flash_emulated.py,
-// tests/test_torch_mla_emulated.py). One std::thread per CUDA thread; blocks run
-// one after another; __syncthreads is a block barrier; warp collectives
-// (shuffles, votes, ballots, ldmatrix, mma.sync m16n8k16 bf16) exchange operands
-// through a per-warp buffer between two warp barriers. cp.async copies at
+// tests/test_torch_mla_emulated.py). Each CUDA thread of a block is a
+// user-level fiber on the calling OS thread; blocks run one after
+// another; __syncthreads is a block barrier and the warp barriers are warp-wide
+// ones, at which a fiber yields to the next until all have arrived. The
+// fibers are resumed in thread order in the even blocks and in reverse order
+// in the odd ones, so that a missing barrier shows whichever of two threads
+// reads the other's shared-memory write (a grid of one block runs in thread
+// order only). The fiber switch is x86-64 assembly. Warp
+// collectives (shuffles, votes, ballots, ldmatrix, mma.sync m16n8k16 bf16)
+// exchange operands through a per-warp buffer between two warp barriers. cp.async copies at
 // once, so the emulation checks indexing, layouts and masks, not the
 // timing of the copy pipeline. The kernel source's own inline-asm helpers
 // are replaced by the ones below (the test strips them by name).
 #pragma once
-#include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -17,8 +22,8 @@
 #include <algorithm>
 #include <cstdio>
 #include <cstdlib>
+#include <functional>
 #include <memory>
-#include <thread>
 #include <type_traits>
 #include <vector>
 
@@ -30,7 +35,8 @@
 #define __align__(n)
 #define __launch_bounds__(...)
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
-inline thread_local uint3_ threadIdx, blockIdx;
+// set by the fiber scheduler before it resumes a fiber
+inline uint3_ threadIdx, blockIdx;
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
@@ -53,41 +59,145 @@ template <typename K> int cudaFuncSetAttribute(K, cudaFuncAttribute, int) { retu
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
 
-// ---- launch state
+// ---- fibers and launch state
+// A fiber switch saves the callee-saved registers and the floating-point
+// control words on the running stack, stores its stack pointer in *from and
+// resumes the stack at `to`: no system call (ucontext's swapcontext makes one
+// per switch to save the signal mask, which would cost more than the
+// emulated kernels themselves).
+#if defined(__x86_64__)
+extern "C" void emu_fiber_switch(void** from, void* to);
+asm(R"(
+.text
+.p2align 4
+.type emu_fiber_switch,@function
+emu_fiber_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  subq $8, %rsp
+  stmxcsr (%rsp)
+  fnstcw 4(%rsp)
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  ldmxcsr (%rsp)
+  fldcw 4(%rsp)
+  addq $8, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+.size emu_fiber_switch, .-emu_fiber_switch
+)");
+#else
+#error "cuda_emulation.h switches fibers with x86-64 assembly"
+#endif
+struct Fiber {
+  void* sp = nullptr;
+  std::unique_ptr<char[]> stack;
+  bool done = false;
+};
+// a fiber's stack: the kernels' register arrays and the mma operands live there
+constexpr size_t kFiberStack = 1 << 20;
+inline void* g_sched_sp = nullptr;
+inline Fiber* g_fibers = nullptr;
+inline unsigned g_cur = 0;
+inline std::function<void()>* g_body = nullptr;
+inline void fiber_yield() { emu_fiber_switch(&g_fibers[g_cur].sp, g_sched_sp); }
+[[noreturn]] inline void fiber_main() {
+  (*g_body)();
+  g_fibers[g_cur].done = true;
+  emu_fiber_switch(&g_fibers[g_cur].sp, g_sched_sp);
+  __builtin_unreachable();  // a finished fiber is never resumed
+}
+// A new fiber's stack as emu_fiber_switch leaves a suspended one: the
+// control words (MXCSR's and the x87's defaults), six zero registers, then
+// fiber_main as the return address, placed so that fiber_main starts with
+// the stack alignment of a called function.
+inline void* fiber_stack(char* base, size_t size) {
+  uintptr_t top = ((uintptr_t)(base + size)) & ~(uintptr_t)15;
+  uint64_t* sp = (uint64_t*)(top - 16);
+  sp[1] = 0;
+  sp[0] = (uint64_t)(void (*)())fiber_main;
+  for (int i = 1; i <= 6; ++i) sp[-i] = 0;
+  uint32_t* csr = (uint32_t*)(sp - 7);
+  csr[0] = 0x1F80;  // MXCSR
+  csr[1] = 0x037F;  // x87 control word
+  return sp - 7;
+}
+// n fibers meet: the last to arrive opens the barrier and runs on; the others
+// until it has opened
+// yield until it has opened; `last` runs in the last arrival before it opens
+struct Barrier {
+  unsigned n, count = 0, gen = 0;
+  template <typename F = void (*)()>
+  void arrive_and_wait(F&& last = [] {}) {
+    const unsigned g = gen;
+    if (++count == n) { last(); count = 0; ++gen; return; }
+    while (gen == g) fiber_yield();
+  }
+};
+
 inline unsigned char* g_smem = nullptr;
-inline std::barrier<>* g_block_bar = nullptr;
-inline std::vector<std::unique_ptr<std::barrier<>>> g_warp_bar;
-struct WarpBuf { uint32_t u[32][8]; };
+inline Barrier* g_block_bar = nullptr;
+inline Barrier* g_warp_bar = nullptr;
+// per-lane words, and an mma's operands unpacked once for the warp
+struct WarpBuf { uint32_t u[32][8]; float A[16][16], Bm[16][8]; };
 inline WarpBuf* g_wbuf = nullptr;
 inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
-inline void wsync() { g_warp_bar[threadIdx.x >> 5]->arrive_and_wait(); }
+inline void wsync() { g_warp_bar[threadIdx.x >> 5].arrive_and_wait(); }
 inline WarpBuf& wb() { return g_wbuf[threadIdx.x >> 5]; }
 inline int lane_() { return threadIdx.x & 31; }
 
+// every block of the grid in turn, its threads as fibers scheduled round
+// robin: in thread order while an even block (in the linear block order)
+// runs, in reverse order while an odd one does
 template <typename F>
 void emu_launch(dim3 grid, unsigned threads, size_t smem, F f) {
   std::vector<unsigned char> buf(smem + 1024);
   g_smem = buf.data();
-  std::barrier<> bb(threads);
+  Barrier bb{threads};
   g_block_bar = &bb;
-  g_warp_bar.clear();
-  for (unsigned w = 0; w < threads / 32; ++w) g_warp_bar.emplace_back(new std::barrier<>(32));
+  std::vector<Barrier> wbar(threads / 32, Barrier{32});
+  g_warp_bar = wbar.data();
   std::vector<WarpBuf> wbuf(threads / 32);
   g_wbuf = wbuf.data();
   memset(g_smem, 0xFF, smem + 1024);  // garbage (NaN as bf16 and fp32), like uninitialised shared memory
-  std::vector<std::thread> ts;
-  for (unsigned t = 0; t < threads; ++t)
-    ts.emplace_back([&, t] {
+  std::function<void()> body = [&] {
+    for (unsigned z = 0; z < grid.z; ++z)
+      for (unsigned y = 0; y < grid.y; ++y)
+        for (unsigned x = 0; x < grid.x; ++x) {
+          blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
+          f();
+          bb.arrive_and_wait();
+        }
+  };
+  g_body = &body;
+  std::vector<Fiber> fibers(threads);
+  g_fibers = fibers.data();
+  for (auto& fb : fibers) {
+    fb.stack.reset(new char[kFiberStack]);
+    fb.sp = fiber_stack(fb.stack.get(), kFiberStack);
+  }
+  blockIdx = {};  // the fibers set it as they enter each block
+  for (unsigned alive = threads; alive;) {
+    const bool reverse =
+        (blockIdx.x + grid.x * (blockIdx.y + grid.y * blockIdx.z)) & 1;
+    for (unsigned i = 0; i < threads; ++i) {
+      const unsigned t = reverse ? threads - 1 - i : i;
+      if (fibers[t].done) continue;
+      g_cur = t;
       threadIdx.x = t;
-      for (unsigned z = 0; z < grid.z; ++z)
-        for (unsigned y = 0; y < grid.y; ++y)
-          for (unsigned x = 0; x < grid.x; ++x) {
-            blockIdx.x = x; blockIdx.y = y; blockIdx.z = z;
-            f();
-            bb.arrive_and_wait();
-          }
-    });
-  for (auto& t : ts) t.join();
+      emu_fiber_switch(&g_sched_sp, fibers[t].sp);
+      alive -= fibers[t].done;
+    }
+  }
 }
 
 template <typename T> inline T shfl_impl(T v, int src) {
@@ -155,24 +265,26 @@ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
   auto& B = wb();
   for (int i = 0; i < 4; ++i) B.u[l][i] = a[i];
   B.u[l][4] = b0; B.u[l][5] = b1;
-  wsync();
-  float A[16][16], Bm[16][8];
-  for (int ln = 0; ln < 32; ++ln) {
-    int g = ln / 4, t = ln % 4;
-    const uint32_t* f = B.u[ln];
-    A[g][2*t] = bf_lo(f[0]); A[g][2*t+1] = bf_hi(f[0]);
-    A[g+8][2*t] = bf_lo(f[1]); A[g+8][2*t+1] = bf_hi(f[1]);
-    A[g][2*t+8] = bf_lo(f[2]); A[g][2*t+9] = bf_hi(f[2]);
-    A[g+8][2*t+8] = bf_lo(f[3]); A[g+8][2*t+9] = bf_hi(f[3]);
-    Bm[2*t][g] = bf_lo(f[4]); Bm[2*t+1][g] = bf_hi(f[4]);
-    Bm[2*t+8][g] = bf_lo(f[5]); Bm[2*t+9][g] = bf_hi(f[5]);
-  }
-  wsync();
+  // the last lane to arrive unpacks every lane's fragments; a lane reads the
+  // operands before it reaches the warp's next barrier, and no lane writes
+  // them before all have reached it
+  g_warp_bar[threadIdx.x >> 5].arrive_and_wait([&B] {
+    for (int ln = 0; ln < 32; ++ln) {
+      int g = ln / 4, t = ln % 4;
+      const uint32_t* f = B.u[ln];
+      B.A[g][2*t] = bf_lo(f[0]); B.A[g][2*t+1] = bf_hi(f[0]);
+      B.A[g+8][2*t] = bf_lo(f[1]); B.A[g+8][2*t+1] = bf_hi(f[1]);
+      B.A[g][2*t+8] = bf_lo(f[2]); B.A[g][2*t+9] = bf_hi(f[2]);
+      B.A[g+8][2*t+8] = bf_lo(f[3]); B.A[g+8][2*t+9] = bf_hi(f[3]);
+      B.Bm[2*t][g] = bf_lo(f[4]); B.Bm[2*t+1][g] = bf_hi(f[4]);
+      B.Bm[2*t+8][g] = bf_lo(f[5]); B.Bm[2*t+9][g] = bf_hi(f[5]);
+    }
+  });
   int g = l / 4, t = l % 4;
   int rows[4] = {g, g, g + 8, g + 8}, cols[4] = {2*t, 2*t+1, 2*t, 2*t+1};
   for (int e = 0; e < 4; ++e) {
     float s = 0.f;
-    for (int kk = 0; kk < 16; ++kk) s += A[rows[e]][kk] * Bm[kk][cols[e]];
+    for (int kk = 0; kk < 16; ++kk) s += B.A[rows[e]][kk] * B.Bm[kk][cols[e]];
     c[e] += s;
   }
 }

@@ -2,10 +2,14 @@
 `flash_attention.cu` compiled for the CPU with g++ against
 `cuda_emulation.h` (`build_lib`), the cases by group (`CASES`, `GROUPS`),
 their masks (`case_masks`), capped queries (`capped_q`) and the check of
-one case on both routes against the plain versions (`check_case`)."""
+one case on both routes against the plain versions (`check_case`), which
+runs the kernels through `ops.flash_attention.kernels_forward` and
+`kernels_backward` (the head-dim padding of the CUDA route) with the
+wrappers' launches replaced by the emulated library's (`emulated_wrappers`)."""
 
 import ctypes
 import shutil
+from unittest import mock
 
 import pytest
 import torch
@@ -55,6 +59,10 @@ CASES = {
                             {"window": 40}),
     "d256_gqa4": (1, 100, 100, 4, 1, 256, 256, True, False, None, {}),
     "d256_ring": (1, 70, 100, 2, 1, 256, 256, True, False, None, {"ring": True}),
+    # head dims the kernels run zero-padded: 8 -> 16 (the MoE families'
+    # smoke YAMLs) over packed segments, 32 -> 64 under a window
+    "pad_d8_segments": (2, 70, 70, 4, 2, 8, 8, True, True, None, {}),
+    "pad_d32_window": (1, 100, 100, 4, 2, 32, 32, True, False, None, {"window": 20}),
 }
 # the test file of each case: base (head dims 16-128), MLA's heads, windows
 # and ring-shaped position-causal masks, and head dim 256
@@ -66,6 +74,7 @@ GROUPS = {
     "window": ("window_causal_gqa", "window_two_sided_softcap", "window_packed_d128",
                "window_mla", "ring_position_causal", "ring_position_causal_window_d128"),
     "d256": ("d256_window_softcap", "d256_gqa4", "d256_ring"),
+    "padded": ("pad_d8_segments", "pad_d32_window"),
 }
 assert sorted(c for g in GROUPS.values() for c in g) == sorted(CASES)
 
@@ -114,9 +123,55 @@ def capped_q(q, cap):
     return q if cap is None else (q.float() * (cap / 4)).to(q.dtype)
 
 
+def emulated_wrappers(lib) -> dict:
+    """`ops.cuda.flash_attention`'s `flash_fwd_cuda`, `flash_dq_cuda` and
+    `flash_dkv_cuda` over the emulated library, on CPU tensors: the same
+    head-dim check and launch arguments, keywords `scale`, `soft_cap` and
+    `masks`."""
+    def dims(q, k, v, scale, soft_cap, masks):
+        fa_cuda.check_supported(q, k, v)
+        B, S, Hq, D = q.shape
+        return (B, S, k.shape[1], Hq, k.shape[2], D, v.shape[3], scale,
+                float(soft_cap or 0.0), masks.code, masks.window,
+                {torch.float32: 0, torch.bfloat16: 1}[q.dtype], None)
+
+    def ptrs(masks):
+        return [0 if x is None else x.data_ptr() for x in masks.ints]
+
+    def fwd(q, k, v, *, scale, soft_cap=None, masks):
+        d = dims(q, k, v, scale, soft_cap, masks)
+        B, S, Hq, _ = q.shape
+        out = torch.empty((B, S, Hq, v.shape[3]), dtype=q.dtype)
+        lse = torch.empty((B, Hq, S))
+        assert lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs(masks),
+                              out.data_ptr(), lse.data_ptr(), *d) == 0
+        return out, lse
+
+    def bwd_ptrs(q, k, v, dout, lse, delta, masks):
+        return (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), *ptrs(masks))
+
+    def dq(q, k, v, dout, lse, delta, *, scale, soft_cap=None, masks):
+        d = dims(q, k, v, scale, soft_cap, masks)
+        out = torch.empty_like(q)
+        assert lib.fa_backward_dq(*bwd_ptrs(q, k, v, dout, lse, delta, masks),
+                                  out.data_ptr(), *d) == 0
+        return out
+
+    def dkv(q, k, v, dout, lse, delta, *, scale, soft_cap=None, masks):
+        d = dims(q, k, v, scale, soft_cap, masks)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        assert lib.fa_backward_dkv(*bwd_ptrs(q, k, v, dout, lse, delta, masks),
+                                   dk.data_ptr(), dv.data_ptr(), *d) == 0
+        return dk, dv
+
+    return dict(flash_fwd_cuda=fwd, flash_dq_cuda=dq, flash_dkv_cuda=dkv)
+
+
 def check_case(lib, case, dtype):
     """K1-K3 of `case` in `dtype` against the plain versions: out and lse,
-    then dq, dk and dv."""
+    then dq, dk and dv. A head the kernels are not instantiated for runs
+    zero-padded, as on the card."""
     B, S, T, Hq, Hkv, D, Dv, causal, packed, cap, masks = CASES[case]
     gen = torch.Generator().manual_seed(0)
 
@@ -127,35 +182,37 @@ def check_case(lib, case, dtype):
     q = capped_q(q, cap)
     dout = randn(B, S, Hq, Dv)
     kw, mask = case_masks(B, S, T, causal, packed, masks)
-    code, window, ints = fa_cuda.mask_args(q, k, **kw)
     if masks.get("window"):  # the window masks pairs the causal mask keeps
         causal_only = case_masks(B, S, T, causal, packed, {**masks, "window": None})[1]
         assert mask.sum() < causal_only.sum()
     if masks.get("ring"):
         assert not mask.any(-1).all()  # some q rows see no key
     scale = D ** -0.5
-    iptrs = [0 if x is None else x.data_ptr() for x in ints]
-    dims = (B, S, T, Hq, Hkv, D, Dv, scale, float(cap or 0.0), code, window,
-            {torch.float32: 0, torch.bfloat16: 1}[dtype], None)
+    masks_args = fa_cuda.mask_args(q, k, **kw)
+    before = fa_cuda.launch_counts(by_head_dims=True, lib=lib)
+    with mock.patch.multiple(fa_cuda, **emulated_wrappers(lib)):
+        out, lse = fa.kernels_forward(q, k, v, scale=scale, soft_cap=cap,
+                                      masks=masks_args)
+        out_ref, lse_ref = fa.flash_attention_ref(q, k, v, mask, scale=scale,
+                                                  soft_cap=cap)
+        assert out.shape == out_ref.shape
+        assert _rel_err(out, out_ref) <= TOL[dtype]
+        assert (lse - lse_ref).abs().max().item() <= TOL[dtype]
 
-    out, lse = torch.empty_like(dout), torch.empty((B, Hq, S))
-    assert lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), *iptrs,
-                          out.data_ptr(), lse.data_ptr(), *dims) == 0
-    out_ref, lse_ref = fa.flash_attention_ref(q, k, v, mask, scale=scale,
-                                              soft_cap=cap)
-    assert _rel_err(out, out_ref) <= TOL[dtype]
-    assert (lse - lse_ref).abs().max().item() <= TOL[dtype]
-
-    delta = (dout.float() * out_ref.float()).sum(-1).transpose(1, 2).contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse_ref.data_ptr(), delta.data_ptr(), *iptrs)
-    assert lib.fa_backward_dq(*ptrs, dq.data_ptr(), *dims) == 0
-    assert lib.fa_backward_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims) == 0
+        delta = (dout.float() * out_ref.float()).sum(-1).transpose(1, 2).contiguous()
+        got = fa.kernels_backward(q, k, v, dout, lse_ref, delta, scale=scale,
+                                  soft_cap=cap, masks=masks_args)
     want = fa.flash_attention_bwd_ref(q, k, v, dout, lse_ref, delta, mask,
                                       scale=scale, soft_cap=cap)
-    for got, ref in zip((dq, dk, dv), want):
-        assert _rel_err(got, ref) <= TOL[dtype]
+    for g, ref in zip(got, want):
+        assert g.shape == ref.shape
+        assert _rel_err(g, ref) <= TOL[dtype]
+    # the C dispatch counted one launch of each of the route's K1-K3, at the
+    # head dims they ran at
+    after = fa_cuda.launch_counts(by_head_dims=True, lib=lib)
+    dims = fa_cuda.padded_head_dims(D, Dv)
+    assert {key: n - before[key] for key, n in after.items() if n != before[key]} == {
+        (name, dims): 1 for name in fa_cuda.KERNELS[fa_cuda.route(dtype)]}
 
 
 def check_refusals(lib):

@@ -250,12 +250,18 @@ def test_loaded_port_model_logits_match_jax(tmp_path):
 def test_unported_adapter_styles_raise():
     t_cfg, _ = port_adapter(LLAMA)
     ds_cfg, _ = port_adapter(DEEPSEEK)
-    for style in ("glm4", "baichuan", "bailing", "hunyuan"):
+    for style in ("glm4", "baichuan"):
         with pytest.raises(NotImplementedError, match=style):
             DenseDecoderAdapter(t_cfg, style=style)
-    for style in ("qwen3_moe", "mixtral", "gpt_oss", "minimax", "ernie"):
+    for style in ("hy_mt2", "glm4"):
         with pytest.raises(NotImplementedError, match=style):
             MoEDecoderAdapter(ds_cfg, style=style)
+    # the GQA MoE families' styles are ported (tests/test_torch_moe_families.py)
+    for style in ("bailing", "hunyuan"):
+        DenseDecoderAdapter(t_cfg, style=style)
+    for style in ("qwen3_moe", "mixtral", "gpt_oss", "minimax", "ernie", "hunyuan",
+                  "bailing"):
+        MoEDecoderAdapter(ds_cfg, style=style)
     with pytest.raises(NotImplementedError, match="DSA"):
         DenseDecoderAdapter(dataclasses.replace(t_cfg, dsa_index_topk=4))
     with pytest.raises(NotImplementedError, match="het_moe"):

@@ -15,6 +15,7 @@ import torch
 from automodel_tpu_torch.models.llm import decoder
 from automodel_tpu_torch.ops.cuda import _build
 from automodel_tpu_torch.ops.cuda.ragged_paged_attention import (
+    kernel_launches,
     ragged_paged_attention_cuda,
 )
 from automodel_tpu_torch.ops.paged_attention import (
@@ -67,6 +68,8 @@ def _batch(card, dtype, G, D, Dv, ps, seed=0):
 K4_CASES = [
     (1, 64, 64, 16, None), (4, 128, 128, 16, 30.0), (2, 64, 32, 8, None),
     (8, 128, 128, 32, None), (2, 256, 256, 16, 30.0), (20, 64, 64, 8, 30.0),
+    # Qwen3-30B-A3B's heads on 16-token pages
+    (8, 128, 128, 16, None),
 ]
 
 
@@ -74,10 +77,10 @@ K4_CASES = [
 @pytest.mark.parametrize("G,D,Dv,ps,soft_cap", K4_CASES)
 def test_k4_matches_plain_version(card, dtype, G, D, Dv, ps, soft_cap):
     args = _batch(card, dtype, G, D, Dv, ps)
-    n0 = ragged_paged_attention_cuda.launches
+    n0 = kernel_launches()["K4"]
     got = ragged_paged_attention_cuda(*args, scale=D ** -0.5, soft_cap=soft_cap)
     torch.cuda.synchronize()
-    assert ragged_paged_attention_cuda.launches == n0 + 1
+    assert kernel_launches()["K4"] == n0 + 1
     want = ragged_paged_attention_ref(*args, scale=D ** -0.5, soft_cap=soft_cap)
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
     assert not got[args[4] < 0].any()
@@ -95,6 +98,7 @@ K45_WINDOW_CASES = {
     "k4_gpt_oss_window_sinks": ("K4", 8, 64, 64, 16, None, 128, True),
     "k5_window_sinks_cap": ("K5", 3, 72, 40, 16, 20.0, 129, True),
     "k5_window_mid_split": ("K5", 4, 128, 128, 16, None, 100, False),
+    "k5_qwen3_moe": ("K5", 8, 128, 128, 16, None, 0, False),
 }
 
 
@@ -144,10 +148,10 @@ def test_k4_k5_windows_and_sinks_match_plain_version(card, dtype, case):
     fn, call_args = (ragged_paged_attention_cuda, args) if kernel == "K4" else (
         ragged_paged_attention_quant_cuda,
         (q, kp, vp, scales["k_scales"], scales["v_scales"], pt, pos))
-    n0 = fn.launches
+    n0 = kernel_launches()[kernel]
     got = fn(*call_args, **kw)
     torch.cuda.synchronize()
-    assert fn.launches == n0 + 1
+    assert kernel_launches()[kernel] == n0 + 1
     want = ragged_paged_attention_ref(*args, **kw, **scales).float()
     # held to the plain result's own largest value and root mean square (an
     # output averaged over many kv rows is small), and the plain version
@@ -178,10 +182,10 @@ def test_k4_rejects_what_it_does_not_take(card):
     # columns, K and V, are past shared memory) raises; nothing else runs
     # in its place
     q, kp, vp, pt, pos = _batch(card, torch.bfloat16, 16, 4096, 4096, 16)
-    n0 = ragged_paged_attention_cuda.launches
+    n0 = kernel_launches()["K4"]
     with pytest.raises(RuntimeError, match="launch failed"):
         ragged_paged_attention_cuda(q, kp, vp, pt, pos, scale=0.1)
-    assert ragged_paged_attention_cuda.launches == n0
+    assert kernel_launches()["K4"] == n0
 
 
 def test_engine_kernel_matches_plain_version(card):
@@ -249,10 +253,10 @@ def test_k5_matches_plain_version(card, dtype, G, D, ps, soft_cap):
     kp, ks = _int8_pages(gen, card, N + 1, ps, Hkv, D)
     vp, vs = _int8_pages(gen, card, N + 1, ps, Hkv, D)
     kw = dict(scale=D ** -0.5, soft_cap=soft_cap)
-    n0 = ragged_paged_attention_quant_cuda.launches
+    n0 = kernel_launches()["K5"]
     got = ragged_paged_attention_quant_cuda(q, kp, vp, ks, vs, pt, pos, **kw)
     torch.cuda.synchronize()
-    assert ragged_paged_attention_quant_cuda.launches == n0 + 1
+    assert kernel_launches()["K5"] == n0 + 1
     assert got.dtype == dtype
     want = ragged_paged_attention_ref(q, kp, vp, pt, pos, k_scales=ks,
                                       v_scales=vs, **kw)
@@ -288,10 +292,11 @@ def test_k6_k7_match_plain_version(card, dtype, quant, n, r, dr, ps):
         fn, extra = mla.paged_mla_attention_cuda, ()
         want = ragged_paged_mla_attention_ref(q_abs, q_rope, c, kr, pt, pos,
                                               scale=scale)
-    n0 = fn.launches
+    kernel = "K7" if quant else "K6"
+    n0 = mla.kernel_launches()[kernel]
     got = fn(q_abs, q_rope, c, kr, *extra, pt, pos, scale=scale)
     torch.cuda.synchronize()
-    assert fn.launches == n0 + 1 and got.dtype == dtype
+    assert mla.kernel_launches()[kernel] == n0 + 1 and got.dtype == dtype
     assert _rel_err(got, want) <= PAGED_TOL[dtype]
     assert not got[pos < 0].any()
 
@@ -404,48 +409,21 @@ def test_fp32_route_takes_many_heads(card, n, quant):
     assert not got[pos < 0].any()
 
 
-def _kernel_names(kernels) -> set:
-    """Every device-kernel name of a module's `KERNELS` (route -> names, or
-    kernel -> route -> names)."""
-    if isinstance(kernels, dict):
-        return {n for v in kernels.values() for n in _kernel_names(v)}
-    return set(kernels)
-
-
-def _profiled_names(fn) -> list:
-    """The device-kernel names of one call of `fn` under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-
-
-def _route_names(fn, want, attempts: int = 3) -> list:
-    """The device-kernel names of a profiled call of `fn` in which each of
-    `want` shows up once. torch.profiler now and then loses the device
-    events of a session, most often the first of a process: one warm-up
-    session is thrown away, then up to `attempts` sessions are taken and
-    the first complete one kept (the last one if none is)."""
-    _profiled_names(fn)  # warm-up session
-    for _ in range(attempts):
-        names = _profiled_names(fn)
-        if all(sum(kernel in name for name in names) == 1 for kernel in want):
-            break
-    return names
-
-
-def _assert_route(fn, want, kernels):
-    """`fn()` launches the device kernels `want` names, once each, and none
-    of the others in `kernels` (the module's `KERNELS`)."""
+def _launched(fn, counts) -> dict:
+    """The device kernels one call of `fn` launched, with how often, as the
+    library's C dispatch counts them (`counts`: the module's
+    `launch_counts`). The first call builds the library and is not read."""
     fn()  # the build
-    names = _route_names(fn, want)
-    for kernel in want:
-        assert sum(kernel in name for name in names) == 1, (kernel, names)
-    for kernel in _kernel_names(kernels) - set(want):
-        assert not any(kernel in name for name in names), (kernel, names)
+    before = counts()
+    fn()
+    after = counts()
+    return {name: n - before[name] for name, n in after.items() if n != before[name]}
+
+
+def _assert_route(fn, want, counts):
+    """`fn()` launches the device kernels `want` names, once each, and none
+    of the others that `counts` (the module's `launch_counts`) keys."""
+    assert _launched(fn, counts) == dict.fromkeys(want, 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -462,7 +440,7 @@ def test_k7_route_follows_dtype(card, dtype):
     kr, krs = _int8_pages(gen, card, 41, 16, 64)
     args = (q_abs, q_rope, c, kr, cs, krs, pt, pos)
     _assert_route(lambda: mla.paged_mla_attention_quant_cuda(*args, scale=0.07),
-                  mla.KERNELS[mla.route(dtype)], mla.KERNELS)
+                  mla.KERNELS["K7"][mla.route(dtype)], mla.launch_counts)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -477,7 +455,7 @@ def test_k6_route_follows_dtype(card, dtype):
     kr = torch.randn(41, 16, 64, generator=gen, device=card).to(dtype)
     _assert_route(lambda: mla.paged_mla_attention_cuda(
         q_abs, q_rope, c, kr, pt, pos, scale=0.07),
-        mla.KERNELS[mla.route(dtype)], mla.KERNELS)
+        mla.KERNELS["K6"][mla.route(dtype)], mla.launch_counts)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -491,7 +469,7 @@ def test_k5_route_follows_dtype(card, dtype):
     vp, vs = _int8_pages(gen, card, 41, 16, 8, 128)
     _assert_route(lambda: rpa.ragged_paged_attention_quant_cuda(
         q, kp, vp, ks, vs, pt, pos, scale=0.09),
-        rpa.KERNELS["K5"][rpa.route(dtype)], rpa.KERNELS)
+        rpa.KERNELS["K5"][rpa.route(dtype)], rpa.launch_counts)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -504,7 +482,7 @@ def test_k4_route_follows_dtype(card, dtype, G, D, Dv, ps, soft_cap):
     args = _batch(card, dtype, G, D, Dv, ps)
     _assert_route(lambda: rpa.ragged_paged_attention_cuda(
         *args, scale=D ** -0.5, soft_cap=soft_cap),
-        rpa.KERNELS["K4"][rpa.route(dtype)], rpa.KERNELS)
+        rpa.KERNELS["K4"][rpa.route(dtype)], rpa.launch_counts)
 
 
 def test_k5_k6_k7_reject_what_they_do_not_take(card):
@@ -570,13 +548,13 @@ def test_engines_kernels_match_plain_versions(card, model, kv):
 
     if model == "deepseek":
         cfg, params = _tiny_deepseek(card)
-        counter = mla.paged_mla_attention_quant_cuda if kv else mla.paged_mla_attention_cuda
+        launches, kernel = mla.kernel_launches, "K7" if kv else "K6"
     else:
         cfg = decoder.TransformerConfig(
             vocab_size=256, hidden_size=128, intermediate_size=192, num_layers=2,
             num_heads=4, num_kv_heads=2, dtype=torch.float32)
         params = decoder.init(cfg, torch.Generator(device=card).manual_seed(0))
-        counter = rpa.ragged_paged_attention_quant_cuda if kv else rpa.ragged_paged_attention_cuda
+        launches, kernel = rpa.kernel_launches, "K5" if kv else "K4"
     sc = ServingConfig(page_size=4, num_pages=32, max_slots=3, pages_per_slot=8,
                        token_budget=8, prefill_chunk=4, kv_cache_dtype=kv)
     outs = []
@@ -584,10 +562,10 @@ def test_engines_kernels_match_plain_versions(card, model, kv):
         engine = ServingEngine(params, cfg, sc, attn_impl=impl)
         reqs = [Request(prompt=list(range(1 + i, 9 + 3 * i)), max_new_tokens=5,
                         arrival=i) for i in range(4)]
-        n0 = counter.launches
+        n0 = launches()[kernel]
         res = engine.serve_batch(reqs)
         outs.append(res["outputs"])
-        launched = counter.launches - n0
+        launched = launches()[kernel] - n0
         assert launched == (cfg.num_layers * res["stats"]["steps"] if impl == "cuda" else 0)
     assert outs[0] == outs[1]
 
@@ -613,7 +591,7 @@ def test_windowed_engine_kernels_match_plain_version(card, kv, sinks):
     params = decoder.init(cfg, gen)
     if sinks:
         params["layers"]["sinks"] = torch.randn(2, 4, generator=gen, device=card)
-    counter = rpa.ragged_paged_attention_quant_cuda if kv else rpa.ragged_paged_attention_cuda
+    kernel = "K5" if kv else "K4"
     sc = ServingConfig(page_size=4, num_pages=48, max_slots=3, pages_per_slot=10,
                        token_budget=8, prefill_chunk=4, kv_cache_dtype=kv)
     outs = []
@@ -621,10 +599,10 @@ def test_windowed_engine_kernels_match_plain_version(card, kv, sinks):
         engine = ServingEngine(params, cfg, sc, attn_impl=impl)
         reqs = [Request(prompt=list(range(1 + i, 12 + 3 * i)), max_new_tokens=6,
                         arrival=i) for i in range(4)]
-        n0 = counter.launches
+        n0 = rpa.kernel_launches()[kernel]
         res = engine.serve_batch(reqs)
         outs.append(res["outputs"])
-        launched = counter.launches - n0
+        launched = rpa.kernel_launches()[kernel] - n0
         assert launched == (cfg.num_layers * res["stats"]["steps"] if impl == "cuda" else 0)
     assert outs[0] == outs[1]
 
@@ -750,7 +728,7 @@ def test_flash_kernels_match_plain_versions(card, dtype, case):
     mkw, mask = _fa_masks(card, B, S, T, causal, seg, masks)
     if masks.get("ring"):
         assert not mask.any(-1).all()  # some q rows see no key
-    n = (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv)
+    n = fa_cuda.kernel_launches()
     kw = dict(scale=scale, soft_cap=cap, **mkw)
     out, lse = fa_cuda.flash_fwd_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -766,8 +744,7 @@ def test_flash_kernels_match_plain_versions(card, dtype, case):
                                       scale=scale, soft_cap=cap)
     for got, ref in zip((dq, dk, dv), want):
         assert _rel_err(got, ref) <= FA_TOL[dtype]
-    assert (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv) == (
-        n[0] + 1, n[1] + 1, n[2] + 1)
+    assert fa_cuda.kernel_launches() == {k: c + 1 for k, c in n.items()}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -787,17 +764,10 @@ def test_flash_route_follows_dtype(card, dtype):
         fa_cuda.flash_dkv_cuda(q, k, v, dout, lse, delta, **kw)
 
     k1_k3()  # the build
-    n = (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv)
+    n = fa_cuda.kernel_launches()
     k1_k3()
-    assert (fa_cuda.launches_fwd, fa_cuda.launches_dq, fa_cuda.launches_dkv) == (
-        n[0] + 1, n[1] + 1, n[2] + 1)
-    want = fa_cuda.KERNELS[fa_cuda.route(dtype)]
-    names = _route_names(k1_k3, want)
-    other = {n for r in fa_cuda.KERNELS.values() for n in r} - set(want)
-    for kernel in want:
-        assert sum(kernel in name for name in names) == 1, (kernel, names)
-    for kernel in other:
-        assert not any(kernel in name for name in names), (kernel, names)
+    assert fa_cuda.kernel_launches() == {k: c + 1 for k, c in n.items()}
+    _assert_route(k1_k3, fa_cuda.KERNELS[fa_cuda.route(dtype)], fa_cuda.launch_counts)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -815,13 +785,48 @@ def test_flash_256_kernels_launch_through_autograd(card, dtype):
         out = dot_product_attention(*leaves, sliding_window=64, logits_soft_cap=50.0)
         torch.autograd.grad(out, leaves, dout)
 
-    step()  # the build
-    # the tensor-core kernels' instantiation with the position code
-    dims = "256, 256, true>" if dtype == torch.bfloat16 else "float, 256, 256>"
-    want = [name + dims for name in fa_cuda.KERNELS[fa_cuda.route(dtype)]]
-    names = _route_names(step, want)
-    for kernel in want:
-        assert sum(kernel in name for name in names) == 1, (kernel, names)
+    launched = _launched(step, lambda: fa_cuda.launch_counts(by_head_dims=True))
+    assert launched == {(name, (256, 256)): 1
+                        for name in fa_cuda.KERNELS[fa_cuda.route(dtype)]}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dims", [(8, 8), (32, 32), (96, 96), (64, 96)])
+def test_flash_padded_head_dims_match_plain_attention(card, dtype, dims):
+    """Head dims K1-K3 are not instantiated for run zero-padded to the
+    smallest pair that holds them (8 -> 16, 32 -> 64, 96 -> 128, (64, 96)
+    -> (128, 128)), with a window, sinks and packed segments: output and
+    gradients against autograd through the plain einsum attention in fp32,
+    and one launch of each of the route's kernels at the padded pair."""
+    from automodel_tpu_torch.ops.attention import dot_product_attention
+    from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
+
+    q, k, v, dout, seg = _fa_inputs(card, dtype, 1, 150, 150, 8, 2, dims, True)
+    positions = _fa_masks(card, 1, 150, 150, True, seg, {"window": 40})[0]["positions"]
+    sinks = torch.linspace(-1.0, 1.0, 8, device=card)
+    grads = []
+    for impl in ("flash", "xla"):
+        leaves = [t.float().clone().requires_grad_() if impl == "xla"
+                  else t.clone().requires_grad_() for t in (q, k, v, sinks)]
+        out = dot_product_attention(*leaves[:3], segment_ids=seg,
+                                    positions=positions, sliding_window=40,
+                                    sinks=leaves[3], impl=impl)
+        grads.append((out, torch.autograd.grad(out, leaves, dout.to(out.dtype))))
+    (out_f, g_f), (out_x, g_x) = grads
+    assert out_f.shape == (1, 150, 8, dims[1])
+    assert _rel_err(out_f, out_x) <= FA_TOL[dtype]
+    for a, b in zip(g_f, g_x):
+        assert a.shape == b.shape and _rel_err(a, b) <= FA_TOL[dtype]
+
+    def step():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = dot_product_attention(*leaves, sliding_window=40)
+        torch.autograd.grad(out, leaves, dout)
+
+    launched = _launched(step, lambda: fa_cuda.launch_counts(by_head_dims=True))
+    padded = fa_cuda.padded_head_dims(*dims)
+    assert launched == {(name, padded): 1
+                        for name in fa_cuda.KERNELS[fa_cuda.route(dtype)]}
 
 
 def test_flash_attention_on_card_matches_plain_attention(card):
@@ -854,12 +859,20 @@ def test_flash_kernels_refuse_what_they_do_not_cover(card):
     from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
 
     q, k, v, _, _ = _fa_inputs(card, torch.bfloat16, 1, 64, 64, 4, 2, 64, False)
-    # windows run on the kernels; head dims outside HEAD_DIMS are refused
+    # windows run on the kernels; a head dim outside HEAD_DIMS runs padded
+    # (48 at 64), and the wrappers themselves take only HEAD_DIMS; above 256
+    # the attention refuses
     out = dot_product_attention(q, k, v, sliding_window=16)
     assert out.shape == (1, 64, 4, 64)
-    with pytest.raises(NotImplementedError, match="head dim"):
-        dot_product_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                              v[..., :48].contiguous())
+    out = dot_product_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                v[..., :48].contiguous())
+    assert out.shape == (1, 64, 4, 48)
+    with pytest.raises(NotImplementedError, match="head dim 48"):
+        fa_cuda.flash_fwd_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                               v[..., :48].contiguous(), scale=0.1)
+    wide = torch.zeros((1, 64, 4, 320), dtype=q.dtype, device=card)
+    with pytest.raises(NotImplementedError, match="head dims q/k 320, v 320"):
+        dot_product_attention(wide, wide, wide)
     with pytest.raises(TypeError):
         fa_cuda.flash_fwd_cuda(q.half(), k.half(), v.half(), scale=0.1)
     with pytest.raises(ValueError):

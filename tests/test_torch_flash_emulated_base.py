@@ -4,7 +4,8 @@ cuda_emulation.h` and held to the plain versions on the same inputs, on
 the tensor-core bf16 route and the CUDA-core fp32 route,
 at head dims 16, 64 and 128 (q/k and v alike): causal by index with GQA
 and T != S either way, packed segments, bidirectional, and soft caps (q is
-scaled so that the cap bends the logits).
+scaled so that the cap bends the logits); and at head dims 8 and 32, which
+the kernels run zero-padded to 16 and 64.
 The cases, their masks and the check live in
 `tests/cuda_emulation/flash_cases.py`; the speed of the kernels, and the
 hardware's own reading of the PTX, are checked on the card
@@ -23,6 +24,12 @@ def lib(tmp_path_factory):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", sorted(flash_cases.GROUPS["base"]))
 def test_emulated_kernels_match_plain_versions(lib, case, dtype):
+    flash_cases.check_case(lib, case, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(flash_cases.GROUPS["padded"]))
+def test_emulated_kernels_take_padded_head_dims(lib, case, dtype):
     flash_cases.check_case(lib, case, dtype)
 
 

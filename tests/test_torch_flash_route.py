@@ -104,11 +104,17 @@ def test_cpu_tensors_are_refused_not_computed(dtype):
 
 
 def test_k7_route_follows_dtype():
+    """K6's and K7's route follows the query dtype, and their split and
+    CUDA-core keys each pick out one device kernel (the combine is one
+    kernel, shared)."""
     from automodel_tpu_torch.ops.cuda import paged_mla_attention as mla
 
     assert mla.route(torch.bfloat16) == "mma"
     assert mla.route(torch.float32) == "fma"
-    assert not set(mla.KERNELS["mma"]) & set(mla.KERNELS["fma"])
+    for kernel in ("K6", "K7"):
+        assert not set(mla.KERNELS[kernel]["mma"]) & set(mla.KERNELS[kernel]["fma"])
+    keys = {mla.KERNELS[k][r][0] for k in ("K6", "K7") for r in ("mma", "fma")}
+    assert len(keys) == 4 and not any(a != b and a in b for a in keys for b in keys)
 
 
 def _check_rpa_kernels(kernel):
@@ -132,3 +138,52 @@ def test_k5_route_follows_dtype():
 
 def test_k4_route_follows_dtype():
     _check_rpa_kernels("K4")
+
+
+@pytest.mark.parametrize("dims, padded", [
+    ((8, 8), (16, 16)), ((32, 32), (64, 64)), ((96, 96), (128, 128)),
+    ((64, 96), (128, 128)), ((192, 128), (192, 128)), ((200, 100), (256, 256)),
+])
+def test_head_dims_pad_to_the_smallest_pair_that_holds_them(dims, padded):
+    assert fa_cuda.padded_head_dims(*dims) == padded
+    if dims in fa_cuda.HEAD_DIMS:
+        q, k, v = _qkv(torch.float32, D=dims[0], Dv=dims[1])
+        assert fa_cuda.pad_head_dim(q, padded[0]) is q
+
+
+@pytest.mark.parametrize("dims", [(264, 264), (64, 300), (320, 128)])
+def test_head_dims_above_256_are_refused(dims):
+    with pytest.raises(NotImplementedError, match="exceed every instantiated"):
+        fa_cuda.padded_head_dims(*dims)
+
+
+@pytest.mark.parametrize("dims", [(8, 8), (32, 32), (96, 96), (64, 96)])
+def test_padded_plain_versions_equal_unpadded(dims):
+    """What the CUDA route does for a head of these dims, on the plain
+    versions: q and k zero-padded to the pair's q/k dim and v (and dO) to
+    its v dim, at the caller's scale (from the true D), give the unpadded
+    out, lse, dq, dk and dv in their first columns and zeros past them
+    (windowed, soft-capped, GQA)."""
+    from automodel_tpu_torch.ops import flash_attention as fa
+
+    D, Dv = dims
+    Dp, Dvp = fa_cuda.padded_head_dims(D, Dv)
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 40, 4, D, generator=gen)
+    k = torch.randn(1, 40, 2, D, generator=gen)
+    v = torch.randn(1, 40, 2, Dv, generator=gen)
+    dout = torch.randn(1, 40, 4, Dv, generator=gen)
+    _, mask = fa.mask_case(1, 40, 40, device="cpu", sliding_window=9)
+    kw = dict(scale=D ** -0.5, soft_cap=5.0)
+    out, lse = fa.flash_attention_ref(q, k, v, mask, **kw)
+    delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
+    grads = fa.flash_attention_bwd_ref(q, k, v, dout, lse, delta, mask, **kw)
+    qp, kp = fa_cuda.pad_head_dim(q, Dp), fa_cuda.pad_head_dim(k, Dp)
+    vp, dop = fa_cuda.pad_head_dim(v, Dvp), fa_cuda.pad_head_dim(dout, Dvp)
+    out_p, lse_p = fa.flash_attention_ref(qp, kp, vp, mask, **kw)
+    grads_p = fa.flash_attention_bwd_ref(qp, kp, vp, dop, lse_p, delta, mask, **kw)
+    torch.testing.assert_close(lse_p, lse, atol=1e-6, rtol=1e-6)
+    for got, want, width in ((out_p, out, Dv), (grads_p[0], grads[0], D),
+                             (grads_p[1], grads[1], D), (grads_p[2], grads[2], Dv)):
+        torch.testing.assert_close(got[..., :width], want, atol=1e-6, rtol=1e-6)
+        assert not got[..., width:].any()

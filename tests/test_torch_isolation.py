@@ -46,7 +46,7 @@ def test_port_imports_no_jax():
                 "ops.quant", "ops.cuda.paged_mla_attention", "models.llm.mla",
                 "moe.config", "moe.gate", "moe.experts", "moe.layer",
                 "models.moe_lm.decoder", "models.moe_lm.families",
-                "models.moe_lm.mtp", "inference.generate",
+                "models.moe_lm.mtp", "models.registry", "inference.generate",
                 "checkpoint.safetensors_io",
                 "checkpoint.hf_adapter", "recipes.llm.serve", "peft.lora",
                 "eval.sampling"):

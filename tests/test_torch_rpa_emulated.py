@@ -32,6 +32,7 @@ import torch
 from cuda_emulation import rewrite
 
 from automodel_tpu_torch.ops.cuda import _build
+from automodel_tpu_torch.ops.cuda import ragged_paged_attention as rpa_cuda
 from automodel_tpu_torch.ops.paged_attention import ragged_paged_attention_ref
 
 # as on the card (tests/test_torch_cuda.py), a share of the largest value:
@@ -49,6 +50,8 @@ CASES = {
     # row slices of no 4-byte multiple: byte-wise page copies
     "odd_widths_g2_d30_dv10": (2, 2, 30, 10, 8, 12, (70, 9), None),
     "g20_two_head_tiles": (1, 20, 64, 64, 16, 12, (150, 1), 30.0),
+    # Qwen3-30B-A3B's heads: G 8 x D 128
+    "g8_d128_dv128": (1, 8, 128, 128, 16, 12, (150, 17), None),
 }
 # K4 also at the widest heads of dense families
 K4_CASES = {**CASES,
@@ -119,6 +122,7 @@ def _launch(lib, kernel, q, k, v, pt, pos, soft_cap, window=0, sinks=None,
     ptrs += [None if sinks is None else sinks.data_ptr(), out.data_ptr()]
     args = (T, Hq, Hkv, D, Dv, ps, P, D ** -0.5, soft_cap or 0.0, window)
     quant = "quant_" if kernel == "K5" else ""
+    before = rpa_cuda.launch_counts(lib)
     if q.dtype == torch.bfloat16:
         ws = torch.full((lib.rpa_split_workspace_floats(T, Hq, Hkv, D, Dv, ps, P),),
                         ws_fill)
@@ -127,6 +131,10 @@ def _launch(lib, kernel, q, k, v, pt, pos, soft_cap, window=0, sinks=None,
     else:
         err = getattr(lib, f"rpa_gqa_{quant}forward")(*ptrs, *args, 0, None)
     assert err == 0
+    # the C dispatch counted one launch of each of the route's device kernels
+    after = rpa_cuda.launch_counts(lib)
+    assert {name: n - before[name] for name, n in after.items() if n != before[name]} == (
+        dict.fromkeys(rpa_cuda.KERNELS[kernel][rpa_cuda.route(q.dtype)], 1))
     return out
 
 
@@ -175,6 +183,8 @@ WINDOW_CASES = {
     "window_ps8_g1_cap": (2, 1, 64, 64, 8, 40, (290, 203, 9), 30.0, 77, False),
     "sinks_g8": (1, 8, 64, 64, 16, 12, (150, 17, 1), None, 0, True),
     "window_sinks_cap_g3": (2, 3, 72, 40, 16, 24, (333, 130), 20.0, 129, True),
+    # gpt-oss-20b's heads: G 8 x D 64, a window of 128 with sinks
+    "window_128_sinks_g8": (1, 8, 64, 64, 16, 24, (300, 130, 1), None, 128, True),
 }
 
 

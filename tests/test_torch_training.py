@@ -326,8 +326,8 @@ def test_recipe_and_cli_refuse_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="distributed.tp"):
         TrainFinetuneRecipeForNextTokenPrediction(node, device="cpu").setup()
     node = _recipe_node(load_yaml(TINY_YAML), tmp_path, "y")
-    node.set("model.hf_config.architectures", ["Qwen3MoeForCausalLM"])
-    with pytest.raises(NotImplementedError, match="Qwen3MoeForCausalLM"):
+    node.set("model.hf_config.architectures", ["Qwen3NextForCausalLM"])
+    with pytest.raises(NotImplementedError, match="Qwen3NextForCausalLM"):
         TrainFinetuneRecipeForNextTokenPrediction(node, device="cpu").setup()
     with pytest.raises(NotImplementedError, match="llm_kd"):
         app.resolve_recipe_class(ConfigNode({"recipe": "llm_kd"}))
