@@ -18,15 +18,21 @@ one HF tensor. The files are read and written by the port's own
 `safetensors_io` (no `safetensors` or `ml_dtypes` import).
 
 Ported styles: dense "llama" (GQA or MLA attention), "hunyuan"
-(`query_layernorm` / `key_layernorm`) and "bailing" (Ling 2.0: fused
-`attention.query_key_value`, `attention.dense`, `word_embeddings`); MoE
+(`query_layernorm` / `key_layernorm`), "glm4" (GLM-4: the fused
+`mlp.gate_up_proj`, first half gate and second half up, and the
+`post_self_attn_layernorm` / `post_mlp_layernorm` sandwich norms),
+"baichuan" (the fused `self_attn.W_pack`, rows [Q|K|V]) and "bailing"
+(Ling 2.0: fused `attention.query_key_value`, `attention.dense`,
+`word_embeddings`); MoE
 "deepseek", "qwen3_moe" (also GLM-4.5's), "mixtral", "minimax", "gpt_oss"
 (the fused, interleaved `gate_up_proj` with its biases, the router bias),
 "ernie" (the correction bias under `moe_statics` with a leading dim of 1),
 "hunyuan" (`gate.wg`, `shared_mlp`) and "bailing" (`gate.expert_bias`).
-GLM-4's fused gate/up (the dense "glm4" style) and the DSA indexer raise
-NotImplementedError. A checkpoint must carry the `model.` prefix and an
-`lm_head.weight` unless the embeddings are tied.
+The DSA indexer raises NotImplementedError. A dense checkpoint saved
+without the CausalLM wrapper (a `LlamaBidirectionalModel`) may drop the
+`model.` prefix, and one with a swapped head (`...ForSequenceClassification`)
+may carry no `lm_head.weight`: that leaf is then left out, as the JAX
+adapter does, and the seq-cls and retrieval recipes add their own head.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import dataclasses
 import glob
 import itertools
 import json
+import logging
 import os
 import shutil
 from typing import Any, Callable, Iterator, Mapping
@@ -45,6 +52,8 @@ from automodel_tpu_torch.checkpoint.safetensors_io import SafetensorsFile, save_
 from automodel_tpu_torch.utils.device import resolve_device
 
 Reader = Callable[[str], torch.Tensor]
+
+logger = logging.getLogger(__name__)
 
 
 def _t(x: torch.Tensor) -> torch.Tensor:
@@ -95,16 +104,18 @@ def _stack(shape: tuple, name_of: Callable[..., str], load: Callable[[str], torc
 @dataclasses.dataclass
 class DenseDecoderAdapter:
     """Llama-style names <-> `models/llm/decoder` params (GQA or MLA);
-    `style` "hunyuan" and "bailing" rename the attention's tensors."""
+    `style` "hunyuan", "glm4", "baichuan" and "bailing" rename or fuse
+    tensors (the module docstring lists them)."""
 
     cfg: Any  # TransformerConfig
     style: str = "llama"
 
+    STYLES = ("llama", "hunyuan", "glm4", "baichuan", "bailing")
+
     def __post_init__(self):
-        if self.style not in ("llama", "hunyuan", "bailing"):
+        if self.style not in self.STYLES:
             raise NotImplementedError(
-                f"dense adapter style {self.style!r} is not ported "
-                "(llama, hunyuan, bailing)")
+                f"dense adapter style {self.style!r} is not ported; ported: {self.STYLES}")
         if self.cfg.dsa_index_topk is not None:
             raise NotImplementedError("the DSA indexer's checkpoint layout is not ported")
 
@@ -124,10 +135,16 @@ class DenseDecoderAdapter:
             (o_name, ("o_proj", "kernel"), True),
             ("mlp.down_proj.weight", ("down_proj", "kernel"), True),
             ("input_layernorm.weight", ("input_norm", "scale"), False),
-            ("mlp.gate_proj.weight", ("gate_proj", "kernel"), True),
-            ("mlp.up_proj.weight", ("up_proj", "kernel"), True),
         ]
-        if cfg.use_post_norms:  # gemma2's four norms
+        if self.style != "glm4":  # glm4 fuses these into mlp.gate_up_proj
+            e += [(f"mlp.{p}.weight", (p, "kernel"), True) for p in ("gate_proj", "up_proj")]
+        if cfg.use_post_norms and self.style == "glm4":
+            e += [
+                ("post_self_attn_layernorm.weight", ("post_attn_out_norm", "scale"), False),
+                ("post_attention_layernorm.weight", ("post_attn_norm", "scale"), False),
+                ("post_mlp_layernorm.weight", ("post_mlp_norm", "scale"), False),
+            ]
+        elif cfg.use_post_norms:  # gemma2's four norms
             e += [
                 ("post_attention_layernorm.weight", ("post_attn_out_norm", "scale"), False),
                 ("pre_feedforward_layernorm.weight", ("post_attn_norm", "scale"), False),
@@ -176,8 +193,11 @@ class DenseDecoderAdapter:
 
     def _fused_qkv_name(self) -> str | None:
         """HF key suffix of the fused q/k/v (row order [Q|K|V]) of the
-        "bailing" style, else None."""
-        return "attention.query_key_value.weight" if self.style == "bailing" else None
+        "baichuan" and "bailing" styles, else None."""
+        return {
+            "baichuan": "self_attn.W_pack.weight",
+            "bailing": "attention.query_key_value.weight",
+        }.get(self.style)
 
     def _qkv_cols(self) -> dict:
         """Column range of q, k and v in the transposed fused kernel."""
@@ -243,26 +263,52 @@ class DenseDecoderAdapter:
             for suffix, path, transpose, tr in self._layer_entries():
                 yield (f"model.layers.{i}.{suffix}",
                        self._export(_get(layers, path)[i], transpose, tr))
+            if self.style == "glm4":
+                yield (f"model.layers.{i}.mlp.gate_up_proj.weight",
+                       _t(torch.cat([layers["gate_proj"]["kernel"][i],
+                                     layers["up_proj"]["kernel"][i]], dim=1)))
             if self._fused_qkv_name() is not None:
                 yield f"model.layers.{i}.{self._fused_qkv_name()}", self._fuse_qkv(layers, i)
 
     # -- import --------------------------------------------------------------
     def from_hf(self, read: Reader, device=None, dtype: torch.dtype = torch.float32) -> dict:
         """The params tree on `device` (None means CUDA) in `dtype` (values
-        as the checkpoint holds them, cast once)."""
+        as the checkpoint holds them, cast once). A name missing with its
+        `model.` prefix is read without it, and a missing `lm_head.weight`
+        leaves that leaf out (the module docstring says when)."""
         device = resolve_device(device)
-        load = self._loader(read, device)
+
+        def read_any(name):
+            try:
+                return read(name)
+            except KeyError:
+                if name.startswith("model."):
+                    return read(name[len("model."):])
+                raise
+
+        load = self._loader(read_any, device)
         out: dict = {}
         for name, path, transpose, tr in self._top_entries():
-            _set(out, path, _stack((), lambda: name, lambda n: load(n, transpose, tr),
-                                   dtype, device))
+            try:
+                _set(out, path, _stack((), lambda: name, lambda n: load(n, transpose, tr),
+                                       dtype, device))
+            except KeyError:
+                if path != ("lm_head", "kernel"):
+                    raise
+                logger.warning("checkpoint has no lm_head.weight; leaf omitted")
+        L = self.cfg.num_layers
         for suffix, path, transpose, tr in self._layer_entries():
             _set(out, ("layers",) + path, _stack(
-                (self.cfg.num_layers,), lambda i: f"model.layers.{i}.{suffix}",
+                (L,), lambda i: f"model.layers.{i}.{suffix}",
                 lambda n: load(n, transpose, tr), dtype, device))
+        if self.style == "glm4":
+            I = self.cfg.intermediate_size
+            for p, cols in (("gate_proj", slice(0, I)), ("up_proj", slice(I, 2 * I))):
+                _set(out, ("layers", p, "kernel"), _stack(
+                    (L,), lambda i: f"model.layers.{i}.mlp.gate_up_proj.weight",
+                    lambda n, cols=cols: load(n, True, None)[:, cols], dtype, device))
         if self._fused_qkv_name() is not None:
-            self._load_fused_qkv(out, "layers", read, 0, self.cfg.num_layers,
-                                 dtype, device)
+            self._load_fused_qkv(out, "layers", read_any, 0, L, dtype, device)
         return out
 
 

@@ -4,7 +4,8 @@
 The recipe class resolves from the ``recipe._target_`` field (JAX-package
 names map to the port's), a bare ``recipe:`` alias, or the default
 next-token-prediction trainer. The training aliases and `llm_serve` are
-ported; the others raise and name the recipe.
+ported, with `llm_seq_cls` and the bi- and cross-encoder retrieval
+recipes; the others raise and name the recipe.
 """
 
 from __future__ import annotations
@@ -20,6 +21,11 @@ RECIPE_ALIASES = {
     "llm_finetune": _TRAIN_FT,
     "llm_pretrain": _TRAIN_FT,
     "llm_serve": _SERVE,
+    "llm_seq_cls": "automodel_tpu_torch.recipes.llm.train_seq_cls.TrainSeqClsRecipe",
+    "retrieval_bi_encoder":
+        "automodel_tpu_torch.recipes.retrieval.train_bi_encoder.TrainBiEncoderRecipe",
+    "retrieval_cross_encoder":
+        "automodel_tpu_torch.recipes.retrieval.train_cross_encoder.TrainCrossEncoderRecipe",
 }
 
 # the JAX CLI's other aliases: recipes this package does not have yet
@@ -28,8 +34,7 @@ UNPORTED_RECIPES = (
     "llm_train_eagle2", "llm_train_dflash", "llm_spec_bench",
     "llm_dflash_decode_eval", "dllm_train_ft", "diffusion_train",
     "bagel_finetune", "multimodal_pretrain", "vlm_finetune", "vlm_kd",
-    "vlm_generate", "multimodal_finetune", "llm_seq_cls",
-    "retrieval_bi_encoder", "retrieval_cross_encoder",
+    "vlm_generate", "multimodal_finetune",
     "retrieval_distill_bi_encoder", "retrieval_mine_hard_negatives",
 )
 

@@ -9,39 +9,67 @@ The JAX package scans one compiled layer body over weights stacked on a
 leading `(L, ...)` dim, under `jax.checkpoint`. Here the same stacked
 weights are split into per-layer views once (`unstack_layers`: one
 `unbind`, whose backward stacks the L layer gradients in one pass) and a
-Python loop runs the layers, each under `torch.utils.checkpoint` when the
-remat policy is "full". The carry may be any nesting of tuples of tensors,
+Python loop runs the layers, each under `torch.utils.checkpoint` unless the
+remat policy is "none". The carry may be any nesting of tuples of tensors,
 as JAX's scan carry: the MoE decoder's holds the hidden state, the summed
 aux loss and a tuple of the MoE layers' tokens per expert.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from automodel_tpu_torch.utils.tree import tree_leaves, tree_map
 
-# "none" saves every activation; "full" recomputes each layer in backward
-# (jax.checkpoint_policies.nothing_saveable). The JAX package's selective
-# policies ("dots", "dots_with_no_batch_dims", "checkpoint_dots") are not
-# ported.
-REMAT_POLICIES = ("none", "full")
+_aten = torch.ops.aten
+# The matrix products each selective policy saves; every other op of the
+# layer is recomputed in backward. `x @ W` and the projections reach the
+# dispatcher as `mm` / `addmm`, the batched products of `matmul` and
+# `einsum` (the plain attention's scores and its weighted sum, and any
+# einsum torch lowers to a batched product, the LoRA merge's included) as
+# `bmm` / `baddbmm`. "dots" is jax.checkpoint_policies.dots_saveable,
+# "dots_with_no_batch_dims" its dots_with_no_batch_dims_saveable and
+# "checkpoint_dots" JAX's alias of dots_saveable. "none" saves every
+# activation; "full" recomputes the whole layer (nothing_saveable).
+# K1-K3 launch through ctypes, out of the dispatcher's sight: no policy
+# saves the flash kernel's output, and the recompute runs K1 again, as a
+# Pallas call (not a dot) is recomputed under JAX's policies.
+_SAVED_PRODUCTS = {
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default),
+    "dots_with_no_batch_dims": (_aten.mm.default, _aten.addmm.default),
+}
+_SAVED_PRODUCTS["checkpoint_dots"] = _SAVED_PRODUCTS["dots"]
+REMAT_POLICIES = ("none", "full", *_SAVED_PRODUCTS)
+
+
+def _save_products(saved: tuple, ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def maybe_remat(fn: Callable, policy_name: str | None) -> Callable:
     if policy_name is None or policy_name == "none":
         return fn
-    if policy_name != "full":
-        raise NotImplementedError(
-            f"remat policy {policy_name!r} is not ported (ported: {REMAT_POLICIES})"
-        )
+    if policy_name not in REMAT_POLICIES:
+        raise KeyError(f"remat policy {policy_name!r} (known: {REMAT_POLICIES})")
+    kw = {}
+    if policy_name in _SAVED_PRODUCTS:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_save_products, _SAVED_PRODUCTS[policy_name]))
 
     def remat(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
 
     return remat
 

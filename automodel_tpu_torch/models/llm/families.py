@@ -1,6 +1,9 @@
 """Model-family adapters: HF config dict → TransformerConfig (port of the
-Llama, Mistral, Qwen2, Qwen3, Gemma-2 and Gemma-3 entries of
-`automodel_tpu/models/llm/families.py`)."""
+dense entries of `automodel_tpu/models/llm/families.py`: Llama and its
+bidirectional encoder, Mistral, Ministral-3 and its bidirectional encoder,
+Qwen2, Qwen3, GLM-4, ERNIE-4.5, Hunyuan dense, Baichuan2, Gemma-2 and
+Gemma-3). The retrieval and seq-cls recipes pool the encoders' hidden
+states; the configs only drop the causal mask."""
 
 from __future__ import annotations
 
@@ -37,6 +40,16 @@ def llama_config(hf: Mapping[str, Any], **overrides) -> TransformerConfig:
     return TransformerConfig(**kw)
 
 
+def llama_bidirectional_config(hf: Mapping[str, Any], **overrides) -> TransformerConfig:
+    """LlamaBidirectionalModel / ...ForSequenceClassification: the Llama
+    retrieval encoder with the causal mask removed."""
+    kw = _base_kwargs(hf)
+    kw["attention_bias"] = bool(hf.get("attention_bias", False))
+    kw["causal"] = False
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
 def mistral_config(hf: Mapping[str, Any], **overrides) -> TransformerConfig:
     """MistralForCausalLM: Llama's shape with a sliding window on every
     layer when the config names one."""
@@ -69,6 +82,72 @@ def qwen3_config(hf: Mapping[str, Any], **overrides) -> TransformerConfig:
     kw["qk_norm"] = True
     kw.update(overrides)
     return TransformerConfig(**kw)
+
+
+def glm4_config(hf: Mapping[str, Any], **overrides) -> TransformerConfig:
+    """Glm4ForCausalLM: partial interleaved rotary, sandwich norms
+    (`post_self_attn_layernorm` / `post_mlp_layernorm`) and the fused
+    `gate_up_proj` MLP of the adapter's "glm4" style."""
+    kw = _base_kwargs(hf)
+    kw["attention_bias"] = bool(hf.get("attention_bias", True))
+    kw["partial_rotary_factor"] = float(hf.get("partial_rotary_factor", 0.5))
+    kw["rope_interleaved"] = True
+    kw["use_post_norms"] = True
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def ernie4_5_config(hf: Mapping[str, Any], **overrides) -> TransformerConfig:
+    """Ernie4_5ForCausalLM: Llama's shape with interleaved rotary over the
+    whole head, the `use_bias` qkv flag and tied embeddings by default."""
+    kw = _base_kwargs(hf)
+    kw["rope_interleaved"] = True
+    kw["attention_bias"] = bool(hf.get("use_bias", False))
+    kw["tie_word_embeddings"] = bool(hf.get("tie_word_embeddings", True))
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def hunyuan_dense_config(hf: Mapping[str, Any], **overrides) -> TransformerConfig:
+    """HunYuanDenseV1ForCausalLM: Llama's shape with a per-head q/k RMSNorm
+    applied after the rotary (`query_layernorm` / `key_layernorm`)."""
+    kw = _base_kwargs(hf)
+    kw["attention_bias"] = bool(hf.get("attention_bias", False))
+    kw["qk_norm"] = True
+    kw["qk_norm_after_rope"] = True
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def baichuan_config(hf: Mapping[str, Any], **overrides) -> TransformerConfig:
+    """BaichuanForCausalLM (Baichuan2-7B's shape): MHA with the fused
+    `W_pack` q/k/v of the adapter's "baichuan" style and the L2-normalised
+    NormHead output projection. The 13B ALiBi variant is not covered."""
+    kw = _base_kwargs(hf)
+    kw["num_kv_heads"] = kw["num_heads"]  # MHA
+    kw["normalized_lm_head"] = True
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def ministral3_config(hf: Mapping[str, Any], **overrides) -> TransformerConfig:
+    """Ministral3ForCausalLM: Mistral's body with an explicit head_dim, an
+    optional sliding window and `rope_parameters.rope_theta`."""
+    kw = _base_kwargs(hf)
+    rp = hf.get("rope_parameters") or {}
+    if rp.get("rope_theta"):
+        kw["rope_theta"] = float(rp["rope_theta"])
+    if hf.get("sliding_window"):
+        kw["sliding_window"] = int(hf["sliding_window"])
+    kw["attention_bias"] = bool(hf.get("attention_bias", False))
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def ministral_bidirectional_config(hf: Mapping[str, Any], **overrides) -> TransformerConfig:
+    """Ministral3BidirectionalModel: the Ministral-3 retrieval encoder with
+    the causal mask removed."""
+    return ministral3_config(hf, **dict(overrides, causal=False))
 
 
 def _gemma_layer_types(hf: Mapping[str, Any], n_layers: int, default) -> tuple:

@@ -1,7 +1,8 @@
 """Architecture registry: HF `architectures[0]` -> the port's implementation
 (port of the entries of `automodel_tpu/models/registry.py` whose family
-configs the port has: the dense Llama, Mistral, Qwen2, Qwen3, Gemma-2 and
-Gemma-3; DeepSeek-V3 on MLA; and the GQA MoE families Qwen3-MoE,
+configs the port has: the dense Llama, Mistral, Ministral-3, Qwen2, Qwen3,
+Gemma-2, Gemma-3, GLM-4, ERNIE-4.5, Hunyuan dense and Baichuan2, the
+bidirectional Llama and Ministral-3 encoders; DeepSeek-V3 on MLA; and the GQA MoE families Qwen3-MoE,
 Mixtral, gpt-oss, GLM-4.5, ERNIE-4.5-MoE, Hunyuan-MoE, MiniMax-M2 and
 Ling 2.0, for training and serving)."""
 
@@ -29,10 +30,32 @@ class ModelSpec:
 MODEL_ARCH_MAPPING: dict[str, ModelSpec] = {
     "LlamaForCausalLM": ModelSpec("llama", families.llama_config, decoder),
     "MistralForCausalLM": ModelSpec("mistral", families.mistral_config, decoder),
+    "Ministral3ForCausalLM": ModelSpec("ministral3", families.ministral3_config, decoder),
+    "Ministral3BidirectionalModel": ModelSpec(
+        "ministral_bidirectional", families.ministral_bidirectional_config, decoder
+    ),
     "Qwen2ForCausalLM": ModelSpec("qwen2", families.qwen2_config, decoder),
     "Qwen3ForCausalLM": ModelSpec("qwen3", families.qwen3_config, decoder),
     "Gemma2ForCausalLM": ModelSpec("gemma2", families.gemma2_config, decoder),
     "Gemma3ForCausalLM": ModelSpec("gemma3", families.gemma3_config, decoder),
+    "Glm4ForCausalLM": ModelSpec(
+        "glm4", families.glm4_config, decoder, adapter_kwargs={"style": "glm4"}
+    ),
+    "Ernie4_5ForCausalLM": ModelSpec("ernie4_5", families.ernie4_5_config, decoder),
+    "HunYuanDenseV1ForCausalLM": ModelSpec(
+        "hunyuan_dense", families.hunyuan_dense_config, decoder,
+        adapter_kwargs={"style": "hunyuan"},
+    ),
+    "BaichuanForCausalLM": ModelSpec(
+        "baichuan", families.baichuan_config, decoder,
+        adapter_kwargs={"style": "baichuan"},
+    ),
+    "LlamaBidirectionalModel": ModelSpec(
+        "llama_bidirectional", families.llama_bidirectional_config, decoder
+    ),
+    "LlamaBidirectionalForSequenceClassification": ModelSpec(
+        "llama_bidirectional", families.llama_bidirectional_config, decoder
+    ),
     # MLA + MoE (Moonlight-16B-A3B runs as this): trains through `forward`
     # (aux loss, gate-bias update), serves through the engine
     "DeepseekV3ForCausalLM": ModelSpec(

@@ -17,12 +17,20 @@ so per-layer norm scales, stacked as (L, H), are decayed, as in the JAX
 package, and so is the MoE gate's stacked (Lm, E) correction bias
 `e_score_bias`, whose gradient is 0: AdamW moves it by -lr * wd * p
 besides the aux-free sign updates.
+
+`param_groups` (JAX `optax.multi_transform`): each group is a `pattern`,
+searched as a regex in the slash-joined path of every leaf
+("layers/q_proj/kernel"), with an `lr_mult` on the schedule and a
+`weight_decay`; a leaf takes the first group that matches, else the
+default one. Every group runs the same rule with its own hyperparameters,
+so one rule with per-leaf multipliers and decays is the same update.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Callable, Optional
 
 import torch
@@ -40,7 +48,7 @@ class Optimizer:
     `update(grads, state, params)` updates params and state in place."""
 
     def __init__(self, name: str, lr, *, betas=(0.9, 0.95), eps=1e-8,
-                 weight_decay=0.0, momentum=0.9, mask_fn=None):
+                 weight_decay=0.0, momentum=0.9, mask_fn=None, groups_fn=None):
         self.name = name
         self.lr = lr if callable(lr) else (lambda count, v=float(lr): v)
         self.b1, self.b2 = float(betas[0]), float(betas[1])
@@ -48,6 +56,13 @@ class Optimizer:
         self.weight_decay = float(weight_decay)
         self.momentum = float(momentum)
         self.mask_fn = mask_fn or default_weight_decay_mask
+        # params -> one (lr multiplier, weight decay) per leaf; None: (1, wd)
+        self.groups_fn = groups_fn
+
+    def _leaf_hparams(self, params, n: int) -> list:
+        if self.groups_fn is None:
+            return [(1.0, self.weight_decay)] * n
+        return self.groups_fn(params)
 
     def init(self, params) -> dict:
         if self.name == "sgd":
@@ -60,22 +75,24 @@ class Optimizer:
         count = state["count"]
         lr = float(self.lr(count))
         ps, gs = tree_leaves(params), tree_leaves(grads)
+        hp = self._leaf_hparams(params, len(ps))
         if self.name == "sgd":
-            for p, g, t in zip(ps, gs, tree_leaves(state["trace"])):
+            for p, g, t, (mult, _) in zip(ps, gs, tree_leaves(state["trace"]), hp):
                 t.mul_(self.momentum).add_(g)
-                p.add_(t, alpha=-lr)
+                p.add_(t, alpha=-lr * mult)
             state["count"] = count + 1
             return
         n = count + 1
         bc1, bc2 = 1.0 - self.b1 ** n, 1.0 - self.b2 ** n
-        decay = tree_leaves(self.mask_fn(params)) if self.weight_decay else [False] * len(ps)
-        for p, g, m, v, d in zip(ps, gs, tree_leaves(state["mu"]), tree_leaves(state["nu"]), decay):
+        decay = tree_leaves(self.mask_fn(params))
+        for p, g, m, v, d, (mult, wd) in zip(ps, gs, tree_leaves(state["mu"]),
+                                             tree_leaves(state["nu"]), decay, hp):
             m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
             u = (m / bc1).div_((v / bc2).sqrt_().add_(self.eps))
-            if d:
-                u.add_(p, alpha=self.weight_decay)
-            p.add_(u, alpha=-lr)
+            if d and wd:
+                u.add_(p, alpha=wd)
+            p.add_(u, alpha=-lr * mult)
         state["count"] = n
 
 
@@ -86,7 +103,7 @@ _ADAM = ("adam", "fused_adam")
 @dataclasses.dataclass
 class OptimizerConfig:
     """The JAX config's fields, so the same YAML sections load; `adamw`,
-    `adam` and `sgd` are ported, other names and `param_groups` raise."""
+    `adam` and `sgd` are ported (with `param_groups`), other names raise."""
 
     name: str = "adamw"
     lr: float = 3e-4
@@ -100,17 +117,51 @@ class OptimizerConfig:
     param_groups: tuple = ()
 
     def build(self, lr_schedule: "float | Callable" = None) -> Optimizer:
-        if self.param_groups:
-            raise NotImplementedError("optimizer.param_groups is not ported")
         lr = lr_schedule if lr_schedule is not None else self.lr
+        groups_fn = self._groups_fn() if self.param_groups else None
         if self.name in _ADAMW or self.name in _ADAM:
             wd = self.weight_decay if self.name in _ADAMW else 0.0
             return Optimizer("adamw", lr, betas=self.betas, eps=self.eps,
-                             weight_decay=wd, mask_fn=self.decay_mask)
+                             weight_decay=wd, mask_fn=self.decay_mask,
+                             groups_fn=groups_fn)
         if self.name == "sgd":
-            return Optimizer("sgd", lr, momentum=self.momentum)
+            return Optimizer("sgd", lr, momentum=self.momentum, groups_fn=groups_fn)
         raise NotImplementedError(
             f"optimizer '{self.name}' is not ported (ported: adamw, adam, sgd)")
+
+    def _groups_fn(self) -> Callable:
+        """params -> each leaf's (lr multiplier, weight decay) from the first
+        group whose pattern its path matches (adam decays no group)."""
+        groups = [g.to_dict() if hasattr(g, "to_dict") else dict(g)
+                  for g in self.param_groups]
+        for g in groups:
+            if not g.get("pattern"):
+                raise ValueError(
+                    "optimizer.param_groups entries require a non-empty "
+                    f"'pattern' (got {g})")
+        decays = self.name in _ADAMW
+        default = (1.0, self.weight_decay if decays else 0.0)
+        hparams = [(float(g.get("lr_mult", 1.0)),
+                    float(g.get("weight_decay", self.weight_decay)) if decays else 0.0)
+                   for g in groups]
+
+        def leaf_hparams(params) -> list:
+            out = []
+            for name in _leaf_paths(params):
+                match = next((i for i, g in enumerate(groups)
+                              if re.search(str(g["pattern"]), name)), None)
+                out.append(default if match is None else hparams[match])
+            return out
+
+        return leaf_hparams
+
+
+def _leaf_paths(tree, prefix: str = "") -> list:
+    """Slash-joined key paths of the leaves, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in _leaf_paths(v, f"{prefix}/{k}" if prefix else str(k))]
+    return [prefix]
 
 
 def constant_schedule(value: float) -> Callable:

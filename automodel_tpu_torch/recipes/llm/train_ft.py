@@ -46,13 +46,23 @@ The same YAML files drive both packages. What the port does not have yet
 raises NotImplementedError instead of being skipped: distributed sizes
 other than 1 (`dp_shard: -1` resolves to 1 on one device), other
 unported architectures (`models/registry.py`), trackers, resilience,
-packing, the tokenizer, QAT (with or without PEFT),
+the tokenizer, QAT (with or without PEFT),
 `model.linear_precision`, a remote `checkpoint_dir`, and PEFT on a MoE
 model with the gate-bias update or the MTP head.
 
 `model.pretrained_path` names a local HF safetensors checkpoint: its
 `config.json` gives the HF config and `checkpoint/hf_adapter.py` fills the
 params on the device.
+
+The `packing` section parses (`recipes/typed_config.py`) and, as in the
+JAX recipe, applies to nothing: a packed dataset brings its own segment
+ids and positions.
+
+Recipes over other heads (`train_seq_cls.py`, `retrieval/`) subclass this
+one: they add their head in `_build_peft`, build their loss on
+`make_hidden_forward` in `_make_loss_fn`, and count their tokens in
+`_batch_token_count`. Scalar sums of a loss's aux dict other than the
+label-token count (`num_correct`) join the step's record.
 """
 
 from __future__ import annotations
@@ -103,11 +113,44 @@ logger = logging.getLogger(__name__)
 _MESH_AXES = ("pp", "dp_replicate", "dp_shard", "ep", "cp", "tp")
 # sections of the JAX recipe this port does not run yet
 _UNPORTED_SECTIONS = (
-    "wandb", "mlflow", "comet", "resilience", "packing", "tokenizer",
+    "wandb", "mlflow", "comet", "resilience", "tokenizer",
 )
 # seconds the emergency save may take from the SIGTERM: the JAX
 # ResilienceConfig.sigterm_grace_s default (that section is not ported)
 SIGTERM_GRACE_S = 30.0
+
+
+def make_hidden_forward(module, model_cfg, peft_cfg=None, base_params=None):
+    """The backbone forward every recipe shares (JAX `make_hidden_forward`),
+    hiding the LoRA merge and the MoE forward's extra outputs.
+
+    `fwd(params, ids, token_mask=None, **kw) -> (params, hidden, aux,
+    extra)`: under PEFT `params` is the adapter tree, merged into the frozen
+    `base_params` layer by layer inside the decoder, and the returned tree
+    is the base with the adapters merged outside the layers (the head and
+    embeddings, for tied heads); `aux` is the MoE aux loss (else None) and
+    `extra` the tokens per expert of a MoE model. `token_mask` keeps pad
+    tokens out of the MoE routing."""
+    is_moe = getattr(model_cfg, "moe", None) is not None
+
+    def fwd(params, ids, *, token_mask=None, **kw):
+        lora = None
+        if peft_cfg is not None:
+            lora, params = params, base_params
+            kw.update(lora=lora, lora_cfg=peft_cfg)
+        aux, extra = None, {}
+        if is_moe:
+            hidden, aux, stats = module.forward(
+                params, model_cfg, ids, return_hidden=True, return_stats=True,
+                token_mask=token_mask, **kw)
+            extra = {"tokens_per_expert": stats["tokens_per_expert"]}
+        else:
+            hidden = module.forward(params, model_cfg, ids, return_hidden=True, **kw)
+        if lora is not None:
+            params = merge_lora(params, lora, peft_cfg, skip=LAYER_STACKS)
+        return params, hidden, aux, extra
+
+    return fwd
 
 
 class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
@@ -283,25 +326,13 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         chunk = int(self.cfg.get("loss.chunk_size", 1024))
         is_moe = self.is_moe
         use_mtp = is_moe and getattr(model_cfg, "mtp_num_layers", 0) > 0
-        peft_cfg, base = self.peft_cfg, self.base_params
+        fwd = self._hidden_forward()
 
         def loss_fn(params, batch, rng):
             kw = {k: batch[k] for k in ("positions", "segment_ids") if k in batch}
-            lora = None
-            if peft_cfg is not None:
-                lora, params = params, base
-                kw.update(lora=lora, lora_cfg=peft_cfg)
-            aux, extra = None, {}
-            if is_moe:
-                hidden, aux, stats = module.forward(
-                    params, model_cfg, batch["input_ids"], return_hidden=True,
-                    return_stats=True, token_mask=batch["labels"] != -100, **kw)
-                extra = {"tokens_per_expert": stats["tokens_per_expert"]}
-            else:
-                hidden = module.forward(params, model_cfg, batch["input_ids"],
-                                        return_hidden=True, **kw)
-            if lora is not None:
-                params = merge_lora(params, lora, peft_cfg, skip=LAYER_STACKS)
+            params, hidden, aux, extra = fwd(
+                params, batch["input_ids"],
+                token_mask=(batch["labels"] != -100) if is_moe else None, **kw)
             kernel = module.head_kernel(params, model_cfg)
             ce_sum, n = fused_linear_cross_entropy(
                 hidden, kernel, batch["labels"], chunk_size=chunk,
@@ -320,6 +351,15 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             return total, {"num_label_tokens": n, **extra}
 
         return loss_fn
+
+    def _hidden_forward(self):
+        return make_hidden_forward(self.model_spec.module, self.model_cfg,
+                                   self.peft_cfg, self.base_params)
+
+    def _batch_token_count(self, microbatches: list) -> int:
+        """Tokens of one step (for tokens/s and MFU); recipes with other
+        batch layouts override."""
+        return int(sum(mb["input_ids"].size for mb in microbatches))
 
     def _build_data(self) -> None:
         ds_cfg = self.cfg.get("dataset").instantiate()
@@ -357,8 +397,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 metrics = self.run_step(microbatches)
                 loss = float(metrics["loss"])  # waits for the step
                 now = time.perf_counter()
-                tokens = int(sum(mb["input_ids"].size for mb in microbatches))
-                perf = self.mfu.metrics(tokens, now - t_last)
+                perf = self.mfu.metrics(self._batch_token_count(microbatches),
+                                        now - t_last)
                 t_last = now
                 record = {
                     "step": step,
@@ -375,6 +415,9 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                         tpe.amax(-1).mean() / torch.clamp(tpe.mean(), min=1e-9))
                 if "skipped_nonfinite" in metrics:
                     record["skipped_nonfinite"] = metrics["skipped_nonfinite"]
+                for k, v in metrics.items():  # a loss's other scalar sums
+                    if k not in record and torch.is_tensor(v) and v.dim() == 0:
+                        record[k] = float(v)
                 if first_record and self._time_to_resume_s is not None:
                     record["time_to_resume_s"] = self._time_to_resume_s
                 first_record = False

@@ -204,6 +204,15 @@ class RecipeConfig:
             self._cache[key] = cfg
         return self._cache[key]
 
+    @property
+    def packing(self):
+        """`packing` -> PackedSequenceConfig, or None without the section."""
+        if self.raw.get("packing") is None:
+            return None
+        from automodel_tpu_torch.datasets.packing import PackedSequenceConfig
+
+        return self._section("packing", PackedSequenceConfig)
+
     # -- serving ---------------------------------------------------------------
     def _serving(self, name: str, cls, allow: tuple = (), **extra):
         key = ("serving." + name, cls.__name__)

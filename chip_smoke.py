@@ -152,12 +152,31 @@ one JSON line each:
    YAMLs (head dim 8, which K1-K3 run padded to 16) through the CLI, 3
    steps each with the kernels and with the plain attention: the curves
    agree, and a control run with the kernels at the padded dim's softmax
-   scale must not.
+   scale must not;
+17. serve_glm4 (after serve_gemma2): GLM-4-9B-0414 uncut (40 layers, rotary
+   on half of each head, G 16) on serve's traffic, K4 on every layer of
+   every step, with a profile, then on the int8 pool (K5), and its engine
+   at 2 layers in fp32 held to the plain version; serve_dense_groups:
+   Qwen2.5-7B (G 7) and Baichuan2-7B (MHA, NormHead) cut to 2 layers;
+   train_qwen25_lora (after smoke_families): the LoRA CLI on Qwen2.5-7B
+   uncut at seq 4096 (BASELINE.md's single-GPU row), 5 steps, K1-K3 on
+   all 28 layers; remat_policies: that recipe under "none", "dots",
+   "dots_with_no_batch_dims", "checkpoint_dots" and "full", losses and
+   gradients equal to "full"'s, peak memory in that order; train_encoders:
+   the retrieval_bi_encoder CLI on a LlamaBidirectionalModel at
+   llama-3.2-nv-embedqa-1b-v2's widths, uncut, 64 pairs of 512 tokens a
+   step (K1-K3 with no mask), then llm_seq_cls on the same widths, and a
+   2-layer fp32 check, kernels vs plain; smoke_dense_families: the five
+   new families' smoke YAMLs and the seq-cls, bi- and cross-encoder ones,
+   as smoke_families.
 
 The paged kernel phase also holds fp32 K6 and K7 at DeepSeek-V3's 128 and
 Kimi-K2's 64 heads x r 512 to their plain versions, timed beside their
-bound; the kernel phase times K4 at Qwen3-30B-A3B's heads too, and the
-flash phase K1-K3 at gpt-oss-20b's (64 / 8 heads of 64, window 128).
+bound; the kernel phase times K4 at Qwen3-30B-A3B's heads too, and at
+G 7, 16 and 1 (Qwen2.5-7B's, GLM-4-9B's and Baichuan2-7B's heads; K5 at
+GLM-4-9B's), and the flash phase K1-K3 at gpt-oss-20b's (64 / 8 heads of
+64, window 128), with no mask at the encoder's heads (whose data a
+causally masking kernel would fail) and at Qwen2.5-7B's.
 
 Launch counts: each library's C dispatch counts the launches of every
 device kernel it issues without error (`launch_counts()`, summed by kernel
@@ -203,7 +222,7 @@ from automodel_tpu_torch.cli.app import main as cli_main
 from automodel_tpu_torch.cli.app import resolve_recipe_class
 from automodel_tpu_torch.config import parse_args_and_load_config
 from automodel_tpu_torch.datasets.loader import make_global_batch, stack_microbatches
-from automodel_tpu_torch.datasets.mock import MockDatasetConfig
+from automodel_tpu_torch.datasets.mock import MockDatasetConfig, MockRetrievalDatasetConfig
 from automodel_tpu_torch.inference.generate import GenerateConfig, generate
 from automodel_tpu_torch.loss import fused_linear_cross_entropy
 from automodel_tpu_torch.loss.utils import combine_losses
@@ -248,7 +267,12 @@ from automodel_tpu_torch.recipes.llm.train_ft import (
 from automodel_tpu_torch.serving import Request, ServingConfig, ServingEngine
 from automodel_tpu_torch.serving import engine as serving_engine
 from automodel_tpu_torch.serving.kv_pages import pages_for
-from automodel_tpu_torch.training import accumulate_grads
+from automodel_tpu_torch.training import (
+    TrainStepConfig,
+    accumulate_grads,
+    init_train_state,
+    make_train_step,
+)
 from automodel_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, operations/s
@@ -699,12 +723,15 @@ def kernel_phase(flush) -> dict:
     """K4 against its plain version on both routes, bf16 (split-KV on the
     tensor cores) and fp32 (CUDA cores), with and without the soft cap, pad
     rows 0, at Llama-3-8B's heads and (bf16) at Qwen3-30B-A3B's (32 q / 4 kv
-    of 128: G 8); returns the bf16 (main-path dtype) entries for the kernels
-    line, keyed "llama3_8b" and "qwen3_moe"."""
+    of 128: G 8) and the dense families' K4_GROUP_HEADS (G 7, 16 and 1);
+    returns the bf16 (main-path dtype) entries for the kernels line, keyed
+    by model."""
     checks = {}
-    for model, heads, dtype in (("llama3_8b", (32, 8, 128), torch.bfloat16),
-                                ("llama3_8b", (32, 8, 128), torch.float32),
-                                ("qwen3_moe", (32, 4, 128), torch.bfloat16)):
+    cases = [("llama3_8b", (32, 8, 128), torch.bfloat16),
+             ("llama3_8b", (32, 8, 128), torch.float32),
+             ("qwen3_moe", (32, 4, 128), torch.bfloat16)]
+    cases += [(model, heads, torch.bfloat16) for model, heads in K4_GROUP_HEADS.items()]
+    for model, heads, dtype in cases:
         q, kp, vp, pt, pos = k4_inputs(dtype, heads=heads)
         scale = q.shape[-1] ** -0.5
         got = ragged_paged_attention_cuda(q, kp, vp, pt, pos, scale=scale)
@@ -748,10 +775,10 @@ def int8_pages(gen, *shape):
     return pages, scales
 
 
-def k5_case(dtype, seed: int = 0):
-    """K5 at Llama-3-8B's attention shapes over int8 pages."""
+def k5_case(dtype, seed: int = 0, heads=(32, 8, 128)):
+    """K5 at `heads` (Hq, Hkv, D; Llama-3-8B's by default) over int8 pages."""
     pt, pos, N, ps = step_rows(seed)
-    Hq, Hkv, D = 32, 8, 128
+    Hq, Hkv, D = heads
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(64, Hq, D, generator=gen, device="cuda").to(dtype)
     kp, ks = int8_pages(gen, N + 1, ps, Hkv, D)
@@ -809,9 +836,9 @@ def paged_kernels_phase(flush) -> dict:
     serve step's shapes, timed (median of 10 launches, each after an L2
     flush) beside their bound; then fp32 K6 and K7 at DeepSeek-V3's 128 and
     Kimi-K2's 64 heads x r 512, whose rows the fp32 route splits into head
-    tiles of several blocks. Returns the bf16 entries for the kernels line,
-    each K6 / K7 entry with its fp32 many-head entries under
-    "fp32_many_heads"."""
+    tiles of several blocks, and bf16 K5 at GLM-4-9B's heads (G 16). Returns
+    the bf16 entries for the kernels line (that one as "K5_glm4_9b"), each
+    K6 / K7 entry with its fp32 many-head entries under "fp32_many_heads"."""
     cases = {
         "K5": lambda dtype: k5_case(dtype),
         "K6": lambda dtype: k67_case(dtype, quant=False),
@@ -823,6 +850,8 @@ def paged_kernels_phase(flush) -> dict:
               torch.float32, model)
              for model, widths in MANY_HEADS_MLA.items()
              for name, quant in (("K6", False), ("K7", True))]
+    runs.append(("K5", lambda dtype: k5_case(dtype, heads=K4_GROUP_HEADS["glm4_9b"]),
+                 torch.bfloat16, "glm4_9b"))
     out = {}
     for name, make, dtype, model in runs:
         kernel, plain, pos, bound = make(dtype)
@@ -842,15 +871,19 @@ def paged_kernels_phase(flush) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "operations": ops,
         }
-        if model is not None:
+        if model in MANY_HEADS_MLA:
             n, r, _ = MANY_HEADS_MLA[model]
             entry.update(model=model, heads=n, rank=r,
                          blocks_per_row=-(-n // mla_cuda.head_tile(n, r)))
+        elif model is not None:
+            entry.update(model=model, heads=list(K4_GROUP_HEADS[model]))
         emit({"phase": "kernel", "kernel": name, **entry})
         if not (err <= tol * max(1.0, ref_max) and pad_zero):
             raise AssertionError(f"{name} disagrees with its plain version: {entry}")
-        if model is not None:
+        if model in MANY_HEADS_MLA:
             out[name].setdefault("fp32_many_heads", []).append(entry)
+        elif model is not None:
+            out[f"{name}_{model}"] = entry
         elif dtype == torch.bfloat16:
             out[name] = entry
         del got, want
@@ -1083,6 +1116,19 @@ def fa_check_case(dtype, S, packed, flush, timed: bool, shape=None,
     grads_ref = fa.flash_attention_bwd_ref(q, k, v, dout, lse_ref, delta, mask,
                                            scale=scale, soft_cap=cap)
     tol = FA_TOL[dtype]
+    causal_gap = None
+    if masks.get("causal") is False:
+        # the data must be able to fail a kernel that masked causally: the
+        # plain causal result lies more than 3 tolerances from this one
+        _, causal_mask = fa_masks(B, S, T, seg, dict(masks, causal=True))
+        out_causal, _ = fa.flash_attention_ref(q, k, v, causal_mask, scale=scale,
+                                               soft_cap=cap)
+        causal_gap = (out_causal.float() - out_ref.float()).abs().max().item()
+        del out_causal, causal_mask
+        limit = 3 * tol * max(1.0, out_ref.float().abs().max().item())
+        if not causal_gap > limit:
+            raise AssertionError(f"K1-K3 non-causal case: the causal result is only "
+                                 f"{causal_gap} from it (<= {limit})")
     errs = {}
     for name, got, want in (("out", out, out_ref), ("lse", lse, lse_ref),
                             ("dq", dq, grads_ref[0]), ("dk", dk, grads_ref[1]),
@@ -1102,15 +1148,22 @@ def fa_check_case(dtype, S, packed, flush, timed: bool, shape=None,
              "packed_segments": packed, "masks": masks, "soft_cap": cap,
              "q_scaled_by": None if cap is None else cap / 4,
              "scale": scale, "unmasked_pairs_per_head": pairs,
-             "causal_pairs_per_head": S * (S + 1) // 2, "tol": tol, "errors": errs}
+             "causal_pairs_per_head": S * (S + 1) // 2, "tol": tol, "errors": errs,
+             "causal_control_max_abs_gap": causal_gap}
     if timed:
         assert not padded, "the timed cases run at instantiated head dims"
         del grads_ref, out_ref
-        # the yardstick: the causal call for the unmasked cases, an explicit
+        # the yardstick: the causal call for the causal cases with no other
+        # mask, no mask for the non-causal ones with none, an explicit
         # boolean mask for the others (windows, segments, positions)
-        plain_causal = not masks and seg is None
+        if seg is None and not masks:
+            sdpa_kw, note = {"is_causal": True}, "is_causal"
+        elif seg is None and masks == {"causal": False}:
+            sdpa_kw, note = {}, "no mask"
+        else:
+            sdpa_kw, note = {"attn_mask": mask[:, None]}, "an explicit boolean mask"
         entry["times"] = fa_times(q, k, v, dout, lse, delta, kw, mask, pairs,
-                                  flush, None if plain_causal else mask)
+                                  flush, sdpa_kw, note)
         if cap is not None:
             for name in ("K1", "K2", "K3"):
                 entry["times"][name]["library_same_function"] = False
@@ -1148,10 +1201,11 @@ def sdpa_backend(fn) -> dict:
     return {"backend": backend, "kernels": [n[:90] for n in names][:6]}
 
 
-def fa_times(q, k, v, dout, lse, delta, kw, mask, pairs, flush, sdpa_mask) -> dict:
+def fa_times(q, k, v, dout, lse, delta, kw, mask, pairs, flush, sdpa_kw: dict,
+             mask_note: str) -> dict:
     """K1-K3's times with the wrapper keywords `kw`, the plain versions' on
-    `mask`, and scaled_dot_product_attention's: causal when `sdpa_mask` is
-    None, else with that (B, S, T) boolean mask (never soft-capped)."""
+    `mask`, and scaled_dot_product_attention's with the keywords `sdpa_kw`
+    (its mask, `mask_note` says which; never soft-capped)."""
     scale, cap = kw["scale"], kw["soft_cap"]
     times = {
         "K1": time_ms(lambda: fa_cuda.flash_fwd_cuda(q, k, v, **kw), 10, flush),
@@ -1166,20 +1220,14 @@ def fa_times(q, k, v, dout, lse, delta, kw, mask, pairs, flush, sdpa_mask) -> di
         q, k, v, dout, lse, delta, mask, scale=scale, soft_cap=cap), 3, flush)
     # the yardstick: PyTorch's fused attention on the same inputs, (B, H, S, D)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    if sdpa_mask is None:
-        sdpa = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)
-    else:
-        am = sdpa_mask[:, None]
-        sdpa = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=am, enable_gqa=True, scale=scale)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True, scale=scale, **sdpa_kw)
     sdpa_fwd = time_ms(sdpa, 10, flush)
     o = sdpa()
     dot = dout.transpose(1, 2)
     sdpa_grad = lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
     sdpa_bwd = time_ms(sdpa_grad, 10, flush)
     backends = {"forward": sdpa_backend(sdpa), "backward": sdpa_backend(sdpa_grad)}
-    mask_note = "is_causal" if sdpa_mask is None else "an explicit boolean mask"
     out = {}
     for name in ("K1", "K2", "K3"):
         bound_ms, bound_by, nbytes, ops = fa_bound(name, q, k, v, pairs)
@@ -1224,9 +1272,11 @@ def flash_phase(flush) -> dict:
     position with T != S (ring-attention shaped), Mistral's heads with a
     window, gpt-oss-20b's heads with its 128-token window; Gemma-2's heads
     in fp32 at train_gemma_check's length; and FA_PADDED_CASES, the head
-    dims K1-K3 run padded, in bf16 and fp32. Returns the timed bf16
-    entries for the kernels line, keyed "dense", "mla", "gemma2", "gemma3",
-    "gpt_oss" and the other windowed cases' names."""
+    dims K1-K3 run padded, in bf16 and fp32; no mask at all at
+    the bidirectional encoder's heads (bf16 timed, and fp32) and the causal
+    Qwen2.5-7B heads (G 7, timed). Returns the timed bf16 entries for the
+    kernels line, keyed "dense", "mla", "encoder", "qwen25_7b", "gemma2",
+    "gemma3", "gpt_oss" and the other windowed cases' names."""
     S = FA_SHAPE["S"]
     main = fa_check_case(torch.bfloat16, S, False, flush, timed=True)
     fa_check_case(torch.float32, S, False, flush, timed=False)
@@ -1240,6 +1290,18 @@ def flash_phase(flush) -> dict:
     fa_check_case(torch.float32, S, False, flush, timed=False, shape=FA_MLA_SHAPE)
     torch.cuda.empty_cache()
     out = {"dense": fa_entries(main), "mla": fa_entries(mla)}
+    # the bidirectional encoder: no mask at all (code 0, no window), the
+    # bi-encoder step's 2 x 64 rows of 512 tokens; Qwen2.5-7B's causal G 7
+    out["encoder"] = fa_entries(fa_check_case(
+        torch.bfloat16, FA_ENCODER_SHAPE["S"], False, flush, timed=True,
+        shape=FA_ENCODER_SHAPE, masks={"causal": False}))
+    fa_check_case(torch.float32, FA_ENCODER_SHAPE["S"], False, flush, timed=False,
+                  shape=FA_ENCODER_SHAPE, masks={"causal": False}, B=8)
+    torch.cuda.empty_cache()
+    out["qwen25_7b"] = fa_entries(fa_check_case(
+        torch.bfloat16, FA_QWEN25_SHAPE["S"], False, flush, timed=True,
+        shape=FA_QWEN25_SHAPE))
+    torch.cuda.empty_cache()
     g2, g3 = FA_GEMMA2_SHAPE, FA_GEMMA3_SHAPE
     windowed = {
         "gemma2": (g2["S"], False, g2, FA_GEMMA2_MASKS),
@@ -2675,7 +2737,8 @@ def train_gemma3_ckpt_phase(card: str) -> int:
 
 
 def lora_yaml(path: Path, model: dict, run_dir: Path, steps: int, peft: dict,
-              checkpoint: dict, validation: bool) -> str:
+              checkpoint: dict, validation: bool,
+              vocab_size: int = LLAMA3_8B["vocab_size"]) -> str:
     """llama_lora.yaml on Llama-3-8B: its peft section (updated by `peft`),
     optimizer and schedule as written; `model` (where the base comes from)
     in bf16 with full remat; mock data of LORA_SEQ tokens over the whole
@@ -2687,7 +2750,7 @@ def lora_yaml(path: Path, model: dict, run_dir: Path, steps: int, peft: dict,
         "peft": dict(cfg["peft"], **peft),
         "dataset": {"_target_": "automodel_tpu_torch.datasets.mock.MockDatasetConfig",
                     "num_samples": 64, "seq_len": LORA_SEQ,
-                    "vocab_size": LLAMA3_8B["vocab_size"]},
+                    "vocab_size": vocab_size},
         "dataloader": {"microbatch_size": 1, "grad_acc_steps": LORA_ACCUM},
         "step_scheduler": {"max_steps": steps, "ckpt_every_steps": LORA_EVERY},
         "checkpoint": checkpoint,
@@ -2698,7 +2761,7 @@ def lora_yaml(path: Path, model: dict, run_dir: Path, steps: int, peft: dict,
         cfg["validation_dataset"] = {
             "_target_": "automodel_tpu_torch.datasets.mock.MockDatasetConfig",
             "num_samples": LORA_VAL_SAMPLES, "seq_len": LORA_SEQ,
-            "vocab_size": LLAMA3_8B["vocab_size"], "seed": 1}
+            "vocab_size": vocab_size, "seed": 1}
         cfg["validation_generation"] = dict(LORA_VAL_GENERATION)
     path.write_text(yaml.safe_dump(cfg))
     return str(path)
@@ -3528,18 +3591,20 @@ def scale_from_padded_dim():
         fa.kernels_forward, fa.kernels_backward = saved
 
 
-def smoke_families_phase(card: str) -> dict:
-    """Each of SMOKE_FAMILIES' `examples/llm_finetune/<name>_smoke.yaml`
-    through the CLI for SMOKE_STEPS steps, with the kernels (attn_impl
-    "auto": K1-K3 at head dim 8 padded to 16) and with the plain attention
-    ("torch"), from the same seed: the loss curves within SMOKE_RTOL of
-    each other, K1-K3 launched only by the first, all at <16, 16>. A third
-    run, the control, takes the kernels under `scale_from_padded_dim`: its
-    gap to the plain curve must pass SMOKE_RTOL, or the tolerance could not
-    see a wrong scale. Returns each family's K1-K3 launches."""
+def smoke_families_phase(card: str, phase: str = "smoke_families",
+                         yamls: tuple = tuple(f"examples/llm_finetune/{f}_smoke.yaml"
+                                              for f in SMOKE_FAMILIES)) -> dict:
+    """Each YAML of `yamls` (SMOKE_FAMILIES' smoke YAMLs by default) through
+    the CLI for SMOKE_STEPS steps, with the kernels (attn_impl "auto": K1-K3
+    at head dim 8 padded to 16) and with the plain attention ("torch"), from
+    the same seed: the loss curves within SMOKE_RTOL of each other, K1-K3
+    launched only by the first, all at <16, 16>. A third run, the control,
+    takes the kernels under `scale_from_padded_dim`: its gap to the plain
+    curve must pass SMOKE_RTOL, or the tolerance could not see a wrong
+    scale. Returns each YAML's K1-K3 launches, keyed by its name."""
     out = {}
-    for fam in SMOKE_FAMILIES:
-        yaml_path = f"examples/llm_finetune/{fam}_smoke.yaml"
+    for yaml_path in yamls:
+        fam = Path(yaml_path).stem.removesuffix("_smoke")
         losses, launches, at_16 = {}, {}, {}
         for run in ("auto", "torch", "control"):
             run_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{fam}_{run}_")
@@ -3562,7 +3627,7 @@ def smoke_families_phase(card: str) -> dict:
             return max(abs(a - b) / abs(b) for a, b in zip(losses[run], losses["torch"]))
 
         rel = gap("auto")
-        emit({"phase": "smoke_families", "card": card, "yaml": yaml_path,
+        emit({"phase": phase, "card": card, "yaml": yaml_path,
               "dtype": dtype, "head_dim": D, "kernel_head_dims": [16, 16],
               "losses": losses, "max_rel_err": rel, "rtol": SMOKE_RTOL[dtype],
               "control": "softmax scale from the padded head dim",
@@ -3570,21 +3635,496 @@ def smoke_families_phase(card: str) -> dict:
               "launches": launches["auto"], "launches_at_16": at_16["auto"],
               "plain_launches": launches["torch"]})
         if any(len(c) != SMOKE_STEPS for c in losses.values()):
-            raise AssertionError(f"smoke_families {fam}: {losses}")
+            raise AssertionError(f"{phase} {fam}: {losses}")
         if not all(math.isfinite(x) for c in losses.values() for x in c):
-            raise AssertionError(f"smoke_families {fam}: non-finite losses {losses}")
+            raise AssertionError(f"{phase} {fam}: non-finite losses {losses}")
         if launches["auto"]["K1"] == 0 or launches["auto"] != at_16["auto"] \
                 or any(launches["torch"].values()):
-            raise AssertionError(f"smoke_families {fam}: K1-K3 launches {launches}, "
+            raise AssertionError(f"{phase} {fam}: K1-K3 launches {launches}, "
                                  f"at <16, 16> {at_16}")
         if rel > SMOKE_RTOL[dtype]:
-            raise AssertionError(f"smoke_families {fam}: kernel and plain curves differ: {rel}")
+            raise AssertionError(f"{phase} {fam}: kernel and plain curves differ: {rel}")
         if not gap("control") > SMOKE_RTOL[dtype]:
-            raise AssertionError(f"smoke_families {fam}: the control's curve is within "
+            raise AssertionError(f"{phase} {fam}: the control's curve is within "
                                  f"{SMOKE_RTOL[dtype]} of the plain one: {gap('control')}")
         out[fam] = launches["auto"]
     torch.cuda.empty_cache()
     return out
+
+
+# --- the dense families, the encoders, the remat policies -------------------
+# Qwen2.5-7B (https://huggingface.co/Qwen/Qwen2.5-7B/blob/main/config.json),
+# nothing cut: 28 layers of 28 q / 4 kv heads of 128 (G 7) with qkv bias,
+# 18944-wide MLP, untied head over 152064 ids, rope theta 1e6
+QWEN25_7B = {
+    "architectures": ["Qwen2ForCausalLM"], "vocab_size": 152064,
+    "hidden_size": 3584, "intermediate_size": 18944, "num_hidden_layers": 28,
+    "num_attention_heads": 28, "num_key_value_heads": 4,
+    "max_position_embeddings": 131072, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-6, "sliding_window": 131072, "use_sliding_window": False,
+    "max_window_layers": 28, "tie_word_embeddings": False,
+}
+# GLM-4-9B-0414 (https://huggingface.co/THUDM/GLM-4-9B-0414/blob/main/config.json):
+# 40 layers of 32 q / 2 kv heads of 128 (G 16), rotary on half of each head
+# (interleaved), sandwich norms, qkv bias; 9.4 B parameters, 18.8 GB in bf16
+GLM4_9B = {
+    "architectures": ["Glm4ForCausalLM"], "vocab_size": 151552,
+    "hidden_size": 4096, "intermediate_size": 13696, "num_hidden_layers": 40,
+    "num_attention_heads": 32, "num_key_value_heads": 2, "head_dim": 128,
+    "partial_rotary_factor": 0.5, "attention_bias": True, "rms_norm_eps": 1e-5,
+    "rope_theta": 10000.0, "max_position_embeddings": 32768,
+    "tie_word_embeddings": False,
+}
+# Baichuan2-7B-Base (https://huggingface.co/baichuan-inc/Baichuan2-7B-Base/
+# blob/main/config.json): MHA, 32 heads of 128 (G 1), NormHead
+BAICHUAN2_7B = {
+    "architectures": ["BaichuanForCausalLM"], "vocab_size": 125696,
+    "hidden_size": 4096, "intermediate_size": 11008, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "rms_norm_eps": 1e-6,
+    "max_position_embeddings": 4096, "tie_word_embeddings": False,
+}
+# nvidia/llama-3.2-nv-embedqa-1b-v2 (https://huggingface.co/nvidia/
+# llama-3.2-nv-embedqa-1b-v2): Llama-3.2-1B's widths as a bidirectional
+# encoder: 16 layers of 32 q / 8 kv heads of 64, llama3 rope scaling, tied
+NV_EMBEDQA_1B = {
+    "architectures": ["LlamaBidirectionalModel"], "vocab_size": 128256,
+    "hidden_size": 2048, "intermediate_size": 8192, "num_hidden_layers": 16,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 64,
+    "max_position_embeddings": 131072, "rope_theta": 500000.0,
+    "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                     "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+    "rms_norm_eps": 1e-5, "tie_word_embeddings": True, "pooling": "avg",
+}
+# the K4 group sizes the serve phases had not run: Qwen2.5-7B's G 7,
+# GLM-4-9B's G 16 (the split kernel's whole M tile), Baichuan2-7B's G 1
+K4_GROUP_HEADS = {"qwen25_7b": (28, 4, 128), "glm4_9b": (32, 2, 128),
+                  "baichuan2_7b": (32, 32, 128)}
+# K1-K3's new shapes: the bi-encoder step's 2 x 64 rows of 512 tokens at
+# the encoder's heads (no mask), one 4096-token row at Qwen2.5-7B's (causal)
+FA_ENCODER_SHAPE = dict(B=128, S=512, Hq=32, Hkv=8, D=64, Dv=64)
+FA_QWEN25_SHAPE = dict(B=1, S=4096, Hq=28, Hkv=4, D=128, Dv=128)
+# train_qwen25_lora: llama_lora.yaml's peft section on Qwen2.5-7B uncut, the
+# conditions of BASELINE.md's Qwen2.5-7B row (one GPU, seq 4096): microbatch
+# 1, 2 accumulated, 5 steps; the adapters: 28 layers x r 16 x (in + out) of
+# q (3584 -> 3584), k and v (3584 -> 512), o (3584 -> 3584)
+QWEN25_LORA_STEPS = 5
+QWEN25_LORA_TRAINABLE = 28 * 16 * ((3584 + 3584) * 2 + (3584 + 512) * 2)
+# remat_policies: the same recipe (its fp32 base, 30.5 GB) under each
+# policy, REMAT_STEPS steps of one microbatch of REMAT_SEQ tokens. "none"
+# keeps every layer's activations and its bf16 weight copies (the frozen
+# base's casts, which the products' backward reads): ~0.47 GB of weights
+# and ~1.2 GB of activations a layer at 4096 tokens, 28 x 1.7 = 47 GB
+# beside the base, past the card's 80 GB; at 2048 tokens ~1.07 GB a
+# layer, 30 GB. The microbatch is cut, the depth is not
+REMAT_ORDER = ("none", "dots", "dots_with_no_batch_dims", "checkpoint_dots", "full")
+REMAT_SEQ, REMAT_STEPS, REMAT_RTOL, REMAT_PEAK_RTOL = 2048, 2, 1e-5, 1e-3
+# train_encoders: the retrieval_bi_encoder CLI at NV_EMBEDQA_1B, 64 query /
+# document pairs of 512 tokens a step (one forward of 128 rows), 5 steps;
+# then llm_seq_cls on the same widths, 64 rows of 512 tokens, 2 steps; the
+# check: 2 layers in fp32, 8 pairs, the documents' last 112 tokens padding
+# in every other row, InfoNCE at temperature 1.0
+ENCODER_SEQ, ENCODER_PAIRS, ENCODER_STEPS, SEQ_CLS_STEPS = 512, 64, 5, 2
+ENCODER_CHECK_PAIRS, ENCODER_CHECK_PAD, ENCODER_CHECK_TEMPERATURE = 8, 112, 1.0
+# smoke_dense_families: the new families' smoke YAMLs and the seq-cls and
+# retrieval ones (head dim 8, padded to 16), as smoke_families runs its own
+DENSE_SMOKE_YAMLS = tuple(f"examples/llm_finetune/{f}_smoke.yaml" for f in (
+    "glm4", "ernie4_5", "hunyuan_dense", "baichuan", "ministral3")) + (
+    "examples/llm_seq_cls/llama_seq_cls_smoke.yaml",
+    "examples/retrieval/bi_encoder_smoke.yaml",
+    "examples/retrieval/cross_encoder_smoke.yaml")
+
+
+def qwen25_lora_yaml(path: Path, run_dir: Path) -> str:
+    """llama_lora.yaml's peft section, optimizer and schedule on Qwen2.5-7B
+    at its published config (random base from seed 0), bf16 over the fp32
+    base, full remat, mock data of LORA_SEQ tokens over the whole
+    vocabulary, microbatch 1, LORA_ACCUM accumulated, no checkpoint."""
+    return lora_yaml(path, {"hf_config": dict(QWEN25_7B)}, run_dir, QWEN25_LORA_STEPS, {},
+                     {"enabled": False}, False, vocab_size=QWEN25_7B["vocab_size"])
+
+
+def train_qwen25_lora_phase(card: str):
+    """The LoRA CLI recipe on Qwen2.5-7B uncut at seq 4096 (BASELINE.md's
+    conditions): QWEN25_LORA_STEPS steps with K1-K3 on all 28 layers of
+    every microbatch (K1 twice: the forward and the remat recompute), then
+    one profiled step. Returns (the recipe, for remat_policies; the
+    launches; the record)."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_qwen25_lora_"))
+    try:
+        reset_counts()
+        recipe, setup_s, loop_s, setup_peak, peak = run_recipe(
+            qwen25_lora_yaml(tmp / "lora.yaml", tmp / "run"))
+        launches = kernel_launches(*FLASH)
+        at_128 = flash_counts((128, 128))
+        records = jsonl(tmp / "run" / "training.jsonl")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = recipe.model_cfg
+    n = cfg.num_layers * LORA_ACCUM * QWEN25_LORA_STEPS
+    want = {"K1": 2 * n, "K2": n, "K3": n}
+    trainable = count_params(recipe.train_state.params)
+    steady = records[1:]
+    tps = statistics.median(r["tps"] for r in steady)
+    mbs = [next(iter(recipe.dataloader)) for _ in range(LORA_ACCUM)]
+    prof, prof_wall_ms, prof_launches = profile_step(recipe, mbs, (128, 128))
+    by_name = device_ms_by_kernel(prof)
+    busy_ms = sum(by_name.values())
+    fa_ms = sum(v for k, v in by_name.items()
+                if any(re.search(pat, k) for pat in DENSE_FA_KERNELS.values()))
+    self_dev = self_device_ms_by_op(prof)
+    gemm_ms = sum(self_dev.get(k, 0.0) for k in DENSE_GEMM_OPS)
+    del prof
+    record = {
+        "phase": "train_qwen25_lora", "card": card,
+        "model": f"Qwen2.5-7B, all {cfg.num_layers} layers, seq {LORA_SEQ}, {cfg.dtype} "
+                 f"over the fp32 base, remat {cfg.remat_policy}; nothing cut",
+        "peft": {"r": 16, "alpha": 32.0, "targets": ["q_proj", "k_proj", "v_proj", "o_proj"]},
+        "trainable_params": trainable, "expected_trainable": QWEN25_LORA_TRAINABLE,
+        "steps": len(records), "tokens_per_step": LORA_ACCUM * LORA_SEQ,
+        "losses": [r["loss"] for r in records],
+        "grad_norms": [r["grad_norm"] for r in records],
+        "ms_per_step": LORA_ACCUM * LORA_SEQ / tps * 1e3, "tokens_per_s": tps,
+        "mfu_pct": statistics.median(r["mfu_pct"] for r in steady),
+        "tflops_per_device": statistics.median(r["tflops_per_device"] for r in steady),
+        "flops_per_token": cfg.flops_per_token(LORA_SEQ),
+        "reference_tokens_per_s": 14110.05,
+        "reference": "BASELINE.md: Qwen2.5 7B, 1 GPU, seq 4096 (LoRA, H100)",
+        "setup_s": setup_s, "loop_s": loop_s,
+        "setup_peak_mem_gib": setup_peak, "peak_mem_gib": peak,
+        "launches": launches, "launches_at_128": at_128, "expected_launches": want,
+        "profiled_step": {"wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+                          "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
+                          "flash_launches_counted": prof_launches,
+                          "flash_kernels_ms": fa_ms, "dense_gemm_ms": gemm_ms},
+    }
+    emit(record)
+    if trainable != QWEN25_LORA_TRAINABLE:
+        raise AssertionError(f"train_qwen25_lora: {trainable} trainable parameters")
+    if len(records) != QWEN25_LORA_STEPS or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
+        raise AssertionError(f"train_qwen25_lora: records {records}")
+    if launches != want or at_128 != want:
+        raise AssertionError(f"train_qwen25_lora: K1-K3 launches {launches} "
+                             f"(at <128, 128> {at_128}); expected {want}")
+    return recipe, launches, record
+
+
+def remat_policies_phase(card: str, recipe) -> dict:
+    """train_qwen25_lora's recipe (its base and first adapters) under each of
+    REMAT_ORDER: the step-1 batch's LoRA gradients, then REMAT_STEPS steps of
+    one REMAT_SEQ-token microbatch, from the same adapters and a fresh AdamW
+    state. Losses and gradients must equal "full"'s within REMAT_RTOL
+    (bitwise is expected: K1-K3 and the products use no atomics; which
+    held is printed); peak memory must order none > dots >=
+    dots_with_no_batch_dims > full, with checkpoint_dots equal to dots.
+    Returns each policy's record."""
+    base_cfg = recipe.model_cfg
+    ds = MockDatasetConfig(num_samples=REMAT_STEPS, seq_len=REMAT_SEQ,
+                           vocab_size=base_cfg.vocab_size, seed=3).build()
+    batches = [make_global_batch(stack_microbatches([{k: v[None] for k, v in ds[i].items()}]),
+                                 "cuda") for i in range(REMAT_STEPS)]
+    init = tree_map(lambda t: t.detach().clone(), recipe.train_state.params)
+    step_cfg = TrainStepConfig(max_grad_norm=recipe.cfg.get("max_grad_norm", 1.0))
+    del recipe.train_state
+    torch.cuda.empty_cache()
+    out = {}
+    for policy in REMAT_ORDER:
+        recipe.model_cfg = dataclasses.replace(base_cfg, remat_policy=policy)
+        loss_fn = recipe._make_loss_fn()
+        params = tree_map(lambda t: t.clone().requires_grad_(), init)
+        reset_counts()
+        accumulate_grads(loss_fn, params, batches[0])
+        # on the host, so no policy's peak carries an earlier one's
+        grads = [p.grad.detach().cpu() for p in tree_leaves(params)]
+        k1 = kernel_launches("K1")["K1"]
+        for p in tree_leaves(params):
+            p.grad = None
+        state = init_train_state(params, recipe.tx)
+        step = make_train_step(loss_fn, recipe.tx, recipe.lr_schedule, step_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        losses, times = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        out[policy] = {"losses": losses, "grads": grads, "ms_per_step": times,
+                       "peak_mem_gib": peak / 2**30,
+                       "peak_above_start_bytes": peak - base_bytes,
+                       "k1_launches_per_microbatch": k1}
+        del state, params, metrics
+        torch.cuda.empty_cache()
+    recipe.model_cfg = base_cfg
+    full = out["full"]
+    summary = {}
+    for policy, r in out.items():
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], full["losses"]))
+        grad_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                       for a, b in zip(r["grads"], full["grads"]))
+        bitwise = (r["losses"] == full["losses"]
+                   and all(torch.equal(a, b) for a, b in zip(r["grads"], full["grads"])))
+        summary[policy] = {k: r[k] for k in ("losses", "ms_per_step", "peak_mem_gib",
+                                             "peak_above_start_bytes",
+                                             "k1_launches_per_microbatch")}
+        summary[policy].update(loss_max_rel_err=loss_err, grad_max_rel_err=grad_err,
+                               bitwise_equal_to_full=bitwise)
+    emit({"phase": "remat_policies", "card": card,
+          "model": f"Qwen2.5-7B LoRA (train_qwen25_lora's recipe), {base_cfg.num_layers} "
+                   f"layers, one microbatch of {REMAT_SEQ} tokens, {REMAT_STEPS} steps",
+          "rtol": REMAT_RTOL, "policies": summary})
+    for policy, r in summary.items():
+        if r["loss_max_rel_err"] > REMAT_RTOL or r["grad_max_rel_err"] > REMAT_RTOL:
+            raise AssertionError(f"remat_policies: {policy} leaves full: {r}")
+    # what each policy holds above the step's start (the base, the adapters
+    # and AdamW's state): checkpoint_dots is dots by another name, equal
+    # to within the allocator's rounding (REMAT_PEAK_RTOL)
+    peak = {p: r["peak_above_start_bytes"] for p, r in summary.items()}
+    if not (peak["none"] > peak["dots"] >= peak["dots_with_no_batch_dims"] > peak["full"]
+            and abs(peak["checkpoint_dots"] - peak["dots"]) <= REMAT_PEAK_RTOL * peak["dots"]):
+        raise AssertionError(f"remat_policies: peak memory above the start {peak}")
+    L = base_cfg.num_layers
+    k1 = {p: r["k1_launches_per_microbatch"] for p, r in summary.items()}
+    if k1 != {p: (L if p == "none" else 2 * L) for p in REMAT_ORDER}:
+        raise AssertionError(f"remat_policies: K1 launches {k1}")
+    return summary
+
+
+def dense_serve_model(name: str, hf: dict, layers: int, dtype):
+    """A published dense config through its registry family, cut to its
+    first `layers` layers, with random weights from seed 0 in `dtype`;
+    (config, params, description)."""
+    cut = dict(hf, num_hidden_layers=layers)
+    cfg = get_model_spec(cut).config_from_hf(cut, dtype=dtype)
+    params = decoder.init(cfg, torch.Generator(device="cuda").manual_seed(0), dtype=dtype)
+    D = cfg.resolved_head_dim
+    return cfg, params, (f"{name}, {layers} of {hf['num_hidden_layers']} layers, "
+                         f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {D} "
+                         f"(rotary on {cfg.rope_dim}), {str(dtype).removeprefix('torch.')}, "
+                         f"{count_params(params)} params")
+
+
+def serve_glm4_phase(card: str) -> dict:
+    """GLM-4-9B-0414 uncut (40 layers, bf16, seed-0 weights) on serve's
+    traffic: the fp pool (K4, G 16, on every layer of every step) with a
+    10-step profile, then the int8 pool (K5); then the engine at 2 layers
+    in fp32 held to the plain version (`engine_check`). Returns the
+    launches of K4 and K5."""
+    t0 = time.perf_counter()
+    cfg, params, model = dense_serve_model("GLM-4-9B-0414", GLM4_9B,
+                                           GLM4_9B["num_hidden_layers"], torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launches = {}
+    engine = ServingEngine(params, cfg, SERVE)
+    launches["K4"], _ = serve_run(engine, cfg, card, "serve_glm4", model, "K4", setup_s)
+    profile_steps(engine, cfg, card, "serve_glm4", PAGED_DEVICE_KERNELS["K4"])
+    del engine
+    torch.cuda.empty_cache()
+    engine = ServingEngine(params, cfg, dataclasses.replace(SERVE, kv_cache_dtype="int8"))
+    launches["K5"], _ = serve_run(engine, cfg, card, "serve_glm4_int8", model, "K5", 0.0)
+    del engine, params
+    torch.cuda.empty_cache()
+    cfg32, params32, _ = dense_serve_model("GLM-4-9B-0414", GLM4_9B, 2, torch.float32)
+    engine_check("engine_glm4", cfg32, params32, dataclasses.replace(SERVE, num_pages=256),
+                 ENGINE_LOGITS_TOL)
+    del params32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_dense_groups_phase(card: str) -> dict:
+    """Qwen2.5-7B (G 7) and Baichuan2-7B (MHA, G 1, the NormHead) at their
+    widths cut to 2 layers, bf16, on serve's traffic and the fp pool: K4
+    on every layer of every step; Baichuan's engine also at 2 layers in
+    fp32 held to the plain version. Returns each model's K4 launches."""
+    out = {}
+    for key, name, hf in (("qwen25_7b", "Qwen2.5-7B", QWEN25_7B),
+                          ("baichuan2_7b", "Baichuan2-7B", BAICHUAN2_7B)):
+        cfg, params, model = dense_serve_model(name, hf, 2, torch.bfloat16)
+        engine = ServingEngine(params, cfg, SERVE)
+        out[key], _ = serve_run(engine, cfg, card, f"serve_{key}", model, "K4", 0.0)
+        del engine, params
+        torch.cuda.empty_cache()
+    cfg32, params32, _ = dense_serve_model("Baichuan2-7B", BAICHUAN2_7B, 2, torch.float32)
+    engine_check("engine_baichuan2", cfg32, params32,
+                 dataclasses.replace(SERVE, num_pages=256), ENGINE_LOGITS_TOL)
+    del params32
+    torch.cuda.empty_cache()
+    return out
+
+
+def encoder_yaml(path: Path, run_dir: Path, recipe: str, hf: dict, **over) -> str:
+    """A bi-encoder (or seq-cls) recipe at `hf`'s widths: bf16 over fp32
+    masters, full remat, ENCODER_PAIRS rows of ENCODER_SEQ tokens (mock
+    pairs or labelled rows over the whole vocabulary), AdamW, no
+    checkpoint; `over` replaces top-level sections."""
+    seq_cls = recipe == "llm_seq_cls"
+    cfg = {
+        "recipe": recipe, "seed": 0, "run_dir": str(run_dir), "auto_resume": False,
+        "model": {"hf_config": dict(hf), "dtype": "bfloat16", "remat_policy": "full"},
+        "distributed": {"dp_shard": -1},
+        "dataset": {
+            "_target_": "automodel_tpu_torch.datasets.mock." + (
+                "MockSeqClsDatasetConfig" if seq_cls else "MockRetrievalDatasetConfig"),
+            "num_samples": ENCODER_PAIRS * ENCODER_STEPS, "seq_len": ENCODER_SEQ,
+            "vocab_size": hf["vocab_size"]},
+        "dataloader": {"microbatch_size": ENCODER_PAIRS, "grad_acc_steps": 1},
+        "optimizer": {"name": "adamw", "lr": 1.0e-5, "weight_decay": 0.0},
+        "lr_scheduler": {"style": "constant", "warmup_steps": 0},
+        "step_scheduler": {"max_steps": SEQ_CLS_STEPS if seq_cls else ENCODER_STEPS,
+                           "ckpt_every_steps": 1000},
+        "checkpoint": {"enabled": False},
+        "loss": {"chunk_size": 2048},
+    }
+    if seq_cls:
+        cfg["seq_cls"] = {"num_labels": 4}
+    else:
+        cfg["retrieval"] = {"temperature": 0.05, "symmetric": True}
+    cfg.update(over)
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+@contextlib.contextmanager
+def flash_masks_seen():
+    """Within the block, the (causal code, window) of every K1-K3 mask the
+    autograd function makes is added to the yielded set."""
+    seen = set()
+    make = fa_cuda.mask_args
+
+    def recorded(*args, **kw):
+        m = make(*args, **kw)
+        seen.add((m.code, m.window))
+        return m
+
+    fa_cuda.mask_args = recorded
+    try:
+        yield seen
+    finally:
+        fa_cuda.mask_args = make
+
+
+def train_encoders_phase(card: str) -> dict:
+    """The retrieval_bi_encoder CLI on a LlamaBidirectionalModel at
+    llama-3.2-nv-embedqa-1b-v2's widths, uncut: ENCODER_STEPS steps of
+    ENCODER_PAIRS pairs of ENCODER_SEQ tokens, K1-K3 at <64, 64> on every
+    layer with no mask (code 0, no window: the pads' segment ids aside);
+    then SEQ_CLS_STEPS steps of llm_seq_cls on
+    LlamaBidirectionalForSequenceClassification at the same widths.
+    Returns the bi-encoder run's K1-K3 launches."""
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_encoders_"))
+    try:
+        for phase, recipe_name, arch, steps in (
+                ("train_bi_encoder", "retrieval_bi_encoder", "LlamaBidirectionalModel",
+                 ENCODER_STEPS),
+                ("train_seq_cls", "llm_seq_cls",
+                 "LlamaBidirectionalForSequenceClassification", SEQ_CLS_STEPS)):
+            hf = dict(NV_EMBEDQA_1B, architectures=[arch])
+            path = encoder_yaml(tmp / f"{phase}.yaml", tmp / phase, recipe_name, hf)
+            reset_counts()
+            with flash_masks_seen() as masks:
+                recipe, setup_s, loop_s, _, peak = run_recipe(path)
+            launches = kernel_launches(*FLASH)
+            at_64 = flash_counts((64, 64))
+            records = jsonl(tmp / phase / "training.jsonl")
+            L = recipe.model_cfg.num_layers
+            want = {"K1": 2 * L * steps, "K2": L * steps, "K3": L * steps}
+            # a step's rows: the queries and the documents, or the labelled rows
+            tokens = ENCODER_PAIRS * ENCODER_SEQ * (1 if recipe_name == "llm_seq_cls" else 2)
+            rec = {
+                "phase": phase, "card": card,
+                "model": f"{arch} at llama-3.2-nv-embedqa-1b-v2's widths, all {L} layers, "
+                         f"bf16 over fp32 masters, remat full; nothing cut",
+                "causal": recipe.model_cfg.causal, "tokens_per_step": tokens,
+                "losses": [r["loss"] for r in records],
+                "grad_norms": [r["grad_norm"] for r in records],
+                "ms_per_step": [tokens / r["tps"] * 1e3 for r in records],
+                "tokens_per_s": statistics.median(r["tps"] for r in records[1:]),
+                "mfu_pct": statistics.median(r["mfu_pct"] for r in records[1:]),
+                "mfu_note": "flops_per_token counts causal attention (JAX's formula): "
+                            "the encoder's attention is undercounted",
+                "num_correct": [r.get("num_correct") for r in records],
+                "setup_s": setup_s, "loop_s": loop_s, "peak_mem_gib": peak,
+                "flash_masks": sorted(masks), "launches": launches,
+                "launches_at_64": at_64, "expected_launches": want,
+            }
+            emit(rec)
+            del recipe
+            torch.cuda.empty_cache()
+            if recipe_name == "retrieval_bi_encoder":
+                out = launches
+            if rec["causal"] or masks != {(0, 0)}:
+                raise AssertionError(f"{phase}: not the unmasked encoder: {rec}")
+            if len(records) != steps or not all(
+                    math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                    for r in records):
+                raise AssertionError(f"{phase}: records {records}")
+            if launches != want or at_64 != want:
+                raise AssertionError(f"{phase}: K1-K3 launches {launches} (at <64, 64> "
+                                     f"{at_64}); expected {want}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def train_encoders_check_phase() -> None:
+    """fp32, 2 layers at NV_EMBEDQA_1B's widths: the bi-encoder recipe's
+    loss on one batch of ENCODER_CHECK_PAIRS pairs (every other document
+    ending in ENCODER_CHECK_PAD pad tokens) from the same weights with
+    attn_impl "flash" (K1-K3 non-causal over the pads' segments) and
+    "torch": loss and every gradient leaf within TRAIN_LOSS_RTOL /
+    TRAIN_GRAD_TOL, as train_gemma_check."""
+    hf = dict(NV_EMBEDQA_1B, num_hidden_layers=2)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_encoder_check_"))
+    # at the recipe's 0.05 a random encoder's pools of a pair already match
+    # (loss ~1e-7 in a first card run): at 1.0 the loss and its gradients
+    # are O(1), so the check can see a wrong kernel
+    retrieval = {"temperature": ENCODER_CHECK_TEMPERATURE, "symmetric": True}
+    try:
+        ds = MockRetrievalDatasetConfig(num_samples=ENCODER_CHECK_PAIRS, seq_len=ENCODER_SEQ,
+                                        vocab_size=hf["vocab_size"], seed=7).build()
+        mb = {k: np.stack([ds[i][k] for i in range(ENCODER_CHECK_PAIRS)]) for k in ds[0]}
+        mb["doc_mask"][::2, -ENCODER_CHECK_PAD:] = 0
+        batch = make_global_batch(stack_microbatches([mb]), "cuda")
+        results, params0 = {}, None
+        for impl in ("flash", "torch"):
+            cfg = parse_args_and_load_config([encoder_yaml(
+                tmp / f"{impl}.yaml", tmp / impl, "retrieval_bi_encoder", hf,
+                model={"hf_config": hf, "dtype": "float32", "remat_policy": "full",
+                       "attn_impl": impl}, retrieval=retrieval)])
+            recipe = resolve_recipe_class(cfg)(cfg)
+            recipe.setup()
+            if params0 is None:
+                params0 = tree_map(lambda t: t.detach().clone(), recipe.train_state.params)
+            params = tree_map(lambda t: t.clone().requires_grad_(), params0)
+            reset_counts()
+            ce, aux = accumulate_grads(recipe._loss_fn, params, batch)
+            results[impl] = (float(ce / aux["num_label_tokens"]),
+                             [t.grad for t in tree_leaves(params)],
+                             kernel_launches()["K1"])
+            del recipe, params
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (loss_f, g_f, n_f), (loss_t, g_t, n_t) = results["flash"], results["torch"]
+    grad_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                   for a, b in zip(g_f, g_t))
+    loss_rel = abs(loss_f - loss_t) / abs(loss_t)
+    emit({"phase": "train_encoders_check", "layers": 2, "dtype": "float32",
+          "pairs": ENCODER_CHECK_PAIRS, "seq": ENCODER_SEQ, "pad": ENCODER_CHECK_PAD,
+          "temperature": ENCODER_CHECK_TEMPERATURE,
+          "loss_flash": loss_f, "loss_torch": loss_t, "loss_rel_err": loss_rel,
+          "loss_rtol": TRAIN_LOSS_RTOL, "grad_max_rel_err": grad_err,
+          "grad_tol": TRAIN_GRAD_TOL, "k1_launches": [n_f, n_t]})
+    if n_f == 0 or n_t != 0:
+        raise AssertionError("train_encoders_check: attn_impl did not select the kernels / plain path")
+    if loss_rel > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_TOL:
+        raise AssertionError("train_encoders_check: the step differs between kernels and plain")
 
 
 # the tensor-core kernels in ptxas's mangled names: (pattern, readable name)
@@ -3716,6 +4256,10 @@ def main() -> int:
     lap("serve_mixtral")
     window_launches = serve_gemma2_phase(card)
     lap("serve_gemma2")
+    glm4_launches = serve_glm4_phase(card)
+    lap("serve_glm4")
+    group_launches = serve_dense_groups_phase(card)
+    lap("serve_dense_groups")
     moe_sync_phase(card)
     lap("moe_sync")
     # Llama-3-8B's HF checkpoint: served by recipe_serve, the base of the
@@ -3765,6 +4309,19 @@ def main() -> int:
     lap("train_gpt_oss_check")
     smoke_launches = smoke_families_phase(card)
     lap("smoke_families")
+    qwen_recipe, qwen_launches, _ = train_qwen25_lora_phase(card)
+    lap("train_qwen25_lora")
+    remat_policies_phase(card, qwen_recipe)
+    del qwen_recipe
+    torch.cuda.empty_cache()
+    lap("remat_policies")
+    encoder_launches = train_encoders_phase(card)
+    lap("train_encoders")
+    train_encoders_check_phase()
+    lap("train_encoders_check")
+    dense_smoke_launches = smoke_families_phase(card, "smoke_dense_families",
+                                                DENSE_SMOKE_YAMLS)
+    lap("smoke_dense_families")
     gemma_launches, gemma2_records = train_gemma_phase(
         card, "train_gemma2", "Gemma-2-2B", GEMMA2_2B, GEMMA2_TRAIN_SEQ)
     lap("train_gemma2")
@@ -3874,16 +4431,47 @@ def main() -> int:
         "kernel_route": rpa_cuda.route(torch.bfloat16),
         "heads": e["heads"],
     })
+    # K4 at the dense families' groups (Qwen2.5-7B's G 7, GLM-4-9B's G 16,
+    # Baichuan2-7B's G 1) with the launches of their serve runs, and K5 at
+    # GLM-4-9B's
+    group_runs = {"qwen25_7b": group_launches["qwen25_7b"],
+                  "glm4_9b": glm4_launches["K4"],
+                  "baichuan2_7b": group_launches["baichuan2_7b"]}
+    for name, kname, line, e, n in (
+            [("K4", f"ragged_paged_attention_gqa_{m}", ":42", k4[m], group_runs[m])
+             for m in K4_GROUP_HEADS]
+            + [("K5", "ragged_paged_attention_gqa_int8_glm4_9b", ":170",
+                paged["K5_glm4_9b"], glm4_launches["K5"])]):
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "automodel_tpu_torch/csrc/ragged_paged_attention.cu",
+            "replaces": "automodel_tpu/ops/pallas/ragged_paged_attention.py" + line,
+            "launches": n,
+            "max_abs_err": e["max_abs_err"],
+            "ms": e["ms"],
+            "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"],
+            "bound_by": e["bound_by"],
+            "library_ms": None,
+            "library_why": no_library,
+            "card": card,
+            "kernel_route": rpa_cuda.route(torch.bfloat16),
+            "heads": e["heads"],
+        })
     # K1-K3 at Llama-3-8B's heads (<128, 128>, the dense train run's
-    # launches), at Moonlight's MLA heads (<192, 128>, train_moe's), and at
+    # launches), at Moonlight's MLA heads (<192, 128>, train_moe's), at
     # Gemma-2-2B's and Gemma-3-1B's windowed heads (<256, 256>, their
-    # training runs')
+    # training runs'), at the encoder's with no mask (<64, 64>, the
+    # bi-encoder run's) and at Qwen2.5-7B's (<128, 128>, its LoRA run's)
     for key, suffix, dims, runs in (
             ("dense", "", (128, 128), train_launches),
             ("mla", "_mla", (192, 128), moe_launches),
             ("gemma2", "_gemma2", (256, 256), gemma_launches["gemma2"]),
             ("gemma3", "_gemma3", (256, 256), gemma_launches["gemma3"]),
-            ("gpt_oss", "_gpt_oss", (64, 64), family_launches["gpt_oss"])):
+            ("gpt_oss", "_gpt_oss", (64, 64), family_launches["gpt_oss"]),
+            ("encoder", "_encoder", (64, 64), encoder_launches),
+            ("qwen25_7b", "_qwen25_7b", (128, 128), qwen_launches)):
         for name, replaces in (("K1", ":140"), ("K2", ":238"), ("K3", ":283")):
             e = flash[key][name]
             row = {
@@ -3920,6 +4508,8 @@ def main() -> int:
             if key == "gpt_oss":  # the smoke YAMLs' head dim 8, padded to 16
                 row["smoke_families_launches_at_16"] = {
                     fam: c[name] for fam, c in smoke_launches.items()}
+                row["smoke_dense_families_launches_at_16"] = {
+                    fam: c[name] for fam, c in dense_smoke_launches.items()}
             kernels.append(row)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})

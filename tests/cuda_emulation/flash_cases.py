@@ -33,6 +33,10 @@ CASES = {
     "causal_s_gt_t_d128": (1, 130, 70, 4, 4, 128, 128, True, False, None, {}),
     "causal_s_lt_t_d16": (2, 70, 150, 4, 2, 16, 16, True, False, None, {}),
     "causal_softcap_d128": (1, 150, 150, 4, 2, 128, 128, True, False, 30.0, {}),
+    # the bidirectional encoder's heads (G 4 x D 64) over pad segments, and
+    # Qwen2.5-7B's group of 7 at D 128, causal
+    "bidirectional_segments_g4_d64": (2, 110, 110, 4, 1, 64, 64, False, True, None, {}),
+    "causal_g7_d128": (1, 120, 120, 7, 1, 128, 128, True, False, None, {}),
     # MLA's heads (Moonlight, DeepSeek-V3): q/k 192, v 128; G 1 and 2
     "mla_causal_g1": (1, 150, 150, 2, 2, 192, 128, True, False, None, {}),
     "mla_causal_segments_g2": (1, 140, 140, 4, 2, 192, 128, True, True, None, {}),
@@ -68,7 +72,8 @@ CASES = {
 # and ring-shaped position-causal masks, and head dim 256
 GROUPS = {
     "base": ("causal_gqa_ragged", "causal_d128_segments", "bidirectional_softcap",
-             "causal_s_gt_t_d128", "causal_s_lt_t_d16", "causal_softcap_d128"),
+             "causal_s_gt_t_d128", "causal_s_lt_t_d16", "causal_softcap_d128",
+             "bidirectional_segments_g4_d64", "causal_g7_d128"),
     "mla": ("mla_causal_g1", "mla_causal_segments_g2", "mla_softcap_s_gt_t_g2",
             "mla_bidirectional_g1"),
     "window": ("window_causal_gqa", "window_two_sided_softcap", "window_packed_d128",

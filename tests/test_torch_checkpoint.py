@@ -250,14 +250,16 @@ def test_loaded_port_model_logits_match_jax(tmp_path):
 def test_unported_adapter_styles_raise():
     t_cfg, _ = port_adapter(LLAMA)
     ds_cfg, _ = port_adapter(DEEPSEEK)
-    for style in ("glm4", "baichuan"):
+    # the het_moe styles are not ported; every dense style of the JAX
+    # adapter is (glm4, baichuan: tests/test_torch_dense_families.py)
+    for style in ("step3p5", "mimo"):
         with pytest.raises(NotImplementedError, match=style):
             DenseDecoderAdapter(t_cfg, style=style)
     for style in ("hy_mt2", "glm4"):
         with pytest.raises(NotImplementedError, match=style):
             MoEDecoderAdapter(ds_cfg, style=style)
     # the GQA MoE families' styles are ported (tests/test_torch_moe_families.py)
-    for style in ("bailing", "hunyuan"):
+    for style in ("bailing", "hunyuan", "glm4", "baichuan"):
         DenseDecoderAdapter(t_cfg, style=style)
     for style in ("qwen3_moe", "mixtral", "gpt_oss", "minimax", "ernie", "hunyuan",
                   "bailing"):

@@ -70,6 +70,9 @@ K4_CASES = [
     (8, 128, 128, 32, None), (2, 256, 256, 16, 30.0), (20, 64, 64, 8, 30.0),
     # Qwen3-30B-A3B's heads on 16-token pages
     (8, 128, 128, 16, None),
+    # the dense families' groups at D 128: Qwen2.5-7B's G 7, GLM-4-9B's G 16
+    # (the split kernel's whole M tile), Baichuan2-7B's MHA (G 1)
+    (7, 128, 128, 16, None), (16, 128, 128, 16, None), (1, 128, 128, 16, None),
 ]
 
 
@@ -240,6 +243,8 @@ def _int8_pages(gen, card, *shape):
 @pytest.mark.parametrize("G,D,ps,soft_cap", [
     (1, 64, 16, None), (4, 128, 16, 30.0), (8, 128, 32, None),
     (20, 64, 8, 30.0),
+    # GLM-4-9B's G 16 and Qwen2.5-7B's G 7 on its int8 pool
+    (16, 128, 16, None), (7, 128, 16, None),
 ])
 def test_k5_matches_plain_version(card, dtype, G, D, ps, soft_cap):
     from automodel_tpu_torch.ops.cuda.ragged_paged_attention import (
@@ -643,6 +648,11 @@ FA_CASES = {
     "causal_gqa_ragged": (2, 200, 200, 4, 2, 64, True, False, None, {}),
     "causal_d128_segments": (1, 192, 192, 8, 2, 128, True, True, None, {}),
     "bidirectional_softcap": (1, 96, 96, 2, 1, 64, False, False, 20.0, {}),
+    # the bidirectional encoder's heads (G 4 x D 64) with no mask at all, and
+    # over pad segments; Qwen2.5-7B's causal G 7 at D 128
+    "bidirectional_gqa4_d64": (4, 512, 512, 8, 2, 64, False, False, None, {}),
+    "bidirectional_gqa4_segments": (2, 300, 300, 8, 2, 64, False, True, None, {}),
+    "causal_gqa7_d128": (1, 600, 600, 7, 1, 128, True, False, None, {}),
     "causal_s_gt_t": (1, 130, 70, 4, 4, 128, True, False, None, {}),
     "causal_d16_batch8": (8, 128, 128, 4, 2, 16, True, False, None, {}),
     # many 64-row tiles with a ragged tail, GQA 4

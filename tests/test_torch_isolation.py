@@ -49,7 +49,10 @@ def test_port_imports_no_jax():
                 "models.moe_lm.mtp", "models.registry", "inference.generate",
                 "checkpoint.safetensors_io",
                 "checkpoint.hf_adapter", "recipes.llm.serve", "peft.lora",
-                "eval.sampling"):
+                "eval.sampling", "recipes.llm.train_seq_cls",
+                "recipes.retrieval.train_bi_encoder",
+                "recipes.retrieval.train_cross_encoder", "loss.infonce",
+                "datasets.packing", "datasets.nanogpt"):
         assert f"automodel_tpu_torch.{mod}" in res["modules"]
     assert res["leaked"] == []
 

@@ -52,6 +52,11 @@ CASES = {
     "g20_two_head_tiles": (1, 20, 64, 64, 16, 12, (150, 1), 30.0),
     # Qwen3-30B-A3B's heads: G 8 x D 128
     "g8_d128_dv128": (1, 8, 128, 128, 16, 12, (150, 17), None),
+    # the dense families' groups: Qwen2.5-7B's G 7, GLM-4-9B's G 16 (the
+    # whole M tile) and Baichuan2-7B's MHA, G 1, all at D 128
+    "g7_d128_qwen25": (2, 7, 128, 128, 16, 12, (150, 17), None),
+    "g16_d128_glm4": (1, 16, 128, 128, 16, 12, (150, 17), None),
+    "g1_d128_baichuan": (3, 1, 128, 128, 16, 12, (150, 17), None),
 }
 # K4 also at the widest heads of dense families
 K4_CASES = {**CASES,

@@ -127,15 +127,18 @@ def test_remat_full_matches_none_and_other_policies_raise():
     _, tp = _params(jcfg)
     ids = torch.from_numpy(_packed_batch(2, 12, CFG["vocab_size"], 2)[0])
     grads = []
-    for policy in ("full", "none"):
+    # the selective policies run too (tests/test_torch_remat_policies.py
+    # holds them to JAX); a name JAX does not know raises
+    for policy in ("full", "none", "dots"):
         w = tp["layers"]["gate_proj"]["kernel"].clone().requires_grad_()
         p = dict(tp, layers=dict(tp["layers"], gate_proj={"kernel": w}))
         cfg = dataclasses.replace(tcfg, remat_policy=policy)
         (g,) = torch.autograd.grad(decoder.forward(p, cfg, ids).square().mean(), [w])
         grads.append(g)
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="dots"):
-        maybe_remat(lambda x: x, "dots")
+    torch.testing.assert_close(grads[2], grads[0], rtol=0, atol=1e-6)
+    with pytest.raises(KeyError, match="dots_saveable"):
+        maybe_remat(lambda x: x, "dots_saveable")
     with pytest.raises(NotImplementedError, match="mesh_ctx"):
         decoder.forward(tp, tcfg, ids, mesh_ctx=object())
 
