@@ -27,7 +27,11 @@ Ported styles: dense "llama" (GQA or MLA attention), "hunyuan"
 "deepseek", "qwen3_moe" (also GLM-4.5's), "mixtral", "minimax", "gpt_oss"
 (the fused, interleaved `gate_up_proj` with its biases, the router bias),
 "ernie" (the correction bias under `moe_statics` with a leading dim of 1),
-"hunyuan" (`gate.wg`, `shared_mlp`) and "bailing" (`gate.expert_bias`).
+"hunyuan" (`gate.wg`, `shared_mlp`), "hy_mt2" (`mlp.router.gate`,
+`shared_mlp`, `mlp.expert_bias`), "bailing" (`gate.expert_bias`) and
+"glm4" (GLM-4's attention and norm names from the dense adapter; as in the
+JAX adapter, the fused `gate_up_proj` of its first-k dense layers is not
+mapped).
 The DSA indexer raises NotImplementedError. A dense checkpoint saved
 without the CausalLM wrapper (a `LlamaBidirectionalModel`) may drop the
 `model.` prefix, and one with a swapped head (`...ForSequenceClassification`)
@@ -323,7 +327,7 @@ class MoEDecoderAdapter:
     style: str = "qwen3_moe"
 
     STYLES = ("qwen3_moe", "deepseek", "mixtral", "minimax", "gpt_oss", "ernie",
-              "hunyuan", "bailing")
+              "hunyuan", "hy_mt2", "bailing", "glm4")
 
     def __post_init__(self):
         if self.style not in self.STYLES:
@@ -331,7 +335,8 @@ class MoEDecoderAdapter:
                 f"MoE adapter style {self.style!r} is not ported; ported: {self.STYLES}")
         # the styles whose attention and norms the dense adapter renames
         self.dense = DenseDecoderAdapter(
-            self.cfg, style=self.style if self.style in ("hunyuan", "bailing") else "llama")
+            self.cfg,
+            style=self.style if self.style in ("glm4", "hunyuan", "bailing") else "llama")
 
     def _expert_name(self, i: int, e: int, proj: str) -> str:
         if self.style in ("mixtral", "minimax"):
@@ -345,6 +350,7 @@ class MoEDecoderAdapter:
             "minimax": f"model.layers.{i}.block_sparse_moe.gate.weight",
             "gpt_oss": f"model.layers.{i}.mlp.router.weight",
             "hunyuan": f"model.layers.{i}.mlp.gate.wg.weight",
+            "hy_mt2": f"model.layers.{i}.mlp.router.gate.weight",
         }.get(self.style, f"model.layers.{i}.mlp.gate.weight")
 
     def _escore_name(self, i: int) -> str:
@@ -353,10 +359,11 @@ class MoEDecoderAdapter:
             "ernie": f"model.layers.{i}.mlp.moe_statics.e_score_correction_bias",
             "minimax": f"model.layers.{i}.block_sparse_moe.e_score_correction_bias",
             "bailing": f"model.layers.{i}.mlp.gate.expert_bias",
+            "hy_mt2": f"model.layers.{i}.mlp.expert_bias",
         }.get(self.style, f"model.layers.{i}.mlp.gate.e_score_correction_bias")
 
     def _shared_name(self, i: int, proj: str) -> str:
-        base = "shared_mlp" if self.style == "hunyuan" else "shared_experts"
+        base = "shared_mlp" if self.style in ("hunyuan", "hy_mt2") else "shared_experts"
         return f"model.layers.{i}.mlp.{base}.{proj}.weight"
 
     def _gpt_oss_name(self, i: int, what: str) -> str:
@@ -608,8 +615,8 @@ class HFCheckpointReader:
     as a context manager) to unmap the files.
 
     The JAX reader's `retry_policy` and `remote_io` fault point are not
-    ported: resilience and fault probes are ROADMAP.md queue 1 items 6 and
-    18."""
+    ported: resilience and fault probes are ROADMAP.md queue 1 items 10 and
+    16."""
 
     def __init__(self, ckpt_dir: str):
         self._dir = ckpt_dir

@@ -6,11 +6,13 @@ Metrics:
   continuation, over supervised positions;
 - gen_prefix_len: the mean exact-match prefix length (over supervised
   positions);
-- gen_samples: the number of sequences scored.
+- gen_samples: the number of sequences scored;
+- with a `tokenizer`, where the decoded reference continuations carry
+  `<tool_call>` blocks: `tool_num_examples` and the name, exact and fuzzy
+  tool-call accuracies of the decoded predictions
+  (`eval/tool_call_evaluator`).
 
-The port runs one process, so there is no all-gather across hosts. The
-tool-call metrics need a tokenizer, which the port does not build yet
-(ROADMAP.md queue 1 item 8): a `tokenizer` raises NotImplementedError.
+The port runs one process, so there is no all-gather across hosts.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from automodel_tpu_torch.eval.tool_call_evaluator import evaluate_tool_calls, parse_tool_calls
 from automodel_tpu_torch.inference.generate import GenerateConfig, generate
 
 IGNORE_INDEX = -100
@@ -38,14 +41,12 @@ def run_sampling_eval(
     """Greedy-generate from each batch's first `prompt_len` tokens (on the
     params' device) and score the continuation against the batch's own
     next tokens. Returns a flat dict of scalar metrics."""
-    if tokenizer is not None:
-        raise NotImplementedError(
-            "sampling eval: the tool-call metrics need a tokenizer, which is not "
-            "ported (ROADMAP.md queue 1 item 8)")
     device = params["embed"]["embedding"].device
     gen = GenerateConfig(max_new_tokens=max_new_tokens, eos_token_id=eos_token_id)
     tok_hits = tok_total = 0.0
     prefix_sum = prefix_n = 0.0
+    preds_text: list[str] = []
+    refs_text: list[str] = []
     for bi, mb in enumerate(batches):
         if bi >= max_batches:
             break
@@ -70,8 +71,20 @@ def run_sampling_eval(
         first_miss = np.where(miss.any(axis=1), miss.argmax(axis=1), valid.sum(axis=1))
         prefix_sum += float(first_miss.sum())
         prefix_n += float(len(first_miss))
-    return {
+        if tokenizer is not None:
+            for row_pred, row_ref, row_valid in zip(cont, ref, valid):
+                preds_text.append(tokenizer.decode(
+                    [int(t) for t, v in zip(row_pred, row_valid) if v]))
+                refs_text.append(tokenizer.decode(
+                    [int(t) for t, v in zip(row_ref, row_valid) if v]))
+    metrics = {
         "gen_token_accuracy": tok_hits / max(tok_total, 1.0),
         "gen_prefix_len": prefix_sum / max(prefix_n, 1.0),
         "gen_samples": prefix_n,
     }
+    if tokenizer is not None and refs_text:
+        ref_calls = [parse_tool_calls(t) for t in refs_text]
+        if any(ref_calls):
+            tc = evaluate_tool_calls(preds_text, ref_calls)
+            metrics.update({f"tool_{k}": v for k, v in tc.items()})
+    return metrics

@@ -1,13 +1,14 @@
 """MoE model-family adapters: HF config dict → MoETransformerConfig (port of
-`automodel_tpu/models/moe_lm/families.py`: DeepSeek-V3 / Kimi-K2 on MLA,
-and the GQA families Qwen3-MoE, Mixtral, gpt-oss, GLM-4.5, ERNIE-4.5-MoE,
-MiniMax-M2, Hunyuan-MoE and Ling 2.0 (BailingMoeV2), field for field).
+`automodel_tpu/models/moe_lm/families.py`: DeepSeek-V3 / Kimi-K2 /
+GLM-4.7-Flash and Mistral-4 on MLA, and the GQA families Qwen3-MoE,
+Mixtral, gpt-oss, GLM-4.5, ERNIE-4.5-MoE, MiniMax-M2, Hunyuan-MoE, Hy-MT2
+and Ling 2.0 (BailingMoeV2), field for field).
 
-The DSA families (DeepSeek-V3.2/V4, GLM-5.x), Hy-MT2 and Mistral-4 are not
-ported."""
+The DSA families (DeepSeek-V3.2/V4, GLM-5.x) are not ported."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 from automodel_tpu_torch.models.llm.families import _base_kwargs
@@ -296,3 +297,56 @@ def gpt_oss_config(hf: Mapping[str, Any], **overrides) -> MoETransformerConfig:
     moe_overrides = overrides.pop("moe", None)
     kw.update(overrides)
     return MoETransformerConfig(moe=moe_overrides or moe, first_k_dense=0, **kw)
+
+
+def hy_mt2_config(hf: Mapping[str, Any], **overrides) -> MoETransformerConfig:
+    """HyMT2ForCausalLM (Tencent Hy-MT2-30B-A3B, a translation MoE): GQA with
+    per-head qk-norm before rope, a dense first layer (first_k_dense_replace)
+    then MoE layers of routed experts of `expert_hidden_dim` and shared ones
+    of `shared_expert_intermediate_size`, the router sigmoid by
+    `moe_router_use_sigmoid` with `route_norm` and `router_scaling_factor`,
+    and the aux-free expert bias (update speed 0.001) when
+    `moe_router_enable_expert_bias`."""
+    kw = _base_kwargs(hf)
+    kw["qk_norm"] = bool(hf.get("qk_norm", True))
+    kw["attention_bias"] = bool(hf.get("attention_bias", False))
+    moe_inter = int(hf.get("expert_hidden_dim") or hf["moe_intermediate_size"])
+    n_shared = int(hf.get("num_shared_experts", 0) or 0)
+    moe = MoEConfig(
+        n_routed_experts=int(hf["num_experts"]),
+        n_shared_experts=n_shared,
+        experts_per_token=int(hf["num_experts_per_tok"]),
+        moe_intermediate_size=moe_inter,
+        shared_expert_intermediate_size=(
+            int(hf.get("shared_expert_intermediate_size") or moe_inter * n_shared)
+            if n_shared else None
+        ),
+        score_func="sigmoid" if hf.get("moe_router_use_sigmoid", True) else "softmax",
+        norm_topk_prob=bool(hf.get("route_norm", True)),
+        route_scale=float(hf.get("router_scaling_factor", 1.0) or 1.0),
+        gate_bias_update_speed=(
+            0.001 if bool(hf.get("moe_router_enable_expert_bias", False)) else 0.0
+        ),
+    )
+    first_k = int(hf.get("first_k_dense_replace", 1))
+    moe_overrides = overrides.pop("moe", None)
+    kw.update(overrides)
+    return MoETransformerConfig(moe=moe_overrides or moe, first_k_dense=first_k, **kw)
+
+
+def mistral4_config(hf: Mapping[str, Any], **overrides) -> MoETransformerConfig:
+    """Mistral4ForCausalLM: the DeepSeek-V3 MLA + MoE body with Llama-4's
+    position-dependent q-rope scaling, 1 + beta * log(1 + floor(pos /
+    original_max_position_embeddings)) from `rope_parameters`
+    (`llama_4_scaling_beta`), which the MLA forward and the absorbed decode
+    (`inference/generate.mla_absorbed_inputs`, the engine's too) apply."""
+    cfg = deepseek_v3_moe_config(hf, **overrides)
+    rp = hf.get("rope_parameters") or hf.get("rope_scaling") or {}
+    beta = rp.get("llama_4_scaling_beta")
+    if beta:
+        cfg = dataclasses.replace(
+            cfg,
+            mla_qpe_scaling_beta=float(beta),
+            mla_qpe_scaling_orig_max=int(rp.get("original_max_position_embeddings", 8192)),
+        )
+    return cfg

@@ -2,9 +2,10 @@
 (port of the entries of `automodel_tpu/models/registry.py` whose family
 configs the port has: the dense Llama, Mistral, Ministral-3, Qwen2, Qwen3,
 Gemma-2, Gemma-3, GLM-4, ERNIE-4.5, Hunyuan dense and Baichuan2, the
-bidirectional Llama and Ministral-3 encoders; DeepSeek-V3 on MLA; and the GQA MoE families Qwen3-MoE,
-Mixtral, gpt-oss, GLM-4.5, ERNIE-4.5-MoE, Hunyuan-MoE, MiniMax-M2 and
-Ling 2.0, for training and serving)."""
+bidirectional Llama and Ministral-3 encoders; the MLA + MoE DeepSeek-V3,
+Kimi-K2, GLM-4.7-Flash (GLM-4 MoE Lite) and Mistral-4; and the GQA MoE
+families Qwen3-MoE, Mixtral, gpt-oss, GLM-4.5, ERNIE-4.5-MoE, Hunyuan-MoE,
+Hy-MT2, MiniMax-M2 and Ling 2.0, for training and serving)."""
 
 from __future__ import annotations
 
@@ -62,6 +63,21 @@ MODEL_ARCH_MAPPING: dict[str, ModelSpec] = {
         "deepseek_v3", moe_families.deepseek_v3_moe_config, moe_decoder,
         adapter_name="moe_decoder", adapter_kwargs={"style": "deepseek"},
     ),
+    # checkpoint-compatible with DeepSeek-V3
+    "KimiK2ForCausalLM": ModelSpec(
+        "kimi_k2", moe_families.deepseek_v3_moe_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "deepseek"},
+    ),
+    # GLM-4.7-Flash: the GLM-4 MoE body on MLA, DeepSeek-V3's config and names
+    "Glm4MoeLiteForCausalLM": ModelSpec(
+        "glm4_moe_lite", moe_families.deepseek_v3_moe_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "deepseek"},
+    ),
+    # the DeepSeek-V3 body with Llama-4's position-dependent q-rope scaling
+    "Mistral4ForCausalLM": ModelSpec(
+        "mistral4", moe_families.mistral4_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "deepseek"},
+    ),
     # the GQA MoE families, with the JAX registry's adapter styles
     "Qwen3MoeForCausalLM": ModelSpec(
         "qwen3_moe", moe_families.qwen3_moe_config, moe_decoder, adapter_name="moe_decoder"
@@ -85,6 +101,10 @@ MODEL_ARCH_MAPPING: dict[str, ModelSpec] = {
     "HunYuanMoEV1ForCausalLM": ModelSpec(
         "hunyuan_moe", moe_families.hunyuan_moe_config, moe_decoder,
         adapter_name="moe_decoder", adapter_kwargs={"style": "hunyuan"},
+    ),
+    "HyMT2ForCausalLM": ModelSpec(
+        "hy_mt2", moe_families.hy_mt2_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "hy_mt2"},
     ),
     "MiniMaxM2ForCausalLM": ModelSpec(
         "minimax_m2", moe_families.minimax_m2_config, moe_decoder,

@@ -14,8 +14,9 @@ arrivals, writes one `generations.jsonl` record per request and counters to
 Unlike the JAX recipe it builds no optimizer or train state: the params are
 made once, in the model's dtype, on the device (an 8B model's fp32 masters
 and AdamW moments would not fit beside it on one card). The values are the
-JAX recipe's, which loads fp32 and casts in the engine. No tokenizer is
-ported, so records carry no `text`. The replicated, sharded, disaggregated,
+JAX recipe's, which loads fp32 and casts in the engine. With a
+`tokenizer` section, prompts lose their trailing pad ids and each record
+carries the decoded `text`. The replicated, sharded, disaggregated,
 online, speculative and traced modes raise NotImplementedError
 (`RecipeConfig.refuse_unported_serving`).
 """
@@ -72,13 +73,18 @@ class ServeRecipe(TrainFinetuneRecipeForNextTokenPrediction):
                 f"prompt (max context = {cap + max_new} tokens)")
         max_prompt = serving.get("max_prompt_len") if serving else None
         max_prompt = min(int(max_prompt), cap) if max_prompt else cap
-        # no tokenizer is ported, so there is no pad id to strip
+        # with a tokenizer, a row's trailing pad ids are not prompt
+        pad_id = getattr(self._tokenizer, "pad_token_id", None)
         reqs = []
         for mb in self.dataloader:
             ids = np.asarray(mb["input_ids"])
             for row in ids.reshape(-1, ids.shape[-1]):
+                toks = [int(t) for t in row]
+                if pad_id is not None:
+                    while len(toks) > 1 and toks[-1] == pad_id:
+                        toks.pop()
                 reqs.append(Request(
-                    prompt=[int(t) for t in row[:max_prompt]],
+                    prompt=toks[:max_prompt],
                     max_new_tokens=max_new, temperature=temp,
                     eos_token_id=eos, seed=len(reqs),
                     arrival=len(reqs) // max(stride, 1),
@@ -122,13 +128,16 @@ class ServeRecipe(TrainFinetuneRecipeForNextTokenPrediction):
         out_path = os.path.join(run_dir, "generations.jsonl")
         with open(out_path, "w") as f:
             for req in res["requests"]:
-                f.write(json.dumps({
+                rec = {
                     "rid": req.rid,
                     "prompt_ids": list(req.prompt),
                     "generated_ids": list(req.generated),
                     "finish_reason": req.finish_reason,
                     "preemptions": req.preemptions,
-                }) + "\n")
+                }
+                if self._tokenizer is not None:
+                    rec["text"] = self._tokenizer.decode(rec["generated_ids"])
+                f.write(json.dumps(rec) + "\n")
         print(json.dumps({"metric": "serving_decode", **res["stats"]}))
         logger.info("wrote %d generations to %s", len(res["requests"]), out_path)
         return res

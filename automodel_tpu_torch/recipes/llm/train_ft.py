@@ -42,13 +42,24 @@ inside the decoder; the consolidated export holds the merged weights.
 `validation.jsonl` gets the token-weighted `val_loss` and, with
 `validation_generation`, the greedy sampling eval (`eval/sampling.py`).
 
+The `tokenizer` section builds an HF tokenizer from a local path
+(`models/auto_tokenizer.py`), handed to datasets whose `build` takes one
+(chat, agent, column-mapped and the presets) and to the sampling eval,
+which then adds the tool-call metrics. The `wandb`, `mlflow` and `comet`
+sections each build a tracker (`loggers/trackers.py`; a local JSONL
+mirror where the library is missing or offline): the config at setup,
+every `training.jsonl` record's metrics, and the run's end, "FINISHED",
+"KILLED" after a SIGTERM or "FAILED" when the loop raises. `gc_control`
+(with `gc_every_steps`) turns automatic garbage collection off for the
+run and collects on that step cadence (`training/utils.GCController`);
+collection comes back on at every exit of the loop.
+
 The same YAML files drive both packages. What the port does not have yet
 raises NotImplementedError instead of being skipped: distributed sizes
 other than 1 (`dp_shard: -1` resolves to 1 on one device), other
-unported architectures (`models/registry.py`), trackers, resilience,
-the tokenizer, QAT (with or without PEFT),
-`model.linear_precision`, a remote `checkpoint_dir`, and PEFT on a MoE
-model with the gate-bias update or the MTP head.
+unported architectures (`models/registry.py`), resilience, QAT (with or
+without PEFT), `model.linear_precision`, a remote `checkpoint_dir`, and
+PEFT on a MoE model with the gate-bias update or the MTP head.
 
 `model.pretrained_path` names a local HF safetensors checkpoint: its
 `config.json` gives the HF config and `checkpoint/hf_adapter.py` fills the
@@ -68,6 +79,7 @@ label-token count (`num_correct`) join the step's record.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import logging
 import os
 import time
@@ -83,6 +95,7 @@ from automodel_tpu_torch.checkpoint import (
 from automodel_tpu_torch.config import ConfigNode, parse_args_and_load_config
 from automodel_tpu_torch.datasets.loader import make_global_batch, stack_microbatches
 from automodel_tpu_torch.loggers.metric_logger import MetricLogger, setup_logging
+from automodel_tpu_torch.loggers.trackers import build_trackers
 from automodel_tpu_torch.loss import fused_linear_cross_entropy
 from automodel_tpu_torch.loss.utils import combine_losses
 from automodel_tpu_torch.models.common.layers import count_params
@@ -104,6 +117,7 @@ from automodel_tpu_torch.training import (
 )
 from automodel_tpu_torch.training.rng import StatefulRNG
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
+from automodel_tpu_torch.training.utils import GCController
 from automodel_tpu_torch.utils.device import resolve_device, torch_dtype
 from automodel_tpu_torch.utils.flops import MFUCalculator, device_peak_tflops
 from automodel_tpu_torch.utils.tree import tree_leaves
@@ -112,9 +126,7 @@ logger = logging.getLogger(__name__)
 
 _MESH_AXES = ("pp", "dp_replicate", "dp_shard", "ep", "cp", "tp")
 # sections of the JAX recipe this port does not run yet
-_UNPORTED_SECTIONS = (
-    "wandb", "mlflow", "comet", "resilience", "tokenizer",
-)
+_UNPORTED_SECTIONS = ("resilience",)
 # seconds the emergency save may take from the SIGTERM: the JAX
 # ResilienceConfig.sigterm_grace_s default (that section is not ported)
 SIGTERM_GRACE_S = 30.0
@@ -176,6 +188,9 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         run_dir = cfg.get("run_dir", ".")
         self.metric_logger = MetricLogger(os.path.join(run_dir, "training.jsonl"))
         self.val_logger = MetricLogger(os.path.join(run_dir, "validation.jsonl"))
+        self.trackers = build_trackers(cfg, run_dir)
+        for t in self.trackers:
+            t.log_config(cfg.to_dict(redact=True))
         seq_len = int(cfg.get("dataset.seq_len", 512))
         self.mfu = MFUCalculator(
             flops_per_token=self.model_cfg.flops_per_token(seq_len),
@@ -197,6 +212,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         if resumed:
             # restore only: the model build is the same either way
             self._time_to_resume_s = round(time.perf_counter() - t_restore, 3)
+        self.gc = GCController(every_steps=int(cfg.get("gc_every_steps", 100)),
+                               enabled=bool(cfg.get("gc_control", False)))
         self.step_scheduler.install_sigterm_handler()
 
     def _refuse_unported(self) -> None:
@@ -361,9 +378,26 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         batch layouts override."""
         return int(sum(mb["input_ids"].size for mb in microbatches))
 
+    def _build_tokenizer(self):
+        """The `tokenizer` section's HF tokenizer (pad defaulting to EOS),
+        or None without one."""
+        node = self.cfg.get("tokenizer")
+        if node is None:
+            return None
+        from automodel_tpu_torch.models.auto_tokenizer import build_tokenizer
+
+        return build_tokenizer(node.get("pretrained_path"),
+                               trust_remote_code=bool(node.get("trust_remote_code", False)))
+
     def _build_data(self) -> None:
+        self._tokenizer = self._build_tokenizer()
         ds_cfg = self.cfg.get("dataset").instantiate()
-        dataset = ds_cfg.build()
+        # a dataset whose build takes a tokenizer gets it (JAX recipe: one
+        # that takes none builds without it)
+        if self._tokenizer is not None and inspect.signature(ds_cfg.build).parameters:
+            dataset = ds_cfg.build(self._tokenizer)
+        else:
+            dataset = ds_cfg.build()
         dl_cfg = self.typed.dataloader
         self.dataloader = dl_cfg.build(dataset)
         ss_cfg = dataclasses.replace(
@@ -389,12 +423,25 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         return metrics
 
     def run_train_validation_loop(self) -> None:
+        try:
+            self._run_train_validation_loop()
+        except BaseException:
+            # a crashed run must not look FINISHED in a tracker
+            for t in self.trackers:
+                t.finish(status="FAILED")
+            self.trackers = []
+            raise
+        finally:
+            self.gc.close()  # never leave the process's GC off
+
+    def _run_train_validation_loop(self) -> None:
         t_last = time.perf_counter()
         first_record = True
         try:
             for microbatches in self.step_scheduler:
                 step = self.step_scheduler.step
                 metrics = self.run_step(microbatches)
+                self.gc.step(step)
                 loss = float(metrics["loss"])  # waits for the step
                 now = time.perf_counter()
                 perf = self.mfu.metrics(self._batch_token_count(microbatches),
@@ -424,6 +471,9 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 if not np.isfinite(loss):
                     logger.warning("step %d: non-finite loss %s", step, loss)
                 self.metric_logger.log(record)
+                for t in self.trackers:
+                    t.log({k: v for k, v in record.items() if k not in ("step", "ts")},
+                          step=step)
                 if self.step_scheduler.is_val_step and self.val_dataloader is not None:
                     self._run_validation(step)
                 if self.step_scheduler.sigterm_received:
@@ -445,6 +495,9 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 self.checkpointer.close()
             if self.cfg.get("checkpoint.save_consolidated", False):
                 self.save_consolidated_hf()
+            for t in self.trackers:
+                t.finish()
+            self.trackers = []
         finally:
             self.metric_logger.close()
             self.val_logger.close()
@@ -473,6 +526,9 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 "window; resume will fall back to step %s", step,
                 self.checkpointer.latest_step() if self.checkpointer else None)
         logger.info("SIGTERM received: checkpointed and exiting")
+        for t in self.trackers:
+            t.finish(status="KILLED")
+        self.trackers = []
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -513,6 +569,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 max_new_tokens=int(node.get("max_new_tokens", 32)),
                 max_batches=int(node.get("max_batches", 4)),
                 eos_token_id=node.get("eos_token_id"),
+                tokenizer=self._tokenizer,
                 seed=int(self.cfg.get("seed", 42)),
             )
         finally:

@@ -267,13 +267,13 @@ class RecipeConfig:
         if (mesh.replicas, mesh.tp, mesh.ep) != (1, 1, 1):
             raise NotImplementedError(
                 f"serving.mesh={dataclasses.asdict(mesh)}: replicated and sharded "
-                "serving are not ported (ROADMAP.md queue 1 item 15)")
+                "serving are not ported (ROADMAP.md queue 1 item 13)")
         _ = self.serving_online, self.serving_resilience  # parsed: unknown keys raise
         wants = (
-            ("disaggregation", self.serving_disaggregation.enabled, 18),
-            ("online", bool(self.raw.get("serving.online.enabled", False)), 18),
-            ("speculative", self.serving_speculative.enabled, 17),
-            ("observability", self.serving_observability.enabled, 6),
+            ("disaggregation", self.serving_disaggregation.enabled, 16),
+            ("online", bool(self.raw.get("serving.online.enabled", False)), 16),
+            ("speculative", self.serving_speculative.enabled, 15),
+            ("observability", self.serving_observability.enabled, 10),
         )
         for name, enabled, item in wants:
             if enabled:
@@ -282,4 +282,4 @@ class RecipeConfig:
         if self.raw.get("resilience.faults") is not None:
             raise NotImplementedError(
                 "resilience.faults: fault injection is not ported "
-                "(ROADMAP.md queue 1 item 6)")
+                "(ROADMAP.md queue 1 item 10)")

@@ -168,11 +168,44 @@ one JSON line each:
    step (K1-K3 with no mask), then llm_seq_cls on the same widths, and a
    2-layer fp32 check, kernels vs plain; smoke_dense_families: the five
    new families' smoke YAMLs and the seq-cls, bi- and cross-encoder ones,
-   as smoke_families.
+   as smoke_families;
+18. after smoke_dense_families: train_tokenbin: the training recipe on
+   `examples/llm_pretrain/llama3_8b_mock_bf16.yaml` at full width cut to 2
+   layers, 5 steps of 2 x 4096 tokens, its dataset a
+   `TokenBinDatasetConfig` over a 64 Mi-token int32 corpus written from
+   seed 0 (documents of log-uniform length 16-32768), with wandb and
+   mlflow sections and gc_control on: the native index build timed, the
+   loader's ms per batch beside the step's, the first step's rows equal to
+   a plain gather from the memmap, each tracker mirror equal to
+   `training.jsonl`, GC off during the steps and on after, K1-K3 counted;
+   serve_glm47_flash / _int8: GLM-4.7-Flash (`Glm4MoeLiteForCausalLM`
+   through the registry) at full width and depth (47 layers, 29.9 B), bf16,
+   on serve's traffic, K6 / K7 at 20 heads on every layer of every step,
+   each with its profile and `engine_plain_check`, then 2 layers in fp32
+   on both pools (the fp32 route at 20 heads); train_glm47_flash: K1-K3
+   at its heads (20 of <256, 256>, S 4096) held to the plain versions and
+   timed, then the training CLI at its widths cut to 2 layers and its MTP
+   layer, 3 steps of 4096 tokens, K1-K3 all at <256, 256>;
+   serve_mistral4: `Mistral4ForCausalLM` at DeepSeek-V3's widths, 2
+   layers, the q-rope scale at beta 0.1 over 256 positions (four values
+   on serve's traffic), `engine_plain_check`, and a control with the
+   scaling off whose greedy tokens must differ; smoke_moe_lite: the
+   GLM-4.7-Flash, Mistral-4 and Hy-MT2 smoke YAMLs as smoke_families (the
+   MLA ones' control from the padded v dim: their q/k dim 16 is not
+   padded); train_chat_sft: `llm_finetune` at Llama-3.2-1B's widths on an
+   `AgentChatDatasetConfig` of 512 tool-calling conversations written
+   from seed 0, through a byte-level tokenizer (it needs no `transformers`,
+   which a card's host may lack: a recipe subclass overrides
+   `_build_tokenizer`), wandb
+   and comet sections and gc_control on, 5 steps of 4 x 2048 tokens: each
+   step's label tokens equal to the rows' own, the mirrors equal to
+   `training.jsonl`, GC on after, and one validation pass whose sampling
+   eval returns the tool-call metrics.
 
 The paged kernel phase also holds fp32 K6 and K7 at DeepSeek-V3's 128 and
 Kimi-K2's 64 heads x r 512 to their plain versions, timed beside their
-bound; the kernel phase times K4 at Qwen3-30B-A3B's heads too, and at
+bound, and K6 and K7 on both routes at GLM-4.7-Flash's 20 heads (the bf16
+split kernel's whole head tile of 16 and a partial one of 4); the kernel phase times K4 at Qwen3-30B-A3B's heads too, and at
 G 7, 16 and 1 (Qwen2.5-7B's, GLM-4-9B's and Baichuan2-7B's heads; K5 at
 GLM-4-9B's), and the flash phase K1-K3 at gpt-oss-20b's (64 / 8 heads of
 64, window 128), with no mask at the encoder's heads (whose data a
@@ -795,16 +828,16 @@ def k5_case(dtype, seed: int = 0, heads=(32, 8, 128)):
     )
 
 
-def k67_case(dtype, quant: bool, seed: int = 0, widths=MOONLIGHT_MLA):
+def k67_case(dtype, quant: bool, seed: int = 0, widths=MOONLIGHT_MLA,
+             scale: float = (128 + 64) ** -0.5):
     """K6 (fp pages) or K7 (int8 pages) at `widths` (heads, latent rank,
-    rope dim; Moonlight's n 16, r 512, dr 64 by default), scale
-    (128 + 64)^-0.5."""
+    rope dim; Moonlight's n 16, r 512, dr 64 by default), at `scale`
+    (Moonlight's (128 + 64)^-0.5 by default)."""
     pt, pos, N, ps = step_rows(seed)
     n, r, dr = widths
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q_abs = torch.randn(64, n, r, generator=gen, device="cuda").to(dtype)
     q_rope = torch.randn(64, n, dr, generator=gen, device="cuda").to(dtype)
-    scale = (128 + 64) ** -0.5
     elt = q_abs.element_size()
     io = (q_abs.numel() * 2 + q_rope.numel()) * elt
     ops = n * (4 * r + 2 * dr)
@@ -836,9 +869,13 @@ def paged_kernels_phase(flush) -> dict:
     serve step's shapes, timed (median of 10 launches, each after an L2
     flush) beside their bound; then fp32 K6 and K7 at DeepSeek-V3's 128 and
     Kimi-K2's 64 heads x r 512, whose rows the fp32 route splits into head
-    tiles of several blocks, and bf16 K5 at GLM-4-9B's heads (G 16). Returns
-    the bf16 entries for the kernels line (that one as "K5_glm4_9b"), each
-    K6 / K7 entry with its fp32 many-head entries under "fp32_many_heads"."""
+    tiles of several blocks, bf16 K5 at GLM-4-9B's heads (G 16), and K6 and
+    K7 at GLM-4.7-Flash's 20 heads x r 512 on both routes (the bf16 split
+    kernel's whole head tile of 16 and a partial one of 4). Returns the
+    bf16 entries for the kernels line (those as "K5_glm4_9b",
+    "K6_glm47_flash" and "K7_glm47_flash", the latter two with their fp32
+    entry under "fp32"), each K6 / K7 entry with its fp32 many-head entries
+    under "fp32_many_heads"."""
     cases = {
         "K5": lambda dtype: k5_case(dtype),
         "K6": lambda dtype: k67_case(dtype, quant=False),
@@ -852,6 +889,11 @@ def paged_kernels_phase(flush) -> dict:
              for name, quant in (("K6", False), ("K7", True))]
     runs.append(("K5", lambda dtype: k5_case(dtype, heads=K4_GROUP_HEADS["glm4_9b"]),
                  torch.bfloat16, "glm4_9b"))
+    runs += [(name, (lambda dtype, q=quant: k67_case(dtype, q, widths=GLM47_MLA,
+                                                     scale=(192 + 64) ** -0.5)),
+              dtype, "glm47_flash")
+             for name, quant in (("K6", False), ("K7", True))
+             for dtype in (torch.bfloat16, torch.float32)]
     out = {}
     for name, make, dtype, model in runs:
         kernel, plain, pos, bound = make(dtype)
@@ -875,6 +917,11 @@ def paged_kernels_phase(flush) -> dict:
             n, r, _ = MANY_HEADS_MLA[model]
             entry.update(model=model, heads=n, rank=r,
                          blocks_per_row=-(-n // mla_cuda.head_tile(n, r)))
+        elif model == "glm47_flash":
+            n, r, _ = GLM47_MLA
+            entry.update(model=model, heads=n, rank=r, route=mla_cuda.route(dtype),
+                         head_tiles=(-(-n // 16) if dtype == torch.bfloat16
+                                     else -(-n // mla_cuda.head_tile(n, r))))
         elif model is not None:
             entry.update(model=model, heads=list(K4_GROUP_HEADS[model]))
         emit({"phase": "kernel", "kernel": name, **entry})
@@ -882,6 +929,8 @@ def paged_kernels_phase(flush) -> dict:
             raise AssertionError(f"{name} disagrees with its plain version: {entry}")
         if model in MANY_HEADS_MLA:
             out[name].setdefault("fp32_many_heads", []).append(entry)
+        elif model == "glm47_flash" and dtype == torch.float32:
+            out[f"{name}_{model}"]["fp32"] = entry
         elif model is not None:
             out[f"{name}_{model}"] = entry
         elif dtype == torch.bfloat16:
@@ -3143,18 +3192,20 @@ def generate_check_phase() -> None:
 
 
 def cut_config(hf: dict, layers: int, dense: int, dtype):
-    """A published MLA + MoE config cut to `layers` layers, the first `dense`
-    of them dense, with no MTP head (training state, which the HF adapter
-    does not map either)."""
+    """A published MLA + MoE config through its registry family, cut to
+    `layers` layers, the first `dense` of them dense, with no MTP head
+    (training state, which the HF adapter does not map either)."""
     cut = dict(hf, num_hidden_layers=layers, first_k_dense_replace=dense)
-    return dataclasses.replace(deepseek_v3_moe_config(cut, dtype=dtype), mtp_num_layers=0)
+    cfg = get_model_spec(cut).config_from_hf(cut, dtype=dtype)
+    return dataclasses.replace(cfg, mtp_num_layers=0)
 
 
 def engine_plain_check(phase: str, cfg, params, sc, kernel: str) -> dict:
-    """The bf16 engine on the kernels, a few short requests to their end:
-    every `kernel` call held to the plain version on the same inputs within
-    PAGED_TOL, and each step's logits beside those of the same engine on
-    the plain attention, same weights (reported, with the greedy agreement:
+    """The engine (bf16, or fp32 on the kernels' CUDA-core route) on the
+    kernels, a few short requests to their end: every `kernel` call held to
+    the plain version on the same inputs within PAGED_TOL of the model's
+    dtype, and each step's logits beside those of the same engine on the
+    plain attention, same weights (reported, with the greedy agreement:
     bf16 rounds attention at other places in the two, and the MoE routing
     carries it)."""
     t0 = time.perf_counter()
@@ -3178,7 +3229,7 @@ def engine_plain_check(phase: str, cfg, params, sc, kernel: str) -> dict:
     report = {"steps": steps, "kernel": kernel, "kernel_calls": len(errors),
               "kernel_launches": kernel_launches()[kernel] - n0,
               "kernel_max_rel_err": max(errors),
-              "kernel_tol": PAGED_TOL[torch.bfloat16],
+              "kernel_tol": PAGED_TOL[cfg.dtype],
               "max_rel_logit_gap_vs_plain_engine": gap,
               "greedy_agreement_vs_plain_engine": agree / rows,
               "seconds": time.perf_counter() - t0}
@@ -3186,7 +3237,7 @@ def engine_plain_check(phase: str, cfg, params, sc, kernel: str) -> dict:
     torch.cuda.empty_cache()
     if kernel_launches()[kernel] - n0 != len(errors) or not errors:
         raise AssertionError(f"{phase}: the engine's {kernel} calls did not all launch {kernel}")
-    if max(errors) > PAGED_TOL[torch.bfloat16]:
+    if max(errors) > PAGED_TOL[cfg.dtype]:
         raise AssertionError(f"{phase}: {kernel} calls disagree with the plain version: {report}")
     return report
 
@@ -3574,14 +3625,17 @@ def train_gpt_oss_check_phase() -> None:
 @contextlib.contextmanager
 def scale_from_padded_dim():
     """Within the block, K1-K3 run a padded head at the softmax scale of
-    the padded head dim, not at the caller's: a deliberately wrong call,
-    the control that shows what the smoke curves' tolerance can see."""
+    the padded head dim, not at the caller's (of the padded v dim where
+    q/k is not padded, as MLA's q/k 16 with v 8): a deliberately wrong
+    call, the control that shows what the smoke curves' tolerance can
+    see."""
     saved = fa.kernels_forward, fa.kernels_backward
 
     def wrong(fn):
         def call(q, k, v, *args, scale, **kw):
-            Dp = fa_cuda.padded_head_dims(q.shape[-1], v.shape[-1])[0]
-            return fn(q, k, v, *args, scale=scale * (q.shape[-1] / Dp) ** 0.5, **kw)
+            Dp, Dvp = fa_cuda.padded_head_dims(q.shape[-1], v.shape[-1])
+            d, dp = (q.shape[-1], Dp) if Dp != q.shape[-1] else (v.shape[-1], Dvp)
+            return fn(q, k, v, *args, scale=scale * (d / dp) ** 0.5, **kw)
         return call
 
     fa.kernels_forward, fa.kernels_backward = (wrong(f) for f in saved)
@@ -4127,6 +4181,589 @@ def train_encoders_check_phase() -> None:
         raise AssertionError("train_encoders_check: the step differs between kernels and plain")
 
 
+# --- the token-bin corpus, the MoE architectures on the registry, chat SFT ---
+# train_tokenbin: TRAIN_YAML at its full width cut to TOKENBIN_LAYERS layers,
+# TOKENBIN_STEPS steps of TOKENBIN_MICROBATCH sequences of TOKENBIN_SEQ
+# tokens, its dataset a TokenBinDatasetConfig (int32: Llama-3's 128256 ids
+# do not fit uint16) over a corpus written from seed 0: TOKENBIN_TOKENS
+# tokens (256 MiB) in documents of log-uniform length 16-32768, with wandb
+# and mlflow sections (their JSONL mirrors where the packages are missing)
+# and gc_control on, a collection every 2 steps
+TOKENBIN_TOKENS = 64 * 2**20
+TOKENBIN_DOC_LENS = (16, 32768)
+TOKENBIN_LAYERS, TOKENBIN_STEPS, TOKENBIN_SEQ, TOKENBIN_MICROBATCH = 2, 5, 4096, 2
+TOKENBIN_GC_EVERY = 2
+# GLM-4.7-Flash (huggingface.co/zai-org/GLM-4.7-Flash, config.json):
+# Glm4MoeLiteForCausalLM, MLA (20 heads, q_lora 768, kv_lora 512, qk 192 +
+# 64 rope, v 256) over 1 dense + 46 MoE layers of 64 experts (top 4) and a
+# shared one, an MTP layer
+GLM47_FLASH = {
+    "architectures": ["Glm4MoeLiteForCausalLM"], "vocab_size": 154880,
+    "hidden_size": 2048, "intermediate_size": 10240, "moe_intermediate_size": 1536,
+    "num_hidden_layers": 47, "num_attention_heads": 20, "num_key_value_heads": 20,
+    "n_shared_experts": 1, "n_routed_experts": 64, "routed_scaling_factor": 1.8,
+    "kv_lora_rank": 512, "q_lora_rank": 768, "qk_rope_head_dim": 64,
+    "qk_nope_head_dim": 192, "v_head_dim": 256, "n_group": 1, "topk_group": 1,
+    "num_experts_per_tok": 4, "first_k_dense_replace": 1, "norm_topk_prob": True,
+    "scoring_func": "sigmoid", "topk_method": "noaux_tc", "rope_theta": 1000000,
+    "rms_norm_eps": 1e-5, "max_position_embeddings": 202752,
+    "num_nextn_predict_layers": 1, "tie_word_embeddings": False,
+}
+# K6 / K7 at GLM-4.7-Flash's 20 heads x r 512: one whole head tile of the
+# bf16 split kernel and a partial one of 4
+GLM47_MLA = (20, 512, 64)
+# serve_glm47_flash / _int8: GLM-4.7-Flash at full width, its first
+# GLM47_SERVE_LAYERS layers (1 dense, the rest MoE), seq-0 bf16 weights
+GLM47_SERVE_LAYERS = 47
+# train_glm47_flash: the training CLI at GLM-4.7-Flash's widths cut to 2
+# layers (1 dense + 1 MoE) and its MTP layer, GLM47_TRAIN_STEPS steps of
+# GLM47_TRAIN_SEQ tokens; K1-K3 at <256, 256>
+GLM47_TRAIN_LAYERS, GLM47_TRAIN_SEQ, GLM47_TRAIN_STEPS = 2, 4096, 3
+FA_GLM47_SHAPE = dict(B=1, S=4096, Hq=20, Hkv=20, D=256, Dv=256)
+# serve_mistral4: Mistral4ForCausalLM at DeepSeek-V3's published widths, cut
+# to 2 layers (1 dense + 1 MoE), with Llama-4's q-rope scaling at beta 0.1
+# over original_max_position_embeddings 256, so serve's positions (to ~930)
+# take four values of the scale (the published 8192 would leave it 1)
+MISTRAL4_ROPE = {"llama_4_scaling_beta": 0.1, "original_max_position_embeddings": 256}
+# smoke_moe_lite: the three new families' smoke YAMLs, as smoke_families
+MOE_LITE_SMOKE_YAMLS = tuple(f"examples/llm_finetune/{f}_smoke.yaml"
+                             for f in ("glm4_moe_lite", "mistral4", "hy_mt2"))
+# train_chat_sft: llm_finetune at Llama-3.2-1B's widths (NV_EMBEDQA_1B's,
+# causal), uncut, on an AgentChatDatasetConfig over CHAT_SFT_CONVERSATIONS
+# tool-calling conversations written from seed 0, seq CHAT_SFT_SEQ,
+# CHAT_SFT_MICROBATCH rows a step, CHAT_SFT_STEPS steps, a validation pass
+# with validation_generation at the last step
+CHAT_SFT_CONVERSATIONS, CHAT_SFT_VAL = 512, 8
+CHAT_SFT_SEQ, CHAT_SFT_MICROBATCH, CHAT_SFT_STEPS = 2048, 4, 5
+CHAT_SFT_USER_CHARS = 96  # every user turn padded to this many characters
+CHAT_SFT_NEW_TOKENS = 128
+
+
+def write_token_corpus(prefix: Path, seed: int = 0) -> tuple[np.ndarray, float]:
+    """TOKENBIN_TOKENS int32 token ids below Llama-3's vocabulary in
+    documents of log-uniform length TOKENBIN_DOC_LENS (the last one cut to
+    the total), as `<prefix>.bin` and `<prefix>.doclens.npy`; returns (the
+    document lengths, seconds)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    lo, hi = (math.log(x) for x in TOKENBIN_DOC_LENS)
+    lens = np.exp(rng.uniform(lo, hi, 2 * TOKENBIN_TOKENS // 4000)).astype(np.int64)
+    ends = np.cumsum(lens)
+    n = int(np.searchsorted(ends, TOKENBIN_TOKENS)) + 1
+    lens = lens[:n]
+    lens[-1] -= int(ends[n - 1]) - TOKENBIN_TOKENS
+    assert lens.sum() == TOKENBIN_TOKENS and lens[-1] > 0
+    rng.integers(0, LLAMA3_8B["vocab_size"], TOKENBIN_TOKENS,
+                 dtype=np.int32).tofile(f"{prefix}.bin")
+    np.save(f"{prefix}.doclens.npy", lens.astype(np.int32))
+    return lens, time.perf_counter() - t0
+
+
+def plain_token_rows(prefix: Path, doc_lens: np.ndarray, doc_order: np.ndarray,
+                     rows: list[int], seq: int) -> np.ndarray:
+    """The tokens of samples `rows` of the sample map, gathered from the
+    memmap by a plain loop: sample r is the (seq + 1) tokens from position
+    r (seq + 1) of the documents concatenated in `doc_order`."""
+    tokens = np.memmap(f"{prefix}.bin", dtype=np.int32, mode="r")
+    starts = np.concatenate([[0], np.cumsum(doc_lens, dtype=np.int64)])
+    shuffled_ends = np.cumsum(doc_lens[doc_order].astype(np.int64))
+    out = []
+    for r in rows:
+        sample = []
+        for p in range(r * (seq + 1), (r + 1) * (seq + 1)):
+            k = int(np.searchsorted(shuffled_ends, p, side="right"))
+            offset = p - (int(shuffled_ends[k - 1]) if k else 0)
+            sample.append(int(tokens[starts[doc_order[k]] + offset]))
+        out.append(sample)
+    return np.asarray(out, np.int64)
+
+
+TRACKER_PACKAGES = {"wandb": "wandb", "mlflow": "mlflow", "comet": "comet_ml"}
+
+
+def tracker_mirrors(run_dir: Path, records: list, kinds=("wandb", "mlflow")) -> dict:
+    """Each tracker's JSONL mirror held to `training.jsonl`: the config line
+    first, then one line per record with the record's values, then
+    "FINISHED". Returns each mirror's count of metric lines; a tracker
+    with no mirror must have its package installed (wandb, where present,
+    writes an offline run under `run_dir`), and is reported as such."""
+    import importlib.util
+
+    out = {}
+    for kind in kinds:
+        if not (run_dir / f"{kind}_metrics.jsonl").exists():
+            if importlib.util.find_spec(TRACKER_PACKAGES[kind]) is None:
+                raise AssertionError(f"{kind}: no mirror, and no package")
+            out[kind] = "package installed: its own run, no mirror"
+            continue
+        lines = jsonl(run_dir / f"{kind}_metrics.jsonl")
+        metrics = [{k: v for k, v in l.items() if k != "ts"} for l in lines[1:-1]]
+        want = [{k: v for k, v in r.items() if k != "ts"} for r in records]
+        if "_config" not in lines[0] or lines[-1].get("_status") != "FINISHED" \
+                or metrics != want:
+            raise AssertionError(f"{kind} mirror differs from training.jsonl: {lines}")
+        out[kind] = len(metrics)
+    return out
+
+
+def train_tokenbin_phase(card: str) -> dict:
+    """TRAIN_YAML at full width, TOKENBIN_LAYERS layers, on the token-bin
+    corpus: the native index build timed alone, the loader's ms per batch
+    beside the step's, the first step's rows equal to `plain_token_rows`,
+    the tracker mirrors equal to `training.jsonl`, GC off during the steps
+    and on after, K1-K3 counted. Returns the run's K1-K3 launches."""
+    import gc
+
+    from automodel_tpu_torch.datasets.megatron import gpt_dataset, index_helpers
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tokenbin_"))
+    try:
+        prefix = tmp / "corpus"
+        doc_lens, write_s = write_token_corpus(prefix)
+        t0 = time.perf_counter()
+        index_helpers._load()  # g++, once per checkout
+        compile_s = time.perf_counter() - t0
+        ds_kw = dict(prefix=str(prefix), seq_len=TOKENBIN_SEQ, seed=0, dtype="int32")
+        t0 = time.perf_counter()
+        ds = gpt_dataset.TokenBinDatasetConfig(**ds_kw).build()
+        index_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds.set_epoch(1)
+        epoch_s = time.perf_counter() - t0
+        ds.set_epoch(0)  # the epoch the run reads
+        spanning = int((np.diff(ds.sample_idx[:, 0]) > 0).sum())
+        cfg = yaml.safe_load(Path(TRAIN_YAML).read_text())
+        cfg["model"]["hf_config"]["num_hidden_layers"] = TOKENBIN_LAYERS
+        cfg.update(
+            run_dir=str(tmp / "run"), checkpoint={"enabled": False},
+            dataset={"_target_": "automodel_tpu.datasets.megatron.gpt_dataset."
+                                 "TokenBinDatasetConfig", **ds_kw},
+            dataloader={"microbatch_size": TOKENBIN_MICROBATCH, "grad_acc_steps": 1},
+            step_scheduler={"max_steps": TOKENBIN_STEPS},
+            wandb={"project": "chip_smoke", "mode": "offline"},
+            mlflow={"experiment": "chip_smoke",
+                    "tracking_uri": f"file:{tmp / 'run' / 'mlruns'}"},
+            gc_control=True, gc_every_steps=TOKENBIN_GC_EVERY)
+        yaml_path = tmp / "tokenbin.yaml"
+        yaml_path.write_text(yaml.safe_dump(cfg))
+        node = parse_args_and_load_config([str(yaml_path)])
+        recipe = resolve_recipe_class(node)(node)
+        recipe.setup()
+        loader = recipe.dataloader
+        order = loader._order()  # the loader's sample order, epoch 0
+        # the loader's ms per batch, on a second loader over the same data
+        probe = recipe.typed.dataloader.build(recipe.dataloader.dataset)
+        it = iter(probe)
+        t0 = time.perf_counter()
+        for _ in range(8):
+            stack_microbatches([next(it)])
+        loader_ms = (time.perf_counter() - t0) / 8 * 1e3
+        first, gc_during = [], []
+        run_step = recipe.run_step
+
+        def watched(microbatches):
+            if not first:
+                first.append([{k: np.asarray(v) for k, v in mb.items()}
+                              for mb in microbatches])
+            gc_during.append(gc.isenabled())
+            return run_step(microbatches)
+
+        recipe.run_step = watched
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        recipe.run_train_validation_loop()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = kernel_launches(*FLASH)
+        gc_after = gc.isenabled()
+        run_dir = tmp / "run"
+        records = jsonl(run_dir / "training.jsonl")
+        mirrors = tracker_mirrors(run_dir, records)
+        got = first[0][0]["input_ids"].reshape(-1, TOKENBIN_SEQ)
+        got_labels = first[0][0]["labels"].reshape(-1, TOKENBIN_SEQ)
+        rows = [int(ds.sample_order[int(i)]) for i in order[:TOKENBIN_MICROBATCH]]
+        want = plain_token_rows(prefix, doc_lens, ds.doc_order, rows, TOKENBIN_SEQ)
+        tokens_per_step = TOKENBIN_MICROBATCH * TOKENBIN_SEQ
+        steady = records[1:]
+        step_ms = tokens_per_step / statistics.median(r["tps"] for r in steady) * 1e3
+        n = TOKENBIN_LAYERS * TOKENBIN_STEPS
+        want_launches = {"K1": 2 * n, "K2": n, "K3": n}
+        emit({
+            "phase": "train_tokenbin", "card": card,
+            "model": f"Llama-3-8B widths, {TOKENBIN_LAYERS} of 32 layers, bf16, remat full",
+            "corpus": {"tokens": TOKENBIN_TOKENS, "bytes": TOKENBIN_TOKENS * 4,
+                       "documents": len(doc_lens), "doc_len_min": int(doc_lens.min()),
+                       "doc_len_median": float(np.median(doc_lens)),
+                       "doc_len_max": int(doc_lens.max()), "write_s": write_s},
+            "index_compile_s": compile_s, "index_build_s": index_s,
+            "index_epoch_s": epoch_s, "samples": len(ds),
+            "samples_spanning_documents": spanning,
+            "loader_ms_per_batch": loader_ms, "step_ms": step_ms,
+            "loader_share_of_step": loader_ms / step_ms,
+            "first_step_rows_equal_plain_gather": bool(
+                np.array_equal(got, want[:, :-1]) and np.array_equal(got_labels, want[:, 1:])),
+            "losses": [r["loss"] for r in records],
+            "grad_norms": [r["grad_norm"] for r in records],
+            "tokens_per_s": statistics.median(r["tps"] for r in steady),
+            "mfu_pct": statistics.median(r["mfu_pct"] for r in steady),
+            "wall_s": wall_s, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "tracker_mirror_lines": mirrors, "gc_enabled_during_steps": gc_during,
+            "gc_enabled_after": gc_after, "launches": launches,
+            "expected_launches": want_launches,
+        })
+        if len(records) != TOKENBIN_STEPS or not all(
+                math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
+            raise AssertionError(f"train_tokenbin: records {records}")
+        if not (np.array_equal(got, want[:, :-1]) and np.array_equal(got_labels, want[:, 1:])):
+            raise AssertionError("train_tokenbin: the first step's rows differ from the memmap's")
+        if spanning == 0:
+            raise AssertionError("train_tokenbin: no sample spans two documents")
+        if any(gc_during) or not gc_after:
+            raise AssertionError(f"train_tokenbin: GC during {gc_during}, after {gc_after}")
+        if launches != want_launches:
+            raise AssertionError(f"train_tokenbin: K1-K3 {launches}, expected {want_launches}")
+        del recipe
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_glm47_flash_phase(card: str) -> dict:
+    """GLM-4.7-Flash through the registry at full width, GLM47_SERVE_LAYERS
+    layers, bf16, seed-0 weights, on serve's traffic: the fp pool (K6) and
+    the int8 pool (K7) at 20 heads on every layer of every step, each with
+    its profile and `engine_plain_check`; then the engine at 2 layers in
+    fp32 on both pools (the fp32 route at 20 heads), every kernel call held
+    to its plain version. Returns the bf16 runs' launches."""
+    cfg = cut_config(GLM47_FLASH, GLM47_SERVE_LAYERS, 1, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = moe_decoder.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                              dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = count_params(params)
+    model = (f"GLM-4.7-Flash, {cfg.num_layers} of {GLM47_FLASH['num_hidden_layers']} "
+             f"layers ({cfg.first_k_dense} dense + {cfg.num_moe_layers} MoE, "
+             f"{cfg.moe.n_routed_experts} experts), {cfg.num_heads} heads x r "
+             f"{cfg.mla_kv_lora_rank}, bf16, {n_params} params")
+    emit({"phase": "serve_glm47_flash_weights", "card": card, "model": model,
+          "params": n_params, "weights_gib": n_params * 2 / 2**30, "draw_s": setup_s,
+          "draw_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    launches = {}
+    for phase, kernel in (("serve_glm47_flash", "K6"), ("serve_glm47_flash_int8", "K7")):
+        sc = SERVE if kernel == "K6" else dataclasses.replace(SERVE, kv_cache_dtype="int8")
+        engine = ServingEngine(params, cfg, sc)
+        launches[kernel], _ = serve_run(engine, cfg, card, phase, model, kernel, setup_s)
+        profile_steps(engine, cfg, card, phase,
+                      mla_cuda.KERNELS[kernel][mla_cuda.route(torch.bfloat16)],
+                      n_steps=MOE_PROFILE_STEPS)
+        del engine
+        torch.cuda.empty_cache()
+        emit({"phase": f"{phase}_check", "card": card, "model": model,
+              **engine_plain_check(phase, cfg, params, sc, kernel)})
+        setup_s = 0.0
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = cut_config(GLM47_FLASH, 2, 1, torch.float32)
+    params = moe_decoder.init(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                              dtype=torch.float32)
+    for phase, kernel in (("engine_glm47_flash", "K6"), ("engine_glm47_flash_int8", "K7")):
+        sc = SERVE if kernel == "K6" else dataclasses.replace(SERVE, kv_cache_dtype="int8")
+        emit({"phase": phase, "card": card,
+              "model": "GLM-4.7-Flash widths, 2 layers (1 dense + 1 MoE), fp32",
+              "kernel_route": mla_cuda.route(torch.float32),
+              "head_tile": mla_cuda.head_tile(GLM47_MLA[0], GLM47_MLA[1]),
+              **engine_plain_check(phase, cfg32, params, sc, kernel)})
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_mistral4_phase(card: str) -> int:
+    """Mistral4ForCausalLM through the registry at DeepSeek-V3's widths, 2
+    layers, with MISTRAL4_ROPE: serve's traffic on the fp pool (K6 on every
+    layer of every step) and `engine_plain_check`; the control, the same
+    weights and traffic with the scaling off, must give other greedy tokens
+    (the scale reaches K6's queries). Returns the run's K6 launches."""
+    hf = dict(DEEPSEEK_V3, architectures=["Mistral4ForCausalLM"],
+              rope_parameters=MISTRAL4_ROPE)
+    cfg = cut_config(hf, 2, 1, torch.bfloat16)
+    t0 = time.perf_counter()
+    params = moe_decoder.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                              dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model = (f"Mistral-4 (DeepSeek-V3 widths), 2 layers (1 dense + 1 MoE), q-rope "
+             f"beta {cfg.mla_qpe_scaling_beta} over {cfg.mla_qpe_scaling_orig_max}, "
+             f"bf16, {count_params(params)} params")
+    engine = ServingEngine(params, cfg, SERVE)
+    k6, res = serve_run(engine, cfg, card, "serve_mistral4", model, "K6", setup_s)
+    del engine
+    max_pos = max(len(r.prompt) + len(o) - 1 for r, o in zip(
+        serve_traffic(cfg.vocab_size), res["outputs"]))
+    scales = sorted({1 + cfg.mla_qpe_scaling_beta * math.log1p(p // cfg.mla_qpe_scaling_orig_max)
+                     for p in range(max_pos + 1)})
+    check = engine_plain_check("serve_mistral4", cfg, params, SERVE, "K6")
+    off = ServingEngine(params, dataclasses.replace(cfg, mla_qpe_scaling_beta=None), SERVE)
+    control = off.serve_batch(serve_traffic(cfg.vocab_size))
+    del off
+    same = sum(a == b for o1, o2 in zip(res["outputs"], control["outputs"])
+               for a, b in zip(o1, o2))
+    total = sum(len(o) for o in res["outputs"])
+    emit({"phase": "serve_mistral4_check", "card": card, "model": model, **check,
+          "max_position": max_pos, "q_rope_scales": scales,
+          "control": "the same weights and traffic with the scaling off",
+          "control_greedy_agreement": same / total})
+    del params
+    torch.cuda.empty_cache()
+    if len(scales) < 3:
+        raise AssertionError(f"serve_mistral4: the q-rope scale takes {scales}")
+    if same == total:
+        raise AssertionError("serve_mistral4: the control's tokens equal the scaled run's")
+    return k6
+
+
+def train_glm47_flash_phase(card: str) -> tuple[dict, dict]:
+    """K1-K3 at GLM-4.7-Flash's MLA heads (20 of q/k 256, v 256, S 4096,
+    causal) held to their plain versions and timed; then the training CLI
+    on GLM-4.7-Flash (the registry's Glm4MoeLiteForCausalLM) at full width
+    cut to GLM47_TRAIN_LAYERS layers and its MTP layer, GLM47_TRAIN_STEPS
+    steps of GLM47_TRAIN_SEQ tokens: finite losses, K1-K3 all at <256,
+    256>. Returns (the timed case's entries, the run's launches)."""
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    entries = fa_entries(fa_check_case(torch.bfloat16, FA_GLM47_SHAPE["S"], False, flush,
+                                       timed=True, shape=FA_GLM47_SHAPE))
+    del flush
+    torch.cuda.empty_cache()
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_glm47_")
+    hf = dict(GLM47_FLASH, num_hidden_layers=GLM47_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    recipe = cli_main([moe_train_yaml(run_dir, "glm47_flash", hf, GLM47_TRAIN_SEQ,
+                                      GLM47_TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernel_launches(*FLASH)
+    cfg = recipe.model_cfg
+    dims = fa_cuda.padded_head_dims(cfg.mla_qk_nope_head_dim + cfg.mla_qk_rope_head_dim,
+                                    cfg.mla_v_head_dim)
+    at_dims = flash_counts(dims)
+    records = jsonl(Path(run_dir) / "training.jsonl")
+    n = (cfg.num_layers + cfg.mtp_num_layers) * GLM47_TRAIN_STEPS
+    want = {"K1": 2 * n, "K2": n, "K3": n}
+    steady = records[1:]
+    tps = statistics.median(r["tps"] for r in steady)
+    emit({
+        "phase": "train_glm47_flash", "card": card,
+        "model": f"GLM-4.7-Flash widths via {recipe.model_spec.name}, {cfg.num_layers} of "
+                 f"47 layers ({cfg.first_k_dense} dense + {cfg.num_moe_layers} MoE) + "
+                 f"{cfg.mtp_num_layers} MTP, {cfg.dtype}, remat {cfg.remat_policy}",
+        "params": count_params(recipe.train_state.params),
+        "steps": len(records), "tokens_per_step": GLM47_TRAIN_SEQ,
+        "losses": [r["loss"] for r in records],
+        "grad_norms": [r["grad_norm"] for r in records],
+        "moe_load_imbalance": [r.get("moe_load_imbalance") for r in records],
+        "ms_per_step": GLM47_TRAIN_SEQ / tps * 1e3, "tokens_per_s": tps,
+        "mfu_pct": statistics.median(r["mfu_pct"] for r in steady),
+        "wall_s_with_setup": wall_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "kernel_head_dims": list(dims),
+        "launches_at_head_dims": at_dims, "expected_launches": want,
+    })
+    values = [r["loss"] for r in records] + [r["grad_norm"] for r in records]
+    if len(records) != GLM47_TRAIN_STEPS or not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"train_glm47_flash: records {records}")
+    if recipe.model_spec.name != "glm4_moe_lite" or cfg.attention_type != "mla":
+        raise AssertionError(f"train_glm47_flash: {recipe.model_spec.name} {cfg.attention_type}")
+    if launches != want or at_dims != want:
+        raise AssertionError(f"train_glm47_flash: K1-K3 {launches} (at {dims} "
+                             f"{at_dims}), expected {want}")
+    del recipe
+    torch.cuda.empty_cache()
+    return entries, launches
+
+
+class ByteTokenizer:
+    """A byte-level tokenizer with what the chat datasets and the sampling
+    eval read: UTF-8 bytes as ids 0-255, bos 256, eos 257, pad 258, no chat
+    template (the datasets render the role-tag fallback)."""
+
+    bos_token_id, eos_token_id, pad_token_id = 256, 257, 258
+    chat_template = None
+
+    def __call__(self, text, add_special_tokens=False):
+        return {"input_ids": list(text.encode("utf-8"))}
+
+    def decode(self, ids):
+        return bytes(int(i) for i in ids if int(i) < 256).decode("utf-8", errors="replace")
+
+
+CHAT_SFT_TOOLS = [
+    {"name": "get_weather", "parameters": {"city": "string", "unit": "string"}},
+    {"name": "convert_currency", "parameters": {"amount": "number", "from": "string",
+                                                "to": "string"}},
+    {"name": "search_flights", "parameters": {"origin": "string", "destination": "string"}},
+]
+CHAT_SFT_CITIES = ("Oslo", "Rome", "Lima", "Pune", "Kyiv", "Doha", "Nice", "Bern")
+
+
+def write_tool_conversations(path: Path, n: int, seed: int) -> None:
+    """`n` ShareGPT rows: the tools, a user turn padded to
+    CHAT_SFT_USER_CHARS, one or two tool calls, the tool's answer and the
+    assistant's reply; every row's text before the first assistant turn
+    has the same length."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        a, b = (str(x) for x in rng.choice(CHAT_SFT_CITIES, 2, replace=False))
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            user = f"What is the weather in {a} and in {b}?"
+            calls = [{"name": "get_weather", "arguments": {"city": c, "unit": "celsius"}}
+                     for c in (a, b)]
+        elif kind == 1:
+            amount = int(rng.integers(1, 1000))
+            user = f"Convert {amount} EUR to NOK for my trip to {a}."
+            calls = [{"name": "convert_currency",
+                      "arguments": {"amount": amount, "from": "EUR", "to": "NOK"}}]
+        else:
+            user = f"Find flights from {a} to {b}."
+            calls = [{"name": "search_flights", "arguments": {"origin": a, "destination": b}}]
+        conv = [{"from": "human", "value": user.ljust(CHAT_SFT_USER_CHARS)}]
+        conv += [{"from": "function_call", "value": json.dumps(c)} for c in calls]
+        conv += [{"from": "observation", "value": json.dumps({"ok": True, "n": len(calls)})},
+                 {"from": "gpt", "value": "Done: " + user.lower()}]
+        rows.append({"tools": CHAT_SFT_TOOLS, "conversations": conv})
+    path.write_text("".join(json.dumps(r) + "\n" for r in rows))
+
+
+def train_chat_sft_phase(card: str) -> dict:
+    """llm_finetune at Llama-3.2-1B's widths on an AgentChatDatasetConfig of
+    tool-calling conversations through `ByteTokenizer` (no `transformers`
+    needed: a recipe subclass overrides `_build_tokenizer`), wandb
+    and comet sections and gc_control on: each step's label-token count
+    equal to the count of the dataset rows it took, the tracker mirrors
+    equal to `training.jsonl`, GC back on after; at the last step one
+    validation pass over held-out conversations (the subclass builds that
+    loader with the tokenizer) whose sampling eval, prompted with the text
+    before the first assistant turn, returns the tool-call metrics.
+    Returns the run's K1-K3 launches."""
+    import gc
+
+    from automodel_tpu_torch.datasets.agent import (
+        AgentChatDatasetConfig,
+        normalize_agent_messages,
+    )
+    from automodel_tpu_torch.models.auto_tokenizer import apply_chat_template
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_chat_sft_"))
+    train_path, val_path = tmp / "train.jsonl", tmp / "val.jsonl"
+    write_tool_conversations(train_path, CHAT_SFT_CONVERSATIONS, seed=0)
+    write_tool_conversations(val_path, CHAT_SFT_VAL, seed=1)
+    tok = ByteTokenizer()
+    first_row = json.loads(val_path.read_text().splitlines()[0])
+    messages = normalize_agent_messages(first_row)
+    prompt_len = len(tok(apply_chat_template(tok, messages[:2]))["input_ids"])
+    hf = {k: v for k, v in NV_EMBEDQA_1B.items() if k != "pooling"}
+    hf["architectures"] = ["LlamaForCausalLM"]
+    cfg = {
+        "seed": 0, "run_dir": str(tmp / "run"),
+        "model": {"hf_config": hf, "dtype": "bfloat16", "remat_policy": "full"},
+        "distributed": {"dp_shard": -1},
+        "dataset": {"_target_": "automodel_tpu.datasets.agent.AgentChatDatasetConfig",
+                    "path": str(train_path), "seq_len": CHAT_SFT_SEQ},
+        "dataloader": {"microbatch_size": CHAT_SFT_MICROBATCH, "grad_acc_steps": 1},
+        "optimizer": {"name": "adamw", "lr": 1.0e-4, "weight_decay": 0.0},
+        "lr_scheduler": {"style": "constant", "warmup_steps": 0},
+        "step_scheduler": {"max_steps": CHAT_SFT_STEPS, "val_every_steps": CHAT_SFT_STEPS},
+        "checkpoint": {"enabled": False},
+        "loss": {"chunk_size": 2048},
+        "validation_generation": {"prompt_len": prompt_len,
+                                  "max_new_tokens": CHAT_SFT_NEW_TOKENS, "max_batches": 1,
+                                  "eos_token_id": tok.eos_token_id},
+        # offline where a package is installed: wandb's offline mode, a
+        # disabled comet experiment
+        "wandb": {"project": "chip_smoke", "mode": "offline"},
+        "comet": {"workspace": "chip_smoke", "disabled": True},
+        "gc_control": True, "gc_every_steps": 1,
+    }
+    yaml_path = tmp / "chat_sft.yaml"
+    yaml_path.write_text(yaml.safe_dump(cfg))
+
+    class ByteTokenizerRecipe(TrainFinetuneRecipeForNextTokenPrediction):
+        def _build_tokenizer(self):
+            return ByteTokenizer()
+
+        def _build_data(self):
+            super()._build_data()
+            val = AgentChatDatasetConfig(path=str(val_path), seq_len=CHAT_SFT_SEQ)
+            self.val_dataloader = self.typed.dataloader.build(val.build(self._tokenizer))
+
+    try:
+        recipe = ByteTokenizerRecipe(parse_args_and_load_config([str(yaml_path)]))
+        recipe.setup()
+        counts, gc_during = [], []
+        run_step = recipe.run_step
+
+        def counted(microbatches):
+            counts.append(int(sum((np.asarray(mb["labels"]) != -100).sum()
+                                  for mb in microbatches)))
+            gc_during.append(gc.isenabled())
+            return run_step(microbatches)
+
+        recipe.run_step = counted
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        recipe.run_train_validation_loop()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = kernel_launches(*FLASH)
+        gc_after = gc.isenabled()
+        run_dir = tmp / "run"
+        records = jsonl(run_dir / "training.jsonl")
+        val = jsonl(run_dir / "validation.jsonl")
+        mirrors = tracker_mirrors(run_dir, records, ("wandb", "comet"))
+        label_counts = [int(r["num_label_tokens"]) for r in records]
+        tool_keys = sorted(k for k in val[-1] if k.startswith("tool_")) if val else []
+        emit({
+            "phase": "train_chat_sft", "card": card,
+            "model": "Llama-3.2-1B widths (16 layers, 32 / 8 heads of 64), bf16, remat full",
+            "dataset": f"AgentChatDatasetConfig, {CHAT_SFT_CONVERSATIONS} tool-calling "
+                       f"conversations, ByteTokenizer, seq {CHAT_SFT_SEQ}",
+            "losses": [r["loss"] for r in records],
+            "num_label_tokens": label_counts, "dataset_label_tokens": counts,
+            "tokens_per_s": statistics.median(r["tps"] for r in records[1:]),
+            "validation": val, "tool_keys": tool_keys, "prompt_len": prompt_len,
+            "tracker_mirror_lines": mirrors, "gc_enabled_during_steps": gc_during,
+            "gc_enabled_after": gc_after, "wall_s": wall_s,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches,
+        })
+        if len(records) != CHAT_SFT_STEPS or not all(math.isfinite(r["loss"]) for r in records):
+            raise AssertionError(f"train_chat_sft: records {records}")
+        if label_counts != counts or not all(0 < c < CHAT_SFT_MICROBATCH * CHAT_SFT_SEQ
+                                             for c in counts):
+            raise AssertionError(f"train_chat_sft: label tokens {label_counts} vs the "
+                                 f"dataset's {counts}")
+        if len(val) != 1 or tool_keys != ["tool_exact_accuracy", "tool_fuzzy_accuracy",
+                                          "tool_name_accuracy", "tool_num_examples"]:
+            raise AssertionError(f"train_chat_sft: validation {val}")
+        if any(gc_during) or not gc_after:
+            raise AssertionError(f"train_chat_sft: GC during {gc_during}, after {gc_after}")
+        if launches["K1"] == 0:
+            raise AssertionError(f"train_chat_sft: K1-K3 {launches}")
+        del recipe
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 # the tensor-core kernels in ptxas's mangled names: (pattern, readable name)
 MMA_KERNELS = (
     (r"((?:fwd|dkv|dq)_mma_kernel)ILi(\d+)ELi(\d+)ELb([01])E",
@@ -4322,6 +4959,19 @@ def main() -> int:
     dense_smoke_launches = smoke_families_phase(card, "smoke_dense_families",
                                                 DENSE_SMOKE_YAMLS)
     lap("smoke_dense_families")
+    tokenbin_launches = train_tokenbin_phase(card)
+    lap("train_tokenbin")
+    glm47_launches = serve_glm47_flash_phase(card)
+    lap("serve_glm47_flash")
+    glm47_flash_entries, glm47_train_launches = train_glm47_flash_phase(card)
+    lap("train_glm47_flash")
+    mistral4_launches = serve_mistral4_phase(card)
+    lap("serve_mistral4")
+    moe_lite_smoke_launches = smoke_families_phase(card, "smoke_moe_lite",
+                                                   MOE_LITE_SMOKE_YAMLS)
+    lap("smoke_moe_lite")
+    chat_sft_launches = train_chat_sft_phase(card)
+    lap("train_chat_sft")
     gemma_launches, gemma2_records = train_gemma_phase(
         card, "train_gemma2", "Gemma-2-2B", GEMMA2_2B, GEMMA2_TRAIN_SEQ)
     lap("train_gemma2")
@@ -4377,6 +5027,10 @@ def main() -> int:
             if name in published["kimi_k2"]:
                 kernels[-1]["kimi_k2_serve_launches"] = published["kimi_k2"][name]
             kernels[-1]["fp32_many_heads"] = e["fp32_many_heads"]
+            # GLM-4.7-Flash's serve runs (20 heads), Mistral-4's (K6)
+            kernels[-1]["glm47_flash_serve_launches"] = glm47_launches[name]
+            if name == "K6":
+                kernels[-1]["mistral4_serve_launches"] = mistral4_launches
         # each paged kernel's route follows the query dtype
         if name in ("K4", "K5"):
             kernels[-1]["kernel_route"] = rpa_cuda.route(torch.bfloat16)
@@ -4411,6 +5065,30 @@ def main() -> int:
         })
         if name == "K4":  # the llm_serve run of the Gemma-3-1B export
             kernels[-1]["ckpt_serve_launches"] = ckpt_serve_launches
+    # K6 and K7 at GLM-4.7-Flash's 20 heads x r 512 (a whole and a partial
+    # head tile), the serve_glm47_flash runs' launches, the fp32 route's
+    # entry beside
+    for name, kname, line in (("K6", "paged_mla_attention_glm47_flash", ":315"),
+                              ("K7", "paged_mla_attention_int8_glm47_flash", ":428")):
+        e = paged[f"{name}_glm47_flash"]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "automodel_tpu_torch/csrc/paged_mla_attention.cu",
+            "replaces": "automodel_tpu/ops/pallas/ragged_paged_attention.py" + line,
+            "launches": glm47_launches[name],
+            "max_abs_err": e["max_abs_err"],
+            "ms": e["ms"],
+            "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"],
+            "bound_by": e["bound_by"],
+            "library_ms": None,
+            "library_why": no_library,
+            "card": card,
+            "kernel_route": mla_cuda.route(torch.bfloat16),
+            "heads": e["heads"], "rank": e["rank"], "head_tiles": e["head_tiles"],
+            "fp32": e["fp32"],
+        })
     # K4 at Qwen3-30B-A3B's heads (G 8 x D 128), the serve_qwen3_moe run's
     # launches
     e = k4["qwen3_moe"]
@@ -4471,9 +5149,10 @@ def main() -> int:
             ("gemma3", "_gemma3", (256, 256), gemma_launches["gemma3"]),
             ("gpt_oss", "_gpt_oss", (64, 64), family_launches["gpt_oss"]),
             ("encoder", "_encoder", (64, 64), encoder_launches),
-            ("qwen25_7b", "_qwen25_7b", (128, 128), qwen_launches)):
+            ("qwen25_7b", "_qwen25_7b", (128, 128), qwen_launches),
+            ("glm47_flash", "_glm47_flash", (256, 256), glm47_train_launches)):
         for name, replaces in (("K1", ":140"), ("K2", ":238"), ("K3", ":283")):
-            e = flash[key][name]
+            e = (glm47_flash_entries if key == "glm47_flash" else flash[key])[name]
             row = {
                 "name": {"K1": "flash_attention_fwd", "K2": "flash_attention_dq",
                          "K3": "flash_attention_dkv"}[name] + suffix,
@@ -4505,11 +5184,16 @@ def main() -> int:
                 row["train_dsv3_mtp_launches"] = mtp_launches[name]
             if key == "dense":  # Qwen3-30B-A3B's heads are <128, 128> too
                 row["train_qwen3_moe_launches"] = family_launches["qwen3_moe"][name]
+                row["train_tokenbin_launches"] = tokenbin_launches[name]
+            if key == "encoder":  # Llama-3.2-1B's heads, causal
+                row["train_chat_sft_launches"] = chat_sft_launches[name]
             if key == "gpt_oss":  # the smoke YAMLs' head dim 8, padded to 16
                 row["smoke_families_launches_at_16"] = {
                     fam: c[name] for fam, c in smoke_launches.items()}
                 row["smoke_dense_families_launches_at_16"] = {
                     fam: c[name] for fam, c in dense_smoke_launches.items()}
+                row["smoke_moe_lite_launches_at_16"] = {
+                    fam: c[name] for fam, c in moe_lite_smoke_launches.items()}
             kernels.append(row)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})

@@ -255,14 +255,15 @@ def test_unported_adapter_styles_raise():
     for style in ("step3p5", "mimo"):
         with pytest.raises(NotImplementedError, match=style):
             DenseDecoderAdapter(t_cfg, style=style)
-    for style in ("hy_mt2", "glm4"):
+    for style in ("step3p5", "gemma4_moe"):
         with pytest.raises(NotImplementedError, match=style):
             MoEDecoderAdapter(ds_cfg, style=style)
-    # the GQA MoE families' styles are ported (tests/test_torch_moe_families.py)
+    # the GQA MoE families' styles are ported (tests/test_torch_moe_families.py),
+    # and Hy-MT2's and the MoE "glm4" (tests/test_torch_moe_lite_families.py)
     for style in ("bailing", "hunyuan", "glm4", "baichuan"):
         DenseDecoderAdapter(t_cfg, style=style)
     for style in ("qwen3_moe", "mixtral", "gpt_oss", "minimax", "ernie", "hunyuan",
-                  "bailing"):
+                  "bailing", "hy_mt2", "glm4"):
         MoEDecoderAdapter(ds_cfg, style=style)
     with pytest.raises(NotImplementedError, match="DSA"):
         DenseDecoderAdapter(dataclasses.replace(t_cfg, dsa_index_topk=4))

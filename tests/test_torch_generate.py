@@ -229,8 +229,51 @@ def test_run_sampling_eval_equal_to_jax(llama):
     assert got == want
     assert 0.3 < got["gen_token_accuracy"] < 0.8 and got["gen_samples"] == 8
     assert 0 < got["gen_prefix_len"] < max_new
-    with pytest.raises(NotImplementedError, match="tokenizer"):
-        run_sampling_eval(tp, tcfg, iter(batches), tokenizer=object(), **kw)
+    assert not any(k.startswith("tool_") for k in got)  # no tokenizer given
+
+
+class _CharTokenizer:
+    """Token t is the character chr(31 + t): ids 1-95 spell printable ASCII."""
+
+    def encode(self, text):
+        return [ord(c) - 31 for c in text]
+
+    def decode(self, ids):
+        return "".join(chr(31 + int(t)) for t in ids)
+
+
+def test_run_sampling_eval_tool_calls_equal_to_jax(llama):
+    """With a tokenizer, the continuations are decoded and scored as tool
+    calls where the references carry `<tool_call>` blocks: both packages
+    give the same metrics. Rows whose reference holds no call count as
+    matches when the prediction holds none either, so the accuracies lie
+    between 0 and 1."""
+    jcfg, tcfg, jp, tp = llama
+    tok = _CharTokenizer()
+    calls = ['<tool_call>{"name": "get_weather", "arguments": {"city": "Oslo"}}</tool_call>',
+             '<tool_call>{"name": "f", "arguments": {"x": 1}}</tool_call>',
+             "no call in this reference, only words and more words here",
+             '```json {"name": "g", "arguments": "{\\"k\\": 2}"} ```']
+    prompt_len = 6
+    max_new = max(len(c) for c in calls)
+    batches = []
+    for bi in range(2):
+        rows = []
+        for ri, call in enumerate(calls):
+            prompt = list(_prompt(prompt_len, 96, 80 + 4 * bi + ri)[0])
+            body = tok.encode(call.ljust(max_new))
+            rows.append(prompt + body)
+        ids = np.asarray(rows, np.int32)
+        labels = np.roll(ids, -1, axis=1)
+        labels[:, -1] = -100
+        batches.append({"input_ids": ids, "labels": labels})
+    kw = dict(prompt_len=prompt_len, max_new_tokens=max_new, max_batches=2, seed=3,
+              tokenizer=tok)
+    want = j_run_sampling_eval(jax.tree.map(jnp.asarray, jp), jcfg, iter(batches), **kw)
+    got = run_sampling_eval(tp, tcfg, iter(batches), **kw)
+    assert got == want
+    assert got["tool_num_examples"] == 8
+    assert got["tool_name_accuracy"] == 0.25  # the rows with no call on either side
 
 
 def test_unported_arguments_raise(llama):

@@ -52,7 +52,11 @@ def test_port_imports_no_jax():
                 "eval.sampling", "recipes.llm.train_seq_cls",
                 "recipes.retrieval.train_bi_encoder",
                 "recipes.retrieval.train_cross_encoder", "loss.infonce",
-                "datasets.packing", "datasets.nanogpt"):
+                "datasets.packing", "datasets.nanogpt",
+                "datasets.megatron.index_helpers", "datasets.megatron.gpt_dataset",
+                "models.auto_tokenizer", "datasets.chat", "datasets.column_mapped",
+                "datasets.presets", "datasets.agent", "eval.tool_call_evaluator",
+                "loggers.trackers", "training.utils"):
         assert f"automodel_tpu_torch.{mod}" in res["modules"]
     assert res["leaked"] == []
 

@@ -9,7 +9,8 @@ The cases cover rows that span several splits, a split
 boundary inside a page table, contexts that end mid-page, one-page and pad
 rows, 8- and 16-token pages, zero-padded and odd widths, a latent rank
 wider than one block's columns and its shared memory, Moonlight's widths,
-and Kimi-K2's 64 and DeepSeek-V3's 128 heads (several head tiles).
+Kimi-K2's 64 and DeepSeek-V3's 128 heads (several head tiles), and
+GLM-4.7-Flash's 20 (a whole and a partial head tile).
 Skips without g++."""
 
 import ctypes
@@ -46,6 +47,10 @@ CASES = {
 MANY_HEADS = {
     "kimi_k2_n64": (64, 512, 64, 16, 12, (150,)),
     "deepseek_v3_n128": (128, 512, 64, 16, 4, (40,)),
+    # GLM-4.7-Flash's 20 heads: one whole 16-head tile and a partial one of
+    # 4 on the bf16 route, whose missing heads read zero rows and write
+    # nothing
+    "glm47_flash_n20": (20, 512, 64, 16, 6, (90,)),
 }
 
 
@@ -167,8 +172,9 @@ def test_emulated_split_route_takes_many_heads(lib, case, quant):
 @pytest.mark.parametrize("quant", [False, True], ids=["k6", "k7"])
 @pytest.mark.parametrize("case", sorted(MANY_HEADS))
 def test_emulated_fp32_route_takes_many_heads(lib, case, quant):
-    """fp32 K6 and K7 at Kimi-K2's 64 and DeepSeek-V3's 128 heads x r 512:
-    several head tiles per row, every head's output written."""
+    """fp32 K6 and K7 at Kimi-K2's 64, DeepSeek-V3's 128 and GLM-4.7-Flash's
+    20 heads x r 512: several head tiles per row, every head's output
+    written."""
     rel, pad = _run(lib, case, torch.float32, quant=quant)
     assert rel <= TOL[torch.float32]
     assert not pad.any()
