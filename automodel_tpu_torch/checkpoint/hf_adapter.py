@@ -32,7 +32,12 @@ Ported styles: dense "llama" (GQA or MLA attention), "hunyuan"
 "glm4" (GLM-4's attention and norm names from the dense adapter; as in the
 JAX adapter, the fused `gate_up_proj` of its first-k dense layers is not
 mapped).
-The DSA indexer raises NotImplementedError. A dense checkpoint saved
+The DSA indexer maps in both styles: DeepSeek's uncompressed
+`self_attn.indexer.{wq,wk,wgate}` and GLM-5's `self_attn.indexer.{wq_b,wk,
+k_norm,weights_proj}`; IndexShare "shared" layers own no indexer keys (their
+stack rows load as zeros and are not exported), and a checkpoint with no
+indexer at all (a V3-style one) loads without the leaf, which the training
+recipe then draws fresh. A dense checkpoint saved
 without the CausalLM wrapper (a `LlamaBidirectionalModel`) may drop the
 `model.` prefix, and one with a swapped head (`...ForSequenceClassification`)
 may carry no `lm_head.weight`: that leaf is then left out, as the JAX
@@ -105,6 +110,28 @@ def _stack(shape: tuple, name_of: Callable[..., str], load: Callable[[str], torc
     return out
 
 
+def _stack_zero_fill(L: int, name_of: Callable[[int], str], load: Callable[[str], torch.Tensor],
+                     dtype: torch.dtype, device, absent: Callable[[int], bool]) -> torch.Tensor:
+    """As `_stack` over L layers, with the layers `absent` declares keyless
+    (IndexShare "shared" layers own no indexer) filled with zeros. A key
+    missing on any other layer raises KeyError: a checkpoint without the
+    leaf, which the caller skips, never silent zeros."""
+    vals = {}
+    for i in range(L):
+        try:
+            vals[i] = load(name_of(i))
+        except KeyError:
+            if not absent(i):
+                raise
+    if not vals:
+        raise KeyError(name_of(0))
+    ref = next(iter(vals.values()))
+    out = torch.zeros((L, *ref.shape), dtype=dtype, device=device)
+    for i, x in vals.items():
+        out[i].copy_(x)
+    return out
+
+
 @dataclasses.dataclass
 class DenseDecoderAdapter:
     """Llama-style names <-> `models/llm/decoder` params (GQA or MLA);
@@ -120,8 +147,6 @@ class DenseDecoderAdapter:
         if self.style not in self.STYLES:
             raise NotImplementedError(
                 f"dense adapter style {self.style!r} is not ported; ported: {self.STYLES}")
-        if self.cfg.dsa_index_topk is not None:
-            raise NotImplementedError("the DSA indexer's checkpoint layout is not ported")
 
     # -- name tables ---------------------------------------------------------
     def _layer_entries(self) -> list[tuple]:
@@ -189,6 +214,21 @@ class DenseDecoderAdapter:
             ]
         else:
             e.append(("self_attn.q_proj.weight", ("q_proj", "kernel"), True, "q_rope"))
+        if self.cfg.dsa_index_topk is not None:
+            ix = "self_attn.indexer."
+            if self.cfg.dsa_indexer_style == "glm":
+                # GLM-5.x: queries from the q-lora residual (wq_b), LayerNorm'd keys
+                e += [
+                    (ix + "wq_b.weight", ("indexer", "wq", "kernel"), True, None),
+                    (ix + "wk.weight", ("indexer", "wk", "kernel"), True, None),
+                    (ix + "k_norm.weight", ("indexer", "k_norm", "scale"), False, None),
+                    (ix + "k_norm.bias", ("indexer", "k_norm", "bias"), False, None),
+                    (ix + "weights_proj.weight", ("indexer", "wgate", "kernel"), True, None),
+                ]
+            else:
+                # the uncompressed DeepSeek lightning indexer, the JAX names
+                e += [(ix + f"{w}.weight", ("indexer", w, "kernel"), True, None)
+                      for w in ("wq", "wk", "wgate")]
         # MLA models pair with the MoE adapter; these MLP entries are the
         # first-k dense layers'
         e += [(f"mlp.{p}.weight", (p, "kernel"), True, None)
@@ -235,6 +275,29 @@ class DenseDecoderAdapter:
             e.append(("lm_head.weight", ("lm_head", "kernel"), True, None))
         return e
 
+    def _indexer_absent(self, layer_idx: int) -> bool:
+        """IndexShare "shared" layers own no indexer in HF checkpoints."""
+        t = self.cfg.dsa_indexer_types
+        return t is not None and t[layer_idx] == "shared"
+
+    def _load_stack(self, out: dict, key: str, entry, first: int, L: int,
+                    load, dtype, device) -> None:
+        """One layer-stacked leaf, out[key][path], from layers first..first+L;
+        an indexer leaf zero-fills IndexShare's keyless layers and is left
+        out when the checkpoint has none (a V3-style checkpoint)."""
+        suffix, path, transpose, tr = entry
+        name_of = lambda i: f"model.layers.{first + i}.{suffix}"  # noqa: E731
+        one = lambda n: load(n, transpose, tr)  # noqa: E731
+        if path[0] != "indexer":
+            _set(out, (key,) + path, _stack((L,), name_of, one, dtype, device))
+            return
+        try:
+            _set(out, (key,) + path, _stack_zero_fill(
+                L, name_of, one, dtype, device,
+                lambda i: self._indexer_absent(first + i)))
+        except KeyError:
+            logger.warning("checkpoint has no %s; leaf omitted", suffix)
+
     def _transform(self, x: torch.Tensor, tname: str | None, inverse: bool) -> torch.Tensor:
         cfg = self.cfg
         if tname is None:
@@ -265,6 +328,8 @@ class DenseDecoderAdapter:
         layers = params["layers"]
         for i in range(self.cfg.num_layers):
             for suffix, path, transpose, tr in self._layer_entries():
+                if path[0] == "indexer" and self._indexer_absent(i):
+                    continue
                 yield (f"model.layers.{i}.{suffix}",
                        self._export(_get(layers, path)[i], transpose, tr))
             if self.style == "glm4":
@@ -301,10 +366,8 @@ class DenseDecoderAdapter:
                     raise
                 logger.warning("checkpoint has no lm_head.weight; leaf omitted")
         L = self.cfg.num_layers
-        for suffix, path, transpose, tr in self._layer_entries():
-            _set(out, ("layers",) + path, _stack(
-                (L,), lambda i: f"model.layers.{i}.{suffix}",
-                lambda n: load(n, transpose, tr), dtype, device))
+        for entry in self._layer_entries():
+            self._load_stack(out, "layers", entry, 0, L, load, dtype, device)
         if self.style == "glm4":
             I = self.cfg.intermediate_size
             for p, cols in (("gate_proj", slice(0, I)), ("up_proj", slice(I, 2 * I))):
@@ -384,6 +447,8 @@ class MoEDecoderAdapter:
         fk = cfg.first_k_dense
         for i in range(fk):
             for suffix, path, transpose, tr in dense._layer_entries():
+                if path[0] == "indexer" and dense._indexer_absent(i):
+                    continue
                 yield (f"model.layers.{i}.{suffix}",
                        dense._export(_get(params["dense_layers"], path)[i], transpose, tr))
             if fused_qkv is not None:
@@ -392,6 +457,8 @@ class MoEDecoderAdapter:
         for li in range(cfg.num_moe_layers):
             i = fk + li
             for suffix, path, transpose, tr in self._attn_entries():
+                if path[0] == "indexer" and dense._indexer_absent(i):
+                    continue
                 yield (f"model.layers.{i}.{suffix}",
                        dense._export(_get(moe_layers, path)[li], transpose, tr))
             if fused_qkv is not None:
@@ -431,14 +498,10 @@ class MoEDecoderAdapter:
             _set(out, path, _stack((), lambda: name, lambda n: load(n, transpose, tr),
                                    dtype, device))
         fk, Lm = cfg.first_k_dense, cfg.num_moe_layers
-        for suffix, path, transpose, tr in dense._layer_entries() if fk else ():
-            _set(out, ("dense_layers",) + path, _stack(
-                (fk,), lambda i: f"model.layers.{i}.{suffix}",
-                lambda n: load(n, transpose, tr), dtype, device))
-        for suffix, path, transpose, tr in self._attn_entries():
-            _set(out, ("moe_layers",) + path, _stack(
-                (Lm,), lambda li: f"model.layers.{fk + li}.{suffix}",
-                lambda n: load(n, transpose, tr), dtype, device))
+        for entry in dense._layer_entries() if fk else ():
+            dense._load_stack(out, "dense_layers", entry, 0, fk, load, dtype, device)
+        for entry in self._attn_entries():
+            dense._load_stack(out, "moe_layers", entry, fk, Lm, load, dtype, device)
         if dense._fused_qkv_name() is not None:
             if fk:
                 dense._load_fused_qkv(out, "dense_layers", read, 0, fk, dtype, device)

@@ -4,8 +4,9 @@ Both packages keep the same parameter layout (stacked `(L, ...)` layer
 weights, `(in, out)` kernels, the same dict keys), so conversion is a
 key-for-key copy, of any depth: dense `layers`, the MoE decoder's
 `dense_layers` and `moe_layers` (`moe.gate` with its correction bias,
-`(L, E, H, I)` expert kernels, `moe.shared`) and the MLA `kv_*`/`q_*`
-projections alike, and the PEFT trees: the adapters keyed by path
+`(L, E, H, I)` expert kernels, `moe.shared`), the MLA `kv_*`/`q_*`
+projections and the DSA `indexer` subtree (DeepSeek's `wq`/`wk`/`wgate`,
+GLM's with `k_norm`) alike, and the PEFT trees: the adapters keyed by path
 (`{"layers/q_proj/kernel": {"a", "b"[, "m"]}}`) and a QLoRA base, whose
 `{"q8", "sc"}` leaves keep their int8 and fp32 dtypes (`dtype` casts
 floating leaves only). The JAX side hands its tree over as numpy arrays

@@ -17,6 +17,10 @@ each layer attends over the slots written so far.
 - MLA layers cache the rms-normed kv latent (B, T, r) and the rotated
   shared key-rope head (B, T, dr) and attend absorbed, in latent space.
 - MoE layers route every token through the gate, dispatch forced dropless.
+- `cfg.linear_precision` ("fp8" / "int8") quantizes the linears the JAX
+  function quantizes: q/k/v, the MLP and MLA's projections and o_proj (a
+  GQA layer's o_proj stays unquantized there, and here). A DSA model
+  decodes with dense MLA over its latent cache, as in JAX.
 - Greedy (temperature 0) or temperature sampling with top-k / top-p from an
   explicit `torch.Generator`; the draws differ from `jax.random`'s. With
   `eos_token_id`, a sequence that emitted it keeps emitting it.
@@ -45,6 +49,7 @@ from automodel_tpu_torch.models.llm.decoder import (
 )
 from automodel_tpu_torch.ops.norms import rms_norm
 from automodel_tpu_torch.ops.paged_attention import NEG_INF
+from automodel_tpu_torch.ops.quant import matmul as _mm
 from automodel_tpu_torch.ops.rope import apply_rope
 
 
@@ -69,12 +74,13 @@ def mla_absorbed_inputs(x, lp, cfg, positions, inv_freq):
     n = cfg.num_heads
     dn, dr, dv = cfg.mla_qk_nope_head_dim, cfg.mla_qk_rope_head_dim, cfg.mla_v_head_dim
     r = cfg.mla_kv_lora_rank
+    prec = cfg.linear_precision
     if cfg.mla_q_lora_rank:
-        q_lat = rms_norm(x @ lp["q_down_proj"]["kernel"], lp["q_norm"]["scale"],
+        q_lat = rms_norm(_mm(x, lp["q_down_proj"]["kernel"], prec), lp["q_norm"]["scale"],
                          cfg.rms_norm_eps)
-        q = q_lat @ lp["q_up_proj"]["kernel"]
+        q = _mm(q_lat, lp["q_up_proj"]["kernel"], prec)
     else:
-        q = x @ lp["q_proj"]["kernel"]
+        q = _mm(x, lp["q_proj"]["kernel"], prec)
     q = q.reshape(B, Sq, n, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, inv_freq)
@@ -84,7 +90,7 @@ def mla_absorbed_inputs(x, lp, cfg, positions, inv_freq):
         )
         q_rope = q_rope * sc[:, :, None, None].to(q_rope.dtype)
 
-    kv = x @ lp["kv_down_proj"]["kernel"]
+    kv = _mm(x, lp["kv_down_proj"]["kernel"], prec)
     c_kv, k_rope = kv[..., :r], kv[..., r:]
     c_kv = rms_norm(c_kv, lp["kv_norm"]["scale"], cfg.rms_norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, inv_freq)[:, :, 0, :]
@@ -96,7 +102,7 @@ def mla_absorbed_inputs(x, lp, cfg, positions, inv_freq):
 
 def _dense_mlp(h, lp, cfg):
     x = rms_norm(h, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps, cfg.zero_centered_norm)
-    mlp_out = mlp_inner(x, lp, cfg) @ lp["down_proj"]["kernel"]
+    mlp_out = _mm(mlp_inner(x, lp, cfg), lp["down_proj"]["kernel"], cfg.linear_precision)
     if cfg.use_post_norms:
         mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"]["scale"], cfg.rms_norm_eps, cfg.zero_centered_norm)
     return h + mlp_out
@@ -198,7 +204,7 @@ def _mla_attn_with_cache(h, lp, cfg, positions, inv_freq, cache_c, cache_kr,
     p = torch.softmax(s, dim=-1)
     out_lat = torch.einsum("bnst,btr->bsnr", p.to(c.dtype), c)
     attn = torch.einsum("bsnr,rnd->bsnd", out_lat, w_uv).reshape(B, Sq, n * dv)
-    return h + attn @ lp["o_proj"]["kernel"]
+    return h + _mm(attn, lp["o_proj"]["kernel"], cfg.linear_precision)
 
 
 def _cache_shapes(cfg, L: int, B: int, T: int, device) -> tuple:

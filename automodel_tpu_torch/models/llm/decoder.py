@@ -4,13 +4,15 @@ The parameter layout is the JAX package's, key for key: per-layer weights
 stacked on dim 0 under `params["layers"]`, linear kernels stored `(in, out)`
 and applied as `x @ W`. So weights convert by copying (`convert.py`).
 
-Ported here: the config (with the MLA fields), `layer_windows`, `init`
-(GQA or MLA attention), the layer pieces the serving engine runs (`_dense`,
-`head_kernel`/`unembed`, `project_qkv`, `mlp_inner`) and the full-sequence
-training `forward` (`attention_block`, which hands MLA layers to
-`models/llm/mla.py`, `mlp_block`, `_decoder_layer`). Meshes, pipeline and
-context parallelism and the EAGLE-3 aux-hidden capture raise
-NotImplementedError.
+Ported here: the config (with the MLA and DSA fields), `layer_windows`,
+`init` (GQA or MLA attention), the layer pieces the serving engine runs
+(`_dense`, `head_kernel`/`unembed`, `project_qkv`, `mlp_inner`) and the
+full-sequence training `forward` (`attention_block`, which hands MLA layers
+to `models/llm/mla.py`, `mlp_block`, `_decoder_layer`). With
+`linear_precision` "fp8" or "int8" the projections and the MLP go through
+`ops/quant.matmul` (per-channel dynamic quantization), as in JAX; the LM
+head and the embeddings stay unquantized. Meshes, pipeline and context
+parallelism and the EAGLE-3 aux-hidden capture raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from automodel_tpu_torch.models.common.layers import (
 from automodel_tpu_torch.ops.attention import dot_product_attention
 from automodel_tpu_torch.ops.matmul import matmul_fp32
 from automodel_tpu_torch.ops.norms import rms_norm
+from automodel_tpu_torch.ops.quant import matmul as _mm
 from automodel_tpu_torch.ops.rope import (
     RopeScalingConfig,
     apply_rope,
@@ -88,14 +91,33 @@ class TransformerConfig:
     # q_pe *= 1 + beta * log(1 + floor(pos / orig_max)); None = off
     mla_qpe_scaling_beta: Optional[float] = None
     mla_qpe_scaling_orig_max: int = 8192
-    # DSA (the lightning-indexer top-k sparse MLA) is not ported: a value
-    # other than None raises in `init`
+    # DSA (DeepSeek sparse attention, V3.2/V4): lightning-indexer top-k
+    # sparse MLA (`models/llm/mla.py`). None → dense MLA.
     dsa_index_topk: Optional[int] = None
+    dsa_index_n_heads: int = 4
+    dsa_index_head_dim: int = 64
+    dsa_indexer_loss_coeff: float = 0.01
+    # "deepseek": the lightning indexer on the hidden state, full-head rope.
+    # "glm": GLM-5.x — queries from the MLA q-lora residual, LayerNorm'd
+    # keys, the rope slice first and half-split, an n_heads**-0.5 gate factor
+    dsa_indexer_style: str = "deepseek"
+    # GLM IndexShare: per-layer "full" (runs its own indexer) | "shared"
+    # (reuses the previous full layer's selection). None → all full.
+    dsa_indexer_types: Optional[tuple] = None
+    # "oracle": the dense (S, S) mask formulation (exact, the test
+    # reference). "chunked": per query block, indexer scores + top-k, then
+    # absorbed MLA over the gathered kv latents; memory O(S·block).
+    # "auto": chunked once S > 4·dsa_query_block.
+    dsa_impl: str = "auto"
+    dsa_query_block: int = 256
     dtype: torch.dtype = torch.bfloat16
     # execution knobs: "full" recomputes each layer in backward, "none"
     # saves every activation; attention backend as in ops/attention.py
     remat_policy: str = "full"
     attn_impl: str = "auto"
+    # the linears' product: None, or "fp8" / "int8" dynamic per-channel
+    # quantization (`ops/quant.matmul`); the LM head and embeddings stay
+    linear_precision: Optional[str] = None
 
     @property
     def resolved_head_dim(self) -> int:
@@ -238,8 +260,8 @@ def init(cfg: TransformerConfig, gen: torch.Generator,
     return params
 
 
-def _dense(x, p):
-    y = x @ p["kernel"]
+def _dense(x, p, precision=None):
+    y = _mm(x, p["kernel"], precision)
     if "bias" in p:
         y = y + p["bias"]
     return y
@@ -275,9 +297,10 @@ def project_qkv(x, lp, cfg: TransformerConfig, positions, inv_freq):
     B, S, _ = x.shape
     D = cfg.resolved_head_dim
     eps, zc = cfg.rms_norm_eps, cfg.zero_centered_norm
-    q = _dense(x, lp["q_proj"])
-    k = _dense(x, lp["k_proj"])
-    v = _dense(x, lp["v_proj"])
+    prec = cfg.linear_precision
+    q = _dense(x, lp["q_proj"], prec)
+    k = _dense(x, lp["k_proj"], prec)
+    v = _dense(x, lp["v_proj"], prec)
     if cfg.qk_norm_flat:
         q = rms_norm(q, lp["q_norm"]["scale"], eps, zc)
         k = rms_norm(k, lp["k_norm"]["scale"], eps, zc)
@@ -298,7 +321,9 @@ def project_qkv(x, lp, cfg: TransformerConfig, positions, inv_freq):
 def mlp_inner(x, lp, cfg: TransformerConfig):
     """Gated MLP core (no norm/residual)."""
     act = ACTIVATIONS[cfg.activation]
-    return act(x @ lp["gate_proj"]["kernel"]) * (x @ lp["up_proj"]["kernel"])
+    prec = cfg.linear_precision
+    return (act(_mm(x, lp["gate_proj"]["kernel"], prec))
+            * _mm(x, lp["up_proj"]["kernel"], prec))
 
 
 def forward(
@@ -388,7 +413,7 @@ def attention_block(h, lp, cfg: TransformerConfig, positions, segment_ids,
         impl=cfg.attn_impl,
     )
     attn_out = _dense(attn.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim),
-                      lp["o_proj"])
+                      lp["o_proj"], cfg.linear_precision)
     if cfg.use_post_norms:
         attn_out = rms_norm(attn_out, lp["post_attn_out_norm"]["scale"],
                             cfg.rms_norm_eps, cfg.zero_centered_norm)
@@ -398,7 +423,7 @@ def attention_block(h, lp, cfg: TransformerConfig, positions, segment_ids,
 def mlp_block(h, lp, cfg: TransformerConfig):
     """Pre-norm gated MLP with residual."""
     x = rms_norm(h, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps, cfg.zero_centered_norm)
-    mlp_out = mlp_inner(x, lp, cfg) @ lp["down_proj"]["kernel"]
+    mlp_out = _mm(mlp_inner(x, lp, cfg), lp["down_proj"]["kernel"], cfg.linear_precision)
     if cfg.use_post_norms:
         mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"]["scale"],
                            cfg.rms_norm_eps, cfg.zero_centered_norm)

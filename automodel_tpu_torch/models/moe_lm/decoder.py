@@ -7,9 +7,20 @@ the rest replace the gated MLP with the MoE block (`moe_layers`, the MoE
 params under `moe`), each stack's weights stacked on dim 0 with the JAX
 package's keys. The serving engine runs both stacks; the training `forward`
 runs them on one device, the aux (load-balance) loss and each MoE layer's
-tokens per expert riding the layer loop's carry. The pipeline branch, DSA,
-routing replay, the EAGLE-3 aux-hidden capture, VLM inputs (embeds, MRoPE
-angles, deepstack) and the parameter specs are not ported. With
+tokens per expert riding the layer loop's carry.
+
+- DSA (`dsa_index_topk` on an MLA config): every layer, dense prefix and
+  MoE stack alike, attends through `mla.mla_sparse_attention_block` (the
+  oracle or the chunked path), and its indexer-KL aux joins the same loss
+  carry. GLM IndexShare (`dsa_indexer_types`): a "shared" layer reuses the
+  running selection of the last "full" layer, which rides the carry.
+- Routing replay: `return_routing` adds stats["routing"] (Lm, B*S, K), the
+  expert indices each MoE layer chose; `routing_override` pins them on
+  another forward (`moe_forward`'s `forced_indices`) while the weights
+  recompute from the live router.
+
+The pipeline branch, the EAGLE-3 aux-hidden capture, VLM inputs (embeds,
+MRoPE angles, deepstack) and the parameter specs are not ported. With
 `mtp_num_layers > 0`, `init` adds the MTP head's params under `mtp`
 (`mtp.py`), which the training recipe's loss runs.
 """
@@ -139,11 +150,13 @@ def forward(
     and the counts. The fp32 masters are cast to `cfg.dtype` inside each
     layer (under its remat), so autograd carries fp32 gradients back. With
     `lora` and `lora_cfg`, `params` is the frozen base and each layer's
-    adapters merge inside the layer loop, as in the dense `forward`."""
+    adapters merge inside the layer loop, as in the dense `forward`.
+
+    With `return_stats` and `return_routing`, stats["routing"] is each MoE
+    layer's (B*S, K) expert indices, stacked (Lm, B*S, K); handed back as
+    `routing_override`, it pins the selection (routing replay)."""
     unported = {
         "mesh_ctx (pipeline, expert and context parallelism)": mesh_ctx,
-        "return_routing (routing replay)": return_routing or None,
-        "routing_override (routing replay)": routing_override,
         "return_aux_hidden (the EAGLE-3 aux-hidden capture)": return_aux_hidden,
         "inputs_embeds (VLM merged embeddings)": inputs_embeds,
         "rope_angles (MRoPE)": rope_angles,
@@ -164,37 +177,72 @@ def forward(
     freq_for = make_freq_for(cfg, dev)
     windows = layer_windows(cfg)
 
-    def attn(h, lp, window):
-        return attention_block(h, lp, cfg, positions, segment_ids,
-                               freq_for(window), window)
+    # DSA: the indexer-KL aux rides the loss carry with the balance loss;
+    # under IndexShare the running selection rides it too (only then: plain
+    # DSA would drag a dead S²-scale buffer through every layer)
+    use_dsa = cfg.attention_type == "mla" and cfg.dsa_index_topk is not None
+    idx_types = cfg.dsa_indexer_types
+    index_share = use_dsa and idx_types is not None
+    if index_share:
+        if len(idx_types) != cfg.num_layers:
+            raise ValueError(f"{len(idx_types)} indexer_types for {cfg.num_layers} layers")
+        if idx_types[0] != "full":
+            raise ValueError("IndexShare: layer 0 must run its indexer")
+    flags = [t == "full" for t in idx_types] if index_share else None
 
-    # the carry: (hidden, aux loss, tokens per expert of the MoE layers run)
+    def attn(h, lp, window, sel, gidx):
+        if use_dsa:
+            from automodel_tpu_torch.models.llm.mla import mla_sparse_attention_block
+
+            h, idx_aux, sel_new = mla_sparse_attention_block(
+                h, lp, cfg, positions, segment_ids, freq_for(window),
+                token_mask=token_mask,
+                prev_sel=sel if index_share else None,
+                indexer_flag=flags[gidx] if index_share else None)
+            return h, idx_aux, (sel_new if index_share else sel)
+        return (attention_block(h, lp, cfg, positions, segment_ids,
+                                freq_for(window), window), 0.0, sel)
+
+    # the carry: (hidden, aux loss, tokens per expert and routing of the MoE
+    # layers run, the IndexShare selection)
     dense_stack, dense_merged = (layer_stack(params, "dense_layers", lora, lora_cfg)
                                  if cfg.first_k_dense > 0 else (None, None))
     moe_stack, moe_merged = layer_stack(params, "moe_layers", lora, lora_cfg)
+    K = cfg.first_k_dense
 
-    def dense_layer(carry, lp, window):
-        h, aux, tpe = carry
+    def dense_layer(carry, lp, static):
+        h, aux, tpe, routing, sel = carry
+        window, gidx = static
         lp = cast_params(dense_merged(lp), dtype)
-        return mlp_block(attn(h, lp, window), lp, cfg), aux, tpe
+        h, idx_aux, sel = attn(h, lp, window, sel, gidx)
+        return mlp_block(h, lp, cfg), aux + idx_aux, tpe, routing, sel
 
-    def moe_layer(carry, lp, window):
-        h, aux, tpe = carry
+    def moe_layer(carry, lp, static):
+        h, aux, tpe, routing, sel = carry
+        window, gidx = static
         lp = cast_params(moe_merged(lp), dtype)
-        h = attn(h, lp, window)
+        h, idx_aux, sel = attn(h, lp, window, sel, gidx)
         x = rms_norm(h, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps,
                      cfg.zero_centered_norm)
-        moe_out, layer_aux, stats = moe_forward(lp["moe"], cfg.moe, x, token_mask)
-        return h + moe_out, aux + layer_aux, tpe + (stats["tokens_per_expert"],)
+        forced = routing_override[gidx - K] if routing_override is not None else None
+        moe_out, layer_aux, stats = moe_forward(lp["moe"], cfg.moe, x, token_mask,
+                                                forced_indices=forced)
+        return (h + moe_out, aux + idx_aux + layer_aux,
+                tpe + (stats["tokens_per_expert"],), routing + (stats["indices"],), sel)
 
-    carry = (h, torch.zeros((), dtype=torch.float32, device=dev), ())
-    K = cfg.first_k_dense
+    sel0 = None
+    if index_share:
+        from automodel_tpu_torch.models.llm.mla import dsa_sel_init
+
+        sel0 = dsa_sel_init(cfg, B, S, dev)
+    carry = (h, torch.zeros((), dtype=torch.float32, device=dev), (), (), sel0)
+    statics = tuple(zip(windows, range(cfg.num_layers)))
     if K > 0:
         carry = scan_layers_windowed(dense_layer, carry, dense_stack,
-                                     windows[:K], remat_policy=cfg.remat_policy)
+                                     statics[:K], remat_policy=cfg.remat_policy)
     carry = scan_layers_windowed(moe_layer, carry, moe_stack,
-                                 windows[K:], remat_policy=cfg.remat_policy)
-    h, aux_loss, tpe = carry
+                                 statics[K:], remat_policy=cfg.remat_policy)
+    h, aux_loss, tpe, routing, _ = carry
 
     h = rms_norm(h, params["final_norm"]["scale"].to(dtype), cfg.rms_norm_eps,
                  cfg.zero_centered_norm)
@@ -206,7 +254,13 @@ def forward(
         # depth-cut DeepSeek-V3 is) has no MoE layer to count
         tpe = (torch.stack(tpe) if tpe else
                torch.zeros((0, cfg.moe.n_routed_experts), device=dev))
-        return out, aux_loss, {"tokens_per_expert": tpe}
+        stats_out = {"tokens_per_expert": tpe}
+        if return_routing:
+            stats_out["routing"] = (
+                torch.stack(routing) if routing else
+                torch.zeros((0, B * S, cfg.moe.experts_per_token),
+                            dtype=torch.int64, device=dev))
+        return out, aux_loss, stats_out
     return out, aux_loss
 
 

@@ -1,10 +1,9 @@
 """MoE model-family adapters: HF config dict → MoETransformerConfig (port of
 `automodel_tpu/models/moe_lm/families.py`: DeepSeek-V3 / Kimi-K2 /
-GLM-4.7-Flash and Mistral-4 on MLA, and the GQA families Qwen3-MoE,
-Mixtral, gpt-oss, GLM-4.5, ERNIE-4.5-MoE, MiniMax-M2, Hunyuan-MoE, Hy-MT2
-and Ling 2.0 (BailingMoeV2), field for field).
-
-The DSA families (DeepSeek-V3.2/V4, GLM-5.x) are not ported."""
+GLM-4.7-Flash and Mistral-4 on MLA, the DSA families DeepSeek-V3.2/V4 and
+GLM-5.x, and the GQA families Qwen3-MoE, Mixtral, gpt-oss, GLM-4.5,
+ERNIE-4.5-MoE, MiniMax-M2, Hunyuan-MoE, Hy-MT2 and Ling 2.0 (BailingMoeV2),
+field for field)."""
 
 from __future__ import annotations
 
@@ -54,6 +53,40 @@ def deepseek_v3_moe_config(hf: Mapping[str, Any], **overrides) -> MoETransformer
     moe_overrides = overrides.pop("moe", None)
     kw.update(overrides)
     return MoETransformerConfig(moe=moe_overrides or moe, first_k_dense=first_k, **kw)
+
+
+def deepseek_v4_config(hf: Mapping[str, Any], **overrides) -> MoETransformerConfig:
+    """DeepseekV4ForCausalLM (and DeepSeek-V3.2): the V3 MoE + MLA body plus
+    DSA, the lightning indexer's top-k sparse attention (index_topk /
+    index_n_heads / index_head_dim are the HF config fields). The
+    uncompressed indexer; indexer weights start fresh when a checkpoint has
+    none."""
+    dsa = {}
+    if hf.get("index_topk"):
+        dsa = dict(
+            dsa_index_topk=int(hf["index_topk"]),
+            dsa_index_n_heads=int(hf.get("index_n_heads", 4)),
+            dsa_index_head_dim=int(hf.get("index_head_dim", 64)),
+        )
+    return deepseek_v3_moe_config(hf, **dsa, **overrides)
+
+
+def glm_moe_dsa_config(hf: Mapping[str, Any], **overrides) -> MoETransformerConfig:
+    """GlmMoeDsaForCausalLM (GLM-5.x): the DeepSeek-style MLA + MoE body plus
+    the GLM lightning indexer (queries from the q-lora residual, LayerNorm'd
+    keys, rope-first slice) with IndexShare: "shared" layers of
+    `indexer_types` reuse the previous full layer's top-k selection."""
+    dsa = {}
+    if hf.get("index_topk"):
+        dsa = dict(
+            dsa_index_topk=int(hf["index_topk"]),
+            dsa_index_n_heads=int(hf.get("index_n_heads", 4)),
+            dsa_index_head_dim=int(hf.get("index_head_dim", 64)),
+            dsa_indexer_style="glm",
+        )
+        if hf.get("indexer_types"):
+            dsa["dsa_indexer_types"] = tuple(hf["indexer_types"])
+    return deepseek_v3_moe_config(hf, **dsa, **overrides)
 
 
 def qwen3_moe_config(hf: Mapping[str, Any], **overrides) -> MoETransformerConfig:

@@ -3,7 +3,8 @@
 configs the port has: the dense Llama, Mistral, Ministral-3, Qwen2, Qwen3,
 Gemma-2, Gemma-3, GLM-4, ERNIE-4.5, Hunyuan dense and Baichuan2, the
 bidirectional Llama and Ministral-3 encoders; the MLA + MoE DeepSeek-V3,
-Kimi-K2, GLM-4.7-Flash (GLM-4 MoE Lite) and Mistral-4; and the GQA MoE
+Kimi-K2, GLM-4.7-Flash (GLM-4 MoE Lite) and Mistral-4; the DSA models
+DeepSeek-V3.2, DeepSeek-V4 and GLM-5.x (GlmMoeDsa); and the GQA MoE
 families Qwen3-MoE, Mixtral, gpt-oss, GLM-4.5, ERNIE-4.5-MoE, Hunyuan-MoE,
 Hy-MT2, MiniMax-M2 and Ling 2.0, for training and serving)."""
 
@@ -64,6 +65,21 @@ MODEL_ARCH_MAPPING: dict[str, ModelSpec] = {
         adapter_name="moe_decoder", adapter_kwargs={"style": "deepseek"},
     ),
     # checkpoint-compatible with DeepSeek-V3
+    # DeepSeek-V3.2 = the V3 body + DSA (its config carries index_topk)
+    "DeepseekV32ForCausalLM": ModelSpec(
+        "deepseek_v32", moe_families.deepseek_v4_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "deepseek"},
+    ),
+    "DeepseekV4ForCausalLM": ModelSpec(
+        "deepseek_v4", moe_families.deepseek_v4_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "deepseek"},
+    ),
+    # GLM-5.x: the MLA + MoE body + the GLM indexer with IndexShare
+    # (DeepSeek-style checkpoint names)
+    "GlmMoeDsaForCausalLM": ModelSpec(
+        "glm_moe_dsa", moe_families.glm_moe_dsa_config, moe_decoder,
+        adapter_name="moe_decoder", adapter_kwargs={"style": "deepseek"},
+    ),
     "KimiK2ForCausalLM": ModelSpec(
         "kimi_k2", moe_families.deepseek_v3_moe_config, moe_decoder,
         adapter_name="moe_decoder", adapter_kwargs={"style": "deepseek"},

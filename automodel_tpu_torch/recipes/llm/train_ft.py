@@ -54,12 +54,23 @@ every `training.jsonl` record's metrics, and the run's end, "FINISHED",
 run and collects on that step cadence (`training/utils.GCController`);
 collection comes back on at every exit of the loop.
 
+`model.linear_precision` ("fp8" / "int8") quantizes the decoders' linears
+per channel in every forward (`ops/quant.quantized_matmul`; the backward
+stays bf16 on the original operands). The `qat` section (`enabled`,
+`precision`, `start_step`) fake-quantizes every `kernel` leaf inside the
+train step once the step count reaches `start_step`, with straight-through
+gradients to the fp32 masters; with `peft` it raises ValueError, as in JAX
+(the transform would see only the adapters). `model.dsa_impl` and
+`model.dsa_query_block` pick a DSA model's sparse path; a DSA model read
+from a checkpoint without indexer weights (a V3-style one) gets fresh
+indexers from the recipe's generator.
+
 The same YAML files drive both packages. What the port does not have yet
 raises NotImplementedError instead of being skipped: distributed sizes
 other than 1 (`dp_shard: -1` resolves to 1 on one device), other
-unported architectures (`models/registry.py`), resilience, QAT (with or
-without PEFT), `model.linear_precision`, a remote `checkpoint_dir`, and
-PEFT on a MoE model with the gate-bias update or the MTP head.
+unported architectures (`models/registry.py`), resilience, a remote
+`checkpoint_dir`, and PEFT on a MoE model with the gate-bias update or the
+MTP head.
 
 `model.pretrained_path` names a local HF safetensors checkpoint: its
 `config.json` gives the HF config and `checkpoint/hf_adapter.py` fills the
@@ -227,10 +238,6 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         for key in _UNPORTED_SECTIONS:
             if cfg.get(key) is not None:
                 raise NotImplementedError(f"config section '{key}' is not ported")
-        if cfg.get("qat.enabled", False):
-            raise NotImplementedError("qat is not ported")
-        if cfg.get("model.linear_precision"):
-            raise NotImplementedError("model.linear_precision is not ported")
 
     # ------------------------------------------------------------------
     def _build_model(self, param_dtype: torch.dtype | None) -> None:
@@ -244,6 +251,13 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             remat_policy=mcfg.get("remat_policy", "full"),
             attn_impl=mcfg.get("attn_impl", "auto"),
         )
+        if mcfg.get("linear_precision", None):
+            overrides["linear_precision"] = mcfg.get("linear_precision")
+        # DSA implementation knobs (oracle | chunked | auto)
+        if mcfg.get("dsa_impl", None):
+            overrides["dsa_impl"] = str(mcfg.get("dsa_impl"))
+        if mcfg.get("dsa_query_block", None):
+            overrides["dsa_query_block"] = int(mcfg.get("dsa_query_block"))
 
         def build_config(hf_config) -> torch.dtype:
             self._hf_config = dict(hf_config)
@@ -262,6 +276,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 adapter = get_adapter(self.model_spec.adapter_name, self.model_cfg,
                                       **self.model_spec.adapter_kwargs)
                 self._init_params = adapter.from_hf(reader, device=self.device, dtype=dtype)
+            if self.model_cfg.dsa_index_topk is not None:
+                self._backfill_indexers(dtype)
             if getattr(self.model_cfg, "mtp_num_layers", 0) > 0:
                 # MTP weights are training-only and not part of HF
                 # checkpoints: they start fresh
@@ -276,6 +292,21 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 self.model_cfg, self.rng.next_key(), dtype=dtype)
         logger.info("model %s: %d parameters", self.model_spec.name,
                     count_params(self._init_params))
+
+    def _backfill_indexers(self, dtype: torch.dtype) -> None:
+        """V3-style checkpoints predate DSA: a stack read without indexer
+        weights gets fresh ones from the recipe's generator (JAX recipe)."""
+        from automodel_tpu_torch.models.llm.mla import init_indexer
+
+        for key in ("dense_layers", "moe_layers", "layers"):
+            stack = self._init_params.get(key)
+            if stack is not None and "indexer" not in stack:
+                logger.warning(
+                    "checkpoint carries no compatible DSA indexer weights for %s: "
+                    "initializing fresh (top-k selection starts untrained)", key)
+                L = stack["input_norm"]["scale"].shape[0]
+                stack["indexer"] = init_indexer(self.model_cfg, self.rng.next_key(), L,
+                                                dtype=dtype)
 
     def _moe_overrides(self, cfg, mcfg):
         """A MoE config with the recipe's `model.fake_balanced_gate` and
@@ -328,9 +359,18 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             max_grad_norm=self.cfg.get("max_grad_norm", 1.0),
             skip_nonfinite_updates=bool(self.cfg.get("skip_nonfinite_updates", False)),
         )
+        qat_cfg = self.typed.qat
+        if qat_cfg.enabled and self.peft_cfg is not None:
+            # the trainable tree is the adapters (no 'kernel' leaf): the
+            # transform would fake-quantize nothing; QLoRA quantizes a base
+            raise ValueError(
+                "qat.enabled does not compose with peft (the transform only sees "
+                "LoRA params); use peft.quantize_base=int8 (QLoRA) for a quantized "
+                "base model instead")
         self._loss_fn = self._make_loss_fn()
         self._train_step = make_train_step(
-            self._loss_fn, self.tx, self.lr_schedule, step_cfg)
+            self._loss_fn, self.tx, self.lr_schedule, step_cfg,
+            param_transform=qat_cfg.make_param_transform())
 
     def _make_loss_fn(self):
         """`loss_fn(params, microbatch, rng) -> (CE sum, aux)`; under PEFT

@@ -187,6 +187,12 @@ class RecipeConfig:
         return self._section("step_scheduler", StepSchedulerConfig)
 
     @property
+    def qat(self):
+        from automodel_tpu_torch.ops.quant import QATConfig
+
+        return self._section("qat", QATConfig)
+
+    @property
     def peft(self):
         """`peft` -> LoRAConfig, or None without the section; a YAML list of
         `target_modules` becomes the config's tuple."""

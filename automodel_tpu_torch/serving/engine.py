@@ -39,8 +39,18 @@ What differs from the JAX engine:
   K4/K5 its own window (0 for a global layer) and sink logits. The JAX
   engine routes every layer of such a model to its XLA path, because the
   Pallas kernels refuse windows and sinks.
-- Not ported yet (they raise NotImplementedError): speculative decoding,
-  low-precision serve linears and a serving mesh (tp, ep).
+- `serve_precision` ("fp8" / "int8") is one config replace of the model's
+  `linear_precision`, as in JAX: the linears `generate.py` quantizes go
+  through `ops/quant.quantized_matmul` (`_scaled_mm` / `_int_mm` on the
+  card). The weights never change while serving, so each such kernel is
+  quantized once when the engine is built (`quant.quantize_kernel`): the
+  same numbers, as its scales are a function of the weight alone. The MoE
+  expert products stay unquantized (the JAX `moe/` never reads the
+  precision).
+- DSA models (DeepSeek-V3.2/V4, GLM-5) decode with dense MLA over the
+  latent pool, as the JAX engine does: the indexer is not read.
+- Not ported yet (they raise NotImplementedError): speculative decoding
+  and a serving mesh (tp, ep).
 """
 
 from __future__ import annotations
@@ -70,7 +80,7 @@ from automodel_tpu_torch.ops.paged_attention import (
     ragged_paged_attention,
     ragged_paged_mla_attention,
 )
-from automodel_tpu_torch.ops.quant import quantize_kv_rows
+from automodel_tpu_torch.ops.quant import matmul as _mm, quantize_kernel, quantize_kv_rows
 from automodel_tpu_torch.ops.rope import rope_frequencies
 from automodel_tpu_torch.serving.kv_pages import (
     PageAllocator,
@@ -101,9 +111,10 @@ class ServingConfig:
     admission_policy: str = "fifo"  # "fifo" | "prefix-hit"
     # int8 KV pages + per-row fp32 scales: None (model dtype) | "int8"
     kv_cache_dtype: str | None = None
-    # JAX-engine options this port does not cover yet: setting one raises
-    speculative: object | None = None
+    # low-precision serve-step linears: None | "int8" | "fp8"
     serve_precision: str | None = None
+    # JAX-engine option this port does not cover yet: setting it raises
+    speculative: object | None = None
 
     def __post_init__(self):
         if not (self.page_size >= 1 and self.num_pages >= 1):
@@ -125,9 +136,11 @@ class ServingConfig:
         if self.kv_cache_dtype not in (None, "int8"):
             raise ValueError(
                 f"kv_cache_dtype must be None or 'int8' (got {self.kv_cache_dtype!r})")
-        for name in ("speculative", "serve_precision"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(f"serving.{name} is not ported yet")
+        if self.serve_precision not in (None, "int8", "fp8"):
+            raise ValueError(
+                f"serve_precision must be None, 'int8' or 'fp8' (got {self.serve_precision!r})")
+        if self.speculative is not None:
+            raise NotImplementedError("serving.speculative is not ported yet")
 
 
 def _percentiles_ms(samples: list) -> tuple:
@@ -205,6 +218,8 @@ class ServingEngine:
         if attn_impl not in ("auto", "cuda", "torch"):
             raise ValueError(f"Unknown paged attention impl '{attn_impl}'")
         self.device = resolve_device(device)
+        if serve_cfg.serve_precision is not None:
+            cfg = dataclasses.replace(cfg, linear_precision=serve_cfg.serve_precision)
         self.cfg = cfg
         self.serve_cfg = serve_cfg
         self.is_mla = cfg.attention_type == "mla"
@@ -233,6 +248,8 @@ class ServingEngine:
         for _, _, lp, _ in self._layers:
             if "sinks" in lp:
                 lp["sinks"] = lp["sinks"].float().contiguous()
+            if cfg.linear_precision is not None:
+                self._quantize_linears(lp)
 
         # each layer's window, 0 for a global layer
         self._windows = [w or 0 for w in layer_windows(cfg, n_layers)]
@@ -264,6 +281,19 @@ class ServingEngine:
             self.alloc = None
             self.prefix = None
         self.steps_run = 0
+
+    # the linears the step sends through quant.matmul: a GQA layer's o_proj
+    # goes through `_dense` unquantized, as in the JAX engine
+    _QUANT_LINEARS = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj", "down_proj",
+                      "q_down_proj", "q_up_proj", "kv_down_proj")
+
+    def _quantize_linears(self, lp: dict) -> None:
+        """Quantize layer lp's low-precision kernels once, in place."""
+        keys = self._QUANT_LINEARS + (("o_proj",) if self.is_mla else ())
+        for key in keys:
+            if key in lp:
+                lp[key] = {**lp[key], "kernel": quantize_kernel(
+                    lp[key]["kernel"], self.cfg.linear_precision)}
 
     # -- device step --------------------------------------------------------
     def _write_rows(self, cache, li, b, rows) -> tuple:
@@ -309,7 +339,8 @@ class ServingEngine:
                 impl=self._attn_impl, c_scales=c_scales, kr_scales=kr_scales,
             )
             attn = torch.einsum("tnr,rnd->tnd", out_lat, w_uv)
-            return h + attn.reshape(1, -1, n * dv) @ lp["o_proj"]["kernel"]
+            return h + _mm(attn.reshape(1, -1, n * dv), lp["o_proj"]["kernel"],
+                           cfg.linear_precision)
         q, k, v = project_qkv(x, lp, cfg, rope_pos, self._freqs[i])
         k_scales, v_scales = self._write_rows(cache, li, b, (k[0], v[0]))
         scale = (

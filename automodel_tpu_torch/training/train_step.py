@@ -9,6 +9,11 @@ by the global norm and handed to the optimizer, which updates the masters in
 place. The loss function's aux dict is summed over the microbatches, key by
 key, as the JAX scan sums it: the MoE decoder's (num_moe_layers, E) tokens
 per expert come out of the step as the whole batch's counts.
+
+`param_transform(params, step)` (QAT fake-quant) runs inside each
+microbatch's differentiated function, on the step's count of optimizer
+steps taken: the straight-through estimator routes the gradients of the
+transformed tree to the fp32 masters unchanged.
 """
 
 from __future__ import annotations
@@ -42,15 +47,18 @@ class TrainStepConfig:
     skip_nonfinite_updates: bool = False
 
 
-def accumulate_grads(loss_fn: Callable, params, batch: dict, rng=None):
+def accumulate_grads(loss_fn: Callable, params, batch: dict, rng=None,
+                     param_transform: Callable | None = None, step: int = 0):
     """Forward and backward over the microbatches of `batch` (leaves
     (accum, microbatch, ...)); gradients of the SUM losses add up in the
-    params' `.grad`. Returns (summed loss, summed aux dict)."""
+    params' `.grad`. `param_transform(params, step)` is applied inside each
+    microbatch's forward. Returns (summed loss, summed aux dict)."""
     accum = next(iter(batch.values())).shape[0]
     ce_sum, aux_sum = None, {}
     for i in range(accum):
         mb = {k: v[i] for k, v in batch.items()}
-        ce, aux = loss_fn(params, mb, rng)
+        p = param_transform(params, step) if param_transform is not None else params
+        ce, aux = loss_fn(p, mb, rng)
         if not isinstance(aux, dict):
             aux = {"num_label_tokens": aux}
         ce.backward()
@@ -73,6 +81,7 @@ def make_train_step(
     tx: Optimizer,
     lr_schedule: Callable | None = None,
     config: TrainStepConfig | None = None,
+    param_transform: Callable | None = None,  # (params, step) -> params (QAT)
 ) -> Callable:
     """Build `train_step(state, batch, rng) -> (state, metrics)`. Loss
     functions return a SUM loss plus `aux`: the valid-token count, or a dict
@@ -83,7 +92,8 @@ def make_train_step(
         params = tree_leaves(state.params)
         for p in params:
             p.grad = None
-        ce_sum, aux_sum = accumulate_grads(loss_fn, state.params, batch, rng)
+        ce_sum, aux_sum = accumulate_grads(loss_fn, state.params, batch, rng,
+                                           param_transform, state.step)
         # normalize by the global number of label tokens, in place in .grad
         denom = torch.clamp(aux_sum["num_label_tokens"].float(), min=1.0)
         with torch.no_grad():

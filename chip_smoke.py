@@ -57,8 +57,8 @@ one JSON line each:
    version;
    serve_qwen3_moe / serve_qwen3_moe_int8 / serve_gpt_oss / serve_mixtral:
    the GQA MoE main path at published widths, bf16, random weights from
-   seed 0, on serve's traffic: Qwen3-30B-A3B at all 48 layers (128
-   experts, G 8 x D 128) on the fp (K4) and int8 (K5) pools, gpt-oss-20b
+   seed 0, on serve's traffic: Qwen3-30B-A3B cut to 16 of its 48 layers
+   (128 experts, G 8 x D 128) on the fp (K4) and int8 (K5) pools, gpt-oss-20b
    at all 24 layers (K4 with window 128 and sinks on the sliding layers,
    sinks alone on the full ones), Mixtral-8x7B cut to 8 of 32 layers;
    each with its profile and a few steps of the engine with every kernel
@@ -179,7 +179,7 @@ one JSON line each:
    a plain gather from the memmap, each tracker mirror equal to
    `training.jsonl`, GC off during the steps and on after, K1-K3 counted;
    serve_glm47_flash / _int8: GLM-4.7-Flash (`Glm4MoeLiteForCausalLM`
-   through the registry) at full width and depth (47 layers, 29.9 B), bf16,
+   through the registry) at full width cut to 16 of its 47 layers, bf16,
    on serve's traffic, K6 / K7 at 20 heads on every layer of every step,
    each with its profile and `engine_plain_check`, then 2 layers in fp32
    on both pools (the fp32 route at 20 heads); train_glm47_flash: K1-K3
@@ -200,7 +200,28 @@ one JSON line each:
    and comet sections and gc_control on, 5 steps of 4 x 2048 tokens: each
    step's label tokens equal to the rows' own, the mirrors equal to
    `training.jsonl`, GC on after, and one validation pass whose sampling
-   eval returns the tool-call metrics.
+   eval returns the tool-call metrics;
+19. quantized linears, DSA and routing replay: quant_mm (after flash): the
+   fp8 (`_scaled_mm`) and int8 (`_int_mm`) routes of
+   `ops/quant.quantized_matmul` against its plain version on the card,
+   forward and backward, at Llama-3-8B's linears at 64 and 4096 rows,
+   timed beside the bf16 `torch.matmul` and their bound (1979 TFLOP/s);
+   serve_fp8 / serve_int8w (after serve, its weights): `serve_precision`
+   fp8 on the fp pool (K4, with a profile) and int8 on the int8 pool (K5),
+   the quantized GEMMs counted, the greedy agreement with serve's tokens;
+   train_fp8 (after train): train's run with `model.linear_precision: fp8`
+   beside train's numbers; train_qat: the same YAML at 2 layers with `qat`
+   (int8 from step 2), 4 steps, the steps before it bit-equal to a plain
+   run's; serve_dsv32 (after serve_mistral4): DeepSeek-V3.2
+   (`DeepseekV32ForCausalLM`) at its published widths cut to 3 dense + 1
+   MoE layers with its indexers, serve's traffic, K6 on every layer of
+   every step, the tokens equal to the same weights' without the indexers;
+   dsa_check: one DeepSeek-V3.2 layer in fp32 at S 1024, the chunked sparse
+   path against the oracle; train_dsv32_dsa:
+   `examples/long_context/dsv32_dsa_32k_chunked.yaml` at 32768 tokens on
+   the chunked path, cut to the model's 2 dense layers (ms a step, peak
+   memory, the indexer-KL aux); train_moe ends with one step whose routing
+   is captured and replayed: the same routing, loss and gradient norm.
 
 The paged kernel phase also holds fp32 K6 and K7 at DeepSeek-V3's 128 and
 Kimi-K2's 64 heads x r 512 to their plain versions, timed beside their
@@ -1455,10 +1476,10 @@ def serve_run(engine, cfg, card: str, phase: str, model: str, kernel: str,
     return launches[kernel], res
 
 
-def serve_phase(card: str) -> dict:
+def serve_phase(card: str) -> tuple[dict, tuple]:
     """The dense main path at Llama-3-8B width and depth, on the fp pool
     (K4) and then on the int8 pool (K5) with the same weights; returns the
-    launches of K4 and K5."""
+    launches of K4 and K5, and (config, weights, the fp pool's tokens)."""
     cfg = llama_config(LLAMA3_8B, dtype=torch.bfloat16)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1489,9 +1510,10 @@ def serve_phase(card: str) -> dict:
     # bf16 queries: K5 is the split kernel and its combine
     profile_steps(engine, cfg, card, "serve_int8",
                   rpa_cuda.KERNELS["K5"][rpa_cuda.route(torch.bfloat16)])
-    del engine, params
+    del engine
     torch.cuda.empty_cache()
-    return {"K4": k4, "K5": k5}
+    # the weights and the fp pool's tokens go on to serve_fp8 / serve_int8w
+    return {"K4": k4, "K5": k5}, (cfg, params, fp["outputs"])
 
 
 def serve_mla_phase(card: str) -> dict:
@@ -1977,12 +1999,16 @@ def device_ms_by_kernel(prof) -> dict:
     return by_name
 
 
-def train_phase(card: str) -> dict:
-    """The training CLI at Llama-3-8B width, 8 layers, 5 steps; returns K1-K3
-    launches of that run."""
+def train_phase(card: str, phase: str = "train", extra: tuple = ()) -> tuple[dict, dict]:
+    """The training CLI at Llama-3-8B width, 8 layers, 5 steps, with the
+    overrides `extra` (train_fp8: `model.linear_precision`, whose quantized
+    GEMMs are counted: 7 linears a layer, forward and remat recompute);
+    returns K1-K3 launches of that run and its step time, rate and peak."""
     from torch.profiler import ProfilerActivity, profile
 
-    run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    from automodel_tpu_torch.ops import quant
+
+    run_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
     argv = [
         TRAIN_YAML,
         f"--model.hf_config.num_hidden_layers={TRAIN_LAYERS}",
@@ -1991,14 +2017,17 @@ def train_phase(card: str) -> dict:
         f"--step_scheduler.max_steps={TRAIN_STEPS}",
         "--checkpoint.enabled=false",
         f"--run_dir={run_dir}",
+        *extra,
     ]
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    quant.reset_launches()
     t0 = time.perf_counter()
     recipe = cli_main(argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = kernel_launches(*FLASH)
+    quant_gemms = dict(quant.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     records = [json.loads(l) for l in
                (Path(run_dir) / "training.jsonl").read_text().splitlines()]
@@ -2021,10 +2050,15 @@ def train_phase(card: str) -> dict:
     fa_names = {n for names in fa_cuda.KERNELS.values() for n in names}
     fa_ms = sum(v for k, v in by_name.items() if any(f in k for f in fa_names))
     top = [[k[:80], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]
+    prec = cfg.linear_precision
+    want_gemms = {k: (2 * TRAIN_QUANT_LINEARS * n if k == prec else 0) for k in quant_gemms}
+    summary = {"ms_per_step": tokens_per_step / tps * 1e3, "tokens_per_s": tps,
+               "peak_mem_gib": peak_gib, "losses": [r["loss"] for r in records]}
     emit({
-        "phase": "train", "card": card,
+        "phase": phase, "card": card,
         "model": f"Llama-3-8B widths, {cfg.num_layers} layers, {cfg.dtype}, "
-                 f"remat {cfg.remat_policy}",
+                 f"remat {cfg.remat_policy}, linear_precision {prec}",
+        "quant_gemm_launches": quant_gemms, "expected_quant_gemm_launches": want_gemms,
         "params": count_params(recipe.train_state.params),
         "steps": len(records), "tokens_per_step": tokens_per_step,
         "losses": [r["loss"] for r in records],
@@ -2051,9 +2085,11 @@ def train_phase(card: str) -> dict:
             f"{math.log(cfg.vocab_size)}")
     if launches != {"K1": 2 * n, "K2": n, "K3": n}:
         raise AssertionError(f"K1-K3 launches {launches} on {n} layer-microbatches")
+    if quant_gemms != want_gemms:
+        raise AssertionError(f"{phase}: quantized GEMMs {quant_gemms}, expected {want_gemms}")
     del recipe, prof
     torch.cuda.empty_cache()
-    return launches
+    return launches, summary
 
 
 def train_check_phase() -> None:
@@ -2267,6 +2303,7 @@ def train_moe_phase(card: str) -> tuple[dict, float]:
     top_ops = [[k, v] for k, v in sorted(self_dev.items(), key=lambda kv: -kv[1])[:12]]
 
     moe_sync = moe_block_sync_check(recipe, card)
+    replay = routing_replay_check(recipe)
     # the chunked CE (forward and backward) of one microbatch alone, and one
     # AdamW update of every master alone (zero gradients: the phase's last
     # use of these weights)
@@ -2317,7 +2354,7 @@ def train_moe_phase(card: str) -> tuple[dict, float]:
             "other_ms": busy_ms - attn_ms - grouped_ms - dense_gemm_ms,
             "top_kernels_ms": top, "top_ops_self_device_ms": top_ops},
         "ce_fwd_bwd_ms_alone": ce_ms, "adamw_update_ms_alone": opt_ms,
-        "moe_block_sync": moe_sync,
+        "moe_block_sync": moe_sync, "routing_replay": replay,
     })
     losses = [r["loss"] for r in records]
     if len(records) != MOE_TRAIN_STEPS:
@@ -3439,9 +3476,13 @@ MIXTRAL_8X7B = {
     "max_position_embeddings": 32768, "router_aux_loss_coef": 0.02,
     "tie_word_embeddings": False,
 }
-# serve_qwen3_moe and serve_gpt_oss run every layer; serve_mixtral is cut
-# 32 -> 8 layers: all 32 are 46.7 B parameters, 93 GB in bf16
-QWEN3_SERVE_LAYERS, GPT_OSS_SERVE_LAYERS, MIXTRAL_SERVE_LAYERS = 48, 24, 8
+# serve_gpt_oss runs every layer; serve_mixtral is cut 32 -> 8 layers: all
+# 32 are 46.7 B parameters, 93 GB in bf16; serve_qwen3_moe is cut 48 -> 16
+# (all 48 took ~100 s with its two pools and profiles, and with the
+# quantized-linear and DSA phases the script neared its 1200 s limit on a
+# slow host): K4 / K5 and the expert products run the same path on every
+# layer
+QWEN3_SERVE_LAYERS, GPT_OSS_SERVE_LAYERS, MIXTRAL_SERVE_LAYERS = 16, 24, 8
 # ... each profiled over 5 steps, not 10: the profiler's own processing of
 # one 48-layer step's ~5700 launches took ~4 s on an H100's host
 MOE_PROFILE_STEPS = 5
@@ -4213,8 +4254,9 @@ GLM47_FLASH = {
 # bf16 split kernel and a partial one of 4
 GLM47_MLA = (20, 512, 64)
 # serve_glm47_flash / _int8: GLM-4.7-Flash at full width, its first
-# GLM47_SERVE_LAYERS layers (1 dense, the rest MoE), seq-0 bf16 weights
-GLM47_SERVE_LAYERS = 47
+# GLM47_SERVE_LAYERS layers (1 dense, the rest MoE), seq-0 bf16 weights;
+# cut 47 -> 16 as serve_qwen3_moe is (all 47 took 116 s)
+GLM47_SERVE_LAYERS = 16
 # train_glm47_flash: the training CLI at GLM-4.7-Flash's widths cut to 2
 # layers (1 dense + 1 MoE) and its MTP layer, GLM47_TRAIN_STEPS steps of
 # GLM47_TRAIN_SEQ tokens; K1-K3 at <256, 256>
@@ -4765,6 +4807,377 @@ def train_chat_sft_phase(card: str) -> dict:
 
 
 # the tensor-core kernels in ptxas's mangled names: (pattern, readable name)
+# ---------------------------------------------------------------------------
+# quantized linears (fp8 / int8), DSA and routing replay
+# ---------------------------------------------------------------------------
+# Llama-3-8B's linears (in, out): q and o, k and v, gate and up, down; at a
+# serve step's 64 rows and a train microbatch's 4096
+QUANT_MM_SHAPES = {"q_o": (4096, 4096), "k_v": (4096, 1024),
+                   "gate_up": (4096, 14336), "down": (14336, 4096)}
+QUANT_MM_ROWS = (64, 4096)
+# fp8 and int8 dense peaks of one H100 SXM (NVIDIA data sheet)
+QUANT_PEAK_OPS = 1979e12
+# a route's bf16 result against the plain version's on the same operands:
+# both sum exact products in fp32 (int8: exactly, in int32) in another
+# order, so they differ by a bf16 rounding: of the largest magnitude
+QUANT_TOL = 1e-2
+# the linears a quantized decoder layer sends through quant.matmul: in the
+# train step q, k, v, o, gate, up, down; in the engine's step all but o
+TRAIN_QUANT_LINEARS, SERVE_QUANT_LINEARS = 7, 6
+# train_qat: llama3_8b_mock_bf16.yaml cut to 2 layers, 4 steps, int8
+# fake-quant from step 2 (the steps before it must equal a plain run's)
+QAT_LAYERS, QAT_STEPS, QAT_START = 2, 4, 2
+# DeepSeek-V3.2 (huggingface.co/deepseek-ai/DeepSeek-V3.2-Exp config.json):
+# DeepSeek-V3's widths plus the lightning indexer, written from recall (no
+# network here); where the published file differs, it wins
+DEEPSEEK_V32 = dict(DEEPSEEK_V3, architectures=["DeepseekV32ForCausalLM"],
+                    index_topk=2048, index_n_heads=64, index_head_dim=128)
+DSA_YAML = "examples/long_context/dsv32_dsa_32k_chunked.yaml"
+# train_dsv32_dsa: the YAML as written but for: hf_config the dict above in
+# place of pretrained_path, cut to its 2 dense layers (one MoE layer's fp32
+# training state is ~180 GB) and no MTP layer, distributed sizes 1,
+# microbatch 1, 3 steps
+DSA_TRAIN_LAYERS, DSA_TRAIN_STEPS = 2, 3
+# dsa_check: one DeepSeek-V3.2 layer in fp32 at S 1024, the chunked path
+# against the oracle; top-k 256 so that the selection binds (2048 >= S
+# would select every admissible key and check nothing)
+DSA_CHECK_SEQ, DSA_CHECK_TOPK, DSA_CHECK_TOL = 1024, 256, 1e-5
+
+
+def quant_mm_phase(flush) -> list:
+    """The fp8 (`_scaled_mm`) and int8 (`_int_mm`) routes of
+    `quant.quantized_matmul` against its plain version on the card, forward
+    and backward, at Llama-3-8B's linears at 64 and 4096 rows (bf16), each
+    timed after an L2 flush beside the bf16 `torch.matmul` of the shape and
+    its bound."""
+    from automodel_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    records = []
+    for precision in ("fp8", "int8"):
+        qdtype, qmax = quant._qparams(precision)
+        for M in QUANT_MM_ROWS:
+            for name, (K, N) in QUANT_MM_SHAPES.items():
+                x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
+                w = (torch.randn(K, N, device="cuda", generator=gen)
+                     * K ** -0.5).to(torch.bfloat16)
+                cot = torch.randn(M, N, device="cuda", generator=gen).to(torch.bfloat16)
+                res = {}
+                for impl in ("cuda", "torch"):
+                    xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+                    quant.reset_launches()
+                    out = quant.quantized_matmul(xi, wi, precision, impl=impl)
+                    (out.float() * cot.float()).sum().backward()
+                    res[impl] = (out.detach().float(), xi.grad.float(), wi.grad.float(),
+                                 quant.LAUNCHES[precision])
+                (got, gx, gw, n_cuda), (want, wx, ww, n_torch) = res["cuda"], res["torch"]
+                err = ((got - want).abs().max() / want.abs().max()).item()
+                grad_err = max(((gx - wx).abs().max() / wx.abs().max()).item(),
+                               ((gw - ww).abs().max() / ww.abs().max()).item())
+                qk = quant.quantize_kernel(w, precision)
+                qx, sx = quant._quantize(x, qdtype, qmax, dim=-1)
+                t = {
+                    "ms": time_ms(lambda: quant.quantized_matmul(x, w, precision), 10, flush),
+                    "prequantized_ms": time_ms(
+                        lambda: quant.quantized_matmul(x, qk, precision), 10, flush),
+                    "gemm_ms": time_ms(lambda: quant._qproduct(
+                        qx, sx, qk.qw, qk.sw, precision, torch.bfloat16, "cuda"), 10, flush),
+                    "plain_ms": time_ms(lambda: quant.quantized_matmul(
+                        x, w, precision, impl="torch"), 10, flush),
+                    "library_ms": time_ms(lambda: torch.matmul(x, w), 10, flush),
+                }
+                ops = 2.0 * M * K * N
+                gemm_bytes = M * K + K * N + 2 * M * N
+                rec = {
+                    "precision": precision, "linear": name, "M": M, "K": K, "N": N,
+                    "max_rel_err": err, "grad_max_rel_err": grad_err, "tol": QUANT_TOL,
+                    "route_launches": n_cuda, "plain_launches": n_torch, **t,
+                    "bound_ms": max(ops / QUANT_PEAK_OPS, gemm_bytes / HBM_BYTES_PER_S) * 1e3,
+                    "bound_by": ("operations" if ops / QUANT_PEAK_OPS
+                                 > gemm_bytes / HBM_BYTES_PER_S else "bytes"),
+                    "library_bound_ms": max(ops / PEAK_OPS[torch.bfloat16],
+                                            2 * (M * K + K * N + M * N)
+                                            / HBM_BYTES_PER_S) * 1e3,
+                }
+                rec["gemm_bound_share"] = rec["bound_ms"] / t["gemm_ms"]
+                records.append(rec)
+                if n_cuda != 1 or n_torch != 0:
+                    raise AssertionError(f"quant_mm: {precision} launches {n_cuda}, {n_torch}")
+                if err > QUANT_TOL or grad_err > 1e-6:
+                    raise AssertionError(f"quant_mm: the {precision} route disagrees: {rec}")
+    emit({"phase": "quant_mm", "records": records,
+          "library_call": "torch.matmul in bf16 (cuBLAS)"})
+    return records
+
+
+def serve_quant_phase(card: str, cfg, params, fp_outputs: list) -> dict:
+    """serve's Llama-3-8B (same weights) with `serve_precision`: fp8 on the
+    fp pool (K4) and int8 on the int8 pool (K5), the JAX package's quantized
+    serve entry point; each `serve_run` (fp8's with its profile), the quantized
+    GEMM launches counted (6 linears a layer a step; o_proj stays bf16, as
+    in the JAX engine) and the greedy agreement with serve's tokens.
+    Returns the launches of K4 and K5."""
+    from automodel_tpu_torch.ops import quant
+
+    model = "Llama-3-8B widths, 32 layers, bf16"
+    launches = {}
+    for phase, precision, kernel, pool in (("serve_fp8", "fp8", "K4", None),
+                                           ("serve_int8w", "int8", "K5", "int8")):
+        t0 = time.perf_counter()
+        engine = ServingEngine(params, cfg, dataclasses.replace(
+            SERVE, serve_precision=precision, kv_cache_dtype=pool))
+        torch.cuda.synchronize()
+        quant.reset_launches()
+        launches[kernel], res = serve_run(engine, cfg, card, phase, model, kernel,
+                                          time.perf_counter() - t0)
+        gemms, steps = quant.LAUNCHES[precision], res["stats"]["steps"]
+        want = SERVE_QUANT_LINEARS * cfg.num_layers * steps
+        pairs = [(a, b) for o1, o2 in zip(fp_outputs, res["outputs"])
+                 for a, b in zip(o1, o2)]
+        first = [next((i for i, (a, b) in enumerate(zip(o1, o2)) if a != b), len(o1))
+                 for o1, o2 in zip(fp_outputs, res["outputs"])]
+        emit({"phase": f"{phase}_agreement", "card": card, "serve_precision": precision,
+              "kv_cache_dtype": pool, "quant_gemm_launches": gemms,
+              "expected_quant_gemm_launches": want,
+              "greedy_agreement_vs_serve": sum(a == b for a, b in pairs) / len(pairs),
+              "tokens": len(pairs), "first_divergence_per_request": first})
+        if gemms != want:
+            raise AssertionError(f"{phase}: {gemms} quantized GEMMs in {steps} steps, "
+                                 f"expected {want}")
+        if precision == "fp8":
+            profile_steps(engine, cfg, card, phase,
+                          rpa_cuda.KERNELS[kernel][rpa_cuda.route(torch.bfloat16)])
+        del engine
+        torch.cuda.empty_cache()
+    return launches
+
+
+def train_qat_phase(card: str) -> dict:
+    """llama3_8b_mock_bf16.yaml cut to QAT_LAYERS layers with `qat` (int8
+    from step QAT_START) and without, QAT_STEPS steps each through the CLI:
+    the steps before QAT_START equal bit for bit, the later ones not.
+    Returns K1-K3 launches of the QAT run."""
+    runs = {}
+    for name, extra in (("qat", ["--qat.enabled=true", "--qat.precision=int8",
+                                 f"--qat.start_step={QAT_START}"]), ("plain", [])):
+        run_dir = tempfile.mkdtemp(prefix=f"chip_smoke_train_{name}_")
+        argv = [TRAIN_YAML, f"--model.hf_config.num_hidden_layers={QAT_LAYERS}",
+                "--dataloader.microbatch_size=1", f"--dataloader.grad_acc_steps={TRAIN_ACCUM}",
+                f"--step_scheduler.max_steps={QAT_STEPS}", "--checkpoint.enabled=false",
+                f"--run_dir={run_dir}", *extra]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        recipe = cli_main(argv)
+        torch.cuda.synchronize()
+        runs[name] = (jsonl(Path(run_dir) / "training.jsonl"), kernel_launches(*FLASH),
+                      torch.cuda.max_memory_allocated() / 2**30)
+        del recipe
+        torch.cuda.empty_cache()
+    (qat, launches, peak), (plain, plain_launches, _) = runs["qat"], runs["plain"]
+    n = QAT_LAYERS * TRAIN_ACCUM * QAT_STEPS
+    same = [(a["loss"], a["grad_norm"]) == (b["loss"], b["grad_norm"])
+            for a, b in zip(qat, plain)]
+    emit({"phase": "train_qat", "card": card,
+          "model": f"Llama-3-8B widths, {QAT_LAYERS} layers, bf16, remat full",
+          "qat": {"precision": "int8", "start_step": QAT_START},
+          "losses": [r["loss"] for r in qat], "plain_losses": [r["loss"] for r in plain],
+          "grad_norms": [r["grad_norm"] for r in qat],
+          "equal_to_plain_per_step": same,
+          "ms_per_step": statistics.median(
+              TRAIN_ACCUM * 4096 / r["tps"] * 1e3 for r in qat[1:]),
+          "plain_ms_per_step": statistics.median(
+              TRAIN_ACCUM * 4096 / r["tps"] * 1e3 for r in plain[1:]),
+          "peak_mem_gib": peak, "launches": launches,
+          "expected_launches": {"K1": 2 * n, "K2": n, "K3": n}})
+    if len(qat) != QAT_STEPS or not all(math.isfinite(r["loss"]) for r in qat):
+        raise AssertionError(f"train_qat: records {qat}")
+    if not all(same[:QAT_START]) or any(same[QAT_START:]):
+        raise AssertionError(f"train_qat: steps equal to the plain run's: {same}")
+    if launches != plain_launches or launches != {"K1": 2 * n, "K2": n, "K3": n}:
+        raise AssertionError(f"train_qat: K1-K3 launches {launches}, plain {plain_launches}")
+    return launches
+
+
+def serve_dsv32_phase(card: str) -> int:
+    """DeepSeek-V3.2 (`DeepseekV32ForCausalLM` through the registry) at its
+    published widths cut to DSV3_SERVE_LAYERS layers (3 dense + 1 MoE) with
+    its indexers, bf16, seed-0 weights, on serve's traffic: K6 at 128 heads
+    on every layer of every step. The engine decodes DSA
+    with dense MLA, as JAX's does: the same weights with the indexers taken
+    out, served as DeepSeek-V3, must give the same greedy tokens. Both runs
+    use `torch.use_deterministic_algorithms` (the experts' `index_add_`
+    otherwise sums a token's rows with atomics in any order, and random
+    weights' small top-1 margins turn that into other tokens). Returns the
+    launches of K6."""
+    cfg = cut_config(DEEPSEEK_V32, DSV3_SERVE_LAYERS, DSV3_SERVE_LAYERS - 1, torch.bfloat16)
+    t0 = time.perf_counter()
+    params = moe_decoder.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                              dtype=torch.bfloat16)
+    indexer_params = sum(count_params(params[k]["indexer"])
+                         for k in ("dense_layers", "moe_layers"))
+    engine = ServingEngine(params, cfg, SERVE)
+    torch.cuda.synchronize()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    model = (f"DeepSeek-V3.2 widths, {cfg.num_layers} of 61 layers ({cfg.first_k_dense} "
+             f"dense + {cfg.num_moe_layers} MoE), the indexer (top-k "
+             f"{cfg.dsa_index_topk}, {cfg.dsa_index_n_heads} heads of "
+             f"{cfg.dsa_index_head_dim}; {indexer_params} params), yarn, bf16, "
+             f"{count_params(params)} params")
+    k6, res = serve_run(engine, cfg, card, "serve_dsv32", model, "K6",
+                        time.perf_counter() - t0)
+    del engine
+    torch.cuda.empty_cache()
+    bare = {k: ({kk: vv for kk, vv in v.items() if kk != "indexer"}
+                if k in ("dense_layers", "moe_layers") else v) for k, v in params.items()}
+    engine = ServingEngine(bare, dataclasses.replace(cfg, dsa_index_topk=None), SERVE)
+    _, res_v3 = serve_run(engine, cfg, card, "serve_dsv32_no_indexer",
+                          model + ", the indexers taken out", "K6", 0.0)
+    torch.use_deterministic_algorithms(False)
+    same = res["outputs"] == res_v3["outputs"]
+    emit({"phase": "serve_dsv32_dense_decode", "card": card, "deterministic_algorithms": True,
+          "greedy_equal_without_indexer": same, "indexer_params": indexer_params})
+    del engine, params, bare
+    torch.cuda.empty_cache()
+    if not same:
+        raise AssertionError("serve_dsv32: the indexers changed the served tokens")
+    return k6
+
+
+def dsa_check_phase(card: str) -> None:
+    """One DeepSeek-V3.2 layer (its widths, fp32, top-k DSA_CHECK_TOPK) at
+    S DSA_CHECK_SEQ: the chunked path (query block 128) against the
+    oracle on the same weights and input: outputs and the indexer-KL aux
+    within DSA_CHECK_TOL, the same keys selected; each timed."""
+    from automodel_tpu_torch.models.llm.decoder import init_attention_layers
+    from automodel_tpu_torch.models.llm.mla import mla_sparse_attention_block
+    from automodel_tpu_torch.ops.rope import rope_frequencies
+
+    base = dataclasses.replace(cut_config(DEEPSEEK_V32, 1, 1, torch.float32),
+                               dsa_index_topk=DSA_CHECK_TOPK)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lp = tree_map(lambda t: t[0], init_attention_layers(base, gen, 1))
+    S = DSA_CHECK_SEQ
+    h = torch.randn(1, S, base.hidden_size, device="cuda", generator=gen)
+    pos = torch.arange(S, device="cuda", dtype=torch.int32)[None]
+    inv = rope_frequencies(base.rope_dim, base.rope_theta, base.rope_scaling).to("cuda")
+    out, times = {}, {}
+    no_flush = torch.empty(0, device="cuda")
+    for impl in ("oracle", "chunked"):
+        cfg = dataclasses.replace(base, dsa_impl=impl, dsa_query_block=128)
+        with torch.no_grad():
+            out[impl] = mla_sparse_attention_block(h, lp, cfg, pos, None, inv)
+            times[impl] = time_ms(lambda: mla_sparse_attention_block(h, lp, cfg, pos, None,
+                                                                     inv), 3, no_flush)
+    (o_h, o_aux, sel), (c_h, c_aux, idx) = out["oracle"], out["chunked"]
+    err = ((c_h - o_h).abs().max() / o_h.abs().max()).item()
+    aux_err = abs(c_aux.item() - o_aux.item()) / abs(o_aux.item())
+    valid = idx <= pos[0][:, None]  # causal: key index <= query position
+    picked = torch.zeros_like(sel).scatter(-1, idx, valid)
+    same_keys = bool(torch.equal(picked, sel))
+    emit({"phase": "dsa_check", "card": card, "dtype": "float32", "seq": S,
+          "topk": DSA_CHECK_TOPK, "heads": base.num_heads,
+          "indexer_heads": base.dsa_index_n_heads, "max_rel_err": err,
+          "aux": [o_aux.item(), c_aux.item()], "aux_rel_err": aux_err,
+          "tol": DSA_CHECK_TOL, "same_keys": same_keys,
+          "oracle_ms": times["oracle"], "chunked_ms": times["chunked"]})
+    if err > DSA_CHECK_TOL or aux_err > DSA_CHECK_TOL or not same_keys:
+        raise AssertionError("dsa_check: the chunked path disagrees with the oracle")
+
+
+def train_dsv32_dsa_phase(card: str) -> dict:
+    """examples/long_context/dsv32_dsa_32k_chunked.yaml through the CLI with
+    the cuts DSA_TRAIN_* names: DeepSeek-V3.2's 2 dense layers, bf16, S
+    32768 on the chunked sparse path (query block 128), full remat. Prints
+    ms a step, peak memory and the indexer-KL aux of one more batch.
+    Returns K1-K3 launches (none: DSA runs no flash attention)."""
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_dsv32_dsa_")
+    cfg_node = yaml.safe_load(Path(DSA_YAML).read_text())
+    cfg_node["model"].pop("pretrained_path")
+    cfg_node["model"]["hf_config"] = dict(
+        DEEPSEEK_V32, num_hidden_layers=DSA_TRAIN_LAYERS,
+        first_k_dense_replace=DSA_TRAIN_LAYERS, num_nextn_predict_layers=0)
+    cfg_node["distributed"] = {"dp_shard": -1}
+    cfg_node["dataloader"]["microbatch_size"] = 1
+    cfg_node["step_scheduler"]["max_steps"] = DSA_TRAIN_STEPS
+    cfg_node["run_dir"] = run_dir
+    path = Path(run_dir) / "dsv32_dsa.yaml"
+    path.write_text(yaml.safe_dump(cfg_node))
+    seq = int(cfg_node["dataset"]["seq_len"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    recipe = cli_main([str(path)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernel_launches(*FLASH)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    records = jsonl(Path(run_dir) / "training.jsonl")
+    cfg = recipe.model_cfg
+    params = recipe.train_state.params
+    batch = make_global_batch(next(iter(recipe.dataloader)), "cuda")
+    with torch.no_grad():
+        _, aux = moe_decoder.forward(params, cfg, batch["input_ids"], return_hidden=True)
+    ms = [seq / r["tps"] * 1e3 for r in records[1:]]
+    emit({"phase": "train_dsv32_dsa", "card": card, "yaml": DSA_YAML,
+          "model": f"DeepSeek-V3.2 widths, {cfg.num_layers} dense layers, DSA "
+                   f"{cfg.dsa_impl} (query block {cfg.dsa_query_block}, top-k "
+                   f"{cfg.dsa_index_topk}), {cfg.dtype}, remat {cfg.remat_policy}",
+          "cut": "pretrained_path -> the published widths with seed-0 weights; 61 -> 2 "
+                 "layers, the dense prefix (one MoE layer's fp32 training state is "
+                 "~180 GB), no MTP layer; ep 8 -> 1; microbatch 8 -> 1; 100 -> 3 steps",
+          "params": count_params(params), "seq": seq, "steps": len(records),
+          "losses": [r["loss"] for r in records],
+          "grad_norms": [r["grad_norm"] for r in records],
+          "ms_per_step": statistics.median(ms), "tokens_per_s": seq / statistics.median(ms) * 1e3,
+          "indexer_kl_aux": aux.item(),
+          "indexer_kl_per_layer": aux.item() / cfg.dsa_indexer_loss_coeff / cfg.num_layers,
+          "wall_s_with_setup": wall_s, "peak_mem_gib": peak_gib, "launches": launches})
+    values = [r["loss"] for r in records] + [r["grad_norm"] for r in records] + [aux.item()]
+    if len(records) != DSA_TRAIN_STEPS or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"train_dsv32_dsa: records {records}, aux {aux.item()}")
+    if cfg.dsa_impl != "chunked" or not aux.item() > 0:
+        raise AssertionError(f"train_dsv32_dsa: impl {cfg.dsa_impl}, aux {aux.item()}")
+    del recipe, params, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def routing_replay_check(recipe) -> dict:
+    """One step of train_moe's model with the routing captured from its own
+    forward and replayed (`return_routing` / `routing_override`): the
+    replayed routing, the loss and the gradient norm equal the unreplayed
+    step's. Both run under `torch.use_deterministic_algorithms`: the
+    experts' `index_add_` otherwise sums a token's K rows with atomics in
+    any order."""
+    cfg, params = recipe.model_cfg, recipe.train_state.params
+    batch = make_global_batch(next(iter(recipe.dataloader)), "cuda")
+    ids, labels = batch["input_ids"], batch["labels"]
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for name in ("captured", "replayed"):
+        override = out["captured"][2] if name == "replayed" else None
+        hidden, aux, stats = moe_decoder.forward(
+            params, cfg, ids, return_hidden=True, return_stats=True, return_routing=True,
+            token_mask=labels != -100, routing_override=override)
+        ce, n = fused_linear_cross_entropy(hidden, moe_decoder.head_kernel(params, cfg),
+                                           labels, chunk_size=2048)
+        total, n = combine_losses(ce, n, aux)
+        total.backward()
+        grads = [p.grad for p in tree_leaves(params) if p.grad is not None]
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads])).item()
+        for p in tree_leaves(params):
+            p.grad = None
+        out[name] = ((total / n).item(), norm, stats["routing"])
+    torch.use_deterministic_algorithms(False)
+    (loss0, norm0, r0), (loss1, norm1, r1) = out["captured"], out["replayed"]
+    report = {"routing_shape": list(r0.shape), "routing_equal": bool(torch.equal(r0, r1)),
+              "loss": [loss0, loss1], "grad_norm": [norm0, norm1]}
+    if not (report["routing_equal"] and loss0 == loss1 and norm0 == norm1):
+        raise AssertionError(f"train_moe: the replayed step differs: {report}")
+    return report
+
+
 MMA_KERNELS = (
     (r"((?:fwd|dkv|dq)_mma_kernel)ILi(\d+)ELi(\d+)ELb([01])E",
      lambda m: f"{m[1]}<{m[2]}, {m[3]}, {'true' if m[4] == '1' else 'false'}>"),
@@ -4868,9 +5281,16 @@ def main() -> int:
     lap("kernel_window")
     flash = flash_phase(flush)
     lap("flash")
+    quant_mm_phase(flush)
+    lap("quant_mm")
     del flush
-    launches = serve_phase(card)
+    launches, llama = serve_phase(card)
     lap("serve")
+    quant_launches = serve_quant_phase(card, *llama)
+    launches.update(K4_serve_fp8=quant_launches["K4"], K5_serve_int8w=quant_launches["K5"])
+    del llama
+    torch.cuda.empty_cache()
+    lap("serve_fp8_int8w")
     launches.update(serve_mla_phase(card))
     lap("serve_mla")
     published = {
@@ -4920,8 +5340,18 @@ def main() -> int:
     generate_check_phase()
     lap("generate_check")
     torch.cuda.empty_cache()
-    train_launches = train_phase(card)
+    train_launches, train_summary = train_phase(card)
     lap("train")
+    fp8_launches, fp8_summary = train_phase(card, "train_fp8",
+                                            ("--model.linear_precision=fp8",))
+    emit({"phase": "train_fp8_vs_train", "card": card,
+          "ms_per_step": [train_summary["ms_per_step"], fp8_summary["ms_per_step"]],
+          "tokens_per_s": [train_summary["tokens_per_s"], fp8_summary["tokens_per_s"]],
+          "peak_mem_gib": [train_summary["peak_mem_gib"], fp8_summary["peak_mem_gib"]],
+          "step1_loss": [train_summary["losses"][0], fp8_summary["losses"][0]]})
+    lap("train_fp8")
+    qat_launches = train_qat_phase(card)
+    lap("train_qat")
     train_check_phase()
     lap("train_check")
     train_lora_check_phase()
@@ -4967,6 +5397,12 @@ def main() -> int:
     lap("train_glm47_flash")
     mistral4_launches = serve_mistral4_phase(card)
     lap("serve_mistral4")
+    dsv32_launches = serve_dsv32_phase(card)
+    lap("serve_dsv32")
+    dsa_check_phase(card)
+    lap("dsa_check")
+    dsa_train_launches = train_dsv32_dsa_phase(card)
+    lap("train_dsv32_dsa")
     moe_lite_smoke_launches = smoke_families_phase(card, "smoke_moe_lite",
                                                    MOE_LITE_SMOKE_YAMLS)
     lap("smoke_moe_lite")
@@ -5016,6 +5452,9 @@ def main() -> int:
         })
         if name == "K4":  # the llm_serve recipe's run, counted apart
             kernels[-1]["recipe_serve_launches"] = launches["K4_recipe"]
+            kernels[-1]["serve_fp8_launches"] = launches["K4_serve_fp8"]
+        if name == "K5":  # serve_precision int8 over the int8 pool
+            kernels[-1]["serve_int8w_launches"] = launches["K5_serve_int8w"]
         if name in ("K4", "K5"):  # the GQA MoE serve runs, counted apart
             for model, runs in gqa_moe.items():
                 if name in runs:
@@ -5031,6 +5470,8 @@ def main() -> int:
             kernels[-1]["glm47_flash_serve_launches"] = glm47_launches[name]
             if name == "K6":
                 kernels[-1]["mistral4_serve_launches"] = mistral4_launches
+                # DeepSeek-V3.2 decodes dense over the latent pool
+                kernels[-1]["deepseek_v32_serve_launches"] = dsv32_launches
         # each paged kernel's route follows the query dtype
         if name in ("K4", "K5"):
             kernels[-1]["kernel_route"] = rpa_cuda.route(torch.bfloat16)
@@ -5185,6 +5626,10 @@ def main() -> int:
             if key == "dense":  # Qwen3-30B-A3B's heads are <128, 128> too
                 row["train_qwen3_moe_launches"] = family_launches["qwen3_moe"][name]
                 row["train_tokenbin_launches"] = tokenbin_launches[name]
+                row["train_fp8_launches"] = fp8_launches[name]
+                row["train_qat_launches"] = qat_launches[name]
+            if key == "mla":  # DSA training runs no flash attention
+                row["train_dsv32_dsa_launches"] = dsa_train_launches[name]
             if key == "encoder":  # Llama-3.2-1B's heads, causal
                 row["train_chat_sft_launches"] = chat_sft_launches[name]
             if key == "gpt_oss":  # the smoke YAMLs' head dim 8, padded to 16

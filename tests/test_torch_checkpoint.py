@@ -265,8 +265,9 @@ def test_unported_adapter_styles_raise():
     for style in ("qwen3_moe", "mixtral", "gpt_oss", "minimax", "ernie", "hunyuan",
                   "bailing", "hy_mt2", "glm4"):
         MoEDecoderAdapter(ds_cfg, style=style)
-    with pytest.raises(NotImplementedError, match="DSA"):
-        DenseDecoderAdapter(dataclasses.replace(t_cfg, dsa_index_topk=4))
+    # the DSA indexer maps (its round trips: tests/test_torch_dsa_recipes.py)
+    ds_dsa = DenseDecoderAdapter(dataclasses.replace(ds_cfg, dsa_index_topk=4))
+    assert "self_attn.indexer.wq.weight" in [e[0] for e in ds_dsa._layer_entries()]
     with pytest.raises(NotImplementedError, match="het_moe"):
         get_adapter("het_moe", t_cfg)
 

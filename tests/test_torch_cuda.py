@@ -1181,3 +1181,99 @@ def test_qlora_step_holds_less_memory_than_lora(card):
         peaks[name] = (start, torch.cuda.max_memory_allocated())
         del base, lora
     assert peaks["qlora"][1] < peaks["lora"][1], peaks
+
+
+# -- quantized linears: the fp8 (_scaled_mm) and int8 (_int_mm) routes ---------
+@pytest.mark.parametrize("M", [7, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("precision", ["fp8", "int8"])
+def test_quantized_matmul_routes_match_plain(card, precision, dtype, M):
+    """The CUDA route against the plain version on the card, the same
+    operands: the forward within a rounding of the output dtype (both sum
+    exact products, in another order), the bf16 backward equal, one GEMM
+    launch for the route and none for the plain version. M 7 pads rows."""
+    from automodel_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=card).manual_seed(1)
+    K, N = 96, 48
+    x = torch.randn(2, M, K, generator=gen, device=card).to(dtype)
+    w = (torch.randn(K, N, generator=gen, device=card) * K ** -0.5).to(dtype)
+    x[0, 0, :4] = torch.tensor([447.9, 448.0, 448.1, -448.1])
+    x[0, 1, 3] = float("inf")
+    cot = torch.randn(2, M, N, generator=gen, device=card)
+    res = {}
+    for impl in ("cuda", "torch"):
+        xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+        quant.reset_launches()
+        out = quant.quantized_matmul(xi, wi, precision, impl=impl)
+        (out.float() * cot).sum().backward()
+        res[impl] = (out.detach().float(), xi.grad, wi.grad, quant.LAUNCHES[precision])
+    (got, gx, gw, n), (want, wx, ww, n_plain) = res["cuda"], res["torch"]
+    assert (n, n_plain) == (1, 0) and got.dtype == want.dtype
+    assert torch.isfinite(got).all()
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert (got - want).abs().max() <= tol * want.abs().max()
+    assert torch.equal(gx, wx) and torch.equal(gw, ww)
+    # a kernel quantized once gives the same numbers
+    qk = quant.quantize_kernel(w, precision)
+    assert torch.equal(quant.quantized_matmul(x, qk, precision, impl="cuda").float(), got)
+
+
+def test_quantized_matmul_refuses_what_its_routes_do_not_take(card):
+    from automodel_tpu_torch.ops import quant
+
+    x = torch.randn(32, 24, device=card, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="multiples of 16"):
+        quant.quantized_matmul(x, torch.randn(24, 32, device=card, dtype=torch.bfloat16),
+                               "fp8")
+    with pytest.raises(NotImplementedError, match="multiples of 8"):
+        quant.quantized_matmul(x[:, :20], torch.randn(20, 32, device=card,
+                                                      dtype=torch.bfloat16), "int8")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        quant.quantized_matmul(x.cpu(), torch.randn(24, 32), "int8", impl="cuda")
+
+
+# -- DSA: the chunked path against the oracle in fp32 on the card ---------------
+@pytest.mark.parametrize("style", ["deepseek", "glm"])
+def test_dsa_chunked_matches_oracle_fp32_on_card(card, style):
+    """A tiny DSA layer at S 256, top-k 24 (below the admissible count of
+    most queries), two packed documents: the chunked path (query block 32)
+    against the oracle, output within 1e-5 of its largest magnitude, the aux
+    within 1e-5, the same keys, and the indexer's gradient only through the
+    KL."""
+    from automodel_tpu_torch.models.llm.decoder import TransformerConfig, init_attention_layers
+    from automodel_tpu_torch.models.llm.mla import mla_sparse_attention_block
+    from automodel_tpu_torch.ops.rope import rope_frequencies
+    from automodel_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    extra = (dict(dsa_indexer_style="glm", dsa_index_n_heads=2) if style == "glm"
+             else dict(dsa_index_n_heads=4))
+    base = TransformerConfig(
+        vocab_size=64, hidden_size=64, num_layers=1, num_heads=4, attention_type="mla",
+        mla_q_lora_rank=32, mla_kv_lora_rank=32, mla_qk_nope_head_dim=16,
+        mla_qk_rope_head_dim=16, mla_v_head_dim=16, dsa_index_topk=24,
+        dsa_index_head_dim=32, dtype=torch.float32, **extra)
+    gen = torch.Generator(device=card).manual_seed(2)
+    lp0 = tree_map(lambda t: t[0], init_attention_layers(base, gen, 1))
+    S = 256
+    h = torch.randn(1, S, 64, generator=gen, device=card)
+    pos = torch.cat([torch.arange(100), torch.arange(S - 100)]).to(card, torch.int32)[None]
+    seg = (torch.arange(S, device=card) >= 100).to(torch.int32)[None]
+    inv = rope_frequencies(base.rope_dim, base.rope_theta).to(card)
+    out = {}
+    for impl in ("oracle", "chunked"):
+        cfg = dataclasses.replace(base, dsa_impl=impl, dsa_query_block=32)
+        lp = tree_map(lambda t: t.clone().requires_grad_(), lp0)
+        o, aux, sel = mla_sparse_attention_block(h, lp, cfg, pos, seg, inv)
+        aux.backward()
+        out[impl] = (o.detach(), aux.item(), sel, lp)
+    (o_o, a_o, sel, lp_o), (o_c, a_c, idx, lp_c) = out["oracle"], out["chunked"]
+    assert (o_c - o_o).abs().max() <= 1e-5 * o_o.abs().max()
+    assert abs(a_c - a_o) <= 1e-5 * abs(a_o) and a_o > 0
+    valid = torch.gather(sel, -1, idx)
+    picked = torch.zeros_like(sel).scatter(-1, idx, valid)
+    assert torch.equal(picked, sel) and int(sel.sum(-1).max()) == 24
+    # the KL's target is detached: the main attention's own weights get none
+    for key in ("indexer", "kv_up_proj", "o_proj"):
+        g = [p.grad for p in tree_leaves(lp_c[key]) if p.grad is not None]
+        assert (sum(float(t.abs().sum()) for t in g) > 0) == (key == "indexer")

@@ -56,7 +56,7 @@ def test_port_imports_no_jax():
                 "datasets.megatron.index_helpers", "datasets.megatron.gpt_dataset",
                 "models.auto_tokenizer", "datasets.chat", "datasets.column_mapped",
                 "datasets.presets", "datasets.agent", "eval.tool_call_evaluator",
-                "loggers.trackers", "training.utils"):
+                "loggers.trackers", "training.utils", "ops.dsa", "ops.matmul"):
         assert f"automodel_tpu_torch.{mod}" in res["modules"]
     assert res["leaked"] == []
 
@@ -96,17 +96,18 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 def test_unported_options_raise():
-    """What is still unported raises: speculative decoding, low-precision
-    serve linears, a serving mesh and the DSA indexer. A windowed
-    model asked onto the kernels reaches them (which refuse CPU tensors).
-    int8 KV pages serve."""
+    """What is still unported raises: speculative decoding and a serving
+    mesh; an unknown serve precision is refused. A windowed model asked
+    onto the kernels reaches them (which refuse CPU tensors). int8 KV
+    pages and fp8 / int8 serve linears serve; the DSA indexer builds."""
     from automodel_tpu_torch.models.llm import decoder
     from automodel_tpu_torch.models.moe_lm.families import deepseek_v3_moe_config
     from automodel_tpu_torch.serving import Request, ServingConfig, ServingEngine
 
-    for field, value in (("speculative", object()), ("serve_precision", "fp8")):
-        with pytest.raises(NotImplementedError, match=field):
-            ServingConfig(**{field: value})
+    with pytest.raises(NotImplementedError, match="speculative"):
+        ServingConfig(speculative=object())
+    with pytest.raises(ValueError, match="serve_precision"):
+        ServingConfig(serve_precision="fp4")
     cfg = decoder.TransformerConfig(
         vocab_size=32, hidden_size=16, intermediate_size=24, num_layers=1,
         num_heads=2, num_kv_heads=1, sliding_window=4, dtype=torch.float32)
@@ -125,6 +126,12 @@ def test_unported_options_raise():
     out = ServingEngine(params, cfg, sc, device="cpu").serve_batch(
         [Request(prompt=[1, 2, 3], max_new_tokens=2)])
     assert len(out["outputs"][0]) == 2
+    for precision in ("fp8", "int8"):
+        sq = ServingConfig(page_size=4, num_pages=8, max_slots=1, pages_per_slot=2,
+                           token_budget=4, serve_precision=precision)
+        out = ServingEngine(params, cfg, sq, device="cpu").serve_batch(
+            [Request(prompt=[1, 2, 3], max_new_tokens=2)])
+        assert len(out["outputs"][0]) == 2
     # the DSA indexer; yarn rope (DeepSeek-V3's long-context scaling) builds
     hf = dict(vocab_size=32, hidden_size=16, intermediate_size=24,
               moe_intermediate_size=8, num_hidden_layers=2,
@@ -136,8 +143,8 @@ def test_unported_options_raise():
     mla = deepseek_v3_moe_config(hf, dsa_index_topk=4, dtype=torch.float32)
     from automodel_tpu_torch.models.moe_lm import decoder as moe_decoder
 
-    with pytest.raises(NotImplementedError, match="DSA"):
-        moe_decoder.init(mla, torch.Generator().manual_seed(0))
+    dsa = moe_decoder.init(mla, torch.Generator().manual_seed(0))
+    assert set(dsa["moe_layers"]["indexer"]) == {"wq", "wk", "wgate"}
 
 
 def test_chip_smoke_refuses_without_cuda():

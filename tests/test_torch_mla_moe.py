@@ -525,7 +525,7 @@ def test_moonlight_config_and_registry():
     got = deepseek_v3_moe_config(yarn_hf)
     assert got.attn_scale == j_deepseek_v3_moe_config(yarn_hf).attn_scale
     # the MoE decoder trains, with the MTP head and the capacity dispatcher
-    # too; DSA still raises
+    # too, and DSA (its parity: tests/test_torch_dsa.py)
     tiny = deepseek_v3_moe_config(dict(
         hf, vocab_size=32, hidden_size=16, intermediate_size=24,
         moe_intermediate_size=8, num_hidden_layers=2, num_attention_heads=2,
@@ -538,8 +538,10 @@ def test_moonlight_config_and_registry():
     assert logits.shape == (1, 4, 32) and aux.shape == ()
     assert "mtp" in moe_decoder.init(dataclasses.replace(tiny, mtp_num_layers=1),
                                      torch.Generator())
-    with pytest.raises(NotImplementedError, match="DSA"):
-        spec.module.forward(params, dataclasses.replace(tiny, dsa_index_topk=2), ids)
+    dsa = dataclasses.replace(tiny, dsa_index_topk=2)
+    logits, aux = spec.module.forward(
+        moe_decoder.init(dsa, torch.Generator().manual_seed(0)), dsa, ids)
+    assert logits.shape == (1, 4, 32) and float(aux) > 0
     logits, _ = spec.module.forward(params, dataclasses.replace(
         tiny, moe=dataclasses.replace(tiny.moe, dispatcher="capacity")), ids)
     assert logits.shape == (1, 4, 32)

@@ -504,16 +504,19 @@ def test_moe_training_refuses_what_is_not_ported(tmp_path):
     params = moe_decoder.init(tcfg, torch.Generator().manual_seed(0))
     ids = torch.zeros((1, 4), dtype=torch.int64)
     for kw, name in ((dict(mesh_ctx=object()), "mesh_ctx"),
-                     (dict(routing_override=torch.zeros(1)), "routing"),
-                     (dict(return_routing=True), "routing"),
                      (dict(return_aux_hidden=(0,)), "aux-hidden"),
                      (dict(inputs_embeds=torch.zeros(1)), "inputs_embeds"),
                      (dict(rope_angles=torch.zeros(1)), "rope_angles"),
                      (dict(deepstack_embeds=torch.zeros(1)), "deepstack")):
         with pytest.raises(NotImplementedError, match=name):
             moe_decoder.forward(params, tcfg, ids, **kw)
-    with pytest.raises(NotImplementedError, match="DSA"):
-        moe_decoder.forward(params, dataclasses.replace(tcfg, dsa_index_topk=2), ids)
+    # routing replay and DSA run (their parity: tests/test_torch_routing_replay.py,
+    # tests/test_torch_dsa.py)
+    _, _, stats = moe_decoder.forward(params, tcfg, ids, return_stats=True,
+                                      return_routing=True)
+    moe_decoder.forward(params, tcfg, ids, routing_override=stats["routing"])
+    dsa = dataclasses.replace(tcfg, dsa_index_topk=2)
+    moe_decoder.forward(moe_decoder.init(dsa, torch.Generator().manual_seed(0)), dsa, ids)
     # the capacity dispatcher and the MTP head run (their parity:
     # tests/test_torch_deepseek_v3.py); PEFT with the MTP head raises
     moe_decoder.forward(params, dataclasses.replace(
