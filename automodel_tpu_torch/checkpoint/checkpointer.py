@@ -21,11 +21,10 @@ to host memory on the caller's thread and written by a background thread;
 `wait()` joins it and re-raises a failed write. Device tensors are copied
 into host buffers that the checkpointer keeps from one save to the next
 (the next save waits for the previous write) until `close()`, so the
-trainer is held for one device-to-host copy at the card's transfer rate.
-The buffers are page-locked up to a quarter of the host's memory
-(`PINNED_SHARE`) and pageable past it. `restore`
-copies the saved tensors into the live ones, which keep their device and
-dtype.
+trainer is held for one device-to-host copy at the card's transfer rate
+(`utils/host_buffers.py`, whose page-locked budget the rollback's
+snapshots share). `restore` copies the saved tensors into the live ones,
+which keep their device and dtype.
 `last_save` holds the newest save's step, bytes (those of `state.pt`, and
 the page-locked part of the buffers) and seconds: the copy to host memory
 (`host_s`, on the caller's thread) and the write and commit
@@ -33,10 +32,16 @@ the page-locked part of the buffers) and seconds: the copy to host memory
 
 The two packages' train states do not read each other: orbax cannot read
 `state.pt` and the port does not read orbax's directories. They meet at the
-consolidated HF export (`hf_adapter.save_hf_checkpoint`). What is not
-ported: remote URIs (`gs://...`, ROADMAP.md queue 1 item 16), the retry
-wiring of the `resilience` section (`set_retry`, item 12) and resharding
-across topologies (item 12).
+consolidated HF export (`hf_adapter.save_hf_checkpoint`).
+
+The `resilience` section's retry wraps save and restore (`set_retry`), and
+the fault probes sit where the JAX package puts them: `checkpoint_write`
+and `checkpoint_restore` inside each attempt (so a retried save really
+re-runs the failure point), `checkpoint_wait` in `wait()`, which is not
+retried (the failed write is consumed). An exception of the background
+write, a `FaultCrash` included, is kept and raised by the next `wait()`
+or save. What is not ported: remote URIs (`gs://...`, ROADMAP.md queue 1
+item 16) and resharding across topologies (item 12).
 """
 
 from __future__ import annotations
@@ -53,11 +58,13 @@ from typing import Any, Optional
 
 import torch
 
+from automodel_tpu_torch.resilience.faults import fault_hit
+from automodel_tpu_torch.resilience.retry import RetryPolicy, retry_call
+from automodel_tpu_torch.utils.host_buffers import HostBuffers, restore
+
 logger = logging.getLogger(__name__)
 
 _STEP_DIR = re.compile(r"step_(\d+)")
-# the share of the host's memory that snapshot buffers may page-lock
-PINNED_SHARE = 0.25
 
 
 def is_remote_path(path: str) -> bool:
@@ -84,30 +91,6 @@ class CheckpointingConfig:
         return Checkpointer(self)
 
 
-def _as_tree(state: Any) -> Any:
-    """A dataclass state as the dict of its fields (no copies)."""
-    if dataclasses.is_dataclass(state) and not isinstance(state, type):
-        return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
-    return state
-
-
-@torch.no_grad()
-def _fill(live: Any, saved: Any, path: str = "state") -> Any:
-    """Copy `saved` into the live tree's tensors in place; host values
-    (ints) come from `saved`. Trees and shapes must match."""
-    if isinstance(live, dict):
-        if not isinstance(saved, dict) or live.keys() != saved.keys():
-            raise ValueError(f"{path}: the checkpoint's keys differ from the state's")
-        return {k: _fill(live[k], saved[k], f"{path}.{k}") for k in live}
-    if torch.is_tensor(live):
-        if not torch.is_tensor(saved) or saved.shape != live.shape:
-            raise ValueError(f"{path}: the checkpoint holds "
-                             f"{getattr(saved, 'shape', type(saved))}, the state {live.shape}")
-        live.copy_(saved)
-        return live
-    return saved
-
-
 class Checkpointer:
     def __init__(self, config: CheckpointingConfig):
         if is_remote_path(config.checkpoint_dir):
@@ -119,34 +102,25 @@ class Checkpointer:
         self.root = os.path.abspath(config.checkpoint_dir)
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
-        self._host_buffers: dict = {}  # snapshot buffers, by path
-        self._pinned_bytes = 0
-        self._pinned_limit = int(PINNED_SHARE * os.sysconf("SC_PAGE_SIZE")
-                                 * os.sysconf("SC_PHYS_PAGES"))
+        self._buffers = HostBuffers()  # the snapshot's host copies
         self.last_save: dict = {}
+        # retry wiring (resilience layer): None → every op is one attempt
+        self.retry_policy: Optional[RetryPolicy] = None
+        self._on_retry = None
 
-    def _to_host(self, tree: Any, path: str = "") -> Any:
-        """A copy of the tree with every tensor on the host. A device tensor
-        is copied without waiting into its buffer in `_host_buffers` (by
-        path; made, or remade when its shape or dtype changed; page-locked
-        while the pinned total stays within `_pinned_limit`); the caller
-        synchronizes before reading."""
-        if isinstance(tree, dict):
-            return {k: self._to_host(v, f"{path}.{k}") for k, v in tree.items()}
-        if not torch.is_tensor(tree):
-            return tree
-        if tree.device.type == "cpu":
-            return tree.detach().clone()
-        buf = self._host_buffers.get(path)
-        if buf is None or buf.shape != tree.shape or buf.dtype != tree.dtype:
-            if buf is not None and buf.is_pinned():
-                self._pinned_bytes -= buf.nbytes
-            nbytes = tree.numel() * tree.element_size()
-            pin = self._pinned_bytes + nbytes <= self._pinned_limit
-            self._pinned_bytes += nbytes if pin else 0
-            buf = self._host_buffers[path] = torch.empty(
-                tree.shape, dtype=tree.dtype, pin_memory=pin)
-        return buf.copy_(tree.detach(), non_blocking=True)
+    def set_retry(self, policy: Optional[RetryPolicy], on_attempt=None) -> None:
+        """Wrap save and restore in retry-with-backoff (resilience/retry.py);
+        `on_attempt(point, attempt, exc, delay_s)` observes every failure."""
+        self.retry_policy = policy
+        self._on_retry = on_attempt
+
+    def _attempt(self, point: str, fn):
+        # FileNotFoundError is deterministic (a missing checkpoint does not
+        # appear on retry) and callers' fallbacks match on the type
+        return retry_call(
+            fn, policy=self.retry_policy, point=point,
+            on_attempt=self._on_retry, no_retry=(FileNotFoundError,),
+        )
 
     def _dir(self, step: int) -> str:
         return os.path.join(self.root, f"step_{step}")
@@ -169,28 +143,31 @@ class Checkpointer:
         when (`should_save`)."""
         if not self.config.enabled:
             return False
-        self.wait()  # one write at a time; a failed earlier write raises
+        self._join()  # one write at a time; a failed earlier write raises
         if step in self.all_steps():
             return False
-        t0 = time.perf_counter()
-        snapshot = self._to_host(_as_tree(state))
-        if torch.cuda.is_available() and self._host_buffers:
-            torch.cuda.synchronize()  # the copies into the buffers have landed
-        self.last_save = {"step": step, "host_s": time.perf_counter() - t0,
-                          "pinned_bytes": self._pinned_bytes}
-        if self.config.async_save:
-            self._writer = threading.Thread(
-                target=self._write_async, args=(step, snapshot, extra, metrics),
-                name=f"checkpoint-step-{step}", daemon=True)
-            self._writer.start()
-        else:
-            self._write(step, snapshot, extra, metrics)
+
+        def attempt():
+            fault_hit("checkpoint_write", step=step)
+            t0 = time.perf_counter()
+            snapshot = self._buffers.snapshot(state)
+            self.last_save = {"step": step, "host_s": time.perf_counter() - t0,
+                              "pinned_bytes": self._buffers.pinned_bytes}
+            if self.config.async_save:
+                self._writer = threading.Thread(
+                    target=self._write_async, args=(step, snapshot, extra, metrics),
+                    name=f"checkpoint-step-{step}", daemon=True)
+                self._writer.start()
+            else:
+                self._write(step, snapshot, extra, metrics)
+
+        self._attempt("checkpoint_write", attempt)
         return True
 
     def _write_async(self, *args) -> None:
         try:
             self._write(*args)
-        except Exception as e:  # noqa: BLE001 - re-raised by wait()
+        except BaseException as e:  # noqa: BLE001 - re-raised by wait()
             self._error = e
 
     def _write(self, step: int, snapshot: dict, extra: dict | None,
@@ -266,11 +243,14 @@ class Checkpointer:
             raise FileNotFoundError(
                 f"no checkpoint{'' if step is None else f' at step {step}'} "
                 f"under {self.config.checkpoint_dir}")
-        saved = torch.load(os.path.join(self._dir(step), "state.pt"),
-                           map_location="cpu", weights_only=True, mmap=True)
-        filled = _fill(_as_tree(state), saved)
-        if dataclasses.is_dataclass(state) and not isinstance(state, type):
-            filled = dataclasses.replace(state, **filled)
+
+        def attempt():
+            fault_hit("checkpoint_restore", step=step)
+            return torch.load(os.path.join(self._dir(step), "state.pt"),
+                              map_location="cpu", weights_only=True, mmap=True)
+
+        saved = self._attempt("checkpoint_restore", attempt)
+        filled = restore(state, saved)
         if not with_extra:
             return filled
         path = os.path.join(self._dir(step), "extra.json")
@@ -288,6 +268,10 @@ class Checkpointer:
         again would turn a missing checkpoint into silent success. The
         caller's save cadence (or the emergency path's committed=False
         report) is the recovery story."""
+        fault_hit("checkpoint_wait")
+        self._join()
+
+    def _join(self) -> None:
         if self._writer is not None:
             self._writer.join()
             self._writer = None
@@ -298,6 +282,5 @@ class Checkpointer:
     def close(self) -> None:
         """Wait for the write, then free the snapshot buffers (a later save
         makes them anew)."""
-        self.wait()
-        self._host_buffers.clear()
-        self._pinned_bytes = 0
+        self._join()
+        self._buffers.clear()

@@ -42,6 +42,11 @@ without the CausalLM wrapper (a `LlamaBidirectionalModel`) may drop the
 `model.` prefix, and one with a swapped head (`...ForSequenceClassification`)
 may carry no `lm_head.weight`: that leaf is then left out, as the JAX
 adapter does, and the seq-cls and retrieval recipes add their own head.
+
+`retry_policy` (resilience/retry.py) retries transient tensor reads of the
+reader and shard writes of `save_hf_checkpoint`; the fault probes
+`remote_io`, `hf_export_write`, `hf_export_commit` and `hf_export_swap`
+sit where the JAX package puts them.
 """
 
 from __future__ import annotations
@@ -58,6 +63,8 @@ from typing import Any, Callable, Iterator, Mapping
 import torch
 
 from automodel_tpu_torch.checkpoint.safetensors_io import SafetensorsFile, save_file
+from automodel_tpu_torch.resilience.faults import fault_hit
+from automodel_tpu_torch.resilience.retry import retry_call
 from automodel_tpu_torch.utils.device import resolve_device
 
 Reader = Callable[[str], torch.Tensor]
@@ -571,6 +578,8 @@ def save_hf_checkpoint(
     out_dir: str,
     hf_config: dict | None = None,
     max_shard_bytes: int = 4 << 30,
+    retry_policy=None,
+    on_retry=None,
 ) -> None:
     """Write `model.safetensors`, or `model-XXXXX-of-YYYYY.safetensors`
     shards of at most `max_shard_bytes` (a larger tensor gets a shard of its
@@ -582,7 +591,9 @@ def save_hf_checkpoint(
     is moved to `<out_dir>.old` first; its files other than shards and
     index (a tokenizer, say) move into the new export. A shard holds
     references to its tensors until it is written, which moves each to the
-    host in turn."""
+    host in turn. `retry_policy` retries a shard write that fails
+    transiently; the `hf_export_write` / `hf_export_commit` /
+    `hf_export_swap` fault points make each path chaos-testable."""
     if "://" in out_dir:
         raise NotImplementedError(f"HF export writes local files; {out_dir!r} is a URI")
     out_dir = os.path.abspath(out_dir).rstrip(os.sep)
@@ -605,8 +616,14 @@ def save_hf_checkpoint(
     def flush():
         nonlocal shard, size
         if shard:
-            save_file(shard, os.path.join(stage_dir, f"__tmp_shard_{len(shards):05d}"),
-                      metadata={"format": "pt"})
+            tmp = os.path.join(stage_dir, f"__tmp_shard_{len(shards):05d}")
+
+            def write():
+                fault_hit("hf_export_write")
+                save_file(shard, tmp, metadata={"format": "pt"})
+
+            retry_call(write, policy=retry_policy, point="hf_export_write",
+                       on_attempt=on_retry)
             shards.append([name for name, _ in shard])
             shard, size = [], 0
 
@@ -633,8 +650,11 @@ def save_hf_checkpoint(
         if hf_config is not None:
             with open(os.path.join(stage_dir, "config.json"), "w") as f:
                 json.dump(hf_config, f, indent=2)
+        # -- atomic publish
+        fault_hit("hf_export_commit")
         if os.path.isdir(out_dir):
             os.rename(out_dir, old_dir)
+            fault_hit("hf_export_swap")
             os.rename(stage_dir, out_dir)
             for name in os.listdir(old_dir):
                 if name.endswith(".safetensors") or name == "model.safetensors.index.json":
@@ -645,6 +665,8 @@ def save_hf_checkpoint(
         else:
             os.rename(stage_dir, out_dir)
     except Exception:
+        # an ordinary failure cleans its staging tree; a crash (a
+        # BaseException) leaves it, which no reader takes for an export
         shutil.rmtree(stage_dir, ignore_errors=True)
         raise
 
@@ -677,12 +699,15 @@ class HFCheckpointReader:
     with a `_scale_inv` companion dequantized to fp32. Close it (or use it
     as a context manager) to unmap the files.
 
-    The JAX reader's `retry_policy` and `remote_io` fault point are not
-    ported: resilience and fault probes are ROADMAP.md queue 1 items 10 and
-    16."""
+    `retry_policy` retries transient read failures (OSError, RuntimeError)
+    with backoff; the `remote_io` fault point fires inside each attempt so
+    the retry path is chaos-testable. A missing tensor (KeyError) is never
+    retried."""
 
-    def __init__(self, ckpt_dir: str):
+    def __init__(self, ckpt_dir: str, retry_policy=None, on_retry=None):
         self._dir = ckpt_dir
+        self.retry_policy = retry_policy
+        self.on_retry = on_retry
         self._files: dict[str, SafetensorsFile] = {}
         self._fp8_block_cache: tuple | None = None
         index_path = os.path.join(ckpt_dir, "model.safetensors.index.json")
@@ -707,11 +732,17 @@ class HFCheckpointReader:
     def __call__(self, name: str) -> torch.Tensor:
         if name not in self._weight_map:
             raise KeyError(name)
-        t = self._read_raw(name)
-        scale_name = f"{name}_scale_inv"
-        if scale_name in self._weight_map:
-            t = _dequant_fp8_block(t, self._read_raw(scale_name), self._fp8_block())
-        return t
+
+        def attempt():
+            fault_hit("remote_io")
+            t = self._read_raw(name)
+            scale_name = f"{name}_scale_inv"
+            if scale_name in self._weight_map:
+                t = _dequant_fp8_block(t, self._read_raw(scale_name), self._fp8_block())
+            return t
+
+        return retry_call(attempt, policy=self.retry_policy, point="remote_io",
+                          on_attempt=self.on_retry, retry_on=(OSError, RuntimeError))
 
     def _fp8_block(self) -> tuple:
         """Block size of fp8 checkpoints, from config.json's

@@ -20,12 +20,22 @@ class MetricLogger:
         self.path = path
         self.also_stdout = also_stdout
         self._f: IO | None = None
+        self._counters: dict[str, float] = {}
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             self._f = open(path, "a")
 
+    def set_counter(self, name: str, value: float) -> None:
+        """Pin a counter to an externally-owned monotonic total; current
+        values ride every subsequent `log` record. The resilience layer
+        mirrors its retry/rollback/wasted-step totals here, so goodput is
+        reconstructable from the JSONL."""
+        self._counters[name] = value
+
     def log(self, record: dict) -> None:
         rec = {k: _to_scalar(v) for k, v in record.items()}
+        for k, v in self._counters.items():
+            rec.setdefault(k, v)
         rec.setdefault("ts", time.time())
         if self._f is not None:
             self._f.write(json.dumps(rec) + "\n")

@@ -190,11 +190,14 @@ ACTIVATIONS = {
 def make_freq_for(cfg: TransformerConfig, device):
     """Per-layer-window rope frequencies on `device`: gemma3's sliding
     layers rotate with the local unscaled theta, every other layer with
-    rope_theta and rope_scaling."""
-    inv_freq = rope_frequencies(cfg.rope_dim, cfg.rope_theta, cfg.rope_scaling).to(device)
+    rope_theta and rope_scaling. The copies to the card do not wait for it
+    (a blocking copy would be a host sync inside the train step)."""
+    inv_freq = rope_frequencies(cfg.rope_dim, cfg.rope_theta, cfg.rope_scaling).to(
+        device, non_blocking=True)
     if cfg.rope_local_theta is None:
         return lambda window: inv_freq
-    local = rope_frequencies(cfg.rope_dim, cfg.rope_local_theta, None).to(device)
+    local = rope_frequencies(cfg.rope_dim, cfg.rope_local_theta, None).to(
+        device, non_blocking=True)
     return lambda window: local if window is not None else inv_freq
 
 

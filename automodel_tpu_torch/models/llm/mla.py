@@ -380,7 +380,7 @@ def mla_sparse_attention_block(h, lp, cfg, positions, segment_ids, inv_freq,
     if run and cfg.dsa_indexer_style == "glm":
         # rope on the FIRST qk_rope_head_dim channels only
         inv_freq_idx = rope_frequencies(cfg.mla_qk_rope_head_dim, cfg.rope_theta,
-                                        cfg.rope_scaling).to(h.device)
+                                        cfg.rope_scaling).to(h.device, non_blocking=True)
         scores = indexer_scores_glm(
             x, q_lat if q_lat is not None else x, lp["indexer"],
             cfg.dsa_index_n_heads, cfg.dsa_index_head_dim, positions, inv_freq_idx)
@@ -388,7 +388,7 @@ def mla_sparse_attention_block(h, lp, cfg, positions, segment_ids, inv_freq,
         # the main path's rope scaling: a yarn model's indexer agrees with its
         # attention about long-context positions
         inv_freq_idx = rope_frequencies(cfg.dsa_index_head_dim, cfg.rope_theta,
-                                        cfg.rope_scaling).to(h.device)
+                                        cfg.rope_scaling).to(h.device, non_blocking=True)
         scores = indexer_scores(x, lp["indexer"], cfg.dsa_index_n_heads,
                                 cfg.dsa_index_head_dim, positions, inv_freq_idx)
     sel = topk_select_mask(scores, base_mask, cfg.dsa_index_topk) if run else prev_sel

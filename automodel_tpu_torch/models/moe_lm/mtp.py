@@ -83,7 +83,7 @@ def mtp_hidden(
     h = x @ mtp["eh_proj"]["kernel"].to(dtype)
 
     inv_freq = rope_frequencies(cfg.rope_dim, cfg.rope_theta,
-                                cfg.rope_scaling).to(input_ids.device)
+                                cfg.rope_scaling).to(input_ids.device, non_blocking=True)
     (lp,) = unstack_layers(mtp["block"])  # the L=1 dim
 
     def block(h, lp):

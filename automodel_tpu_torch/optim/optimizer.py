@@ -11,7 +11,12 @@ temporaries stay the size of one leaf):
 - sgd: t <- g + momentum * t, p <- p - lr * t (optax.sgd with momentum).
 
 The learning rate is the schedule at the count before the increment, as
-optax's `scale_by_learning_rate` reads it. Weight decay applies where the
+optax's `scale_by_learning_rate` reads it. `update(..., ok=...)` applies
+the update only where a bool tensor on the card holds, as the JAX step's
+`skip_nonfinite_updates` selects `jnp.where(ok, new, old)` over the params
+and the whole optimizer state, count included; it reads nothing to the
+host, so the count lives on the card and the learning rate is looked up
+there in a table of the schedule's values. Weight decay applies where the
 mask is true; the default mask is `ndim >= 2` on the stacked-layer layout,
 so per-layer norm scales, stacked as (L, H), are decayed, as in the JAX
 package, and so is the MoE gate's stacked (Lm, E) correction bias
@@ -58,6 +63,7 @@ class Optimizer:
         self.mask_fn = mask_fn or default_weight_decay_mask
         # params -> one (lr multiplier, weight decay) per leaf; None: (1, wd)
         self.groups_fn = groups_fn
+        self._table: Optional[torch.Tensor] = None  # the schedule by count
 
     def _leaf_hparams(self, params, n: int) -> list:
         if self.groups_fn is None:
@@ -71,7 +77,14 @@ class Optimizer:
                 "nu": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def update(self, grads, state: dict, params) -> None:
+    def update(self, grads, state: dict, params, ok: Optional[torch.Tensor] = None,
+               max_count: int = 0) -> None:
+        """Update params and state in place. With `ok` (a 0-dim bool tensor
+        on the params' device) see `_update_where`; `max_count` bounds the
+        count there (the steps taken)."""
+        if ok is not None:
+            self._update_where(grads, state, params, ok, max_count)
+            return
         count = state["count"]
         lr = float(self.lr(count))
         ps, gs = tree_leaves(params), tree_leaves(grads)
@@ -94,6 +107,58 @@ class Optimizer:
                 u.add_(p, alpha=wd)
             p.add_(u, alpha=-lr * mult)
         state["count"] = n
+
+    def _lr_table(self, size: int, device: torch.device) -> torch.Tensor:
+        """The schedule's values at counts 0.. (at least `size` of them) on
+        `device`, in float64: made on the host, sent without waiting, and
+        made anew at twice the length when a count passes it."""
+        table = self._table
+        if table is None or table.numel() < size or table.device != device:
+            n = max(size, 2 * table.numel() if table is not None else 1024)
+            host = torch.tensor([float(self.lr(c)) for c in range(n)], dtype=torch.float64)
+            if device.type == "cuda":
+                host = host.pin_memory()
+            table = self._table = host.to(device, non_blocking=True)
+        return table
+
+    def _update_where(self, grads, state: dict, params, ok: torch.Tensor,
+                      max_count: int) -> None:
+        """The update where `ok` holds; otherwise params, moments and count
+        keep their values. Nothing is read to the host: the count becomes
+        an int64 tensor on `ok`'s device, and the learning rate is the
+        schedule at it, from `_lr_table` over counts 0..`max_count`."""
+        count = state["count"]
+        if not torch.is_tensor(count) or count.device != ok.device:
+            count = state["count"] = torch.full((), int(count), dtype=torch.int64,
+                                                device=ok.device)
+        # index_select, not table[count]: indexing by a tensor reads it
+        lr = self._lr_table(max_count + 1, ok.device).index_select(0, count.view(1))[0]
+        ps, gs = tree_leaves(params), tree_leaves(grads)
+        hp = self._leaf_hparams(params, len(ps))
+
+        def keep(live, new):
+            live.copy_(torch.where(ok, new, live))
+
+        if self.name == "sgd":
+            for p, g, t, (mult, _) in zip(ps, gs, tree_leaves(state["trace"]), hp):
+                t_new = t.mul(self.momentum).add_(g)
+                keep(p, p + t_new * (lr * -mult))
+                keep(t, t_new)
+        else:
+            n = (count + 1).double()
+            bc1, bc2 = 1.0 - self.b1 ** n, 1.0 - self.b2 ** n
+            decay = tree_leaves(self.mask_fn(params))
+            for p, g, m, v, d, (mult, wd) in zip(ps, gs, tree_leaves(state["mu"]),
+                                                 tree_leaves(state["nu"]), decay, hp):
+                m_new = m.mul(self.b1).add_(g, alpha=1.0 - self.b1)
+                v_new = v.mul(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+                u = (m_new / bc1).div_((v_new / bc2).sqrt_().add_(self.eps))
+                if d and wd:
+                    u.add_(p, alpha=wd)
+                keep(p, p + u.mul_(lr * -mult))
+                keep(m, m_new)
+                keep(v, v_new)
+        count.add_(ok.to(count.dtype))
 
 
 _ADAMW = ("adamw", "fused_adamw", "flash_adamw")

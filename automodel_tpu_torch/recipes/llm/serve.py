@@ -17,8 +17,18 @@ and AdamW moments would not fit beside it on one card). The values are the
 JAX recipe's, which loads fp32 and casts in the engine. With a
 `tokenizer` section, prompts lose their trailing pad ids and each record
 carries the decoded `text`. The replicated, sharded, disaggregated,
-online, speculative and traced modes raise NotImplementedError
+online and speculative modes raise NotImplementedError
 (`RecipeConfig.refuse_unported_serving`).
+
+`serving.observability` runs as in the JAX recipe: the engine records its
+spans, lifecycle instants and counters, and at the end of the run the
+recipe writes the Perfetto and JSONL trace (`trace_path`, by default
+`<run_dir>/serve`), `<run_dir>/metrics.prom` and the `latency_attribution`
+record (its TTFT phases sum to the median TTFT), which also joins the
+summary's stats. `profile_window` / `itl_spike_ms` with `profile_dir`
+capture a `torch.profiler` trace of those steps. The top-level
+`resilience` section is set up as in training, so its `faults` (the
+`serve_step` and `serve_step_run` points among them) fire in the engine.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import numpy as np
 
 from automodel_tpu_torch.config import parse_args_and_load_config
 from automodel_tpu_torch.loggers.metric_logger import MetricLogger, setup_logging
+from automodel_tpu_torch.observability import attribution_summary
 from automodel_tpu_torch.recipes.llm.train_ft import (
     TrainFinetuneRecipeForNextTokenPrediction,
 )
@@ -52,6 +63,7 @@ class ServeRecipe(TrainFinetuneRecipeForNextTokenPrediction):
         self.typed.refuse_unported_serving()
         self._refuse_unported()
         self.rng = StatefulRNG(seed=int(cfg.get("seed", 42)), device=self.device)
+        self._setup_resilience()
         self._build_model(None)
         self.params = self._init_params
         del self._init_params
@@ -109,6 +121,7 @@ class ServeRecipe(TrainFinetuneRecipeForNextTokenPrediction):
             admission_policy=str(get("admission_policy", "fifo")),
             kv_cache_dtype=get("kv_cache_dtype", None) or None,
             serve_precision=get("serve_precision", None) or None,
+            observability=self.typed.serving_observability,
         )
 
     def run_train_validation_loop(self) -> dict:
@@ -123,6 +136,21 @@ class ServeRecipe(TrainFinetuneRecipeForNextTokenPrediction):
         serve_logger = MetricLogger(os.path.join(run_dir, "serving.jsonl"))
         try:
             res = self.engine.serve_batch(reqs, metric_logger=serve_logger, log_every=16)
+            obs = self.engine.obs
+            if obs.enabled:
+                # end-of-run exports: the Perfetto/JSONL trace, the Prometheus
+                # snapshot and the TTFT/ITL attribution block
+                paths = obs.export(obs.cfg.trace_path or os.path.join(run_dir, "serve"))
+                attr = attribution_summary(list(obs.tracer.events))
+                res["stats"]["latency_attribution"] = attr
+                prom_path = os.path.join(run_dir, "metrics.prom")
+                with open(prom_path, "w") as f:
+                    f.write(obs.registry.snapshot_prometheus())
+                serve_logger.log({
+                    "metric": "latency_attribution", **attr,
+                    "trace_paths": paths, "prometheus": prom_path,
+                })
+                obs.close()
         finally:
             serve_logger.close()
         out_path = os.path.join(run_dir, "generations.jsonl")

@@ -30,9 +30,23 @@ consolidated HF export to `<checkpoint_dir>/hf` after the final save,
 newest committed step (`auto_resume`, default true), and
 `time_to_resume_s` on the first record after a resume. SIGTERM sets the
 step scheduler's flag; after the step it lands in, the recipe forces a
-save, waits for its commit at most the JAX default grace of 30 s from the
-signal (the `resilience` section that sets it is not ported), logs an
-`emergency_checkpoint` record and returns.
+save, waits for its commit at most `resilience.sigterm_grace_s` (30 s by
+default) from the signal, logs an `emergency_checkpoint` record and
+returns.
+
+The `resilience` section (`resilience/`) is wired first, before the model
+build, as in the JAX recipe: its `faults` are installed as the process's
+fault injector (the checkpointer's, the HF reader's and export's probes,
+and the loop's `nan_grads` and `sigterm` flags), its retry policy wraps the
+pretrained reads, the checkpointer and the HF export (each attempt counted
+as `retry_<point>` on the records), `max_consecutive_nonfinite` fails a
+diverged run fast naming its first bad step, `snapshot_every_steps` keeps
+host snapshots of the train state and rolls back to the newest on a
+non-finite step or a loss spike (`rollback` records; the data stream moves
+on), and `transfer_guard` runs the train step under
+`torch.cuda.set_sync_debug_mode("error")`, so a host sync inside the step
+raises on the card (the CPU has no device to sync with). The `profiling`
+section writes a `torch.profiler` trace of its step window to `trace_dir`.
 
 The `peft` section trains LoRA / DoRA adapters over a frozen base, int8
 for QLoRA (`peft/lora.py`): the adapters are the train state (the
@@ -68,7 +82,7 @@ indexers from the recipe's generator.
 The same YAML files drive both packages. What the port does not have yet
 raises NotImplementedError instead of being skipped: distributed sizes
 other than 1 (`dp_shard: -1` resolves to 1 on one device), other
-unported architectures (`models/registry.py`), resilience, a remote
+unported architectures (`models/registry.py`), a remote
 `checkpoint_dir`, and PEFT on a MoE model with the gate-bias update or the
 MTP head.
 
@@ -89,6 +103,7 @@ label-token count (`num_correct`) join the step's record.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import logging
@@ -120,7 +135,12 @@ from automodel_tpu_torch.peft.lora import (
     quantize_base,
 )
 from automodel_tpu_torch.recipes.base_recipe import BaseRecipe
-from automodel_tpu_torch.resilience import wait_with_deadline
+from automodel_tpu_torch.resilience import (
+    ResilienceError,
+    install_injector,
+    process_index,
+    wait_with_deadline,
+)
 from automodel_tpu_torch.training import (
     TrainStepConfig,
     init_train_state,
@@ -136,11 +156,46 @@ from automodel_tpu_torch.utils.tree import tree_leaves
 logger = logging.getLogger(__name__)
 
 _MESH_AXES = ("pp", "dp_replicate", "dp_shard", "ep", "cp", "tp")
-# sections of the JAX recipe this port does not run yet
-_UNPORTED_SECTIONS = ("resilience",)
-# seconds the emergency save may take from the SIGTERM: the JAX
-# ResilienceConfig.sigterm_grace_s default (that section is not ported)
-SIGTERM_GRACE_S = 30.0
+
+
+@contextlib.contextmanager
+def sync_guard(device: torch.device, enabled: bool = True):
+    """Within the block a host sync on the card (an `.item()`, a
+    device-to-host copy, a blocking host-to-device copy) raises: the
+    `resilience.transfer_guard` tripwire around the train step. The CPU
+    has no device to sync with, so there it does nothing."""
+    if not enabled or device.type != "cuda":
+        yield
+        return
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+
+
+class RetryCounter:
+    """The retry policy's `on_attempt`: counts every retried I/O attempt as
+    `retry_<point>` and pins the counts on the metric logger once it is
+    attached (the pretrained reads retry before it exists). An object of
+    its own, so the checkpointer that holds it holds no reference back to
+    the recipe, whose memory then goes with its last reference."""
+
+    def __init__(self):
+        self.counts: dict = {}
+        self.metric_logger = None
+
+    def attach(self, metric_logger) -> None:
+        self.metric_logger = metric_logger
+        for name, n in self.counts.items():
+            metric_logger.set_counter(name, n)
+
+    def __call__(self, point, attempt, exc, delay_s) -> None:
+        name = f"retry_{point}"
+        self.counts[name] = self.counts.get(name, 0) + 1
+        if self.metric_logger is not None:
+            self.metric_logger.set_counter(name, self.counts[name])
 
 
 def make_hidden_forward(module, model_cfg, peft_cfg=None, base_params=None):
@@ -187,6 +242,9 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         setup_logging()
         self._refuse_unported()
         self.rng = StatefulRNG(seed=int(cfg.get("seed", 42)), device=self.device)
+        # resilience comes FIRST: the pretrained reads of _build_model already
+        # run under the retry policy and the fault points
+        self._setup_resilience()
         self._build_model(torch.float32)  # fp32 masters
         self._build_peft()
         self._build_optimizer()
@@ -196,12 +254,19 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             save_every_steps=self.step_scheduler.config.ckpt_every_steps,
         )
         self.checkpointer = ckpt_cfg.build() if ckpt_cfg.enabled else None
+        if self.checkpointer is not None and self._retry_policy is not None:
+            self.checkpointer.set_retry(self._retry_policy,
+                                        on_attempt=self._on_retry_attempt)
         run_dir = cfg.get("run_dir", ".")
         self.metric_logger = MetricLogger(os.path.join(run_dir, "training.jsonl"))
         self.val_logger = MetricLogger(os.path.join(run_dir, "validation.jsonl"))
+        # retries before the logger existed (the pretrained reads) ride the
+        # first records too
+        self._on_retry_attempt.attach(self.metric_logger)
         self.trackers = build_trackers(cfg, run_dir)
         for t in self.trackers:
             t.log_config(cfg.to_dict(redact=True))
+        self.profiler = self.typed.profiling.build(self.device)
         seq_len = int(cfg.get("dataset.seq_len", 512))
         self.mfu = MFUCalculator(
             flops_per_token=self.model_cfg.flops_per_token(seq_len),
@@ -213,8 +278,6 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         restore_from = cfg.get("checkpoint.restore_from", None)
         t_restore = time.perf_counter()
         resumed = False
-        self._time_to_resume_s = None
-        self._preempt_finished = False
         if restore_from:
             self.restore_from(restore_from, step=cfg.get("checkpoint.restore_step"))
             resumed = True
@@ -235,9 +298,73 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             if size != 1 and not (axis == "dp_shard" and size == -1):
                 raise NotImplementedError(
                     f"distributed.{axis}={size}: the port trains on one device")
-        for key in _UNPORTED_SECTIONS:
-            if cfg.get(key) is not None:
-                raise NotImplementedError(f"config section '{key}' is not ported")
+
+    def _setup_resilience(self) -> None:
+        """The fault-tolerance layer (`resilience/`): the config's fault
+        injector installed for the process, the retry policy (seeded with
+        the process's rank), the rollback manager and the nonfinite
+        counters. Runs before the model, the checkpointer and the loggers
+        exist; the checkpointer takes the policy in setup()."""
+        res_cfg = self.typed.resilience
+        self.resilience_cfg = res_cfg
+        self.fault_injector = install_injector(res_cfg.build_injector())
+        if self.fault_injector.armed:
+            logger.warning("fault injection armed: %s",
+                           [dataclasses.asdict(s) for s in self.fault_injector.specs])
+        self._retry_policy = res_cfg.retry_policy(seed=process_index())
+        self._on_retry_attempt = RetryCounter()
+        self.rollback = res_cfg.build_rollback()
+        self._nonfinite_streak = 0
+        self._first_nonfinite_step = None
+        self._time_to_resume_s = None
+        self._preempt_finished = False
+
+    def _check_nonfinite_cap(self, step: int, nonfinite: bool) -> None:
+        """Fail fast on a diverged run: without this cap a NaN'd run would
+        skip (or apply) non-finite updates to completion. With rollback on,
+        recovery fires first; this cap is the backstop."""
+        if not nonfinite:
+            self._nonfinite_streak = 0
+            self._first_nonfinite_step = None
+            return
+        self._nonfinite_streak += 1
+        if self._first_nonfinite_step is None:
+            self._first_nonfinite_step = step
+        cap = int(self.resilience_cfg.max_consecutive_nonfinite or 0)
+        if self.resilience_cfg.enabled and cap and self._nonfinite_streak >= cap:
+            raise ResilienceError(
+                f"{self._nonfinite_streak} consecutive non-finite step(s); "
+                f"first bad step: {self._first_nonfinite_step}. The run has "
+                "diverged — failing fast instead of skipping every update "
+                "to completion (raise resilience.max_consecutive_nonfinite "
+                "or enable rollback snapshots to auto-recover)")
+
+    def _maybe_rollback(self, step: int, loss: float, nonfinite: bool) -> bool:
+        """NaN/spike detection + bounded rollback. Returns True when the
+        step's outcome was discarded and the loop should move on."""
+        if self.rollback is None:
+            return False
+        reason = self.rollback.observe(step, loss, nonfinite)
+        if reason is None:
+            return False
+        snap_step, self.train_state = self.rollback.rollback(step, reason)
+        self._nonfinite_streak = 0
+        self._first_nonfinite_step = None
+        self.metric_logger.set_counter("rollbacks", self.rollback.stats.rollbacks)
+        self.metric_logger.set_counter("wasted_steps", self.rollback.stats.wasted_steps)
+        self.metric_logger.log({
+            "step": step, "event": "rollback", "reason": reason,
+            "restored_step": snap_step,
+        })
+        return True
+
+    @torch.no_grad()
+    def _poison_params(self) -> None:
+        """The `nan_grads` fault: every trainable leaf becomes NaN, so this
+        step's gradients (and every later step's, absent recovery) are
+        non-finite."""
+        for p in tree_leaves(self.train_state.params):
+            p.mul_(float("nan"))
 
     # ------------------------------------------------------------------
     def _build_model(self, param_dtype: torch.dtype | None) -> None:
@@ -268,7 +395,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
 
         pretrained = mcfg.get("pretrained_path")
         if pretrained:
-            with HFCheckpointReader(pretrained) as reader:
+            with HFCheckpointReader(pretrained, retry_policy=self._retry_policy,
+                                    on_retry=self._on_retry_attempt) as reader:
                 hf_config = reader.hf_config()
                 if hf_config is None:
                     raise FileNotFoundError(f"{pretrained}: no config.json")
@@ -453,8 +581,11 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         """One optimizer step over a list of grad-accum microbatches (numpy
         dicts, as the dataloader yields them); returns the step's metrics."""
         batch = make_global_batch(stack_microbatches(microbatches), self.device)
-        self.train_state, metrics = self._train_step(
-            self.train_state, batch, self.rng.next_key())
+        key = self.rng.next_key()
+        # the batch upload above and the metric reads after stay outside the
+        # guard: inside it, only a sync the step itself makes can trip it
+        with sync_guard(self.device, self.resilience_cfg.transfer_guard):
+            self.train_state, metrics = self._train_step(self.train_state, batch, key)
         if self.is_moe and self.model_cfg.moe.gate_bias_update_speed > 0:
             # DeepSeek aux-free balancing after the optimizer step
             self.model_spec.module.apply_gate_bias_update(
@@ -473,16 +604,35 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             raise
         finally:
             self.gc.close()  # never leave the process's GC off
+            self.profiler.close()
 
     def _run_train_validation_loop(self) -> None:
         t_last = time.perf_counter()
         first_record = True
+        if self.rollback is not None:
+            # the step-0 snapshot: a NaN on the very first steps is recoverable
+            self.rollback.snapshot(self.step_scheduler.step, self.train_state)
         try:
             for microbatches in self.step_scheduler:
                 step = self.step_scheduler.step
+                # chaos hooks: no-ops unless armed through `resilience.faults`
+                if self.fault_injector.check("sigterm", step=step) is not None:
+                    self.step_scheduler.sigterm_received = True
+                if self.fault_injector.check("nan_grads", step=step) is not None:
+                    self._poison_params()
                 metrics = self.run_step(microbatches)
+                self.profiler.step(step)
                 self.gc.step(step)
                 loss = float(metrics["loss"])  # waits for the step
+                nonfinite = (not np.isfinite(loss)
+                             or float(metrics.get("skipped_nonfinite", 0.0)) > 0)
+                if self._maybe_rollback(step, loss, nonfinite):
+                    t_last = time.perf_counter()
+                    if self.step_scheduler.sigterm_received:
+                        self._finish_preempted(step)
+                        break
+                    continue
+                self._check_nonfinite_cap(step, nonfinite)
                 now = time.perf_counter()
                 perf = self.mfu.metrics(self._batch_token_count(microbatches),
                                         now - t_last)
@@ -501,7 +651,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                     record["moe_load_imbalance"] = float(
                         tpe.amax(-1).mean() / torch.clamp(tpe.mean(), min=1e-9))
                 if "skipped_nonfinite" in metrics:
-                    record["skipped_nonfinite"] = metrics["skipped_nonfinite"]
+                    record["skipped_nonfinite"] = float(metrics["skipped_nonfinite"])
                 for k, v in metrics.items():  # a loss's other scalar sums
                     if k not in record and torch.is_tensor(v) and v.dim() == 0:
                         record[k] = float(v)
@@ -514,6 +664,9 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 for t in self.trackers:
                     t.log({k: v for k, v in record.items() if k not in ("step", "ts")},
                           step=step)
+                if (self.rollback is not None and not nonfinite
+                        and self.rollback.due(step)):
+                    self.rollback.snapshot(step, self.train_state)
                 if self.step_scheduler.is_val_step and self.val_dataloader is not None:
                     self._run_validation(step)
                 if self.step_scheduler.sigterm_received:
@@ -532,6 +685,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 return
             if self.checkpointer is not None:
                 self.save_checkpoint(self.step_scheduler.step)
+                self.checkpointer.wait()
                 self.checkpointer.close()
             if self.cfg.get("checkpoint.save_consolidated", False):
                 self.save_consolidated_hf()
@@ -552,7 +706,8 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         committed = True
         if self.checkpointer is not None:
             committed = wait_with_deadline(
-                self.checkpointer, self.step_scheduler.grace_remaining(SIGTERM_GRACE_S))
+                self.checkpointer, self.step_scheduler.grace_remaining(
+                    float(self.resilience_cfg.sigterm_grace_s)))
             if committed:  # else the write still reads the snapshot buffers
                 self.checkpointer.close()
         self.metric_logger.log({
@@ -630,7 +785,9 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         else:
             params = self.train_state.params
         with torch.no_grad():
-            save_hf_checkpoint(adapter.to_hf(params), out_dir, hf_config=self._hf_config)
+            save_hf_checkpoint(adapter.to_hf(params), out_dir, hf_config=self._hf_config,
+                               retry_policy=self._retry_policy,
+                               on_retry=self._on_retry_attempt)
         logger.info("consolidated HF checkpoint written to %s", out_dir)
         return out_dir
 

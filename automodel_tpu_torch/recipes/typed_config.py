@@ -5,10 +5,12 @@ dataclass configs. Unknown keys inside a section raise, as in the JAX
 package.
 
 The serving sections the port does not run yet (`mesh`, `disaggregation`,
-`online`, `speculative`, `resilience`, `observability`) are parsed into
-copies of the JAX package's dataclasses, fields and defaults alone, so a
-YAML may carry them at their defaults; `refuse_unported_serving` raises for
-any that asks for more than the single-replica offline engine.
+`online`, `speculative`, `resilience`) are parsed into copies of the JAX
+package's dataclasses, fields and defaults alone, so a YAML may carry them
+at their defaults; `refuse_unported_serving` raises for any that asks for
+more than the single-replica offline engine. `serving.observability`, the
+top-level `resilience` and `profiling` sections run
+(`observability/`, `resilience/`).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import dataclasses
 from typing import Optional
 
 from automodel_tpu_torch.config import ConfigNode
+from automodel_tpu_torch.observability import ObservabilityConfig
 
 
 def dataclass_from_node(cls, node, *, strict: bool = True, allow: tuple = (), **extra):
@@ -121,20 +124,6 @@ class ServeResilienceConfig:
     ack_timeout_ms: int = 10_000
 
 
-@dataclasses.dataclass(frozen=True)
-class ObservabilityConfig:
-    """`serving.observability` (JAX `observability/__init__.py`)."""
-
-    enabled: bool = False
-    trace_path: Optional[str] = None
-    flight_recorder_len: int = 256
-    flight_recorder_path: Optional[str] = None
-    profile_window: Optional[tuple] = None
-    itl_spike_ms: Optional[float] = None
-    profile_dir: Optional[str] = None
-    http_port: Optional[int] = None
-
-
 class RecipeConfig:
     """Lazy typed view over a recipe's raw ConfigNode."""
 
@@ -191,6 +180,18 @@ class RecipeConfig:
         from automodel_tpu_torch.ops.quant import QATConfig
 
         return self._section("qat", QATConfig)
+
+    @property
+    def resilience(self):
+        from automodel_tpu_torch.resilience.config import ResilienceConfig
+
+        return self._section("resilience", ResilienceConfig)
+
+    @property
+    def profiling(self):
+        from automodel_tpu_torch.observability.profiler import ProfilingConfig
+
+        return self._section("profiling", ProfilingConfig)
 
     @property
     def peft(self):
@@ -266,9 +267,10 @@ class RecipeConfig:
     def refuse_unported_serving(self) -> None:
         """The port serves through the single-replica offline engine alone.
         A serving section that asks for more raises NotImplementedError
-        naming the section and its ROADMAP.md queue 1 item;
-        `serving.resilience` is parsed and, as on the JAX package's
-        single-replica branch, has no effect."""
+        naming the section and its ROADMAP.md queue 1 item (the
+        observability section's `http_port` raises where the engine builds
+        its bundle); `serving.resilience` is parsed and, as on the JAX
+        package's single-replica branch, has no effect."""
         mesh = self.serving_mesh
         if (mesh.replicas, mesh.tp, mesh.ep) != (1, 1, 1):
             raise NotImplementedError(
@@ -279,13 +281,12 @@ class RecipeConfig:
             ("disaggregation", self.serving_disaggregation.enabled, 16),
             ("online", bool(self.raw.get("serving.online.enabled", False)), 16),
             ("speculative", self.serving_speculative.enabled, 15),
-            ("observability", self.serving_observability.enabled, 10),
         )
         for name, enabled, item in wants:
             if enabled:
                 raise NotImplementedError(
                     f"serving.{name}.enabled: not ported (ROADMAP.md queue 1 item {item})")
-        if self.raw.get("resilience.faults") is not None:
+        if self.serving_observability.http_port is not None:
             raise NotImplementedError(
-                "resilience.faults: fault injection is not ported "
-                "(ROADMAP.md queue 1 item 10)")
+                "serving.observability.http_port: the /metrics endpoint belongs to the "
+                "online frontend, which is not ported (ROADMAP.md queue 1 item 16)")

@@ -49,8 +49,16 @@ What differs from the JAX engine:
   precision).
 - DSA models (DeepSeek-V3.2/V4, GLM-5) decode with dense MLA over the
   latent pool, as the JAX engine does: the indexer is not read.
-- Not ported yet (they raise NotImplementedError): speculative decoding
-  and a serving mesh (tp, ep).
+- Observability (`serving.observability`, `automodel_tpu_torch/observability/`)
+  is wired where the JAX engine wires it: the step counters and the
+  `step.run` / `step.absorb` / `step.plan` spans, the scheduler's lifecycle
+  instants, the step-time histogram and the profiler window, and the
+  flight-recorder dump on any abnormal exit of `serve_batch`; the fault
+  probes `serve_step`, `serve_step_run` and `serve_step_run.<track>` too.
+  The step time is the wall time of `run_step`, which ends in its `.cpu()`
+  read of the sampled tokens; observability adds no synchronisation.
+- Not ported yet (they raise NotImplementedError): speculative decoding,
+  a serving mesh (tp, ep) and the router's replica-qualified tracks.
 """
 
 from __future__ import annotations
@@ -75,6 +83,7 @@ from automodel_tpu_torch.models.llm.decoder import (
     project_qkv,
     unembed,
 )
+from automodel_tpu_torch.observability import Observability, ObservabilityConfig
 from automodel_tpu_torch.ops.norms import rms_norm
 from automodel_tpu_torch.ops.paged_attention import (
     ragged_paged_attention,
@@ -82,6 +91,7 @@ from automodel_tpu_torch.ops.paged_attention import (
 )
 from automodel_tpu_torch.ops.quant import matmul as _mm, quantize_kernel, quantize_kv_rows
 from automodel_tpu_torch.ops.rope import rope_frequencies
+from automodel_tpu_torch.resilience.faults import fault_hit
 from automodel_tpu_torch.serving.kv_pages import (
     PageAllocator,
     apply_defrag,
@@ -115,6 +125,10 @@ class ServingConfig:
     serve_precision: str | None = None
     # JAX-engine option this port does not cover yet: setting it raises
     speculative: object | None = None
+    # host-side tracing/metrics/profiling (automodel_tpu_torch/observability/);
+    # None/disabled → the null tracer, and the serve loop pays two
+    # attribute lookups per probe
+    observability: ObservabilityConfig | None = None
 
     def __post_init__(self):
         if not (self.page_size >= 1 and self.num_pages >= 1):
@@ -189,6 +203,32 @@ def _layer_slice(stacked, i: int):
     return stacked[i]
 
 
+def _linear_cost(tree: dict, moe, path: tuple = ()) -> tuple[float, float, float]:
+    """(elements each token multiplies with, bytes held, bytes of the
+    routed experts) of one layer's linear kernels: a token reaches top-k of
+    the E routed experts. A kernel quantized at build counts its quantized
+    weight and its scales."""
+    per_token = held = experts = 0.0
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            t, h, e = _linear_cost(v, moe, path + (k,))
+            per_token, held, experts = per_token + t, held + h, experts + e
+            continue
+        if k != "kernel":
+            continue
+        w = getattr(v, "qw", v)
+        nbytes = float(w.numel() * w.element_size())
+        if hasattr(v, "sw"):
+            nbytes += v.sw.numel() * v.sw.element_size()
+        n = float(w.numel())
+        held += nbytes
+        if "experts" in path and moe is not None:
+            n *= moe.num_experts_per_tok / moe.n_routed_experts
+            experts += nbytes
+        per_token += n
+    return per_token, held, experts
+
+
 class ServingEngine:
     """Paged-cache continuous-batching engine for the dense decoder
     (`models/llm/decoder.TransformerConfig`) and the MoE decoder
@@ -208,6 +248,8 @@ class ServingEngine:
         mesh_ctx=None,
         device=None,
         attn_impl: str = "auto",
+        obs: Observability | None = None,
+        track: str = "engine",
     ):
         if cfg.attention_type not in ("gqa", "mla"):
             raise NotImplementedError(
@@ -215,9 +257,16 @@ class ServingEngine:
             )
         if mesh_ctx is not None:
             raise NotImplementedError("a serving mesh is not ported yet")
+        if track != "engine":
+            raise NotImplementedError(
+                f"track {track!r}: replica-qualified tracks belong to the replica "
+                "router, which is not ported (ROADMAP.md queue 1 item 13)")
         if attn_impl not in ("auto", "cuda", "torch"):
             raise ValueError(f"Unknown paged attention impl '{attn_impl}'")
         self.device = resolve_device(device)
+        self.obs = obs if obs is not None else Observability(
+            serve_cfg.observability, device=self.device)
+        self.track = track
         if serve_cfg.serve_precision is not None:
             cfg = dataclasses.replace(cfg, linear_precision=serve_cfg.serve_precision)
         self.cfg = cfg
@@ -437,11 +486,71 @@ class ServingEngine:
         self._cow(plan)
         return self._forward(self._plan_batch(plan))
 
+    def step_cost(self, plan: StepPlan) -> dict:
+        """FLOPs and bytes one step needs for `plan`, counted from the
+        weights and the plan's rows and positions (observability's
+        `step_efficiency` joins them with a measured step time). FLOPs: the
+        GEMMs of the live rows over each layer's active linear weights, each
+        layer's paged attention over the kv indices its rows attend to (by
+        the formulas of K4-K7's bounds), and the unembed of the sample rows.
+        Bytes: every weight the step reads, once (the routed experts: the
+        share that top-k of the live rows can reach, at most all of them),
+        every distinct page each layer reads, once, the new cache rows, the
+        head and the sample rows' logits."""
+        cfg, ps = self.cfg, self.serve_cfg.page_size
+        elt = torch.empty((), dtype=cfg.dtype).element_size()
+        rows = int((plan.pos >= 0).sum())
+        samples = int((plan.sample_tok >= 0).sum())
+        moe = getattr(cfg, "moe", None)
+        if self.is_mla:
+            row = cfg.mla_kv_lora_rank + cfg.mla_qk_rope_head_dim
+            ops_per_kv = cfg.num_heads * (4 * cfg.mla_kv_lora_rank
+                                          + 2 * cfg.mla_qk_rope_head_dim)
+        else:
+            row = 2 * cfg.num_kv_heads * cfg.resolved_head_dim
+            ops_per_kv = cfg.num_heads * 4 * cfg.resolved_head_dim
+        # one page of one layer's pool, scale planes included
+        page_bytes = (ps * row + 2 * ps * 4 if self.serve_cfg.kv_cache_dtype == "int8"
+                      else ps * row * elt)
+        flops = nbytes = 0.0
+        for (_si, _li, lp, _mlp), window in zip(self._layers, self._windows):
+            per_token, held, experts = _linear_cost(lp, moe)
+            if experts:
+                reach = min(1.0, rows * moe.num_experts_per_tok / moe.n_routed_experts)
+                held -= experts * (1.0 - reach)
+            # every kv index a row attends to, and every page that meets a
+            # row's window, once
+            pages, kv = set(), 0
+            for p, s in zip(plan.pos, plan.slot):
+                if p < 0:
+                    continue
+                lo = max(int(p) - window + 1, 0) if window else 0
+                kv += int(p) + 1 - lo
+                pages.update(int(x) for x in plan.page_tables[s][lo // ps: int(p) // ps + 1])
+            flops += 2.0 * rows * per_token + kv * ops_per_kv
+            nbytes += held + (len(pages) + rows / ps) * page_bytes
+        H, V = cfg.hidden_size, cfg.vocab_size
+        flops += 2.0 * samples * H * V
+        nbytes += H * V * elt + samples * V * 4
+        return {"flops": flops, "bytes_accessed": nbytes}
+
     def run_step(self, plan: StepPlan):
-        """Run one StepPlan; returns numpy (tokens (S,), logprobs (S,))."""
-        tokens, lps = self._sample(self.step_logits(plan), plan)
-        self.steps_run += 1
-        return tokens.cpu().numpy(), lps.cpu().numpy()
+        """Run one StepPlan; returns numpy (tokens (S,), logprobs (S,)).
+        The fault probes come before the step counters, so an injected
+        fault leaves the counters and the pool as they were."""
+        fault_hit("serve_step_run", self.steps_run)
+        fault_hit(f"serve_step_run.{self.track}", self.steps_run)
+        reg = self.obs.registry
+        reg.counter("serve_steps_total").inc()
+        reg.counter("serve_plan_tokens_total").inc(plan.n_tokens)
+        reg.counter("serve_plan_samples_total").inc(plan.n_samples)
+        with self.obs.tracer.span(
+            "step.run", track=self.track, step=self.steps_run,
+            n_tokens=plan.n_tokens, n_samples=plan.n_samples,
+        ):
+            tokens, lps = self._sample(self.step_logits(plan), plan)
+            self.steps_run += 1
+            return tokens.cpu().numpy(), lps.cpu().numpy()
 
     def run_and_absorb(
         self, sched: Scheduler, plan: StepPlan, step_idx: int,
@@ -452,7 +561,12 @@ class ServingEngine:
         t0 = time.perf_counter()
         out = self.run_step(plan)
         dt = time.perf_counter() - t0
-        return self.absorb_outputs(sched, plan, out, step_idx), dt
+        self.obs.observe_step(self.steps_run, dt * 1e3)
+        with self.obs.tracer.span(
+            "step.absorb", track=self.track, step=self.steps_run
+        ):
+            n_new = self.absorb_outputs(sched, plan, out, step_idx)
+        return n_new, dt
 
     def absorb_outputs(
         self, sched: Scheduler, plan: StepPlan, out, step_idx: int,
@@ -467,7 +581,10 @@ class ServingEngine:
         """ONE reentrant serve step: schedule → run → absorb. Returns
         (plan, tokens committed, step seconds) with plan=None when nothing
         could be packed this step."""
-        plan = sched.schedule(step_idx)
+        with self.obs.tracer.span(
+            "step.plan", track=self.track, step=self.steps_run
+        ):
+            plan = sched.schedule(step_idx)
         if plan is None:
             return None, 0, 0.0
         n_new, dt = self.run_and_absorb(sched, plan, step_idx)
@@ -489,7 +606,29 @@ class ServingEngine:
             prefix_cache=sc.prefix_cache,
             admission_policy=sc.admission_policy,
             alloc=self.alloc, prefix=self.prefix,
+            tracer=self.obs.tracer, track=self.track,
         )
+
+    def _mirror_stats(self, stats: dict, sched: Scheduler) -> None:
+        """Land one serve_batch call's outcome counters on the central
+        registry (per-call deltas — the registry keeps lifetime totals).
+        The port's scheduler cancels nothing (the online frontend is not
+        ported), so `serve_cancelled_total` moves by 0."""
+        reg = self.obs.registry
+        for name, key in (
+            ("serve_new_tokens_total", "new_tokens"),
+            ("serve_requests_total", "requests"),
+            ("serve_preemptions_total", "preemptions"),
+            ("serve_timed_out_total", "timed_out"),
+            ("serve_prefix_hits_total", "prefix_hits"),
+            ("serve_prefill_skipped_tokens_total", "prefill_skipped_tokens"),
+            ("serve_cow_copies_total", "cow_copies"),
+        ):
+            if key in stats:
+                reg.counter(name).inc(stats[key])
+        reg.counter("serve_cancelled_total").inc(0)
+        reg.gauge("serve_compiled_signatures").set(stats["compiled_signatures"])
+        reg.gauge("serve_free_pages").set(sched.alloc.num_free)
 
     def reset_prefix_cache(self) -> int:
         """Drop the engine-lifetime radix tree; returns nodes evicted."""
@@ -516,7 +655,34 @@ class ServingEngine:
         """Offline continuous-batching run: drive steps until every request
         finished. Returns {"outputs": [generated ids per request, submission
         order], "requests": finished Request objects, "stats": counters}.
-        `metric_logger` is anything with a `log(dict)` method."""
+        `metric_logger` is anything with a `log(dict)` method.
+
+        On any abnormal exit the observability flight recorder dumps its
+        ring of recent trace events (reason "stall" for the pool-deadlock
+        RuntimeError, "crash" for everything else — an injected FaultCrash,
+        a BaseException, included) before re-raising."""
+        try:
+            return self._serve_batch(
+                requests, metric_logger=metric_logger,
+                max_steps=max_steps, log_every=log_every,
+            )
+        except RuntimeError as e:
+            self.obs.flight_dump(
+                "stall" if str(e).startswith("serving stalled") else "crash"
+            )
+            raise
+        except BaseException:
+            self.obs.flight_dump("crash")
+            raise
+
+    def _serve_batch(
+        self,
+        requests: list[Request],
+        *,
+        metric_logger=None,
+        max_steps: int | None = None,
+        log_every: int = 0,
+    ) -> dict:
         sched = self.make_scheduler()
         for r in requests:
             sched.submit(r)
@@ -530,6 +696,9 @@ class ServingEngine:
         ttft_watch: list = []  # arrived requests awaiting their first token
         step_idx = 0
         while sched.has_work and step_idx < budget:
+            # chaos probe ("serve_step"): disarmed it is two dict lookups; an
+            # injected crash exercises the flight recorder's crash dump
+            fault_hit("serve_step", step_idx)
             _stamp_arrivals(sched.waiting, step_idx, ttft_watch)
             plan, n_new, dt = self.run_one_step(sched, step_idx)
             if plan is None:
@@ -613,6 +782,7 @@ class ServingEngine:
                 "prefix_cached_pages": sched.prefix.cached_pages,
                 "prefix_evicted_pages": sched.prefix.n_evicted,
             })
+        self._mirror_stats(stats, sched)
         if metric_logger is not None:
             metric_logger.log({"step": self.steps_run, **{
                 f"serve_{k}": v for k, v in stats.items()

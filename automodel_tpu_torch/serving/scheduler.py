@@ -1,9 +1,10 @@
 """Continuous-batching request scheduler (host side of the serving engine).
 
 A copy of `automodel_tpu/serving/scheduler.py` (host-only), kept here so
-the port imports nothing of the JAX package. Lifecycle tracing takes a
-local no-op tracer until observability is ported. Speculative decoding,
-the disaggregated handoff, failure evacuation and the online frontend's
+the port imports nothing of the JAX package. Lifecycle instants go to the
+engine's tracer (`observability/trace.py`; the null tracer when tracing
+is off). Speculative decoding, the disaggregated handoff (and its
+`handoff_admit` fault probe), failure evacuation and the online frontend's
 hooks (cancel, pause, arrival gating off) wait for the slices that port
 those tiers.
 
@@ -60,23 +61,13 @@ from collections import deque
 
 import numpy as np
 
+from automodel_tpu_torch.observability.trace import NULL_TRACER
 from automodel_tpu_torch.serving.kv_pages import PageAllocator, pages_for
 from automodel_tpu_torch.serving.prefix_cache import (
     PrefixCache,
     PrefixCacheConfig,
     PrefixMatch,
 )
-
-
-class _NullTracer:
-    """Stands in for the JAX package's observability tracer: every emit
-    is a no-op."""
-
-    def instant(self, *args, **kwargs) -> None:
-        pass
-
-
-NULL_TRACER = _NullTracer()
 
 
 @dataclasses.dataclass

@@ -105,17 +105,19 @@ def make_train_step(
                 scale = torch.clamp(config.max_grad_norm / (grad_norm + 1e-6), max=1.0)
                 for g in tree_leaves(grads):
                     g.mul_(scale)
-        ok = True
         if config.skip_nonfinite_updates:
-            ok = bool(torch.isfinite(grad_norm) & torch.isfinite(ce_sum))
-        if ok:
+            # kept on the device, as the JAX step keeps it: the update is
+            # selected by it, and nothing is read to the host
+            ok = torch.isfinite(grad_norm) & torch.isfinite(ce_sum)
+            tx.update(grads, state.opt_state, state.params, ok=ok, max_count=state.step)
+        else:
             tx.update(grads, state.opt_state, state.params)
         del grads
         for p in params:
             p.grad = None
         metrics = {"loss": ce_sum / denom, "grad_norm": grad_norm, **aux_sum}
         if config.skip_nonfinite_updates:
-            metrics["skipped_nonfinite"] = 0.0 if ok else 1.0
+            metrics["skipped_nonfinite"] = 1.0 - ok.float()
         if lr_schedule is not None:
             metrics["lr"] = lr_schedule(state.step)
         return dataclasses.replace(state, step=state.step + 1), metrics

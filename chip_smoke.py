@@ -42,7 +42,7 @@ one JSON line each:
    the same traffic, on the fp pool (K6) and on the int8 pool (K7), each
    with its profile;
    serve_gemma2 / serve_gemma2_int8: the windowed main path,
-   google/gemma-2-2b at full width cut to 10 of its 26 layers (window 4096
+   google/gemma-2-2b at full width cut to 6 of its 26 layers (window 4096
    and global, alternating), bf16, 16 requests of 4200-7800 prompt tokens, 32
    greedy tokens each, on the fp pool (K4 on every layer of every step,
    the global layers with no window) and the int8 pool (K5), no plain
@@ -57,9 +57,9 @@ one JSON line each:
    version;
    serve_qwen3_moe / serve_qwen3_moe_int8 / serve_gpt_oss / serve_mixtral:
    the GQA MoE main path at published widths, bf16, random weights from
-   seed 0, on serve's traffic: Qwen3-30B-A3B cut to 16 of its 48 layers
+   seed 0, on serve's traffic: Qwen3-30B-A3B cut to 8 of its 48 layers
    (128 experts, G 8 x D 128) on the fp (K4) and int8 (K5) pools, gpt-oss-20b
-   at all 24 layers (K4 with window 128 and sinks on the sliding layers,
+   cut to 12 of its 24 layers (K4 with window 128 and sinks on the sliding layers,
    sinks alone on the full ones), Mixtral-8x7B cut to 8 of 32 layers;
    each with its profile and a few steps of the engine with every kernel
    call held to its plain version;
@@ -104,7 +104,7 @@ one JSON line each:
    through the recipe class called directly with the plain attention:
    the loss curves must agree;
 11. train_gemma3_ckpt: the Gemma-3-1B training recipe at full width, cut
-   to 12 of 26 layers (the script's disk budget, below), with the
+   to 6 of 26 layers (the script's time and disk budget, below), with the
    train-state checkpointer on (a save every 3 steps,
    async, one kept, the consolidated HF export at the end): 5 unbroken
    steps; a new process restored from the step-3 checkpoint runs steps 4-5
@@ -153,7 +153,7 @@ one JSON line each:
    steps each with the kernels and with the plain attention: the curves
    agree, and a control run with the kernels at the padded dim's softmax
    scale must not;
-17. serve_glm4 (after serve_gemma2): GLM-4-9B-0414 uncut (40 layers, rotary
+17. serve_glm4 (after serve_gemma2): GLM-4-9B-0414 cut to 16 of its 40 layers (rotary
    on half of each head, G 16) on serve's traffic, K4 on every layer of
    every step, with a profile, then on the int8 pool (K5), and its engine
    at 2 layers in fp32 held to the plain version; serve_dense_groups:
@@ -179,7 +179,7 @@ one JSON line each:
    a plain gather from the memmap, each tracker mirror equal to
    `training.jsonl`, GC off during the steps and on after, K1-K3 counted;
    serve_glm47_flash / _int8: GLM-4.7-Flash (`Glm4MoeLiteForCausalLM`
-   through the registry) at full width cut to 16 of its 47 layers, bf16,
+   through the registry) at full width cut to 8 of its 47 layers, bf16,
    on serve's traffic, K6 / K7 at 20 heads on every layer of every step,
    each with its profile and `engine_plain_check`, then 2 layers in fp32
    on both pools (the fp32 route at 20 heads); train_glm47_flash: K1-K3
@@ -206,9 +206,10 @@ one JSON line each:
    `ops/quant.quantized_matmul` against its plain version on the card,
    forward and backward, at Llama-3-8B's linears at 64 and 4096 rows,
    timed beside the bf16 `torch.matmul` and their bound (1979 TFLOP/s);
-   serve_fp8 / serve_int8w (after serve, its weights): `serve_precision`
-   fp8 on the fp pool (K4, with a profile) and int8 on the int8 pool (K5),
-   the quantized GEMMs counted, the greedy agreement with serve's tokens;
+   serve_fp8 / serve_int8w (after serve, its weights' first 16 layers):
+   `serve_precision` fp8 on the fp pool (K4, with a profile) and int8 on
+   the int8 pool (K5), the quantized GEMMs counted, the greedy agreement
+   with the same layers' bf16 tokens;
    train_fp8 (after train): train's run with `model.linear_precision: fp8`
    beside train's numbers; train_qat: the same YAML at 2 layers with `qat`
    (int8 from step 2), 4 steps, the steps before it bit-equal to a plain
@@ -222,6 +223,33 @@ one JSON line each:
    the chunked path, cut to the model's 2 dense layers (ms a step, peak
    memory, the indexer-KL aux); train_moe ends with one step whose routing
    is captured and replayed: the same routing, loss and gradient norm.
+20. observability and fault tolerance: serve_traced (after recipe_serve,
+   on its checkpoint): the `llm_serve` CLI again with
+   `serving.observability` on and a `torch.profiler` window of steps 8-10:
+   the generations equal to the untraced run's, the Chrome trace valid,
+   the TTFT attribution's phases summing to its median TTFT, `metrics.prom`
+   with the catalog's engine series and `serve_steps_total` equal to the
+   steps run, K4 on all 32 layers of each step in the window; then the
+   run traced without the window and untraced again, token-equal (runs in
+   the order untraced, traced with the window, traced, untraced); the four
+   runs' ITL / TTFT, the window's start and stop ms, the events and
+   `ServingEngine.step_cost` / `step_efficiency` printed; serve_chaos: the
+   same config with `resilience.faults: [{point: serve_step, step: 20,
+   mode: crash}]` in a new process, which must die of the FaultCrash
+   leaving the flight recorder's file, its last event at step 20;
+   train_resilient (after train_chat_sft): `llm_finetune` at Llama-3.2-1B's
+   widths, uncut, seq 4096, 12 steps, the checkpointer on (async),
+   `skip_nonfinite_updates` (the update selected on the card, under the
+   guard), `resilience` with snapshots every 4 steps, the spike and
+   nonfinite detectors, 3 retry attempts, the transfer guard, and faults
+   (two transient checkpoint writes, NaN params before step 6, a SIGTERM
+   at step 11), a profiling window: one rollback, to step 4, restoring the
+   state bitwise equal to a copy on the card of the state snapshotted, and
+   the step after it bit-equal to the same step run again from that copy;
+   two retries in `training.jsonl`; the emergency checkpoint committed
+   within the grace; a new process resumes from it and runs step 12; the
+   snapshot's bytes and ms, the restore's ms and the step's ms with and
+   without the guard printed.
 
 The paged kernel phase also holds fp32 K6 and K7 at DeepSeek-V3's 128 and
 Kimi-K2's 64 heads x r 512 to their plain versions, timed beside their
@@ -249,6 +277,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -424,9 +453,9 @@ SERVE_GEMMA2 = ServingConfig(
 # ... whose prompts of 4200-7800 tokens are longer than the 4096 window;
 # cut 26 -> 10 layers (5 windowed, 5 global) when the GQA MoE
 # serve phases came: the script ran past ~780 s, and K4 / K5 take the same
-# windows on every windowed layer
+# windows on every windowed layer; -> 6 (3 and 3) for the resilience phases
 GEMMA2_SERVE_PROMPTS = (4200, 7800)
-GEMMA2_SERVE_LAYERS = 10
+GEMMA2_SERVE_LAYERS = 6
 # engine_window_phase: Gemma-2-2B widths, 2 layers, window 512, prompts
 # longer than it
 ENGINE_WINDOW, ENGINE_WINDOW_PROMPTS = 512, (900, 700, 600)
@@ -633,13 +662,14 @@ GEMMA_PLAIN_LOSS_RTOL, GEMMA_PLAIN_GNORM_RTOL = 1e-2, 5e-2
 # take another order, which moves fp32 grad norms by ~1e-7); then the
 # llm_serve recipe on its HF export with prompts of this many tokens
 CKPT_EVERY, CKPT_RESUME_RTOL, CKPT_SERVE_PROMPT_LEN = 3, 1e-6, 900
-# ... cut to this many of Gemma-3-1B's 26 layers (two whole patterns of 5
-# sliding and 1 global). The script keeps what it writes to disk, files
-# deleted again included, under 45 GiB (~40 GB now): beside the 16.06 GB
-# Llama-3-8B checkpoint the full-depth phase's two 12.0 GB saves, 4.0 GB
-# export and the resumed run's 12.0 GB save passed that; 12 layers write
-# two 7.5 GB saves and a 2.5 GB export, and the resumed run saves nothing
-CKPT_GEMMA3_LAYERS = 12
+# ... cut to this many of Gemma-3-1B's 26 layers (one whole pattern of 5
+# sliding and 1 global; 12 before the observability and resilience phases
+# needed the time). The script keeps what it writes to disk, files deleted again
+# included, under 45 GiB: beside the 16.06 GB Llama-3-8B checkpoint the
+# full-depth phase's two 12.0 GB saves, 4.0 GB export and the resumed
+# run's 12.0 GB save passed that; 12 layers wrote two 7.5 GB saves and a
+# 2.5 GB export, and the resumed run saves nothing
+CKPT_GEMMA3_LAYERS = 6
 # train_gemma_check: Gemma-2-2B widths, 2 layers (one sliding, one global),
 # fp32, 2 microbatches of this many tokens, a window that masks
 GEMMA_CHECK_SEQ, GEMMA_CHECK_WINDOW = 2048, 512
@@ -1491,7 +1521,8 @@ def serve_phase(card: str) -> tuple[dict, tuple]:
     k4, fp = serve_run(engine, cfg, card, "serve", model, "K4", setup_s)
     # bf16 queries: K4 is the split kernel and its combine over bf16 pages
     profile_steps(engine, cfg, card, "serve",
-                  rpa_cuda.KERNELS["K4"][rpa_cuda.route(torch.bfloat16)])
+                  rpa_cuda.KERNELS["K4"][rpa_cuda.route(torch.bfloat16)],
+                  n_steps=MOE_PROFILE_STEPS)
     del engine
     torch.cuda.empty_cache()
 
@@ -1509,7 +1540,8 @@ def serve_phase(card: str) -> tuple[dict, tuple]:
           "tokens": len(pairs), "first_divergence_per_request": first})
     # bf16 queries: K5 is the split kernel and its combine
     profile_steps(engine, cfg, card, "serve_int8",
-                  rpa_cuda.KERNELS["K5"][rpa_cuda.route(torch.bfloat16)])
+                  rpa_cuda.KERNELS["K5"][rpa_cuda.route(torch.bfloat16)],
+                  n_steps=MOE_PROFILE_STEPS)
     del engine
     torch.cuda.empty_cache()
     # the weights and the fp pool's tokens go on to serve_fp8 / serve_int8w
@@ -1583,10 +1615,31 @@ def tree_bitwise_equal(a, b) -> bool:
             and torch.equal(a.view(torch.int16), b.view(torch.int16)))
 
 
-def recipe_serve_phase(card: str, ckpt_dir: Path) -> int:
+def recipe_serve_node(ckpt_dir: Path, run_dir: Path, vocab_size: int, **serving) -> dict:
+    """The llm_serve config of recipe_serve: the checkpoint at `ckpt_dir`,
+    16 mock prompts of RECIPE_PROMPT_LEN tokens, SERVE's geometry, 32 greedy
+    tokens each; `serving` adds keys to the serving section."""
+    geometry = {f.name: getattr(SERVE, f.name) for f in dataclasses.fields(SERVE)
+                if f.name in ("page_size", "num_pages", "max_slots", "pages_per_slot",
+                              "token_budget", "prefill_chunk")}
+    return {
+        "recipe": "llm_serve", "seed": 0, "run_dir": str(run_dir),
+        "model": {"pretrained_path": str(ckpt_dir), "dtype": "bfloat16"},
+        "dataset": {"_target_": "automodel_tpu_torch.datasets.mock.MockDatasetConfig",
+                    "num_samples": 16, "seq_len": RECIPE_PROMPT_LEN,
+                    "vocab_size": vocab_size},
+        "dataloader": {"microbatch_size": 16, "grad_acc_steps": 1},
+        "max_requests": 16,
+        "serving": {**geometry, "max_new_tokens": 32, "temperature": 0.0,
+                    "arrival_stride": 2, **serving},
+    }
+
+
+def recipe_serve_phase(card: str, ckpt_dir: Path) -> tuple[int, dict]:
     """The llm_serve recipe through the CLI on a Llama-3-8B checkpoint that
     the port writes first to `ckpt_dir` (kept for the LoRA phases); returns
-    the recipe's launches of K4."""
+    the recipe's launches of K4 and its generations and serve stats (the
+    untraced run serve_traced is held to)."""
     cfg = llama_config(LLAMA3_8B, dtype=torch.bfloat16)
     params = decoder.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                           dtype=torch.bfloat16)
@@ -1599,20 +1652,7 @@ def recipe_serve_phase(card: str, ckpt_dir: Path) -> int:
                            hf_config=hf)
         write_s = time.perf_counter() - t0
         ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.iterdir())
-        serving = {f.name: getattr(SERVE, f.name) for f in dataclasses.fields(SERVE)
-                   if f.name in ("page_size", "num_pages", "max_slots", "pages_per_slot",
-                                 "token_budget", "prefill_chunk")}
-        node = {
-            "recipe": "llm_serve", "seed": 0, "run_dir": str(tmp / "run"),
-            "model": {"pretrained_path": str(ckpt_dir), "dtype": "bfloat16"},
-            "dataset": {"_target_": "automodel_tpu_torch.datasets.mock.MockDatasetConfig",
-                        "num_samples": 16, "seq_len": RECIPE_PROMPT_LEN,
-                        "vocab_size": cfg.vocab_size},
-            "dataloader": {"microbatch_size": 16, "grad_acc_steps": 1},
-            "max_requests": 16,
-            "serving": {**serving, "max_new_tokens": 32, "temperature": 0.0,
-                        "arrival_stride": 2},
-        }
+        node = recipe_serve_node(ckpt_dir, tmp / "run", cfg.vocab_size)
         (tmp / "serve.yaml").write_text(json.dumps(node, indent=1))  # JSON is YAML
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -1661,7 +1701,239 @@ def recipe_serve_phase(card: str, ckpt_dir: Path) -> int:
             f"of {cfg.num_layers} layers; expected {want}")
     if [g["generated_ids"] for g in gens] != direct:
         raise AssertionError("recipe_serve: the recipe's tokens differ from serve_batch's")
+    return launches["K4"], {"generated": direct, "stats": stats, "steps": steps}
+
+
+# serve_traced: recipe_serve's run with serving.observability on, a
+# torch.profiler window over these [start, steps]; serve_chaos: the same
+# run in a new process with a crash injected at this serve step
+SERVE_TRACE_WINDOW, SERVE_CHAOS_STEP = (8, 3), 20
+# the engine series of the metric catalog (JAX observability/metrics.py)
+ENGINE_SERIES = (
+    "serve_steps_total", "serve_plan_tokens_total", "serve_plan_samples_total",
+    "serve_step_ms", "serve_new_tokens_total", "serve_requests_total",
+    "serve_preemptions_total", "serve_timed_out_total", "serve_cancelled_total",
+    "serve_free_pages", "serve_compiled_signatures")
+
+
+def serve_cli_run(tmp: Path, name: str, ckpt_dir: Path, **serving) -> tuple:
+    """recipe_serve's CLI run under `tmp / name` with `serving` added to its
+    serving section: (recipe, generated ids, serving.jsonl records, K1-K7
+    launches, the run's ITL / TTFT p50 and p95 in ms)."""
+    node = recipe_serve_node(ckpt_dir, tmp / name, LLAMA3_8B["vocab_size"], **serving)
+    (tmp / f"{name}.yaml").write_text(json.dumps(node, indent=1))  # JSON is YAML
+    reset_counts()
+    recipe = cli_main([str(tmp / f"{name}.yaml")])
+    torch.cuda.synchronize()
+    launches = kernel_launches(*PAGED)
+    gens = [json.loads(line)["generated_ids"]
+            for line in (tmp / name / "generations.jsonl").open()]
+    log = [json.loads(line) for line in (tmp / name / "serving.jsonl").open()]
+    stats = next(r for r in reversed(log) if "serve_steps" in r)
+    latency = {k: stats[f"serve_{k}"] for k in ("itl_p50_ms", "itl_p95_ms",
+                                                 "ttft_p50_ms", "ttft_p95_ms")}
+    return recipe, gens, log, launches, latency
+
+
+def serve_traced_phase(card: str, ckpt_dir: Path, untraced: dict) -> int:
+    """recipe_serve's CLI run again with `serving.observability` on (spans,
+    lifecycle instants, counters, a profile window of SERVE_TRACE_WINDOW):
+    the generations must equal the untraced run's, the Chrome trace pass
+    `validate_chrome_trace`, the TTFT attribution's phases sum to its
+    median TTFT, `metrics.prom` carry the catalog's engine series with
+    `serve_steps_total` equal to the steps run, and K4 launch once a layer
+    in each step of the window (counted by the library at the window's
+    start and stop). Then the run traced without the window, and untraced
+    again, each token-equal: with recipe_serve's run before, the order is
+    untraced, traced with the window, traced, untraced, so the cost of
+    tracing (traced against the untraced runs on both sides) stands apart
+    from the window's, whose start and stop (the export) are timed where
+    they run, inside the serve loop. Prints the four runs' ITL / TTFT, the
+    window's ms, the events, and `ServingEngine.step_cost` with
+    `step_efficiency` over the steps. Returns the traced run's K4
+    launches."""
+    from automodel_tpu_torch.observability import (
+        ServeProfiler,
+        card_peaks,
+        step_efficiency,
+        validate_chrome_trace,
+    )
+    from automodel_tpu_torch.observability.metrics import METRIC_CATALOG
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_traced_"))
+    start, stop, run_step = ServeProfiler._start, ServeProfiler._stop, ServingEngine.run_step
+    window, plans = {}, []
+
+    def counted_start(self, step_idx, stop_at, why):
+        window["start"] = (step_idx, kernel_launches("K4")["K4"])
+        t0 = time.perf_counter()
+        start(self, step_idx, stop_at, why)
+        window["start_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def counted_stop(self):
+        window["stop"] = (self._stop_at, kernel_launches("K4")["K4"])
+        t0 = time.perf_counter()
+        stop(self)
+        window["stop_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def recorded(self, plan):
+        plans.append(dataclasses.replace(plan))
+        return run_step(self, plan)
+
+    try:
+        obs = {"enabled": True, "trace_path": str(tmp / "trace" / "serve"),
+               "profile_window": list(SERVE_TRACE_WINDOW), "profile_dir": str(tmp / "prof")}
+        ServeProfiler._start, ServeProfiler._stop = counted_start, counted_stop
+        ServingEngine.run_step = recorded
+        t0 = time.perf_counter()
+        try:
+            recipe, gens, serve_log, launches, windowed = serve_cli_run(
+                tmp, "run", ckpt_dir, observability=obs)
+        finally:
+            ServeProfiler._start, ServeProfiler._stop = start, stop
+            ServingEngine.run_step = run_step
+        cli_s = time.perf_counter() - t0
+        run = tmp / "run"
+        attr = next(r for r in serve_log if r.get("metric") == "latency_attribution")
+        trace = validate_chrome_trace(str(tmp / "trace" / "serve.trace.json"))
+        prom = (run / "metrics.prom").read_text()
+        engine = recipe.engine
+        steps, n_layers = engine.steps_run, engine.cfg.num_layers
+        events = len(engine.obs.tracer.events)
+        spans = [e.dur for e in engine.obs.tracer.events if e.name == "step.run"]
+        costs = [engine.step_cost(plan) for plan in plans]
+        prof_path = engine.obs.profiler.trace_path
+        peaks = card_peaks(torch.cuda.get_device_name(0), engine.cfg.dtype) or {}
+        del recipe, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same run traced without the window, then untraced again
+        again = {}
+        for name, serving in (("traced", {"observability": {
+                "enabled": True, "trace_path": str(tmp / "trace" / "again")}}),
+                              ("untraced", {})):
+            recipe, again_gens, _, again_launches, latency = serve_cli_run(
+                tmp, name, ckpt_dir, **serving)
+            again[name] = {"generated": again_gens, "launches": again_launches,
+                           "steps": recipe.engine.steps_run, **latency}
+            del recipe
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    eff = [step_efficiency(c, s, **peaks) for c, s in zip(costs, spans)]
+    p50 = attr["ttft_p50"]
+    phases_ms = sum(v for k, v in p50.items() if k.endswith("_ms") and k != "ttft_ms")
+    catalog = {name: kind for name, kind, _ in METRIC_CATALOG}
+    missing = [n for n in ENGINE_SERIES if f"# TYPE {n} {catalog[n]}\n" not in prom]
+    (w0, k0), (w1, k1) = window.get("start", (None, 0)), window.get("stop", (None, 0))
+    window_steps = (w1 - w0) if w0 is not None and w1 is not None else 0
+
+    def median(key):
+        return statistics.median(e[key] for e in eff if key in e)
+
+    latency_keys = ("itl_p50_ms", "itl_p95_ms", "ttft_p50_ms", "ttft_p95_ms")
+    runs = [{"run": "untraced (recipe_serve)", **{k: untraced["stats"][k] for k in latency_keys}},
+            {"run": "traced, profile window", **windowed},
+            {"run": "traced", **{k: again["traced"][k] for k in latency_keys}},
+            {"run": "untraced", **{k: again["untraced"][k] for k in latency_keys}}]
+    emit({
+        "phase": "serve_traced", "card": card,
+        "model": "Llama-3-8B widths, 32 layers, bf16, seed-0 weights (recipe_serve's)",
+        "cli_s": cli_s, "steps": steps, "trace_events": events, "chrome_trace": trace,
+        "runs_in_order": runs,
+        "window_start_ms": window.get("start_ms"), "window_stop_ms": window.get("stop_ms"),
+        "latency_attribution": {k: v for k, v in attr.items()
+                                if k in ("requests", "with_first_token", "ttft_p50",
+                                         "itl_mean")},
+        "profile_window": list(SERVE_TRACE_WINDOW), "profile_trace": bool(prof_path),
+        "window_k4_launches": k1 - k0, "window_steps": window_steps,
+        "launches": launches,
+        "launches_again": {name: r["launches"] for name, r in again.items()},
+        "step_cost": {"flops_median": statistics.median(c["flops"] for c in costs),
+                      "bytes_median": statistics.median(c["bytes_accessed"] for c in costs)},
+        "step_efficiency": {"step_ms_median": median("step_ms"),
+                            "achieved_gflops_per_s_median": median("achieved_gflops_per_s"),
+                            "achieved_gbytes_per_s_median": median("achieved_gbytes_per_s"),
+                            "mfu_median": median("mfu") if peaks else None,
+                            "bw_util_median": median("bw_util") if peaks else None,
+                            "bw_util_max": max(e.get("bw_util", 0) for e in eff)},
+        "missing_engine_series": missing,
+    })
+    if gens != untraced["generated"]:
+        raise AssertionError("serve_traced: tracing changed the generated tokens")
+    for name, r in again.items():
+        if r["generated"] != untraced["generated"]:
+            raise AssertionError(f"serve_traced: the {name} run changed the generated tokens")
+        want = dict.fromkeys(PAGED, 0)
+        want["K4"] = n_layers * r["steps"]
+        if r["launches"] != want:
+            raise AssertionError(f"serve_traced: the {name} run launched {r['launches']}; "
+                                 f"expected {want}")
+    if trace["spans"] == 0 or trace["instants"] == 0:
+        raise AssertionError(f"serve_traced: the trace holds {trace}")
+    if abs(phases_ms - p50["ttft_ms"]) > 1e-6 * p50["ttft_ms"]:
+        raise AssertionError(f"serve_traced: the TTFT phases sum to {phases_ms}, "
+                             f"not the median TTFT {p50['ttft_ms']}")
+    if missing or f"serve_steps_total {steps}\n" not in prom:
+        raise AssertionError(f"serve_traced: metrics.prom lacks {missing} or "
+                             f"serve_steps_total {steps}")
+    if len(spans) != steps or len(plans) != steps:
+        raise AssertionError(f"serve_traced: {len(spans)} step spans, {len(plans)} plans, "
+                             f"{steps} steps")
+    if not prof_path or window_steps != SERVE_TRACE_WINDOW[1] or \
+            k1 - k0 != n_layers * window_steps:
+        raise AssertionError(f"serve_traced: the profile window {window} launched "
+                             f"{k1 - k0} K4 in {window_steps} steps of {n_layers} layers")
+    want = dict.fromkeys(PAGED, 0)
+    want["K4"] = n_layers * steps
+    if launches != want:
+        raise AssertionError(f"serve_traced: paged kernels launched {launches}; "
+                             f"expected {want}")
     return launches["K4"]
+
+
+def serve_chaos_phase(card: str, ckpt_dir: Path) -> None:
+    """recipe_serve's config with observability on and
+    `resilience.faults: [{point: serve_step, step: SERVE_CHAOS_STEP, mode:
+    crash}]`, through `python -m automodel_tpu_torch` in a new process: the
+    process must die of the injected FaultCrash, leaving the flight
+    recorder's file, whose last event is of step SERVE_CHAOS_STEP, and no
+    generations."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_chaos_"))
+    try:
+        flight = tmp / "flight.jsonl"
+        node = recipe_serve_node(ckpt_dir, tmp / "run", LLAMA3_8B["vocab_size"],
+                                 observability={"enabled": True,
+                                                "flight_recorder_path": str(flight)})
+        node["resilience"] = {"faults": [{"point": "serve_step", "step": SERVE_CHAOS_STEP,
+                                          "mode": "crash"}]}
+        (tmp / "serve.yaml").write_text(json.dumps(node, indent=1))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "automodel_tpu_torch", str(tmp / "serve.yaml")],
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)))
+        wall = time.perf_counter() - t0
+        lines = [json.loads(line) for line in flight.open()] if flight.exists() else []
+        generations = (tmp / "run" / "generations.jsonl").exists()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    crash = f"FaultCrash: injected crash at serve_step (step={SERVE_CHAOS_STEP})"
+    last = lines[-1] if len(lines) > 1 else {}
+    emit({"phase": "serve_chaos", "card": card, "returncode": proc.returncode,
+          "process_wall_s": wall, "crashed": crash in proc.stderr,
+          "flight_header": lines[0] if lines else None, "flight_events": len(lines) - 1,
+          "flight_last_event": last, "flight_max_step": max(
+              (e["step"] for e in lines[1:]), default=None),
+          "generations_written": generations})
+    if proc.returncode == 0 or crash not in proc.stderr:
+        raise AssertionError(f"serve_chaos: the child did not die of the injected crash "
+                             f"(rc {proc.returncode}):\n{proc.stderr[-3000:]}")
+    if not lines or lines[0].get("reason") != "crash" or last.get("step") != SERVE_CHAOS_STEP:
+        raise AssertionError(f"serve_chaos: the flight recorder holds {lines[:1]} ... {last}")
+    if generations:
+        raise AssertionError("serve_chaos: the crashed run wrote generations")
 
 
 # the runtime calls by which the host launches a kernel, as the profiler
@@ -3476,13 +3748,15 @@ MIXTRAL_8X7B = {
     "max_position_embeddings": 32768, "router_aux_loss_coef": 0.02,
     "tie_word_embeddings": False,
 }
-# serve_gpt_oss runs every layer; serve_mixtral is cut 32 -> 8 layers: all
+# serve_gpt_oss is cut 24 -> 12 layers (6 windowed + sinks, 6 sinks alone;
+# all 24 until the resilience phases needed the time); serve_mixtral is cut
+# 32 -> 8 layers: all
 # 32 are 46.7 B parameters, 93 GB in bf16; serve_qwen3_moe is cut 48 -> 16
 # (all 48 took ~100 s with its two pools and profiles, and with the
 # quantized-linear and DSA phases the script neared its 1200 s limit on a
-# slow host): K4 / K5 and the expert products run the same path on every
-# layer
-QWEN3_SERVE_LAYERS, GPT_OSS_SERVE_LAYERS, MIXTRAL_SERVE_LAYERS = 16, 24, 8
+# slow host), and to 8 to make room for the resilience phases: K4 / K5 and
+# the expert products run the same path on every layer
+QWEN3_SERVE_LAYERS, GPT_OSS_SERVE_LAYERS, MIXTRAL_SERVE_LAYERS = 8, 12, 8
 # ... each profiled over 5 steps, not 10: the profiler's own processing of
 # one 48-layer step's ~5700 launches took ~4 s on an H100's host
 MOE_PROFILE_STEPS = 5
@@ -3759,6 +4033,10 @@ QWEN25_7B = {
     "rms_norm_eps": 1e-6, "sliding_window": 131072, "use_sliding_window": False,
     "max_window_layers": 28, "tie_word_embeddings": False,
 }
+# serve_glm4 cuts GLM-4-9B-0414 to this many of its 40 layers (uncut before
+# the resilience phases needed the time: every layer runs the same K4 at
+# G 16)
+GLM4_SERVE_LAYERS = 16
 # GLM-4-9B-0414 (https://huggingface.co/THUDM/GLM-4-9B-0414/blob/main/config.json):
 # 40 layers of 32 q / 2 kv heads of 128 (G 16), rotary on half of each head
 # (interleaved), sandwich norms, qkv bias; 9.4 B parameters, 18.8 GB in bf16
@@ -4003,14 +4281,14 @@ def dense_serve_model(name: str, hf: dict, layers: int, dtype):
 
 
 def serve_glm4_phase(card: str) -> dict:
-    """GLM-4-9B-0414 uncut (40 layers, bf16, seed-0 weights) on serve's
+    """GLM-4-9B-0414 cut to GLM4_SERVE_LAYERS layers (bf16, seed-0 weights) on serve's
     traffic: the fp pool (K4, G 16, on every layer of every step) with a
     10-step profile, then the int8 pool (K5); then the engine at 2 layers
     in fp32 held to the plain version (`engine_check`). Returns the
     launches of K4 and K5."""
     t0 = time.perf_counter()
-    cfg, params, model = dense_serve_model("GLM-4-9B-0414", GLM4_9B,
-                                           GLM4_9B["num_hidden_layers"], torch.bfloat16)
+    cfg, params, model = dense_serve_model("GLM-4-9B-0414", GLM4_9B, GLM4_SERVE_LAYERS,
+                                           torch.bfloat16)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     launches = {}
@@ -4255,8 +4533,9 @@ GLM47_FLASH = {
 GLM47_MLA = (20, 512, 64)
 # serve_glm47_flash / _int8: GLM-4.7-Flash at full width, its first
 # GLM47_SERVE_LAYERS layers (1 dense, the rest MoE), seq-0 bf16 weights;
-# cut 47 -> 16 as serve_qwen3_moe is (all 47 took 116 s)
-GLM47_SERVE_LAYERS = 16
+# cut 47 -> 16 as serve_qwen3_moe was (all 47 took 116 s), and to 8 to make
+# room for the resilience phases
+GLM47_SERVE_LAYERS = 8
 # train_glm47_flash: the training CLI at GLM-4.7-Flash's widths cut to 2
 # layers (1 dense + 1 MoE) and its MTP layer, GLM47_TRAIN_STEPS steps of
 # GLM47_TRAIN_SEQ tokens; K1-K3 at <256, 256>
@@ -4824,6 +5103,10 @@ QUANT_TOL = 1e-2
 # the linears a quantized decoder layer sends through quant.matmul: in the
 # train step q, k, v, o, gate, up, down; in the engine's step all but o
 TRAIN_QUANT_LINEARS, SERVE_QUANT_LINEARS = 7, 6
+# serve_fp8 / serve_int8w serve the first this many of serve's 32 layers
+# (all 32 until the resilience phases needed the time: the quantize
+# launches make each step host-bound, ~60 ms at 32 layers)
+SERVE_QUANT_LAYERS = 16
 # train_qat: llama3_8b_mock_bf16.yaml cut to 2 layers, 4 steps, int8
 # fake-quant from step 2 (the steps before it must equal a plain run's)
 QAT_LAYERS, QAT_STEPS, QAT_START = 2, 4, 2
@@ -4842,6 +5125,226 @@ DSA_TRAIN_LAYERS, DSA_TRAIN_STEPS = 2, 3
 # against the oracle; top-k 256 so that the selection binds (2048 >= S
 # would select every admissible key and check nothing)
 DSA_CHECK_SEQ, DSA_CHECK_TOPK, DSA_CHECK_TOL = 1024, 256, 1e-5
+
+
+# train_resilient: llm_finetune at Llama-3.2-1B's widths, uncut, sequences
+# of RESILIENT_SEQ tokens, RESILIENT_STEPS steps, with the checkpointer
+# (async, one kept) and the resilience section armed: a snapshot every 4
+# steps, two transient checkpoint-write faults at its first save, NaN
+# params before step RESILIENT_NAN_STEP and a SIGTERM at
+# RESILIENT_SIGTERM_STEP, the transfer guard on, a profiling window
+RESILIENT_SEQ, RESILIENT_STEPS = 4096, 12
+# (the checkpointer's cadence is past the run: two 14.8 GB writes six steps
+# apart did not commit within the grace window, 33.6 s, on the card's disk)
+RESILIENT_NAN_STEP, RESILIENT_SIGTERM_STEP, RESILIENT_CKPT_EVERY = 6, 11, 100
+
+
+def resilient_yaml(tmp: Path, faults: list, **over) -> Path:
+    hf = {k: v for k, v in NV_EMBEDQA_1B.items() if k != "pooling"}
+    hf["architectures"] = ["LlamaForCausalLM"]
+    cfg = {
+        "seed": 0, "run_dir": str(tmp / "run"),
+        "model": {"hf_config": hf, "dtype": "bfloat16", "remat_policy": "full"},
+        "distributed": {"dp_shard": -1},
+        "dataset": {"_target_": "automodel_tpu_torch.datasets.mock.MockDatasetConfig",
+                    "num_samples": 64, "seq_len": RESILIENT_SEQ,
+                    "vocab_size": hf["vocab_size"]},
+        "dataloader": {"microbatch_size": 1, "grad_acc_steps": 1},
+        "optimizer": {"name": "adamw", "lr": 3.0e-4, "weight_decay": 0.0},
+        "lr_scheduler": {"style": "cosine", "warmup_steps": 2,
+                         "decay_steps": RESILIENT_STEPS},
+        "skip_nonfinite_updates": True,
+        "step_scheduler": {"max_steps": RESILIENT_STEPS,
+                           "ckpt_every_steps": RESILIENT_CKPT_EVERY},
+        "checkpoint": {"enabled": True, "checkpoint_dir": str(tmp / "ckpt"),
+                       "async_save": True, "max_recent_checkpoints": 1},
+        "resilience": {"snapshot_every_steps": 4, "loss_spike_factor": 6.0,
+                       "max_consecutive_nonfinite": 10, "retry_attempts": 3,
+                       "transfer_guard": True, "faults": faults},
+        "profiling": {"trace_dir": str(tmp / "trace"), "start_step": 2, "num_steps": 2},
+        "loss": {"chunk_size": 2048},
+    }
+    for key, value in over.items():
+        node = cfg
+        *path, last = key.split(".")
+        for p in path:
+            node = node[p]
+        node[last] = value
+    path = tmp / f"resilient_{len(list(tmp.glob('resilient_*.yaml')))}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def train_resilient_phase(card: str) -> dict:
+    """The resilience section on the card, through the training recipe:
+    (1) the armed run (resilient_yaml): exactly one rollback, at the NaN
+    step, to the step-4 snapshot; the restored state (params, moments,
+    counters) bitwise equal to a copy on the card of the state the
+    snapshot was taken of; the step after it bit-equal (loss, grad norm,
+    every updated parameter) to the same step run again from that copy on
+    the same batch; two retries of the first
+    checkpoint write counted in training.jsonl; the SIGTERM's emergency
+    checkpoint committed within `sigterm_grace_s`; the profiling window's
+    trace written; (2) after the run, the step timed with the guard and
+    without; (3) a new process resumes from the emergency checkpoint (the
+    recipe's CLI, `checkpoint.restore_from`, saving nothing) and runs the
+    last step. Prints the snapshot's bytes and ms, the restore's ms, the
+    step's ms with and without the guard and K1-K3's launches; returns
+    them."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_resilient_"))
+    faults = [{"point": "checkpoint_write", "call": 1, "times": 2},
+              {"point": "nan_grads", "step": RESILIENT_NAN_STEP},
+              {"point": "sigterm", "step": RESILIENT_SIGTERM_STEP}]
+    try:
+        recipe = TrainFinetuneRecipeForNextTokenPrediction(
+            parse_args_and_load_config([str(resilient_yaml(tmp, faults))]))
+        recipe.setup()
+        rb = recipe.rollback
+        snapshots, kept, restored, after = [], {}, {}, {}
+        snapshot, rollback, run_step = rb.snapshot, rb.rollback, recipe.run_step
+
+        def card_copy(state):
+            return dataclasses.replace(
+                state, params=tree_map(lambda t: t.detach().clone(), state.params),
+                opt_state=tree_map(lambda t: t.clone() if torch.is_tensor(t) else t,
+                                   state.opt_state))
+
+        def timed_snapshot(step, state):
+            snapshot(step, state)
+            snapshots.append(dict(rb.last_snapshot))
+            if not restored:
+                # a copy on the card of the state snapshotted, which the
+                # rollback must restore bit for bit
+                kept.clear()
+                kept.update(step=step, state=card_copy(state))
+
+        def kept_rollback(step, reason, state=None):
+            snap_step, state = rollback(step, reason, state)
+            want = kept.pop("state")
+            restored.update(step=snap_step, state=want, equal=(
+                snap_step == kept["step"] and state.step == want.step
+                and all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(state.params), tree_leaves(want.params)))
+                and all(torch.equal(a, b) if torch.is_tensor(a) else a == b
+                        for a, b in zip(tree_leaves(state.opt_state),
+                                        tree_leaves(want.opt_state)))))
+            return snap_step, state
+
+        def kept_step(microbatches):
+            metrics = run_step(microbatches)
+            if restored and not after:
+                after.update(microbatches=microbatches, loss=float(metrics["loss"]),
+                             grad_norm=float(metrics["grad_norm"]),
+                             params=tree_map(lambda t: t.detach().clone(),
+                                             recipe.train_state.params))
+            return metrics
+
+        rb.snapshot, rb.rollback, recipe.run_step = timed_snapshot, kept_rollback, kept_step
+        reset_counts()
+        t0 = time.perf_counter()
+        recipe.run_train_validation_loop()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = kernel_launches(*FLASH)
+        records = jsonl(tmp / "run" / "training.jsonl")
+        restore = dict(rb.last_restore)
+        last_save = dict(recipe.checkpointer.last_save)
+        trace_path = recipe.profiler.trace_path
+        grace = recipe.resilience_cfg.sigterm_grace_s
+
+        # (2) the step with the guard and without, in turns
+        batch = after["microbatches"]
+        step_ms = {True: [], False: []}
+        for guard in (True, False, False, True, True, False):
+            recipe.resilience_cfg = dataclasses.replace(recipe.resilience_cfg,
+                                                        transfer_guard=guard)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            float(recipe.run_step(batch)["loss"])
+            step_ms[guard].append((time.perf_counter() - t1) * 1e3)
+
+        # (1) the step after the rollback again, from the copy of the
+        # snapshotted state
+        state = restored["state"]
+        for t in tree_leaves(state.params):
+            t.requires_grad_(True)
+        recipe.train_state = state
+        again = recipe.run_step(batch)
+        same_params = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(recipe.train_state.params), tree_leaves(after["params"])))
+        bit_equal = (float(again["loss"]) == after["loss"]
+                     and float(again["grad_norm"]) == after["grad_norm"] and same_params)
+        restored_equal = restored["equal"]
+        del recipe, state, restored, after, batch, again
+        gc.collect()  # the patched methods' closures keep the recipe in a cycle
+        torch.cuda.empty_cache()
+
+        # (3) a new process resumes from the emergency checkpoint
+        resume_yaml = resilient_yaml(tmp, [], **{
+            "run_dir": str(tmp / "run_resume"),
+            "checkpoint": {"enabled": False, "restore_from": str(tmp / "ckpt")}})
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "automodel_tpu_torch", str(resume_yaml)],
+                              capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)))
+        resume_wall = time.perf_counter() - t1
+        if proc.returncode != 0:
+            raise AssertionError(f"train_resilient: the resumed process failed:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        resumed = jsonl(tmp / "run_resume" / "training.jsonl")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = [r for r in records if "loss" in r]
+    events = [r for r in records if "event" in r]
+    rollbacks = [r for r in events if r["event"] == "rollback"]
+    emergency = [r for r in events if r["event"] == "emergency_checkpoint"]
+    emit({
+        "phase": "train_resilient", "card": card,
+        "model": "Llama-3.2-1B widths (16 layers, 32 / 8 heads of 64), bf16 over fp32 "
+                 f"masters, remat full, seq {RESILIENT_SEQ}",
+        "faults": faults, "steps": [r["step"] for r in steps],
+        "losses": [r["loss"] for r in steps], "lr": [r["lr"] for r in steps],
+        "events": events, "wall_s": wall_s, "emergency_save": last_save,
+        "snapshots": snapshots, "restore": restore,
+        "step_ms_guarded": step_ms[True], "step_ms_unguarded": step_ms[False],
+        "restored_bitwise_equal_to_snapshot": restored_equal,
+        "step_after_rollback_bit_equal": bit_equal,
+        "retries": max((r.get("retry_checkpoint_write", 0) for r in records), default=0),
+        "sigterm_grace_s": grace, "profile_trace": bool(trace_path),
+        "resumed_steps": [r["step"] for r in resumed if "loss" in r],
+        "time_to_resume_s": next((r.get("time_to_resume_s") for r in resumed), None),
+        "resume_process_wall_s": resume_wall,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches,
+    })
+    want_steps = [s for s in range(1, RESILIENT_SIGTERM_STEP + 1) if s != RESILIENT_NAN_STEP]
+    if [r["step"] for r in steps] != want_steps or not all(
+            math.isfinite(r["loss"]) for r in steps):
+        raise AssertionError(f"train_resilient: steps {steps}")
+    if len(rollbacks) != 1 or rollbacks[0]["step"] != RESILIENT_NAN_STEP or \
+            rollbacks[0]["restored_step"] != 4 or rollbacks[0]["reason"] != "nonfinite":
+        raise AssertionError(f"train_resilient: rollbacks {rollbacks}")
+    if not restored_equal:
+        raise AssertionError("train_resilient: the rollback did not restore the state "
+                             "the step-4 snapshot was taken of")
+    if not bit_equal:
+        raise AssertionError("train_resilient: the step after the rollback is not the "
+                             "snapshot's step again")
+    if max(r.get("retry_checkpoint_write", 0) for r in records) != 2:
+        raise AssertionError("train_resilient: the retries were not counted")
+    if len(emergency) != 1 or not emergency[0]["committed"] or \
+            emergency[0]["seconds"] > grace or emergency[0]["step"] != RESILIENT_SIGTERM_STEP:
+        raise AssertionError(f"train_resilient: emergency checkpoint {emergency}")
+    if not trace_path:
+        raise AssertionError("train_resilient: the profiling window wrote no trace")
+    if [r["step"] for r in resumed if "loss" in r] != [RESILIENT_SIGTERM_STEP + 1] or \
+            "time_to_resume_s" not in resumed[0]:
+        raise AssertionError(f"train_resilient: the resumed process's records {resumed}")
+    if launches["K1"] == 0 or launches["K2"] == 0:
+        raise AssertionError(f"train_resilient: K1-K3 {launches}")
+    return {**launches, "snapshot_bytes": snapshots[-1]["bytes"],
+            "snapshot_ms": [s["seconds"] * 1e3 for s in snapshots],
+            "restore_ms": restore["seconds"] * 1e3}
 
 
 def quant_mm_phase(flush) -> list:
@@ -4910,16 +5413,24 @@ def quant_mm_phase(flush) -> list:
     return records
 
 
-def serve_quant_phase(card: str, cfg, params, fp_outputs: list) -> dict:
-    """serve's Llama-3-8B (same weights) with `serve_precision`: fp8 on the
-    fp pool (K4) and int8 on the int8 pool (K5), the JAX package's quantized
-    serve entry point; each `serve_run` (fp8's with its profile), the quantized
-    GEMM launches counted (6 linears a layer a step; o_proj stays bf16, as
-    in the JAX engine) and the greedy agreement with serve's tokens.
+def serve_quant_phase(card: str, cfg, params) -> dict:
+    """serve's Llama-3-8B (same weights, their first SERVE_QUANT_LAYERS
+    layers) with `serve_precision`: fp8 on the fp pool (K4) and int8 on the
+    int8 pool (K5), the JAX package's quantized serve entry point; each
+    `serve_run` (fp8's with its profile), the quantized GEMM launches
+    counted (6 linears a layer a step; o_proj stays bf16, as in the JAX
+    engine) and the greedy agreement with the same layers' bf16 tokens.
     Returns the launches of K4 and K5."""
     from automodel_tpu_torch.ops import quant
 
-    model = "Llama-3-8B widths, 32 layers, bf16"
+    cfg = dataclasses.replace(cfg, num_layers=SERVE_QUANT_LAYERS)
+    params = {**params, "layers": tree_map(lambda t: t[:SERVE_QUANT_LAYERS],
+                                           params["layers"])}
+    model = f"Llama-3-8B widths, {SERVE_QUANT_LAYERS} of 32 layers, bf16"
+    engine = ServingEngine(params, cfg, SERVE)
+    fp_outputs = engine.serve_batch(serve_traffic(cfg.vocab_size))["outputs"]
+    del engine
+    torch.cuda.empty_cache()
     launches = {}
     for phase, precision, kernel, pool in (("serve_fp8", "fp8", "K4", None),
                                            ("serve_int8w", "int8", "K5", "int8")):
@@ -4944,9 +5455,11 @@ def serve_quant_phase(card: str, cfg, params, fp_outputs: list) -> dict:
         if gemms != want:
             raise AssertionError(f"{phase}: {gemms} quantized GEMMs in {steps} steps, "
                                  f"expected {want}")
-        if precision == "fp8":
+        if precision == "fp8":  # 5 steps: the profiler's processing of 4600
+            # launches a step held the phase
             profile_steps(engine, cfg, card, phase,
-                          rpa_cuda.KERNELS[kernel][rpa_cuda.route(torch.bfloat16)])
+                          rpa_cuda.KERNELS[kernel][rpa_cuda.route(torch.bfloat16)],
+                          n_steps=MOE_PROFILE_STEPS)
         del engine
         torch.cuda.empty_cache()
     return launches
@@ -5270,7 +5783,12 @@ def main() -> int:
     def lap(name: str) -> None:
         now = time.perf_counter()
         seconds[name] = round(now - last[0], 1)
-        last[0] = now
+        # a phase's recipes can outlive their last reference in reference
+        # cycles (frames a lazy import keeps); free their memory on the card
+        # before the next phase allocates
+        gc.collect()
+        torch.cuda.empty_cache()
+        last[0] = time.perf_counter()
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     k4 = kernel_phase(flush)
@@ -5286,7 +5804,7 @@ def main() -> int:
     del flush
     launches, llama = serve_phase(card)
     lap("serve")
-    quant_launches = serve_quant_phase(card, *llama)
+    quant_launches = serve_quant_phase(card, *llama[:2])
     launches.update(K4_serve_fp8=quant_launches["K4"], K5_serve_int8w=quant_launches["K5"])
     del llama
     torch.cuda.empty_cache()
@@ -5323,8 +5841,12 @@ def main() -> int:
     # LoRA phases
     hf_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_llama3_8b_"))
     try:
-        launches["K4_recipe"] = recipe_serve_phase(card, hf_dir / "hf")
+        launches["K4_recipe"], untraced = recipe_serve_phase(card, hf_dir / "hf")
         lap("recipe_serve")
+        launches["K4_serve_traced"] = serve_traced_phase(card, hf_dir / "hf", untraced)
+        lap("serve_traced")
+        serve_chaos_phase(card, hf_dir / "hf")
+        lap("serve_chaos")
         lora = train_lora_phase(card, hf_dir / "hf")
         lap("train_lora")
         qlora_launches = train_qlora_phase(card, hf_dir / "hf", lora["peak_mem_gib"])
@@ -5408,6 +5930,8 @@ def main() -> int:
     lap("smoke_moe_lite")
     chat_sft_launches = train_chat_sft_phase(card)
     lap("train_chat_sft")
+    resilient_launches = train_resilient_phase(card)
+    lap("train_resilient")
     gemma_launches, gemma2_records = train_gemma_phase(
         card, "train_gemma2", "Gemma-2-2B", GEMMA2_2B, GEMMA2_TRAIN_SEQ)
     lap("train_gemma2")
@@ -5450,8 +5974,9 @@ def main() -> int:
             "library_why": no_library,
             "card": card,
         })
-        if name == "K4":  # the llm_serve recipe's run, counted apart
+        if name == "K4":  # the llm_serve recipe's runs, counted apart
             kernels[-1]["recipe_serve_launches"] = launches["K4_recipe"]
+            kernels[-1]["serve_traced_launches"] = launches["K4_serve_traced"]
             kernels[-1]["serve_fp8_launches"] = launches["K4_serve_fp8"]
         if name == "K5":  # serve_precision int8 over the int8 pool
             kernels[-1]["serve_int8w_launches"] = launches["K5_serve_int8w"]
@@ -5632,6 +6157,7 @@ def main() -> int:
                 row["train_dsv32_dsa_launches"] = dsa_train_launches[name]
             if key == "encoder":  # Llama-3.2-1B's heads, causal
                 row["train_chat_sft_launches"] = chat_sft_launches[name]
+                row["train_resilient_launches"] = resilient_launches[name]
             if key == "gpt_oss":  # the smoke YAMLs' head dim 8, padded to 16
                 row["smoke_families_launches_at_16"] = {
                     fam: c[name] for fam, c in smoke_launches.items()}

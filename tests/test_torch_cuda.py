@@ -612,25 +612,56 @@ def test_windowed_engine_kernels_match_plain_version(card, kv, sinks):
     assert outs[0] == outs[1]
 
 
-def test_checkpointer_pins_within_its_limit_and_frees_on_close(card, tmp_path):
+def test_checkpointer_pins_within_its_limit_and_frees_on_close(card, tmp_path,
+                                                                monkeypatch):
     """An async save of a state on the card copies into host buffers that
-    are page-locked up to the checkpointer's limit and pageable past it;
-    the step restores bit-equal, and `close()` frees the buffers."""
+    are page-locked up to the process's limit and pageable past it; the
+    step restores bit-equal, and `close()` frees the buffers and their
+    share of the limit."""
     from automodel_tpu_torch.checkpoint import CheckpointingConfig
+    from automodel_tpu_torch.utils import host_buffers
 
     ck = CheckpointingConfig(checkpoint_dir=str(tmp_path), async_save=True).build()
-    ck._pinned_limit = 4096  # room for one of the two tensors
+    in_use = host_buffers.pinned_in_use()
+    # room for one of the two tensors
+    monkeypatch.setattr(host_buffers, "PINNED_LIMIT", in_use + 4096)
     gen = torch.Generator(device=card).manual_seed(0)
     state = {k: torch.randn(1024, generator=gen, device=card) for k in ("a", "b")}
     assert ck.save(1, state)
     ck.wait()
-    assert sorted(b.is_pinned() for b in ck._host_buffers.values()) == [False, True]
+    assert sorted(b.is_pinned() for b in ck._buffers.bufs.values()) == [False, True]
     assert ck.last_save["pinned_bytes"] == 4096
+    assert host_buffers.pinned_in_use() == in_use + 4096
     live = {k: torch.zeros_like(v) for k, v in state.items()}
     restored = ck.restore(live, step=1)
     assert all(torch.equal(restored[k], state[k]) and restored[k].is_cuda for k in state)
     ck.close()
-    assert not ck._host_buffers and ck._pinned_bytes == 0
+    assert not ck._buffers.bufs and host_buffers.pinned_in_use() == in_use
+
+
+def test_rollback_and_checkpointer_share_one_pinned_budget(card, tmp_path, monkeypatch):
+    """The rollback manager's snapshots and the checkpointer's saves draw on
+    one page-locked budget: with room for one tensor, the snapshot pins
+    and the save that follows stays pageable; the snapshot restores in
+    place."""
+    from automodel_tpu_torch.checkpoint import CheckpointingConfig
+    from automodel_tpu_torch.resilience import RollbackManager
+    from automodel_tpu_torch.utils import host_buffers
+
+    monkeypatch.setattr(host_buffers, "PINNED_LIMIT", host_buffers.pinned_in_use() + 4096)
+    gen = torch.Generator(device=card).manual_seed(0)
+    state = {"w": torch.randn(1024, generator=gen, device=card)}
+    want = state["w"].clone()
+    rb = RollbackManager(every_steps=1)
+    rb.snapshot(0, state)
+    assert rb.last_snapshot["pinned_bytes"] == 4096
+    ck = CheckpointingConfig(checkpoint_dir=str(tmp_path), async_save=False).build()
+    assert ck.save(1, state)
+    assert ck.last_save["pinned_bytes"] == 0
+    assert [b.is_pinned() for b in ck._buffers.bufs.values()] == [False]
+    state["w"].add_(1.0)
+    _, restored = rb.rollback(1, "nonfinite")
+    assert restored["w"] is state["w"] and torch.equal(state["w"], want)
 
 
 # K1-K3. fp32: summation order only (the kernels sum tiles online, the plain
@@ -1067,11 +1098,11 @@ def test_train_state_checkpoint_round_trip_on_the_card(card, tmp_path):
     with torch.no_grad():
         state.params["w"].add_(1.0)  # after the snapshot: not in step 1
     ck.wait()
-    buffers = {k: v.data_ptr() for k, v in ck._host_buffers.items()}
-    assert all(v.is_pinned() for v in ck._host_buffers.values())
+    buffers = {k: v.data_ptr() for k, v in ck._buffers.bufs.items()}
+    assert all(v.is_pinned() for v in ck._buffers.bufs.values())
     assert ck.save(2, state)
     ck.wait()
-    assert {k: v.data_ptr() for k, v in ck._host_buffers.items()} == buffers
+    assert {k: v.data_ptr() for k, v in ck._buffers.bufs.items()} == buffers
     restored = ck.restore(state, step=1)
     for k, v in restored.params.items():
         assert v.device == want[k].device and v.dtype == want[k].dtype
@@ -1277,3 +1308,81 @@ def test_dsa_chunked_matches_oracle_fp32_on_card(card, style):
     for key in ("indexer", "kv_up_proj", "o_proj"):
         g = [p.grad for p in tree_leaves(lp_c[key]) if p.grad is not None]
         assert (sum(float(t.abs().sum()) for t in g) > 0) == (key == "indexer")
+
+
+# -- observability and the transfer guard on the card ---------------------------
+def test_observability_on_and_off_serve_the_same_tokens(card, tmp_path):
+    """A traced engine (spans, lifecycle instants, counters, a profile
+    window) serves the greedy tokens of an untraced one on the card."""
+    from automodel_tpu_torch.observability import ObservabilityConfig, validate_chrome_trace
+
+    cfg = decoder.TransformerConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                                    num_layers=2, num_heads=4, num_kv_heads=2,
+                                    dtype=torch.bfloat16)
+    params = decoder.init(cfg, torch.Generator(device=card).manual_seed(0),
+                          dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, 256, (n,))] for n in (40, 9, 70, 23)]
+    sc = ServingConfig(page_size=16, num_pages=64, max_slots=4, pages_per_slot=8,
+                       token_budget=32)
+    outs = {}
+    for traced in (False, True):
+        obs = ObservabilityConfig(enabled=True, profile_window=(2, 2),
+                                  profile_dir=str(tmp_path / "prof")) if traced else None
+        engine = ServingEngine(params, cfg, dataclasses.replace(sc, observability=obs))
+        outs[traced] = engine.serve_batch([
+            Request(prompt=p, max_new_tokens=12, arrival=i) for i, p in enumerate(prompts)])
+    assert outs[True]["outputs"] == outs[False]["outputs"]
+    reg = engine.obs.registry.snapshot()
+    assert reg["serve_steps_total"] == outs[True]["stats"]["steps"]
+    assert engine.obs.profiler.done
+    validate_chrome_trace(engine.obs.export(str(tmp_path / "serve"))["chrome"])
+
+
+@pytest.mark.parametrize("skip_nonfinite", [False, True])
+def test_transfer_guard_passes_the_real_step_and_raises_on_a_planted_sync(
+        card, tmp_path, skip_nonfinite):
+    """`resilience.transfer_guard`: the tiny YAML's train step (K1-K3, the
+    chunked CE, clipping, AdamW; with `skip_nonfinite_updates`, the update
+    selected on the card and the count kept there) makes no host sync; a
+    step with non-finite gradients is skipped, count included; the same
+    step with an `.item()` planted inside raises."""
+    from automodel_tpu_torch.config import load_yaml
+    from automodel_tpu_torch.recipes.llm.train_ft import (
+        TrainFinetuneRecipeForNextTokenPrediction,
+    )
+
+    node = load_yaml("examples/llm_finetune/tiny_llama_mock_smoke.yaml")
+    node.set("run_dir", str(tmp_path / "run"))
+    node.set("checkpoint.enabled", False)
+    node.set("step_scheduler.max_steps", 3)
+    node.set("skip_nonfinite_updates", skip_nonfinite)
+    node.set("resilience", {"transfer_guard": True})
+    recipe = TrainFinetuneRecipeForNextTokenPrediction(node)
+    recipe.setup()
+    batches = iter(recipe.step_scheduler)
+    metrics = recipe.run_step(next(batches))  # guarded: no sync inside
+    assert np.isfinite(float(metrics["loss"]))
+    if skip_nonfinite:
+        assert float(metrics["skipped_nonfinite"]) == 0.0
+        opt = recipe.train_state.opt_state
+        assert opt["count"].is_cuda and int(opt["count"]) == 1
+        before = [t.clone() for t in (opt["mu"]["embed"]["embedding"],
+                                      recipe.train_state.params["embed"]["embedding"])]
+        with torch.no_grad():
+            recipe.train_state.params["final_norm"]["scale"][0] = float("nan")
+        metrics = recipe.run_step(next(batches))  # non-finite: skipped, guarded
+        assert float(metrics["skipped_nonfinite"]) == 1.0 and int(opt["count"]) == 1
+        assert torch.equal(opt["mu"]["embed"]["embedding"], before[0])
+        assert torch.equal(recipe.train_state.params["embed"]["embedding"], before[1])
+    step = recipe._train_step
+
+    def with_item(state, batch, rng):
+        state, metrics = step(state, batch, rng)
+        metrics["loss"].item()
+        return state, metrics
+
+    recipe._train_step = with_item
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        recipe.run_step(next(batches))
+    assert torch.cuda.get_sync_debug_mode() == 0

@@ -56,7 +56,11 @@ def test_port_imports_no_jax():
                 "datasets.megatron.index_helpers", "datasets.megatron.gpt_dataset",
                 "models.auto_tokenizer", "datasets.chat", "datasets.column_mapped",
                 "datasets.presets", "datasets.agent", "eval.tool_call_evaluator",
-                "loggers.trackers", "training.utils", "ops.dsa", "ops.matmul"):
+                "loggers.trackers", "training.utils", "ops.dsa", "ops.matmul",
+                "observability", "observability.metrics", "observability.trace",
+                "observability.timeline", "observability.profiler", "resilience",
+                "resilience.faults", "resilience.retry", "resilience.rollback",
+                "resilience.config", "resilience.preemption", "utils.host_buffers"):
         assert f"automodel_tpu_torch.{mod}" in res["modules"]
     assert res["leaked"] == []
 

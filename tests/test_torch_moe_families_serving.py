@@ -18,6 +18,10 @@ weights, requests and YAMLs.
   its expert kernels scaled so that gate and up values pass the clamp,
   and random sinks: lifting the clamp changes its first loss.
 - `qwen3_moe_ep_smoke.yaml` as written (`ep: 2`) is refused by the port.
+
+Each family's tiny model and its JAX engine's run are made once for the
+module and shared by its cases; the module runs PyTorch on one CPU thread
+(the tier-1 run's six test workers share the cores).
 """
 
 import dataclasses
@@ -57,31 +61,69 @@ PROMPT_LENS, ARRIVALS, MAX_NEW = (17, 29, 21, 18), (0, 0, 2, 5), 8
 CLAMP_SCALE = 12.0  # gpt-oss's gate and up kernels: values pass +-7
 
 
-def _serve(family, kv_cache_dtype, tcfg_fn=None):
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cached(fn):
+    """A module-scoped fixture's getter: `fn(*key)` made once per key."""
+    cache = {}
+
+    def get(*key):
+        if key not in cache:
+            cache[key] = fn(*key)
+        return cache[key]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """(hf, JAX config, JAX params) of a family's tiny model at a seed."""
+    return _cached(lambda family, seed: _tiny(
+        family, seed=seed, clamp_scale=CLAMP_SCALE if family == "gpt_oss" else 1.0))
+
+
+def _prompts(vocab_size):
+    return [[int(t) for t in np.random.default_rng(50 + i).integers(1, vocab_size, (n,))]
+            for i, n in enumerate(PROMPT_LENS)]
+
+
+@pytest.fixture(scope="module")
+def jax_served(tiny):
+    """The JAX engine's serve of a family's tiny model on a pool."""
+    def serve(family, kv_cache_dtype):
+        hf, jcfg, jp = tiny(family, 3)
+        je = JServingEngine(jax.tree.map(jnp.asarray, jp), jcfg,
+                            JServingConfig(**SERVE, kv_cache_dtype=kv_cache_dtype))
+        return je.serve_batch([JRequest(prompt=list(p), max_new_tokens=MAX_NEW, arrival=a)
+                               for p, a in zip(_prompts(hf["vocab_size"]), ARRIVALS)])
+
+    return _cached(serve)
+
+
+def _serve(tiny, jax_served, family, kv_cache_dtype, tcfg_fn=None):
     """(JAX outputs and stats, the port's, the port's engine) for the
     family's tiny model on the same requests."""
-    hf, jcfg, jp = _tiny(family, seed=3,
-                         clamp_scale=CLAMP_SCALE if family == "gpt_oss" else 1.0)
+    hf, _, jp = tiny(family, 3)
     tcfg = get_model_spec(hf).config_from_hf(hf, dtype=torch.float32)
     if tcfg_fn is not None:
         tcfg = tcfg_fn(tcfg)
-    prompts = [[int(t) for t in np.random.default_rng(50 + i).integers(
-        1, hf["vocab_size"], (n,))] for i, n in enumerate(PROMPT_LENS)]
-    je = JServingEngine(jax.tree.map(jnp.asarray, jp), jcfg,
-                        JServingConfig(**SERVE, kv_cache_dtype=kv_cache_dtype))
-    want = je.serve_batch([JRequest(prompt=list(p), max_new_tokens=MAX_NEW, arrival=a)
-                           for p, a in zip(prompts, ARRIVALS)])
     te = ServingEngine(params_from_jax(jp, device="cpu"), tcfg,
                        ServingConfig(**SERVE, kv_cache_dtype=kv_cache_dtype), device="cpu")
     got = te.serve_batch([Request(prompt=list(p), max_new_tokens=MAX_NEW, arrival=a)
-                          for p, a in zip(prompts, ARRIVALS)])
-    return want, got, te
+                          for p, a in zip(_prompts(hf["vocab_size"]), ARRIVALS)])
+    return jax_served(family, kv_cache_dtype), got, te
 
 
 @pytest.mark.parametrize("kv_cache_dtype", [None, "int8"])
 @pytest.mark.parametrize("family", ["qwen3_moe", "gpt_oss"])
-def test_engine_token_equal_to_jax(family, kv_cache_dtype):
-    want, got, te = _serve(family, kv_cache_dtype)
+def test_engine_token_equal_to_jax(family, kv_cache_dtype, tiny, jax_served):
+    want, got, te = _serve(tiny, jax_served, family, kv_cache_dtype)
     assert got["outputs"] == want["outputs"]
     assert all(len(o) == MAX_NEW for o in got["outputs"])
     for key in ("steps", "new_tokens", "tokens_fed", "preemptions"):
@@ -92,14 +134,14 @@ def test_engine_token_equal_to_jax(family, kv_cache_dtype):
         assert min(PROMPT_LENS) > 16
 
 
-def test_partial_rotary_engine_token_equal_to_jax():
+def test_partial_rotary_engine_token_equal_to_jax(tiny, jax_served):
     """GLM-4.5 rotates half of each head: the engine's q/k rows in the pool
     carry it (the JAX engine's tokens); rotating every channel gives other
     tokens."""
-    want, got, te = _serve("glm4_moe", None)
+    want, got, te = _serve(tiny, jax_served, "glm4_moe", None)
     assert te.cfg.rope_dim == te.cfg.resolved_head_dim // 2
     assert got["outputs"] == want["outputs"]
-    _, whole, _ = _serve("glm4_moe", None, lambda c: dataclasses.replace(
+    _, whole, _ = _serve(tiny, jax_served, "glm4_moe", None, lambda c: dataclasses.replace(
         c, partial_rotary_factor=1.0))
     assert whole["outputs"] != got["outputs"]
 
@@ -114,12 +156,11 @@ STEPS = 3
 
 
 @pytest.mark.parametrize("family", sorted(SMOKE))
-def test_smoke_recipe_loss_curve_matches_live_jax_run(family, tmp_path):
+def test_smoke_recipe_loss_curve_matches_live_jax_run(family, tmp_path, tiny):
     """docs/PARITY.md: both training recipes from the JAX package's HF
     checkpoint of the smoke YAML's model, the same YAML and mock batches:
     losses within 1e-4 relative."""
-    clamp = CLAMP_SCALE if family == "gpt_oss" else 1.0
-    hf, jcfg, params = _tiny(family, seed=6, clamp_scale=clamp)
+    hf, jcfg, params = tiny(family, 6)
     spec = j_get_model_spec(hf)
     j_save(j_get_adapter(spec.adapter_name, jcfg, **spec.adapter_kwargs).to_hf(params),
            str(tmp_path / "ckpt"), hf_config=hf)

@@ -19,7 +19,8 @@ to the JAX package on the CPU:
   live JAX run from the same weights, each mirror's metric lines equal to
   `training.jsonl`'s values and shaped as JAX's, GC back on after the run,
   after a SIGTERM (the mirrors end "KILLED") and after a failure ("FAILED");
-  `resilience` still raises.
+  a `resilience` section sets the SIGTERM grace, and an unknown key in it
+  raises.
 """
 
 import gc
@@ -415,6 +416,12 @@ def test_sft_recipe_gc_and_trackers_on_sigterm_and_failure(sft_runs, bpe_dir):
     assert lines[-1] == {"step": None, "_status": "FAILED"}
     node = _sft_node(load_yaml(TINY_YAML), tmp, "res", bpe_dir, chat_path,
                      resilience={"sigterm_grace_s": 5})
-    with pytest.raises(NotImplementedError, match="resilience"):
+    recipe = TrainFinetuneRecipeForNextTokenPrediction(node, device="cpu")
+    recipe.setup()  # the resilience section runs: its grace bounds the SIGTERM wait
+    assert recipe.resilience_cfg.sigterm_grace_s == 5
+    recipe.gc.close()  # setup turned GC off for the loop that does not run
+    node = _sft_node(load_yaml(TINY_YAML), tmp, "res_bad", bpe_dir, chat_path,
+                     resilience={"grace": 5})
+    with pytest.raises(ValueError, match="grace"):
         TrainFinetuneRecipeForNextTokenPrediction(node, device="cpu").setup()
     assert gc.isenabled()

@@ -147,14 +147,17 @@ def test_other_serve_yamls_raise_naming_their_section(name, section, tmp_path):
 
 def test_serving_sections_parse_defaults_and_refuse_more(tmp_path):
     """Sections at their defaults pass; each one that asks for more than
-    the single-replica offline engine raises; unknown keys raise."""
+    the single-replica offline engine raises (observability runs, but its
+    `http_port` belongs to the online frontend); unknown keys raise."""
     base = [SERVE_YAML, f"--run_dir={tmp_path}", "--serving.mesh.replicas=1",
             "--serving.online.enabled=false", "--serving.resilience.enabled=true",
             "--serving.observability.flight_recorder_len=64"]
     ServeRecipe(parse_args_and_load_config(base), device="cpu").typed.refuse_unported_serving()
     for override, match in (("--serving.mesh.tp=2", "serving.mesh"),
-                            ("--serving.observability.enabled=true", "serving.observability"),
-                            ("--resilience.faults=[]", "resilience.faults")):
+                            ("--serving.observability.http_port=0",
+                             "serving.observability.http_port"),
+                            ("--serving.disaggregation.enabled=true",
+                             "serving.disaggregation")):
         recipe = ServeRecipe(parse_args_and_load_config(base + [override]), device="cpu")
         with pytest.raises(NotImplementedError, match=match):
             recipe.typed.refuse_unported_serving()
