@@ -42,6 +42,10 @@ without the CausalLM wrapper (a `LlamaBidirectionalModel`) may drop the
 `model.` prefix, and one with a swapped head (`...ForSequenceClassification`)
 may carry no `lm_head.weight`: that leaf is then left out, as the JAX
 adapter does, and the seq-cls and retrieval recipes add their own head.
+The heterogeneous MoE engine's "het_moe" adapter
+(`models/moe_lm/het_families.py`) and Gemma-4's "gemma4_moe"
+(`models/moe_lm/gemma4.py`) live with their models and join `ADAPTERS` when
+those modules load.
 
 `retry_policy` (resilience/retry.py) retries transient tensor reads of the
 reader and shard writes of `save_hf_checkpoint`; the fault probes
@@ -564,6 +568,10 @@ ADAPTERS = {
 
 
 def get_adapter(adapter_name: str, cfg, **kw):
+    if adapter_name not in ADAPTERS:
+        # the family modules with adapters of their own ("het_moe",
+        # "gemma4_moe") register them when they are imported
+        import automodel_tpu_torch.models.registry  # noqa: F401
     if adapter_name not in ADAPTERS:
         raise NotImplementedError(
             f"checkpoint adapter {adapter_name!r} is not ported; ported: {sorted(ADAPTERS)}")

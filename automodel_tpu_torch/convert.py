@@ -6,7 +6,10 @@ key-for-key copy, of any depth: dense `layers`, the MoE decoder's
 `dense_layers` and `moe_layers` (`moe.gate` with its correction bias,
 `(L, E, H, I)` expert kernels, `moe.shared`), the MLA `kv_*`/`q_*`
 projections and the DSA `indexer` subtree (DeepSeek's `wq`/`wk`/`wgate`,
-GLM's with `k_norm`) alike, and the PEFT trees: the adapters keyed by path
+GLM's with `k_norm`) alike, the heterogeneous MoE engine's per-geometry
+and per-kind stacks (`g_attn`, `s_attn`, `dense_mlp`, `moe`, `shared_mlp`,
+`indexer`), Gemma-4's one `layers` stack with its router and experts, and
+the PEFT trees: the adapters keyed by path
 (`{"layers/q_proj/kernel": {"a", "b"[, "m"]}}`) and a QLoRA base, whose
 `{"q8", "sc"}` leaves keep their int8 and fp32 dtypes (`dtype` casts
 floating leaves only). The JAX side hands its tree over as numpy arrays

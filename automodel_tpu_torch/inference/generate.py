@@ -25,9 +25,11 @@ each layer attends over the slots written so far.
   explicit `torch.Generator`; the draws differ from `jax.random`'s. With
   `eos_token_id`, a sequence that emitted it keeps emitting it.
 
-The VLM arguments (`prompt_embeds`, `rope_angles`, `decode_rope_pos0`,
-`deepstack_embeds`, ROADMAP.md queue 1 item 18) and the heterogeneous MoE
-configs (item 11) raise NotImplementedError.
+A heterogeneous MoE config (`HetMoEConfig`: Step-3.5, MiMo-V2-Flash,
+MiniMax-M3) goes to `het_generate.py`, as in JAX. A Gemma-4 MoE config, which
+the JAX function drives neither way, and the VLM arguments (`prompt_embeds`,
+`rope_angles`, `decode_rope_pos0`, `deepstack_embeds`, ROADMAP.md queue 1
+item 18) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -234,6 +236,7 @@ def generate(
     device. `rng` draws the sampled tokens (temperature > 0; a generator on
     the prompt's device); greedy decoding needs none."""
     from automodel_tpu_torch.models.moe_lm.decoder import MoETransformerConfig
+    from automodel_tpu_torch.models.moe_lm.het_moe import HetMoEConfig
 
     for name, value in (("prompt_embeds", prompt_embeds), ("rope_angles", rope_angles),
                         ("decode_rope_pos0", decode_rope_pos0),
@@ -241,10 +244,16 @@ def generate(
         if value is not None:
             raise NotImplementedError(
                 f"generate: {name} (the VLM path) is not ported (ROADMAP.md queue 1 item 18)")
+    if isinstance(cfg, HetMoEConfig):
+        # per-layer geometries, MLP kinds and sparse index caches: its own loop
+        from automodel_tpu_torch.inference.het_generate import het_generate
+
+        return het_generate(params, cfg, input_ids, rng, gen)
     if type(cfg) not in (TransformerConfig, MoETransformerConfig):
         raise NotImplementedError(
-            f"generate: {type(cfg).__name__} (the heterogeneous MoE engine) is not "
-            "ported (ROADMAP.md queue 1 item 11)")
+            f"generate: {type(cfg).__name__} has no generation path (the JAX "
+            "function drives the layer-scan decoders and the heterogeneous MoE "
+            "engine only)")
     params = cast_params(params, cfg.dtype)
     B, S = input_ids.shape
     T = S + gen.max_new_tokens

@@ -6,7 +6,9 @@ bidirectional Llama and Ministral-3 encoders; the MLA + MoE DeepSeek-V3,
 Kimi-K2, GLM-4.7-Flash (GLM-4 MoE Lite) and Mistral-4; the DSA models
 DeepSeek-V3.2, DeepSeek-V4 and GLM-5.x (GlmMoeDsa); and the GQA MoE
 families Qwen3-MoE, Mixtral, gpt-oss, GLM-4.5, ERNIE-4.5-MoE, Hunyuan-MoE,
-Hy-MT2, MiniMax-M2 and Ling 2.0, for training and serving)."""
+Hy-MT2, MiniMax-M2 and Ling 2.0, for training and serving; and, for
+training and `generate()`, the heterogeneous MoE engine's Step-3.5,
+MiMo-V2-Flash and MiniMax-M3 and the parallel dense + MoE Gemma-4)."""
 
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ from typing import Any, Callable, Mapping
 from automodel_tpu_torch.models.llm import decoder, families
 from automodel_tpu_torch.models.moe_lm import decoder as moe_decoder
 from automodel_tpu_torch.models.moe_lm import families as moe_families
+from automodel_tpu_torch.models.moe_lm import gemma4 as gemma4_module
+from automodel_tpu_torch.models.moe_lm import het_families
+from automodel_tpu_torch.models.moe_lm import het_moe as het_moe_module
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +135,26 @@ MODEL_ARCH_MAPPING: dict[str, ModelSpec] = {
     "BailingMoeV2ForCausalLM": ModelSpec(
         "ling_v2", moe_families.bailing_moe_v2_config, moe_decoder,
         adapter_name="moe_decoder", adapter_kwargs={"style": "bailing"},
+    ),
+    # Gemma-4 MoE (the text decoder of the VL composite): parallel dense +
+    # MoE FFN, KV sharing, its own router
+    "Gemma4ForConditionalGeneration": ModelSpec(
+        "gemma4_moe", gemma4_module.gemma4_moe_config, gemma4_module,
+        adapter_name="gemma4_moe",
+    ),
+    # the heterogeneous engine: two attention geometries over per-layer
+    # dense / MoE MLPs; MiniMax-M3 adds block-sparse attention layers
+    "Step3p5ForCausalLM": ModelSpec(
+        "step3p5", het_families.step3p5_config, het_moe_module,
+        adapter_name="het_moe", adapter_kwargs={"style": "step3p5"},
+    ),
+    "MiMoV2FlashForCausalLM": ModelSpec(
+        "mimo_v2_flash", het_families.mimo_v2_flash_config, het_moe_module,
+        adapter_name="het_moe", adapter_kwargs={"style": "mimo"},
+    ),
+    "MiniMaxM3SparseForCausalLM": ModelSpec(
+        "minimax_m3", het_families.minimax_m3_text_config, het_moe_module,
+        adapter_name="het_moe", adapter_kwargs={"style": "minimax_m3"},
     ),
 }
 

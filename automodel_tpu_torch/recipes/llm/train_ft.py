@@ -15,7 +15,12 @@ aux loss joins the CE sum scaled by the label-token count
 step, the DeepSeek gate bias moves after the optimizer step
 (`apply_gate_bias_update`), and the record carries `moe_load_imbalance`.
 `model.fake_balanced_gate` and `model.moe_dispatcher` ("dropless" or
-"capacity") override the MoE config. A config with the MTP head
+"capacity") override the MoE config. The heterogeneous MoE engine
+(Step-3.5, MiMo-V2-Flash, MiniMax-M3) and Gemma-4 MoE train the same way:
+the loss and the gate-bias update go through the model module's own
+`head_kernel` and `apply_gate_bias_update`, the validation generation
+through `generate()` (`het_generate`), the consolidated export through the
+architecture's adapter. A config with the MTP head
 (`num_nextn_predict_layers`) adds `mtp_loss_coeff` times its CE to the CE
 sum, normalised by the same label tokens; from `model.pretrained_path` the
 head starts fresh from the recipe's generator, as HF checkpoints do not
@@ -404,7 +409,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 adapter = get_adapter(self.model_spec.adapter_name, self.model_cfg,
                                       **self.model_spec.adapter_kwargs)
                 self._init_params = adapter.from_hf(reader, device=self.device, dtype=dtype)
-            if self.model_cfg.dsa_index_topk is not None:
+            if getattr(self.model_cfg, "dsa_index_topk", None) is not None:
                 self._backfill_indexers(dtype)
             if getattr(self.model_cfg, "mtp_num_layers", 0) > 0:
                 # MTP weights are training-only and not part of HF

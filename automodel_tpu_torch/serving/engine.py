@@ -251,6 +251,16 @@ class ServingEngine:
         obs: Observability | None = None,
         track: str = "engine",
     ):
+        from automodel_tpu_torch.models.moe_lm.gemma4 import Gemma4MoEConfig
+        from automodel_tpu_torch.models.moe_lm.het_moe import HetMoEConfig
+
+        if isinstance(cfg, (HetMoEConfig, Gemma4MoEConfig)):
+            # as the JAX engine refuses a HetMoEConfig; neither JAX engine
+            # drives Gemma-4 MoE
+            raise NotImplementedError(
+                "ServingEngine drives the layer-scan decoders; the het "
+                "engine's per-layer python loop needs its own step function "
+                f"({type(cfg).__name__})")
         if cfg.attention_type not in ("gqa", "mla"):
             raise NotImplementedError(
                 f"attention_type {cfg.attention_type!r} is not ported yet"

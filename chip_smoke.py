@@ -250,6 +250,25 @@ one JSON line each:
    within the grace; a new process resumes from it and runs step 12; the
    snapshot's bytes and ms, the restore's ms and the step's ms with and
    without the guard printed.
+21. the heterogeneous MoE engine and Gemma-4 MoE (after train_gemma3_ckpt):
+   smoke_het: the Step-3.5, MiMo-V2-Flash, MiniMax-M3 and Gemma-4 smoke
+   YAMLs as smoke_families (`--distributed.ep=1`; MiniMax-M3's sparse
+   layers launch nothing); train_mimo_check: MiMo-V2-Flash
+   (`MIMO_V2_FLASH`, written from recall) at its widths cut to its first
+   2 layers (global with a dense MLP, sliding with sinks and 256 routed
+   experts), bf16, the parameter bytes reckoned before the draw: one
+   forward and backward of `het_moe.forward` at 4096 tokens with K1-K3
+   (at <192, 128>, G 16 and G 8, window 128, the sinks around K1-K3), with
+   the plain attention and with the kernels and the sinks dropped (the
+   control), the loss and the attention leaves' gradients held to bf16
+   tolerances; generate_mimo: `generate()` (het_generate) on that cut, 4
+   prompts of 512 tokens, 32 greedy tokens, its prefill logits held to
+   the K1-K3 forward's, ms a decode step; train_gemma4: the training CLI at
+   Gemma-4 26B-A4B's widths (`GEMMA4_26B_A4B`, from recall) cut to 2
+   layers (sliding, global), 5 steps of 4096 tokens, K1-K3 at <256, 256>;
+   train_gemma4_check: the 2 layers in fp32, one step with the kernels
+   and with the plain attention. The flash phase times K1-K3 at MiMo's
+   sliding heads and Gemma-4's beside their bounds.
 
 The paged kernel phase also holds fp32 K6 and K7 at DeepSeek-V3's 128 and
 Kimi-K2's 64 heads x r 512 to their plain versions, timed beside their
@@ -569,6 +588,14 @@ FA_GEMMA3_MASKS = dict(window=512, scale=256 ** -0.5)
 # 128; its sinks are applied in torch, outside K1-K3) at 4096 tokens
 FA_GPT_OSS_SHAPE = dict(B=1, S=4096, Hq=64, Hkv=8, D=64, Dv=64)
 FA_GPT_OSS_MASKS = dict(window=128)
+# MiMo-V2-Flash's sliding layers (q/k 192, v 128, 64 q / 8 kv heads: G 8,
+# window 128; the sinks rescale K1's output in torch, outside the kernels)
+# and Gemma-4 26B-A4B's sliding layers (16 / 8 heads of 256, window 1024, at
+# the query_pre_attn_scalar 256 scale)
+FA_MIMO_SWA_SHAPE = dict(B=1, S=4096, Hq=64, Hkv=8, D=192, Dv=128)
+FA_MIMO_SWA_MASKS = dict(window=128)
+FA_GEMMA4_SHAPE = dict(B=1, S=4096, Hq=16, Hkv=8, D=256, Dv=256)
+FA_GEMMA4_MASKS = dict(window=1024, scale=256 ** -0.5)
 # Mistral-7B's heads (32/8, D 128); its own window is 4096, here 1024 so that
 # the window masks at 4096 tokens, where the plain versions' (B, H, S, T)
 # fp32 intermediates still fit beside the kernels' inputs
@@ -1374,9 +1401,12 @@ def flash_phase(flush) -> dict:
     in fp32 at train_gemma_check's length; and FA_PADDED_CASES, the head
     dims K1-K3 run padded, in bf16 and fp32; no mask at all at
     the bidirectional encoder's heads (bf16 timed, and fp32) and the causal
-    Qwen2.5-7B heads (G 7, timed). Returns the timed bf16 entries for the
+    Qwen2.5-7B heads (G 7, timed); MiMo-V2-Flash's sliding heads (q/k
+    192, v 128, G 8, window 128) and Gemma-4 26B-A4B's (G 2 x 256, window
+    1024, scale 256^-0.5), timed. Returns the timed bf16 entries for the
     kernels line, keyed "dense", "mla", "encoder", "qwen25_7b", "gemma2",
-    "gemma3", "gpt_oss" and the other windowed cases' names."""
+    "gemma3", "gpt_oss", "mimo_swa", "gemma4" and the other windowed cases'
+    names."""
     S = FA_SHAPE["S"]
     main = fa_check_case(torch.bfloat16, S, False, flush, timed=True)
     fa_check_case(torch.float32, S, False, flush, timed=False)
@@ -1412,6 +1442,8 @@ def flash_phase(flush) -> dict:
         "position_causal_ring": (4096, False, g2, dict(ring=True, scale=256 ** -0.5)),
         "mistral_window": (4096, False, FA_SHAPE, FA_MISTRAL_MASKS),
         "gpt_oss": (4096, False, FA_GPT_OSS_SHAPE, FA_GPT_OSS_MASKS),
+        "mimo_swa": (4096, False, FA_MIMO_SWA_SHAPE, FA_MIMO_SWA_MASKS),
+        "gemma4": (4096, False, FA_GEMMA4_SHAPE, FA_GEMMA4_MASKS),
     }
     for name, (s_len, packed, shape, masks) in windowed.items():
         out[name] = fa_entries(fa_check_case(torch.bfloat16, s_len, packed, flush,
@@ -3988,7 +4020,10 @@ def smoke_families_phase(card: str, phase: str = "smoke_families",
             launches[run] = kernel_launches(*FLASH)
             at_16[run] = flash_counts((16, 16), ("mma", "fma"))
             dtype = str(recipe.model_cfg.dtype).removeprefix("torch.")
-            D = recipe.model_cfg.resolved_head_dim
+            mc = recipe.model_cfg
+            # the heterogeneous engine's (q/k, v) head dims per geometry
+            D = (mc.resolved_head_dim if hasattr(mc, "resolved_head_dim") else
+                 sorted({(mc.geom(t).head_dim, mc.geom(t).vd) for t in mc.layer_types}))
             losses[run] = [r["loss"] for r in jsonl(Path(run_dir) / "training.jsonl")]
             del recipe
 
@@ -4549,6 +4584,53 @@ MISTRAL4_ROPE = {"llama_4_scaling_beta": 0.1, "original_max_position_embeddings"
 # smoke_moe_lite: the three new families' smoke YAMLs, as smoke_families
 MOE_LITE_SMOKE_YAMLS = tuple(f"examples/llm_finetune/{f}_smoke.yaml"
                              for f in ("glm4_moe_lite", "mistral4", "hy_mt2"))
+# --- the heterogeneous MoE engine and Gemma-4 MoE ----------------------------
+# XiaomiMiMo/MiMo-V2-Flash config.json, written from recall (no file can be
+# fetched here) and checked against the published totals, 309 B parameters
+# and 15 B active, which these widths give (308.6 B, 15.2 B): 48 layers,
+# global at every sixth and the last (the JAX function's default pattern),
+# 64 q heads of q/k 192 and v 128 on both types, 4 kv heads on the global
+# layers (G 16) and 8 on the sliding ones (G 8), window 128 with sink
+# logits on the sliding layers only, 64 rotary channels of 192, 256 routed
+# experts of 2048 (top 8), the first layer's MLP dense
+MIMO_V2_FLASH = {
+    "architectures": ["MiMoV2FlashForCausalLM"], "model_type": "mimo_v2_flash",
+    "vocab_size": 152576, "hidden_size": 4096, "intermediate_size": 16384,
+    "num_hidden_layers": 48, "num_attention_heads": 64, "num_key_value_heads": 4,
+    "head_dim": 192, "v_head_dim": 128, "swa_num_attention_heads": 64,
+    "swa_num_key_value_heads": 8, "swa_head_dim": 192, "swa_v_head_dim": 128,
+    "sliding_window": 128,
+    "hybrid_layer_pattern": [0 if (i % 6 == 0 or i == 47) else 1 for i in range(48)],
+    "rope_theta": 5000000.0, "swa_rope_theta": 10000.0, "partial_rotary_factor": 0.334,
+    "add_full_attention_sink_bias": False, "add_swa_attention_sink_bias": True,
+    "n_routed_experts": 256, "num_experts_per_tok": 8, "moe_intermediate_size": 2048,
+    "moe_layer_freq": [0] + [1] * 47, "n_shared_experts": 0, "scoring_func": "sigmoid",
+    "n_group": 1, "topk_group": 1, "norm_topk_prob": True,
+    "layernorm_epsilon": 1e-5, "max_position_embeddings": 262144,
+    "tie_word_embeddings": False,
+}
+# google/gemma-4-26B-A4B config.json (text_config), written from recall and
+# checked against the model card's totals, 25.2 B parameters and 3.8 B
+# active, which these widths give (25.1 B, 3.75 B): 30 layers, five sliding
+# (window 1024) to one global, 16 q / 8 kv heads of 256, 128 experts of
+# 704 (top 8) beside a 2112-wide dense MLP, vocabulary 262144, tied. The
+# JAX config holds one head dim and kv-head count for both layer types, so
+# whatever the published global layers do beyond that is not expressed
+GEMMA4_26B_A4B = {
+    "architectures": ["Gemma4ForConditionalGeneration"], "model_type": "gemma4",
+    "tie_word_embeddings": True,
+    "text_config": {
+        "vocab_size": 262144, "hidden_size": 2816, "intermediate_size": 2112,
+        "num_hidden_layers": 30, "num_attention_heads": 16, "num_key_value_heads": 8,
+        "head_dim": 256,
+        "layer_types": ["full_attention" if (i + 1) % 6 == 0 else "sliding_attention"
+                        for i in range(30)],
+        "sliding_window": 1024, "rope_theta": 1000000.0, "rope_local_base_freq": 10000.0,
+        "query_pre_attn_scalar": 256, "num_kv_shared_layers": 0,
+        "num_experts": 128, "top_k_experts": 8, "moe_intermediate_size": 704,
+        "rms_norm_eps": 1e-6, "max_position_embeddings": 262144,
+    },
+}
 # train_chat_sft: llm_finetune at Llama-3.2-1B's widths (NV_EMBEDQA_1B's,
 # causal), uncut, on an AgentChatDatasetConfig over CHAT_SFT_CONVERSATIONS
 # tool-calling conversations written from seed 0, seq CHAT_SFT_SEQ,
@@ -5691,6 +5773,420 @@ def routing_replay_check(recipe) -> dict:
     return report
 
 
+# --- the heterogeneous MoE engine and Gemma-4 MoE (phases) -------------------
+# smoke_het: the four families' smoke YAMLs, as smoke_families (K1-K3 at
+# head dims 8 and (16, 8), padded to <16, 16>; MiniMax-M3's sparse layers
+# attend in plain torch and launch nothing)
+HET_SMOKE_YAMLS = tuple(f"examples/llm_finetune/{f}_smoke.yaml"
+                        for f in ("step3p5", "mimo_v2_flash", "minimax_m3", "gemma4_moe"))
+# train_mimo_check / generate_mimo: MiMo-V2-Flash at its published widths
+# cut to its first MIMO_LAYERS layers (0 global with a dense MLP, 1 sliding
+# with sinks and 256 routed experts): 8.07 B parameters, 16.1 GB in bf16.
+# Its fp32 AdamW state (16 bytes a parameter, 129 GB) fits no card, so the
+# check is one forward and backward in bf16 with gradients for the
+# attention leaves alone, at MIMO_SEQ tokens. Its MoE layer routes on the
+# balanced gate (token t to experts tK..tK+K-1, as train_moe_check): the
+# learned router's top 8 of 256 flips for some tokens under bf16 rounding
+# differences of the attention in front of it (the first card run, on the
+# learned router: gradients 5-6% apart, L2), and the check is of the
+# attention
+MIMO_LAYERS, MIMO_SEQ = 2, 4096
+# the sliding layers' sink logits, drawn around MIMO_SINK_MEAN: a sink then
+# holds ~20% of a row's mass over the 128-key window (at 0 it would hold
+# ~1%, which no bf16 tolerance could tell from rounding)
+MIMO_SINK_MEAN = 4.0
+# bf16, kernels vs plain attention on the same weights and batch: the loss
+# relative, each attention leaf's gradient as ||a - b|| / ||b||. Both paths
+# round q, k, v and the attention output to bf16, the plain one also the
+# probabilities before the value product; ~0.4% per element at bf16's
+# 2^-8, so the leaf norms agree to ~1%
+MIMO_LOSS_RTOL, MIMO_GRAD_RTOL = 2e-3, 3e-2
+# generate_mimo: 4 prompts of 512 mock tokens, 32 greedy new tokens; the
+# prefill's last-position logits (einsums over the dense cache) against
+# the K1-K3 forward's on the same prompts, as a share of the largest
+MIMO_GEN_PROMPTS, MIMO_GEN_LEN, MIMO_GEN_NEW = 4, 512, 32
+MIMO_GEN_LOGIT_TOL = 5e-2
+# train_gemma4: Gemma-4 26B-A4B at its widths (GEMMA4_26B_A4B) cut to 2 of
+# its 30 layers, one sliding and one global (it shares no KV): 2.37 B
+# parameters, 37.9 GB at 16 bytes a parameter of fp32 state; through the
+# CLI, GEMMA4_STEPS steps of GEMMA4_SEQ tokens; K1-K3 at <256, 256>
+GEMMA4_LAYERS, GEMMA4_SEQ, GEMMA4_STEPS = 2, 4096, 5
+GEMMA4_STATE_BUDGET_GIB = 60
+# train_gemma4_check: the same 2 layers in fp32, 2 microbatches of
+# GEMMA4_CHECK_SEQ tokens, kernels vs plain attention
+GEMMA4_CHECK_SEQ = 1024
+
+
+def mimo_cut(dtype, **overrides):
+    """MiMo-V2-Flash's config cut to its first MIMO_LAYERS layers."""
+    from automodel_tpu_torch.models.moe_lm.het_families import mimo_v2_flash_config
+
+    hf = dict(MIMO_V2_FLASH, num_hidden_layers=MIMO_LAYERS,
+              hybrid_layer_pattern=MIMO_V2_FLASH["hybrid_layer_pattern"][:MIMO_LAYERS],
+              moe_layer_freq=MIMO_V2_FLASH["moe_layer_freq"][:MIMO_LAYERS])
+    return mimo_v2_flash_config(hf, dtype=dtype, **overrides)
+
+
+def het_param_count(cfg) -> int:
+    """A het config's parameter count from its widths (the same tree
+    `het_moe.init` draws), to size a phase before it allocates."""
+    H, E = cfg.hidden_size, cfg.moe.n_routed_experts
+    n = cfg.vocab_size * H * (1 if cfg.tie_word_embeddings else 2) + H
+    for lt, mlp in zip(cfg.layer_types, cfg.mlp_kinds):
+        g = cfg.geom(lt)
+        n += H * (g.num_heads * g.head_dim + g.num_kv_heads * (g.head_dim + g.vd))
+        n += g.num_heads * g.vd * H + 2 * H
+        n += g.num_heads * (g.sinks + H * cfg.head_gate) + 2 * g.head_dim * cfg.qk_norm
+        n += (E * (3 * H * cfg.moe.moe_intermediate_size + 1) + H * E if mlp == "moe"
+              else 3 * H * cfg.intermediate_size)
+    return n
+
+
+def mimo_params(cfg):
+    """Seed-0 bf16 weights on the card, the sliding layers' sinks around
+    MIMO_SINK_MEAN."""
+    from automodel_tpu_torch.models.moe_lm import het_moe
+
+    params = het_moe.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sinks = params["s_attn"]["sinks"]
+    sinks.copy_(MIMO_SINK_MEAN + 0.5 * torch.randn(sinks.shape, generator=gen,
+                                                    device="cuda"))
+    return params
+
+
+def train_mimo_check_phase(card: str) -> tuple:
+    """MiMo-V2-Flash cut to MIMO_LAYERS layers at its published widths,
+    bf16, the MoE layer on the balanced gate: one forward and backward of
+    `het_moe.forward` at MIMO_SEQ tokens
+    with the kernels (attn_impl "auto": K1-K3 at <192, 128> on both layers,
+    the sliding one with window 128 and sinks around K1-K3), with the plain
+    attention ("torch"), and the control (the kernels with the sinks
+    dropped), on the same weights and batch. Loss and the attention leaves'
+    gradients (q/k/v/o of both geometries, the sinks) within MIMO_LOSS_RTOL
+    / MIMO_GRAD_RTOL; the control must miss MIMO_GRAD_RTOL. Returns (K1-K3
+    launches of the kernel run, the config, the params) for generate_mimo."""
+    from automodel_tpu_torch.models.moe_lm import het_moe
+
+    cfg = mimo_cut(torch.bfloat16, remat_policy="full")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, fake_balanced_gate=True))
+    n_params = het_param_count(cfg)
+    state_gb = {"bf16_params": 2 * n_params / 1e9,
+                "fp32_adamw_state_16_bytes_a_param": 16 * n_params / 1e9}
+    if 2 * n_params > 30e9:
+        raise AssertionError(f"train_mimo_check: {n_params} parameters do not leave "
+                             "room for the activations")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mimo_params(cfg)
+    init_s = time.perf_counter() - t0
+    if count_params(params) != n_params:
+        raise AssertionError(f"train_mimo_check: {count_params(params)} parameters drawn, "
+                             f"{n_params} reckoned")
+    ds = MockDatasetConfig(num_samples=1, seq_len=MIMO_SEQ, vocab_size=MOE_TRAIN_TOKEN_IDS,
+                           seed=3).build()
+    mb = make_global_batch({k: v[None] for k, v in ds[0].items()}, "cuda")
+    attn_leaves = {(gk, name): lp
+                   for gk in ("g_attn", "s_attn")
+                   for name, lp in (("q", params[gk]["q_proj"]["kernel"]),
+                                    ("k", params[gk]["k_proj"]["kernel"]),
+                                    ("v", params[gk]["v_proj"]["kernel"]),
+                                    ("o", params[gk]["o_proj"]["kernel"]))}
+    attn_leaves[("s_attn", "sinks")] = params["s_attn"]["sinks"]
+    results = {}
+    for run in ("auto", "torch", "control"):
+        rcfg = dataclasses.replace(cfg, attn_impl="torch" if run == "torch" else "auto")
+        if run == "control":
+            rcfg = dataclasses.replace(rcfg, sliding_attn=dataclasses.replace(
+                cfg.sliding_attn, sinks=False))
+        leaves = list(attn_leaves.values())
+        for t in leaves:
+            t.requires_grad_(True)
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hidden, aux = het_moe.forward(params, rcfg, mb["input_ids"], return_hidden=True)
+        ce, n = fused_linear_cross_entropy(hidden, het_moe.head_kernel(params, rcfg),
+                                           mb["labels"], chunk_size=2048)
+        loss = ce / n
+        grads = torch.autograd.grad(loss + aux, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        for t in leaves:
+            t.requires_grad_(False)
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+        results[run] = (loss.item(), grads, kernel_launches(*FLASH),
+                        flash_counts((192, 128), ("mma", "fma")), ms)
+        del hidden, aux, ce, loss
+        torch.cuda.empty_cache()
+
+    def gaps(run):
+        loss_rel = abs(results[run][0] - results["torch"][0]) / abs(results["torch"][0])
+        grad_rel = {f"{gk}.{name}": (torch.linalg.vector_norm((a - b).float())
+                                     / torch.linalg.vector_norm(b.float()).clamp(min=1e-30)).item()
+                    for (gk, name), a, b in zip(attn_leaves, results[run][1],
+                                                results["torch"][1])}
+        return loss_rel, grad_rel
+
+    loss_rel, grad_rel = gaps("auto")
+    c_loss_rel, c_grad_rel = gaps("control")
+    launches, at_dims = results["auto"][2], results["auto"][3]
+    expected = {"K1": 2 * MIMO_LAYERS, "K2": MIMO_LAYERS, "K3": MIMO_LAYERS}
+    emit({"phase": "train_mimo_check", "card": card,
+          "model": f"MiMo-V2-Flash (from recall), published widths, {MIMO_LAYERS} of "
+                   f"{MIMO_V2_FLASH['num_hidden_layers']} layers "
+                   f"({list(cfg.layer_types)}, MLPs {list(cfg.mlp_kinds)}), bf16, "
+                   "remat full, seed-0 weights, the balanced gate",
+          "params": count_params(params), "bytes": state_gb,
+          "heads": {"global": [cfg.global_attn.num_heads, cfg.global_attn.num_kv_heads,
+                               cfg.global_attn.head_dim, cfg.global_attn.vd],
+                    "sliding": [cfg.sliding_attn.num_heads, cfg.sliding_attn.num_kv_heads,
+                                cfg.sliding_attn.head_dim, cfg.sliding_attn.vd,
+                                cfg.sliding_attn.sliding_window]},
+          "tokens": MIMO_SEQ, "init_s": init_s,
+          "loss": {r: results[r][0] for r in results}, "loss_rel_err": loss_rel,
+          "loss_rtol": MIMO_LOSS_RTOL, "grad_rel_l2_err": grad_rel,
+          "grad_rtol": MIMO_GRAD_RTOL,
+          "control": "the kernels with the sliding layers' sinks dropped",
+          "control_loss_rel_err": c_loss_rel, "control_grad_rel_l2_err": c_grad_rel,
+          "fwd_bwd_ms": {r: results[r][4] for r in results},
+          "launches": launches, "expected_launches": expected,
+          "launches_at_192_128": at_dims,
+          "plain_launches": results["torch"][2],
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if not all(math.isfinite(results[r][0]) for r in results):
+        raise AssertionError(f"train_mimo_check: non-finite loss {results}")
+    if launches != expected or at_dims != expected or any(results["torch"][2].values()):
+        raise AssertionError(f"train_mimo_check: K1-K3 launches {launches}, at <192, 128> "
+                             f"{at_dims}, plain run {results['torch'][2]}")
+    if loss_rel > MIMO_LOSS_RTOL or max(grad_rel.values()) > MIMO_GRAD_RTOL:
+        raise AssertionError("train_mimo_check: kernels and plain attention differ")
+    if not max(c_grad_rel.values()) > MIMO_GRAD_RTOL:
+        raise AssertionError("train_mimo_check: the control (no sinks) is within "
+                             f"{MIMO_GRAD_RTOL} of the plain run: {c_grad_rel}")
+    del results
+    torch.cuda.empty_cache()
+    return launches, cfg, params
+
+
+def generate_mimo_phase(card: str, cfg, params) -> dict:
+    """`generate()` (het_generate) on train_mimo_check's cut and weights,
+    bf16: MIMO_GEN_PROMPTS mock prompts of MIMO_GEN_LEN tokens, MIMO_GEN_NEW
+    greedy new tokens. The prefill's last-position logits (captured at the
+    prefill's unembed) against the K1-K3 forward's on the same prompts
+    within MIMO_GEN_LOGIT_TOL of the largest; ms per decode step from a
+    1-token and a MIMO_GEN_NEW-token run. het_generate attends with einsums
+    over its dense cache, as in JAX: it launches no kernel. Returns the
+    K1-K3 launches of the reference forward."""
+    from automodel_tpu_torch.inference import het_generate as het_gen
+    from automodel_tpu_torch.models.moe_lm import het_moe
+
+    cfg = dataclasses.replace(cfg, attn_impl="auto")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompts = torch.randint(1, MOE_TRAIN_TOKEN_IDS, (MIMO_GEN_PROMPTS, MIMO_GEN_LEN),
+                            generator=gen, device="cuda")
+    reset_counts()
+    with torch.no_grad():
+        ref, _ = het_moe.forward(params, cfg, prompts)
+    ref = ref[:, -1].float()
+    fwd_launches = kernel_launches(*FLASH)
+    captured = []
+    unembed = het_gen.unembed
+
+    def capture(*args):
+        out = unembed(*args)
+        captured.append(out)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    het_gen.unembed = capture
+    try:
+        for n_new in (1, MIMO_GEN_NEW):
+            captured.clear()
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate(params, cfg, prompts, None, GenerateConfig(max_new_tokens=n_new))
+            torch.cuda.synchronize()
+            times[n_new] = (time.perf_counter() - t0) * 1e3
+            gen_launches = kernel_launches(*FLASH)
+    finally:
+        het_gen.unembed = unembed
+    prefill = captured[0][:, 0].float()
+    err = (prefill - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    decode_ms = (times[MIMO_GEN_NEW] - times[1]) / (MIMO_GEN_NEW - 1)
+    first_equal = (prefill.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    emit({"phase": "generate_mimo", "card": card,
+          "model": f"train_mimo_check's cut ({cfg.num_layers} layers), bf16",
+          "prompts": [MIMO_GEN_PROMPTS, MIMO_GEN_LEN], "new_tokens": MIMO_GEN_NEW,
+          "out_shape": list(out.shape), "prefill_logit_max_abs_err": err,
+          "ref_logit_max": scale, "tol": MIMO_GEN_LOGIT_TOL,
+          "first_token_agreement": first_equal,
+          "prefill_ms": times[1], "generate_ms": times[MIMO_GEN_NEW],
+          "ms_per_decode_step": decode_ms,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "reference_forward_launches": fwd_launches,
+          "generate_launches": gen_launches})
+    if tuple(out.shape) != (MIMO_GEN_PROMPTS, MIMO_GEN_LEN + MIMO_GEN_NEW):
+        raise AssertionError(f"generate_mimo: output shape {tuple(out.shape)}")
+    if not torch.isfinite(prefill).all() or err > MIMO_GEN_LOGIT_TOL * max(scale, 1.0):
+        raise AssertionError(f"generate_mimo: prefill logits {err} from the forward's")
+    if fwd_launches["K1"] != cfg.num_layers or any(gen_launches.values()):
+        raise AssertionError(f"generate_mimo: K1-K3 launches {fwd_launches} (forward), "
+                             f"{gen_launches} (generate)")
+    return fwd_launches
+
+
+def gemma4_cut(layers: int) -> dict:
+    """GEMMA4_26B_A4B cut to `layers` layers: one global last, the rest
+    sliding."""
+    text = dict(GEMMA4_26B_A4B["text_config"], num_hidden_layers=layers,
+                layer_types=["sliding_attention"] * (layers - 1) + ["full_attention"])
+    return dict(GEMMA4_26B_A4B, text_config=text)
+
+
+def train_gemma4_phase(card: str) -> dict:
+    """Gemma-4 26B-A4B through the training CLI at its widths, cut to
+    GEMMA4_LAYERS layers (one sliding, one global), bf16 over fp32 masters,
+    full remat, GEMMA4_STEPS steps of GEMMA4_SEQ tokens: tokens/s, ms a
+    step, MFU, peak memory and K1-K3 launches at <256, 256> (2 K1 a layer
+    and step, forward and recompute); the loss must fall by a quarter over
+    the steps. Returns the launches."""
+    from automodel_tpu_torch.models.moe_lm import gemma4
+
+    hf = gemma4_cut(GEMMA4_LAYERS)
+    cfg0 = gemma4.gemma4_moe_config(hf)
+    H, E = cfg0.hidden_size, cfg0.moe.n_routed_experts
+    per_layer = (H * cfg0.head_dim * (2 * cfg0.num_heads + 2 * cfg0.num_kv_heads)
+                 + 3 * H * cfg0.intermediate_size
+                 + E * 3 * H * cfg0.moe.moe_intermediate_size + H * E
+                 + 8 * H + 2 * cfg0.head_dim + 1)
+    n_params = cfg0.vocab_size * H + H + GEMMA4_LAYERS * per_layer
+    state_gib = 16 * n_params / 2**30
+    if state_gib > GEMMA4_STATE_BUDGET_GIB:
+        raise AssertionError(f"train_gemma4: {state_gib:.1f} GiB of fp32 state")
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_gemma4_")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    recipe = cli_main([moe_train_yaml(run_dir, "gemma4_train", hf, GEMMA4_SEQ,
+                                      GEMMA4_STEPS)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernel_launches(*FLASH)
+    at_dims = flash_counts((256, 256))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    records = jsonl(Path(run_dir) / "training.jsonl")
+    cfg = recipe.model_cfg
+    steady = records[1:]
+    tps = statistics.median(r["tps"] for r in steady)
+    losses = [r["loss"] for r in records]
+    ln_v = math.log(cfg.vocab_size)
+    n = GEMMA4_LAYERS * GEMMA4_STEPS
+    expected = {"K1": 2 * n, "K2": n, "K3": n}
+    emit({"phase": "train_gemma4", "card": card,
+          "model": f"Gemma-4 26B-A4B (from recall), full width, {GEMMA4_LAYERS} of 30 "
+                   f"layers ({list(cfg.layer_types)}), bf16 over fp32 masters, "
+                   f"remat {cfg.remat_policy}",
+          "params": count_params(recipe.train_state.params), "params_reckoned": n_params,
+          "fp32_state_gib_reckoned": state_gib, "steps": len(records),
+          "tokens_per_step": GEMMA4_SEQ, "losses": losses,
+          "grad_norms": [r["grad_norm"] for r in records], "ln_vocab": ln_v,
+          "ln_vocab_note": "at 2 layers the input token's own embedding, scaled by "
+                           "sqrt(H) and tied to the head, holds ~20% of the residual's "
+                           "energy, so the step-1 loss lies ~2 x ln(V) (the current "
+                           "token's own logit ~20); the fp32 check's forward sits there too",
+          "ms_per_step": GEMMA4_SEQ / tps * 1e3, "tokens_per_s": tps,
+          "mfu_pct": statistics.median(r["mfu_pct"] for r in steady),
+          "tflops_per_device": statistics.median(r["tflops_per_device"] for r in steady),
+          "moe_load_imbalance": [r.get("moe_load_imbalance") for r in records],
+          "wall_s_with_setup": wall_s, "peak_mem_gib": peak_gib,
+          "launches": launches, "expected_launches": expected,
+          "launches_at_256_256": at_dims, "scale": cfg.attn_scale,
+          "window": cfg.sliding_window})
+    if count_params(recipe.train_state.params) != n_params:
+        raise AssertionError(f"train_gemma4: {n_params} parameters reckoned, "
+                             f"{count_params(recipe.train_state.params)} trained")
+    if len(records) != GEMMA4_STEPS or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
+        raise AssertionError(f"train_gemma4: bad records {records}")
+    if not losses[-1] < 0.75 * losses[0]:
+        raise AssertionError(f"train_gemma4: the loss did not fall: {losses}")
+    if launches != expected or at_dims != expected:
+        raise AssertionError(f"train_gemma4: K1-K3 launches {launches}, at <256, 256> "
+                             f"{at_dims}")
+    del recipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_gemma4_check_phase() -> None:
+    """fp32, Gemma-4 26B-A4B widths, 2 layers (sliding, window 1024, and
+    global): one accumulated step (2 microbatches of GEMMA4_CHECK_SEQ
+    tokens) from the same weights and batch with attn_impl "flash" (K1-K3
+    at <256, 256> on the CUDA cores) and "torch". The loss and every
+    gradient leaf but the routed experts' and the router's within
+    TRAIN_LOSS_RTOL / TRAIN_GRAD_TOL: the attention outputs differ by ~1e-6
+    between the two, which may move a token whose 8th and 9th expert
+    probabilities lie that close to another expert, and those two leaves'
+    gradients with it (their errors are printed)."""
+    from automodel_tpu_torch.models.moe_lm import gemma4
+
+    base = gemma4.gemma4_moe_config(gemma4_cut(2), dtype=torch.float32,
+                                    remat_policy="full")
+    params0 = gemma4.init(base, torch.Generator(device="cuda").manual_seed(6))
+    ds = MockDatasetConfig(num_samples=4, seq_len=GEMMA4_CHECK_SEQ,
+                           vocab_size=MOE_TRAIN_TOKEN_IDS, seed=7).build()
+    batch = make_global_batch(stack_microbatches(
+        [{k: v[None] for k, v in ds[i].items()} for i in range(2)]), "cuda")
+    results = {}
+    for impl in ("flash", "torch"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+
+        def loss_fn(params, mb, rng, cfg=cfg):
+            h, _ = gemma4.forward(params, cfg, mb["input_ids"], return_hidden=True)
+            return fused_linear_cross_entropy(h, gemma4.head_kernel(params, cfg),
+                                              mb["labels"], chunk_size=2048)
+
+        params = tree_map(lambda t: t.clone().requires_grad_(), params0)
+        reset_counts()
+        ce, aux = accumulate_grads(loss_fn, params, batch)
+        flat = {}
+
+        def walk(node, prefix=""):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, f"{prefix}{k}.")
+                else:
+                    flat[prefix + k] = v.grad
+        walk(params)
+        results[impl] = (float(ce / aux["num_label_tokens"]), flat, kernel_launches(*FLASH),
+                         flash_counts((256, 256), ("fma",)))
+        del params
+        torch.cuda.empty_cache()
+    (loss_f, g_f, n_f, d_f), (loss_t, g_t, n_t, _) = results["flash"], results["torch"]
+    errs = {k: ((g_f[k] - g_t[k]).abs().max() / g_t[k].abs().max().clamp(min=1e-30)).item()
+            for k in g_t if g_t[k] is not None}
+    routed = {k: v for k, v in errs.items() if "experts" in k or "router" in k}
+    held = {k: v for k, v in errs.items() if k not in routed}
+    loss_rel = abs(loss_f - loss_t) / abs(loss_t)
+    emit({"phase": "train_gemma4_check", "layers": 2, "dtype": "float32",
+          "tokens": [2, GEMMA4_CHECK_SEQ], "loss_flash": loss_f, "loss_torch": loss_t,
+          "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+          "grad_max_rel_err": max(held.values()), "grad_tol": TRAIN_GRAD_TOL,
+          "routed_leaves_rel_err": routed, "launches": [n_f, n_t],
+          "launches_at_256_256_fp32": d_f})
+    if n_f["K1"] == 0 or n_f != d_f or any(n_t.values()):
+        raise AssertionError("train_gemma4_check: attn_impl did not select the kernels "
+                             f"/ the plain path: {n_f}, {n_t}, {d_f}")
+    if loss_rel > TRAIN_LOSS_RTOL or max(held.values()) > TRAIN_GRAD_TOL:
+        raise AssertionError(f"train_gemma4_check: kernels and plain differ: {held}")
+    torch.cuda.empty_cache()
+
+
 MMA_KERNELS = (
     (r"((?:fwd|dkv|dq)_mma_kernel)ILi(\d+)ELi(\d+)ELb([01])E",
      lambda m: f"{m[1]}<{m[2]}, {m[3]}, {'true' if m[4] == '1' else 'false'}>"),
@@ -5944,6 +6440,17 @@ def main() -> int:
     lap("train_gemma_check")
     ckpt_serve_launches = train_gemma3_ckpt_phase(card)
     lap("train_gemma3_ckpt")
+    het_smoke_launches = smoke_families_phase(card, "smoke_het", HET_SMOKE_YAMLS)
+    lap("smoke_het")
+    mimo_launches, mimo_cfg, mimo_weights = train_mimo_check_phase(card)
+    lap("train_mimo_check")
+    mimo_gen_launches = generate_mimo_phase(card, mimo_cfg, mimo_weights)
+    del mimo_weights
+    lap("generate_mimo")
+    gemma4_launches = train_gemma4_phase(card)
+    lap("train_gemma4")
+    train_gemma4_check_phase()
+    lap("train_gemma4_check")
 
     no_library = ("no single PyTorch call attends over per-row page tables; "
                   "scaled_dot_product_attention needs each row's KV gathered "
@@ -6116,7 +6623,9 @@ def main() -> int:
             ("gpt_oss", "_gpt_oss", (64, 64), family_launches["gpt_oss"]),
             ("encoder", "_encoder", (64, 64), encoder_launches),
             ("qwen25_7b", "_qwen25_7b", (128, 128), qwen_launches),
-            ("glm47_flash", "_glm47_flash", (256, 256), glm47_train_launches)):
+            ("glm47_flash", "_glm47_flash", (256, 256), glm47_train_launches),
+            ("mimo_swa", "_mimo_swa", (192, 128), mimo_launches),
+            ("gemma4", "_gemma4", (256, 256), gemma4_launches)):
         for name, replaces in (("K1", ":140"), ("K2", ":238"), ("K3", ":283")):
             e = (glm47_flash_entries if key == "glm47_flash" else flash[key])[name]
             row = {
@@ -6165,6 +6674,14 @@ def main() -> int:
                     fam: c[name] for fam, c in dense_smoke_launches.items()}
                 row["smoke_moe_lite_launches_at_16"] = {
                     fam: c[name] for fam, c in moe_lite_smoke_launches.items()}
+                row["smoke_het_launches_at_16"] = {
+                    fam: c[name] for fam, c in het_smoke_launches.items()}
+            if key == "mimo_swa":  # train_mimo_check's kernel run, both layers
+                row["launches_note"] = (
+                    "train_mimo_check's forward and backward, both layers at <192, 128> "
+                    "(the global layer G 16 with no window, the sliding one G 8, "
+                    "window 128, sinks)")
+                row["generate_mimo_reference_forward_launches"] = mimo_gen_launches[name]
             kernels.append(row)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds})

@@ -76,6 +76,7 @@ def run(name: str, out_dir: Path) -> tuple[str, bool]:
         shutil.copytree(ROOT / sub, d / sub,
                         ignore=shutil.ignore_patterns("build", "__pycache__"))
     shutil.copy(ROOT / "pytest.ini", d / "pytest.ini")
+    shutil.copy(ROOT / "chip_smoke.py", d / "chip_smoke.py")  # published configs
     tests, sites = MUTANTS[name]
     for file, old, new in sites:
         path = d / PKG / file

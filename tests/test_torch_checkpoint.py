@@ -40,6 +40,7 @@ from automodel_tpu_torch.checkpoint import (
     get_adapter,
     save_hf_checkpoint,
 )
+from automodel_tpu_torch.checkpoint.hf_adapter import ADAPTERS
 from automodel_tpu_torch.checkpoint.safetensors_io import SafetensorsFile, save_file
 from automodel_tpu_torch.convert import params_from_jax
 from automodel_tpu_torch.models.llm import decoder
@@ -268,8 +269,12 @@ def test_unported_adapter_styles_raise():
     # the DSA indexer maps (its round trips: tests/test_torch_dsa_recipes.py)
     ds_dsa = DenseDecoderAdapter(dataclasses.replace(ds_cfg, dsa_index_topk=4))
     assert "self_attn.indexer.wq.weight" in [e[0] for e in ds_dsa._layer_entries()]
-    with pytest.raises(NotImplementedError, match="het_moe"):
-        get_adapter("het_moe", t_cfg)
+    # the hybrids' adapters are not ported (ROADMAP.md queue 1 item 19);
+    # "het_moe" and "gemma4_moe" are (tests/test_torch_het_moe.py,
+    # tests/test_torch_gemma4.py), registered by their model modules
+    with pytest.raises(NotImplementedError, match="qwen3_next"):
+        get_adapter("qwen3_next", t_cfg)
+    assert {"het_moe", "gemma4_moe"} <= set(ADAPTERS)
 
 
 def test_export_replaces_an_older_one(tmp_path):

@@ -870,6 +870,61 @@ def test_flash_padded_head_dims_match_plain_attention(card, dtype, dims):
                         for name in fa_cuda.KERNELS[fa_cuda.route(dtype)]}
 
 
+# the heterogeneous MoE engine's and Gemma-4's attention calls: B, S, Hq,
+# Hkv, (q/k, v) head dims, window, sinks, explicit scale
+HET_FA_CASES = {
+    # MiMo-V2-Flash's sliding layers: G 8, q/k 192, v 128, window 128, sinks
+    "mimo_sliding": (1, 400, 16, 2, (192, 128), 128, True, None),
+    # its global layers: G 16, no window, no sinks
+    "mimo_global": (1, 300, 16, 1, (192, 128), None, False, None),
+    # Gemma-4 26B-A4B's heads (16 / 8 of 256) at the query_pre_attn_scalar
+    # scale, and a window
+    "gemma4_sliding": (1, 300, 16, 8, (256, 256), 128, False, 256 ** -0.5),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(HET_FA_CASES))
+def test_flash_het_geometries_match_plain_attention(card, dtype, case):
+    """K1-K3 through the autograd path at the geometries of MiMo's and
+    Gemma-4's layers (packed documents, positions restarting): output and
+    the q, k, v and sinks gradients against autograd through the plain
+    einsum attention in fp32, and one launch of each of the route's
+    kernels at the pair's own instantiation (no padding)."""
+    from automodel_tpu_torch.ops.attention import dot_product_attention
+    from automodel_tpu_torch.ops.cuda import flash_attention as fa_cuda
+
+    B, S, Hq, Hkv, dims, window, with_sinks, scale = HET_FA_CASES[case]
+    q, k, v, dout, seg = _fa_inputs(card, dtype, B, S, S, Hq, Hkv, dims, True)
+    positions = _fa_masks(card, B, S, S, True, seg, {"window": window})[0]["positions"]
+    # sinks around 1: each takes a share of its row's mass
+    sinks = torch.linspace(0.0, 2.0, Hq, device=card) if with_sinks else None
+    kw = dict(segment_ids=seg, positions=positions, sliding_window=window, scale=scale)
+    grads = []
+    for impl in ("flash", "xla"):
+        leaves = [t.float().clone().requires_grad_() if impl == "xla"
+                  else t.clone().requires_grad_() for t in (q, k, v)]
+        if sinks is not None:
+            leaves.append(sinks.clone().requires_grad_())
+        out = dot_product_attention(*leaves[:3], sinks=leaves[3] if sinks is not None
+                                    else None, impl=impl, **kw)
+        grads.append((out, torch.autograd.grad(out, leaves, dout.to(out.dtype))))
+    (out_f, g_f), (out_x, g_x) = grads
+    assert out_f.shape == (B, S, Hq, dims[1])
+    assert _rel_err(out_f, out_x) <= FA_TOL[dtype]
+    for a, b in zip(g_f, g_x):
+        assert a.shape == b.shape and _rel_err(a, b) <= FA_TOL[dtype]
+
+    def step():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = dot_product_attention(*leaves, sinks=sinks, **kw)
+        torch.autograd.grad(out, leaves, dout)
+
+    assert fa_cuda.padded_head_dims(*dims) == dims
+    launched = _launched(step, lambda: fa_cuda.launch_counts(by_head_dims=True))
+    assert launched == {(name, dims): 1 for name in fa_cuda.KERNELS[fa_cuda.route(dtype)]}
+
+
 def test_flash_attention_on_card_matches_plain_attention(card):
     """The autograd path on the card (K1-K3, sinks and the lse cotangent in
     torch) against autograd through the plain einsum attention."""

@@ -60,7 +60,9 @@ def test_port_imports_no_jax():
                 "observability", "observability.metrics", "observability.trace",
                 "observability.timeline", "observability.profiler", "resilience",
                 "resilience.faults", "resilience.retry", "resilience.rollback",
-                "resilience.config", "resilience.preemption", "utils.host_buffers"):
+                "resilience.config", "resilience.preemption", "utils.host_buffers",
+                "models.moe_lm.het_moe", "models.moe_lm.het_families",
+                "models.moe_lm.gemma4", "inference.het_generate"):
         assert f"automodel_tpu_torch.{mod}" in res["modules"]
     assert res["leaked"] == []
 
