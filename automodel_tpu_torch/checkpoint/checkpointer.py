@@ -2,7 +2,7 @@
 (port of `automodel_tpu/checkpoint/checkpointer.py`).
 
 The JAX package saves through orbax; the port writes one directory per
-step on one device:
+step (on a mesh, see below):
 
     <checkpoint_dir>/step_<N>/state.pt      the train state (torch.save)
                              /extra.json    the recipe's tracked host state
@@ -30,6 +30,16 @@ the page-locked part of the buffers) and seconds: the copy to host memory
 (`host_s`, on the caller's thread) and the write and commit
 (`write_s`, set when the write lands).
 
+A train state on a mesh (DTensor leaves) is saved sharded
+(`checkpoint/sharded.py`): every rank writes the blocks it owns to
+`rank_<r>.pt` beside `state.pt`, which then holds only the marker
+`{"__sharded__": world}`; the ranks meet at a barrier before rank 0
+renames the step into place and prunes, so the commit is the last rank's
+write. These saves are synchronous (the barriers belong to the caller's
+thread). `restore` plans by boxes: a sharded or a one-process step
+restores onto any mesh, and onto one process, each leaf's live block
+filled from the saved blocks that overlap it.
+
 The two packages' train states do not read each other: orbax cannot read
 `state.pt` and the port does not read orbax's directories. They meet at the
 consolidated HF export (`hf_adapter.save_hf_checkpoint`).
@@ -41,7 +51,7 @@ re-runs the failure point), `checkpoint_wait` in `wait()`, which is not
 retried (the failed write is consumed). An exception of the background
 write, a `FaultCrash` included, is kept and raised by the next `wait()`
 or save. What is not ported: remote URIs (`gs://...`, ROADMAP.md queue 1
-item 16) and resharding across topologies (item 12).
+item 16).
 """
 
 from __future__ import annotations
@@ -57,10 +67,17 @@ import time
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
+from automodel_tpu_torch.checkpoint.sharded import (
+    SHARDED_MARKER,
+    assemble,
+    has_dtensor,
+    to_blocks,
+)
 from automodel_tpu_torch.resilience.faults import fault_hit
 from automodel_tpu_torch.resilience.retry import RetryPolicy, retry_call
-from automodel_tpu_torch.utils.host_buffers import HostBuffers, restore
+from automodel_tpu_torch.utils.host_buffers import HostBuffers, as_tree, restore
 
 logger = logging.getLogger(__name__)
 
@@ -147,13 +164,18 @@ class Checkpointer:
         if step in self.all_steps():
             return False
 
+        sharded = has_dtensor(as_tree(state))
+
         def attempt():
             fault_hit("checkpoint_write", step=step)
             t0 = time.perf_counter()
-            snapshot = self._buffers.snapshot(state)
+            tree = to_blocks(as_tree(state), _rank()) if sharded else state
+            snapshot = self._buffers.snapshot(tree)
             self.last_save = {"step": step, "host_s": time.perf_counter() - t0,
                               "pinned_bytes": self._buffers.pinned_bytes}
-            if self.config.async_save:
+            if sharded:
+                self._write_sharded(step, snapshot, extra, metrics)
+            elif self.config.async_save:
                 self._writer = threading.Thread(
                     target=self._write_async, args=(step, snapshot, extra, metrics),
                     name=f"checkpoint-step-{step}", daemon=True)
@@ -187,6 +209,35 @@ class Checkpointer:
         self.last_save.update(bytes=nbytes, write_s=time.perf_counter() - t0)
         logger.info("saved checkpoint at step %d", step)
         self._prune()
+
+    def _write_sharded(self, step: int, snapshot: dict, extra: dict | None,
+                       metrics: dict | None) -> None:
+        """Every rank's blocks into `step_<N>.tmp/`, then one rename by rank
+        0 after a barrier (see the module docstring)."""
+        t0 = time.perf_counter()
+        rank, world = _rank(), _world()
+        final = self._dir(step)
+        tmp = final + ".tmp"
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        _barrier()
+        path = os.path.join(tmp, f"rank_{rank:05d}.pt")
+        torch.save(snapshot, path)
+        nbytes = os.path.getsize(path)
+        if rank == 0:
+            for name, obj in (("extra.json", extra), ("metrics.json", metrics)):
+                if obj is not None:
+                    with open(os.path.join(tmp, name), "w") as f:
+                        json.dump(obj, f)
+            torch.save({SHARDED_MARKER: world}, os.path.join(tmp, "state.pt"))
+        _barrier()
+        if rank == 0:
+            os.rename(tmp, final)
+            self._prune()
+        _barrier()
+        self.last_save.update(bytes=nbytes, write_s=time.perf_counter() - t0)
+        logger.info("saved sharded checkpoint at step %d (rank %d of %d)", step, rank, world)
 
     def _prune(self) -> None:
         """Drop the steps retention does not keep."""
@@ -244,13 +295,24 @@ class Checkpointer:
                 f"no checkpoint{'' if step is None else f' at step {step}'} "
                 f"under {self.config.checkpoint_dir}")
 
-        def attempt():
-            fault_hit("checkpoint_restore", step=step)
-            return torch.load(os.path.join(self._dir(step), "state.pt"),
+        def load(name):
+            return torch.load(os.path.join(self._dir(step), name),
                               map_location="cpu", weights_only=True, mmap=True)
 
+        def attempt():
+            fault_hit("checkpoint_restore", step=step)
+            saved = load("state.pt")
+            if isinstance(saved, dict) and SHARDED_MARKER in saved:
+                return [load(f"rank_{r:05d}.pt") for r in range(saved[SHARDED_MARKER])]
+            return saved
+
         saved = self._attempt("checkpoint_restore", attempt)
-        filled = restore(state, saved)
+        if isinstance(saved, list) or has_dtensor(as_tree(state)):
+            filled = assemble(as_tree(state), saved if isinstance(saved, list) else [saved])
+            if dataclasses.is_dataclass(state) and not isinstance(state, type):
+                filled = dataclasses.replace(state, **filled)
+        else:
+            filled = restore(state, saved)
         if not with_extra:
             return filled
         path = os.path.join(self._dir(step), "extra.json")
@@ -284,3 +346,16 @@ class Checkpointer:
         makes them anew)."""
         self._join()
         self._buffers.clear()
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()

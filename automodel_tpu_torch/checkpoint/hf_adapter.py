@@ -351,11 +351,15 @@ class DenseDecoderAdapter:
                 yield f"model.layers.{i}.{self._fused_qkv_name()}", self._fuse_qkv(layers, i)
 
     # -- import --------------------------------------------------------------
-    def from_hf(self, read: Reader, device=None, dtype: torch.dtype = torch.float32) -> dict:
+    def from_hf(self, read: Reader, device=None, dtype: torch.dtype = torch.float32,
+                place=None) -> dict:
         """The params tree on `device` (None means CUDA) in `dtype` (values
         as the checkpoint holds them, cast once). A name missing with its
         `model.` prefix is read without it, and a missing `lm_head.weight`
-        leaves that leaf out (the module docstring says when)."""
+        leaves that leaf out (the module docstring says when). With
+        `place(path, tensor)` (a mesh: the leaf's block on this rank, a
+        DTensor) each leaf is placed as soon as it is read, so no rank ever
+        holds the whole tree."""
         device = resolve_device(device)
 
         def read_any(name):
@@ -367,7 +371,7 @@ class DenseDecoderAdapter:
                 raise
 
         load = self._loader(read_any, device)
-        out: dict = {}
+        out = _new_tree(place)
         for name, path, transpose, tr in self._top_entries():
             try:
                 _set(out, path, _stack((), lambda: name, lambda n: load(n, transpose, tr),
@@ -387,7 +391,7 @@ class DenseDecoderAdapter:
                     lambda n, cols=cols: load(n, True, None)[:, cols], dtype, device))
         if self._fused_qkv_name() is not None:
             self._load_fused_qkv(out, "layers", read_any, 0, L, dtype, device)
-        return out
+        return dict(out)
 
 
 @dataclasses.dataclass
@@ -499,12 +503,13 @@ class MoEDecoderAdapter:
                 for proj in ("gate_proj", "up_proj", "down_proj"):
                     yield self._shared_name(i, proj), _t(moe["shared"][proj]["kernel"][li])
 
-    def from_hf(self, read: Reader, device=None, dtype: torch.dtype = torch.float32) -> dict:
+    def from_hf(self, read: Reader, device=None, dtype: torch.dtype = torch.float32,
+                place=None) -> dict:
         """As `DenseDecoderAdapter.from_hf`."""
         cfg, dense = self.cfg, self.dense
         device = resolve_device(device)
         load = dense._loader(read, device)
-        out: dict = {}
+        out = _new_tree(place)
         for name, path, transpose, tr in dense._top_entries():
             _set(out, path, _stack((), lambda: name, lambda n: load(n, transpose, tr),
                                    dtype, device))
@@ -537,7 +542,7 @@ class MoEDecoderAdapter:
                 _set(out, experts + ("down_proj", leaf), _stack(
                     (Lm,), lambda li, sfx=sfx: self._gpt_oss_name(fk + li, "down_proj" + sfx),
                     plain, dtype, device))
-            return out
+            return dict(out)
         if cfg.moe.gate_bias_update_speed > 0:
             def escore(name):
                 # checkpoints trained without aux-free balancing carry none
@@ -558,7 +563,7 @@ class MoEDecoderAdapter:
                 _set(out, moe_path + ("shared", proj, "kernel"), _stack(
                     (Lm,), lambda li: self._shared_name(fk + li, proj),
                     lambda n: load(n, True, None), dtype, device))
-        return out
+        return dict(out)
 
 
 ADAPTERS = {
@@ -789,7 +794,23 @@ def _get(tree, path: tuple):
     return tree
 
 
+class _PlacedTree(dict):
+    """The root of a tree `from_hf` fills, whose leaves `place(path,
+    tensor)` turns into this rank's blocks as each is made."""
+
+    def __init__(self, place):
+        super().__init__()
+        self.place = place
+
+
 def _set(tree: dict, path: tuple, value) -> None:
+    place = getattr(tree, "place", None)
+    if place is not None:
+        value = place(path, value)
     for p in path[:-1]:
         tree = tree.setdefault(p, {})
     tree[path[-1]] = value
+
+
+def _new_tree(place) -> dict:
+    return {} if place is None else _PlacedTree(place)

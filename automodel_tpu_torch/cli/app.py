@@ -1,5 +1,9 @@
 """CLI entry: ``python -m automodel_tpu_torch <cfg.yaml> [--key.path=value ...]``
-(port of `automodel_tpu/cli/app.py`).
+(port of `automodel_tpu/cli/app.py`), on one card, or on N under
+``torchrun --nproc-per-node N -m automodel_tpu_torch <cfg.yaml>``: each rank
+joins the process group the launcher describes (NCCL) and the recipe lays
+its state out on the YAML's `distributed` mesh; the group is torn down when
+the run ends.
 
 The recipe class resolves from the ``recipe._target_`` field (JAX-package
 names map to the port's), a bare ``recipe:`` alias, or the default
@@ -59,8 +63,14 @@ def main(argv=None, device=None):
     from the command line, means CUDA; the CPU only when asked for), run it
     (train or serve); returns the recipe (its state and logs stay readable
     by the caller)."""
+    from automodel_tpu_torch.distributed import destroy_distributed, launched_distributed
+
     cfg = parse_args_and_load_config(argv)
     recipe = resolve_recipe_class(cfg)(cfg, device=device)
-    recipe.setup()
-    recipe.run_train_validation_loop()
+    try:
+        recipe.setup()
+        recipe.run_train_validation_loop()
+    finally:
+        if launched_distributed():
+            destroy_distributed()
     return recipe

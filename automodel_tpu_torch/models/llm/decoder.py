@@ -11,8 +11,17 @@ full-sequence training `forward` (`attention_block`, which hands MLA layers
 to `models/llm/mla.py`, `mlp_block`, `_decoder_layer`). With
 `linear_precision` "fp8" or "int8" the projections and the MLP go through
 `ops/quant.matmul` (per-channel dynamic quantization), as in JAX; the LM
-head and the embeddings stay unquantized. Meshes, pipeline and context
-parallelism and the EAGLE-3 aux-hidden capture raise NotImplementedError.
+head and the embeddings stay unquantized.
+
+On a mesh (`mesh_ctx`, params as DTensors laid out by `param_specs`), the
+forward runs on each rank's shards (`parallel/spmd.py`): each layer's
+weights are all-gathered over `dp_shard` inside the layer loop (FSDP), and
+where `tp` splits the heads and the MLP, each rank runs its heads and its
+I/tp slice, the `o_proj` and `down_proj` partial sums all-reduced over
+`tp` (JAX's manual mode, `decoder.py:877-898`); the embedding lookup is
+vocab-parallel. DSA's sparse attention under `tp` raises
+NotImplementedError, and so do context and pipeline parallelism
+(ROADMAP.md item 12b) and the EAGLE-3 aux-hidden capture.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from automodel_tpu_torch.models.common.layers import (
@@ -37,6 +47,12 @@ from automodel_tpu_torch.ops.rope import (
     RopeScalingConfig,
     apply_rope,
     rope_frequencies,
+)
+from automodel_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+    copy_to,
+    group_size,
+    reduce_from,
 )
 from automodel_tpu_torch.peft.lora import layer_stack, merge_lora
 
@@ -263,6 +279,60 @@ def init(cfg: TransformerConfig, gen: torch.Generator,
     return params
 
 
+def attention_layer_specs(cfg: TransformerConfig) -> dict:
+    """Logical axes of the attention stack's leaves (JAX
+    `attention_layer_specs`); MLA's from `mla.mla_layer_specs`."""
+    if cfg.attention_type == "mla":
+        from automodel_tpu_torch.models.llm.mla import mla_layer_specs
+
+        return mla_layer_specs(cfg)
+    layers = {
+        "input_norm": {"scale": ("layers", "norm")},
+        "q_proj": {"kernel": ("layers", "embed", "heads")},
+        "k_proj": {"kernel": ("layers", "embed", "kv_heads")},
+        "v_proj": {"kernel": ("layers", "embed", "kv_heads")},
+        "o_proj": {"kernel": ("layers", "heads", "embed")},
+        "post_attn_norm": {"scale": ("layers", "norm")},
+    }
+    if cfg.attention_bias:
+        layers["q_proj"]["bias"] = ("layers", "heads")
+        layers["k_proj"]["bias"] = ("layers", "kv_heads")
+        layers["v_proj"]["bias"] = ("layers", "kv_heads")
+    if cfg.o_proj_bias:
+        layers["o_proj"]["bias"] = ("layers", "norm")
+    if cfg.qk_norm or cfg.qk_norm_flat:
+        layers["q_norm"] = {"scale": ("layers", "norm")}
+        layers["k_norm"] = {"scale": ("layers", "norm")}
+    if cfg.use_post_norms:
+        layers["post_attn_out_norm"] = {"scale": ("layers", "norm")}
+        layers["post_mlp_norm"] = {"scale": ("layers", "norm")}
+    if cfg.attention_sinks:
+        layers["sinks"] = ("layers", "heads")
+    return layers
+
+
+MLP_SPECS = {
+    "gate_proj": {"kernel": ("layers", "embed", "mlp")},
+    "up_proj": {"kernel": ("layers", "embed", "mlp")},
+    "down_proj": {"kernel": ("layers", "mlp", "embed")},
+}
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """Logical axis names per param (JAX `param_specs`, `decoder.py:341`),
+    read by `parallel/sharding.logical_to_shardings`."""
+    layers = attention_layer_specs(cfg)
+    layers.update({k: dict(v) for k, v in MLP_SPECS.items()})
+    specs = {
+        "embed": {"embedding": ("vocab", "embed")},
+        "layers": layers,
+        "final_norm": {"scale": ("norm",)},
+    }
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = {"kernel": ("embed", "vocab")}
+    return specs
+
+
 def _dense(x, p, precision=None):
     y = _mm(x, p["kernel"], precision)
     if "bias" in p:
@@ -294,9 +364,10 @@ def unembed(params: dict, cfg: TransformerConfig, h: torch.Tensor) -> torch.Tens
     return logits
 
 
-def project_qkv(x, lp, cfg: TransformerConfig, positions, inv_freq):
+def project_qkv(x, lp, cfg: TransformerConfig, positions, inv_freq, flat_norm=rms_norm):
     """q/k/v projections incl. bias, qk-norm and rope. x (B, S, H) →
-    q (B, S, Hq, D), k/v (B, S, Hkv, D)."""
+    q (B, S, Hq, D), k/v (B, S, Hkv, D). `flat_norm` normalizes the
+    flattened projections under `qk_norm_flat`."""
     B, S, _ = x.shape
     D = cfg.resolved_head_dim
     eps, zc = cfg.rms_norm_eps, cfg.zero_centered_norm
@@ -305,8 +376,8 @@ def project_qkv(x, lp, cfg: TransformerConfig, positions, inv_freq):
     k = _dense(x, lp["k_proj"], prec)
     v = _dense(x, lp["v_proj"], prec)
     if cfg.qk_norm_flat:
-        q = rms_norm(q, lp["q_norm"]["scale"], eps, zc)
-        k = rms_norm(k, lp["k_norm"]["scale"], eps, zc)
+        q = flat_norm(q, lp["q_norm"]["scale"], eps, zc)
+        k = flat_norm(k, lp["k_norm"]["scale"], eps, zc)
     q = q.reshape(B, S, cfg.num_heads, D)
     k = k.reshape(B, S, cfg.num_kv_heads, D)
     v = v.reshape(B, S, cfg.num_kv_heads, D)
@@ -319,6 +390,23 @@ def project_qkv(x, lp, cfg: TransformerConfig, positions, inv_freq):
         q = rms_norm(q, lp["q_norm"]["scale"], eps, zc)
         k = rms_norm(k, lp["k_norm"]["scale"], eps, zc)
     return q, k, v
+
+
+def _tp_flat_norm(tp):
+    """RMSNorm over projections whose heads are split on `tp`: the mean
+    square sums over the ranks, and each rank scales by its slice of the
+    whole (tp-replicated) scale."""
+    def norm(x, scale, eps, zero_centered):
+        n = x.shape[-1]
+        xf = x.float()
+        var = all_reduce_sum(torch.sum(xf * xf, dim=-1, keepdim=True), tp) / (
+            n * group_size(tp))
+        w = scale.float().narrow(-1, dist.get_rank(tp) * n, n)
+        if zero_centered:
+            w = w + 1.0
+        return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+    return norm
 
 
 def mlp_inner(x, lp, cfg: TransformerConfig):
@@ -352,9 +440,6 @@ def forward(
     `params` is the frozen base (QLoRA leaves too): each layer's adapters
     merge into its kernels inside the layer loop, under its remat, before
     the cast, and the head merges where `unembed` uses it."""
-    if mesh_ctx is not None:
-        raise NotImplementedError(
-            "mesh_ctx: meshes, pipeline and context parallelism are not ported")
     if return_aux_hidden is not None:
         raise NotImplementedError("return_aux_hidden (EAGLE-3 capture) is not ported")
     if cfg.attention_type not in ("gqa", "mla"):
@@ -364,9 +449,12 @@ def forward(
     dev = input_ids.device
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    spmd = mesh_spmd(mesh_ctx)
 
     if inputs_embeds is not None:
         h = inputs_embeds.to(dtype)
+    elif spmd is not None:
+        h = spmd.embed(params["embed"]["embedding"], input_ids, dtype)
     else:
         # gather, then cast: the same values as casting the table first
         h = params["embed"]["embedding"][input_ids].to(dtype)
@@ -375,34 +463,106 @@ def forward(
 
     freq_for = make_freq_for(cfg, dev)
     stacked, merged = layer_stack(params, "layers", lora, lora_cfg)
+    run = LayerRunner(spmd, stacked, cfg, dtype, merged, lora is not None)
 
     def layer(h, lp, window):
-        return _decoder_layer(h, cast_params(merged(lp), dtype), cfg, positions,
-                              segment_ids, freq_for(window), window)
+        return _decoder_layer(h, run.params(lp), run.cfg, positions,
+                              segment_ids, freq_for(window), window, run.tp)
 
-    h = scan_layers_windowed(layer, h, stacked, layer_windows(cfg),
+    h = scan_layers_windowed(layer, h, run.stacked, layer_windows(cfg),
                              remat_policy=cfg.remat_policy)
-    h = rms_norm(h, params["final_norm"]["scale"].to(dtype), cfg.rms_norm_eps,
-                 cfg.zero_centered_norm)
+    final = params["final_norm"]["scale"]
+    if spmd is not None:
+        final = spmd.gather_tree(final)
+    h = rms_norm(h, final.to(dtype), cfg.rms_norm_eps, cfg.zero_centered_norm)
     if return_hidden:
         return h
+    if spmd is not None:
+        raise NotImplementedError(
+            "the logits of a mesh forward: train with return_hidden and the "
+            "vocab-parallel cross-entropy")
     if lora is not None:
         params = merge_lora(params, lora, lora_cfg, skip=("layers",))
     return unembed(params, cfg, h)
 
 
+def mesh_spmd(mesh_ctx):
+    """The SPMD helpers of a mesh forward, or None without a mesh."""
+    if mesh_ctx is None:
+        return None
+    from automodel_tpu_torch.parallel.spmd import Spmd
+
+    return Spmd(mesh_ctx)
+
+
+class LayerRunner:
+    """One decoder stack's layer loop, on one device or on a mesh: the
+    stacked tree the loop unstacks, each layer's params in the compute dtype
+    (unsharded over `dp_shard` one layer at a time on a mesh, the LoRA
+    adapters merged), the config each rank runs and the `tp` group of its
+    attention and MLP (None when the layout leaves them whole)."""
+
+    def __init__(self, spmd, stacked, cfg, dtype, merged=lambda lp: lp,
+                 has_lora: bool = False, mlp: bool = True):
+        self.cfg, self.dtype, self.merged, self.tp = cfg, dtype, merged, None
+        self.stacked, self._unshard, self._lora_tp = stacked, None, None
+        if spmd is None:
+            return
+        self._tp_group = spmd.tp
+        base = stacked["base"] if has_lora else stacked
+        attn_key = "q_proj" if "q_proj" in base else "q_up_proj"
+        attn_tp = spmd.tp_of(base[attn_key]["kernel"], -1) is not None
+        mlp_tp = mlp and "gate_proj" in base and spmd.tp_of(base["gate_proj"]["kernel"], -1) is not None
+        if attn_tp and getattr(cfg, "dsa_index_topk", None) is not None:
+            raise NotImplementedError("DSA sparse attention under tp > 1 is not ported")
+        if attn_tp != mlp_tp and mlp and "gate_proj" in base:
+            raise NotImplementedError(
+                "tp splitting the attention heads but not the MLP, or the "
+                "reverse (the divisibility fallback replicated one of them)")
+        if attn_tp:
+            from automodel_tpu_torch.parallel.spmd import local_cfg
+
+            self.cfg = local_cfg(cfg, spmd.tp_size, mlp_tp)
+            self.tp = spmd.tp
+        self.stacked, self._unshard = spmd.layer_stack(stacked)
+        # merging LoRA needs the adapters in their own dtype, as one device does
+        self._gather_dtype = None if has_lora else dtype
+        self._lora_tp = spmd.lora_tp_flags(stacked) if has_lora else None
+
+    def params(self, lp):
+        if self._unshard is not None:
+            lp = self._unshard(lp, self._gather_dtype)
+        if self._lora_tp is not None:
+            lp = dict(lp, lora=self._spmd_copy(lp["lora"]))
+        return cast_params(self.merged(lp), self.dtype)
+
+    def _spmd_copy(self, lora):
+        return {k: {n: copy_to(x, self._tp_group) if self._lora_tp[k][n] else x
+                    for n, x in ab.items()} for k, ab in lora.items()}
+
+
 def attention_block(h, lp, cfg: TransformerConfig, positions, segment_ids,
-                    inv_freq, sliding_window):
+                    inv_freq, sliding_window, tp=None):
     """Pre-norm attention with residual (lp in the compute dtype); MLA
-    layers go to `mla.mla_attention_block`."""
+    layers go to `mla.mla_attention_block`. With a `tp` group, lp holds
+    this rank's heads (cfg their count): the normed input enters through
+    `copy_to` and the `o_proj` partial sum is all-reduced over `tp` before
+    its bias."""
     if cfg.attention_type == "mla":
         from automodel_tpu_torch.models.llm.mla import mla_attention_block
 
         return mla_attention_block(h, lp, cfg, positions, segment_ids, inv_freq,
-                                   sliding_window)
+                                   sliding_window, tp)
     B, S, _ = h.shape
     x = rms_norm(h, lp["input_norm"]["scale"], cfg.rms_norm_eps, cfg.zero_centered_norm)
-    q, k, v = project_qkv(x, lp, cfg, positions, inv_freq)
+    flat_norm = rms_norm
+    if tp is not None and (cfg.qk_norm or cfg.qk_norm_flat):
+        # each rank scales its own heads: the scale's gradient sums over tp
+        lp = {**lp, **{n: {"scale": copy_to(lp[n]["scale"], tp)}
+                       for n in ("q_norm", "k_norm")}}
+        if cfg.qk_norm_flat:
+            flat_norm = _tp_flat_norm(tp)
+    q, k, v = project_qkv(copy_to(x, tp), lp, cfg, positions, inv_freq, flat_norm)
     sinks = lp.get("sinks") if cfg.attention_sinks else None
     attn = dot_product_attention(
         q, k, v,
@@ -415,18 +575,23 @@ def attention_block(h, lp, cfg: TransformerConfig, positions, segment_ids,
         sinks=sinks,
         impl=cfg.attn_impl,
     )
-    attn_out = _dense(attn.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim),
-                      lp["o_proj"], cfg.linear_precision)
+    attn_out = reduce_from(
+        _mm(attn.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim),
+            lp["o_proj"]["kernel"], cfg.linear_precision), tp)
+    if "bias" in lp["o_proj"]:
+        attn_out = attn_out + lp["o_proj"]["bias"]
     if cfg.use_post_norms:
         attn_out = rms_norm(attn_out, lp["post_attn_out_norm"]["scale"],
                             cfg.rms_norm_eps, cfg.zero_centered_norm)
     return h + attn_out
 
 
-def mlp_block(h, lp, cfg: TransformerConfig):
-    """Pre-norm gated MLP with residual."""
+def mlp_block(h, lp, cfg: TransformerConfig, tp=None):
+    """Pre-norm gated MLP with residual; with a `tp` group, lp holds this
+    rank's I/tp slice and the `down_proj` partial sum is all-reduced."""
     x = rms_norm(h, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps, cfg.zero_centered_norm)
-    mlp_out = _mm(mlp_inner(x, lp, cfg), lp["down_proj"]["kernel"], cfg.linear_precision)
+    mlp_out = reduce_from(_mm(mlp_inner(copy_to(x, tp), lp, cfg), lp["down_proj"]["kernel"],
+                              cfg.linear_precision), tp)
     if cfg.use_post_norms:
         mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"]["scale"],
                            cfg.rms_norm_eps, cfg.zero_centered_norm)
@@ -434,6 +599,6 @@ def mlp_block(h, lp, cfg: TransformerConfig):
 
 
 def _decoder_layer(h, lp, cfg: TransformerConfig, positions, segment_ids,
-                   inv_freq, sliding_window):
-    h = attention_block(h, lp, cfg, positions, segment_ids, inv_freq, sliding_window)
-    return mlp_block(h, lp, cfg)
+                   inv_freq, sliding_window, tp=None):
+    h = attention_block(h, lp, cfg, positions, segment_ids, inv_freq, sliding_window, tp)
+    return mlp_block(h, lp, cfg, tp)

@@ -55,6 +55,7 @@ from automodel_tpu_torch.ops.matmul import bmm_fp32
 from automodel_tpu_torch.ops.norms import rms_norm
 from automodel_tpu_torch.ops.quant import matmul as _mm
 from automodel_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from automodel_tpu_torch.parallel.collectives import copy_to, reduce_from
 
 
 def init_mla_layers(cfg, gen: torch.Generator, L: int,
@@ -87,6 +88,36 @@ def init_mla_layers(cfg, gen: torch.Generator, L: int,
     return layers
 
 
+def mla_layer_specs(cfg) -> dict:
+    """Logical axes of an MLA stack's leaves (JAX `mla_layer_specs`): the
+    latent projections replicate on `tp`, the per-head ones split there."""
+    layers = {
+        "input_norm": {"scale": ("layers", "norm")},
+        "post_attn_norm": {"scale": ("layers", "norm")},
+        "kv_down_proj": {"kernel": ("layers", "embed", None)},
+        "kv_norm": {"scale": ("layers", "norm")},
+        "kv_up_proj": {"kernel": ("layers", None, "heads")},
+        "o_proj": {"kernel": ("layers", "heads", "embed")},
+    }
+    if cfg.mla_q_lora_rank:
+        layers["q_down_proj"] = {"kernel": ("layers", "embed", None)}
+        layers["q_norm"] = {"scale": ("layers", "norm")}
+        layers["q_up_proj"] = {"kernel": ("layers", None, "heads")}
+    else:
+        layers["q_proj"] = {"kernel": ("layers", "embed", "heads")}
+    if cfg.dsa_index_topk is not None:
+        layers["indexer"] = {
+            "wq": {"kernel": ("layers", "embed", "heads")},
+            "wk": {"kernel": ("layers", "embed", None)},
+            "wgate": {"kernel": ("layers", "embed", None)},
+        }
+        if getattr(cfg, "dsa_indexer_style", "deepseek") == "glm":
+            layers["indexer"]["wq"] = {"kernel": ("layers", None, "heads")}
+            layers["indexer"]["k_norm"] = {"scale": ("layers", "norm"),
+                                           "bias": ("layers", "norm")}
+    return layers
+
+
 def init_indexer(cfg, gen: torch.Generator, L: int,
                  dtype: torch.dtype = torch.float32) -> dict:
     """A fresh lightning-indexer stack (also the backfill of checkpoints that
@@ -109,10 +140,12 @@ def init_indexer(cfg, gen: torch.Generator, L: int,
     }
 
 
-def _mla_qkv(x, lp, cfg, positions, inv_freq):
+def _mla_qkv(x, lp, cfg, positions, inv_freq, tp=None):
     """Project the normed input to MLA q/k/v (B,S,n,·), the logit scale and
     the q-lora residual (after q_norm; None without a q rank), which the
-    GLM indexer reads."""
+    GLM indexer reads. With a `tp` group, lp holds this rank's heads (cfg
+    their count): the latents, whole on every rank, enter the per-head
+    projections through `copy_to`, and so does the shared rope key."""
     B, S, _ = x.shape
     n = cfg.num_heads
     dn, dr, dv = cfg.mla_qk_nope_head_dim, cfg.mla_qk_rope_head_dim, cfg.mla_v_head_dim
@@ -122,9 +155,9 @@ def _mla_qkv(x, lp, cfg, positions, inv_freq):
     if cfg.mla_q_lora_rank:
         q_lat = rms_norm(_mm(x, lp["q_down_proj"]["kernel"], prec), lp["q_norm"]["scale"],
                          cfg.rms_norm_eps)
-        q = _mm(q_lat, lp["q_up_proj"]["kernel"], prec)
+        q = _mm(copy_to(q_lat, tp), lp["q_up_proj"]["kernel"], prec)
     else:
-        q = _mm(x, lp["q_proj"]["kernel"], prec)
+        q = _mm(copy_to(x, tp), lp["q_proj"]["kernel"], prec)
     q = q.reshape(B, S, n, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, inv_freq)
@@ -139,9 +172,10 @@ def _mla_qkv(x, lp, cfg, positions, inv_freq):
     r = cfg.mla_kv_lora_rank
     c_kv, k_rope = kv[..., :r], kv[..., r:]
     # one shared key-rope head, broadcast across heads after rotation
-    k_rope = apply_rope(k_rope[:, :, None, :], positions, inv_freq)
+    k_rope = copy_to(apply_rope(k_rope[:, :, None, :], positions, inv_freq), tp)
     c_kv = rms_norm(c_kv, lp["kv_norm"]["scale"], cfg.rms_norm_eps)
-    kv_up = _mm(c_kv, lp["kv_up_proj"]["kernel"], prec).reshape(B, S, n, dn + dv)
+    kv_up = _mm(copy_to(c_kv, tp), lp["kv_up_proj"]["kernel"], prec).reshape(
+        B, S, n, dn + dv)
     k_nope, v = kv_up[..., :dn], kv_up[..., dn:]
     k = torch.cat([k_nope, k_rope.expand(B, S, n, dr)], dim=-1)
     scale = cfg.attn_scale if cfg.attn_scale is not None else (dn + dr) ** -0.5
@@ -149,13 +183,15 @@ def _mla_qkv(x, lp, cfg, positions, inv_freq):
 
 
 def mla_attention_block(h, lp, cfg, positions, segment_ids, inv_freq,
-                        sliding_window):
+                        sliding_window, tp=None):
     """Pre-norm MLA attention with residual (lp in the compute dtype); the
     counterpart of the dense `attention_block`. A DSA config's indexer is
-    not read here (the MoE decoder sends DSA layers to the sparse blocks)."""
+    not read here (the MoE decoder sends DSA layers to the sparse blocks).
+    With a `tp` group each rank runs its heads and the `o_proj` partial
+    sums are all-reduced."""
     B, S, _ = h.shape
     x = rms_norm(h, lp["input_norm"]["scale"], cfg.rms_norm_eps, cfg.zero_centered_norm)
-    q, k, v, scale, _ = _mla_qkv(x, lp, cfg, positions, inv_freq)
+    q, k, v, scale, _ = _mla_qkv(x, lp, cfg, positions, inv_freq, tp)
     attn = dot_product_attention(
         q, k, v,
         causal=cfg.causal,
@@ -167,7 +203,7 @@ def mla_attention_block(h, lp, cfg, positions, segment_ids, inv_freq,
         impl=cfg.attn_impl,
     )
     attn = attn.reshape(B, S, cfg.num_heads * cfg.mla_v_head_dim)
-    return h + _mm(attn, lp["o_proj"]["kernel"], cfg.linear_precision)
+    return h + reduce_from(_mm(attn, lp["o_proj"]["kernel"], cfg.linear_precision), tp)
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,8 @@ The first `first_k_dense` layers are dense decoder layers (`dense_layers`),
 the rest replace the gated MLP with the MoE block (`moe_layers`, the MoE
 params under `moe`), each stack's weights stacked on dim 0 with the JAX
 package's keys. The serving engine runs both stacks; the training `forward`
-runs them on one device, the aux (load-balance) loss and each MoE layer's
-tokens per expert riding the layer loop's carry.
+runs them with the aux (load-balance) loss and each MoE layer's tokens per
+expert riding the layer loop's carry.
 
 - DSA (`dsa_index_topk` on an MLA config): every layer, dense prefix and
   MoE stack alike, attends through `mla.mla_sparse_attention_block` (the
@@ -19,8 +19,13 @@ tokens per expert riding the layer loop's carry.
   another forward (`moe_forward`'s `forced_indices`) while the weights
   recompute from the live router.
 
-The pipeline branch, the EAGLE-3 aux-hidden capture, VLM inputs (embeds,
-MRoPE angles, deepstack) and the parameter specs are not ported. With
+On a mesh (`mesh_ctx`, params as DTensors laid out by `param_specs`) both
+stacks run as the dense decoder's do (`decoder.LayerRunner`: one layer
+unsharded over `dp_shard` at a time, tp heads), the MoE blocks on this
+rank's tokens with expert parallelism over `ep` (`moe/layer.py`).
+
+The pipeline branch, the EAGLE-3 aux-hidden capture and VLM inputs
+(embeds, MRoPE angles, deepstack) are not ported. With
 `mtp_num_layers > 0`, `init` adds the MTP head's params under `mtp`
 (`mtp.py`), which the training recipe's loss runs.
 """
@@ -32,30 +37,34 @@ import dataclasses
 import torch
 
 from automodel_tpu_torch.models.common.layers import (
-    cast_params,
     embed_init,
     init_fns,
     scan_layers_windowed,
 )
 from automodel_tpu_torch.models.llm.decoder import (
+    MLP_SPECS,
+    LayerRunner,
     TransformerConfig,
     attention_block,
+    attention_layer_specs,
     head_kernel,
     init_attention_layers,
     layer_windows,
     make_freq_for,
+    mesh_spmd,
     mlp_block,
     unembed,
 )
-from automodel_tpu_torch.models.moe_lm.mtp import init_mtp
+from automodel_tpu_torch.models.moe_lm.mtp import init_mtp, mtp_param_specs
 from automodel_tpu_torch.moe.config import MoEConfig
 from automodel_tpu_torch.moe.gate import update_gate_bias
-from automodel_tpu_torch.moe.layer import init_moe, moe_forward
+from automodel_tpu_torch.moe.layer import init_moe, moe_forward, moe_param_specs
+from automodel_tpu_torch.utils.tree import tree_map
 from automodel_tpu_torch.ops.norms import rms_norm
 from automodel_tpu_torch.peft.lora import layer_stack, merge_lora
 
 __all__ = ["MoETransformerConfig", "apply_gate_bias_update", "forward",
-           "head_kernel", "init", "unembed"]
+           "head_kernel", "init", "param_specs", "unembed"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +130,26 @@ def init(cfg: MoETransformerConfig, gen: torch.Generator,
     return params
 
 
+def param_specs(cfg: MoETransformerConfig) -> dict:
+    """Logical axes of every leaf (JAX `param_specs`, `decoder.py:134`)."""
+    specs: dict = {
+        "embed": {"embedding": ("vocab", "embed")},
+        "final_norm": {"scale": ("norm",)},
+    }
+    if cfg.first_k_dense > 0:
+        d = attention_layer_specs(cfg)
+        d.update({k: dict(v) for k, v in MLP_SPECS.items()})
+        specs["dense_layers"] = d
+    m = attention_layer_specs(cfg)
+    m["moe"] = tree_map(lambda s: ("layers",) + s, moe_param_specs(cfg.moe))
+    specs["moe_layers"] = m
+    if cfg.mtp_num_layers > 0:
+        specs["mtp"] = mtp_param_specs(cfg)
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = {"kernel": ("embed", "vocab")}
+    return specs
+
+
 def forward(
     params: dict,
     cfg: MoETransformerConfig,
@@ -156,7 +185,6 @@ def forward(
     layer's (B*S, K) expert indices, stacked (Lm, B*S, K); handed back as
     `routing_override`, it pins the selection (routing replay)."""
     unported = {
-        "mesh_ctx (pipeline, expert and context parallelism)": mesh_ctx,
         "return_aux_hidden (the EAGLE-3 aux-hidden capture)": return_aux_hidden,
         "inputs_embeds (VLM merged embeddings)": inputs_embeds,
         "rope_angles (MRoPE)": rope_angles,
@@ -170,8 +198,12 @@ def forward(
     dev = input_ids.device
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    spmd = mesh_spmd(mesh_ctx)
 
-    h = params["embed"]["embedding"][input_ids].to(dtype)
+    if spmd is not None:
+        h = spmd.embed(params["embed"]["embedding"], input_ids, dtype)
+    else:
+        h = params["embed"]["embedding"][input_ids].to(dtype)
     if cfg.embed_scale != 1.0:
         h = h * torch.tensor(cfg.embed_scale, dtype=dtype)
     freq_for = make_freq_for(cfg, dev)
@@ -190,7 +222,7 @@ def forward(
             raise ValueError("IndexShare: layer 0 must run its indexer")
     flags = [t == "full" for t in idx_types] if index_share else None
 
-    def attn(h, lp, window, sel, gidx):
+    def attn(h, lp, window, sel, gidx, run):
         if use_dsa:
             from automodel_tpu_torch.models.llm.mla import mla_sparse_attention_block
 
@@ -200,33 +232,41 @@ def forward(
                 prev_sel=sel if index_share else None,
                 indexer_flag=flags[gidx] if index_share else None)
             return h, idx_aux, (sel_new if index_share else sel)
-        return (attention_block(h, lp, cfg, positions, segment_ids,
-                                freq_for(window), window), 0.0, sel)
+        return (attention_block(h, lp, run.cfg, positions, segment_ids,
+                                freq_for(window), window, run.tp), 0.0, sel)
 
     # the carry: (hidden, aux loss, tokens per expert and routing of the MoE
     # layers run, the IndexShare selection)
-    dense_stack, dense_merged = (layer_stack(params, "dense_layers", lora, lora_cfg)
-                                 if cfg.first_k_dense > 0 else (None, None))
+    has_lora = lora is not None
+    if cfg.first_k_dense > 0:
+        dense_stack, dense_merged = layer_stack(params, "dense_layers", lora, lora_cfg)
+        dense_run = LayerRunner(spmd, dense_stack, cfg, dtype, dense_merged, has_lora)
     moe_stack, moe_merged = layer_stack(params, "moe_layers", lora, lora_cfg)
+    moe_run = LayerRunner(spmd, moe_stack, cfg, dtype, moe_merged, has_lora, mlp=False)
+    moe_tp = None
+    if spmd is not None:
+        experts = (moe_stack["base"] if has_lora else moe_stack)["moe"]["experts"]
+        moe_tp = spmd.tp_of(experts["up_proj"]["kernel"], -1)
     K = cfg.first_k_dense
 
     def dense_layer(carry, lp, static):
         h, aux, tpe, routing, sel = carry
         window, gidx = static
-        lp = cast_params(dense_merged(lp), dtype)
-        h, idx_aux, sel = attn(h, lp, window, sel, gidx)
-        return mlp_block(h, lp, cfg), aux + idx_aux, tpe, routing, sel
+        lp = dense_run.params(lp)
+        h, idx_aux, sel = attn(h, lp, window, sel, gidx, dense_run)
+        return mlp_block(h, lp, dense_run.cfg, dense_run.tp), aux + idx_aux, tpe, routing, sel
 
     def moe_layer(carry, lp, static):
         h, aux, tpe, routing, sel = carry
         window, gidx = static
-        lp = cast_params(moe_merged(lp), dtype)
-        h, idx_aux, sel = attn(h, lp, window, sel, gidx)
+        lp = moe_run.params(lp)
+        h, idx_aux, sel = attn(h, lp, window, sel, gidx, moe_run)
         x = rms_norm(h, lp["post_attn_norm"]["scale"], cfg.rms_norm_eps,
                      cfg.zero_centered_norm)
         forced = routing_override[gidx - K] if routing_override is not None else None
         moe_out, layer_aux, stats = moe_forward(lp["moe"], cfg.moe, x, token_mask,
-                                                forced_indices=forced)
+                                                forced_indices=forced, spmd=spmd,
+                                                tp=moe_tp)
         return (h + moe_out, aux + idx_aux + layer_aux,
                 tpe + (stats["tokens_per_expert"],), routing + (stats["indices"],), sel)
 
@@ -238,14 +278,20 @@ def forward(
     carry = (h, torch.zeros((), dtype=torch.float32, device=dev), (), (), sel0)
     statics = tuple(zip(windows, range(cfg.num_layers)))
     if K > 0:
-        carry = scan_layers_windowed(dense_layer, carry, dense_stack,
+        carry = scan_layers_windowed(dense_layer, carry, dense_run.stacked,
                                      statics[:K], remat_policy=cfg.remat_policy)
-    carry = scan_layers_windowed(moe_layer, carry, moe_stack,
+    carry = scan_layers_windowed(moe_layer, carry, moe_run.stacked,
                                  statics[K:], remat_policy=cfg.remat_policy)
     h, aux_loss, tpe, routing, _ = carry
 
-    h = rms_norm(h, params["final_norm"]["scale"].to(dtype), cfg.rms_norm_eps,
-                 cfg.zero_centered_norm)
+    final = params["final_norm"]["scale"]
+    if spmd is not None:
+        if not return_hidden:
+            raise NotImplementedError(
+                "the logits of a mesh forward: train with return_hidden and the "
+                "vocab-parallel cross-entropy")
+        final = spmd.gather_tree(final)
+    h = rms_norm(h, final.to(dtype), cfg.rms_norm_eps, cfg.zero_centered_norm)
     if not return_hidden and lora is not None:
         params = merge_lora(params, lora, lora_cfg, skip=("dense_layers", "moe_layers"))
     out = h if return_hidden else unembed(params, cfg, h)

@@ -16,8 +16,8 @@ MLP of width `intermediate_size`. Deviation from DeepSeek-V3, kept from the
 JAX package: a dense MLP, not a MoE block. MTP weights are training-only
 state and are not mapped by the HF adapter. The block's weights are cast
 to the compute dtype, as every layer of the main stack is, and it runs
-under the config's remat policy. `mtp_param_specs` (mesh sharding) is not
-ported.
+under the config's remat policy. On a mesh (`mesh_ctx`) the head runs on
+the local shards as the main stacks do (`mtp_param_specs` lays them out).
 """
 
 from __future__ import annotations
@@ -27,14 +27,17 @@ import torch
 from automodel_tpu_torch.loss.linear_ce import fused_linear_cross_entropy
 from automodel_tpu_torch.loss.masked_ce import IGNORE_INDEX
 from automodel_tpu_torch.models.common.layers import (
-    cast_params,
     init_fns,
     maybe_remat,
     unstack_layers,
 )
 from automodel_tpu_torch.models.llm.decoder import (
+    MLP_SPECS,
+    LayerRunner,
     attention_block,
+    attention_layer_specs,
     init_attention_layers,
+    mesh_spmd,
     mlp_block,
 )
 from automodel_tpu_torch.ops.norms import rms_norm
@@ -59,6 +62,18 @@ def init_mtp(cfg, gen: torch.Generator, dtype: torch.dtype = torch.float32) -> d
     }
 
 
+def mtp_param_specs(cfg) -> dict:
+    """Logical axes of the MTP head's leaves (JAX `mtp_param_specs`, `:58`)."""
+    return {
+        "hnorm": {"scale": ("norm",)},
+        "enorm": {"scale": ("norm",)},
+        "eh_proj": {"kernel": (None, "embed")},
+        "block": {**attention_layer_specs(cfg),
+                  **{k: dict(v) for k, v in MLP_SPECS.items()}},
+        "final_norm": {"scale": ("norm",)},
+    }
+
+
 def mtp_hidden(
     params: dict,             # full model params (embed + mtp subtree)
     cfg,
@@ -66,6 +81,7 @@ def mtp_hidden(
     input_ids: torch.Tensor,  # (B, S)
     positions: torch.Tensor | None = None,
     segment_ids: torch.Tensor | None = None,
+    mesh_ctx=None,
 ) -> torch.Tensor:
     """Hidden states (B, S, H) whose logits predict token t+2 at position t."""
     mtp = params["mtp"]
@@ -75,25 +91,32 @@ def mtp_hidden(
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=input_ids.device).expand(B, S)
+    spmd = mesh_spmd(mesh_ctx)
     # embedding of the NEXT token (t+1), shifted left; the last slot repeats
     next_ids = torch.cat([input_ids[:, 1:], input_ids[:, -1:]], dim=1)
-    emb = params["embed"]["embedding"][next_ids].to(dtype)
-    x = torch.cat([rms_norm(h_main, mtp["hnorm"]["scale"], eps),
-                   rms_norm(emb, mtp["enorm"]["scale"], eps)], dim=-1)
-    h = x @ mtp["eh_proj"]["kernel"].to(dtype)
+    top = {k: mtp[k] for k in ("hnorm", "enorm", "eh_proj", "final_norm")}
+    if spmd is not None:
+        emb = spmd.embed(params["embed"]["embedding"], next_ids, dtype)
+        top = spmd.gather_tree(top)
+    else:
+        emb = params["embed"]["embedding"][next_ids].to(dtype)
+    x = torch.cat([rms_norm(h_main, top["hnorm"]["scale"], eps),
+                   rms_norm(emb, top["enorm"]["scale"], eps)], dim=-1)
+    h = x @ top["eh_proj"]["kernel"].to(dtype)
 
     inv_freq = rope_frequencies(cfg.rope_dim, cfg.rope_theta,
                                 cfg.rope_scaling).to(input_ids.device, non_blocking=True)
-    (lp,) = unstack_layers(mtp["block"])  # the L=1 dim
+    run = LayerRunner(spmd, mtp["block"], cfg, dtype)
+    (lp,) = unstack_layers(run.stacked)  # the L=1 dim
 
     def block(h, lp):
-        lp = cast_params(lp, dtype)
-        h = attention_block(h, lp, cfg, positions, segment_ids, inv_freq,
-                            cfg.sliding_window)
-        return mlp_block(h, lp, cfg)
+        lp = run.params(lp)
+        h = attention_block(h, lp, run.cfg, positions, segment_ids, inv_freq,
+                            cfg.sliding_window, run.tp)
+        return mlp_block(h, lp, run.cfg, run.tp)
 
     h = maybe_remat(block, cfg.remat_policy)(h, lp)
-    return rms_norm(h, mtp["final_norm"]["scale"], eps)
+    return rms_norm(h, top["final_norm"]["scale"], eps)
 
 
 def mtp_labels(labels: torch.Tensor,
@@ -119,10 +142,12 @@ def mtp_loss(
     chunk_size: int = 1024,
     segment_ids: torch.Tensor | None = None,  # (B, S): packed documents
     logits_soft_cap: float | None = None,
+    **vocab_parallel,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(CE sum, label count) against `mtp_labels`: MTP never supervises
-    across document boundaries (the invariant of packed datasets)."""
+    across document boundaries (the invariant of packed datasets).
+    `vocab_parallel` (`vocab_group`, `vocab_start`) as the main CE's."""
     return fused_linear_cross_entropy(
         hidden_mtp, lm_kernel, mtp_labels(labels, segment_ids),
-        chunk_size=chunk_size, logits_soft_cap=logits_soft_cap,
+        chunk_size=chunk_size, logits_soft_cap=logits_soft_cap, **vocab_parallel,
     )

@@ -16,16 +16,28 @@ The capacity dispatcher is the JAX package's padded einsum dispatch: each
 expert takes at most `compute_capacity` (token, slot) pairs, filled in
 token-major order over the flattened (T*K) routing, and drops the rest; a
 (T, E, C) one-hot moves the kept rows to expert-major buffers and back.
-The expert-parallel all-to-all is not ported.
+
+Expert parallelism (`experts_forward_dropless_ep`, JAX `:419` and
+`_dropless_ep_local` `:233`): the experts are split over the `ep` ranks,
+E/ep each, contiguously, so the rows sorted by expert are grouped by the
+rank that owns them. The per-expert counts are exchanged on the device
+(one small all-to-all), then read to the host once per layer, since
+`all_to_all_single` takes its split sizes as host integers: that read is
+the dispatch's one wait for the device. The rows travel with
+`all_to_all_single` (exactly the routed rows, DeepEP's property, as
+JAX's ragged path on TPU), are regrouped by local expert, run through the
+grouped product, and come back the same way; masked pairs never leave.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from automodel_tpu_torch.models.common.layers import init_fns
 from automodel_tpu_torch.moe.config import MoEConfig
+from automodel_tpu_torch.parallel.collectives import all_to_all
 
 _EXPERT_ACT = {
     "silu": F.silu,
@@ -68,6 +80,22 @@ def init_experts(cfg: MoEConfig, hidden_size: int, gen: torch.Generator,
     return params
 
 
+def expert_param_specs(cfg: MoEConfig) -> dict:
+    """Logical axes of the (E, in, out) expert leaves (JAX `:69`)."""
+    specs = {
+        "up_proj": {"kernel": ("expert", "expert_embed", "expert_mlp")},
+        "down_proj": {"kernel": ("expert", "expert_mlp", "expert_embed")},
+    }
+    if cfg.gated_experts:
+        specs["gate_proj"] = {"kernel": ("expert", "expert_embed", "expert_mlp")}
+    if cfg.expert_bias:
+        specs["up_proj"]["bias"] = ("expert", "expert_mlp")
+        specs["down_proj"]["bias"] = ("expert", "expert_embed")
+        if cfg.gated_experts:
+            specs["gate_proj"]["bias"] = ("expert", "expert_mlp")
+    return specs
+
+
 def _expert_linear(rows, p, offs, expert):
     """rows (TK, in) sorted by expert -> (TK, out) through each row's expert.
 
@@ -92,6 +120,17 @@ def _expert_linear(rows, p, offs, expert):
     if "bias" in p:
         y = y + p["bias"].to(rows.dtype)[expert]
     return y
+
+
+def _expert_mlp(params: dict, cfg: MoEConfig, xs, offs, expert):
+    """Rows sorted by expert through their gated MLP (groups end at offs)."""
+    u = _expert_linear(xs, params["up_proj"], offs, expert)
+    if cfg.gated_experts:
+        g = _expert_linear(xs, params["gate_proj"], offs, expert)
+        h_in = gated_combine(g, u, cfg.expert_activation, cfg.swiglu_limit)
+    else:
+        h_in = _EXPERT_ACT[cfg.expert_activation](u)
+    return _expert_linear(h_in, params["down_proj"], offs, expert)
 
 
 def compute_capacity(cfg: MoEConfig, num_tokens: int) -> int:
@@ -201,13 +240,7 @@ def experts_forward_dropless(
     # JAX path does), zeroed in the combine below
     safe_expert = torch.clamp(expert_of, 0, E - 1)
 
-    u = _expert_linear(xs, params["up_proj"], offs, safe_expert)
-    if cfg.gated_experts:
-        g = _expert_linear(xs, params["gate_proj"], offs, safe_expert)
-        h_in = gated_combine(g, u, cfg.expert_activation, cfg.swiglu_limit)
-    else:
-        h_in = _EXPERT_ACT[cfg.expert_activation](u)
-    y = _expert_linear(h_in, params["down_proj"], offs, safe_expert)
+    y = _expert_mlp(params, cfg, xs, offs, safe_expert)
 
     w_sorted = weights.reshape(T * K)[sort_idx].to(dtype)
     # rows of masked pairs hold whatever the grouped product left there
@@ -216,6 +249,63 @@ def experts_forward_dropless(
     y = torch.where(valid, y, 0)
     return torch.zeros((T, H), dtype=dtype, device=x.device).index_add_(
         0, token_of, y * w_sorted[:, None])
+
+
+def experts_forward_dropless_ep(
+    params: dict,           # this rank's experts: (E/ep, ...) leaves
+    cfg: MoEConfig,
+    x: torch.Tensor,        # (T, H) this rank's tokens
+    weights: torch.Tensor,  # (T, K)
+    indices: torch.Tensor,  # (T, K) global expert ids; E marks a masked token
+    group,                  # the ep process group
+    return_rows: bool = False,
+):
+    """Dropless dispatch across the `ep` ranks of `group`. Returns (T, H),
+    and with `return_rows` also the (T*K, H) expert outputs of this rank's
+    (token, slot) pairs before weighting, in (token, slot) order (masked
+    pairs 0), for holding each expert's output to the unsharded path."""
+    T, H = x.shape
+    K, E = cfg.experts_per_token, cfg.n_routed_experts
+    P = dist.get_world_size(group)
+    if E % P:
+        raise ValueError(f"n_routed_experts={E} not divisible by ep={P}")
+    E_loc = E // P
+    dtype, dev = x.dtype, x.device
+
+    flat_expert = indices.reshape(T * K).long()
+    sort_idx = torch.argsort(flat_expert, stable=True)
+    token_of = sort_idx // K
+    expert_of = flat_expert[sort_idx]
+    # rows per expert on the device (sentinel E counts nowhere), then the
+    # counts each peer sends this rank for each of its local experts
+    ends = torch.searchsorted(expert_of, torch.arange(1, E + 1, device=dev))
+    send_e = torch.diff(ends, prepend=ends.new_zeros(1))          # (E,)
+    recv_e = torch.empty_like(send_e)
+    dist.all_to_all_single(recv_e, send_e, group=group)           # (P*E_loc,)
+    # the one host read of the layer: both directions' split sizes
+    host = torch.cat([send_e, recv_e]).cpu()
+    send_splits = host[:E].reshape(P, E_loc).sum(1).tolist()
+    recv_splits = host[E:].reshape(P, E_loc).sum(1).tolist()
+    n_send, n_recv = sum(send_splits), sum(recv_splits)
+
+    xs = x[token_of[:n_send]]                                     # valid rows
+    recv_x = all_to_all(xs, recv_splits, send_splits, group)      # (n_recv, H)
+    # received rows come by (peer, expert): regroup them by local expert
+    local_e = torch.repeat_interleave(
+        torch.arange(E_loc, device=dev).repeat(P), recv_e.long(), output_size=n_recv)
+    sort2 = torch.argsort(local_e, stable=True)
+    offs = torch.cumsum(recv_e.reshape(P, E_loc).sum(0), 0).to(torch.int32)
+    y2 = _expert_mlp(params, cfg, recv_x[sort2], offs, local_e[sort2])
+    y_recv = torch.empty_like(y2).index_copy(0, sort2, y2)
+    ys = all_to_all(y_recv, send_splits, recv_splits, group)      # (n_send, H)
+    w_sorted = weights.reshape(T * K)[sort_idx[:n_send]].to(dtype)
+    out = torch.zeros((T, H), dtype=dtype, device=dev).index_add_(
+        0, token_of[:n_send], ys * w_sorted[:, None])
+    if not return_rows:
+        return out
+    rows = torch.zeros((T * K, H), dtype=dtype, device=dev).index_copy(
+        0, sort_idx[:n_send], ys)
+    return out, rows
 
 
 def shared_expert_forward(params: dict, cfg: MoEConfig,

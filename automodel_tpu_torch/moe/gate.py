@@ -34,6 +34,15 @@ def init_gate(cfg: MoEConfig, hidden_size: int, gen: torch.Generator,
     return params
 
 
+def gate_param_specs(cfg: MoEConfig) -> dict:
+    specs = {"weight": ("embed", None)}
+    if cfg.router_bias:
+        specs["bias"] = (None,)
+    if cfg.gate_bias_update_speed > 0:
+        specs["e_score_bias"] = (None,)
+    return specs
+
+
 def _group_limited_mask(scores: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """DeepSeek group-limited routing: keep only experts inside the
     topk_groups best groups (group score = sum of its top-2 experts)."""
@@ -53,6 +62,7 @@ def gate_forward(
     x: torch.Tensor,  # (T, H)
     token_mask: torch.Tensor | None = None,  # (T,) bool; False = pad/ignored
     forced_indices: torch.Tensor | None = None,  # (T, K) routing replay
+    spmd=None,
 ):
     """Route tokens. Returns (weights (T,K) fp32, indices (T,K) int32,
     aux_loss, stats), as the JAX `gate_forward`.
@@ -60,18 +70,26 @@ def gate_forward(
     Masked tokens are routed to the invalid expert index E, so the
     dropless dispatch skips them and they drop out of the statistics.
     `forced_indices` replays a captured selection (entries == E stay
-    invalid); scores and weights come from the live router."""
+    invalid); scores and weights come from the live router.
+
+    On a mesh (`spmd`, `parallel/spmd.py`) x holds this rank's tokens of
+    the global batch: the counts, the valid-token count and the summed
+    probabilities are summed over the batch axes (differentiably), so the
+    aux loss and the stats are the global batch's, as JAX computes them,
+    and the balanced gate numbers tokens from this rank's offset."""
     T, _ = x.shape
     E, K = cfg.n_routed_experts, cfg.experts_per_token
     dev = x.device
+    total = spmd.batch_sum if spmd is not None else (lambda v: v)
 
     if cfg.fake_balanced_gate:
         # deterministic round-robin: token t → experts (tK, tK+1, …) mod E
-        base = (torch.arange(T, device=dev)[:, None] * K
+        t0 = spmd.batch_offset(T) if spmd is not None else 0
+        base = ((torch.arange(T, device=dev)[:, None] + t0) * K
                 + torch.arange(K, device=dev)[None, :]) % E
         weights = torch.full((T, K), 1.0 / K, dtype=torch.float32, device=dev)
         stats = {
-            "tokens_per_expert": F.one_hot(base, E).float().sum((0, 1)),
+            "tokens_per_expert": total(F.one_hot(base, E).float().sum((0, 1))),
             "mean_prob": torch.full((E,), 1.0 / E, dtype=torch.float32, device=dev),
         }
         return weights, base.to(torch.int32), torch.zeros((), device=dev), stats
@@ -111,19 +129,22 @@ def gate_forward(
         tm = token_mask.float()
         indices = torch.where(token_mask[:, None], indices, E)  # E = invalid slot
         weights = weights * tm[:, None]
-        n_valid = torch.clamp(tm.sum(), min=1.0)
+        n_valid = torch.clamp(total(tm.sum()), min=1.0)
     else:
         tm = None
-        n_valid = float(T)
+        n_valid = float(T) if spmd is None else total(
+            torch.full((), float(T), device=dev))
 
     # load-balance statistics; the invalid index E one-hots to all zeros
     one_hot = F.one_hot(indices, E + 1)[..., :E].float()  # (T, K, E)
-    tokens_per_expert = one_hot.sum((0, 1))
+    tokens_per_expert = total(one_hot.sum((0, 1)))
     fraction = tokens_per_expert / (n_valid * K)
-    if tm is None:
+    if tm is None and spmd is None:
         mean_prob = scores.mean(0)
+    elif tm is None:
+        mean_prob = total(scores.sum(0)) / n_valid
     else:
-        mean_prob = (scores * tm[:, None]).sum(0) / n_valid
+        mean_prob = total((scores * tm[:, None]).sum(0)) / n_valid
     aux_loss = cfg.aux_loss_coeff * E * torch.sum(fraction * mean_prob)
     stats = {"tokens_per_expert": tokens_per_expert, "mean_prob": mean_prob}
     return weights.float(), indices.to(torch.int32), aux_loss, stats

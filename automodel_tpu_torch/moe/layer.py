@@ -1,6 +1,13 @@
-"""The MoE block: gate + routed experts + shared experts (port of `init_moe`
-and `moe_forward` from `automodel_tpu/moe/layer.py`, dropless or capacity
-dispatch with ep = 1).
+"""The MoE block: gate + routed experts + shared experts (port of `init_moe`,
+`moe_param_specs` and `moe_forward` from `automodel_tpu/moe/layer.py`,
+dropless or capacity dispatch).
+
+On a mesh the block runs on this rank's tokens: the gate's statistics are
+the global batch's (`gate_forward`), the dropless dispatch goes across the
+`ep` ranks when `ep` > 1 (`experts_forward_dropless_ep`), and where `tp`
+splits the experts' and shared experts' MLP dim, each rank runs its slice
+(the tokens and routing weights enter through `copy_to`, the partial sums
+are all-reduced over `tp`).
 """
 
 from __future__ import annotations
@@ -12,12 +19,15 @@ from automodel_tpu_torch.moe.config import MoEConfig
 from automodel_tpu_torch.moe.experts import (
     compute_capacity,
     dispatch_tensors,
+    expert_param_specs,
     experts_forward,
     experts_forward_dropless,
+    experts_forward_dropless_ep,
     init_experts,
     shared_expert_forward,
 )
-from automodel_tpu_torch.moe.gate import gate_forward, init_gate
+from automodel_tpu_torch.moe.gate import gate_forward, gate_param_specs, init_gate
+from automodel_tpu_torch.parallel.collectives import copy_to, reduce_from
 
 
 def init_moe(cfg: MoEConfig, hidden_size: int, gen: torch.Generator,
@@ -44,6 +54,34 @@ def init_moe(cfg: MoEConfig, hidden_size: int, gen: torch.Generator,
     return params
 
 
+def moe_param_specs(cfg: MoEConfig) -> dict:
+    """Logical axes of one MoE block's leaves (JAX `moe_param_specs`)."""
+    specs = {"gate": gate_param_specs(cfg), "experts": expert_param_specs(cfg)}
+    if cfg.n_shared_experts > 0:
+        specs["shared"] = {
+            "up_proj": {"kernel": ("embed", "mlp")},
+            "down_proj": {"kernel": ("mlp", "embed")},
+        }
+        if cfg.shared_expert_is_gated:
+            specs["shared"]["gate_proj"] = {"kernel": ("embed", "mlp")}
+        if cfg.shared_expert_gated:
+            specs["shared"]["gate"] = {"kernel": ("embed", None)}
+    return specs
+
+
+def _tp_expert_bias(params: dict, cfg: MoEConfig, tp) -> dict:
+    """Under tp the experts' outputs are partial sums: the (tp-replicated)
+    down-projection bias joins them on tp rank 0 alone, through `copy_to`,
+    so its gradient is summed over tp."""
+    import torch.distributed as dist
+
+    if not cfg.expert_bias:
+        return params
+    down = params["experts"]["down_proj"]
+    bias = copy_to(down["bias"], tp) * float(dist.get_rank(tp) == 0)
+    return {**params, "experts": {**params["experts"], "down_proj": {**down, "bias": bias}}}
+
+
 def moe_forward(
     params: dict,
     cfg: MoEConfig,
@@ -51,27 +89,47 @@ def moe_forward(
     token_mask: torch.Tensor | None = None,  # (B, S) bool
     mesh_ctx=None,
     forced_indices: torch.Tensor | None = None,  # (B*S, K) routing replay
+    spmd=None,
+    tp=None,
 ):
     """Returns (out (B,S,H), aux_loss scalar, stats); stats["indices"] is
-    the (T,K) selection. An expert-parallel mesh raises
-    NotImplementedError."""
-    if mesh_ctx is not None:
-        raise NotImplementedError("expert parallelism (mesh_ctx) is not ported")
+    the (T,K) selection. On a mesh, `spmd` (`parallel/spmd.Spmd`, or made
+    from `mesh_ctx`) holds the groups and `params` this rank's local,
+    unsharded-over-`dp_shard` leaves; `tp` is the group that splits the
+    experts' MLP dim, or None."""
+    if spmd is None and mesh_ctx is not None:
+        from automodel_tpu_torch.parallel.spmd import Spmd
+
+        spmd = Spmd(mesh_ctx)
+    if tp is not None:
+        if cfg.n_shared_experts > 0 and cfg.shared_expert_gated:
+            raise NotImplementedError("the gated shared expert under tp > 1 is not ported")
+        params = _tp_expert_bias(params, cfg, tp)
     B, S, H = x.shape
     flat = x.reshape(B * S, H)
     flat_mask = token_mask.reshape(B * S) if token_mask is not None else None
     weights, indices, aux_loss, stats = gate_forward(
-        params["gate"], cfg, flat, flat_mask, forced_indices
+        params["gate"], cfg, flat, flat_mask, forced_indices, spmd=spmd
     )
     stats = {**stats, "indices": indices}
+    xe, we = copy_to(flat, tp), copy_to(weights, tp)
     if cfg.dispatcher == "dropless":
-        out = experts_forward_dropless(params["experts"], cfg, flat, weights, indices)
+        if spmd is not None and spmd.ep_size > 1:
+            out = experts_forward_dropless_ep(params["experts"], cfg, xe, we, indices,
+                                              spmd.ep)
+        else:
+            out = experts_forward_dropless(params["experts"], cfg, xe, we, indices)
     else:
+        if spmd is not None and spmd.ep_size > 1:
+            raise NotImplementedError(
+                "the capacity dispatcher across ep > 1 (JAX lets GSPMD place "
+                "its einsums); use moe_dispatcher: dropless")
         capacity = compute_capacity(cfg, B * S)
         # the one-hot in the compute dtype (0 and 1 are exact in any)
-        dispatch, combine = dispatch_tensors(cfg, indices, weights, capacity,
+        dispatch, combine = dispatch_tensors(cfg, indices, we, capacity,
                                              dtype=flat.dtype)
-        out = experts_forward(params["experts"], cfg, flat, dispatch, combine)
+        out = experts_forward(params["experts"], cfg, xe, dispatch, combine)
     if cfg.n_shared_experts > 0:
-        out = out + shared_expert_forward(params["shared"], cfg, flat)
+        out = out + shared_expert_forward(params["shared"], cfg, xe)
+    out = reduce_from(out, tp)
     return out.reshape(B, S, H).to(x.dtype), aux_loss, stats

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from automodel_tpu_torch.ops.cuda._build import load_library, read_counts
+from automodel_tpu_torch.parallel.sharding import refuse_dtensor
 
 SOURCE = "flash_attention.cu"
 # (q/k head dim, v head dim) of each instantiation: the tiny recipe's,
@@ -160,6 +161,7 @@ def pad_head_dim(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _check(tensors: dict, q):
+    refuse_dtensor("flash attention kernels", **tensors)
     for name, x in tensors.items():
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor (got {x.device})")

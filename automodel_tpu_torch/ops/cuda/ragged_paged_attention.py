@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from automodel_tpu_torch.ops.cuda._build import load_library, read_counts
+from automodel_tpu_torch.parallel.sharding import refuse_dtensor
 
 SOURCE = "ragged_paged_attention.cu"
 
@@ -126,7 +127,8 @@ def split_smem_bytes(Hq: int, Hkv: int, D: int, Dv: int, ps: int, P: int,
 
 
 def check_on_card(q, **tensors) -> None:
-    """Every tensor is a contiguous CUDA tensor on q's device."""
+    """Every tensor is a contiguous local CUDA tensor on q's device."""
+    refuse_dtensor("paged attention kernels", q=q, **tensors)
     for name, x in dict(q=q, **tensors).items():
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor (got {x.device})")

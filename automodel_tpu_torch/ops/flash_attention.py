@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from automodel_tpu_torch.parallel.sharding import refuse_dtensor
+
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 # sentinel lse of fully masked rows: keeps the backward's p = exp(s - lse) at 0
 EMPTY_LSE = -NEG_INF
@@ -316,6 +318,7 @@ def flash_attention(
     differentiable. Raises NotImplementedError for q/k head dims that differ
     or Hq not a multiple of Hkv, and on CUDA tensors for head dims above
     256: nothing falls back to another implementation."""
+    refuse_dtensor("flash_attention", q=q, k=k, v=v, sinks=sinks)
     B, S, Hq, Dq = q.shape
     _, T, Hkv, Dk = k.shape
     if Dq != Dk:

@@ -23,6 +23,11 @@ package, and so is the MoE gate's stacked (Lm, E) correction bias
 `e_score_bias`, whose gradient is 0: AdamW moves it by -lr * wd * p
 besides the aux-free sign updates.
 
+On a mesh the params, gradients and moments are DTensors: the update runs
+on their local shards (`to_local()`, in place), elementwise, so sharding
+changes nothing of the rule; the decay mask reads each leaf's dims, which a
+shard keeps (the global `ndim >= 2`).
+
 `param_groups` (JAX `optax.multi_transform`): each group is a `pattern`,
 searched as a regex in the slash-joined path of every leaf
 ("layers/q_proj/kernel"), with an `lr_mult` on the schedule and a
@@ -40,6 +45,7 @@ from typing import Callable, Optional
 
 import torch
 
+from automodel_tpu_torch.parallel.sharding import local_tree
 from automodel_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -82,6 +88,11 @@ class Optimizer:
         """Update params and state in place. With `ok` (a 0-dim bool tensor
         on the params' device) see `_update_where`; `max_count` bounds the
         count there (the steps taken)."""
+        view = {k: (v if k == "count" else local_tree(v)) for k, v in state.items()}
+        self._update(local_tree(grads), view, local_tree(params), ok, max_count)
+        state["count"] = view["count"]
+
+    def _update(self, grads, state: dict, params, ok, max_count: int) -> None:
         if ok is not None:
             self._update_where(grads, state, params, ok, max_count)
             return

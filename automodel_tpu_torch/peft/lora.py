@@ -19,7 +19,7 @@ kernel) at once, so the decoders merge one layer at a time inside their
 layer loop, under its remat (`layer_stack`), and the recipe merges the
 leaves outside the layer stacks (the head) where it uses them. The
 arithmetic is the JAX package's, leaf for leaf. `lora_param_shardings`
-(mesh work, ROADMAP.md queue 1 item 12) is not ported.
+lays the adapters out on a mesh beside their kernels.
 """
 
 from __future__ import annotations
@@ -196,6 +196,25 @@ def merged_state_dict(base_params: dict, lora: dict, cfg: LoRAConfig) -> dict:
     moves them to the host shard by shard). Leaves with nothing to merge are
     the base's own tensors."""
     return merge_lora(base_params, lora, cfg)
+
+
+def lora_param_shardings(lora: dict, base_layouts: Any, mesh_ctx=None) -> dict:
+    """The adapters' `Layout`s (`parallel/sharding.py`): each shards like
+    its base kernel on the non-rank dims, the rank dim replicated (r is
+    tiny): `a` (..., in, r) keeps the kernel's `in` split, `b` (..., r, out)
+    and DoRA's `m` (..., out) its `out` split (JAX `lora_param_shardings`)."""
+    from automodel_tpu_torch.parallel.sharding import Layout
+
+    flat = dict(_leaves_with_path(base_layouts))
+    out: dict = {}
+    for ps, ab in lora.items():
+        base = flat[ps]
+        dims = (base["q8"] if isinstance(base, dict) else base).dims
+        lead, in_ax, out_ax = dims[:-2], dims[-2], dims[-1]
+        out[ps] = {"a": Layout(lead + (in_ax, ())), "b": Layout(lead + ((), out_ax))}
+        if "m" in ab:
+            out[ps]["m"] = Layout(lead + (out_ax,))
+    return out
 
 
 def layer_stack(params: dict, key: str, lora: dict | None,

@@ -33,6 +33,7 @@ capture a `torch.profiler` trace of those steps. The top-level
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -40,6 +41,7 @@ import os
 import numpy as np
 
 from automodel_tpu_torch.config import parse_args_and_load_config
+from automodel_tpu_torch.distributed import refuse_unported_axes
 from automodel_tpu_torch.loggers.metric_logger import MetricLogger, setup_logging
 from automodel_tpu_torch.observability import attribution_summary
 from automodel_tpu_torch.recipes.llm.train_ft import (
@@ -61,13 +63,20 @@ class ServeRecipe(TrainFinetuneRecipeForNextTokenPrediction):
         cfg.set("auto_resume", False)
         setup_logging()
         self.typed.refuse_unported_serving()
-        self._refuse_unported()
+        self._one_device()
         self.rng = StatefulRNG(seed=int(cfg.get("seed", 42)), device=self.device)
         self._setup_resilience()
         self._build_model(None)
         self.params = self._init_params
         del self._init_params
         self._build_data()
+
+    def _one_device(self) -> None:
+        """The engine serves on one device (a sharded serve step is ROADMAP.md
+        item 13): the `distributed` sizes must resolve to 1."""
+        mesh = self.typed.mesh
+        refuse_unported_axes(dataclasses.asdict(mesh))
+        mesh.resolve(1)
 
     def _requests(self, serving, serve_cfg: ServingConfig) -> list:
         """Dataset rows -> a ragged Request stream with staggered arrivals.

@@ -84,12 +84,26 @@ gradients to the fp32 masters; with `peft` it raises ValueError, as in JAX
 from a checkpoint without indexer weights (a V3-style one) gets fresh
 indexers from the recipe's generator.
 
+The `distributed` section builds the mesh when a launcher started the
+process (`torchrun --nproc-per-node N`, or a test's spawned ranks:
+`distributed/init_utils.py`; NCCL on the card, gloo on the CPU), as the
+JAX recipe builds its mesh over the devices: the params become DTensors
+laid out by the model's `param_specs` and the rule table (FSDP over
+`dp_shard`, HSDP with `dp_replicate`, tensor parallelism over `tp`,
+experts over `ep`; `parallel/`), the same seed giving the same global
+weights on every mesh; each rank feeds its slice of the global batch the
+dataloader yields (the microbatch must divide by dp_replicate * dp_shard
+* ep); the train step reduces over the mesh (`training/train_step.py`);
+the checkpoint is saved sharded and restores onto any mesh
+(`checkpoint/sharded.py`); the records, trackers and exports come from
+rank 0. A process no launcher started is the one-device path, where the
+mesh's sizes must resolve to 1 (`dp_shard: -1` does).
+
 The same YAML files drive both packages. What the port does not have yet
-raises NotImplementedError instead of being skipped: distributed sizes
-other than 1 (`dp_shard: -1` resolves to 1 on one device), other
-unported architectures (`models/registry.py`), a remote
-`checkpoint_dir`, and PEFT on a MoE model with the gate-bias update or the
-MTP head.
+raises NotImplementedError instead of being skipped: `cp` or `pp` above 1
+(ROADMAP.md item 12b), other unported architectures
+(`models/registry.py`), a remote `checkpoint_dir`, and PEFT on a MoE model
+with the gate-bias update or the MTP head.
 
 `model.pretrained_path` names a local HF safetensors checkpoint: its
 `config.json` gives the HF config and `checkpoint/hf_adapter.py` fills the
@@ -125,6 +139,12 @@ from automodel_tpu_torch.checkpoint import (
 )
 from automodel_tpu_torch.config import ConfigNode, parse_args_and_load_config
 from automodel_tpu_torch.datasets.loader import make_global_batch, stack_microbatches
+from automodel_tpu_torch.distributed import (
+    initialize_distributed,
+    is_main_process,
+    refuse_unported_axes,
+)
+from automodel_tpu_torch.distributed.init_utils import local_device
 from automodel_tpu_torch.loggers.metric_logger import MetricLogger, setup_logging
 from automodel_tpu_torch.loggers.trackers import build_trackers
 from automodel_tpu_torch.loss import fused_linear_cross_entropy
@@ -132,9 +152,17 @@ from automodel_tpu_torch.loss.utils import combine_losses
 from automodel_tpu_torch.models.common.layers import count_params
 from automodel_tpu_torch.models.moe_lm.mtp import init_mtp, mtp_hidden, mtp_loss
 from automodel_tpu_torch.models.registry import get_model_spec
+from automodel_tpu_torch.parallel.collectives import copy_to
+from automodel_tpu_torch.parallel.sharding import (
+    distribute_params,
+    full_tree,
+    local_tree,
+    logical_to_shardings,
+)
 from automodel_tpu_torch.peft.lora import (
     LAYER_STACKS,
     init_lora,
+    lora_param_shardings,
     merge_lora,
     merged_state_dict,
     quantize_base,
@@ -159,8 +187,6 @@ from automodel_tpu_torch.utils.flops import MFUCalculator, device_peak_tflops
 from automodel_tpu_torch.utils.tree import tree_leaves
 
 logger = logging.getLogger(__name__)
-
-_MESH_AXES = ("pp", "dp_replicate", "dp_shard", "ep", "cp", "tp")
 
 
 @contextlib.contextmanager
@@ -203,7 +229,8 @@ class RetryCounter:
             self.metric_logger.set_counter(name, self.counts[name])
 
 
-def make_hidden_forward(module, model_cfg, peft_cfg=None, base_params=None):
+def make_hidden_forward(module, model_cfg, peft_cfg=None, base_params=None,
+                        mesh_ctx=None):
     """The backbone forward every recipe shares (JAX `make_hidden_forward`),
     hiding the LoRA merge and the MoE forward's extra outputs.
 
@@ -213,14 +240,22 @@ def make_hidden_forward(module, model_cfg, peft_cfg=None, base_params=None):
     is the base with the adapters merged outside the layers (the head and
     embeddings, for tied heads); `aux` is the MoE aux loss (else None) and
     `extra` the tokens per expert of a MoE model. `token_mask` keeps pad
-    tokens out of the MoE routing."""
+    tokens out of the MoE routing. On a mesh the returned tree's leaves
+    outside the layer stacks are unsharded over `dp_shard` (local tensors,
+    still split on `tp`) and merged there."""
     is_moe = getattr(model_cfg, "moe", None) is not None
+    if mesh_ctx is not None:
+        from automodel_tpu_torch.parallel.spmd import Spmd
+
+        spmd = Spmd(mesh_ctx)
 
     def fwd(params, ids, *, token_mask=None, **kw):
         lora = None
         if peft_cfg is not None:
             lora, params = params, base_params
             kw.update(lora=lora, lora_cfg=peft_cfg)
+        if mesh_ctx is not None:
+            kw["mesh_ctx"] = mesh_ctx
         aux, extra = None, {}
         if is_moe:
             hidden, aux, stats = module.forward(
@@ -229,6 +264,16 @@ def make_hidden_forward(module, model_cfg, peft_cfg=None, base_params=None):
             extra = {"tokens_per_expert": stats["tokens_per_expert"]}
         else:
             hidden = module.forward(params, model_cfg, ids, return_hidden=True, **kw)
+        if mesh_ctx is not None:
+            params = {k: v for k, v in params.items() if k not in LAYER_STACKS}
+            if lora is not None:
+                lora = {k: v for k, v in lora.items()
+                        if k.split("/", 1)[0] not in LAYER_STACKS}
+                flags = spmd.lora_tp_flags({"base": params, "lora": lora})
+                lora = {k: {n: copy_to(x, spmd.tp) if flags[k][n] else x
+                            for n, x in ab.items()}
+                        for k, ab in spmd.gather_tree(lora).items()}
+            params = spmd.gather_tree(params)
         if lora is not None:
             params = merge_lora(params, lora, peft_cfg, skip=LAYER_STACKS)
         return params, hidden, aux, extra
@@ -240,18 +285,20 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
     def __init__(self, cfg: ConfigNode, device=None):
         super().__init__(cfg)
         self.device = resolve_device(device)
+        self.mesh_ctx = None
 
     # ------------------------------------------------------------------
     def setup(self) -> None:
         cfg = self.cfg
         setup_logging()
-        self._refuse_unported()
+        self._setup_mesh()
         self.rng = StatefulRNG(seed=int(cfg.get("seed", 42)), device=self.device)
         # resilience comes FIRST: the pretrained reads of _build_model already
         # run under the retry policy and the fault points
         self._setup_resilience()
         self._build_model(torch.float32)  # fp32 masters
         self._build_peft()
+        self._distribute()
         self._build_optimizer()
         self._build_data()
         ckpt_cfg = dataclasses.replace(
@@ -263,18 +310,23 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             self.checkpointer.set_retry(self._retry_policy,
                                         on_attempt=self._on_retry_attempt)
         run_dir = cfg.get("run_dir", ".")
-        self.metric_logger = MetricLogger(os.path.join(run_dir, "training.jsonl"))
-        self.val_logger = MetricLogger(os.path.join(run_dir, "validation.jsonl"))
+        # the records and trackers are rank 0's
+        main = is_main_process()
+        self.metric_logger = MetricLogger(
+            os.path.join(run_dir, "training.jsonl") if main else None, also_stdout=main)
+        self.val_logger = MetricLogger(
+            os.path.join(run_dir, "validation.jsonl") if main else None, also_stdout=main)
         # retries before the logger existed (the pretrained reads) ride the
         # first records too
         self._on_retry_attempt.attach(self.metric_logger)
-        self.trackers = build_trackers(cfg, run_dir)
+        self.trackers = build_trackers(cfg, run_dir) if main else []
         for t in self.trackers:
             t.log_config(cfg.to_dict(redact=True))
         self.profiler = self.typed.profiling.build(self.device)
         seq_len = int(cfg.get("dataset.seq_len", 512))
         self.mfu = MFUCalculator(
             flops_per_token=self.model_cfg.flops_per_token(seq_len),
+            num_devices=self.mesh_ctx.num_devices if self.mesh_ctx is not None else 1,
             peak_tflops_per_device=(
                 device_peak_tflops(self.device) if self.device.type == "cuda" else None
             ),
@@ -295,14 +347,23 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                                enabled=bool(cfg.get("gc_control", False)))
         self.step_scheduler.install_sigterm_handler()
 
-    def _refuse_unported(self) -> None:
-        cfg = self.cfg
-        dist = cfg.get("distributed")
-        for axis in _MESH_AXES:
-            size = int(dist.get(axis, 1)) if dist is not None else 1
-            if size != 1 and not (axis == "dp_shard" and size == -1):
-                raise NotImplementedError(
-                    f"distributed.{axis}={size}: the port trains on one device")
+    def _setup_mesh(self) -> None:
+        """The `distributed` section (JAX recipe `:130`): under a launcher,
+        the process group and the mesh over its ranks; otherwise the
+        one-device path, whose sizes must resolve to 1. `cp` and `pp` above
+        1 raise NotImplementedError (item 12b)."""
+        mesh_cfg = self.typed.mesh
+        refuse_unported_axes(dataclasses.asdict(mesh_cfg))
+        if not initialize_distributed(self.device):
+            mesh_cfg.resolve(1)
+            return
+        self.device = local_device(self.device)
+        self.mesh_ctx = mesh_cfg.build(self.device.type)
+        logger.info("mesh: %s", self.mesh_ctx.describe())
+        if type(self)._make_loss_fn is not TrainFinetuneRecipeForNextTokenPrediction._make_loss_fn:
+            raise NotImplementedError(
+                f"{type(self).__name__} on a mesh: only the next-token loss runs "
+                "sharded so far")
 
     def _setup_resilience(self) -> None:
         """The fault-tolerance layer (`resilience/`): the config's fault
@@ -368,7 +429,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         """The `nan_grads` fault: every trainable leaf becomes NaN, so this
         step's gradients (and every later step's, absent recovery) are
         non-finite."""
-        for p in tree_leaves(self.train_state.params):
+        for p in tree_leaves(local_tree(self.train_state.params)):
             p.mul_(float("nan"))
 
     # ------------------------------------------------------------------
@@ -408,7 +469,13 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                 dtype = build_config(hf_config)
                 adapter = get_adapter(self.model_spec.adapter_name, self.model_cfg,
                                       **self.model_spec.adapter_kwargs)
-                self._init_params = adapter.from_hf(reader, device=self.device, dtype=dtype)
+                kw = {}
+                if (self.mesh_ctx is not None and self.cfg.get("peft") is None
+                        and hasattr(self.model_spec.module, "param_specs")):
+                    # each rank keeps its block of each leaf as it is read
+                    kw["place"] = self._place_leaf
+                self._init_params = adapter.from_hf(reader, device=self.device,
+                                                    dtype=dtype, **kw)
             if getattr(self.model_cfg, "dsa_index_topk", None) is not None:
                 self._backfill_indexers(dtype)
             if getattr(self.model_cfg, "mtp_num_layers", 0) > 0:
@@ -482,6 +549,50 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         self._init_params = lora
         logger.info("LoRA enabled: %d trainable adapter params", count_params(lora))
 
+    def _layouts(self, params, under: tuple = ()) -> dict:
+        """Each leaf's `Layout` from the module's `param_specs` (the subtree
+        at path `under`) and the rule table, with the divisibility fallback
+        on the real shapes; a QLoRA `{"q8", "sc"}` leaf lays out both parts
+        like its kernel."""
+        module = self.model_spec.module
+        if not hasattr(module, "param_specs"):
+            raise NotImplementedError(
+                f"{self.model_spec.name} on a mesh: its module has no param_specs")
+        specs = module.param_specs(self.model_cfg)
+        for k in under:
+            specs = specs[k]
+
+        def walk(spec, leaf):
+            if isinstance(spec, dict):
+                return {k: walk(spec[k], leaf[k]) for k in leaf}
+            if isinstance(leaf, dict):  # QLoRA
+                return {k: walk(spec, v) for k, v in leaf.items()}
+            return logical_to_shardings(spec, self.mesh_ctx, shapes=tuple(leaf.shape))
+
+        return walk(specs, params)
+
+    def _place_leaf(self, path: tuple, full: torch.Tensor):
+        """One leaf read from a checkpoint, as this rank's DTensor block."""
+        layout = self._layouts({path[-1]: full}, path[:-1])[path[-1]]
+        return distribute_params(full, layout, self.mesh_ctx)
+
+    def _distribute(self) -> None:
+        """On a mesh, the params (under PEFT the base and the adapters) as
+        DTensors on their layouts; every rank built the same full tree
+        from the same seed (or read the same checkpoint) and keeps its
+        block. Leaves placed as they were read stay as they are."""
+        if self.mesh_ctx is None:
+            return
+        if self.peft_cfg is None:
+            self._init_params = distribute_params(
+                self._init_params, self._layouts(self._init_params), self.mesh_ctx)
+            return
+        base_layouts = self._layouts(self.base_params)
+        self.base_params = distribute_params(self.base_params, base_layouts, self.mesh_ctx)
+        self._init_params = distribute_params(
+            self._init_params, lora_param_shardings(self._init_params, base_layouts),
+            self.mesh_ctx)
+
     def _build_optimizer(self) -> None:
         opt_cfg = self.typed.optimizer
         self.lr_schedule = self.typed.lr_scheduler.build(opt_cfg.lr)
@@ -503,7 +614,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         self._loss_fn = self._make_loss_fn()
         self._train_step = make_train_step(
             self._loss_fn, self.tx, self.lr_schedule, step_cfg,
-            param_transform=qat_cfg.make_param_transform())
+            param_transform=qat_cfg.make_param_transform(), mesh_ctx=self.mesh_ctx)
 
     def _make_loss_fn(self):
         """`loss_fn(params, microbatch, rng) -> (CE sum, aux)`; under PEFT
@@ -518,23 +629,27 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         use_mtp = is_moe and getattr(model_cfg, "mtp_num_layers", 0) > 0
         fwd = self._hidden_forward()
 
+        vocab = self._vocab_parallel()
+
         def loss_fn(params, batch, rng):
             kw = {k: batch[k] for k in ("positions", "segment_ids") if k in batch}
+            full_params = params
             params, hidden, aux, extra = fwd(
                 params, batch["input_ids"],
                 token_mask=(batch["labels"] != -100) if is_moe else None, **kw)
             kernel = module.head_kernel(params, model_cfg)
             ce_sum, n = fused_linear_cross_entropy(
                 hidden, kernel, batch["labels"], chunk_size=chunk,
-                logits_soft_cap=model_cfg.logits_soft_cap,
+                logits_soft_cap=model_cfg.logits_soft_cap, **vocab,
             )
             if use_mtp:
-                h_mtp = mtp_hidden(params, model_cfg, hidden, batch["input_ids"],
-                                   kw.get("positions"), kw.get("segment_ids"))
+                h_mtp = mtp_hidden(full_params, model_cfg, hidden, batch["input_ids"],
+                                   kw.get("positions"), kw.get("segment_ids"),
+                                   mesh_ctx=self.mesh_ctx)
                 mtp_ce, _ = mtp_loss(
                     h_mtp, kernel, batch["labels"], chunk_size=chunk,
                     segment_ids=kw.get("segment_ids"),
-                    logits_soft_cap=model_cfg.logits_soft_cap,
+                    logits_soft_cap=model_cfg.logits_soft_cap, **vocab,
                 )
                 ce_sum = ce_sum + model_cfg.mtp_loss_coeff * mtp_ce
             total, n = combine_losses(ce_sum, n, aux)
@@ -544,7 +659,27 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
 
     def _hidden_forward(self):
         return make_hidden_forward(self.model_spec.module, self.model_cfg,
-                                   self.peft_cfg, self.base_params)
+                                   self.peft_cfg, self.base_params, self.mesh_ctx)
+
+    def _vocab_parallel(self) -> dict:
+        """The CE's `vocab_group` / `vocab_start` when the head's vocab dim
+        is split on `tp` (JAX shards `vocab` there), else nothing."""
+        if self.mesh_ctx is None:
+            return {}
+        from automodel_tpu_torch.parallel.spmd import Spmd
+
+        spmd = Spmd(self.mesh_ctx)
+        base = self.base_params if self.peft_cfg is not None else self.train_state.params
+        if "lm_head" in base and not self.model_cfg.tie_word_embeddings:
+            leaf, dim = base["lm_head"]["kernel"], 1
+        else:
+            leaf, dim = base["embed"]["embedding"], 0
+        leaf = leaf["q8"] if isinstance(leaf, dict) else leaf
+        group = spmd.tp_of(leaf, dim)
+        if group is None:
+            return {}
+        return {"vocab_group": group,
+                "vocab_start": spmd.tp_rank() * leaf.to_local().shape[dim]}
 
     def _batch_token_count(self, microbatches: list) -> int:
         """Tokens of one step (for tokens/s and MFU); recipes with other
@@ -563,6 +698,13 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
                                trust_remote_code=bool(node.get("trust_remote_code", False)))
 
     def _build_data(self) -> None:
+        if self.mesh_ctx is not None:
+            div = self.mesh_ctx.batch_size_divisor
+            mb = self.typed.dataloader.microbatch_size
+            if mb % div != 0:
+                raise ValueError(
+                    f"dataloader.microbatch_size={mb} must be divisible by "
+                    f"dp_replicate*dp_shard*ep={div} (the token-sharding axes of the mesh)")
         self._tokenizer = self._build_tokenizer()
         ds_cfg = self.cfg.get("dataset").instantiate()
         # a dataset whose build takes a tokenizer gets it (JAX recipe: one
@@ -582,10 +724,22 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             self.val_dataloader = dl_cfg.build(val_node.instantiate().build())
 
     # ------------------------------------------------------------------
+    def _rank_slice(self, batch: dict, axis: int) -> dict:
+        """This rank's rows of a global numpy batch along `axis`: the batch
+        axes (dp_replicate, dp_shard, ep) split it in that order, as JAX's
+        `act_batch` rule does; `tp` ranks share their slice."""
+        if self.mesh_ctx is None:
+            return batch
+        n = self.mesh_ctx.batch_size_divisor
+        i = self.mesh_ctx.axis_index("batch")
+        return {k: np.split(v, n, axis=axis)[i] for k, v in batch.items()}
+
     def run_step(self, microbatches: list) -> dict:
         """One optimizer step over a list of grad-accum microbatches (numpy
-        dicts, as the dataloader yields them); returns the step's metrics."""
-        batch = make_global_batch(stack_microbatches(microbatches), self.device)
+        dicts, as the dataloader yields them: the global batch); returns the
+        step's metrics."""
+        batch = make_global_batch(self._rank_slice(stack_microbatches(microbatches), 1),
+                                  self.device)
         key = self.rng.next_key()
         # the batch upload above and the metric reads after stay outside the
         # guard: inside it, only a sync the step itself makes can trip it
@@ -594,7 +748,7 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
         if self.is_moe and self.model_cfg.moe.gate_bias_update_speed > 0:
             # DeepSeek aux-free balancing after the optimizer step
             self.model_spec.module.apply_gate_bias_update(
-                self.train_state.params, self.model_cfg,
+                local_tree(self.train_state.params), self.model_cfg,
                 metrics["tokens_per_expert"])
         return metrics
 
@@ -735,13 +889,18 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
     def _run_validation(self, step: int) -> None:
         """The token-weighted CE over the whole `validation_dataset`, plus
         the sampling eval's metrics, as one `validation.jsonl` record."""
-        total, count = 0.0, 0.0
+        total = torch.zeros(2, dtype=torch.float64)
         for mb in self.val_dataloader:
-            loss_sum, aux = self._loss_fn(self.train_state.params,
-                                          make_global_batch(mb, self.device), None)
-            total += float(loss_sum)
-            count += float(aux["num_label_tokens"])
-        rec = {"step": step, "val_loss": total / max(count, 1.0)}
+            loss_sum, aux = self._loss_fn(
+                self.train_state.params,
+                make_global_batch(self._rank_slice(mb, 0), self.device), None)
+            total += torch.tensor([float(loss_sum), float(aux["num_label_tokens"])],
+                                  dtype=torch.float64)
+        if self.mesh_ctx is not None:
+            total = total.to(self.device)
+            torch.distributed.all_reduce(total, group=self.mesh_ctx.group("batch"))
+            total = total.cpu()
+        rec = {"step": step, "val_loss": float(total[0]) / max(float(total[1]), 1.0)}
         rec.update(self._run_sampling_eval())
         self.val_logger.log(rec)
 
@@ -756,11 +915,13 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             return {}
         from automodel_tpu_torch.eval.sampling import run_sampling_eval
 
-        params = self.train_state.params
+        params, base = self.train_state.params, self.base_params
+        if self.mesh_ctx is not None:
+            # generate() runs whole on every rank: the params gathered
+            params, base = full_tree(params), full_tree(base)
         if self.peft_cfg is not None:
             # straight into the compute dtype that generate() casts to
-            params = merge_lora(self.base_params, params, self.peft_cfg,
-                                dtype=self.model_cfg.dtype)
+            params = merge_lora(base, params, self.peft_cfg, dtype=self.model_cfg.dtype)
         dl_state = self.val_dataloader.state_dict()
         try:
             return run_sampling_eval(
@@ -784,16 +945,24 @@ class TrainFinetuneRecipeForNextTokenPrediction(BaseRecipe):
             self.cfg.get("checkpoint.checkpoint_dir", "checkpoints"), "hf")
         adapter = get_adapter(self.model_spec.adapter_name, self.model_cfg,
                               **self.model_spec.adapter_kwargs)
+        params, base = self.train_state.params, self.base_params
+        if self.mesh_ctx is not None:
+            # gathered leaf by leaf into rank 0's host memory; rank 0 writes
+            with torch.no_grad():
+                params = full_tree(params, to_cpu_on_rank0=True)
+                base = full_tree(base, to_cpu_on_rank0=True)
+            if not is_main_process():
+                torch.distributed.barrier()
+                return out_dir
         if self.peft_cfg is not None:
-            params = merged_state_dict(self.base_params, self.train_state.params,
-                                       self.peft_cfg)
-        else:
-            params = self.train_state.params
+            params = merged_state_dict(base, params, self.peft_cfg)
         with torch.no_grad():
             save_hf_checkpoint(adapter.to_hf(params), out_dir, hf_config=self._hf_config,
                                retry_policy=self._retry_policy,
                                on_retry=self._on_retry_attempt)
         logger.info("consolidated HF checkpoint written to %s", out_dir)
+        if self.mesh_ctx is not None:
+            torch.distributed.barrier()
         return out_dir
 
 

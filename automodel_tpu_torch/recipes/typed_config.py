@@ -147,6 +147,17 @@ class RecipeConfig:
         return self._section("optimizer", OptimizerConfig)
 
     @property
+    def mesh(self):
+        """`distributed` -> MeshConfig (JAX `:60`); unknown keys are ignored,
+        as the JAX package ignores them."""
+        from automodel_tpu_torch.distributed import MeshConfig
+
+        key = ("distributed", "MeshConfig")
+        if key not in self._cache:
+            self._cache[key] = MeshConfig.from_config(self.raw.get("distributed"))
+        return self._cache[key]
+
+    @property
     def lr_scheduler(self):
         from automodel_tpu_torch.optim import LRSchedulerConfig
 

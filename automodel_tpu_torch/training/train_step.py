@@ -14,6 +14,21 @@ per expert come out of the step as the whole batch's counts.
 microbatch's differentiated function, on the step's count of optimizer
 steps taken: the straight-through estimator routes the gradients of the
 transformed tree to the fp32 masters unchanged.
+
+On a mesh (`mesh_ctx`) each rank runs its slice of the global batch and
+the params are DTensors (`parallel/`); the step then does what GSPMD does
+to the JAX step:
+
+- the label-token count and the CE sum are summed over the batch axes
+  (`dp_replicate`, `dp_shard`, `ep`): the gradients are divided by the
+  GLOBAL count;
+- each gradient is summed over the batch axes its layout does not already
+  reduce: the FSDP gather's backward reduce-scattered it over `dp_shard`
+  when the leaf is split there, the expert all-to-all brought every `ep`
+  rank's tokens to an expert split over `ep`; the rest (`dp_replicate`
+  always: HSDP) is an all-reduce;
+- the global norm sums each leaf's squared local norm over the axes the
+  leaf is split on, and no others, so a replicated leaf counts once.
 """
 
 from __future__ import annotations
@@ -22,9 +37,14 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
+from automodel_tpu_torch.distributed.mesh import MeshAxisName
 from automodel_tpu_torch.optim.optimizer import Optimizer
+from automodel_tpu_torch.parallel.sharding import is_dtensor, layout_of
 from automodel_tpu_torch.utils.tree import tree_leaves, tree_map
+
+_BATCH_AXES = ("dp_replicate", "dp_shard", "ep")
 
 
 @dataclasses.dataclass
@@ -76,17 +96,69 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(norms)
 
 
+class MeshGradSync:
+    """The mesh's reductions for one param tree: each leaf's gradient sum
+    over the batch axes its layout leaves unreduced, and its squared norm
+    summed over the axes it is split on. The groups are the mesh's own
+    (`MeshContext.build` made them all); they are looked up here once, in
+    leaf order."""
+
+    def __init__(self, mesh_ctx, params):
+        self.batch = mesh_ctx.group("batch")
+        self.reduce_groups, self.norm_axes = [], []
+        for p in tree_leaves(params):
+            split = set(layout_of(p).sharded_axes) if is_dtensor(p) else set()
+            self.reduce_groups.append(
+                mesh_ctx.group(tuple(a for a in _BATCH_AXES if a not in split)))
+            self.norm_axes.append(tuple(a for a in MeshAxisName.ALL if a in split))
+        self.norm_groups = {axes: mesh_ctx.group(axes) for axes in self.norm_axes}
+        # no leaf split on a multi-rank axis: the one-device norm, the same
+        # arithmetic
+        self.split = any(g is not None for g in self.norm_groups.values())
+
+    def sum_over_batch(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float().clone()
+        if self.batch is not None:
+            dist.all_reduce(x, group=self.batch)
+        return x
+
+    def reduce_grads(self, grads: list) -> None:
+        """In place on the local shards."""
+        for g, group in zip(grads, self.reduce_groups):
+            if group is not None:
+                dist.all_reduce(g, group=group)
+
+    def global_norm(self, grads: list) -> torch.Tensor:
+        if not self.split:
+            return global_norm(grads)
+        sums: dict = {}  # by axes, in leaf order: the same on every rank
+        for g, axes in zip(grads, self.norm_axes):
+            sq = torch.linalg.vector_norm(g.float()) ** 2
+            sums[axes] = sq if axes not in sums else sums[axes] + sq
+        total = None
+        for axes, sq in sums.items():
+            group = self.norm_groups[axes]
+            if group is not None:
+                sq = sq.clone()
+                dist.all_reduce(sq, group=group)
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+
+
 def make_train_step(
     loss_fn: Callable,  # (params, microbatch, rng) -> (loss_sum, aux)
     tx: Optimizer,
     lr_schedule: Callable | None = None,
     config: TrainStepConfig | None = None,
     param_transform: Callable | None = None,  # (params, step) -> params (QAT)
+    mesh_ctx=None,
 ) -> Callable:
     """Build `train_step(state, batch, rng) -> (state, metrics)`. Loss
     functions return a SUM loss plus `aux`: the valid-token count, or a dict
-    holding "num_label_tokens" and other per-step sums."""
+    holding "num_label_tokens" and other per-step sums. With `mesh_ctx`,
+    `batch` is this rank's slice and `state.params` DTensors."""
     config = config or TrainStepConfig()
+    sync: list = []
 
     def train_step(state: TrainState, batch: dict, rng=None):
         params = tree_leaves(state.params)
@@ -94,16 +166,29 @@ def make_train_step(
             p.grad = None
         ce_sum, aux_sum = accumulate_grads(loss_fn, state.params, batch, rng,
                                            param_transform, state.step)
+        n_tokens = aux_sum["num_label_tokens"]
+        if mesh_ctx is not None:
+            if not sync:
+                sync.append(MeshGradSync(mesh_ctx, state.params))
+            n_tokens = sync[0].sum_over_batch(n_tokens)
+            ce_sum = sync[0].sum_over_batch(ce_sum)
+            aux_sum["num_label_tokens"] = n_tokens
         # normalize by the global number of label tokens, in place in .grad
-        denom = torch.clamp(aux_sum["num_label_tokens"].float(), min=1.0)
+        denom = torch.clamp(n_tokens.float(), min=1.0)
         with torch.no_grad():
             grads = tree_map(
-                lambda p: (p.grad if p.grad is not None else torch.zeros_like(p))
-                .div_(denom), state.params)
-            grad_norm = global_norm(tree_leaves(grads))
+                lambda p: (p.grad if p.grad is not None else torch.zeros_like(p)),
+                state.params)
+            local = [g.to_local() if is_dtensor(g) else g for g in tree_leaves(grads)]
+            if mesh_ctx is not None:
+                sync[0].reduce_grads(local)
+            for g in local:
+                g.div_(denom)
+            grad_norm = (sync[0].global_norm(local) if mesh_ctx is not None
+                         else global_norm(local))
             if config.max_grad_norm is not None:
                 scale = torch.clamp(config.max_grad_norm / (grad_norm + 1e-6), max=1.0)
-                for g in tree_leaves(grads):
+                for g in local:
                     g.mul_(scale)
         if config.skip_nonfinite_updates:
             # kept on the device, as the JAX step keeps it: the update is

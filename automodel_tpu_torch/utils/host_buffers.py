@@ -10,7 +10,8 @@ in the process stay within `PINNED_LIMIT` (a quarter of the host's
 memory), and pageable past it: the checkpointer and the rollback manager
 draw on one budget. `restore(state, saved)` copies a saved tree back into
 the live state's tensors in place, so every reference to them (the
-optimizer's moments, a recipe's views) stays valid.
+optimizer's moments, a recipe's views) stays valid. A DTensor (a train
+state on a mesh) is copied and filled through its local shard.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import weakref
 from typing import Any
 
 import torch
+
+from automodel_tpu_torch.parallel.sharding import local
 
 # the share of the host's memory that snapshot buffers may page-lock
 PINNED_SHARE = 0.25
@@ -59,6 +62,7 @@ class HostBuffers:
             return {k: self.copy(v, f"{path}.{k}") for k, v in tree.items()}
         if not torch.is_tensor(tree):
             return copy.deepcopy(tree)
+        tree = local(tree)
         buf = self.bufs.get(path)
         if buf is None or buf.shape != tree.shape or buf.dtype != tree.dtype:
             if buf is not None:
@@ -97,12 +101,15 @@ def fill(live: Any, saved: Any, path: str = "state") -> Any:
             raise ValueError(f"{path}: the saved tree's keys differ from the state's")
         return {k: fill(live[k], saved[k], f"{path}.{k}") for k in live}
     if torch.is_tensor(live):
-        if isinstance(saved, (int, float)) and live.dim() == 0:
-            return live.fill_(saved)
-        if not torch.is_tensor(saved) or saved.shape != live.shape:
+        target = local(live)
+        if isinstance(saved, (int, float)) and target.dim() == 0:
+            target.fill_(saved)
+            return live
+        if not torch.is_tensor(saved) or saved.shape != target.shape:
             raise ValueError(f"{path}: the saved tree holds "
-                             f"{getattr(saved, 'shape', type(saved))}, the state {live.shape}")
-        return live.copy_(saved)
+                             f"{getattr(saved, 'shape', type(saved))}, the state {target.shape}")
+        target.copy_(saved)
+        return live
     return copy.deepcopy(saved)
 
 

@@ -2357,7 +2357,8 @@ def train_phase(card: str, phase: str = "train", extra: tuple = ()) -> tuple[dic
     prec = cfg.linear_precision
     want_gemms = {k: (2 * TRAIN_QUANT_LINEARS * n if k == prec else 0) for k in quant_gemms}
     summary = {"ms_per_step": tokens_per_step / tps * 1e3, "tokens_per_s": tps,
-               "peak_mem_gib": peak_gib, "losses": [r["loss"] for r in records]}
+               "peak_mem_gib": peak_gib, "losses": [r["loss"] for r in records],
+               "grad_norms": [r["grad_norm"] for r in records]}
     emit({
         "phase": phase, "card": card,
         "model": f"Llama-3-8B widths, {cfg.num_layers} layers, {cfg.dtype}, "
@@ -2467,6 +2468,275 @@ def train_paths_phase() -> None:
         raise AssertionError(f"tiny recipe: K1 launches {k1} do not follow attn_impl")
     if max(rel[:5]) > 1e-4 or max(rel) > 5e-3:
         raise AssertionError("tiny recipe: kernel and plain loss curves differ")
+
+
+# train_mesh: the training mesh on NCCL, one rank per visible card (up to
+# 8): Llama-3-8B at the train phase's 8-layer cut over dp_shard (FSDP, the
+# DTensor/gather path on at any size), TRAIN_MESH_STEPS steps; a smaller
+# Llama (MESH_CKPT_HF: 2 layers, its heads, a 8192 vocab; ~0.6 GB a save)
+# saved sharded at step 2 and resumed in the plain one-device path; each
+# Qwen3-30B-A3B expert's output (2 layers at its widths, MESH_EP_TOKENS
+# tokens a rank) through the EP dispatch over ep = the world size, held to
+# the unsharded dropless path within the bf16 tolerance the engine's MoE
+# checks use (ENGINE_BF16_LOGITS_TOL, relative to the largest output)
+TRAIN_MESH_STEPS = 3
+TRAIN_MESH_LOSS_RTOL = 1e-3
+TRAIN_MESH_PEAK_MARGIN = 1.05
+MESH_CKPT_HF = {
+    "architectures": ["LlamaForCausalLM"], "vocab_size": 8192, "hidden_size": 1024,
+    "intermediate_size": 4096, "num_hidden_layers": 2, "num_attention_heads": 8,
+    "num_key_value_heads": 8, "rope_theta": 500000.0, "max_position_embeddings": 8192,
+}
+MESH_EP_TOKENS = 4096
+
+
+def mesh_ckpt_yaml(path: Path, run_dir: str, ckpt_dir: str, steps: int) -> str:
+    """MESH_CKPT_HF on mock data, bf16 over fp32 masters, 2048 tokens."""
+    node = {
+        "seed": 5, "run_dir": run_dir,
+        "model": {"hf_config": MESH_CKPT_HF, "dtype": "bfloat16", "remat_policy": "full"},
+        "distributed": {"dp_shard": -1},
+        "dataset": {"_target_": "automodel_tpu.datasets.mock.MockDatasetConfig",
+                    "num_samples": 64, "seq_len": 2048, "vocab_size": 8192},
+        "dataloader": {"microbatch_size": 1, "grad_acc_steps": 1},
+        "optimizer": {"name": "adamw", "lr": 3e-4, "weight_decay": 0.1},
+        "lr_scheduler": {"warmup_steps": 1, "decay_steps": 10, "style": "cosine"},
+        "step_scheduler": {"max_steps": steps, "ckpt_every_steps": 2},
+        "checkpoint": {"enabled": True, "checkpoint_dir": ckpt_dir, "async_save": False},
+        "loss": {"chunk_size": 2048},
+    }
+    path.write_text(yaml.safe_dump(node))
+    return str(path)
+
+
+def dropless_rows(params, cfg, x, indices) -> torch.Tensor:
+    """Each (token, slot) pair's expert output before weighting, (T*K, H) in
+    pair order, through the unsharded dropless path's sort and grouped
+    products (masked pairs 0)."""
+    from automodel_tpu_torch.moe.experts import _expert_mlp
+
+    T, K = indices.shape
+    E = cfg.n_routed_experts
+    flat = indices.reshape(T * K).long()
+    sort_idx = torch.argsort(flat, stable=True)
+    expert_of = flat[sort_idx]
+    offs = torch.searchsorted(expert_of, torch.arange(1, E + 1, device=x.device),
+                              out_int32=True)
+    y = _expert_mlp(params, cfg, x[sort_idx // K], offs, torch.clamp(expert_of, 0, E - 1))
+    y = torch.where((expert_of < E)[:, None], y, 0)
+    return torch.zeros_like(y).index_copy(0, sort_idx, y)
+
+
+def mesh_ep_check(rank: int, world: int) -> dict:
+    """Qwen3-30B-A3B's MoE blocks, 2 layers at its widths, bf16: this rank's
+    MESH_EP_TOKENS tokens through `experts_forward_dropless_ep` over ep =
+    the world (E / world experts a rank) against the unsharded dropless
+    path with every expert, on the same tokens and routing; per expert,
+    the largest error of the rows it computed. Times both (the EP path
+    includes its one host read of the split sizes a layer)."""
+    import torch.distributed as dist
+
+    from automodel_tpu_torch.moe.experts import (
+        experts_forward_dropless,
+        experts_forward_dropless_ep,
+    )
+    from automodel_tpu_torch.moe.gate import gate_forward
+
+    cfg, _ = gqa_moe_config(QWEN3_30B_A3B, 2, torch.bfloat16)
+    moe_cfg, E = cfg.moe, cfg.moe.n_routed_experts
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_moe(moe_cfg, cfg.hidden_size, gen, torch.bfloat16, num_layers=2)
+    group = dist.new_group(list(range(world)))
+    per = E // world
+    xgen = torch.Generator(device="cuda").manual_seed(100 + rank)
+    errors, out_errs, ep_ms, plain_ms, scale = [0.0] * E, [], [], [], 0.0
+    for li in range(2):
+        p = tree_map(lambda t: t[li], params)
+        x = torch.randn(MESH_EP_TOKENS, cfg.hidden_size, device="cuda",
+                        generator=xgen).to(torch.bfloat16)
+        w, idx, _, _ = gate_forward(p["gate"], moe_cfg, x)
+        local = tree_map(lambda t: t[rank * per:(rank + 1) * per].contiguous(), p["experts"])
+        for _ in range(2):  # the second pass is timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_ep, rows_ep = experts_forward_dropless_ep(local, moe_cfg, x, w, idx, group,
+                                                          return_rows=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = experts_forward_dropless(p["experts"], moe_cfg, x, w, idx)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        ep_ms.append((t1 - t0) * 1e3)
+        plain_ms.append((t2 - t1) * 1e3)
+        rows = dropless_rows(p["experts"], moe_cfg, x, idx)
+        scale = max(scale, float(rows.float().abs().max()), float(out.float().abs().max()))
+        diff = (rows_ep.float() - rows.float()).abs().amax(-1)
+        flat = idx.reshape(-1).long()
+        per_e = torch.zeros(E + 1, device="cuda").scatter_reduce(0, flat, diff, "amax")
+        errors = [max(a, b) for a, b in zip(errors, per_e[:E].tolist())]
+        out_errs.append(float((out_ep.float() - out.float()).abs().max()))
+        if not torch.isfinite(out_ep).all():
+            raise AssertionError("train_mesh: non-finite EP output")
+    routed = torch.bincount(idx.reshape(-1).long(), minlength=E + 1)[:E]
+    return {"experts": E, "experts_per_rank": per, "tokens_per_rank": MESH_EP_TOKENS,
+            "layers": 2, "max_abs_err_per_expert": errors, "max_abs_ref": scale,
+            "out_max_abs_err": out_errs, "experts_routed_last_layer": int((routed > 0).sum()),
+            "ep_dispatch_ms": ep_ms, "plain_dropless_ms": plain_ms}
+
+
+def train_mesh_rank(spec_path: str) -> int:
+    """One rank of train_mesh, under torchrun: the sharded save of the
+    checkpoint model through the recipe class (which joins the NCCL group),
+    the EP check, then the Llama-3-8B run through the CLI on the mesh (as
+    torchrun runs it; it tears the group down at its end); writes
+    `rank_<r>.json` beside the spec."""
+    spec = json.loads(Path(spec_path).read_text())
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    out: dict = {"rank": rank, "world": world}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build(fa_cuda.SOURCE)  # built by the parent: loads the library
+    recipe = TrainFinetuneRecipeForNextTokenPrediction(parse_args_and_load_config(spec["ckpt"]))
+    recipe.setup()
+    recipe.run_train_validation_loop()
+    out["ckpt"] = {"last_save": recipe.checkpointer.last_save}
+    del recipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ep"] = mesh_ep_check(rank, world)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    recipe = cli_main(spec["llama"])
+    torch.cuda.synchronize()
+    leaves = tree_leaves(recipe.train_state.params)
+    out["llama"] = {
+        "mesh": recipe.mesh_ctx.describe(),
+        "param_bytes": sum(p.to_local().numel() * p.element_size() for p in leaves),
+        "param_bytes_whole": sum(p.numel() * p.element_size() for p in leaves),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": kernel_launches(*FLASH), "wall_s": time.perf_counter() - t0,
+    }
+    Path(spec["out"], f"rank_{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def train_mesh_phase(card: str, plain: dict) -> dict:
+    """train_mesh (see TRAIN_MESH_STEPS): torchrun over every visible card
+    (up to 8) runs `train_mesh_rank`; then this process resumes the
+    sharded checkpoint in the plain one-device path. `plain` is the train
+    phase's summary (its step-1 loss and peak). Returns the Llama run's
+    K1-K3 launches (rank 0's)."""
+    world = min(torch.cuda.device_count(), 8)
+    print(f"train_mesh world size: {world}", flush=True)
+    if world == 1:
+        print("train_mesh: one card, a mesh of one rank; multi-rank parity is "
+              "shown by the CPU tests only (tests/test_torch_mesh.py, gloo)", flush=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_mesh_"))
+    llama_dir, ckpt_run = tmp / "llama", tmp / "ckpt_run"
+    spec = {
+        "out": str(tmp),
+        "llama": [TRAIN_YAML, f"--model.hf_config.num_hidden_layers={TRAIN_LAYERS}",
+                  f"--dataloader.microbatch_size={world}",
+                  f"--dataloader.grad_acc_steps={TRAIN_ACCUM}",
+                  f"--step_scheduler.max_steps={TRAIN_MESH_STEPS}",
+                  "--checkpoint.enabled=false", "--distributed.dp_shard=-1",
+                  f"--run_dir={llama_dir}"],
+        "ckpt": [mesh_ckpt_yaml(tmp / "ckpt.yaml", str(ckpt_run), str(tmp / "ckpt"), 3)],
+    }
+    (tmp / "spec.json").write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={world}", __file__, "--train-mesh-rank",
+             str(tmp / "spec.json")],
+            capture_output=True, text=True, timeout=600)
+        ranks_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            print(r.stdout[-4000:], r.stderr[-8000:], file=sys.stderr)
+            raise AssertionError(f"train_mesh: the ranks exited with {r.returncode}")
+        ranks = [json.loads((tmp / f"rank_{i}.json").read_text()) for i in range(world)]
+        llama = jsonl(llama_dir / "training.jsonl")
+        mesh_ckpt = jsonl(ckpt_run / "training.jsonl")
+        # the plain one-device path from the step-2 checkpoint
+        resumed_dir = tmp / "resumed"
+        resumed = TrainFinetuneRecipeForNextTokenPrediction(parse_args_and_load_config(
+            [mesh_ckpt_yaml(tmp / "resume.yaml", str(resumed_dir), str(tmp / "unused"), 3),
+             "--checkpoint.enabled=false", f"--checkpoint.restore_from={tmp / 'ckpt'}",
+             "--checkpoint.restore_step=2"]))
+        resumed.setup()
+        resumed.run_train_validation_loop()
+        del resumed
+        after = jsonl(resumed_dir / "training.jsonl")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = TRAIN_LAYERS * TRAIN_ACCUM * TRAIN_MESH_STEPS
+    want = {"K1": 2 * n, "K2": n, "K3": n}
+    tokens_per_step = TRAIN_ACCUM * world * 4096
+    steady = llama[1:]
+    tps = statistics.median(r["tps"] for r in steady)
+    step1_rel = abs(llama[0]["loss"] - plain["losses"][0]) / abs(plain["losses"][0])
+    ep = [r["ep"] for r in ranks]
+    ep_rows_err = max(max(e["max_abs_err_per_expert"]) for e in ep)
+    ep_err = max(ep_rows_err, max(max(e["out_max_abs_err"]) for e in ep))
+    ep_scale = max(e["max_abs_ref"] for e in ep)
+    resume_pair = {k: [mesh_ckpt[2][k], after[0][k]] for k in ("loss", "grad_norm")}
+    bitwise = all(a == b for a, b in resume_pair.values())
+    emit({
+        "phase": "train_mesh", "card": card, "world": world, "ranks_wall_s": ranks_s,
+        "model": f"Llama-3-8B widths, {TRAIN_LAYERS} layers, bf16, remat full, "
+                 f"dp_shard {world}, {TRAIN_MESH_STEPS} steps of {tokens_per_step} tokens",
+        "per_rank": [{"rank": r["rank"], "mesh": r["llama"]["mesh"],
+                      "param_bytes": r["llama"]["param_bytes"],
+                      "param_bytes_whole": r["llama"]["param_bytes_whole"],
+                      "peak_mem_gib": r["llama"]["peak_mem_gib"],
+                      "launches": r["llama"]["launches"],
+                      "wall_s": r["llama"]["wall_s"]} for r in ranks],
+        "losses": [r["loss"] for r in llama], "grad_norms": [r["grad_norm"] for r in llama],
+        "ms_per_step": tokens_per_step / tps * 1e3, "tokens_per_s": tps,
+        "step1_loss_vs_train": [llama[0]["loss"], plain["losses"][0], step1_rel],
+        # the same seed and batches: at one rank the same arithmetic
+        "steps_bitwise_equal_to_train": [
+            r["loss"] == a and r["grad_norm"] == b for r, a, b in
+            zip(llama, plain["losses"], plain["grad_norms"])],
+        "plain_train_peak_mem_gib": plain["peak_mem_gib"],
+        "expected_launches": want,
+        "resharding": {"saved_world": world, "resumed": "plain one-device path",
+                       "step3_mesh_vs_resumed": resume_pair, "bitwise": bitwise,
+                       "save_bytes_rank0": ranks[0]["ckpt"]["last_save"]},
+        "ep": {"model": "Qwen3-30B-A3B widths, 2 layers, bf16", "ep": world,
+               "max_abs_err": ep_err, "max_abs_err_expert_rows": ep_rows_err,
+               "max_abs_ref": ep_scale,
+               "tol": ENGINE_BF16_LOGITS_TOL,
+               "per_rank": [{k: v for k, v in e.items() if k != "max_abs_err_per_expert"}
+                            for e in ep]},
+    })
+    for r in ranks:
+        if r["llama"]["launches"] != want:
+            raise AssertionError(f"train_mesh: rank {r['rank']} K1-K3 {r['llama']['launches']}, "
+                                 f"expected {want}")
+        if r["llama"]["peak_mem_gib"] > TRAIN_MESH_PEAK_MARGIN * plain["peak_mem_gib"]:
+            raise AssertionError(f"train_mesh: rank {r['rank']} peak "
+                                 f"{r['llama']['peak_mem_gib']:.2f} GiB over the plain "
+                                 f"run's {plain['peak_mem_gib']:.2f}")
+    values = [r["loss"] for r in llama] + [r["grad_norm"] for r in llama]
+    if len(llama) != TRAIN_MESH_STEPS or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"train_mesh: {len(llama)} records or non-finite: {llama}")
+    if world == 1 and step1_rel > TRAIN_MESH_LOSS_RTOL:
+        raise AssertionError(f"train_mesh: step-1 loss {llama[0]['loss']} against the "
+                             f"train phase's {plain['losses'][0]}")
+    if [r["step"] for r in after] != [3] or len(mesh_ckpt) != 3:
+        raise AssertionError("train_mesh: the resumed run did not take exactly step 3")
+    if world == 1 and not bitwise:
+        raise AssertionError(f"train_mesh: step 3 after the resume {resume_pair}")
+    if world > 1 and any(abs(a - b) > TRAIN_MESH_LOSS_RTOL * abs(a)
+                         for a, b in resume_pair.values()):
+        raise AssertionError(f"train_mesh: step 3 after the resume {resume_pair}")
+    if ep_err > ENGINE_BF16_LOGITS_TOL * ep_scale:
+        raise AssertionError(f"train_mesh: an expert's EP output is {ep_err} off")
+    return ranks[0]["llama"]["launches"]
 
 
 # the aten ops whose own kernels are the dense GEMMs
@@ -6247,6 +6517,8 @@ def mma_ptxas(log: str, patterns=MMA_KERNELS) -> dict:
 
 
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--train-mesh-rank":
+        return train_mesh_rank(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -6376,6 +6648,8 @@ def main() -> int:
     lap("train_lora_check")
     train_paths_phase()
     lap("train_paths")
+    mesh_launches = train_mesh_phase(card, train_summary)
+    lap("train_mesh")
     moe_launches, moe_ms = train_moe_phase(card)
     lap("train_moe")
     train_moe_capacity_phase(card, moe_ms)
@@ -6662,6 +6936,8 @@ def main() -> int:
                 row["train_tokenbin_launches"] = tokenbin_launches[name]
                 row["train_fp8_launches"] = fp8_launches[name]
                 row["train_qat_launches"] = qat_launches[name]
+                # rank 0 of the training mesh (tp-local heads: all of them at tp 1)
+                row["train_mesh_launches"] = mesh_launches[name]
             if key == "mla":  # DSA training runs no flash attention
                 row["train_dsv32_dsa_launches"] = dsa_train_launches[name]
             if key == "encoder":  # Llama-3.2-1B's heads, causal

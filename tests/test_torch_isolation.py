@@ -62,7 +62,10 @@ def test_port_imports_no_jax():
                 "resilience.faults", "resilience.retry", "resilience.rollback",
                 "resilience.config", "resilience.preemption", "utils.host_buffers",
                 "models.moe_lm.het_moe", "models.moe_lm.het_families",
-                "models.moe_lm.gemma4", "inference.het_generate"):
+                "models.moe_lm.gemma4", "inference.het_generate",
+                "distributed", "distributed.init_utils", "distributed.mesh",
+                "parallel", "parallel.sharding", "parallel.collectives",
+                "parallel.spmd", "checkpoint.sharded"):
         assert f"automodel_tpu_torch.{mod}" in res["modules"]
     assert res["leaked"] == []
 

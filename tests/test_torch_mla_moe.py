@@ -48,6 +48,7 @@ from automodel_tpu.serving import ServingConfig as JServingConfig
 from automodel_tpu.serving import ServingEngine as JServingEngine
 from automodel_tpu.serving import engine as j_engine
 from automodel_tpu_torch.convert import params_from_jax
+from automodel_tpu_torch.distributed import MeshConfig, MeshContext
 from automodel_tpu_torch.inference.generate import mla_absorbed_inputs
 from automodel_tpu_torch.models.llm.decoder import TransformerConfig
 from automodel_tpu_torch.models.moe_lm import decoder as moe_decoder
@@ -230,15 +231,16 @@ def test_moe_forward_matches_jax(kind):
 
 
 def test_moe_forward_refuses_what_is_not_ported():
-    """An expert-parallel mesh raises; the capacity dispatcher runs (its
-    parity: tests/test_torch_deepseek_v3.py)."""
+    """A context-parallel mesh raises (ROADMAP.md item 12b; expert
+    parallelism runs: tests/test_torch_mesh.py); the capacity dispatcher
+    runs (its parity: tests/test_torch_deepseek_v3.py)."""
     _, t_cfg, params = _moe_params(GATES["softmax"])
     tp = params_from_jax(params, device="cpu")
     x = torch.zeros(1, 2, 24)
     out, _, _ = moe_forward(tp, dataclasses.replace(t_cfg, dispatcher="capacity"), x)
     assert out.shape == x.shape
-    with pytest.raises(NotImplementedError, match="mesh"):
-        moe_forward(tp, t_cfg, x, mesh_ctx=object())
+    with pytest.raises(NotImplementedError, match="12b"):
+        moe_forward(tp, t_cfg, x, mesh_ctx=MeshContext(MeshConfig(cp=2, dp_shard=1)))
 
 
 class _OpLog(TorchDispatchMode):

@@ -197,11 +197,12 @@ def test_smoke_recipe_loss_curve_matches_live_jax_run(family, tmp_path, tiny):
 
 
 def test_ep_smoke_yaml_as_written_is_refused():
-    """`qwen3_moe_ep_smoke.yaml` sets `ep: 2`: the port trains on one device
-    and says so, naming the axis."""
+    """`qwen3_moe_ep_smoke.yaml` sets `ep: 2`: one process that no launcher
+    started cannot hold it, and says so, naming the sizes (the YAML runs on
+    gloo ranks in tests/test_torch_mesh.py)."""
     recipe = TrainFinetuneRecipeForNextTokenPrediction(parse_args_and_load_config(
         ["examples/llm_finetune/qwen3_moe_ep_smoke.yaml", "--checkpoint.enabled=false"]),
         device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed.ep=2"):
+    with pytest.raises(ValueError, match=r"1 devices not divisible by pp\*dp_replicate\*ep\*cp\*tp=2"):
         recipe.setup()
     assert smoke_hf("qwen3_moe")["num_experts"] == 8

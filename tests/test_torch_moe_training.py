@@ -56,6 +56,7 @@ from automodel_tpu.recipes.llm.train_ft import (
 )
 from automodel_tpu_torch.config import load_yaml
 from automodel_tpu_torch.convert import params_from_jax
+from automodel_tpu_torch.distributed import MeshConfig, MeshContext
 from automodel_tpu_torch.loss import fused_linear_cross_entropy
 from automodel_tpu_torch.loss.utils import combine_losses
 from automodel_tpu_torch.models.llm import decoder
@@ -503,7 +504,7 @@ def test_moe_training_refuses_what_is_not_ported(tmp_path):
     _, tcfg = _configs()
     params = moe_decoder.init(tcfg, torch.Generator().manual_seed(0))
     ids = torch.zeros((1, 4), dtype=torch.int64)
-    for kw, name in ((dict(mesh_ctx=object()), "mesh_ctx"),
+    for kw, name in ((dict(mesh_ctx=MeshContext(MeshConfig(cp=2, dp_shard=1))), "12b"),
                      (dict(return_aux_hidden=(0,)), "aux-hidden"),
                      (dict(inputs_embeds=torch.zeros(1)), "inputs_embeds"),
                      (dict(rope_angles=torch.zeros(1)), "rope_angles"),

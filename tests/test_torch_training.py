@@ -44,6 +44,7 @@ from automodel_tpu_torch.cli import app
 from automodel_tpu_torch.config import ConfigNode, load_yaml
 from automodel_tpu_torch.config.loader import _resolve_target
 from automodel_tpu_torch.convert import params_from_jax
+from automodel_tpu_torch.distributed import MeshConfig, MeshContext
 from automodel_tpu_torch.loss import fused_linear_cross_entropy, masked_cross_entropy
 from automodel_tpu_torch.loss.utils import combine_losses
 from automodel_tpu_torch.models.common.layers import maybe_remat
@@ -139,8 +140,9 @@ def test_remat_full_matches_none_and_other_policies_raise():
     torch.testing.assert_close(grads[2], grads[0], rtol=0, atol=1e-6)
     with pytest.raises(KeyError, match="dots_saveable"):
         maybe_remat(lambda x: x, "dots_saveable")
-    with pytest.raises(NotImplementedError, match="mesh_ctx"):
-        decoder.forward(tp, tcfg, ids, mesh_ctx=object())
+    # a mesh runs (tests/test_torch_mesh.py); context parallelism is item 12b
+    with pytest.raises(NotImplementedError, match="12b"):
+        decoder.forward(tp, tcfg, ids, mesh_ctx=MeshContext(MeshConfig(cp=2, dp_shard=1)))
 
 
 @pytest.mark.parametrize("chunk,soft_cap,weighted", [
@@ -325,8 +327,14 @@ def test_recipe_and_cli_refuse_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="remote URI"):
         TrainFinetuneRecipeForNextTokenPrediction(node, device="cpu").setup()
     node = _recipe_node(load_yaml(TINY_YAML), tmp_path, "x")
+    node.set("distributed.cp", 2)
+    with pytest.raises(NotImplementedError, match="distributed.cp=2.*12b"):
+        TrainFinetuneRecipeForNextTokenPrediction(node, device="cpu").setup()
+    # one process (no launcher) cannot hold tp: 2 (4 gloo ranks run it in
+    # tests/test_torch_mesh.py)
+    node = _recipe_node(load_yaml(TINY_YAML), tmp_path, "x2")
     node.set("distributed.tp", 2)
-    with pytest.raises(NotImplementedError, match="distributed.tp"):
+    with pytest.raises(ValueError, match=r"1 devices not divisible by pp\*dp_replicate\*ep\*cp\*tp=2"):
         TrainFinetuneRecipeForNextTokenPrediction(node, device="cpu").setup()
     node = _recipe_node(load_yaml(TINY_YAML), tmp_path, "y")
     node.set("model.hf_config.architectures", ["Qwen3NextForCausalLM"])
